@@ -1,0 +1,224 @@
+"""Federated model fusion over a flat stacked cohort.
+
+- ``fedavg``: Eq. 1/18 coordinate-based (optionally sample-weighted)
+  mean.
+- ``paired_average``: Fed2's feature paired averaging (Eq. 19): group g
+  of node i fuses with group g' of node j iff their logit signatures
+  match. Under the structural pre-alignment the permutation is the
+  identity and, with shared sample weights, the whole fusion is ONE
+  weighted mean, which is the paper's efficiency claim.
+- ``fedprox_penalty``: the FedProx (Li et al., MLSys'20) proximal term.
+
+Every function takes the cohort as one (N, M) tensor whose rows are the
+clients' flat parameter vectors (``models/module.FlatLayout``); grouped
+leaves are described by ``GroupAxis`` per layout slot.
+
+``use_kernel=True`` routes the reduction through the fused
+``kernels/paired_fusion.py`` kernel (``_kernel_fuse``): ONE launch over
+the whole (N, M) buffer when every leaf shares the sample weights, and
+otherwise one launch per shared leaf and per group block of each grouped
+leaf, each with its own presence column. Every parameter is read once
+either way. ``use_kernel=False`` is the per-leaf reference reduction.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.paired_fusion import paired_fusion
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupAxis:
+    """Group partitioning of one param leaf: ``axis`` is split into
+    ``n_groups`` contiguous blocks; block g belongs to structure group g."""
+    axis: int
+    n_groups: int
+
+
+def _norm_weights(weights, n: int, device) -> torch.Tensor:
+    if weights is None:
+        return torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    return w / w.sum()
+
+
+def _weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reference reduction: sum_n w_n x_n over the leading axis."""
+    wb = w.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+    return (x * wb).sum(0)
+
+
+def fedavg(stacked: torch.Tensor, weights=None, *,
+           use_kernel: bool = False) -> torch.Tensor:
+    """Coordinate-based averaging (Eq. 1): (N, M) -> (M,)."""
+    w = _norm_weights(weights, stacked.shape[0], stacked.device)
+    if use_kernel:
+        return paired_fusion(stacked, w)
+    if weights is None:
+        return stacked.mean(0)
+    return _weighted_mean(stacked, w)
+
+
+def _blocks(slot, ga: GroupAxis):
+    """(pre, G, blk, post) view dims of a grouped leaf's flat slot."""
+    shape = slot.shape
+    if shape[ga.axis] % ga.n_groups:
+        raise ValueError(f"leaf {slot.path} {shape}: axis {ga.axis} does "
+                         f"not split into {ga.n_groups} groups")
+    pre = int(np.prod(shape[:ga.axis]))
+    post = int(np.prod(shape[ga.axis + 1:]))
+    return pre, ga.n_groups, shape[ga.axis] // ga.n_groups, post
+
+
+def _permute_groups(stacked, layout, group_axes, perms):
+    """A copy of ``stacked`` whose grouped leaves have each client's group
+    blocks reordered by its row of ``perms`` (N, G)."""
+    out = stacked.clone()
+    rows = torch.arange(stacked.shape[0], device=stacked.device)[:, None]
+    for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
+        if ga is None:
+            continue
+        pre, g, blk, post = _blocks(slot, ga)
+        cols = slice(slot.offset, slot.offset + slot.size)
+        x = stacked[:, cols].reshape(-1, pre, g, blk * post)
+        p = torch.as_tensor(perms, device=stacked.device).long()
+        x = x.permute(0, 2, 1, 3)[rows, p].permute(0, 2, 1, 3)
+        out[:, cols] = x.reshape(x.shape[0], -1)
+    return out
+
+
+def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
+                   weights=None, group_weights=None, *,
+                   use_kernel: bool = False) -> torch.Tensor:
+    """Feature paired averaging (Eq. 19): (N, M) -> (M,).
+
+    layout: the ``FlatLayout`` of one client's parameters.
+    group_axes: a tree of the layout's structure with a ``GroupAxis``
+    or None (shared layer, plain FedAvg, Eq. 18) per leaf.
+    perms: optional (N, G) ints; ``perms[n, g]`` is node n's local group
+    holding canonical logit signature g (identity under the structural
+    pre-alignment).
+    group_weights: optional (N, G) per-node, per-group fusion weights:
+    a node that never saw group g's classes is down- or zero-weighted
+    for that group. All-zero columns fall back to uniform (no holder:
+    plain mean)."""
+    dev = stacked.device
+    n = stacked.shape[0]
+    if perms is not None:
+        stacked = _permute_groups(stacked, layout, group_axes, perms)
+    gw = None
+    if group_weights is not None:
+        gw = torch.as_tensor(group_weights, dtype=torch.float32, device=dev)
+        col = gw.sum(0, keepdim=True)
+        gw = torch.where(col > 0, gw, torch.ones_like(gw))
+        gw = gw / gw.sum(0, keepdim=True)  # (N, G)
+    w = _norm_weights(weights, n, dev)
+    if use_kernel:
+        return _kernel_fuse(stacked, layout, group_axes, w, gw)
+    out = torch.empty(stacked.shape[1], dtype=stacked.dtype, device=dev)
+    for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
+        x = stacked[:, slot.offset:slot.offset + slot.size]
+        if ga is not None and gw is not None:
+            pre, g, blk, post = _blocks(slot, ga)
+            xg = x.reshape(n, pre, g, blk * post)
+            wb = gw.reshape(n, 1, g, 1).to(xg.dtype)
+            res = (xg * wb).sum(0).reshape(-1)
+        elif weights is None:
+            res = x.mean(0)
+        else:
+            res = _weighted_mean(x, w)
+        out[slot.offset:slot.offset + slot.size] = res
+    return out
+
+
+def _kernel_fuse(stacked: torch.Tensor, layout, group_axes,
+                 w_shared: torch.Tensor,
+                 gw_norm: torch.Tensor | None = None) -> torch.Tensor:
+    """Streaming fusion through ``kernels/paired_fusion.py``.
+
+    Without presence weights every leaf shares ``w_shared``, so the
+    whole (N, M) buffer is ONE kernel launch. With ``gw_norm`` (N, G),
+    column-normalized, each shared leaf is one launch with the sample
+    weights and each group block g of a grouped leaf one launch with
+    column g. A group block is a contiguous column range when the group
+    axis leads its leaf (every grouped leaf of ``cnn_group_axes``); the
+    kernel then reads it in place through the buffer's row stride and
+    writes its slice of the result, so no temporary is made."""
+    if gw_norm is None:
+        return paired_fusion(stacked, w_shared)
+    out = torch.empty(stacked.shape[1], dtype=stacked.dtype,
+                      device=stacked.device)
+    for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
+        lo, hi = slot.offset, slot.offset + slot.size
+        if ga is None:
+            paired_fusion(stacked[:, lo:hi], w_shared, out=out[lo:hi])
+            continue
+        pre, g, blk, post = _blocks(slot, ga)
+        if pre != 1:
+            raise ValueError(
+                f"leaf {slot.path}: the kernel route fuses group blocks "
+                f"in place, which needs the group axis to lead the leaf "
+                f"(got axis {ga.axis} of {slot.shape})")
+        size = blk * post
+        for gi in range(g):
+            a = lo + gi * size
+            paired_fusion(stacked[:, a:a + size],
+                          gw_norm[:, gi].contiguous(),
+                          out=out[a:a + size])
+    return out
+
+
+def broadcast_global(global_params: torch.Tensor,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Replicate the fused global (M,) into every row of ``out`` (N, M)
+    at round start."""
+    return out.copy_(global_params.expand_as(out))
+
+
+def presence_group_weights(class_counts, spec) -> np.ndarray:
+    """(N, C) per-node class sample counts -> (N, G) group fusion weights:
+    node n's weight for group g = its sample count over g's classes."""
+    counts = np.asarray(class_counts, np.float64)
+    n = counts.shape[0]
+    gw = np.zeros((n, spec.n_groups))
+    for g in range(spec.n_groups):
+        cls = list(spec.classes_per_group[g])
+        gw[:, g] = counts[:, cls].sum(axis=1)
+    return gw
+
+
+def fedprox_penalty(params: torch.Tensor, global_params: torch.Tensor,
+                    mu: float) -> torch.Tensor:
+    """(mu/2) * ||w - w_global||^2 over flat vectors, in fp32."""
+    d = params.to(torch.float32) - global_params.to(torch.float32)
+    return 0.5 * mu * (d * d).sum()
+
+
+def cnn_group_axes(params, cfg):
+    """GroupAxis tree for ``models/cnn.py`` params. In the port's layouts
+    every grouped leaf has its group axis first: conv weights are OIHW
+    (out channels lead), biases and norm affines are per channel, and
+    grouped dense weights/biases are (G, ...)."""
+    from repro_torch.models.cnn import layer_meta
+    metas = layer_meta(cfg)
+    conv_metas = [m for m in metas if m.kind == "c"]
+    fc_metas = [m for m in metas if m.kind != "c"]
+    g = cfg.fed2_groups
+    axes = {"convs": [], "fcs": []}
+    for m, layer in zip(conv_metas, params["convs"]):
+        grouped = g > 1 and m.groups > 1
+        la = {}
+        for k, v in layer.items():
+            if isinstance(v, dict):
+                la[k] = {kk: GroupAxis(0, g) if grouped else None
+                         for kk in v}
+            else:
+                la[k] = GroupAxis(0, g) if grouped else None
+        axes["convs"].append(la)
+    for m, fc in zip(fc_metas, params["fcs"]):
+        axes["fcs"].append({k: GroupAxis(0, g) if m.grouped_fc else None
+                            for k in fc})
+    return axes

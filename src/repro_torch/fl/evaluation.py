@@ -1,0 +1,130 @@
+"""Tiled evaluation by confusion counts.
+
+    tiles  <- stage(batches, tile=B, device=...)  # (T, B, ...) tiles on
+                                                  # the device + (T, B)
+                                                  # padding mask
+    counts <- engine.run(params, tiles)           # device-resident
+
+``stage`` concatenates the eval batches host-side, pads the tail tile
+by repeating sample 0 at mask 0 so every tile has the same width, and
+moves the tiles to the device once. The engine computes
+example-weighted counts, never per-batch means: a (C, C) confusion-count
+matrix (rows = gold, cols = predicted); accuracy = trace / total, and
+per-class and per-group accuracies fall out of the rows
+(``per_class_accuracy``, ``group_accuracy``, group g via
+``GroupSpec.logit_signature``).
+
+Counts stay on the device until the caller reads them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalTiles:
+    """The staged eval set: every batch leaf as (T, B, ...) on the
+    device, the (T, B) padding mask, and the true sample count."""
+    batches: dict
+    mask: torch.Tensor
+    n_real: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.mask.shape[0])
+
+
+def stage(batches: list, *, tile: int, device) -> EvalTiles:
+    """Stack a list of batch dicts (numpy arrays, leading axis =
+    example) into fixed-width tiles of ``tile`` examples on ``device``."""
+    if not batches:
+        raise ValueError("stage() needs at least one eval batch")
+    cat = {k: np.concatenate([np.asarray(b[k]) for b in batches])
+           for k in batches[0]}
+    n_real = len(next(iter(cat.values())))
+    n_tiles = -(-n_real // tile)
+    total = n_tiles * tile
+    mask = np.zeros((total,), np.float32)
+    mask[:n_real] = 1.0
+    pad = total - n_real
+
+    def to_tiles(x):
+        if pad:
+            x = np.concatenate([x, np.broadcast_to(x[:1],
+                                                   (pad,) + x.shape[1:])])
+        return torch.as_tensor(x.reshape((n_tiles, tile) + x.shape[1:]),
+                               device=device)
+
+    return EvalTiles(batches={k: to_tiles(v) for k, v in cat.items()},
+                     mask=torch.as_tensor(mask.reshape(n_tiles, tile),
+                                          device=device),
+                     n_real=n_real)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalEngine:
+    """``run(params, tiles)`` -> device tensor: (C, C) float32 confusion
+    counts."""
+    run: Callable
+    n_classes: int
+
+
+def make_eval_engine(predict_fn: Callable,
+                     n_classes: int) -> EvalEngine:
+    """predict_fn(params, batch) -> (pred, gold, weight) per example. The
+    staging mask multiplies into ``weight``."""
+
+    def one_tile(params, batch, m):
+        pred, gold, w = predict_fn(params, batch)
+        w = (w.to(torch.float32) * m).reshape(-1)
+        pred, gold = pred.reshape(-1).long(), gold.reshape(-1).long()
+        idx = gold * n_classes + pred
+        flat = torch.zeros(n_classes * n_classes, dtype=torch.float32,
+                           device=w.device).index_add_(0, idx, w)
+        return flat.reshape(n_classes, n_classes)
+
+    @torch.no_grad()
+    def run(params, tiles: EvalTiles):
+        acc = None
+        for t in range(tiles.n_tiles):
+            batch = {k: v[t] for k, v in tiles.batches.items()}
+            c = one_tile(params, batch, tiles.mask[t])
+            acc = c if acc is None else acc + c
+        return acc
+
+    return EvalEngine(run=run, n_classes=n_classes)
+
+
+# ---------------------------------------------------------------------------
+# Reading the counts (host-side, after materialization)
+# ---------------------------------------------------------------------------
+
+
+def accuracy(confusion) -> float:
+    """Global accuracy from a confusion-count matrix."""
+    c = np.asarray(confusion)
+    return float(np.trace(c) / max(c.sum(), 1.0))
+
+
+def per_class_accuracy(confusion) -> np.ndarray:
+    """(C,) per-class accuracy: diag / row sum (classes with no eval
+    samples report 0)."""
+    c = np.asarray(confusion, np.float64)
+    row = c.sum(axis=1)
+    return np.where(row > 0, np.diag(c) / np.maximum(row, 1.0), 0.0)
+
+
+def group_accuracy(confusion, spec) -> np.ndarray:
+    """(G,) per-group accuracy under a ``GroupSpec``: group g's accuracy
+    over the eval samples whose gold label is in g's logit signature."""
+    c = np.asarray(confusion, np.float64)
+    out = np.zeros(spec.n_groups)
+    for g in range(spec.n_groups):
+        cls = sorted(spec.logit_signature(g))
+        row = c[cls].sum()
+        out[g] = c[cls, cls].sum() / row if row > 0 else 0.0
+    return out

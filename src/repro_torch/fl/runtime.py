@@ -1,0 +1,310 @@
+"""Federated learning runtime: the synchronous round loop.
+
+A run has ``cfg.population`` logical clients (fl/population.py), of
+which a cohort of ``cfg.cohort_size`` slots trains at once. Per round:
+
+    ids   <- sampler.sample(round, population, cohort_size)
+    state <- population.gather(ids)            # rows -> cohort slots
+    state, global <- engine.run_round(state, global, batches, w[ids])
+    population.scatter(ids, state)             # slots -> rows
+
+When the participants exceed one cohort, the round runs as several
+engine tiles whose fusion results accumulate in a running weighted sum,
+unbiased because each tile's fuse is a weighted mean renormalized over
+its participants.
+
+Batches are drawn host-side from one numpy ``default_rng(cfg.seed)`` in
+the reference's order (sampler, then per tile: padding, then one
+``rng.choice`` per client per step), so the same seed trains on the same
+examples in both packages. Each tile's batches go to the device in one
+copy.
+
+Everything runs on the CUDA card unless the caller passes
+``device="cpu"``; with no card and no device named, ``run_federated``
+raises rather than falling back.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import fusion as fusion_lib
+from repro_torch.fl import evaluation as evaluation_lib
+from repro_torch.fl import methods as methods_lib
+from repro_torch.fl import population as population_lib
+from repro_torch.fl.engine import make_round_engine
+from repro_torch.fl.population import Population
+from repro_torch.models.module import tree_map
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a run uses: the caller's, else the CUDA card. Raises
+    when no card is present and none was named: nothing falls back to
+    the CPU silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (or "
+            "--device cpu) to run on the CPU")
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    population: int = 10        # logical clients (fl/population.py)
+    cohort_size: int | None = None  # engine width; None -> population
+    sampler: str = "full"       # any name in population.available()
+    rounds: int = 20
+    local_epochs: int = 1
+    steps_per_epoch: int = 10
+    batch_size: int = 32
+    lr: float = 0.05
+    momentum: float = 0.9
+    method: str = "fed2"        # any name in methods.available()
+    prox_mu: float = 0.01
+    seed: int = 0
+    eval_batch: int = 512
+
+    def __post_init__(self):
+        if self.method not in methods_lib.available():
+            raise ValueError(
+                f"unknown federated method {self.method!r}; available: "
+                f"{', '.join(methods_lib.available())}")
+        if self.sampler not in population_lib.available():
+            raise ValueError(
+                f"unknown client sampler {self.sampler!r}; available: "
+                f"{', '.join(population_lib.available())}")
+        if self.cohort_size is None:
+            object.__setattr__(self, "cohort_size", self.population)
+        for field in ("rounds", "population", "cohort_size", "batch_size",
+                      "local_epochs", "steps_per_epoch", "eval_batch"):
+            v = getattr(self, field)
+            if not isinstance(v, int) or isinstance(v, bool) or v <= 0:
+                raise ValueError(
+                    f"FLConfig.{field} must be a positive int, got {v!r}")
+        if self.cohort_size > self.population:
+            raise ValueError(
+                f"FLConfig.cohort_size ({self.cohort_size}) must not "
+                f"exceed population ({self.population})")
+
+
+@dataclasses.dataclass
+class FLTask:
+    """Model-family adapter consumed by ``run_federated``.
+
+    init_fn(generator) -> params tree on the CPU; loss_fn(params, batch)
+    -> scalar; predict_fn(params, batch) -> (pred, gold, weight) for the
+    tiled eval's ``n_classes`` x ``n_classes`` confusion counts;
+    group_axes_fn(params) -> GroupAxis tree (fed2).
+    """
+    init_fn: Callable
+    loss_fn: Callable
+    predict_fn: Callable
+    n_classes: int
+    group_axes_fn: Callable | None = None
+
+
+def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng):
+    """Per cohort tile: dict of (C, n_steps, B, ...) numpy arrays for the
+    given clients' shards, sampling with replacement where a shard is
+    short (empty shards index sample 0)."""
+    per_client = []
+    for idx in parts:
+        steps = []
+        for _ in range(n_steps):
+            if len(idx) == 0:
+                sel = np.zeros((batch_size,), np.int64)
+            else:
+                sel = rng.choice(idx, size=batch_size,
+                                 replace=len(idx) < batch_size)
+            steps.append(get_batch(sel))
+        per_client.append({k: np.stack([np.asarray(s[k]) for s in steps])
+                           for k in steps[0]})
+    return {k: np.stack([c[k] for c in per_client])
+            for k in per_client[0]}
+
+
+def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
+                    batch_size, rng):
+    """Pad one engine tile to ``width`` slots (repeating the first
+    participant at zero weight) and assemble its weights, presence rows
+    and packed batches. Returns (padded_ids, weights, group_weights,
+    batches)."""
+    tids = np.asarray(tids, np.int64)
+    n_real = len(tids)
+    padded = np.concatenate(
+        [tids, np.full(width - n_real, tids[0], np.int64)])
+    w = pop.weights[padded].copy()
+    w[n_real:] = 0.0
+    gw = None
+    if pop.group_weights is not None:
+        gw = pop.group_weights[padded].copy()
+        gw[n_real:] = 0.0
+    batches = _pack_client_batches([pop.parts[i] for i in padded],
+                                   get_batch, n_steps, batch_size, rng)
+    return padded, w, gw, batches
+
+
+def run_sampled_round(engine, pop: Population, method, server_state,
+                      global_params, ids, get_batch, n_steps, cfg, rng):
+    """One round for participant ``ids``: a single engine invocation
+    when the cohort holds them all, cohort tiling otherwise. Returns
+    (server_state, new_global); client state is gathered/scattered on
+    ``pop`` in place."""
+    C = engine.cohort_size
+    ids = np.asarray(ids, np.int64)
+
+    def tile_inputs(tids):
+        padded, w, gw, batches = pad_tile_inputs(
+            pop, tids, C, get_batch, n_steps, cfg.batch_size, rng)
+        batches = {k: torch.as_tensor(v, device=engine.device)
+                   for k, v in batches.items()}
+        return padded, w, gw, batches
+
+    if len(ids) == C:
+        _, w, gw, batches = tile_inputs(ids)
+        state = {"server": server_state, "clients": pop.gather(ids)}
+        state, new_global = engine.run_round(state, global_params, batches,
+                                             weights=w, group_weights=gw)
+        pop.scatter(ids, state["clients"])
+        return state["server"], new_global
+
+    if not method.cohort_tiling:
+        raise ValueError(
+            f"{method.name}: server step reads the participating cohort "
+            f"slots, so a round needs exactly cohort_size participants; "
+            f"got {len(ids)} for cohort_size={C}")
+    if pop.group_weights is not None:
+        raise ValueError(
+            "presence-weighted group fusion needs exactly one unpadded "
+            "cohort of participants: tiling renormalizes each group "
+            "column per tile, and padded slots would join a no-holder "
+            "column's uniform fallback; either biases Eq. 19. Got "
+            f"{len(ids)} participants for cohort_size={C}")
+    acc, w_acc = None, 0.0
+    for t0 in range(0, len(ids), C):
+        tids = ids[t0:t0 + C]
+        n_real = len(tids)
+        padded, w, gw, batches = tile_inputs(tids)
+        new_cstate, fused = engine.run_tile(pop.gather(padded),
+                                            server_state, global_params,
+                                            batches, weights=w,
+                                            group_weights=gw)
+        pop.scatter(tids, tree_map(lambda a: a[:n_real], new_cstate))
+        s_t = float(w.sum())
+        acc = fused * s_t if acc is None else acc + fused * s_t
+        w_acc += s_t
+    return engine.finish_round(server_state, global_params, acc / w_acc)
+
+
+def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
+                  test_batches, *, log=None, class_counts=None,
+                  group_spec=None, use_kernel=None,
+                  use_local_kernel: bool = False, device=None,
+                  init_params=None) -> dict:
+    """parts: cfg.population per-client index arrays; get_batch(sel) ->
+    batch dict of numpy arrays; test_batches: list of such dicts for the
+    global eval.
+
+    class_counts (population, C) + group_spec enable Eq. 19's non-IID
+    refinement for group-structured methods (fed2): group g fuses only
+    across participants that hold g's classes.
+    use_kernel: fuse through the paired_fusion kernel (None = default,
+    the kernel). use_local_kernel: run the local optimizer tail through
+    the local_step kernel.
+    device: where the run computes; None = the CUDA card (raises when
+    there is none).
+    init_params: a params tree to start from (e.g. a reference init
+    converted by ``repro_torch.convert``); None draws one from
+    ``torch.Generator().manual_seed(cfg.seed)``.
+
+    Returns history {round, acc, wall, wall_total, participants,
+    confusion, per_class_acc, final_params}: per round, the (C, C)
+    confusion counts and per-class accuracy rows. ``acc`` is the pooled
+    accuracy over the eval set; ``wall`` holds host
+    timestamps after each round's eval was queued."""
+    device = resolve_device(device)
+    if len(parts) != cfg.population:
+        raise ValueError(
+            f"run_federated got {len(parts)} client shards for "
+            f"FLConfig.population={cfg.population}")
+    rng = np.random.default_rng(cfg.seed)
+    if init_params is None:
+        init_params = task.init_fn(torch.Generator().manual_seed(cfg.seed))
+    params = tree_map(lambda t: torch.as_tensor(t).to(device), init_params)
+    method = methods_lib.get(cfg.method)
+    sampler = population_lib.get(cfg.sampler)
+    gw = None
+    if method.uses_groups and class_counts is not None \
+            and group_spec is not None:
+        gw = fusion_lib.presence_group_weights(class_counts, group_spec)
+    pop = Population.from_parts(parts, group_weights=gw)
+    engine = make_round_engine(task, cfg, params, device=device,
+                               use_kernel=use_kernel,
+                               use_local_kernel=use_local_kernel,
+                               method=method)
+    global_params = engine.layout.flatten(params)
+    server_state = engine.init_server_state(global_params)
+    pop.initialize(engine.init_client_row(global_params))
+
+    eval_engine = evaluation_lib.make_eval_engine(task.predict_fn,
+                                                  task.n_classes)
+    eval_tiles = evaluation_lib.stage(test_batches, tile=cfg.eval_batch,
+                                      device=device)
+
+    history = {"round": [], "acc": [], "wall": [], "participants": []}
+    n_steps = cfg.local_epochs * cfg.steps_per_epoch
+    counts = []                    # device tensors; read after the loop
+    t0 = time.time()
+    for r in range(cfg.rounds):
+        ids = sampler.sample(r, cfg.population, cfg.cohort_size, rng,
+                             weights=pop.weights)
+        server_state, global_params = run_sampled_round(
+            engine, pop, method, server_state, global_params, ids,
+            get_batch, n_steps, cfg, rng)
+        c = eval_engine.run(engine.layout.unflatten(global_params),
+                            eval_tiles)
+        counts.append(c)
+        history["round"].append(r)
+        history["participants"].append(np.asarray(ids))
+        history["wall"].append(time.time() - t0)
+        if log:                    # logging opts into a per-round sync
+            log(f"round {r:3d} acc "
+                f"{evaluation_lib.accuracy(c.cpu().numpy()):.4f}")
+    conf = [c.cpu().numpy() for c in counts]
+    history["confusion"] = conf
+    history["per_class_acc"] = [evaluation_lib.per_class_accuracy(c)
+                                for c in conf]
+    history["acc"] = [evaluation_lib.accuracy(c) for c in conf]
+    history["wall_total"] = time.time() - t0
+    history["final_params"] = engine.layout.unflatten(global_params)
+    return history
+
+
+# ---------------------------------------------------------------------------
+# Tasks
+# ---------------------------------------------------------------------------
+
+
+def cnn_task(model_cfg) -> FLTask:
+    from repro_torch.models.cnn import apply_cnn, cnn_loss, init_cnn
+
+    def predict(params, batch):
+        logits = apply_cnn(params, model_cfg, batch["images"])
+        return (logits.argmax(-1), batch["labels"],
+                torch.ones(batch["labels"].shape, dtype=torch.float32,
+                           device=logits.device))
+
+    return FLTask(
+        init_fn=lambda gen: init_cnn(gen, model_cfg),
+        loss_fn=lambda p, b: cnn_loss(p, model_cfg, b),
+        group_axes_fn=lambda p: fusion_lib.cnn_group_axes(p, model_cfg),
+        predict_fn=predict,
+        n_classes=model_cfg.n_classes,
+    )
+

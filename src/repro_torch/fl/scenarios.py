@@ -1,0 +1,231 @@
+"""Scenario matrix: federated runs as data.
+
+``ScenarioSpec`` is a frozen record pinning everything one run needs:
+the data protocol, the method, the population/cohort/sampler triple and
+the round schedule. Specs are registered by name like the federated
+methods: ``register`` / ``get`` / ``available()``. The registered specs
+are the reference's ``nxc2_fedavg`` and ``nxc2_fed2`` field for field
+(paper Tables 1-2 protocol at laptop scale: synthetic class-clustered
+images, a width-calibrated reduced VGG9).
+
+``run_scenario`` executes a spec end to end through ``run_federated``
+and returns a ``ConvergenceRecord``: per-round global, per-class and
+per-group accuracy (group g over the eval samples whose label is in
+``GroupSpec.logit_signature(g)``), and wall clock.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.grouping import GroupSpec
+from repro_torch.fl import methods as methods_lib
+from repro_torch.fl import population as population_lib
+
+PROTOCOLS = ("nxc",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioSpec:
+    """One runnable federated scenario, fully pinned by its fields.
+
+    protocol: data heterogeneity; ``nxc`` = each client sees
+    ``classes_per_node`` classes.
+    groups/decouple: Fed2 structure adaptation for group-structured
+    methods (coordinate methods train the plain net of the same widths).
+    """
+    name: str
+    summary: str
+    protocol: str
+    method: str
+    classes_per_node: int = 2
+    n_classes: int = 10
+    groups: int = 5
+    decouple: int = 1
+    population: int = 6
+    cohort_size: int | None = None
+    sampler: str = "full"
+    rounds: int = 10
+    local_epochs: int = 1
+    steps_per_epoch: int = 6
+    batch_size: int = 16
+    lr: float = 0.015
+    momentum: float = 0.9
+    seed: int = 0
+    train_size: int = 1200
+    test_size: int = 400
+    noise: float = 0.8
+    eval_batch: int = 256
+
+    def __post_init__(self):
+        if self.protocol not in PROTOCOLS:
+            raise ValueError(
+                f"unknown scenario protocol {self.protocol!r}; "
+                f"expected one of {', '.join(PROTOCOLS)}")
+        if self.method not in methods_lib.available():
+            raise ValueError(
+                f"unknown federated method {self.method!r}; available: "
+                f"{', '.join(methods_lib.available())}")
+        if self.sampler not in population_lib.available():
+            raise ValueError(
+                f"unknown client sampler {self.sampler!r}; available: "
+                f"{', '.join(population_lib.available())}")
+
+    def override(self, **kw) -> "ScenarioSpec":
+        """A copy with fields replaced (smoke runs: fewer rounds, less
+        data); the registered spec stays frozen."""
+        return dataclasses.replace(self, **kw)
+
+    def partition(self, labels):
+        """The spec's data protocol applied to a label array."""
+        from repro_torch.data.synthetic import nxc_partition
+        return nxc_partition(labels, self.population,
+                             self.classes_per_node, self.n_classes,
+                             seed=self.seed)
+
+    def protocol_label(self) -> str:
+        return f"nxc({self.classes_per_node})"
+
+    def model_config(self):
+        """Width-calibrated reduced VGG9: Fed2 structure adaptation for
+        group-structured methods, the plain net of the same widths
+        otherwise."""
+        from repro_torch.models.cnn import CNNConfig
+        plan = (("c", 24), ("p",), ("c", 48), ("p",), ("c", 48), ("p",))
+        if methods_lib.get(self.method).uses_groups:
+            return CNNConfig(arch_id="vgg9-scenario", plan=plan,
+                             fc_dims=(160,), n_classes=self.n_classes,
+                             fed2_groups=self.groups,
+                             decouple=self.decouple, norm="gn")
+        return CNNConfig(arch_id="vgg9-scenario", plan=plan, fc_dims=(160,),
+                         n_classes=self.n_classes, fed2_groups=0,
+                         norm="none")
+
+    def fl_config(self):
+        from repro_torch.fl.runtime import FLConfig
+        return FLConfig(population=self.population,
+                        cohort_size=self.cohort_size,
+                        sampler=self.sampler, rounds=self.rounds,
+                        local_epochs=self.local_epochs,
+                        steps_per_epoch=self.steps_per_epoch,
+                        batch_size=self.batch_size, lr=self.lr,
+                        momentum=self.momentum, method=self.method,
+                        seed=self.seed, eval_batch=self.eval_batch)
+
+    def group_spec(self) -> GroupSpec:
+        """The canonical class->group map the per-group rows report
+        over."""
+        return GroupSpec.contiguous(self.groups, self.n_classes)
+
+    def datasets(self):
+        """(train, test) synthetic datasets of this spec, as the
+        reference draws them."""
+        from repro_torch.data.synthetic import make_image_dataset
+        train = make_image_dataset(self.train_size,
+                                   n_classes=self.n_classes,
+                                   seed=self.seed, noise=self.noise)
+        test = make_image_dataset(self.test_size, n_classes=self.n_classes,
+                                  seed=self.seed + 99, noise=self.noise)
+        return train, test
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvergenceRecord:
+    """Structured result of one scenario run."""
+    scenario: str
+    method: str
+    protocol: str
+    rounds: list            # round indices
+    acc: list               # per-round global accuracy
+    per_class_acc: list     # per-round (C,) rows
+    per_group_acc: list     # per-round (G,) rows (GroupSpec signatures)
+    group_signatures: list  # group g -> sorted class ids
+    wall: list              # per-round host timestamps (s)
+    wall_total: float
+    device: str = ""
+
+    @property
+    def final_acc(self) -> float:
+        return self.acc[-1]
+
+    @property
+    def best_acc(self) -> float:
+        return max(self.acc)
+
+
+def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
+                 use_local_kernel: bool = False, device=None,
+                 init_params=None, log=None) -> ConvergenceRecord:
+    """Execute one scenario end to end (partition -> run_federated ->
+    per-class/per-group accuracy rows) on ``device`` (None = the CUDA
+    card)."""
+    from repro_torch.fl import evaluation as evaluation_lib
+    from repro_torch.fl.runtime import cnn_task, resolve_device, \
+        run_federated
+
+    device = resolve_device(device)
+    ds, test = spec.datasets()
+    parts = spec.partition(ds.labels)
+
+    def get_batch(sel):
+        return {"images": ds.images[sel], "labels": ds.labels[sel]}
+
+    test_batches = [{"images": test.images, "labels": test.labels}]
+    h = run_federated(cnn_task(spec.model_config()), spec.fl_config(),
+                      parts, get_batch, test_batches, log=log,
+                      use_kernel=use_kernel,
+                      use_local_kernel=use_local_kernel, device=device,
+                      init_params=init_params)
+    gspec = spec.group_spec()
+    rec = ConvergenceRecord(
+        scenario=spec.name, method=spec.method,
+        protocol=spec.protocol_label(),
+        rounds=list(h["round"]),
+        acc=[float(a) for a in h["acc"]],
+        per_class_acc=[[float(x) for x in row]
+                       for row in h["per_class_acc"]],
+        per_group_acc=[[float(x) for x in
+                        evaluation_lib.group_accuracy(c, gspec)]
+                       for c in h["confusion"]],
+        group_signatures=[sorted(gspec.logit_signature(g))
+                          for g in range(gspec.n_groups)],
+        wall=[round(float(w), 3) for w in h["wall"]],
+        wall_total=round(float(h["wall_total"]), 3),
+        device=str(device))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, ScenarioSpec] = {}
+
+
+def register(spec: ScenarioSpec) -> ScenarioSpec:
+    if not spec.name:
+        raise ValueError("ScenarioSpec.name must be non-empty")
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def available() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def get(name: str) -> ScenarioSpec:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown scenario {name!r}; available: "
+            f"{', '.join(available())}") from None
+
+
+# nxc(2): the N x C protocol of Tables 1-2 at severe skew (2 of 10
+# classes per client), seed 0, momentum 0.9, 10 rounds.
+register(ScenarioSpec(
+    name="nxc2_fedavg", protocol="nxc", method="fedavg",
+    summary="paper Tables 1-2 protocol, FedAvg baseline"))
+register(ScenarioSpec(
+    name="nxc2_fed2", protocol="nxc", method="fed2",
+    summary="paper Tables 1-2 protocol, feature-paired averaging"))

@@ -1,0 +1,131 @@
+"""Training launcher: the paper's federated scenario (``--mode fl``).
+
+Runs on the CUDA card unless ``--device cpu`` is given. Defaults match
+``python -m repro.launch.train --mode fl``: the full VGG9 with 8
+structure groups for fed2 (the plain baseline VGG9 for fedavg/fedprox),
+10 clients at full participation, 8 momentum-SGD steps of batch 32 per
+round, N x C partition with 5 classes per node, 4000 synthetic images.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --method fed2 --rounds 10
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --method fed2 --use-local-kernel          # fused local_step route
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --scenario nxc2_fed2                      # a registered scenario
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --reduced --rounds 2 --train-size 400 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def build_model_config(args, method):
+    """The CLI's model: Fed2 structure adaptation for group-structured
+    methods, the plain baseline of the same widths otherwise."""
+    from repro_torch.configs import vgg9
+    if method.uses_groups:
+        return (vgg9.reduced() if args.reduced
+                else vgg9.full(fed2_groups=args.fed2_groups))
+    return (vgg9.reduced(fed2_groups=0, norm="none") if args.reduced
+            else vgg9.baseline())
+
+
+def fl_inputs(args):
+    """The run the CLI's flags describe, as ``run_federated``'s
+    positional arguments: (task, fl_config, parts, get_batch,
+    test_batches)."""
+    from repro_torch.data.synthetic import make_image_dataset, nxc_partition
+    from repro_torch.fl import methods as methods_lib
+    from repro_torch.fl.runtime import FLConfig, cnn_task
+
+    cfg = build_model_config(args, methods_lib.get(args.method))
+    ds = make_image_dataset(args.train_size, n_classes=cfg.n_classes,
+                            seed=args.seed, noise=args.noise)
+    test = make_image_dataset(args.train_size // 4,
+                              n_classes=cfg.n_classes, seed=args.seed + 99,
+                              noise=args.noise)
+    parts = nxc_partition(ds.labels, args.nodes, args.classes_per_node,
+                          cfg.n_classes, seed=args.seed)
+
+    def get_batch(sel):
+        return {"images": ds.images[sel], "labels": ds.labels[sel]}
+
+    test_batches = [{"images": test.images, "labels": test.labels}]
+    fl = FLConfig(population=args.nodes, cohort_size=args.cohort_size,
+                  sampler=args.sampler, rounds=args.rounds,
+                  local_epochs=args.local_epochs,
+                  steps_per_epoch=args.steps_per_epoch,
+                  batch_size=args.batch, lr=args.lr, momentum=0.9,
+                  method=args.method, seed=args.seed)
+    return cnn_task(cfg), fl, parts, get_batch, test_batches
+
+
+def run_fl(args):
+    from repro_torch.fl.runtime import resolve_device, run_federated
+
+    device = resolve_device(args.device)
+    if args.scenario:
+        # a registered scenario IS the full run config (fl/scenarios.py)
+        from repro_torch.fl import scenarios as scenarios_lib
+        spec = scenarios_lib.get(args.scenario)
+        rec = scenarios_lib.run_scenario(
+            spec, use_local_kernel=args.use_local_kernel, device=device,
+            log=print)
+        print(f"scenario {spec.name} ({spec.protocol_label()}, "
+              f"{spec.method}): final acc {rec.final_acc:.4f}, "
+              f"best {rec.best_acc:.4f}")
+        return rec
+
+    h = run_federated(*fl_inputs(args), log=print,
+                      use_local_kernel=args.use_local_kernel, device=device)
+    print("final acc:", h["acc"][-1])
+    return h
+
+
+def parse_args(argv=None):
+    """The CLI's flags (``argv=None`` reads ``sys.argv``)."""
+    from repro_torch.fl import methods as methods_lib
+    from repro_torch.fl import population as population_lib
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=["fl"], default="fl")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--fed2-groups", type=int, default=8)
+    ap.add_argument("--method", default="fed2",
+                    choices=list(methods_lib.available()))
+    ap.add_argument("--scenario", default="",
+                    help="run a registered scenario from fl/scenarios.py "
+                         "verbatim; overrides the per-knob flags")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--nodes", type=int, default=10,
+                    help="logical client population")
+    ap.add_argument("--cohort-size", type=int, default=None,
+                    help="engine width (participants per tile); default "
+                         "= the full population")
+    ap.add_argument("--sampler", default="full",
+                    choices=list(population_lib.available()))
+    ap.add_argument("--use-local-kernel", action="store_true",
+                    help="run the local optimizer tail through the fused "
+                         "local_step kernel")
+    ap.add_argument("--device", default=None,
+                    help="torch device; default = the CUDA card (fails "
+                         "without one), 'cpu' to run on the CPU")
+    ap.add_argument("--classes-per-node", type=int, default=5)
+    ap.add_argument("--local-epochs", type=int, default=1)
+    ap.add_argument("--steps-per-epoch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--train-size", type=int, default=4000)
+    ap.add_argument("--noise", type=float, default=1.2)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    return run_fl(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,130 @@
+"""Primitive layers: dense, grouped (block-diagonal) dense, conv2d with
+feature groups, GroupNorm and batch-statistics BatchNorm.
+
+Each layer is an (init, apply) pair of plain functions over a dict of
+tensors, so the round engine can take gradients per client with
+``torch.func`` over the cohort. Activations are NCHW; conv weights are
+OIHW ``(c_out, c_in/groups, k, k)`` (``convert.py`` maps the reference's
+HWIO). Dense weights keep the reference's ``(d_in, d_out)`` and grouped
+dense weights its block-diagonal ``(G, d_in/G, d_out/G)``: gradients
+cannot cross groups, Fed2's feature isolation (Eq. 13-14).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.module import default_init
+
+# ---------------------------------------------------------------------------
+# Dense / GroupedDense
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
+               dtype=torch.float32):
+    p = {"w": default_init(gen, (d_in, d_out), fan_in=d_in, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype)
+    return p
+
+
+def dense_apply(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def grouped_dense_init(gen, groups: int, d_in: int, d_out: int, *,
+                       bias: bool = False, dtype=torch.float32):
+    """Block-diagonal dense: group g maps the g-th input slice to the
+    g-th output slice."""
+    if d_in % groups or d_out % groups:
+        raise ValueError(f"grouped dense needs d_in and d_out divisible by "
+                         f"groups, got {d_in}, {d_out}, {groups}")
+    gi, go = d_in // groups, d_out // groups
+    p = {"w": default_init(gen, (groups, gi, go), fan_in=gi, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((groups, go), dtype=dtype)
+    return p
+
+
+def grouped_dense_apply(p, x):
+    """x: (..., G*gi) -> (..., G*go)."""
+    g, gi, go = p["w"].shape
+    xg = x.reshape(x.shape[:-1] + (g, gi))
+    y = torch.einsum("...gi,gio->...go", xg, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y.reshape(x.shape[:-1] + (g * go,))
+
+
+# ---------------------------------------------------------------------------
+# Norms (over NCHW activations, statistics in fp32)
+# ---------------------------------------------------------------------------
+
+
+def groupnorm_init(d: int, dtype=torch.float32):
+    return {"scale": torch.ones((d,), dtype=dtype),
+            "bias": torch.zeros((d,), dtype=dtype)}
+
+
+def groupnorm_apply(p, x, *, groups: int, eps: float = 1e-5):
+    """GroupNorm (Wu & He 2018), per Fed2 §5.1: statistics per (sample,
+    group) over the group's channels and all spatial positions."""
+    b, c = x.shape[:2]
+    if c % groups:
+        raise ValueError(f"GroupNorm: {c} channels in {groups} groups")
+    xg = x.to(torch.float32).reshape((b, groups, c // groups)
+                                     + tuple(x.shape[2:]))
+    red = tuple(range(2, xg.dim()))
+    mu = xg.mean(dim=red, keepdim=True)
+    var = xg.var(dim=red, unbiased=False, keepdim=True)
+    y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(x.shape).to(x.dtype)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    return y * p["scale"].reshape(shape) + p["bias"].reshape(shape)
+
+
+def batchnorm_init(d: int, dtype=torch.float32):
+    # training-mode batch statistics (per batch, as in FL local training)
+    return {"scale": torch.ones((d,), dtype=dtype),
+            "bias": torch.zeros((d,), dtype=dtype)}
+
+
+def batchnorm_apply(p, x, *, eps: float = 1e-5):
+    """Batch-statistics normalization over every axis but channels."""
+    c = x.shape[1]
+    x32 = x.to(torch.float32)
+    red = (0,) + tuple(range(2, x.dim()))
+    mu = x32.mean(dim=red, keepdim=True)
+    var = x32.var(dim=red, unbiased=False, keepdim=True)
+    y = ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    return y * p["scale"].reshape(shape) + p["bias"].reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Convolutions (NCHW / OIHW)
+# ---------------------------------------------------------------------------
+
+
+def conv2d_init(gen, c_in: int, c_out: int, k: int, *, groups: int = 1,
+                bias: bool = True, dtype=torch.float32):
+    if c_in % groups or c_out % groups:
+        raise ValueError(f"conv2d: {c_in}->{c_out} channels in {groups} "
+                         "groups")
+    fan_in = (c_in // groups) * k * k
+    p = {"w": default_init(gen, (c_out, c_in // groups, k, k),
+                           fan_in=fan_in, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((c_out,), dtype=dtype)
+    return p
+
+
+def conv2d_apply(p, x, *, groups: int = 1):
+    """Stride-1 convolution with the reference's "SAME" padding (odd k)."""
+    k = p["w"].shape[-1]
+    if k % 2 == 0:
+        raise ValueError("conv2d_apply pads SAME for odd kernels only")
+    return F.conv2d(x, p["w"], p.get("b"), padding=k // 2, groups=groups)

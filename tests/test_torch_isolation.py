@@ -1,0 +1,92 @@
+"""Port hygiene: ``repro_torch`` stands alone and never falls back.
+
+- importing every module of the port (in a fresh interpreter) leaves jax
+  and the reference package ``repro`` out of ``sys.modules``;
+- no source file of the port, nor ``chip_smoke.py``, holds an import
+  statement of jax or of ``repro``;
+- with no CUDA card, the entry points raise unless the caller names a
+  device: nothing moves to the CPU silently;
+- a kernel wrapper takes its plain version only for CPU tensors.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(?:jax|repro)(?:[.\s,]|$)",
+                       re.M)
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    out = subprocess.run([sys.executable, "-c", _PROBE], check=True,
+                         capture_output=True, text=True,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20, out.stdout          # every module was imported
+    assert bad == "[]", bad
+
+
+def test_regex_tells_the_port_from_the_reference():
+    for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                 "from repro.fl import runtime", "import repro",
+                 "    from repro.kernels import ops"):
+        assert IMPORT_RE.search(line), line
+    for line in ("import repro_torch", "from repro_torch.fl import engine",
+                 "import jaxtyping", "# we never import jax here"):
+        assert not IMPORT_RE.search(line), line
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_reference_import_statement(path):
+    src = (ROOT / path).read_text()
+    assert not IMPORT_RE.findall(src), path
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.fl import runtime, scenarios
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.resolve_device(None)
+    spec = scenarios.get("nxc2_fed2").override(rounds=1, train_size=60,
+                                               test_size=20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run_federated(
+            runtime.cnn_task(spec.model_config()), spec.fl_config(),
+            [[0]] * spec.population, lambda s: {}, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scenarios.run_scenario(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--rounds", "1"])
+    assert runtime.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    from repro_torch.kernels.local_step import local_step
+    from repro_torch.kernels.paired_fusion import paired_fusion
+    x = torch.zeros(3, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        paired_fusion(x, torch.ones(3, device="meta") / 3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        local_step(x, x, x, lr=0.1, mu=0.9)

@@ -1,0 +1,173 @@
+"""The port's CNN against the reference's on converted parameters:
+logits, loss and every parameter gradient (``jax.grad(cnn_loss)``), plus
+the conversion round trip, the static topology, the synthetic data and
+the group map.
+
+Tolerance: 1e-5 absolute (logits and losses are O(1), gradients
+smaller): both sides compute in fp32 and differ only in summation order
+inside convolutions and matmuls (measured below 2e-6).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import vgg9 as jvgg9
+from repro.core import grouping as jgrouping
+from repro.data import synthetic as jdata
+from repro.fl import scenarios as jscen
+from repro.models import cnn as jcnn
+from repro_torch import convert
+from repro_torch.configs import vgg9 as tvgg9
+from repro_torch.core import grouping as tgrouping
+from repro_torch.data import synthetic as tdata
+from repro_torch.fl import scenarios as tscen
+from repro_torch.models import cnn as tcnn
+from repro_torch.models.module import (FlatLayout, param_count, tree_leaves,
+                                       tree_map)
+
+TOL = 1e-5
+
+CONFIGS = {
+    "reduced_grouped": (jvgg9.reduced(), tvgg9.reduced(), 3),
+    "reduced_plain": (jvgg9.reduced(fed2_groups=0, norm="none"),
+                      tvgg9.reduced(fed2_groups=0, norm="none"), 3),
+    "reduced_bn": (jvgg9.reduced(norm="bn"), tvgg9.reduced(norm="bn"), 3),
+    "nxc2_fed2": (jscen.get("nxc2_fed2").model_config(),
+                  tscen.get("nxc2_fed2").model_config(), 4),
+    "nxc2_fedavg": (jscen.get("nxc2_fedavg").model_config(),
+                    tscen.get("nxc2_fedavg").model_config(), 4),
+    "vgg9_full_g8": (jvgg9.full(fed2_groups=8),
+                     tvgg9.full(fed2_groups=8), 2),
+    "reduced_pan": (jvgg9.reduced(fed2_groups=0, norm="none", pan=0.5),
+                    tvgg9.reduced(fed2_groups=0, norm="none", pan=0.5), 3),
+}
+
+
+_J_APPLY = jax.jit(jcnn.apply_cnn, static_argnums=1)
+_J_LOSS_GRAD = jax.jit(jax.value_and_grad(jcnn.cnn_loss), static_argnums=1)
+_J_ACC = jax.jit(jcnn.cnn_accuracy, static_argnums=1)
+
+
+def _inputs(batch, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=batch).astype(np.int32)
+    return x, y
+
+
+def _jax_init(cfg, seed=0):
+    p = jcnn.init_cnn(jax.random.PRNGKey(seed), cfg)
+    return p, jax.tree_util.tree_map(np.asarray, p)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_forward_loss_and_grads_match_reference(name):
+    jcfg, tcfg, batch = CONFIGS[name]
+    jp, pn = _jax_init(jcfg)
+    x, y = _inputs(batch)
+    jb = {"images": jnp.asarray(x), "labels": jnp.asarray(y)}
+    tp = tree_map(lambda t: t.requires_grad_(True), convert.to_port(pn))
+    tb = {"images": torch.tensor(x), "labels": torch.tensor(y)}
+
+    np.testing.assert_allclose(
+        tcnn.apply_cnn(tp, tcfg, tb["images"]).detach().numpy(),
+        np.asarray(_J_APPLY(jp, jcfg, jb["images"])), atol=TOL)
+    loss = tcnn.cnn_loss(tp, tcfg, tb)
+    jloss, want = _J_LOSS_GRAD(jp, jcfg, jb)
+    np.testing.assert_allclose(loss.item(), float(jloss), atol=TOL)
+    loss.backward()
+    got = convert.to_reference(tree_map(lambda t: t.grad, tp))
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, np.asarray(w), atol=TOL)
+    np.testing.assert_allclose(
+        float(tcnn.cnn_accuracy(tp, tcfg, tb)),
+        float(_J_ACC(jp, jcfg, jb)), atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_topology_and_init_shapes_match_reference(name):
+    jcfg, tcfg, _ = CONFIGS[name]
+    jm = [(m.kind, m.groups, m.c_in, m.c_out, m.grouped_fc)
+          for m in jcnn.layer_meta(jcfg)]
+    tm = [(m.kind, m.groups, m.c_in, m.c_out, m.grouped_fc)
+          for m in tcnn.layer_meta(tcfg)]
+    assert tm == jm
+    _, pn = _jax_init(jcfg)
+    tp = tcnn.init_cnn(torch.Generator().manual_seed(0), tcfg)
+    back = convert.to_reference(tp)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(pn))
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(pn)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    assert param_count(tp) == sum(a.size for a in
+                                  jax.tree_util.tree_leaves(pn))
+
+
+def test_init_is_fan_in_normal_and_seeded():
+    cfg = tvgg9.full(fed2_groups=8)
+    a = tcnn.init_cnn(torch.Generator().manual_seed(3), cfg)
+    b = tcnn.init_cnn(torch.Generator().manual_seed(3), cfg)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+    w = a["convs"][1]["w"]                   # 32 -> 64, fan-in 288
+    assert abs(float(w.std()) - 288 ** -0.5) < 0.05 * 288 ** -0.5
+    assert not a["convs"][1]["b"].any()
+
+
+def test_convert_round_trip_is_exact():
+    _, pn = _jax_init(jvgg9.full(fed2_groups=8), seed=5)
+    back = convert.to_reference(convert.to_port(pn))
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(pn)):
+        np.testing.assert_array_equal(a, b)
+    tp = convert.to_port(pn)
+    assert tp["convs"][3]["w"].shape == (128, 16, 3, 3)   # OIHW, g=8
+
+
+def test_flat_layout_round_trip_and_views():
+    tp = tcnn.init_cnn(torch.Generator().manual_seed(0), tvgg9.reduced())
+    layout = FlatLayout(tp)
+    assert layout.size == param_count(tp) and layout.stride % 64 == 0
+    flat = layout.flatten(tp)
+    assert flat.shape == (layout.size,)
+    tree = layout.unflatten(flat)
+    for a, b in zip(tree_leaves(tree), tree_leaves(tp)):
+        assert torch.equal(a, b)
+    tree["fcs"][0]["w"].fill_(2.0)               # views write through
+    s = [s for s in layout.slots if s.path == ("fcs", 0, "w")][0]
+    assert (flat[s.offset:s.offset + s.size] == 2.0).all()
+    stacked = layout.alloc((3,))
+    assert stacked.shape == (3, layout.size)
+    assert stacked.stride(0) == layout.stride
+
+
+@pytest.mark.parametrize("n,seed,noise", [(300, 0, 0.35), (120, 7, 1.2)])
+def test_image_dataset_matches_reference(n, seed, noise):
+    a = tdata.make_image_dataset(n, seed=seed, noise=noise)
+    b = jdata.make_image_dataset(n, seed=seed, noise=noise)
+    np.testing.assert_array_equal(a.images, b.images)
+    np.testing.assert_array_equal(a.labels, b.labels)
+
+
+@pytest.mark.parametrize("clients,cpn", [(6, 2), (10, 5), (4, 3)])
+def test_nxc_partition_matches_reference(clients, cpn):
+    labels = jdata.make_image_dataset(400, seed=1).labels
+    got = tdata.nxc_partition(labels, clients, cpn, 10, seed=2)
+    want = jdata.nxc_partition(labels, clients, cpn, 10, seed=2)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("g,c", [(5, 10), (10, 10), (8, 16), (20, 10)])
+def test_group_spec_matches_reference(g, c):
+    a = tgrouping.GroupSpec.contiguous(g, c)
+    b = jgrouping.GroupSpec.contiguous(g, c)
+    assert a.classes_per_group == b.classes_per_group
+    for k in range(g):
+        assert a.logit_signature(k) == b.logit_signature(k)
