@@ -7,26 +7,35 @@ Phases, each announced on its own line; any failure raises and the
 script exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi), torch/CUDA
-2. build    the CUDA C++ kernel (nvcc) and the Triton kernel, together
-3. kernels  the kernels this path runs
+2. build    the CUDA C++ kernels (one nvcc per source) and the Triton
+            kernel, all started together
+3. kernels  the kernels these paths run
 4. check    each kernel against its plain PyTorch version on the card,
-            at the main path's shapes (TF32 off), with device times
+            at its paths' shapes (TF32 off), with device times
             (CUDA-graph replay) of the kernel, the plain version and
             one library call, beside the bound
 5. main     the CLI's main path at full width (VGG9, 10 clients, 8 steps
             of batch 32): fed2 on the default routes, fed2 with
-            --use-local-kernel, fedavg on the baseline VGG9; 3 rounds
-            each. Both launch counters are set to 0 just before each run
-            and read just after: every run fuses once per round through
-            paired_fusion, and only the --use-local-kernel run launches
-            local_step (once per local step)
-6. profile  the main path again under torch.profiler: device busy
+            --use-local-kernel, fedavg on the baseline VGG9; then fed2
+            on --arch vgg16 (100 classes) and on --arch mobilenet
+            --dirichlet 0.5; 3 rounds each. Every launch counter is set
+            to 0 just before each run and read just after: every run
+            fuses once per round through paired_fusion, only the
+            --use-local-kernel run launches local_step (once per local
+            step), and none launches feature_stats
+6. auto_depth  Fed2's structure adaptation at full width
+            (launch/auto_depth.py): warm-up of the baseline VGG9, Eq. 9
+            through feature_stats (one launch per class per tapped
+            layer), TV profile -> decouple depth, 6 rounds of Fed2 (one
+            paired_fusion each); it must learn. Then Eq. 9 on the warm
+            model with the kernel on and off (TF32 off)
+7. profile  the main path again under torch.profiler: device busy
             share and device time by kernel category
-7. parity   one fed2 round from one init and one batch stream with the
+8. parity   one fed2 round from one init and one batch stream with the
             kernels on and off (TF32 off, deterministic convolutions):
             the fusion kernel alone agrees to round-off, both kernels
             within what a one-ulp change of the init does to the round
-8. scenario nxc2_fed2 for its 10 rounds, counted like the main path;
+9. scenario nxc2_fed2 for its 10 rounds, counted like the main path;
             it must learn
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
@@ -53,6 +62,9 @@ FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
 MAIN_ROUNDS = 3
 FUSION_PARITY_TOL = 1e-5       # see phase_parity
+# Eq. 9 with the feature_stats kernel vs without, on one warm model:
+# tests/test_fed2_core.py's bound between the JAX package's two routes
+PVEC_ATOL = PVEC_RTOL = 1e-3
 # the JAX package's committed nxc2_fed2 record
 # (benchmarks/artifacts_perf/scenario_nxc2_fed2.json)
 SCENARIO_REFERENCE = 0.5075
@@ -166,21 +178,26 @@ def cohort(layout, n, dtype, gen, scale=1.0):
 # ---------------------------------------------------------------------------
 
 
+CUDA_SOURCES = ("paired_fusion", "feature_stats")
+
+
 def phase_build():
     from repro_torch.kernels import build
     from repro_torch.kernels import local_step as ls
     t0 = time.time()
     times, errors = {}, []
 
-    def nvcc():
+    def nvcc(name):
         try:
-            build.load("paired_fusion")
-            times["paired_fusion (nvcc)"] = time.time() - t0
+            build.load(name)
+            times[f"{name} (nvcc)"] = time.time() - t0
         except BaseException as e:          # re-raised below
             errors.append(e)
 
-    th = threading.Thread(target=nvcc)
-    th.start()
+    threads = [threading.Thread(target=nvcc, args=(n,))
+               for n in CUDA_SOURCES]
+    for th in threads:
+        th.start()
     # the Triton kernel compiles at its first launch: take the main
     # path's specialization (strided fp32 (10, M) rows)
     layout = main_layout()
@@ -189,15 +206,17 @@ def phase_build():
                   mu=0.9)
     torch.cuda.synchronize()
     times["local_step (triton)"] = time.time() - t0
-    th.join()
+    for th in threads:
+        th.join()
     if errors:
         raise errors[0]
     for k, v in times.items():
         print(f"  built {k} in {v:.1f} s")
-    log = build.library_path("paired_fusion").with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for name in CUDA_SOURCES:
+        log = build.library_path(name).with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas ({name}):", line.strip())
 
 
 def check(name, got, want, tol):
@@ -314,6 +333,81 @@ def phase_check_local_step(layout) -> dict:
             "bound_ms": b, "bound_by": by, "library_ms": lib}
 
 
+def auto_depth_widths():
+    """The neuron counts of the layers Eq. 9 taps on the auto-depth
+    path's warm-up model (every conv and hidden FC)."""
+    from repro_torch.launch import auto_depth
+    from repro_torch.models.cnn import layer_meta
+    warm_cfg, _ = auto_depth.model_configs(reduced=False)
+    return [m.c_out for m in layer_meta(warm_cfg)
+            if m.kind in ("c", "dw", "fc")]
+
+
+def phase_check_feature_stats() -> dict:
+    from repro_torch.kernels.feature_stats import (feature_stats,
+                                                   feature_stats_ref)
+    from repro_torch.launch import auto_depth
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def pair(b, i, dt):
+        return tuple(torch.randn(b, i, generator=gen, device="cuda").to(dt)
+                     for _ in range(2))
+
+    def check_fs(name, b, i, dt):
+        a, g = pair(b, i, dt)
+        got, want = feature_stats(a, g), feature_stats_ref(a, g)
+        err = (got - want).abs()
+        if dt == torch.float32:
+            # 1e-5 of the column's sum of |a*g|: fp32 sums of B terms
+            # taken in another order
+            scale = (a.float() * g.float()).abs().sum(0)
+            ok = bool((err <= 1e-5 * scale).all())
+            lim = "1e-5 x sum|a*g| per column"
+        else:   # the JAX test's bf16 bounds (tests/test_kernels.py)
+            ok = bool((err <= 0.2 + 1e-2 * want.abs()).all())
+            lim = "atol 0.2 + rtol 1e-2"
+        e = err.max().item()
+        print(f"  feature_stats {name} ({b}, {i}) {str(dt)[6:]}: "
+              f"max_abs_err {e:.3g} ({lim}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"feature_stats {name} ({b}, {i}) {dt}: "
+                                 "kernel disagrees with its plain version")
+        return e
+
+    for b, i in ((32, 100), (256, 512), (100, 1000), (7, 3)):
+        for dt in (torch.float32, torch.bfloat16):
+            check_fs("JAX test shape", b, i, dt)
+    path_b = auto_depth.PROBE_IMAGES
+    err_path = max(check_fs("auto-depth path", path_b, i, torch.float32)
+                   for i in sorted(set(auto_depth_widths())))
+    check_fs("large", 8192, 4096, torch.float32)
+    check_fs("large", 8192, 4096, torch.bfloat16)
+
+    timings = {}
+    for b, i in ((path_b, max(auto_depth_widths())), (8192, 4096)):
+        nbytes = 2 * b * i * 4
+        pairs = [pair(b, i, torch.float32)
+                 for _ in range(copies_for(nbytes))]
+        reps = max(20 if b * i > 1e6 else 200, len(pairs))
+        t = {"ms": time_ms([lambda p=p: feature_stats(*p) for p in pairs],
+                           reps),
+             "plain_ms": time_ms([lambda p=p: feature_stats_ref(*p)
+                                  for p in pairs], reps),
+             "library_ms": time_ms([lambda p=p: torch.linalg.vecdot(
+                 p[0], p[1], dim=0) for p in pairs], reps)}
+        t["bound_ms"], t["bound_by"] = bound(nbytes + 4 * i, 2 * b * i)
+        timings[(b, i)] = t
+        print(f"  feature_stats ({b}, {i}) fp32: {t['ms'] * 1e3:.2f} us, "
+              f"plain {t['plain_ms'] * 1e3:.2f} us, torch.linalg.vecdot "
+              f"{t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
+    path = timings[(path_b, max(auto_depth_widths()))]
+    return {"name": "feature_stats", "route": "cuda",
+            "source": "src/repro_torch/csrc/feature_stats.cu",
+            "replaces": "src/repro/kernels/feature_stats.py:43",
+            "max_abs_err": err_path, **path}
+
+
 def finite_params(h):
     from repro_torch.models.module import tree_leaves
     leaves = tree_leaves(h["final_params"])
@@ -337,14 +431,17 @@ def cli(*extra):
 
 
 def counted(label: str, run, expect: dict):
-    """``run()`` with both launch counters set to 0 just before it and
+    """``run()`` with every launch counter set to 0 just before it and
     read just after; the counts must equal ``expect``."""
+    from repro_torch.kernels.feature_stats import feature_stats
     from repro_torch.kernels.local_step import local_step
     from repro_torch.kernels.paired_fusion import paired_fusion
     paired_fusion.launches = local_step.launches = 0
+    feature_stats.launches = 0
     out = run()
     counts = {"paired_fusion": paired_fusion.launches,
-              "local_step": local_step.launches}
+              "local_step": local_step.launches,
+              "feature_stats": feature_stats.launches}
     print(f"  launches, {label}: {counts} (expected {expect})", flush=True)
     assert counts == expect, f"{label}: launches {counts} != {expect}"
     return out, counts
@@ -355,15 +452,60 @@ def phase_main() -> dict:
     from repro_torch.launch import train
     d = train.parse_args([])                    # the CLI's defaults
     steps = d.local_epochs * d.steps_per_epoch
-    fuse_only = {"paired_fusion": MAIN_ROUNDS, "local_step": 0}
+    fuse_only = {"paired_fusion": MAIN_ROUNDS, "local_step": 0,
+                 "feature_stats": 0}
     counted("fed2, default routes",
             lambda: cli("--method", "fed2"), fuse_only)
     _, counts = counted(
         "fed2 --use-local-kernel",
         lambda: cli("--method", "fed2", "--use-local-kernel"),
-        {"paired_fusion": MAIN_ROUNDS, "local_step": steps * MAIN_ROUNDS})
+        {"paired_fusion": MAIN_ROUNDS, "local_step": steps * MAIN_ROUNDS,
+         "feature_stats": 0})
     counted("fedavg", lambda: cli("--method", "fedavg"), fuse_only)
+    # the paper's other testbeds: vgg16.full(fed2_groups=8) on 100
+    # classes (104 logits), MobileNetV1 on a Dir(0.5) split
+    counted("fed2 --arch vgg16",
+            lambda: cli("--method", "fed2", "--arch", "vgg16"), fuse_only)
+    counted("fed2 --arch mobilenet --dirichlet 0.5",
+            lambda: cli("--method", "fed2", "--arch", "mobilenet",
+                        "--dirichlet", "0.5"), fuse_only)
     return counts
+
+
+def phase_auto_depth() -> int:
+    """The full-width structure-adaptation path; returns its
+    feature_stats launches."""
+    from repro_torch.core.feature_stats import class_preference_vectors
+    from repro_torch.launch import auto_depth
+    n_cls, taps = 10, len(auto_depth_widths())
+    out, counts = counted(
+        "auto_depth (full width)",
+        lambda: auto_depth.run_auto_depth(device="cuda", log=print),
+        {"paired_fusion": auto_depth.ROUNDS, "local_step": 0,
+         "feature_stats": n_cls * taps})
+    h = out["history"]
+    finite_params(h)
+    w = h["wall"]
+    print(f"  TV profile {[round(t, 4) for t in out['tvs']]} -> decouple "
+          f"{out['depth']} ({out['cfg'].n_weight_layers} weight layers); "
+          f"fed2 {auto_depth.ROUNDS} rounds in {h['wall_total']:.3f} s "
+          f"(later rounds {(w[-1] - w[0]) / (len(w) - 1):.3f} s each); "
+          f"accs {[round(a, 4) for a in h['acc']]}")
+    assert h["acc"][-1] > 0.1 and h["acc"][-1] > h["acc"][0], \
+        "auto-depth fed2 did not learn (final <= chance or first round)"
+    with tf32_off(), deterministic_convs():
+        on = class_preference_vectors(out["warm_params"], out["warm_cfg"],
+                                      *out["probe"], use_kernel=True)
+        off = class_preference_vectors(out["warm_params"], out["warm_cfg"],
+                                       *out["probe"], use_kernel=False)
+    err = max((a - b).abs().max().item() for a, b in zip(on, off))
+    ok = all(torch.allclose(a, b, atol=PVEC_ATOL, rtol=PVEC_RTOL)
+             for a, b in zip(on, off))
+    print(f"  Eq. 9 on the warm model, feature_stats kernel vs plain "
+          f"(TF32 off): max_abs_err {err:.3g} (atol {PVEC_ATOL:g}, rtol "
+          f"{PVEC_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    assert ok, "Eq. 9 through the kernel disagrees with the plain route"
+    return counts["feature_stats"]
 
 
 def _category(name: str) -> str:
@@ -471,7 +613,8 @@ def phase_scenario():
     spec = scenarios.get("nxc2_fed2")
     rec, _ = counted(
         "nxc2_fed2", lambda: scenarios.run_scenario(spec, device="cuda"),
-        {"paired_fusion": spec.rounds, "local_step": 0})
+        {"paired_fusion": spec.rounds, "local_step": 0,
+         "feature_stats": 0})
     print(f"  nxc2_fed2 ({spec.rounds} rounds, {rec.wall_total:.2f} s): "
           f"final acc {rec.final_acc:.4f} (the JAX package's committed "
           f"record: {SCENARIO_REFERENCE}; inits differ), accs "
@@ -498,11 +641,13 @@ def main() -> int:
         phase_build()
     print("[kernels] paired_fusion (cuda: src/repro_torch/csrc/"
           "paired_fusion.cu), local_step (triton: src/repro_torch/kernels/"
-          "local_step.py)", flush=True)
+          "local_step.py), feature_stats (cuda: src/repro_torch/csrc/"
+          "feature_stats.cu)", flush=True)
     layout = main_layout()
     with phase("check (TF32 off)"), tf32_off():
         records = [phase_check_paired_fusion(layout),
-                   phase_check_local_step(layout)]
+                   phase_check_local_step(layout),
+                   phase_check_feature_stats()]
         for r in records:
             print(f"  {r['name']}: {r['ms'] * 1e3:.1f} us, plain "
                   f"{r['plain_ms'] * 1e3:.1f} us, library "
@@ -510,6 +655,8 @@ def main() -> int:
                   f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
     with phase("main"):
         counts = phase_main()
+    with phase("auto_depth"):
+        counts["feature_stats"] = phase_auto_depth()
     with phase("profile"):
         phase_profile()
     with phase("parity (TF32 off, deterministic convs)"), tf32_off(), \

@@ -4,8 +4,11 @@ H100.
 The package mirrors ``repro``'s layout module for module and imports
 torch, numpy and the standard library only: never jax, never ``repro``.
 Entry points (``fl.runtime.run_federated``, ``fl.scenarios.run_scenario``,
-``python -m repro_torch.launch.train``) run on the CUDA card unless the
-caller asks for the CPU. The two kernels of the synchronous round's path
-are written by hand for Hopper: ``kernels/paired_fusion.py`` (CUDA C++,
-``csrc/paired_fusion.cu``) and ``kernels/local_step.py`` (Triton).
+``python -m repro_torch.launch.train``, ``python -m
+repro_torch.launch.auto_depth``) run on the CUDA card unless the caller
+asks for the CPU. The kernels of these paths are written by hand for
+Hopper: ``kernels/paired_fusion.py`` (CUDA C++, ``csrc/paired_fusion.cu``)
+and ``kernels/local_step.py`` (Triton) in the synchronous round, and
+``kernels/feature_stats.py`` (CUDA C++, ``csrc/feature_stats.cu``) in
+Eq. 9's class preference vectors.
 """

@@ -200,15 +200,14 @@ def fedprox_penalty(params: torch.Tensor, global_params: torch.Tensor,
 def cnn_group_axes(params, cfg):
     """GroupAxis tree for ``models/cnn.py`` params. In the port's layouts
     every grouped leaf has its group axis first: conv weights are OIHW
-    (out channels lead), biases and norm affines are per channel, and
-    grouped dense weights/biases are (G, ...)."""
-    from repro_torch.models.cnn import layer_meta
+    (out channels lead; a depthwise weight (c_in, 1, k, k) leads with its
+    channels too), biases and norm affines are per channel, and grouped
+    dense weights/biases are (G, ...)."""
+    from repro_torch.models.cnn import conv_metas, fc_metas, layer_meta
     metas = layer_meta(cfg)
-    conv_metas = [m for m in metas if m.kind == "c"]
-    fc_metas = [m for m in metas if m.kind != "c"]
     g = cfg.fed2_groups
     axes = {"convs": [], "fcs": []}
-    for m, layer in zip(conv_metas, params["convs"]):
+    for m, layer in zip(conv_metas(metas), params["convs"]):
         grouped = g > 1 and m.groups > 1
         la = {}
         for k, v in layer.items():
@@ -218,7 +217,7 @@ def cnn_group_axes(params, cfg):
             else:
                 la[k] = GroupAxis(0, g) if grouped else None
         axes["convs"].append(la)
-    for m, fc in zip(fc_metas, params["fcs"]):
+    for m, fc in zip(fc_metas(metas), params["fcs"]):
         axes["fcs"].append({k: GroupAxis(0, g) if m.grouped_fc else None
                             for k in fc})
     return axes

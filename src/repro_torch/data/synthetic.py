@@ -1,4 +1,5 @@
-"""Deterministic synthetic image dataset + the paper's N x C partitioner.
+"""Deterministic synthetic image dataset + the paper's N x C and FedMA's
+Dirichlet partitioners.
 
 CIFAR-10 is not available offline: a class-clustered image dataset
 stands in, whose difficulty knobs (prototype separation, noise,
@@ -81,3 +82,20 @@ def nxc_partition(labels: np.ndarray, n_clients: int, classes_per_node: int,
             parts[hs[k]].append(chunk)
     return [np.concatenate(p) if p else np.empty((0,), np.int64)
             for p in parts]
+
+
+def dirichlet_partition(labels: np.ndarray, n_clients: int,
+                        alpha: float = 0.5, n_classes: int = 10,
+                        seed: int = 0) -> list[np.ndarray]:
+    """FedMA protocol: each class is dealt to the clients in Dir(alpha)
+    proportions (a client's part may be empty)."""
+    rng = np.random.default_rng(seed)
+    parts = [[] for _ in range(n_clients)]
+    for c in range(n_classes):
+        idx = np.flatnonzero(labels == c)
+        rng.shuffle(idx)
+        props = rng.dirichlet(alpha * np.ones(n_clients))
+        cuts = (np.cumsum(props)[:-1] * len(idx)).astype(int)
+        for j, chunk in enumerate(np.split(idx, cuts)):
+            parts[j].append(chunk)
+    return [np.concatenate(p) for p in parts]

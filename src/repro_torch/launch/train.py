@@ -5,6 +5,9 @@ Runs on the CUDA card unless ``--device cpu`` is given. Defaults match
 structure groups for fed2 (the plain baseline VGG9 for fedavg/fedprox),
 10 clients at full participation, 8 momentum-SGD steps of batch 32 per
 round, N x C partition with 5 classes per node, 4000 synthetic images.
+``--arch vgg16|mobilenet`` picks the paper's other testbeds (VGG16 on
+100 classes, MobileNetV1 on 10), and ``--dirichlet ALPHA`` FedMA's
+Dir(alpha) label split in place of N x C.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
@@ -14,29 +17,37 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --scenario nxc2_fed2                      # a registered scenario
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --arch mobilenet --dirichlet 0.5          # MobileNetV1, Dir(0.5)
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --reduced --rounds 2 --train-size 400 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import importlib
+
+ARCHS = ("vgg9", "vgg16", "mobilenet")
 
 
 def build_model_config(args, method):
-    """The CLI's model: Fed2 structure adaptation for group-structured
-    methods, the plain baseline of the same widths otherwise."""
-    from repro_torch.configs import vgg9
+    """The CLI's model, from ``repro_torch.configs.<arch>``: Fed2
+    structure adaptation for group-structured methods, the plain
+    baseline of the same widths otherwise."""
+    mod = importlib.import_module(f"repro_torch.configs.{args.arch}")
     if method.uses_groups:
-        return (vgg9.reduced() if args.reduced
-                else vgg9.full(fed2_groups=args.fed2_groups))
-    return (vgg9.reduced(fed2_groups=0, norm="none") if args.reduced
-            else vgg9.baseline())
+        return (mod.reduced() if args.reduced
+                else mod.full(fed2_groups=args.fed2_groups))
+    return (mod.reduced(fed2_groups=0, norm="none") if args.reduced
+            else mod.baseline())
 
 
 def fl_inputs(args):
     """The run the CLI's flags describe, as ``run_federated``'s
     positional arguments: (task, fl_config, parts, get_batch,
     test_batches)."""
-    from repro_torch.data.synthetic import make_image_dataset, nxc_partition
+    from repro_torch.data.synthetic import (dirichlet_partition,
+                                            make_image_dataset,
+                                            nxc_partition)
     from repro_torch.fl import methods as methods_lib
     from repro_torch.fl.runtime import FLConfig, cnn_task
 
@@ -46,8 +57,12 @@ def fl_inputs(args):
     test = make_image_dataset(args.train_size // 4,
                               n_classes=cfg.n_classes, seed=args.seed + 99,
                               noise=args.noise)
-    parts = nxc_partition(ds.labels, args.nodes, args.classes_per_node,
-                          cfg.n_classes, seed=args.seed)
+    if args.dirichlet > 0:
+        parts = dirichlet_partition(ds.labels, args.nodes, args.dirichlet,
+                                    cfg.n_classes, seed=args.seed)
+    else:
+        parts = nxc_partition(ds.labels, args.nodes, args.classes_per_node,
+                              cfg.n_classes, seed=args.seed)
 
     def get_batch(sel):
         return {"images": ds.images[sel], "labels": ds.labels[sel]}
@@ -91,6 +106,7 @@ def parse_args(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["fl"], default="fl")
+    ap.add_argument("--arch", default="vgg9", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--fed2-groups", type=int, default=8)
     ap.add_argument("--method", default="fed2",
@@ -113,6 +129,9 @@ def parse_args(argv=None):
                     help="torch device; default = the CUDA card (fails "
                          "without one), 'cpu' to run on the CPU")
     ap.add_argument("--classes-per-node", type=int, default=5)
+    ap.add_argument("--dirichlet", type=float, default=0.0,
+                    help="Dir(alpha) label split (FedMA protocol) when "
+                         "> 0; else N x C with --classes-per-node")
     ap.add_argument("--local-epochs", type=int, default=1)
     ap.add_argument("--steps-per-epoch", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)

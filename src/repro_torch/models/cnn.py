@@ -1,4 +1,5 @@
-"""Paper-faithful VGG-style CNN classifiers (VGG9, FedMA variant).
+"""Paper-faithful CNN classifiers: VGG9 (FedMA variant), VGG16,
+MobileNetV1.
 
 Fed2 structure adaptation (§5.1): with ``fed2_groups = G > 0`` the last
 ``decouple`` weight layers become group convolutions / block-diagonal
@@ -28,9 +29,21 @@ from repro_torch.models.layers import (batchnorm_apply, batchnorm_init,
                                        groupnorm_init)
 from repro_torch.models.module import tree_map
 
-# conv plans: ("c", out) 3x3 conv, ("p",) 2x2 maxpool
+# conv plans: ("c", out) 3x3 conv, ("p",) 2x2 maxpool, ("dw", out,
+# stride) depthwise-separable block (3x3 depthwise, then 1x1 pointwise)
 VGG9_PLAN = (("c", 32), ("c", 64), ("p",), ("c", 128), ("c", 128), ("p",),
              ("c", 256), ("c", 256), ("p",))
+VGG16_PLAN = (("c", 64), ("c", 64), ("p",),
+              ("c", 128), ("c", 128), ("p",),
+              ("c", 256), ("c", 256), ("c", 256), ("p",),
+              ("c", 512), ("c", 512), ("c", 512), ("p",),
+              ("c", 512), ("c", 512), ("c", 512), ("p",))
+MOBILENET_PLAN = (("c", 32),
+                  ("dw", 64, 1), ("dw", 128, 2), ("dw", 128, 1),
+                  ("dw", 256, 2), ("dw", 256, 1), ("dw", 512, 2),
+                  ("dw", 512, 1), ("dw", 512, 1), ("dw", 512, 1),
+                  ("dw", 512, 1), ("dw", 512, 1), ("dw", 1024, 2),
+                  ("dw", 1024, 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +76,18 @@ class CNNConfig:
             return False
         return widx >= self.n_weight_layers - self.decouple
 
+    @property
+    def is_mobilenet(self) -> bool:
+        return "mobilenet" in self.arch_id or "mbnet" in self.arch_id
+
 
 @dataclasses.dataclass(frozen=True)
 class LayerMeta:
-    kind: str          # "c" | "fc" | "logits"
+    """Fields in the reference's order (``stride`` third); the port
+    builds them by keyword."""
+    kind: str          # "c" | "dw" | "fc" | "logits"
     groups: int        # feature_group_count / block count (1 = dense)
+    stride: int = 1
     c_in: int = 0
     c_out: int = 0
     grouped_fc: bool = False
@@ -82,25 +102,40 @@ def layer_meta(cfg: CNNConfig) -> list[LayerMeta]:
         if step[0] == "p":
             hw //= 2
             continue
-        if step[0] != "c":
-            raise ValueError(f"plan step {step!r}: only 3x3 convs ('c') "
-                             "and 2x2 pools ('p') are supported")
+        if step[0] not in ("c", "dw"):
+            raise ValueError(f"plan step {step!r}: expected a 3x3 conv "
+                             "('c'), a depthwise-separable block ('dw') "
+                             "or a 2x2 pool ('p')")
         c_out = cfg.round_ch(step[1])
         grouped = cfg.layer_grouped(widx) and c_in % g == 0 and g > 1
-        metas.append(LayerMeta("c", g if grouped else 1, c_in, c_out))
+        stride = step[2] if step[0] == "dw" else 1
+        metas.append(LayerMeta(step[0], g if grouped else 1, stride=stride,
+                               c_in=c_in, c_out=c_out))
+        if step[0] == "dw" and stride > 1:
+            hw = -(-hw // stride)
         c_in, widx = c_out, widx + 1
-    d_in = hw * hw * c_in
+    d_in = c_in if cfg.is_mobilenet else hw * hw * c_in
     for d in cfg.fc_dims:
         d_out = cfg.round_ch(d)
         grouped = cfg.layer_grouped(widx) and d_in % g == 0 and g > 1
-        metas.append(LayerMeta("fc", g if grouped else 1, d_in, d_out,
-                               grouped_fc=grouped))
+        metas.append(LayerMeta("fc", g if grouped else 1, c_in=d_in,
+                               c_out=d_out, grouped_fc=grouped))
         d_in, widx = d_out, widx + 1
     n_cls = cfg.round_ch(cfg.n_classes)
     grouped = cfg.layer_grouped(widx) and d_in % g == 0 and g > 1
-    metas.append(LayerMeta("logits", g if grouped else 1, d_in, n_cls,
-                           grouped_fc=grouped))
+    metas.append(LayerMeta("logits", g if grouped else 1, c_in=d_in,
+                           c_out=n_cls, grouped_fc=grouped))
     return metas
+
+
+def conv_metas(metas) -> list:
+    """The conv layers' metas ("c" and "dw"), in plan order."""
+    return [m for m in metas if m.kind in ("c", "dw")]
+
+
+def fc_metas(metas) -> list:
+    """The dense layers' metas ("fc" and "logits"), in order."""
+    return [m for m in metas if m.kind in ("fc", "logits")]
 
 
 def init_cnn(generator: torch.Generator, cfg: CNNConfig, device=None):
@@ -108,9 +143,16 @@ def init_cnn(generator: torch.Generator, cfg: CNNConfig, device=None):
     to ``device``."""
     convs, fcs = [], []
     for m in layer_meta(cfg):
-        if m.kind == "c":
-            layer = conv2d_init(generator, m.c_in, m.c_out, 3,
-                                groups=m.groups, dtype=cfg.dtype)
+        if m.kind in ("c", "dw"):
+            if m.kind == "dw":   # the reference's {"dw", "w", "norm"}
+                layer = {"dw": conv2d_init(generator, m.c_in, m.c_in, 3,
+                                           groups=m.c_in, dtype=cfg.dtype),
+                         "w": conv2d_init(generator, m.c_in, m.c_out, 1,
+                                          groups=m.groups,
+                                          dtype=cfg.dtype)}
+            else:
+                layer = conv2d_init(generator, m.c_in, m.c_out, 3,
+                                    groups=m.groups, dtype=cfg.dtype)
             if cfg.norm == "bn":
                 layer["norm"] = batchnorm_init(m.c_out, cfg.dtype)
             elif cfg.norm == "gn":
@@ -162,31 +204,48 @@ def _grouped_flatten(x, g: int):
     return xg.reshape(b, g * h * w * (c // g))
 
 
+def conv_block(layer, m: LayerMeta, x):
+    """A conv layer's convolutions, before its norm: a 3x3 conv, or a
+    depthwise-separable block (3x3 depthwise at the layer's stride,
+    ReLU, grouped 1x1 pointwise)."""
+    if m.kind == "dw":
+        x = torch.relu(conv2d_apply(layer["dw"], x, stride=m.stride,
+                                    groups=m.c_in))
+        return conv2d_apply(layer["w"], x, groups=m.groups)
+    return conv2d_apply(layer, x, stride=m.stride, groups=m.groups)
+
+
+def flatten_features(cfg: CNNConfig, x):
+    """The conv trunk's NCHW output -> the first dense layer's input:
+    MobileNet's global mean pool, else the reference's flatten order."""
+    if cfg.is_mobilenet:
+        return x.mean(dim=(2, 3))
+    g = max(cfg.fed2_groups, 1)
+    if cfg.fed2_groups and x.shape[1] % g == 0:
+        return _grouped_flatten(x, g)
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
 def apply_cnn(params, cfg: CNNConfig, x):
     """x: (B, H, W, 3) NHWC images -> logits (B, n_classes)."""
     metas = layer_meta(cfg)
-    conv_metas = [m for m in metas if m.kind == "c"]
-    fc_metas = [m for m in metas if m.kind != "c"]
+    convs, fcs = conv_metas(metas), fc_metas(metas)
     x = x.permute(0, 3, 1, 2)
     ci = 0
     for step in cfg.plan:
         if step[0] == "p":
             x = F.max_pool2d(x, 2)
             continue
-        m, layer = conv_metas[ci], params["convs"][ci]
-        x = conv2d_apply(layer, x, groups=m.groups)
+        layer = params["convs"][ci]
+        x = conv_block(layer, convs[ci], x)
         x = _apply_norm(cfg, layer, x)
         if cfg.pan:       # PAN anchor on the pre-activation
             x = x + pan_encoding(x.shape[1], ci, cfg.pan, x.dtype,
                                  x.device).reshape(1, -1, 1, 1)
         x = torch.relu(x)
         ci += 1
-    g = max(cfg.fed2_groups, 1)
-    if cfg.fed2_groups and x.shape[1] % g == 0:
-        x = _grouped_flatten(x, g)
-    else:
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-    for i, (m, fc) in enumerate(zip(fc_metas, params["fcs"])):
+    x = flatten_features(cfg, x)
+    for i, (m, fc) in enumerate(zip(fcs, params["fcs"])):
         x = (grouped_dense_apply if m.grouped_fc else dense_apply)(fc, x)
         if m.kind != "logits":
             if cfg.pan:   # hidden FCs only

@@ -122,9 +122,26 @@ def conv2d_init(gen, c_in: int, c_out: int, k: int, *, groups: int = 1,
     return p
 
 
-def conv2d_apply(p, x, *, groups: int = 1):
-    """Stride-1 convolution with the reference's "SAME" padding (odd k)."""
-    k = p["w"].shape[-1]
-    if k % 2 == 0:
-        raise ValueError("conv2d_apply pads SAME for odd kernels only")
-    return F.conv2d(x, p["w"], p.get("b"), padding=k // 2, groups=groups)
+def same_padding(size: int, k: int, stride: int) -> tuple:
+    """XLA's "SAME" padding of one spatial dim: the output has
+    ceil(size / stride) positions, and the total pad splits with the
+    odd element AFTER the input. For size 32, k 3, stride 2 that is
+    (0, 1), not (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_apply(p, x, *, stride: int = 1, groups: int = 1):
+    """Convolution with the reference's "SAME" padding (XLA's rule,
+    ``same_padding``). A symmetric pad goes to ``F.conv2d`` itself (every
+    stride-1 conv with an odd kernel); an asymmetric one is applied
+    explicitly first."""
+    kh, kw = p["w"].shape[-2:]
+    ph = same_padding(x.shape[-2], kh, stride)
+    pw = same_padding(x.shape[-1], kw, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, p["w"], p.get("b"), stride=stride,
+                        padding=(ph[0], pw[0]), groups=groups)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, p["w"], p.get("b"), stride=stride, groups=groups)

@@ -188,6 +188,31 @@ def test_group_axes_follow_the_port_layout():
     assert all(a.axis == 0 and a.n_groups == 5 for a in gt if a is not None)
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_mobilenet_paired_average_matches_reference(use_kernel):
+    """Grouped depthwise-separable blocks: the depthwise (c_in, 1, 3, 3)
+    and pointwise weights split on axis 0 in OIHW, as the reference
+    splits their last HWIO axis; presence-weighted, so every group block
+    fuses with its own column."""
+    from repro.configs import mobilenet as jmobilenet
+    from repro_torch.configs import mobilenet as tmobilenet
+    cfg_j, cfg_t = jmobilenet.reduced(), tmobilenet.reduced()
+    sj, flat, layout, tp = _clients(cfg_j, cfg_t)
+    ga_j = jfusion.cnn_group_axes(jax.tree_util.tree_map(lambda a: a[0], sj),
+                                  cfg_j)
+    ga_t = tfusion.cnn_group_axes(tp, cfg_t)
+    gj = jax.tree_util.tree_leaves(
+        ga_j, is_leaf=lambda x: x is None or isinstance(x, jfusion.GroupAxis))
+    assert [a is None for a in gj] == [a is None for a in
+                                       layout.leaves(ga_t)]
+    assert ga_t["convs"][2]["dw"]["w"] == tfusion.GroupAxis(0, 5)
+    kw = _paired_kwargs("presence")
+    want = jfusion.paired_average(sj, ga_j, use_kernel=False, **kw)
+    got = tfusion.paired_average(flat, layout, ga_t, use_kernel=use_kernel,
+                                 **kw)
+    _assert_same(got, layout, want)
+
+
 def test_broadcast_global_fills_every_row():
     _, flat, _, _ = _clients(jvgg9.reduced(), tvgg9.reduced(), n=3)
     g = torch.arange(flat.shape[1], dtype=torch.float32)

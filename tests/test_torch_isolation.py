@@ -65,7 +65,7 @@ def test_no_jax_or_reference_import_statement(path):
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.fl import runtime, scenarios
-    from repro_torch.launch import train
+    from repro_torch.launch import auto_depth, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runtime.resolve_device(None)
@@ -79,10 +79,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         scenarios.run_scenario(spec)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--reduced", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        auto_depth.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        auto_depth.run_auto_depth(reduced=True)
     assert runtime.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
+    from repro_torch.kernels.feature_stats import feature_stats
     from repro_torch.kernels.local_step import local_step
     from repro_torch.kernels.paired_fusion import paired_fusion
     x = torch.zeros(3, 8, device="meta")
@@ -90,3 +95,32 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         paired_fusion(x, torch.ones(3, device="meta") / 3)
     with pytest.raises(ValueError, match="unsupported device"):
         local_step(x, x, x, lr=0.1, mu=0.9)
+    with pytest.raises(ValueError, match="unsupported device"):
+        feature_stats(x, x)
+
+
+def test_cuda_wrappers_raise_when_the_build_fails(monkeypatch):
+    """No fallback: on a CUDA tensor a failed kernel build raises; it
+    never turns into the plain version. (The tensor is faked: the check
+    comes before any device memory is touched.)"""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import feature_stats as fs
+
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    class FakeCuda:
+        shape, dtype = torch.Size([4, 8]), torch.float32
+        device = torch.device("cuda", 0)
+
+        def dim(self):
+            return 2
+
+        def is_contiguous(self):
+            return True
+
+    monkeypatch.setattr(build, "load", no_nvcc)
+    before = fs.feature_stats.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fs.feature_stats(FakeCuda(), FakeCuda())
+    assert fs.feature_stats.launches == before

@@ -146,6 +146,41 @@ def test_run_scenario_on_cpu_records_rows():
     assert rec.group_signatures == [[2 * g, 2 * g + 1] for g in range(5)]
 
 
+def test_cli_mobilenet_dirichlet_round_matches_reference():
+    """The CLI's ``--arch mobilenet --dirichlet 0.5`` inputs (reduced,
+    small) through one fed2 round of the port, against the reference's
+    ``run_federated`` on the same partition, data and converted init."""
+    from repro.configs import mobilenet as jmobilenet
+    from repro.data import synthetic as jdata
+    from repro_torch.launch import train
+    args = train.parse_args([
+        "--arch", "mobilenet", "--reduced", "--dirichlet", "0.5",
+        "--rounds", "1", "--nodes", "4", "--steps-per-epoch", "2",
+        "--batch", "8", "--train-size", "160", "--device", "cpu"])
+    task, fl, parts, get_batch, tests = train.fl_inputs(args)
+    jcfg = jmobilenet.reduced()
+    ds = jdata.make_image_dataset(160, n_classes=10, seed=0, noise=1.2)
+    jparts = jdata.dirichlet_partition(ds.labels, 4, 0.5, 10, seed=0)
+    for a, b in zip(parts, jparts):
+        np.testing.assert_array_equal(a, b)
+    jtask = jruntime.cnn_task(jcfg)
+    init = jax.tree_util.tree_map(
+        np.asarray, jtask.init_fn(jax.random.PRNGKey(0)))
+    jfl = jruntime.FLConfig(population=4, rounds=1, local_epochs=1,
+                            steps_per_epoch=2, batch_size=8, lr=0.01,
+                            momentum=0.9, method="fed2", seed=0)
+    hj = jruntime.run_federated(
+        jtask, jfl, jparts,
+        lambda s: {"images": jnp.asarray(ds.images[s]),
+                   "labels": jnp.asarray(ds.labels[s])},
+        [{"images": tests[0]["images"], "labels": tests[0]["labels"]}],
+        mesh=None, use_kernel=False)
+    ht = truntime.run_federated(task, fl, parts, get_batch, tests,
+                                device="cpu",
+                                init_params=convert.to_port(init))
+    _assert_runs_agree(hj, ht, len(tests[0]["labels"]))
+
+
 def test_cli_runs_on_cpu_when_asked():
     from repro_torch.launch import train
     h = train.main(["--reduced", "--rounds", "1", "--nodes", "3",
