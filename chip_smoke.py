@@ -11,9 +11,10 @@ script exits non-zero:
             kernel, all started together
 3. kernels  the kernels these paths run
 4. check    each kernel against its plain PyTorch version on the card,
-            at its paths' shapes (TF32 off), with device times
-            (CUDA-graph replay) of the kernel, the plain version and
-            one library call, beside the bound
+            at its paths' shapes and on ragged ones (TF32 off), with
+            device times (CUDA-graph replay) of the kernel, the plain
+            version and one library call (where one exists), beside the
+            bound
 5. main     the CLI's main path at full width (VGG9, 10 clients, 8 steps
             of batch 32): fed2 on the default routes, fed2 with
             --use-local-kernel, fedavg on the baseline VGG9; then fed2
@@ -37,6 +38,20 @@ script exits non-zero:
             within what a one-ulp change of the init does to the round
 9. scenario nxc2_fed2 for its 10 rounds, counted like the main path;
             it must learn
+10. serve   Mamba-2 1.3B at full width through the serving CLI
+            (launch/serve.py, the reference's defaults: batch 4, 32
+            prompt + 16 decoded tokens): --full (ssd_update in every
+            layer of every step: 48 x 48 launches) and --full
+            --fed2-groups 8 (also grouped_matmul, once a step), then
+            --batch 128 with Fed2 (decode_32k's batch: a 12.9 GB SSM
+            state); counted, with prefill/decode time, tok/s, peak
+            device memory and the parameter count, which must equal the
+            reference's
+11. serve profile  a short Fed2 serve under torch.profiler: device
+            busy share and device time by kernel category
+12. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
+            the kernels and with the plain versions: logits and the
+            final cache within the stated limits
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -44,6 +59,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -68,6 +84,18 @@ PVEC_ATOL = PVEC_RTOL = 1e-3
 # the JAX package's committed nxc2_fed2 record
 # (benchmarks/artifacts_perf/scenario_nxc2_fed2.json)
 SCENARIO_REFERENCE = 0.5075
+BF16_FLOPS = 989e12            # H100 SXM bf16, dense tensor cores
+# parameters of mamba2-1.3b and of with_fed2(groups=8) of it: the
+# reference's param_count(jax.eval_shape(init_params, ...)) on its
+# configs/mamba2_1_3b.full()
+SERVE_PARAMS = {0: 1_446_812_672, 8: 1_356_667_904}
+SERVE_LAYERS = 48
+# decode parity, kernels vs plain versions at full width in fp32: fp32
+# round-off (~1e-7 relative per operation) carried through 48 layers
+# and 8 tokens stays orders of magnitude below these; a wrong index or a
+# lost term moves logits (O(1)) and the state by O(1)
+PARITY_LOGIT_ATOL = 1e-3
+PARITY_STATE_RTOL = 1e-4   # of the cache leaf's max |value|
 
 
 @contextlib.contextmanager
@@ -146,9 +174,12 @@ def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(3 * L2_BYTES / nbytes))
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
+    """The least time (ms) for ``nbytes`` of device memory traffic and
+    ``flops`` operations at ``peak`` (the rate of their type), and which
+    of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -178,7 +209,8 @@ def cohort(layout, n, dtype, gen, scale=1.0):
 # ---------------------------------------------------------------------------
 
 
-CUDA_SOURCES = ("paired_fusion", "feature_stats")
+CUDA_SOURCES = ("paired_fusion", "feature_stats", "grouped_matmul",
+                "ssd_update")
 
 
 def phase_build():
@@ -408,6 +440,194 @@ def phase_check_feature_stats() -> dict:
             "max_abs_err": err_path, **path}
 
 
+def ssd_inputs(b, h, p, n, dt_x, gen, state=None):
+    """Inputs of one ssd_update call as the decode makes them: x, b and c
+    views into one (B, H*P + 2N) row of dtype ``dt_x``, dt > 0 after a
+    softplus, a_log as the model inits it."""
+    row = torch.randn(b, h * p + 2 * n, generator=gen, device="cuda")
+    row = row.to(dt_x)
+    x = row[:, :h * p].reshape(b, h, p)
+    bm, cm = row[:, h * p:h * p + n], row[:, h * p + n:]
+    if state is None:
+        state = torch.randn(b, h, p, n, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, h, generator=gen, device="cuda"))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    d = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    return state, x, dt, a_log, bm, cm, d
+
+
+def phase_check_ssd_update() -> dict:
+    """ssd_update against ssd_update_ref at the serve path's shapes
+    (batch 4 and decode_32k's 128, H = P = 64, N = 128; x in bf16 as at
+    full width, and fp32) and on ragged shapes; in place (out = h) as
+    the decode calls it, and into a fresh buffer.
+
+    Limits: h' within 1e-5 (fp32; both compute decay*h + dt*x*b with
+    one rounding more or less); y within 1e-5 of sum_n |h'_n c_n| +
+    |d x| per output (fp32 sums of N terms in another order), plus one
+    bf16 step of |y| when y is bf16."""
+    from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def check_one(name, b, h, p, n, dt_x, in_place=True, misalign=False):
+        args = ssd_inputs(b, h, p, n, dt_x, gen)
+        if misalign:     # a state that is not 16-byte aligned: scalar path
+            buf = torch.empty(args[0].numel() + 1, device="cuda")
+            st = buf[1:].view(args[0].shape)
+            st.copy_(args[0])
+            args = (st,) + args[1:]
+        want_h, want_y = ssd_update_ref(*args)
+        scale = torch.einsum("bhpn,bn->bhp", want_h.abs(),
+                             args[5].float().abs()) + \
+            (args[6][None, :, None] * args[1].float()).abs()
+        # in place on a copy (the unaligned state is its own copy)
+        state = args[0].clone() if in_place and not misalign else args[0]
+        got_h, got_y = ssd_update(state, *args[1:],
+                                  out=state if in_place else None)
+        assert (got_h is state) == in_place
+        eh = (got_h - want_h).abs().max().item()
+        dy = (got_y.float() - want_y.float()).abs()
+        lim = 1e-5 * scale
+        if dt_x == bf16:
+            lim = lim + 2.0 ** -7 * want_y.float().abs()
+        ey = dy.max().item()
+        ok = eh <= 1e-5 and bool((dy <= lim).all())
+        print(f"  ssd_update {name} ({b}, {h}, {p}, {n}) x "
+              f"{str(dt_x)[6:]}{' in place' if in_place else ''}: "
+              f"max_abs_err h' {eh:.3g} (tol 1e-5), y {ey:.3g} (tol "
+              f"{'1e-5 x sum|h c| + |d x|' + (' + 2^-7|y|' if dt_x == bf16 else '')}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"ssd_update {name}: kernel disagrees with "
+                                 "its plain version")
+        return max(eh, ey)
+
+    err_path = max(check_one("serve path", 4, 64, 64, 128, bf16),
+                   check_one("serve path", 4, 64, 64, 128, f32))
+    check_one("decode_32k batch", 128, 64, 64, 128, bf16)
+    check_one("decode_32k batch", 128, 64, 64, 128, f32, in_place=False)
+    for shape in ((3, 5, 7, 9), (2, 6, 33, 130), (2, 3, 40, 36),
+                  (1, 1, 1, 1), (2, 9, 100, 260)):
+        check_one("ragged", *shape, f32)
+        check_one("ragged", *shape, bf16, in_place=False)
+    check_one("unaligned state", 2, 4, 16, 128, f32, misalign=True)
+
+    timings = {}
+    for b in (4, 128):
+        h, p, n = 64, 64, 128
+        # the state read and written (fp32); x, b, c read and y written
+        # (bf16); dt, a_log, d_skip read (fp32)
+        nbytes = 8 * b * h * p * n + 2 * (2 * b * h * p + 2 * b * n) \
+            + 4 * (b * h + 2 * h)
+        sets = [ssd_inputs(b, h, p, n, bf16, gen)
+                for _ in range(copies_for(nbytes))]
+        reps = max(200 if b == 4 else 40, len(sets))
+        t = {"ms": time_ms([lambda a=a: ssd_update(*a, out=a[0])
+                            for a in sets], reps),
+             "plain_ms": time_ms([lambda a=a: ssd_update_ref(*a)
+                                  for a in sets], reps),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 6 * b * h * p * n)
+        timings[b] = t
+        print(f"  ssd_update ({b}, {h}, {p}, {n}) x bf16: "
+              f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library none, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']})", flush=True)
+        del sets
+    return {"name": "ssd_update", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_update.cu",
+            "replaces": "src/repro/kernels/ssd_update.py:50",
+            "max_abs_err": err_path, **timings[4]}
+
+
+def gmm_inputs(lead, g, k, n, dt, gen, bias=False):
+    """x (lead, G*K) ~ N(0, 1) and w (G, K, N) at the model's fan-in
+    scale 1/sqrt(K), so y is O(1) as in the unembedding."""
+    x = torch.randn(tuple(lead) + (g * k,), generator=gen, device="cuda")
+    w = torch.randn(g, k, n, generator=gen, device="cuda") / math.sqrt(k)
+    b = torch.randn(g, n, generator=gen, device="cuda") if bias else None
+    return x.to(dt), w.to(dt), None if b is None else b.to(dt)
+
+
+def phase_check_grouped_matmul() -> dict:
+    """grouped_matmul against grouped_matmul_ref at the Fed2 unembedding's
+    shapes (x (M, 8*256), w (8, 256, 6288), M = 4 and 128, bf16 as at
+    full width, and fp32) and on ragged ones (M, K and N off the tiles,
+    N off the 16-byte vector width, an unaligned w, a leading batch
+    dimension, a bias). Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the
+    reference's (tests/test_kernels.py)."""
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_ref)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    g0, k0, n0 = 8, 256, 6288
+
+    def check_one(name, lead, g, k, n, dt, bias=False, misalign=False):
+        x, w, b = gmm_inputs(lead, g, k, n, dt, gen, bias)
+        if misalign:
+            buf = torch.empty(w.numel() + 1, dtype=dt, device="cuda")
+            w2 = buf[1:].view(w.shape)
+            w2.copy_(w)
+            w = w2
+        tol = 1e-4 * math.sqrt(k) if dt == f32 else 0.3
+        return check(f"grouped_matmul {name} x {tuple(x.shape)} w "
+                     f"{tuple(w.shape)}{' + bias' if bias else ''} "
+                     f"{str(dt)[6:]}", grouped_matmul(x, w, b),
+                     grouped_matmul_ref(x, w, b), tol)
+
+    err_path = max(check_one("serve path", (4,), g0, k0, n0, bf16),
+                   check_one("serve path", (4,), g0, k0, n0, f32))
+    check_one("decode_32k batch", (128,), g0, k0, n0, bf16)
+    check_one("decode_32k batch", (128,), g0, k0, n0, f32)
+    # the streaming path (M <= 8, N % 4 == 0, w aligned), ragged, and K
+    # beyond one staged chunk of x (256 rows)
+    check_one("ragged", (3,), 3, 100, 68, f32, bias=True)
+    check_one("ragged", (8,), 2, 33, 260, bf16)
+    check_one("long K", (4,), 2, 600, 132, bf16)
+    check_one("long K", (6,), 2, 600, 132, f32)
+    check_one("leading batch dim", (2, 3), 4, 64, 136, f32, bias=True)
+    check_one("leading batch dim", (2, 1), g0, k0, n0, bf16, bias=True)
+    # the tiled path: M > 8, or N off 4, or w unaligned
+    check_one("ragged", (9,), 2, 64, 256, bf16)
+    check_one("ragged", (5,), 3, 100, 70, f32, bias=True)
+    check_one("ragged", (17,), 5, 13, 130, bf16, bias=True)
+    check_one("ragged", (130,), 13, 13, 13, f32)
+    check_one("ragged", (200,), 5, 100, 70, bf16)
+    check_one("N off the vector width", (4,), 2, 64, 6289, bf16)
+    check_one("unaligned w", (4,), 2, 64, 512, f32, misalign=True)
+    check_one("unaligned w", (4,), 2, 64, 512, bf16, misalign=True)
+
+    timings = {}
+    for m in (4, 128):
+        esz = 2
+        w_bytes = g0 * k0 * n0 * esz
+        nbytes = w_bytes + esz * m * g0 * (k0 + n0)
+        sets = [gmm_inputs((m,), g0, k0, n0, bf16, gen)[:2]
+                for _ in range(copies_for(w_bytes))]
+        reps = max(200, len(sets))
+        t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets],
+                           reps),
+             "plain_ms": time_ms([lambda a=a: grouped_matmul_ref(*a)
+                                  for a in sets], reps),
+             "library_ms": time_ms([lambda a=a: torch.bmm(
+                 a[0].view(m, g0, k0).transpose(0, 1), a[1])
+                 for a in sets], reps)}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * g0 * k0 * n0,
+                                             BF16_FLOPS)
+        timings[m] = t
+        print(f"  grouped_matmul M={m} (8, 256, 6288) bf16: "
+              f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"torch.bmm {t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
+        del sets
+    return {"name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:48",
+            "max_abs_err": err_path, **timings[4]}
+
+
 def finite_params(h):
     from repro_torch.models.module import tree_leaves
     leaves = tree_leaves(h["final_params"])
@@ -430,18 +650,28 @@ def cli(*extra):
     return h
 
 
-def counted(label: str, run, expect: dict):
-    """``run()`` with every launch counter set to 0 just before it and
-    read just after; the counts must equal ``expect``."""
+def wrappers() -> dict:
+    """Every kernel's wrapper, by name: each carries its launch count."""
     from repro_torch.kernels.feature_stats import feature_stats
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.local_step import local_step
     from repro_torch.kernels.paired_fusion import paired_fusion
-    paired_fusion.launches = local_step.launches = 0
-    feature_stats.launches = 0
+    from repro_torch.kernels.ssd_update import ssd_update
+    return {"paired_fusion": paired_fusion, "local_step": local_step,
+            "feature_stats": feature_stats, "grouped_matmul": grouped_matmul,
+            "ssd_update": ssd_update}
+
+
+def counted(label: str, run, expect: dict):
+    """``run()`` with every launch counter set to 0 just before it and
+    read just after; the counts must equal ``expect`` (a kernel it does
+    not name must not launch)."""
+    fns = wrappers()
+    expect = {**{k: 0 for k in fns}, **expect}
+    for f in fns.values():
+        f.launches = 0
     out = run()
-    counts = {"paired_fusion": paired_fusion.launches,
-              "local_step": local_step.launches,
-              "feature_stats": feature_stats.launches}
+    counts = {k: f.launches for k, f in fns.items()}
     print(f"  launches, {label}: {counts} (expected {expect})", flush=True)
     assert counts == expect, f"{label}: launches {counts} != {expect}"
     return out, counts
@@ -512,10 +742,13 @@ def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (("paired_fusion", ("paired_fusion",)),
                       ("local_step", ("local_step",)),
+                      ("ssd_update", ("ssd_update",)),
+                      ("grouped_matmul", ("grouped_matmul",)),
                       ("memcpy/memset", ("memcpy", "memset")),
                       ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
                                         "wgrad", "dgrad", "winograd")),
-                      ("gemm", ("gemm", "gemv", "cutlass", "cublas"))):
+                      ("gemm", ("gemm", "gemv", "cutlass", "cublas",
+                                "nvjet"))):
         if any(k in n for k in keys):
             return cat
     return "other (elementwise, reductions, norms, pooling)"
@@ -622,6 +855,160 @@ def phase_scenario():
     assert rec.final_acc > 0.2, "nxc2_fed2 did not learn (<= 2x chance)"
 
 
+def free_device_memory():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_cli(*extra):
+    """The serving CLI (``python -m repro_torch.launch.serve``) with the
+    reference's defaults plus ``extra``; checks its output and prints
+    its times, peak device memory and parameter count."""
+    from repro_torch.launch import serve
+    argv = list(extra)
+    print("  python -m repro_torch.launch.serve", " ".join(argv), flush=True)
+    args = serve.parse_args(argv)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    toks, logits = out["tokens"], out["logits"]
+    cfg = serve.config_of(args)
+    assert toks.shape == (args.batch, args.gen), toks.shape
+    assert ((toks >= 0) & (toks < cfg.vocab)).all(), "token out of range"
+    assert logits.shape == (args.batch, 1, cfg.vocab) and logits.is_cuda
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    want = SERVE_PARAMS[args.fed2_groups]
+    print(f"  -> prefill {args.prompt_len} tok x {args.batch} in "
+          f"{out['prefill_s']:.3f} s ({args.prompt_len * args.batch / out['prefill_s']:.1f} tok/s), "
+          f"decode {args.gen} tok x {args.batch} in {out['decode_s']:.3f} s "
+          f"({out['tok_s']:.1f} tok/s); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; {out['param_count']:,} parameters "
+          f"(reference: {want:,})", flush=True)
+    assert out["param_count"] == want, "parameter count differs from the " \
+        "reference's"
+    del out
+    free_device_memory()
+    return peak
+
+
+def phase_serve() -> dict:
+    """Returns the launch counts of the run that takes both kernels."""
+    from repro_torch.launch import serve
+    d = serve.parse_args([])
+    steps = d.prompt_len + d.gen
+    ssd = SERVE_LAYERS * steps
+    counted("serve --full", lambda: serve_cli("--full"),
+            {"ssd_update": ssd})
+    _, counts = counted(
+        "serve --full --fed2-groups 8",
+        lambda: serve_cli("--full", "--fed2-groups", "8"),
+        {"ssd_update": ssd, "grouped_matmul": steps})
+    peak, _ = counted(
+        "serve --full --fed2-groups 8 --batch 128 (decode_32k's batch)",
+        lambda: serve_cli("--full", "--fed2-groups", "8", "--batch", "128",
+                          "--prompt-len", "2", "--gen", "2"),
+        {"ssd_update": SERVE_LAYERS * 4, "grouped_matmul": 4})
+    state = SERVE_LAYERS * 128 * 64 * 64 * 128 * 4
+    print(f"  SSM state at batch 128: {state / 1e9:.1f} GB; peak "
+          f"{peak / 1e9:.1f} GB", flush=True)
+    assert peak > state, "the batch-128 run did not hold its SSM state"
+    return counts
+
+
+def phase_serve_profile():
+    """A Fed2 serve at full width (batch 4, 8 prompt + 8 decoded tokens)
+    under torch.profiler: device busy share of the wall time and device
+    time by kernel category."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models import transformer as tfm
+    cfg = with_fed2(get_config("mamba2-1.3b"), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    kw = dict(batch=4, prompt_len=8, gen=8, device="cuda",
+              init_params=params)
+    run_serve(cfg, **kw)                                    # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = run_serve(cfg, **kw)
+        wall = time.time() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    total_us = sum(e.self_device_time_total for e in dev)
+    steps = kw["prompt_len"] + kw["gen"]
+    print(f"  {steps} serve steps: wall {wall * 1e3:.1f} ms "
+          f"({wall * 1e3 / steps:.2f} ms/step; decode {out['tok_s']:.1f} "
+          f"tok/s), device busy {total_us / 1e3:.1f} ms "
+          f"({100 * total_us / 1e3 / wall / 1e3:.1f} %), "
+          f"{sum(e.count for e in dev)} device ops")
+    if not dev:
+        print("  device time: not measured (the profiler saw no device "
+              "events)")
+        return
+    by_cat = {}
+    for e in dev:
+        c = _category(e.key)
+        by_cat[c] = by_cat.get(c, 0.0) + e.self_device_time_total
+    for c, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {c:<48s} {us / 1e3:8.2f} ms  {100 * us / total_us:5.1f} %")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def phase_decode_parity():
+    """The full mamba2-1.3b with Fed2 (groups 8) in fp32, TF32 off: 8
+    tokens through decode_step with the kernels and with the plain
+    versions, from one init and two zeroed caches. The plain route must
+    launch no kernel; logits (every step) and the final cache must agree
+    within PARITY_LOGIT_ATOL and PARITY_STATE_RTOL (of each cache
+    leaf's largest value)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, init_cache
+    cfg = with_fed2(get_config("mamba2-1.3b", dtype=torch.float32), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    bs, steps = 4, 8
+    toks = torch.randint(0, cfg.vocab, (bs, steps), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+
+    def run(use_kernel):
+        cache = init_cache(cfg, bs, 128, device="cuda")
+        logits = [decode_step(params, cfg, cache, toks[:, t:t + 1], t,
+                              use_kernel=use_kernel)[0]
+                  for t in range(steps)]
+        return logits, cache
+
+    (on, c_on), _ = counted(
+        "decode parity, kernels", lambda: run(True),
+        {"ssd_update": SERVE_LAYERS * steps, "grouped_matmul": steps})
+    (off, c_off), _ = counted("decode parity, plain versions",
+                              lambda: run(False), {})
+    err_logits = max((a - b).abs().max().item() for a, b in zip(on, off))
+    mag = max(b.abs().max().item() for b in off)
+    errs = {k: (c_on["blocks"][k] - c_off["blocks"][k]).abs().max().item()
+            for k in ("ssm", "conv")}
+    lims = {k: PARITY_STATE_RTOL * c_off["blocks"][k].abs().max().item()
+            for k in ("ssm", "conv")}
+    ok = err_logits <= PARITY_LOGIT_ATOL and all(errs[k] <= lims[k]
+                                                 for k in errs)
+    print(f"  {steps} tokens, batch {bs}, fp32: max |dlogits| "
+          f"{err_logits:.3g} (limit {PARITY_LOGIT_ATOL:g}; max |logit| "
+          f"{mag:.3g}); final cache max |dh| {errs['ssm']:.3g} (limit "
+          f"{lims['ssm']:.3g}), max |dconv| {errs['conv']:.3g} (limit "
+          f"{lims['conv']:.3g}) {'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "decode with the kernels drifts from the plain versions"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -642,17 +1029,23 @@ def main() -> int:
     print("[kernels] paired_fusion (cuda: src/repro_torch/csrc/"
           "paired_fusion.cu), local_step (triton: src/repro_torch/kernels/"
           "local_step.py), feature_stats (cuda: src/repro_torch/csrc/"
-          "feature_stats.cu)", flush=True)
+          "feature_stats.cu), grouped_matmul (cuda: src/repro_torch/csrc/"
+          "grouped_matmul.cu), ssd_update (cuda: src/repro_torch/csrc/"
+          "ssd_update.cu)", flush=True)
     layout = main_layout()
     with phase("check (TF32 off)"), tf32_off():
         records = [phase_check_paired_fusion(layout),
                    phase_check_local_step(layout),
-                   phase_check_feature_stats()]
+                   phase_check_feature_stats(),
+                   phase_check_grouped_matmul(),
+                   phase_check_ssd_update()]
         for r in records:
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms'] * 1e3:.1f} us")
             print(f"  {r['name']}: {r['ms'] * 1e3:.1f} us, plain "
-                  f"{r['plain_ms'] * 1e3:.1f} us, library "
-                  f"{r['library_ms'] * 1e3:.1f} us, bound "
+                  f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
                   f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+    free_device_memory()
     with phase("main"):
         counts = phase_main()
     with phase("auto_depth"):
@@ -664,6 +1057,16 @@ def main() -> int:
         phase_parity()
     with phase("scenario"):
         phase_scenario()
+    with phase("serve"):
+        serve_counts = phase_serve()
+    counts["grouped_matmul"] = serve_counts["grouped_matmul"]
+    counts["ssd_update"] = serve_counts["ssd_update"]
+    with phase("serve profile"):
+        phase_serve_profile()
+    free_device_memory()
+    with phase("decode parity (TF32 off)"), tf32_off():
+        phase_decode_parity()
+    free_device_memory()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -1,0 +1,118 @@
+"""Block-diagonal (grouped) matrix product: Fed2's decoupled layers.
+
+Replaces the TPU kernel ``grouped_matmul_kernel`` of
+``src/repro/kernels/grouped_matmul.py`` together with its wrapper
+(``repro/kernels/ops.py:grouped_matmul``) and oracle
+(``repro/kernels/ref.py:grouped_matmul_ref``): ``y[..., g*N:(g+1)*N] =
+x[..., g*K:(g+1)*K] @ w[g]`` for x (..., G*K) and w (G, K, N), fp32
+accumulation, the result in x's dtype, plus an optional (G, N) bias.
+The kernel is CUDA C++ for Hopper in ``csrc/grouped_matmul.cu``, built
+by ``kernels/build.py`` and bound with ctypes.
+
+Bound on the H100: bytes at the serving shapes (the Fed2 unembedding
+of Mamba-2 1.3B: M = batch, G = 8, K = 256, N = 6288, bf16; 25.8 MB of
+weights, 7.7 us at 3.35 TB/s). The TPU kernel needs M, K and N padded
+to 128 (its wrapper pads); the CUDA kernel masks its loads instead and
+pads nothing. Up to M = 8 (decode batches) it streams w through
+registers once, with K split over a block's warps; above, it works in
+shared-memory tiles. It runs fp32 FMAs, not tensor cores, so at M = 128
+its arithmetic, not its bytes, sets its time.
+
+``grouped_matmul`` is the wrapper: on CPU tensors it computes
+``grouped_matmul_ref``; on CUDA tensors it launches the kernel or
+raises. The bias is added outside the kernel, as the reference's
+wrapper adds it. ``grouped_matmul.launches`` counts kernel launches
+(one per call). The kernel has no backward: it serves forward passes
+only (``models.layers.grouped_dense_apply(use_kernel=True)``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535       # csrc/grouped_matmul.cu: m tiles and groups
+_TILE_M = 64               # csrc/grouped_matmul.cu: rows of a tile
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version: x (..., G*K), w (G, K, N), b (G, N) ->
+    (..., G*N)."""
+    g, k, n = w.shape
+    xg = x.reshape(x.shape[:-1] + (g, k))
+    y = torch.einsum("...gk,gkn->...gn", xg, w)
+    if b is not None:
+        y = y + b
+    return y.reshape(x.shape[:-1] + (g * n,))
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("grouped_matmul")
+    fn = lib.grouped_matmul_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, w, b):
+    if w.dim() != 3 or x.dim() < 1 or x.shape[-1] != w.shape[0] * w.shape[1]:
+        raise ValueError(
+            f"grouped_matmul takes x (..., G*K) and w (G, K, N), got "
+            f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.numel() == 0 or w.numel() == 0:
+        raise ValueError("grouped_matmul takes non-empty x and w")
+    if b is not None and tuple(b.shape) != (w.shape[0], w.shape[2]):
+        raise ValueError(f"grouped_matmul: bias must be (G, N) = "
+                         f"{(w.shape[0], w.shape[2])}, got {tuple(b.shape)}")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(
+            f"grouped_matmul takes float32 or bfloat16 x and w of one "
+            f"dtype, got {x.dtype} and {w.dtype}")
+    if w.device != x.device or (b is not None and b.device != x.device):
+        raise ValueError("grouped_matmul: x, w and b must share a device")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped_matmul needs contiguous (row-major) x "
+                         "and w")
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor | None = None) -> torch.Tensor:
+    """Block-diagonal product ``x @ blockdiag(w) (+ b)``: x (..., G*K),
+    w (G, K, N), b (G, N) or None -> (..., G*N) in x's dtype. CPU
+    tensors take ``grouped_matmul_ref``; CUDA tensors launch the
+    kernel."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return grouped_matmul_ref(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"grouped_matmul: unsupported device {x.device}")
+    lib = _library()
+    g, k, n = w.shape
+    lead = x.shape[:-1]
+    xm = x.reshape(-1, g * k)
+    m = xm.shape[0]
+    if -(-m // _TILE_M) > _MAX_GRID_YZ or g > _MAX_GRID_YZ:
+        raise ValueError(f"grouped_matmul: M = {m} or G = {g} exceeds the "
+                         "kernel's grid")
+    y = torch.empty((m, g * n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.grouped_matmul_launch(
+            xm.data_ptr(), w.data_ptr(), y.data_ptr(), m, g, k, n,
+            _DTYPE_CODES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
+                           f"error {err}")
+    grouped_matmul.launches += 1
+    if b is not None:
+        y = (y.view(m, g, n) + b).view(m, g * n)
+    return y.reshape(lead + (g * n,))
+
+
+grouped_matmul.launches = 0

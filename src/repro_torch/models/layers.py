@@ -1,5 +1,6 @@
 """Primitive layers: dense, grouped (block-diagonal) dense, conv2d with
-feature groups, GroupNorm and batch-statistics BatchNorm.
+feature groups, GroupNorm and batch-statistics BatchNorm; for the LMs,
+RMSNorm, the depthwise causal conv1d's weights, the embedding and SiLU.
 
 Each layer is an (init, apply) pair of plain functions over a dict of
 tensors, so the round engine can take gradients per client with
@@ -25,7 +26,7 @@ def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
                dtype=torch.float32):
     p = {"w": default_init(gen, (d_in, d_out), fan_in=d_in, dtype=dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
     return p
 
 
@@ -46,18 +47,61 @@ def grouped_dense_init(gen, groups: int, d_in: int, d_out: int, *,
     gi, go = d_in // groups, d_out // groups
     p = {"w": default_init(gen, (groups, gi, go), fan_in=gi, dtype=dtype)}
     if bias:
-        p["b"] = torch.zeros((groups, go), dtype=dtype)
+        p["b"] = torch.zeros((groups, go), dtype=dtype, device=gen.device)
     return p
 
 
-def grouped_dense_apply(p, x):
-    """x: (..., G*gi) -> (..., G*go)."""
+def grouped_dense_apply(p, x, *, use_kernel: bool = False):
+    """x: (..., G*gi) -> (..., G*go). ``use_kernel`` routes the product
+    through ``kernels/grouped_matmul.py`` (the hand-written kernel on CUDA
+    tensors, its plain version on the CPU). It has no backward, so it is
+    opt-in: the CNNs' training path keeps the einsum, as the reference
+    does."""
+    if use_kernel:
+        from repro_torch.kernels.grouped_matmul import grouped_matmul
+        return grouped_matmul(x, p["w"], p.get("b"))
     g, gi, go = p["w"].shape
     xg = x.reshape(x.shape[:-1] + (g, gi))
     y = torch.einsum("...gi,gio->...go", xg, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y.reshape(x.shape[:-1] + (g * go,))
+
+
+# ---------------------------------------------------------------------------
+# LM layers: RMSNorm, depthwise causal conv1d weights, embedding, SiLU
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x, *, eps: float = 1e-6):
+    """RMSNorm over the last axis: fp32 statistics, cast back to x's
+    dtype, then multiplied by the scale (the reference's order)."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def conv1d_depthwise_init(gen, channels: int, k: int, dtype=torch.float32):
+    """Depthwise causal conv1d (Mamba-style): weight ``(k, 1, C)`` as in
+    the reference (its "LIO" layout), bias ``(C,)``."""
+    return {"w": default_init(gen, (k, 1, channels), fan_in=k, dtype=dtype),
+            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+
+
+def embed_init(gen, vocab: int, d: int, dtype=torch.float32):
+    return {"table": default_init(gen, (vocab, d), fan_in=d, dtype=dtype)}
+
+
+def embed_apply(p, ids):
+    return p["table"][ids]
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
 
 
 # ---------------------------------------------------------------------------

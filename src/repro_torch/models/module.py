@@ -22,16 +22,17 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class Initializer:
     """Fan-in scaled normal initializer: N(0, 1) * scale / sqrt(fan_in),
-    drawn from an explicit ``torch.Generator`` (on the CPU; callers move
-    the tree to their device)."""
+    drawn from an explicit ``torch.Generator`` on the generator's device
+    (the CNNs draw on the CPU and callers move the tree; a full-width LM
+    draws on the card)."""
     scale: float = 1.0
 
     def __call__(self, generator: torch.Generator, shape, fan_in=None,
                  dtype=torch.float32) -> torch.Tensor:
         fan_in = fan_in if fan_in is not None else shape[0]
         std = self.scale / math.sqrt(max(fan_in, 1))
-        return torch.randn(tuple(shape), generator=generator,
-                           dtype=dtype) * std
+        return torch.randn(tuple(shape), generator=generator, dtype=dtype,
+                           device=generator.device) * std
 
 
 default_init = Initializer()
@@ -88,6 +89,15 @@ def tree_map(fn: Callable, tree, *rest):
     out = [tree_map(fn, v, *(r[i] for r in rest))
            for i, v in enumerate(tree)]
     return type(tree)(out)
+
+
+def stack_init(init_fn: Callable[..., Params], generator: torch.Generator,
+               n: int, *args, **kwargs) -> Params:
+    """``n`` copies of a layer, stacked on a leading layer axis (the
+    reference's layout, which it applies with ``lax.scan``; the port
+    loops over the layers in Python)."""
+    layers = [init_fn(generator, *args, **kwargs) for _ in range(n)]
+    return tree_map(lambda *leaves: torch.stack(leaves), *layers)
 
 
 def param_count(params: Params) -> int:

@@ -8,6 +8,7 @@
   device: nothing moves to the CPU silently;
 - a kernel wrapper takes its plain version only for CPU tensors.
 """
+import math
 import os
 import pathlib
 import re
@@ -64,8 +65,9 @@ def test_no_jax_or_reference_import_statement(path):
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_config
     from repro_torch.fl import runtime, scenarios
-    from repro_torch.launch import auto_depth, train
+    from repro_torch.launch import auto_depth, serve, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runtime.resolve_device(None)
@@ -83,13 +85,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         auto_depth.main(["--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         auto_depth.run_auto_depth(reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--gen", "1", "--prompt-len", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run_serve(get_config("mamba2-1.3b", reduced=True), gen=1,
+                        prompt_len=1)
     assert runtime.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     from repro_torch.kernels.feature_stats import feature_stats
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
     from repro_torch.kernels.local_step import local_step
     from repro_torch.kernels.paired_fusion import paired_fusion
+    from repro_torch.kernels.ssd_update import ssd_update
     x = torch.zeros(3, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         paired_fusion(x, torch.ones(3, device="meta") / 3)
@@ -97,6 +106,40 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         local_step(x, x, x, lr=0.1, mu=0.9)
     with pytest.raises(ValueError, match="unsupported device"):
         feature_stats(x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        grouped_matmul(x, torch.zeros(2, 4, 5, device="meta"))
+    h, v = (torch.zeros(s, device="meta") for s in ((2, 3, 4, 8), (3,)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ssd_update(h, torch.zeros(2, 3, 4, device="meta"),
+                   torch.zeros(2, 3, device="meta"), v,
+                   torch.zeros(2, 8, device="meta"),
+                   torch.zeros(2, 8, device="meta"), v)
+
+
+class FakeCuda:
+    """Shape, dtype, device and contiguous strides of a CUDA tensor, and
+    no memory: enough for a wrapper's checks, which come before any
+    device memory is touched."""
+
+    def __init__(self, *shape, dtype=torch.float32):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return len(self.shape)
+
+    def numel(self):
+        return math.prod(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def stride(self, i):
+        return math.prod(self.shape[i + 1:])
+
+
+def _no_nvcc(name):
+    raise RuntimeError(f"nvcc failed building {name}")
 
 
 def test_cuda_wrappers_raise_when_the_build_fails(monkeypatch):
@@ -106,21 +149,27 @@ def test_cuda_wrappers_raise_when_the_build_fails(monkeypatch):
     from repro_torch.kernels import build
     from repro_torch.kernels import feature_stats as fs
 
-    def no_nvcc(name):
-        raise RuntimeError(f"nvcc failed building {name}")
-
-    class FakeCuda:
-        shape, dtype = torch.Size([4, 8]), torch.float32
-        device = torch.device("cuda", 0)
-
-        def dim(self):
-            return 2
-
-        def is_contiguous(self):
-            return True
-
-    monkeypatch.setattr(build, "load", no_nvcc)
+    monkeypatch.setattr(build, "load", _no_nvcc)
     before = fs.feature_stats.launches
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        fs.feature_stats(FakeCuda(), FakeCuda())
+        fs.feature_stats(FakeCuda(4, 8), FakeCuda(4, 8))
     assert fs.feature_stats.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["grouped_matmul", "ssd_update"])
+def test_serving_kernels_raise_when_the_build_fails(monkeypatch, kernel):
+    """The same for the serving path's two kernels."""
+    import importlib
+
+    from repro_torch.kernels import build
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    wrapper = getattr(mod, kernel)
+    args = {"grouped_matmul": (FakeCuda(4, 16), FakeCuda(2, 8, 5)),
+            "ssd_update": (FakeCuda(2, 3, 4, 8), FakeCuda(2, 3, 4),
+                           FakeCuda(2, 3), FakeCuda(3), FakeCuda(2, 8),
+                           FakeCuda(2, 8), FakeCuda(3))}[kernel]
+    monkeypatch.setattr(build, "load", _no_nvcc)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        wrapper(*args)
+    assert wrapper.launches == before

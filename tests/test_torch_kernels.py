@@ -6,6 +6,10 @@ Tolerances: fp32 1e-5 for fusion and 1e-6 for the local step, the
 reference's own (tests/test_kernels.py); bf16 2e-2, one bf16 step at
 the values' magnitude (< 4), since the two frameworks may round the
 fp32 result to bf16 from sums that differ in the last fp32 bit.
+``ssd_update``: fp32 rtol = atol = 1e-5 (sums of N terms in another
+order); bf16 y within 1e-2 relative (one bf16 step), h' fp32 as above.
+``grouped_matmul``: atol 1e-4·√K and rtol 1e-4 fp32, 0.3·√K and 0.3
+bf16, the reference's (tests/test_kernels.py).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,8 +17,11 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import local_step as ls
 from repro_torch.kernels import paired_fusion as pf
+from repro_torch.kernels import ssd_update as su
+from repro_torch.models.layers import grouped_dense_apply
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -148,3 +155,166 @@ def test_local_step_rejects_bad_inputs():
     with pytest.raises(TypeError):
         ls.local_step(torch.zeros(4).double(), torch.zeros(4).double(),
                       torch.zeros(4).double(), lr=0.1, mu=0.9)
+
+
+# ---------------------------------------------------------------------------
+# ssd_update
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.normal(size=(b, h, p, n)).astype(f),
+            rng.normal(size=(b, h, p)).astype(f),
+            np.log1p(np.exp(rng.normal(size=(b, h)))).astype(f),
+            np.log(np.linspace(1.0, 16.0, h)).astype(f),
+            rng.normal(size=(b, n)).astype(f),
+            rng.normal(size=(b, n)).astype(f),
+            (1.0 + 0.1 * rng.normal(size=h)).astype(f))
+
+
+# H = 3, 5, 20: not multiples of the TPU kernel's head block (8), so
+# ops.ssd_update pads; (2, 5, 7, 9) is ragged in P and N as well
+@pytest.mark.parametrize("b,h,p,n", [(2, 8, 16, 32), (1, 3, 8, 8),
+                                     (4, 20, 32, 64), (2, 5, 7, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_update_matches_reference(b, h, p, n, dtype):
+    tdt, jdt = DTYPES[dtype]
+    hs, x, dt, a_log, bm, cm, d = _ssd_inputs(b, h, p, n)
+    t = [torch.tensor(a) for a in (hs, x, dt, a_log, bm, cm, d)]
+    t[1], t[4], t[5] = t[1].to(tdt), t[4].to(tdt), t[5].to(tdt)
+    before = su.ssd_update.launches
+    got_h, got_y = su.ssd_update(*t)
+    assert su.ssd_update.launches == before      # CPU: the plain version
+    assert got_h.dtype == torch.float32 and got_y.dtype == tdt
+    plain = su.ssd_update_ref(*t)
+    assert torch.equal(plain[0], got_h) and torch.equal(plain[1], got_y)
+    j = [jnp.asarray(a) for a in (hs, x, dt, a_log, bm, cm, d)]
+    j[1], j[4], j[5] = j[1].astype(jdt), j[4].astype(jdt), j[5].astype(jdt)
+    for want_h, want_y in (ref.ssd_update_ref(*j), ops.ssd_update(*j)):
+        np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h),
+                                   rtol=1e-5, atol=1e-5)
+        tol = 1e-5 if dtype == "float32" else 1e-2
+        np.testing.assert_allclose(_np(got_y), np.asarray(want_y,
+                                                          np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_ssd_update_in_place_and_decode_views():
+    """The decode's call: x, b and c are views into one wide (B, C) row
+    (only their batch stride is free) and h' goes into the state's own
+    buffer."""
+    b, h, p, n = 3, 4, 8, 16
+    hs, x, dt, a_log, bm, cm, d = _ssd_inputs(b, h, p, n, seed=5)
+    row = torch.zeros(b, h * p + 2 * n + 5)
+    row[:, :h * p] = torch.tensor(x).reshape(b, h * p)
+    row[:, h * p:h * p + n] = torch.tensor(bm)
+    row[:, h * p + n:h * p + 2 * n] = torch.tensor(cm)
+    xv = row[:, :h * p].reshape(b, h, p)
+    bv, cv = row[:, h * p:h * p + n], row[:, h * p + n:h * p + 2 * n]
+    assert not xv.is_contiguous() and not bv.is_contiguous()
+    state = torch.tensor(hs)
+    got_h, got_y = su.ssd_update(state, xv, torch.tensor(dt),
+                                 torch.tensor(a_log), bv, cv,
+                                 torch.tensor(d), out=state)
+    assert got_h is state
+    want_h, want_y = ref.ssd_update_ref(*(jnp.asarray(a) for a in (
+        hs, x, dt, a_log, bm, cm, d)))
+    np.testing.assert_allclose(state.numpy(), np.asarray(want_h),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_update_matches_the_models_step():
+    """The plain version is the model's decode recurrence
+    (``models.ssm.ssd_step``), as the reference's kernel is its."""
+    from repro_torch.models.ssm import ssd_step
+    t = [torch.tensor(a) for a in _ssd_inputs(2, 6, 8, 16, seed=2)]
+    kh, ky = su.ssd_update(*t)
+    sh, sy = ssd_step(*t)
+    np.testing.assert_allclose(kh.numpy(), sh.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ky.numpy(), sy.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_ssd_update_rejects_bad_inputs():
+    t = [torch.tensor(a) for a in _ssd_inputs(2, 3, 4, 8)]
+    with pytest.raises(ValueError):                   # b of the wrong N
+        su.ssd_update(*t[:4], t[4][:, :5], *t[5:])
+    with pytest.raises(TypeError):                    # bf16 state
+        su.ssd_update(t[0].bfloat16(), *t[1:])
+    with pytest.raises(TypeError):                    # x and b differ
+        su.ssd_update(t[0], t[1].bfloat16(), *t[2:])
+    with pytest.raises(ValueError):                   # x with P strided
+        su.ssd_update(t[0], t[1].transpose(1, 2).contiguous()
+                      .transpose(1, 2), *t[2:])
+    with pytest.raises(ValueError):                   # out of another shape
+        su.ssd_update(*t, out=torch.zeros(2, 3, 4, 9))
+
+
+# ---------------------------------------------------------------------------
+# grouped_matmul
+# ---------------------------------------------------------------------------
+
+
+def _gmm_inputs(lead, g, k, n, seed=0, bias=True):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=tuple(lead) + (g * k,)).astype(np.float32)
+    w = rng.normal(size=(g, k, n)).astype(np.float32)
+    b = rng.normal(size=(g, n)).astype(np.float32) if bias else None
+    return x, w, b
+
+
+# the reference's shapes (K, N and M off the TPU kernel's 128 tiles, so
+# ops.grouped_matmul pads) and the reduced serve's Fed2 unembedding
+@pytest.mark.parametrize("m,g,k,n", [(64, 4, 32, 48), (200, 5, 100, 70),
+                                     (1, 10, 52, 4), (130, 13, 13, 13),
+                                     (3, 4, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_matches_reference(m, g, k, n, dtype):
+    tdt, jdt = DTYPES[dtype]
+    x, w, b = _gmm_inputs((m,), g, k, n)
+    before = gm.grouped_matmul.launches
+    got = gm.grouped_matmul(_t(x, tdt), _t(w, tdt), _t(b, tdt))
+    assert gm.grouped_matmul.launches == before   # CPU: the plain version
+    assert got.dtype == tdt and got.shape == (m, g * n)
+    xj, wj, bj = (jnp.asarray(a).astype(jdt) for a in (x, w, b))
+    tol = 1e-4 if dtype == "float32" else 0.3
+    for want in (ref.grouped_matmul_ref(xj, wj, bj),
+                 ops.grouped_matmul(xj, wj, bj)):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   atol=tol * np.sqrt(k), rtol=tol)
+
+
+def test_grouped_matmul_leading_dims_and_no_bias():
+    x, w, _ = _gmm_inputs((3, 5), 4, 16, 8, seed=1, bias=False)
+    got = gm.grouped_matmul(torch.tensor(x), torch.tensor(w))
+    assert got.shape == (3, 5, 32)
+    for want in (ref.grouped_matmul_ref(jnp.asarray(x), jnp.asarray(w)),
+                 ops.grouped_matmul(jnp.asarray(x), jnp.asarray(w))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-4 * 4, rtol=1e-4)
+
+
+def test_grouped_dense_apply_kernel_route_matches_einsum():
+    """``use_kernel=True`` on CPU tensors takes the kernel's plain
+    version: the same function as the einsum route, bias included."""
+    x, w, b = _gmm_inputs((2, 3), 4, 8, 6, seed=2)
+    p = {"w": torch.tensor(w), "b": torch.tensor(b)}
+    on = grouped_dense_apply(p, torch.tensor(x), use_kernel=True)
+    off = grouped_dense_apply(p, torch.tensor(x))
+    np.testing.assert_allclose(on.numpy(), off.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_grouped_matmul_rejects_bad_inputs():
+    x, w, b = (torch.tensor(a) for a in _gmm_inputs((4,), 2, 8, 6))
+    with pytest.raises(ValueError):                   # x of the wrong width
+        gm.grouped_matmul(x[:, :15], w)
+    with pytest.raises(ValueError):                   # bias not (G, N)
+        gm.grouped_matmul(x, w, b[:, :5])
+    with pytest.raises(TypeError):                    # dtypes differ
+        gm.grouped_matmul(x, w.bfloat16())
+    with pytest.raises(ValueError):                   # strided x
+        gm.grouped_matmul(torch.zeros(16, 4).t(), w)
