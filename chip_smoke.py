@@ -8,7 +8,8 @@ script exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi), torch/CUDA
 2. build    the CUDA C++ kernels (one nvcc per source) and the Triton
-            kernel, all started together
+            kernel, all started together; each CUDA kernel's registers
+            and spills (ptxas) and grouped_matmul's dynamic shared memory
 3. kernels  the kernels these paths run
 4. check    each kernel against its plain PyTorch version on the card,
             at its paths' shapes and on ragged ones (TF32 off), with
@@ -42,11 +43,12 @@ script exits non-zero:
             (launch/serve.py, the reference's defaults: batch 4, 32
             prompt + 16 decoded tokens): --full (ssd_update in every
             layer of every step: 48 x 48 launches) and --full
-            --fed2-groups 8 (also grouped_matmul, once a step), then
-            --batch 128 with Fed2 (decode_32k's batch: a 12.9 GB SSM
-            state); counted, with prefill/decode time, tok/s, peak
-            device memory and the parameter count, which must equal the
-            reference's
+            --fed2-groups 8 (also grouped_matmul, once a step, on its
+            stream route), then --batch 128 with Fed2 (decode_32k's
+            batch: a 12.9 GB SSM state; grouped_matmul's wgmma route);
+            counted, grouped_matmul by route too, with prefill/decode
+            time, tok/s, peak device memory and the parameter count,
+            which must equal the reference's
 11. serve profile  a short Fed2 serve under torch.profiler: device
             busy share and device time by kernel category
 12. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
@@ -246,9 +248,30 @@ def phase_build():
         print(f"  built {k} in {v:.1f} s")
     for name in CUDA_SOURCES:
         log = build.library_path(name).with_suffix(".log")
+        entry = "?"
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas ({name}):", line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas ({name}, {demangled(entry)}):", line.strip())
+    from repro_torch.kernels import grouped_matmul as gm
+    for r, dt in (("stream", torch.bfloat16), ("stream", torch.float32),
+                  ("wgmma", torch.bfloat16)):
+        print(f"  grouped_matmul {r} route, {str(dt)[6:]}: "
+              f"{gm.dynamic_smem(r, dt)} bytes of dynamic shared memory "
+              f"per block")
+
+
+def demangled(symbol: str) -> str:
+    """A kernel's name and template arguments, as c++filt gives them (the
+    symbol itself where c++filt is missing)."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    name = (out or symbol).replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0]
 
 
 def check(name, got, want, tol):
@@ -554,17 +577,23 @@ def gmm_inputs(lead, g, k, n, dt, gen, bias=False):
 def phase_check_grouped_matmul() -> dict:
     """grouped_matmul against grouped_matmul_ref at the Fed2 unembedding's
     shapes (x (M, 8*256), w (8, 256, 6288), M = 4 and 128, bf16 as at
-    full width, and fp32) and on ragged ones (M, K and N off the tiles,
-    N off the 16-byte vector width, an unaligned w, a leading batch
-    dimension, a bias). Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the
-    reference's (tests/test_kernels.py)."""
+    full width, and fp32), at each route's edges (M = 1, 8 | 9 ... 256)
+    and on ragged ones (M, K and N off the tiles and stages, K longer
+    than the ring, K or N off 16 bytes, an unaligned w, G = 1, a leading
+    batch dimension, a bias); each case must launch through the route it
+    names. Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the reference's
+    (tests/test_kernels.py). The stream and wgmma routes must repeat to
+    the bit. Times at M = 4 (stream) and 128 (wgmma)."""
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                     grouped_matmul_ref)
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     g0, k0, n0 = 8, 256, 6288
 
-    def check_one(name, lead, g, k, n, dt, bias=False, misalign=False):
+    def check_one(name, route, lead, g, k, n, dt, bias=False,
+                  misalign=False):
+        """One case, which must launch through ``route``."""
         x, w, b = gmm_inputs(lead, g, k, n, dt, gen, bias)
         if misalign:
             buf = torch.empty(w.numel() + 1, dtype=dt, device="cuda")
@@ -572,32 +601,64 @@ def phase_check_grouped_matmul() -> dict:
             w2.copy_(w)
             w = w2
         tol = 1e-4 * math.sqrt(k) if dt == f32 else 0.3
-        return check(f"grouped_matmul {name} x {tuple(x.shape)} w "
-                     f"{tuple(w.shape)}{' + bias' if bias else ''} "
-                     f"{str(dt)[6:]}", grouped_matmul(x, w, b),
-                     grouped_matmul_ref(x, w, b), tol)
+        before = dict(grouped_matmul.route_launches)
+        got = grouped_matmul(x, w, b)
+        ran = [r for r, c in grouped_matmul.route_launches.items()
+               if c != before[r]]
+        assert ran == [route], f"grouped_matmul {name}: ran {ran}, " \
+            f"expected the {route} route"
+        return check(f"grouped_matmul {name} [{route}] x {tuple(x.shape)} "
+                     f"w {tuple(w.shape)}{' + bias' if bias else ''} "
+                     f"{str(dt)[6:]}", got, grouped_matmul_ref(x, w, b), tol)
 
-    err_path = max(check_one("serve path", (4,), g0, k0, n0, bf16),
-                   check_one("serve path", (4,), g0, k0, n0, f32))
-    check_one("decode_32k batch", (128,), g0, k0, n0, bf16)
-    check_one("decode_32k batch", (128,), g0, k0, n0, f32)
-    # the streaming path (M <= 8, N % 4 == 0, w aligned), ragged, and K
-    # beyond one staged chunk of x (256 rows)
-    check_one("ragged", (3,), 3, 100, 68, f32, bias=True)
-    check_one("ragged", (8,), 2, 33, 260, bf16)
-    check_one("long K", (4,), 2, 600, 132, bf16)
-    check_one("long K", (6,), 2, 600, 132, f32)
-    check_one("leading batch dim", (2, 3), 4, 64, 136, f32, bias=True)
-    check_one("leading batch dim", (2, 1), g0, k0, n0, bf16, bias=True)
-    # the tiled path: M > 8, or N off 4, or w unaligned
-    check_one("ragged", (9,), 2, 64, 256, bf16)
-    check_one("ragged", (5,), 3, 100, 70, f32, bias=True)
-    check_one("ragged", (17,), 5, 13, 130, bf16, bias=True)
-    check_one("ragged", (130,), 13, 13, 13, f32)
-    check_one("ragged", (200,), 5, 100, 70, bf16)
-    check_one("N off the vector width", (4,), 2, 64, 6289, bf16)
-    check_one("unaligned w", (4,), 2, 64, 512, f32, misalign=True)
-    check_one("unaligned w", (4,), 2, 64, 512, bf16, misalign=True)
+    err_path = max(check_one("serve path", "stream", (4,), g0, k0, n0, bf16),
+                   check_one("serve path", "stream", (4,), g0, k0, n0, f32))
+    check_one("decode_32k batch", "wgmma", (128,), g0, k0, n0, bf16)
+    check_one("decode_32k batch", "simt", (128,), g0, k0, n0, f32)
+    # each route's edges at the serve shape: M = 1 and 8 (stream), 9 to
+    # 256 (wgmma: one ragged row tile, two, three)
+    for m in (1, 8, 9, 64, 65, 129, 256):
+        check_one("route edge", "stream" if m <= 8 else "wgmma", (m,), g0,
+                  k0, n0, bf16)
+    check_one("route edge", "stream", (8,), g0, k0, n0, f32)
+    # the stream route: M <= 8, K and N multiples of 16 bytes, aligned;
+    # K off a stage (64 bf16 / 32 fp32 rows: zero-filled past the group),
+    # longer than the ring (4 stages), and N off the 96-column unit
+    check_one("ragged", "stream", (3,), 3, 100, 68, f32, bias=True)
+    check_one("K off a stage", "stream", (4,), 2, 104, 264, bf16)
+    check_one("K past the ring", "stream", (4,), 2, 600, 264, bf16)
+    check_one("long K", "stream", (6,), 2, 600, 132, f32)
+    check_one("G = 1", "stream", (4,), 1, k0, n0, bf16)
+    check_one("leading batch dim", "stream", (2, 3), 4, 64, 136, f32,
+              bias=True)
+    check_one("leading batch dim", "stream", (2, 1), g0, k0, n0, bf16,
+              bias=True)
+    # the wgmma route: M > 8 bf16, K and N multiples of 16 bytes; K past
+    # the group zero-filled (104 = 64 + 40), K past the ring (600), N off
+    # the 192-column tile
+    check_one("ragged", "wgmma", (9,), 2, 64, 256, bf16)
+    check_one("K off a stage", "wgmma", (64,), 3, 104, 200, bf16)
+    check_one("K past the ring", "wgmma", (64,), 2, 600, 264, bf16)
+    check_one("G = 1", "wgmma", (128,), 1, k0, n0, bf16)
+    check_one("leading batch dim", "wgmma", (2, 64), g0, k0, n0, bf16,
+              bias=True)
+    # the simt route: what TMA does not take, and fp32 at M > 8
+    check_one("ragged", "simt", (8,), 2, 33, 260, bf16)
+    check_one("long K", "simt", (4,), 2, 600, 132, bf16)
+    check_one("ragged", "simt", (5,), 3, 100, 70, f32, bias=True)
+    check_one("ragged", "simt", (17,), 5, 13, 130, bf16, bias=True)
+    check_one("ragged", "simt", (130,), 13, 13, 13, f32)
+    check_one("ragged", "simt", (200,), 5, 100, 70, bf16)
+    check_one("K off 16 bytes", "simt", (4,), 2, 100, 264, bf16)
+    check_one("K off 16 bytes", "simt", (64,), 2, 100, 264, bf16)
+    check_one("N off the vector width", "simt", (4,), 2, 64, 6289, bf16)
+    check_one("unaligned w", "simt", (4,), 2, 64, 512, f32, misalign=True)
+    check_one("unaligned w", "simt", (4,), 2, 64, 512, bf16, misalign=True)
+    # the stream and wgmma routes repeat to the bit
+    for m in (4, 128):
+        x, w, _ = gmm_inputs((m,), g0, k0, n0, bf16, gen)
+        assert torch.equal(grouped_matmul(x, w), grouped_matmul(x, w)), \
+            f"grouped_matmul M={m}: two calls on the same inputs differ"
 
     timings = {}
     for m in (4, 128):
@@ -617,7 +678,8 @@ def phase_check_grouped_matmul() -> dict:
         t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * g0 * k0 * n0,
                                              BF16_FLOPS)
         timings[m] = t
-        print(f"  grouped_matmul M={m} (8, 256, 6288) bf16: "
+        print(f"  grouped_matmul M={m} (8, 256, 6288) bf16 "
+              f"[{gm.route(m, g0, k0, n0, bf16, 0, 0)}]: "
               f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"torch.bmm {t['library_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
@@ -662,18 +724,29 @@ def wrappers() -> dict:
             "ssd_update": ssd_update}
 
 
-def counted(label: str, run, expect: dict):
+def counted(label: str, run, expect: dict, gmm_routes: dict | None = None):
     """``run()`` with every launch counter set to 0 just before it and
     read just after; the counts must equal ``expect`` (a kernel it does
-    not name must not launch)."""
+    not name must not launch), and grouped_matmul's launches by route
+    ``gmm_routes`` (a route it does not name must not launch)."""
     fns = wrappers()
+    gmm = fns["grouped_matmul"]
     expect = {**{k: 0 for k in fns}, **expect}
+    expect_routes = {**{r: 0 for r in gmm.route_launches},
+                     **(gmm_routes or {})}
     for f in fns.values():
         f.launches = 0
+    for r in gmm.route_launches:
+        gmm.route_launches[r] = 0
     out = run()
     counts = {k: f.launches for k, f in fns.items()}
-    print(f"  launches, {label}: {counts} (expected {expect})", flush=True)
+    routes = dict(gmm.route_launches)
+    print(f"  launches, {label}: {counts} (expected {expect}); "
+          f"grouped_matmul by route {routes} (expected {expect_routes})",
+          flush=True)
     assert counts == expect, f"{label}: launches {counts} != {expect}"
+    assert routes == expect_routes, \
+        f"{label}: grouped_matmul routes {routes} != {expect_routes}"
     return out, counts
 
 
@@ -903,12 +976,12 @@ def phase_serve() -> dict:
     _, counts = counted(
         "serve --full --fed2-groups 8",
         lambda: serve_cli("--full", "--fed2-groups", "8"),
-        {"ssd_update": ssd, "grouped_matmul": steps})
+        {"ssd_update": ssd, "grouped_matmul": steps}, {"stream": steps})
     peak, _ = counted(
         "serve --full --fed2-groups 8 --batch 128 (decode_32k's batch)",
         lambda: serve_cli("--full", "--fed2-groups", "8", "--batch", "128",
                           "--prompt-len", "2", "--gen", "2"),
-        {"ssd_update": SERVE_LAYERS * 4, "grouped_matmul": 4})
+        {"ssd_update": SERVE_LAYERS * 4, "grouped_matmul": 4}, {"wgmma": 4})
     state = SERVE_LAYERS * 128 * 64 * 64 * 128 * 4
     print(f"  SSM state at batch 128: {state / 1e9:.1f} GB; peak "
           f"{peak / 1e9:.1f} GB", flush=True)
@@ -990,7 +1063,8 @@ def phase_decode_parity():
 
     (on, c_on), _ = counted(
         "decode parity, kernels", lambda: run(True),
-        {"ssd_update": SERVE_LAYERS * steps, "grouped_matmul": steps})
+        {"ssd_update": SERVE_LAYERS * steps, "grouped_matmul": steps},
+        {"stream": steps})
     (off, c_off), _ = counted("decode parity, plain versions",
                               lambda: run(False), {})
     err_logits = max((a - b).abs().max().item() for a, b in zip(on, off))

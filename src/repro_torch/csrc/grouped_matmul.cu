@@ -1,7 +1,7 @@
 // Block-diagonal (grouped) matrix product for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `grouped_matmul_kernel` of
-// src/repro/kernels/grouped_matmul.py (its pl.pallas_call), the product
+// src/repro/kernels/grouped_matmul.py:48 (its pl.pallas_call), the product
 // behind Fed2's block-diagonal layers; on the port's serving path it is
 // the Fed2 unembedding of a Mamba-2 LM. For x (M, G*K) and w (G, K, N),
 // both row-major fp32 or bf16,
@@ -9,43 +9,83 @@
 // accumulated in fp32 and stored in x's dtype, (M, G*N) row-major. The
 // bias stays outside, in the wrapper (as in the reference's ops.py).
 //
-// Bound on the H100: at the serving shapes (M = batch of 4 to 128,
-// G = 8, K = 256, N = 6288, bf16) the weights are 25.8 MB read once,
-// 7.7 us at 3.35 TB/s, against 0.1-3.3 GFLOP that the bf16 tensor cores
-// would do in at most 3.3 us: bytes bound. With fp32 FMAs, as here, the
-// arithmetic of M = 128 alone takes 49 us at 67 TFLOP/s: tensor cores
-// are the next step.
-// The TPU kernel walks K as a sequential grid axis into a VMEM
-// accumulator on 128-padded tiles (its wrapper pads M, K and N). Here
-// nothing is padded, and any M, K and N work. Two paths, both fp32 FMAs
-// (no tensor cores yet):
-// - M <= 8 (decode batches), N % 4 == 0 and w aligned: streaming. A
-//   block owns 128 columns of one group; each lane reads 4 contiguous
-//   columns of w (one 16-byte fp32 or 8-byte bf16 load a row) straight
-//   into registers, 4 rows in flight, the block's 8 warps split K, the
-//   group's x panel is staged in shared memory as fp32 and read as
-//   broadcasts, and the 8 partial rows are summed in shared memory in a
-//   fixed order. w is read once, with no staging.
-// - otherwise: tiles. A block computes one 64 x 128 tile of one group's
-//   output, reading the group's x panel (row stride G*K, column offset
-//   g*K) and w[g] in 16-deep slices through shared memory, every load
-//   bounds-checked. w is read with 16-byte loads when N is a multiple of
-//   16 bytes' worth of elements and w is 16-byte aligned (else one
-//   element a load), and all of a thread's loads of a slice are issued
-//   before any is stored. Each thread owns 4 x 8 outputs, rows ty + i*RT
-//   and columns tx + j*CT, so a warp reads shared memory without bank
-//   conflicts and writes y coalesced.
+// Bound on the H100 at the serving shapes (G = 8, K = 256, N = 6288,
+// bf16): bytes. At the decode batch M = 4 the 25.8 MB of w, read once,
+// take 7.8 us at 3.35 TB/s against 0.1 GFLOP; at decode_32k's batch
+// M = 128 w, x and the 12.9 MB of y take 11.7 us against 3.3 GFLOP,
+// 3.3 us on the bf16 tensor cores (49 us in fp32 FMAs).
+//
+// The TPU kernel walks a (G, M/bm, N/bn, K/bk) grid on 128-padded tiles
+// with a VMEM accumulator. Here the wrapper picks one of three routes (its
+// `route` function, from M, the dtype, the strides and the alignment);
+// this file checks the route's preconditions and returns
+// cudaErrorInvalidValue when they fail. It never changes route itself.
+//
+// Both TMA routes read x through a 3-D tensor map over (M, G, K) and w
+// through one over (G, K, N), which zero-fill every box past the tensor's
+// M, K or N, so nothing is padded in memory. A box starts on a 16-byte
+// boundary (a map over (M, G*K) whose boxes started at g*K faulted when
+// K*2 was not a multiple of 16), so both need K and N to be multiples of
+// 16 bytes and 16-byte aligned bases.
+//
+// - "stream" (M <= 8): the decode GEMV, bound by the bytes of w. Registers
+//   cannot hold the ~20 KB per SM that Little's law asks of 3.35 TB/s (the
+//   previous design, w straight into registers, sat at that floor: 37 % of
+//   the bound); a ring of shared-memory stages filled by TMA can. One
+//   producer thread keeps the ring full; each stage's x box rides on the
+//   same mbarrier as its w boxes. Measured on the H100, the wait for w ends
+//   late in the kernel whatever the ring's depth, so what the consumers do
+//   after the last stage lands is the cost: fp32 FMAs there (1.75 us of
+//   FMA throughput at M = 4, counted from the shapes) kept the kernel
+//   1.8 us behind torch.bmm, and larger
+//   boxes, which move the bytes sooner, made it worse. So in bf16 the
+//   consumers run the tensor cores with the operands swapped, y^T =
+//   w^T x^T: w^T as an MN-major A operand (64 columns a wgmma, the
+//   transpose bit; no copy of w) and x^T as a K-major n8 B operand (M
+//   padded to 8 by the map), wgmma m64n8k16 into fp32, in two independent
+//   sums over the k16 steps. A unit is one group's 192 columns over all of
+//   K (33 x 8 = 264 units at full width: 2 resident blocks on each of the
+//   132 SMs, one whole wave), through 2 stages of 128 rows (51 KB each), so
+//   at K = 256 a block has its whole unit in flight: 200 KB per SM. fp32
+//   (the full-width fp32 decode) keeps FMAs: 96-column units, 4 stages of
+//   32 rows, a 16-byte chunk and a slice of the rows per thread, x
+//   broadcast from shared memory, the row slices' partial sums added in
+//   shared memory. Every sum runs in a fixed order, with no atomics: a run
+//   repeats to the bit.
+// - "wgmma" (M > 8, bf16): a GEMM per group on the tensor cores. Tiles of
+//   128 x 192 (33 column tiles x 8 groups = 264 = 2 x 132 at M <= 128),
+//   K in 64-deep stages through a ring of 4 stages (40 KB each), walked by
+//   one persistent block per SM, so the loads of a block's next tile run
+//   under the current tile's products and stores. One producer warp loads
+//   the x tile and three 64-column boxes of w with 128-byte swizzle; two
+//   consumer warpgroups each run wgmma m64n192k16 on 64 rows, w as an
+//   MN-major B operand, accumulating in fp32 registers. The tile leaves
+//   through a swizzled shared-memory buffer and a TMA store, which writes
+//   whole lines and clips at the M and N edges (bf16 pairs stored straight
+//   from the registers write 16 bytes of each 32-byte sector at a time:
+//   24 us instead of 15 on the H100).
+// - "simt" (everything else: fp32 at M > 8, or strides and pointers TMA
+//   does not take): tiles. A block computes one 64 x 128 tile of one
+//   group's output, reading the group's x panel and w[g] in 16-deep slices
+//   through shared memory, every load bounds-checked, 16-byte loads of w
+//   where N and w allow, fp32 FMAs: exact in fp32.
 //
 // C interface (bound with ctypes):
 //   int grouped_matmul_launch(const void* x, const void* w, void* y,
 //                             long long m, long long g, long long k,
-//                             long long n, int dtype, void* stream);
-// dtype 0 = fp32, 1 = bf16. Returns cudaGetLastError() after the launch
-// (or cudaErrorInvalidValue for arguments the kernel does not take).
+//                             long long n, int dtype, int route,
+//                             void* stream);
+//   int grouped_matmul_dynamic_smem(int route, int dtype);
+// dtype 0 = fp32, 1 = bf16; route 0 = stream, 1 = wgmma, 2 = simt. The
+// launch returns cudaGetLastError() after the launch, or the error of a
+// refused tensor map or shared-memory attribute, or cudaErrorInvalidValue
+// for arguments the route does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -64,6 +104,42 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory, with the SM's
+// carveout all shared memory; the result of the first call is kept.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+constexpr int64_t kMaxCoord = 0x7fffffff;   // TMA coordinates are int32
+
+// Strides and pointers TMA takes for maps over (M, G, K) and (G, K, N):
+// 16-byte aligned bases, K and N multiples of 16 bytes (a box starts on a
+// 16-byte boundary), and coordinates within int32.
+template <typename T>
+bool tma_fits(const void* x, const void* w, int64_t g, int64_t k,
+              int64_t n) {
+  const int64_t esize = sizeof(T);
+  return (n * esize) % 16 == 0 && (k * esize) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0 && g * k <= kMaxCoord &&
+         n <= kMaxCoord;
+}
+
+// ---------------------------------------------------------------------------
+// route "simt": tiles through shared memory, fp32 FMAs
+// ---------------------------------------------------------------------------
+
 // A block computes a BM x BN output tile with NT = RT * CT threads; the
 // thread (ty, tx) owns rows ty + i*RT (i < TM) and columns tx + j*CT
 // (j < TN).
@@ -75,15 +151,6 @@ struct Tile {
   static constexpr int NT = RT * CT;
 };
 using LargeM = Tile<64, 128, 16, 4, 8>;  // 256 threads
-
-// The streaming path for M <= kSkinnyM: each lane owns 4 contiguous
-// columns of one group, the block's kSkinnyWarps warps split K, and
-// their partial sums meet in shared memory in a fixed order.
-constexpr int kSkinnyM = 8;
-constexpr int kSkinnyWarps = 8;
-constexpr int kSkinnyCols = 32 * 4;      // columns a block owns
-constexpr int kSkinnyRows = 4;           // rows of w a lane has in flight
-constexpr int kSkinnyK = 256;            // rows of x staged at a time
 
 // V contiguous columns of w per load: 16 / sizeof(T) for 16-byte loads
 // (N % V == 0 and w aligned), else 1.
@@ -208,126 +275,9 @@ __global__ void __launch_bounds__(C::NT)
 }
 
 template <typename T>
-struct Vec4;   // 4 contiguous elements: 16 bytes of fp32, 8 of bf16
-template <>
-struct Vec4<float> {
-  using type = float4;
-};
-template <>
-struct Vec4<__nv_bfloat16> {
-  using type = uint2;
-};
-
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
-  const typename Vec4<T>::type raw =
-      *reinterpret_cast<const typename Vec4<T>::type*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = to_f32(e[j]);
-}
-
-// y[m, g*N + n] for M <= MR (4 or 8), N % 4 == 0 and w aligned for
-// Vec4 loads: every byte of w is read once, by one lane, straight into
-// registers, kSkinnyRows rows at a time; the group's x panel is staged
-// in shared memory as fp32, kSkinnyK rows of K at a time, and read as
-// float4 broadcasts.
-template <typename T, int MR>
-__global__ void __launch_bounds__(32 * kSkinnyWarps, 3)
-    grouped_matmul_skinny_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ w,
-                                 T* __restrict__ y, int64_t m,
-                                 int64_t groups, int64_t k, int64_t n) {
-  static_assert(MR % 4 == 0 && MR <= kSkinnyM, "rows");
-  __shared__ __align__(16) float xs[kSkinnyK][MR];
-  __shared__ __align__(16) float part[kSkinnyWarps][MR][kSkinnyCols];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int64_t g = blockIdx.y;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kSkinnyCols;
-  const int64_t c0 = n0 + lane * 4;
-  const int64_t x_row = groups * k;
-  const T* xg = x + g * k;
-  const T* wg = w + g * k * n;
-
-  float acc[MR][4];
-#pragma unroll
-  for (int i = 0; i < MR; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  for (int64_t kc = 0; kc < k; kc += kSkinnyK) {
-    const int kn = static_cast<int>(k - kc < kSkinnyK ? k - kc : kSkinnyK);
-    __syncthreads();                       // the last chunk's readers
-    for (int e = threadIdx.x; e < kn * MR; e += 32 * kSkinnyWarps) {
-      const int kk = e / MR;
-      const int i = e % MR;
-      xs[kk][i] = i < m ? to_f32(xg[i * x_row + kc + kk]) : 0.f;
-    }
-    __syncthreads();
-    if (c0 >= n) continue;  // n % 4 == 0: 4 columns all inside or out
-    const T* wc = wg + kc * n + c0;
-    // the warp's rows r = warp + q*kSkinnyWarps of the chunk,
-    // kSkinnyRows at a time, all loads issued before the first is used
-    for (int r0 = warp; r0 < kn; r0 += kSkinnyWarps * kSkinnyRows) {
-      float wv[kSkinnyRows][4];
-#pragma unroll
-      for (int u = 0; u < kSkinnyRows; ++u) {
-        const int r = r0 + u * kSkinnyWarps;
-        if (r < kn) {
-          load4(wc + static_cast<int64_t>(r) * n, wv[u]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wv[u][j] = 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kSkinnyRows; ++u) {
-        const int r = r0 + u * kSkinnyWarps;
-        if (r >= kn) break;
-#pragma unroll
-        for (int i4 = 0; i4 < MR; i4 += 4) {
-          const float4 xv = *reinterpret_cast<const float4*>(&xs[r][i4]);
-          const float xi[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[i4 + i][j] = fmaf(xi[i], wv[u][j], acc[i4 + i][j]);
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MR; ++i) {
-    *reinterpret_cast<float4*>(&part[warp][i][lane * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-  __syncthreads();
-  const int64_t y_row = groups * n;
-  for (int o = threadIdx.x; o < MR * kSkinnyCols; o += 32 * kSkinnyWarps) {
-    const int i = o / kSkinnyCols;
-    const int c = o % kSkinnyCols;
-    if (i >= m || n0 + c >= n) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < kSkinnyWarps; ++q) s += part[q][i][c];
-    y[i * y_row + g * n + n0 + c] = from_f32<T>(s);
-  }
-}
-
-template <typename T>
-bool skinny_fits(const T* w, int64_t m, int64_t n) {
-  return m <= kSkinnyM && n % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(w) % sizeof(typename Vec4<T>::type) ==
-             0;
-}
-
-template <typename T, typename C>
-int launch_tile(const T* x, const T* w, T* y, int64_t m, int64_t g,
+int launch_simt(const T* x, const T* w, T* y, int64_t m, int64_t g,
                 int64_t k, int64_t n, cudaStream_t stream) {
+  using C = LargeM;
   constexpr int V = static_cast<int>(16 / sizeof(T));
   const int64_t n_tiles = (n + C::BN - 1) / C::BN;
   const int64_t m_tiles = (m + C::BM - 1) / C::BM;
@@ -348,40 +298,651 @@ int launch_tile(const T* x, const T* w, T* y, int64_t m, int64_t g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// route "stream", bf16: M <= 8 on the tensor cores, the operands swapped
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamMaxM = 8;
+
+// y^T = w^T x^T: the unit's columns of w^T (64 at a time) as an MN-major A
+// operand, x^T (K x M, M padded to 8 by the x map) as a K-major B, wgmma
+// m64n8k16 into fp32.
+namespace gemv {
+constexpr int kCols = 192;            // columns of a unit: three m64 blocks
+constexpr int KR = 128;               // rows of K a stage holds
+constexpr int kStages = 2;
+constexpr int kChains = 2;            // independent sums over k16 steps
+constexpr int kThreads = 128 + 32;    // one warpgroup + the producer warp
+constexpr int kWBox = KR * 128;       // 16 KB: 64 columns of w
+constexpr int kXBox = 8 * 128;        // 1 KB: 8 rows x 64 of K
+constexpr int kStageBytes = (kCols / 64) * kWBox + (KR / 64) * kXBox;
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+}  // namespace gemv
+
+// d (64 x 8) += A (64 x 16, MN-major) * B (16 x 8, K-major)
+__device__ __forceinline__ void wgmma_m64n8k16_ta(float (&d)[4],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// wmap: (G, K, N) with box (1, 128, 64); xmap: (M, G, K) with box
+// (8, 1, 64); both with 128-byte swizzle.
+__global__ void __launch_bounds__(gemv::kThreads, 2)
+    grouped_matmul_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
+                               const __grid_constant__ CUtensorMap xmap,
+                               __nv_bfloat16* __restrict__ y, int m,
+                               int groups, int k, int n) {
+  using namespace gemv;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);  // [S][w 3 x 16 KB | x 2 x 1 KB]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int g = blockIdx.y;
+  const int n0 = blockIdx.x * kCols;
+  const int nk = (k + KR - 1) / KR;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                          // the producer
+    if (lane == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) {
+          hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+        }
+        uint8_t* st = base + s * kStageBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+#pragma unroll
+        for (int j = 0; j < kCols / 64; ++j) {
+          hopper::tma_load_3d(st + j * kWBox, &wmap, &full[s], n0 + 64 * j,
+                              it * KR, g);
+        }
+#pragma unroll
+        for (int q = 0; q < KR / 64; ++q) {
+          hopper::tma_load_3d(st + (kCols / 64) * kWBox + q * kXBox, &xmap,
+                              &full[s], it * KR + 64 * q, g, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  float acc[kChains][kCols / 64][4];
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+    for (int j = 0; j < kCols / 64; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+    }
+  }
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    hopper::mbar_wait(&full[s], (it / kStages) & 1);
+    const uint8_t* st = base + s * kStageBytes;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KR / 16; ++kk) {
+      // x^T: 8 rows of 128 bytes, k16 = 32 bytes along the row; w^T: one
+      // 64-column block, 8-row groups of K 1 KB apart, k16 = 2 KB
+      const uint64_t db = hopper::desc_sw128(
+          st + (kCols / 64) * kWBox + (kk / 4) * kXBox + (kk % 4) * 32, 16,
+          1024);
+#pragma unroll
+      for (int j = 0; j < kCols / 64; ++j) {
+        wgmma_m64n8k16_ta(acc[kk % kChains][j],
+                          hopper::desc_sw128(st + j * kWBox + kk * 2048,
+                                             kWBox, 1024),
+                          db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+  // the chains' sums in a fixed order; value e of block j sits at column
+  // 64j + 16*warp + lane/4 + 8*(e/2) and row (batch) 2*(lane % 4) + e%2
+  const int64_t y_row = static_cast<int64_t>(groups) * n;
+  __nv_bfloat16* yg = y + static_cast<int64_t>(g) * n + n0;
+#pragma unroll
+  for (int j = 0; j < kCols / 64; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = acc[0][j][e];
+#pragma unroll
+      for (int c = 1; c < kChains; ++c) sum += acc[c][j][e];
+      const int col = 64 * j + 16 * warp + lane / 4 + 8 * (e / 2);
+      const int row = 2 * (lane % 4) + e % 2;
+      if (row < m && n0 + col < n) {
+        yg[row * y_row + col] = __float2bfloat16(sum);
+      }
+    }
+  }
+}
+
+int launch_gemv(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                __nv_bfloat16* y, int64_t m, int64_t g, int64_t k, int64_t n,
+                cudaStream_t st) {
+  using namespace gemv;
+  static const cudaError_t attr =
+      allow_smem(grouped_matmul_gemv_kernel, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap wmap, xmap;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g)};
+  const uint64_t wstrides[2] = {n * 2ull, k * n * 2ull};
+  const uint32_t wbox[3] = {64, KR, 1};
+  const uint64_t xdims[3] = {static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g),
+                             static_cast<uint64_t>(m)};
+  const uint64_t xstrides[2] = {k * 2ull, g * k * 2ull};
+  const uint32_t xbox[3] = {64, 1, 8};
+  if (!hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w,
+                          wdims, wstrides, wbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
+                          xdims, xstrides, xbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
+                  static_cast<unsigned>(g));
+  grouped_matmul_gemv_kernel<<<grid, kThreads, kSmem, st>>>(
+      wmap, xmap, y, static_cast<int>(m), static_cast<int>(g),
+      static_cast<int>(k), static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// route "stream", fp32: M <= 8, fp32 FMAs from shared memory
+// ---------------------------------------------------------------------------
+
+namespace fgemv {
+constexpr int kCols = 96;                     // columns of a work unit
+constexpr int KR = 32;                        // rows of K a stage holds
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 6;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;     // + the producer warp
+constexpr int kWBytes = KR * kCols * 4;       // 12 KB: w's box of a stage
+constexpr int kXBytes = KR * kStreamMaxM * 4; // 1 KB: x's box, at most
+constexpr int kSmem =
+    1024 + kStages * (kWBytes + kXBytes) + 2 * kStages * 8;
+}  // namespace fgemv
+
+// MR rows of x (4 or 8; rows >= M are zeros from the x map), MINB blocks
+// per SM. wmap: (G, K, N) with box (1, 32, 96); xmap: (M, G, K) with box
+// (MR, 1, 32). Thread (r0, c) owns 4 columns (one 16-byte chunk of a row)
+// and rows r0, r0 + R, ... of every stage; the row slices' partial sums
+// meet in shared memory.
+template <int MR, int MINB>
+__global__ void __launch_bounds__(fgemv::kThreads, MINB)
+    grouped_matmul_fgemv_kernel(const __grid_constant__ CUtensorMap wmap,
+                                const __grid_constant__ CUtensorMap xmap,
+                                float* __restrict__ y, int m, int groups,
+                                int k, int n) {
+  using namespace fgemv;
+  constexpr int CH = kCols / 4;                // 16-byte chunks a row
+  constexpr int R = kConsumers / CH;           // row slices
+  constexpr uint32_t kTx = kWBytes + MR * KR * 4;
+  static_assert(kConsumers % CH == 0 && KR % R == 0, "thread layout");
+  static_assert(R * MR * kCols * 4 <= kStages * kWBytes, "partials");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  float* ws = reinterpret_cast<float*>(base);            // [S][KR][96]
+  uint8_t* xbase = base + kStages * kWBytes;             // [S][MR][KR]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xbase + kStages * kXBytes);
+  uint64_t* empty = full + kStages;
+
+  const int g = blockIdx.y;
+  const int n0 = blockIdx.x * kCols;
+  const int nk = (k + KR - 1) / KR;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {            // the producer
+    if (lane == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) {
+          hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+        }
+        hopper::mbar_arrive_expect_tx(&full[s], kTx);
+        hopper::tma_load_3d(ws + s * KR * kCols, &wmap, &full[s], n0,
+                            it * KR, g);
+        hopper::tma_load_3d(xbase + s * kXBytes, &xmap, &full[s], it * KR,
+                            g, 0);
+      }
+    }
+    return;
+  }
+
+  const int c = threadIdx.x % CH;
+  const int r0 = threadIdx.x / CH;
+  float acc[MR][4];
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    hopper::mbar_wait(&full[s], (it / kStages) & 1);
+    const float* wt = ws + s * KR * kCols + c * 4;
+    const float* xt = reinterpret_cast<const float*>(xbase + s * kXBytes);
+    // rows past K are zeros in both boxes
+#pragma unroll
+    for (int q = 0; q < KR / R; ++q) {
+      const int r = r0 + q * R;
+      const float4 wv = *reinterpret_cast<const float4*>(wt + r * kCols);
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        const float xv = xt[i * KR + r];
+        acc[i][0] = fmaf(xv, wv.x, acc[i][0]);
+        acc[i][1] = fmaf(xv, wv.y, acc[i][1]);
+        acc[i][2] = fmaf(xv, wv.z, acc[i][2]);
+        acc[i][3] = fmaf(xv, wv.w, acc[i][3]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // the row slices' partial sums, over the drained ring, in a fixed order
+  hopper::named_sync(1, kConsumers);
+  float* part = reinterpret_cast<float*>(base);          // [R][MR][96]
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    *reinterpret_cast<float4*>(&part[(r0 * MR + i) * kCols + c * 4]) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  hopper::named_sync(1, kConsumers);
+  const int64_t y_row = static_cast<int64_t>(groups) * n;
+  float* yg = y + static_cast<int64_t>(g) * n + n0;
+  for (int o = threadIdx.x; o < MR * kCols; o += kConsumers) {
+    const int i = o / kCols;
+    const int col = o % kCols;
+    if (i >= m || n0 + col >= n) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) sum += part[(q * MR + i) * kCols + col];
+    yg[i * y_row + col] = sum;
+  }
+}
+
+template <int MR, int MINB>
+int launch_fgemv(const float* x, const float* w, float* y, int64_t m,
+                 int64_t g, int64_t k, int64_t n, cudaStream_t st) {
+  using namespace fgemv;
+  const auto kernel = grouped_matmul_fgemv_kernel<MR, MINB>;
+  static const cudaError_t attr = allow_smem(kernel, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap wmap, xmap;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g)};
+  const uint64_t wstrides[2] = {n * 4ull, k * n * 4ull};
+  const uint32_t wbox[3] = {kCols, KR, 1};
+  const uint64_t xdims[3] = {static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g),
+                             static_cast<uint64_t>(m)};
+  const uint64_t xstrides[2] = {k * 4ull, g * k * 4ull};
+  const uint32_t xbox[3] = {KR, 1, MR};
+  if (!hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w,
+                          wdims, wstrides, wbox,
+                          CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, x,
+                          xdims, xstrides, xbox,
+                          CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
+                  static_cast<unsigned>(g));
+  kernel<<<grid, kThreads, kSmem, st>>>(wmap, xmap, y, static_cast<int>(m),
+                                        static_cast<int>(g),
+                                        static_cast<int>(k),
+                                        static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+bool stream_fits(const void* x, const void* w, int64_t m, int64_t g,
+                 int64_t k, int64_t n) {
+  return m <= kStreamMaxM && tma_fits<T>(x, w, g, k, n) && g <= 65535;
+}
+
+template <typename T>
+int launch_stream(const T* x, const T* w, T* y, int64_t m, int64_t g,
+                  int64_t k, int64_t n, cudaStream_t st) {
+  if (!stream_fits<T>(x, w, m, g, k, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (sizeof(T) == 2) {
+    return launch_gemv(x, w, y, m, g, k, n, st);
+  } else {
+    if (m <= 4) return launch_fgemv<4, 4>(x, w, y, m, g, k, n, st);
+    return launch_fgemv<8, 2>(x, w, y, m, g, k, n, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// route "wgmma": M > 8, bf16, tensor cores
+// ---------------------------------------------------------------------------
+
+namespace mma {
+constexpr int BM = 128;        // rows of a tile: two warpgroups of 64
+constexpr int BN = 192;        // columns of a tile: one m64n192k16 wide
+constexpr int BK = 64;         // K of a stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
+constexpr int kABytes = BM * BK * 2;                 // 16 KB
+constexpr int kBBox = BK * 64 * 2;                   // 8 KB: 64 columns
+constexpr int kStageBytes = kABytes + (BN / 64) * kBBox;   // 40 KB
+constexpr int kYBox = BM * 64 * 2;                   // 16 KB: 64 columns
+constexpr int kYBytes = (BN / 64) * kYBox;           // the tile's y, 48 KB
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kSmem =
+    1024 + kStages * kStageBytes + kYBytes + 2 * kStages * 8;
+}  // namespace mma
+
+// d (64 x 192 fp32, in the wgmma register layout) += A (64 x 16, K-major)
+// * B (16 x 192, MN-major), both read from shared memory by descriptor.
+__device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// xmap: (M, G, K) with box (128, 1, 64); wmap: (G, K, N) with box
+// (1, 64, 64); ymap: (M, G, N) with box (128, 1, 64); all with 128-byte
+// swizzle.
+__global__ void __launch_bounds__(mma::kThreads, 1)
+    grouped_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                                const __grid_constant__ CUtensorMap wmap,
+                                const __grid_constant__ CUtensorMap ymap,
+                                int m, int groups, int k, int n) {
+  using namespace mma;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);     // [S][A 16 KB | B 3 x 8 KB]
+  uint8_t* ys = base + kStages * kStageBytes;   // [3][128 rows][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ys + kYBytes);
+  uint64_t* empty = full + kStages;
+
+  const int tiles_n = (n + BN - 1) / BN;
+  const int tiles_m = (m + BM - 1) / BM;
+  const int tiles = groups * tiles_m * tiles_n;
+  const int nk = (k + BK - 1) / BK;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {            // the producer
+    if (lane == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int g = t / (tiles_m * tiles_n);
+        const int mt = t / tiles_n % tiles_m;
+        const int nt = t % tiles_n;
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) {
+            hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          }
+          uint8_t* st = base + s * kStageBytes;
+          hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+          hopper::tma_load_3d(st, &xmap, &full[s], ks * BK, g, mt * BM);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) {
+            hopper::tma_load_3d(st + kABytes + j * kBBox, &wmap, &full[s],
+                                nt * BN + j * 64, ks * BK, g);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows wg*64 .. wg*64 + 63 of a tile
+  const int wg = warp / 4;
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int g = t / (tiles_m * tiles_n);
+    const int mt = t / tiles_n % tiles_m;
+    const int nt = t % tiles_n;
+    float acc[96];
+#pragma unroll
+    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int s = it % kStages;
+      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      const uint8_t* a = base + s * kStageBytes + wg * (kABytes / 2);
+      const uint8_t* b = base + s * kStageBytes + kABytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A: rows of 128 bytes, 8-row groups 1 KB apart, k16 = 32 bytes
+        // along the row; B: 64-column blocks 8 KB apart, 8-row groups of
+        // K 1 KB apart, k16 = 16 rows = 2 KB
+        wgmma_m64n192k16(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                         hopper::desc_sw128(b + kk * 2048, kBBox, 1024));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    // the accumulator layout: value 4c + 2h + e of a thread sits at row
+    // 16*(warp % 4) + lane/4 + 8h and column 8c + 2*(lane % 4) + e of the
+    // warpgroup's 64 x 192. It goes to the y buffer as bf16 pairs, in the
+    // 128-byte swizzle of the y map (16-byte chunk q of row r at q ^ r%8:
+    // a warp's 8 rows x 16 bytes hit 32 distinct banks), then out by TMA,
+    // which writes whole lines and clips at the M and N edges.
+    if (threadIdx.x == 0) hopper::tma_store_wait_read();   // last tile's
+    hopper::named_sync(1, kConsumers);
+    const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 8 * h;
+        uint8_t* dst = ys + (c / 8) * kYBox + r * 128 +
+                       ((c % 8) ^ (r % 8)) * 16 + 4 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+            acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_sync(1, kConsumers);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j) {
+        hopper::tma_store_3d(&ymap, ys + j * kYBox, nt * BN + j * 64, g,
+                             mt * BM);
+      }
+      hopper::tma_store_commit();
+    }
+  }
+  if (threadIdx.x == 0) hopper::tma_store_wait_read();
+}
+
+bool wgmma_fits(const void* x, const void* w, const void* y, int64_t m,
+                int64_t g, int64_t k, int64_t n) {
+  using namespace mma;
+  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  return m > kStreamMaxM && tma_fits<__nv_bfloat16>(x, w, g, k, n) &&
+         reinterpret_cast<uintptr_t>(y) % 16 == 0 && m <= kMaxCoord &&
+         tiles <= kMaxCoord;
+}
+
+int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                 __nv_bfloat16* y, int64_t m, int64_t g, int64_t k,
+                 int64_t n, cudaStream_t st) {
+  using namespace mma;
+  if (!wgmma_fits(x, w, y, m, g, k, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr =
+      allow_smem(grouped_matmul_wgmma_kernel, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap xmap, wmap, ymap;
+  const uint64_t xdims[3] = {static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g),
+                             static_cast<uint64_t>(m)};
+  const uint64_t xstrides[2] = {k * 2ull, g * k * 2ull};
+  const uint32_t xbox[3] = {BK, 1, BM};
+  const uint64_t wdims[3] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g)};
+  const uint64_t wstrides[2] = {n * 2ull, k * n * 2ull};
+  const uint32_t wbox[3] = {64, BK, 1};
+  const uint64_t ydims[3] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(g),
+                             static_cast<uint64_t>(m)};
+  const uint64_t ystrides[2] = {n * 2ull, g * n * 2ull};
+  const uint32_t ybox[3] = {64, 1, BM};
+  if (!hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
+                          xdims, xstrides, xbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, w,
+                          wdims, wstrides, wbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::encode_map(&ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y,
+                          ydims, ystrides, ybox,
+                          CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  const unsigned blocks =
+      static_cast<unsigned>(tiles < sms ? tiles : sms);
+  grouped_matmul_wgmma_kernel<<<blocks, kThreads, kSmem, st>>>(
+      xmap, wmap, ymap, static_cast<int>(m), static_cast<int>(g),
+      static_cast<int>(k), static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Route { kStream = 0, kWgmma = 1, kSimt = 2 };
+
 template <typename T>
 int launch(const void* x, const void* w, void* y, int64_t m, int64_t g,
-           int64_t k, int64_t n, cudaStream_t stream) {
+           int64_t k, int64_t n, int route, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* yp = static_cast<T*>(y);
-  if (skinny_fits(wp, m, n)) {
-    const int64_t n_tiles = (n + kSkinnyCols - 1) / kSkinnyCols;
-    if (n_tiles > 0x7fffffff || g > 65535) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(g));
-    if (m <= 4) {
-      grouped_matmul_skinny_kernel<T, 4>
-          <<<grid, 32 * kSkinnyWarps, 0, stream>>>(xp, wp, yp, m, g, k, n);
-    } else {
-      grouped_matmul_skinny_kernel<T, kSkinnyM>
-          <<<grid, 32 * kSkinnyWarps, 0, stream>>>(xp, wp, yp, m, g, k, n);
-    }
-    return static_cast<int>(cudaGetLastError());
+  if (route == kStream) {
+    return launch_stream<T>(xp, wp, yp, m, g, k, n, stream);
   }
-  return launch_tile<T, LargeM>(xp, wp, yp, m, g, k, n, stream);
+  if (route == kSimt) return launch_simt<T>(xp, wp, yp, m, g, k, n, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (route == kWgmma) return launch_wgmma(xp, wp, yp, m, g, k, n, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" int grouped_matmul_launch(const void* x, const void* w, void* y,
                                      long long m, long long g, long long k,
-                                     long long n, int dtype, void* stream) {
+                                     long long n, int dtype, int route,
+                                     void* stream) {
   if (m <= 0 || g <= 0 || k <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, y, m, g, k, n, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, m, g, k, n, s);
+  if (dtype == 0) return launch<float>(x, w, y, m, g, k, n, route, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, m, g, k, n, route, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory (bytes) of a block of `route` (for reports), -1
+// for a route the dtype does not take.
+extern "C" int grouped_matmul_dynamic_smem(int route, int dtype) {
+  if (route == kStream && dtype == 0) return fgemv::kSmem;
+  if (route == kStream && dtype == 1) return gemv::kSmem;
+  if (route == kWgmma && dtype == 1) return mma::kSmem;
+  if (route == kSimt && (dtype == 0 || dtype == 1)) return 0;
+  return -1;
 }

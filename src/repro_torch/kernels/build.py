@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, never at import, into ``repro_torch/_build/``
-(ignored by git), cached by a hash of the source and the flags: a fresh
+(ignored by git), cached by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags: a fresh
 checkout builds everything on its first call, and later processes reuse
 the library. ``nvcc``'s ptxas report (registers, shared memory, spills)
 is kept beside each library as ``<name>.log``. A failed build raises
@@ -46,9 +47,12 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: the name
-    carries a hash of the source and the flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    carries a hash of the source, of every header in ``csrc/`` (a source
+    may include any of them) and of the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

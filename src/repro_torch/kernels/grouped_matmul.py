@@ -11,19 +11,31 @@ by ``kernels/build.py`` and bound with ctypes.
 
 Bound on the H100: bytes at the serving shapes (the Fed2 unembedding
 of Mamba-2 1.3B: M = batch, G = 8, K = 256, N = 6288, bf16; 25.8 MB of
-weights, 7.7 us at 3.35 TB/s). The TPU kernel needs M, K and N padded
-to 128 (its wrapper pads); the CUDA kernel masks its loads instead and
-pads nothing. Up to M = 8 (decode batches) it streams w through
-registers once, with K split over a block's warps; above, it works in
-shared-memory tiles. It runs fp32 FMAs, not tensor cores, so at M = 128
-its arithmetic, not its bytes, sets its time.
+weights, 7.8 us at 3.35 TB/s at M = 4; with x and y 11.7 us at M =
+128). The TPU kernel needs M, K and N padded to 128 (its wrapper pads);
+the CUDA kernel pads nothing. ``route`` picks one of its three designs
+from the shapes, the dtype and the pointers' alignment:
+
+- ``"stream"`` (M <= 8): the decode GEMV; w streams through a ring of
+  shared-memory stages fed by TMA; bf16 runs the tensor cores with the
+  operands swapped (wgmma m64n8k16 on w^T x^T), fp32 runs FMAs; every
+  sum in a fixed order;
+- ``"wgmma"`` (M > 8, bf16): a GEMM per group on the tensor cores, TMA
+  tiles in a ring, persistent blocks;
+- ``"simt"`` (fp32 at M > 8, or strides and pointers TMA does not
+  take: K or N not a multiple of 16 bytes, an x or w off 16 bytes):
+  shared-memory tiles and fp32 FMAs.
+
+The kernel checks the route's preconditions and refuses (the wrapper
+raises) when they fail; nothing switches route or falls back.
 
 ``grouped_matmul`` is the wrapper: on CPU tensors it computes
 ``grouped_matmul_ref``; on CUDA tensors it launches the kernel or
 raises. The bias is added outside the kernel, as the reference's
 wrapper adds it. ``grouped_matmul.launches`` counts kernel launches
-(one per call). The kernel has no backward: it serves forward passes
-only (``models.layers.grouped_dense_apply(use_kernel=True)``).
+(one per call) and ``grouped_matmul.route_launches`` the launches of
+each route. The kernel has no backward: it serves forward passes only
+(``models.layers.grouped_dense_apply(use_kernel=True)``).
 """
 from __future__ import annotations
 
@@ -34,8 +46,33 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535       # csrc/grouped_matmul.cu: m tiles and groups
-_TILE_M = 64               # csrc/grouped_matmul.cu: rows of a tile
+ROUTES = ("stream", "wgmma", "simt")     # csrc/grouped_matmul.cu's codes
+# csrc/grouped_matmul.cu's limits: rows of the stream route; groups (a
+# grid dimension of the stream and simt routes) and simt row tiles (of
+# _SIMT_TILE_M); TMA coordinates
+_STREAM_MAX_M = 8
+_MAX_GRID_YZ = 65535
+_SIMT_TILE_M = 64
+_MAX_COORD = 2 ** 31 - 1
+
+
+def route(m: int, g: int, k: int, n: int, dtype: torch.dtype,
+          x_ptr: int, w_ptr: int) -> str:
+    """Which design of the kernel takes x (m, g*k) and w (g, k, n) of
+    ``dtype`` at these addresses: ``"stream"``, ``"wgmma"`` or
+    ``"simt"``. Both TMA routes read x as (m, g, k) and w as (g, k, n)
+    through tensor maps, which need 16-byte aligned bases, k and n
+    multiples of 16 bytes (a box starts on a 16-byte boundary) and
+    int32 coordinates."""
+    esize = dtype.itemsize
+    tma = (n * esize % 16 == 0 and k * esize % 16 == 0
+           and x_ptr % 16 == 0 and w_ptr % 16 == 0
+           and g * k <= _MAX_COORD and n <= _MAX_COORD)
+    if tma and m <= _STREAM_MAX_M:
+        return "stream"
+    if tma and dtype == torch.bfloat16:
+        return "wgmma"
+    return "simt"
 
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -55,9 +92,19 @@ def _library() -> ctypes.CDLL:
     fn = lib.grouped_matmul_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.grouped_matmul_dynamic_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.grouped_matmul_dynamic_smem.restype = ctypes.c_int
     return lib
+
+
+def dynamic_smem(route_name: str, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory a block of ``route_name`` takes
+    (builds the kernel)."""
+    return _library().grouped_matmul_dynamic_smem(
+        ROUTES.index(route_name), _DTYPE_CODES[dtype])
 
 
 def _check(x, w, b):
@@ -97,22 +144,26 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     lead = x.shape[:-1]
     xm = x.reshape(-1, g * k)
     m = xm.shape[0]
-    if -(-m // _TILE_M) > _MAX_GRID_YZ or g > _MAX_GRID_YZ:
+    r = route(m, g, k, n, x.dtype, xm.data_ptr(), w.data_ptr())
+    if r != "wgmma" and (g > _MAX_GRID_YZ or (
+            r == "simt" and -(-m // _SIMT_TILE_M) > _MAX_GRID_YZ)):
         raise ValueError(f"grouped_matmul: M = {m} or G = {g} exceeds the "
-                         "kernel's grid")
+                         f"kernel's grid ({r} route)")
     y = torch.empty((m, g * n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grouped_matmul_launch(
             xm.data_ptr(), w.data_ptr(), y.data_ptr(), m, g, k, n,
-            _DTYPE_CODES[x.dtype], stream)
+            _DTYPE_CODES[x.dtype], ROUTES.index(r), stream)
     if err != 0:
-        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"grouped_matmul kernel launch failed ({r} "
+                           f"route): CUDA error {err}")
     grouped_matmul.launches += 1
+    grouped_matmul.route_launches[r] += 1
     if b is not None:
         y = (y.view(m, g, n) + b).view(m, g * n)
     return y.reshape(lead + (g * n,))
 
 
 grouped_matmul.launches = 0
+grouped_matmul.route_launches = dict.fromkeys(ROUTES, 0)

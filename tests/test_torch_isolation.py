@@ -121,9 +121,13 @@ class FakeCuda:
     no memory: enough for a wrapper's checks, which come before any
     device memory is touched."""
 
-    def __init__(self, *shape, dtype=torch.float32):
+    def __init__(self, *shape, dtype=torch.float32, ptr=0):
         self.shape, self.dtype = torch.Size(shape), dtype
         self.device = torch.device("cuda", 0)
+        self.ptr = ptr
+
+    def data_ptr(self):
+        return self.ptr
 
     def dim(self):
         return len(self.shape)
@@ -173,3 +177,80 @@ def test_serving_kernels_raise_when_the_build_fails(monkeypatch, kernel):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+# the serve path's Fed2 unembedding (G = 8, K = 256, N = 6288) at
+# decode batches, and the shapes and pointers that take each route
+_GMM_FULL = (8, 256, 6288)
+
+
+@pytest.mark.parametrize("m,g,k,n,dtype,x_off,w_off,want", [
+    (4, *_GMM_FULL, torch.bfloat16, 0, 0, "stream"),
+    (8, *_GMM_FULL, torch.bfloat16, 0, 0, "stream"),
+    (1, *_GMM_FULL, torch.bfloat16, 0, 0, "stream"),
+    (4, *_GMM_FULL, torch.float32, 0, 0, "stream"),
+    (9, *_GMM_FULL, torch.bfloat16, 0, 0, "wgmma"),
+    (128, *_GMM_FULL, torch.bfloat16, 0, 0, "wgmma"),
+    (128, *_GMM_FULL, torch.float32, 0, 0, "simt"),
+    (4, 8, 256, 6289, torch.bfloat16, 0, 0, "simt"),    # N off 16 bytes
+    (128, 8, 256, 6289, torch.bfloat16, 0, 0, "simt"),
+    (4, 8, 256, 6292, torch.float32, 0, 0, "stream"),   # fp32: 16 bytes
+    (4, 2, 100, 264, torch.bfloat16, 0, 0, "simt"),     # K off 16 bytes
+    (64, 2, 100, 264, torch.bfloat16, 0, 0, "simt"),
+    (4, 2, 104, 264, torch.bfloat16, 0, 0, "stream"),
+    (64, 3, 104, 200, torch.bfloat16, 0, 0, "wgmma"),
+    (4, 2, 100, 68, torch.float32, 0, 0, "stream"),
+    (4, *_GMM_FULL, torch.bfloat16, 0, 2, "simt"),      # w one element off
+    (128, *_GMM_FULL, torch.bfloat16, 0, 2, "simt"),
+    (4, *_GMM_FULL, torch.float32, 0, 4, "simt"),
+    (4, *_GMM_FULL, torch.bfloat16, 2, 0, "simt"),      # x one element off
+    (128, *_GMM_FULL, torch.bfloat16, 16, 16, "wgmma"),
+])
+def test_grouped_matmul_route(m, g, k, n, dtype, x_off, w_off, want):
+    """The wrapper's pure route function: M <= 8 streams, M > 8 bf16 runs
+    wgmma, and whatever TMA does not take (K or N off 16 bytes, a base
+    off 16 bytes), or fp32 at M > 8, takes the simt tiles."""
+    from repro_torch.kernels import grouped_matmul as gm
+    base = 1 << 20
+    assert gm.route(m, g, k, n, dtype, base + x_off, base + w_off) == want
+
+
+@pytest.mark.parametrize("m,n,dtype,route", [
+    (4, 6288, torch.bfloat16, "stream"), (128, 6288, torch.bfloat16, "wgmma"),
+    (128, 6288, torch.float32, "simt"), (4, 6289, torch.bfloat16, "simt")])
+def test_grouped_matmul_raises_on_every_route_when_the_build_fails(
+        monkeypatch, m, n, dtype, route):
+    """No route falls back: with the build failing, a CUDA call of each
+    route's shape raises and counts no launch, in total or by route."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import grouped_matmul as gm
+    x = FakeCuda(m, 8 * 256, dtype=dtype, ptr=1 << 20)
+    w = FakeCuda(8, 256, n, dtype=dtype, ptr=1 << 21)
+    assert gm.route(m, 8, 256, n, dtype, x.data_ptr(), w.data_ptr()) == route
+    monkeypatch.setattr(build, "load", _no_nvcc)
+    before = (gm.grouped_matmul.launches,
+              dict(gm.grouped_matmul.route_launches))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        gm.grouped_matmul(x, w)
+    assert (gm.grouped_matmul.launches,
+            gm.grouped_matmul.route_launches) == before
+    assert set(gm.grouped_matmul.route_launches) == set(gm.ROUTES)
+
+
+def test_library_path_follows_the_shared_headers(monkeypatch, tmp_path):
+    """A kernel's library is keyed by its source, every ``csrc/*.cuh``
+    header and the flags: editing a header it includes rebuilds it."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first          # stable
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new\n")
+    third = build.library_path("k")
+    assert third not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second, third)
