@@ -15,7 +15,11 @@ script exits non-zero:
             at its paths' shapes and on ragged ones (TF32 off), with
             device times (CUDA-graph replay) of the kernel, the plain
             version and one library call (where one exists), beside the
-            bound
+            bound; feature_stats also as feature_stats_many on segment
+            tables (auto-depth's, ragged and misaligned ones, one over a
+            launch's capacity, vgg16's 100 x 15), and Eq. 9's reduction
+            timed as one batched launch, as 80 single-pair calls and as
+            8 torch.linalg.vecdot calls
 5. main     the CLI's main path at full width (VGG9, 10 clients, 8 steps
             of batch 32): fed2 on the default routes, fed2 with
             --use-local-kernel, fedavg on the baseline VGG9; then fed2
@@ -27,10 +31,12 @@ script exits non-zero:
             step), and none launches feature_stats
 6. auto_depth  Fed2's structure adaptation at full width
             (launch/auto_depth.py): warm-up of the baseline VGG9, Eq. 9
-            through feature_stats (one launch per class per tapped
-            layer), TV profile -> decouple depth, 6 rounds of Fed2 (one
-            paired_fusion each); it must learn. Then Eq. 9 on the warm
-            model with the kernel on and off (TF32 off)
+            through feature_stats (one feature_stats_many launch for
+            all 10 classes x 8 tapped layers), TV profile -> decouple
+            depth, 6 rounds of Fed2 (one paired_fusion each); it must
+            learn. Then Eq. 9 on the warm model with the kernel on and
+            off (TF32 off): preference vectors, TV profile and depth
+            agree; and each route's wall time, median of 5
 7. profile  the main path again under torch.profiler: device busy
             share and device time by kernel category
 8. parity   one fed2 round from one init and one batch stream with the
@@ -388,19 +394,63 @@ def phase_check_local_step(layout) -> dict:
             "bound_ms": b, "bound_by": by, "library_ms": lib}
 
 
-def auto_depth_widths():
-    """The neuron counts of the layers Eq. 9 taps on the auto-depth
-    path's warm-up model (every conv and hidden FC)."""
-    from repro_torch.launch import auto_depth
+def tapped_widths(cfg):
+    """The neuron counts of the layers Eq. 9 taps on model ``cfg`` (every
+    conv and hidden FC)."""
     from repro_torch.models.cnn import layer_meta
-    warm_cfg, _ = auto_depth.model_configs(reduced=False)
-    return [m.c_out for m in layer_meta(warm_cfg)
-            if m.kind in ("c", "dw", "fc")]
+    return [m.c_out for m in layer_meta(cfg) if m.kind in ("c", "dw", "fc")]
+
+
+def auto_depth_widths():
+    """The tapped widths of the auto-depth path's warm-up model."""
+    from repro_torch.launch import auto_depth
+    return tapped_widths(auto_depth.model_configs(reduced=False)[0])
+
+
+def fs_within(got, want, a, g, dt) -> tuple:
+    """feature_stats' agreement rule: fp32 within 1e-5 of the column's
+    sum of |a*g| (fp32 sums of B terms taken in another order), bf16 at
+    the JAX test's bounds (tests/test_kernels.py). ``a``, ``g`` reduce
+    over dim -2 into ``got``'s columns. Returns (max error, ok, rule)."""
+    err = (got - want).abs()
+    if dt == torch.float32:
+        scale = (a.float() * g.float()).abs().sum(-2)
+        return (err.max().item(), bool((err <= 1e-5 * scale).all()),
+                "1e-5 x sum|a*g| per column")
+    return (err.max().item(), bool((err <= 0.2 + 1e-2 * want.abs()).all()),
+            "atol 0.2 + rtol 1e-2")
+
+
+def fs_table(shapes, dt, gen, misalign=False):
+    """One feature_stats_many table on the card: (a, g, outs) lists for
+    (S, B, I) segments; ``misalign`` starts every a and g one element
+    past a 16-byte boundary. The outs alternate between contiguous (I, S)
+    tensors, as Eq. 9's (I_l, C) preference tensors are, and (I, S) views
+    of (S, I) rows."""
+    a_list, g_list, outs = [], [], []
+    for k, (s, b, i) in enumerate(shapes):
+        for lst in (a_list, g_list):
+            n = s * b * i
+            flat = torch.randn(n + 1, generator=gen, device="cuda").to(dt)
+            lst.append(flat[1:] if misalign else flat[:n])
+            lst[-1] = lst[-1].view(s, b, i)
+        outs.append(torch.empty((i, s), device="cuda") if k % 2 == 0
+                    else torch.empty((s, i), device="cuda").t())
+    return a_list, g_list, outs
+
+
+def fs_table_bytes(shapes, esize=4) -> tuple:
+    """(bytes, flops) of a table: each input read once, each output
+    written once."""
+    nbytes = sum(2 * s * b * i * esize + 4 * s * i for s, b, i in shapes)
+    return nbytes, sum(2 * s * b * i for s, b, i in shapes)
 
 
 def phase_check_feature_stats() -> dict:
-    from repro_torch.kernels.feature_stats import (feature_stats,
-                                                   feature_stats_ref)
+    from repro_torch.configs import vgg16
+    from repro_torch.kernels.feature_stats import (
+        feature_stats, feature_stats_many, feature_stats_many_ref,
+        feature_stats_ref, feature_stats_table_capacity)
     from repro_torch.launch import auto_depth
     gen = torch.Generator(device="cuda").manual_seed(3)
 
@@ -411,17 +461,7 @@ def phase_check_feature_stats() -> dict:
     def check_fs(name, b, i, dt):
         a, g = pair(b, i, dt)
         got, want = feature_stats(a, g), feature_stats_ref(a, g)
-        err = (got - want).abs()
-        if dt == torch.float32:
-            # 1e-5 of the column's sum of |a*g|: fp32 sums of B terms
-            # taken in another order
-            scale = (a.float() * g.float()).abs().sum(0)
-            ok = bool((err <= 1e-5 * scale).all())
-            lim = "1e-5 x sum|a*g| per column"
-        else:   # the JAX test's bf16 bounds (tests/test_kernels.py)
-            ok = bool((err <= 0.2 + 1e-2 * want.abs()).all())
-            lim = "atol 0.2 + rtol 1e-2"
-        e = err.max().item()
+        e, ok, lim = fs_within(got, want, a, g, dt)
         print(f"  feature_stats {name} ({b}, {i}) {str(dt)[6:]}: "
               f"max_abs_err {e:.3g} ({lim}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -429,38 +469,111 @@ def phase_check_feature_stats() -> dict:
                                  "kernel disagrees with its plain version")
         return e
 
+    cap = feature_stats_table_capacity()
+
+    def check_many(name, shapes, dt, misalign=False):
+        a_l, g_l, outs = fs_table(shapes, dt, gen, misalign)
+        before = feature_stats.launches
+        got = feature_stats_many(a_l, g_l, outs)
+        launches = feature_stats.launches - before
+        want = feature_stats_many_ref(a_l, g_l)
+        errs = [fs_within(p.t(), w.t(), a, g, dt)
+                for p, w, a, g in zip(got, want, a_l, g_l)]
+        e, ok = max(x[0] for x in errs), all(x[1] for x in errs)
+        expect = -(-len(shapes) // cap)
+        print(f"  feature_stats_many {name}: {len(shapes)} segments, "
+              f"{sum(s for s, _, _ in shapes)} instances, "
+              f"{str(dt)[6:]}{', misaligned' if misalign else ''}: "
+              f"max_abs_err {e:.3g} ({errs[0][2]}), {launches} launches "
+              f"(expected {expect}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"feature_stats_many {name} {dt}: kernel "
+                                 "disagrees with its plain version")
+        assert launches == expect, f"feature_stats_many {name}: launches"
+        return e
+
     for b, i in ((32, 100), (256, 512), (100, 1000), (7, 3)):
         for dt in (torch.float32, torch.bfloat16):
             check_fs("JAX test shape", b, i, dt)
     path_b = auto_depth.PROBE_IMAGES
-    err_path = max(check_fs("auto-depth path", path_b, i, torch.float32)
-                   for i in sorted(set(auto_depth_widths())))
+    n_cls = 10
+    for i in sorted(set(auto_depth_widths())):
+        check_fs("auto-depth pair", path_b, i, torch.float32)
     check_fs("large", 8192, 4096, torch.float32)
     check_fs("large", 8192, 4096, torch.bfloat16)
+    check_fs("large, rows not a multiple of the split", 8191, 4095,
+             torch.float32)
 
-    timings = {}
+    # the batched call: Eq. 9's table on the auto-depth path (one segment
+    # of n_cls instances per tapped layer), ragged and misaligned tables,
+    # more segments than one launch takes, and vgg16's 100 x 15 table
+    table = [(n_cls, path_b, i) for i in auto_depth_widths()]
+    err_path = check_many("auto-depth table", table, torch.float32)
+    check_many("auto-depth table", table, torch.bfloat16)
+    ragged = [(3, 7, 3), (1, 100, 1000), (5, 64, 70), (2, 1, 33),
+              (4, 33, 130), (1, 1, 1), (2, 300, 129), (6, 64, 520)]
+    for dt in (torch.float32, torch.bfloat16):
+        check_many("ragged", ragged, dt)
+        check_many("ragged", ragged, dt, misalign=True)
+    check_many("over capacity", [(2, 16 + k, 8 + 4 * k)
+                                 for k in range(cap + 8)], torch.float32)
+    check_many("vgg16 table", [(100, path_b, i) for i in
+                               tapped_widths(vgg16.baseline())],
+               torch.float32)
+
+    # Eq. 9's reduction on the auto-depth path, four ways: one batched
+    # launch, the single-pair kernel once per (class, layer), the nearest
+    # library route (one vecdot per layer) and the plain version
+    nbytes, flops = fs_table_bytes(table)
+    tables = [fs_table(table, torch.float32, gen)
+              for _ in range(copies_for(nbytes))]
+    reps = max(20, len(tables))
+    t = {"ms": time_ms([lambda t=t: feature_stats_many(*t)
+                        for t in tables], max(200, reps)),
+         "old_ms": time_ms([lambda t=t: [feature_stats(a[c], g[c])
+                                         for a, g in zip(t[0], t[1])
+                                         for c in range(n_cls)]
+                            for t in tables], reps),
+         "library_ms": time_ms([lambda t=t: [torch.linalg.vecdot(a, g, dim=1)
+                                             for a, g in zip(t[0], t[1])]
+                                for t in tables], reps),
+         "plain_ms": time_ms([lambda t=t: feature_stats_many_ref(t[0], t[1])
+                              for t in tables], reps)}
+    t["bound_ms"], t["bound_by"] = bound(nbytes, flops)
+    # the floor under any launch: a table of one (1, 1, 1) segment
+    tiny = [fs_table([(1, 1, 1)], torch.float32, gen) for _ in range(4)]
+    floor_ms = time_ms([lambda t=t: feature_stats_many(*t) for t in tiny],
+                       200)
+    print(f"  Eq. 9 reduction, auto-depth table ({len(table)} segments of "
+          f"{n_cls} x ({path_b}, I), {nbytes / 1e6:.3f} MB) fp32: one "
+          f"feature_stats_many launch {t['ms'] * 1e3:.2f} us; "
+          f"{n_cls * len(table)} feature_stats calls "
+          f"{t['old_ms'] * 1e3:.2f} us; {len(table)} torch.linalg.vecdot "
+          f"calls {t['library_ms'] * 1e3:.2f} us; plain "
+          f"{t['plain_ms'] * 1e3:.2f} us; bound {t['bound_ms'] * 1e3:.3f} "
+          f"us ({t['bound_by']}); {t['bound_ms'] / t['ms'] * 100:.1f} % of "
+          f"the bound; one launch of a (1, 1, 1) table "
+          f"{floor_ms * 1e3:.2f} us")
+
     for b, i in ((path_b, max(auto_depth_widths())), (8192, 4096)):
-        nbytes = 2 * b * i * 4
-        pairs = [pair(b, i, torch.float32)
-                 for _ in range(copies_for(nbytes))]
-        reps = max(20 if b * i > 1e6 else 200, len(pairs))
-        t = {"ms": time_ms([lambda p=p: feature_stats(*p) for p in pairs],
-                           reps),
-             "plain_ms": time_ms([lambda p=p: feature_stats_ref(*p)
-                                  for p in pairs], reps),
-             "library_ms": time_ms([lambda p=p: torch.linalg.vecdot(
-                 p[0], p[1], dim=0) for p in pairs], reps)}
-        t["bound_ms"], t["bound_by"] = bound(nbytes + 4 * i, 2 * b * i)
-        timings[(b, i)] = t
-        print(f"  feature_stats ({b}, {i}) fp32: {t['ms'] * 1e3:.2f} us, "
-              f"plain {t['plain_ms'] * 1e3:.2f} us, torch.linalg.vecdot "
-              f"{t['library_ms'] * 1e3:.2f} us, bound "
-              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
-    path = timings[(path_b, max(auto_depth_widths()))]
+        nb = 2 * b * i * 4
+        pairs = [pair(b, i, torch.float32) for _ in range(copies_for(nb))]
+        r = max(20 if b * i > 1e6 else 200, len(pairs))
+        tp = {"ms": time_ms([lambda p=p: feature_stats(*p) for p in pairs],
+                            r),
+              "plain_ms": time_ms([lambda p=p: feature_stats_ref(*p)
+                                   for p in pairs], r),
+              "library_ms": time_ms([lambda p=p: torch.linalg.vecdot(
+                  p[0], p[1], dim=0) for p in pairs], r)}
+        tp["bound_ms"], tp["bound_by"] = bound(nb + 4 * i, 2 * b * i)
+        print(f"  feature_stats ({b}, {i}) fp32: {tp['ms'] * 1e3:.2f} us, "
+              f"plain {tp['plain_ms'] * 1e3:.2f} us, torch.linalg.vecdot "
+              f"{tp['library_ms'] * 1e3:.2f} us, bound "
+              f"{tp['bound_ms'] * 1e3:.2f} us ({tp['bound_by']})")
     return {"name": "feature_stats", "route": "cuda",
             "source": "src/repro_torch/csrc/feature_stats.cu",
             "replaces": "src/repro/kernels/feature_stats.py:43",
-            "max_abs_err": err_path, **path}
+            "max_abs_err": err_path, **t}
 
 
 def ssd_inputs(b, h, p, n, dt_x, gen, state=None):
@@ -778,14 +891,15 @@ def phase_main() -> dict:
 def phase_auto_depth() -> int:
     """The full-width structure-adaptation path; returns its
     feature_stats launches."""
-    from repro_torch.core.feature_stats import class_preference_vectors
+    from repro_torch.core.feature_stats import (class_preference_vectors,
+                                                total_variance)
+    from repro_torch.core.grouping import choose_decouple_depth
     from repro_torch.launch import auto_depth
-    n_cls, taps = 10, len(auto_depth_widths())
     out, counts = counted(
         "auto_depth (full width)",
         lambda: auto_depth.run_auto_depth(device="cuda", log=print),
         {"paired_fusion": auto_depth.ROUNDS, "local_step": 0,
-         "feature_stats": n_cls * taps})
+         "feature_stats": 1})
     h = out["history"]
     finite_params(h)
     w = h["wall"]
@@ -796,11 +910,15 @@ def phase_auto_depth() -> int:
           f"accs {[round(a, 4) for a in h['acc']]}")
     assert h["acc"][-1] > 0.1 and h["acc"][-1] > h["acc"][0], \
         "auto-depth fed2 did not learn (final <= chance or first round)"
+
+    def eq9(use_kernel):
+        return class_preference_vectors(out["warm_params"], out["warm_cfg"],
+                                        *out["probe"], use_kernel=use_kernel)
+
     with tf32_off(), deterministic_convs():
-        on = class_preference_vectors(out["warm_params"], out["warm_cfg"],
-                                      *out["probe"], use_kernel=True)
-        off = class_preference_vectors(out["warm_params"], out["warm_cfg"],
-                                       *out["probe"], use_kernel=False)
+        on, off = eq9(True), eq9(False)
+        tv_on = [float(total_variance(p)) for p in on]
+        tv_off = [float(total_variance(p)) for p in off]
     err = max((a - b).abs().max().item() for a, b in zip(on, off))
     ok = all(torch.allclose(a, b, atol=PVEC_ATOL, rtol=PVEC_RTOL)
              for a, b in zip(on, off))
@@ -808,6 +926,27 @@ def phase_auto_depth() -> int:
           f"(TF32 off): max_abs_err {err:.3g} (atol {PVEC_ATOL:g}, rtol "
           f"{PVEC_RTOL:g}) {'ok' if ok else 'FAIL'}")
     assert ok, "Eq. 9 through the kernel disagrees with the plain route"
+    depth = {k: max(choose_decouple_depth(tv, threshold_frac=0.5,
+                                          min_shared=2), 1)
+             for k, tv in (("kernel", tv_on), ("plain", tv_off))}
+    print(f"  TV profile, kernel route {[round(t, 4) for t in tv_on]}, "
+          f"plain route {[round(t, 4) for t in tv_off]}; decouple depth "
+          f"{depth['kernel']} and {depth['plain']}")
+    assert depth["kernel"] == depth["plain"], \
+        "the kernel route chooses another decouple depth"
+    # wall time of one Eq. 9 evaluation on the warm model (its C backward
+    # passes included), the two routes in turns, as the path runs it
+    walls = {True: [], False: []}
+    for _ in range(5):
+        for use_kernel in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eq9(use_kernel)
+            torch.cuda.synchronize()
+            walls[use_kernel].append(time.perf_counter() - t0)
+    med = {k: sorted(v)[2] * 1e3 for k, v in walls.items()}
+    print(f"  Eq. 9 wall time on the warm model, median of 5: kernel "
+          f"route {med[True]:.2f} ms, plain route {med[False]:.2f} ms")
     return counts["feature_stats"]
 
 

@@ -11,8 +11,9 @@ these paths are written by hand for Hopper: ``kernels/paired_fusion.py``
 (CUDA C++, ``csrc/paired_fusion.cu``) and ``kernels/local_step.py``
 (Triton) in the synchronous round, ``kernels/feature_stats.py`` (CUDA
 C++, ``csrc/feature_stats.cu``) in Eq. 9's class preference vectors,
-and ``kernels/ssd_update.py`` and ``kernels/grouped_matmul.py`` (CUDA
-C++, ``csrc/ssd_update.cu``, ``csrc/grouped_matmul.cu``) in Mamba-2
-serving: the SSM recurrence of every decode step and the Fed2
-block-diagonal unembedding.
+where one launch reduces every (tapped layer, class) pair, and
+``kernels/ssd_update.py`` and ``kernels/grouped_matmul.py`` (CUDA C++,
+``csrc/ssd_update.cu``, ``csrc/grouped_matmul.cu``) in Mamba-2 serving:
+the SSM recurrence of every decode step and the Fed2 block-diagonal
+unembedding.
 """

@@ -13,15 +13,17 @@ activation) through additive zero offsets, so dZ_c/dA is an ordinary
 per class, as in the reference (``src/repro/core/feature_stats.py``).
 Taps are NCHW for convs and (B, I) for dense layers.
 
-``use_kernel=True`` sends each class's batched A * dZ/dA reduction
-through the ``kernels/feature_stats.py`` kernel: one launch per class
-per tapped layer.
+``use_kernel=True`` gathers every class's pooled gradient into one
+(C, B, I_l) buffer per tapped layer, masks the activations once per
+layer into a (C, B, I_l) tensor, and reduces all of them in one call of
+``kernels/feature_stats.feature_stats_many``: one kernel launch per
+evaluation, written straight into the (I_l, C) preference tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.feature_stats import feature_stats
+from repro_torch.kernels.feature_stats import feature_stats_many
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models.layers import dense_apply, grouped_dense_apply
 
@@ -76,6 +78,8 @@ def class_preference_vectors(params, cfg, images, labels, *,
     acts = [_pool_tap(t) for t in probe_taps]              # (B, I_l)
     pvecs = [torch.zeros((a.shape[1], n_cls), dtype=torch.float32,
                          device=a.device) for a in acts]
+    if use_kernel:                   # every class's pooled gradients
+        gbufs = [a.new_empty((n_cls, *a.shape)) for a in acts]
     for c in range(n_cls):
         zeros = [torch.zeros_like(t, requires_grad=True)
                  for t in probe_taps]
@@ -90,10 +94,14 @@ def class_preference_vectors(params, cfg, images, labels, *,
             gp = _pool_tap(g) * (1.0 if g.dim() == 2
                                  else g.shape[2] * g.shape[3])
             if use_kernel:
-                p_c = feature_stats((a * sel).contiguous(), gp.contiguous())
+                gbufs[li][c] = gp
             else:
-                p_c = (a * sel * gp).sum(0)
-            pvecs[li][:, c] = p_c.to(torch.float32)
+                pvecs[li][:, c] = (a * sel * gp).sum(0).to(torch.float32)
+    if use_kernel:
+        onehot = (labels[None, :] == torch.arange(
+            n_cls, device=labels.device)[:, None]).to(torch.float32)
+        masked = [a[None] * onehot[:, :, None] for a in acts]  # (C, B, I_l)
+        feature_stats_many(masked, gbufs, outs=pvecs)
     return pvecs
 
 

@@ -8,6 +8,10 @@ Tolerances:
   sums of up to 256 products of O(1) values (fp32, another summation
   order). bf16 inputs are rounded identically on both sides and
   multiplied in fp32, so bf16 is held to the same figure.
+- ``feature_stats_many_ref`` vs the same oracle, instance by instance:
+  fp32 at 1e-4; bf16 at the JAX kernel test's atol 0.2 / rtol 1e-2.
+- Eq. 9's batched route vs the port's per-class plain route, on the
+  CPU: 1e-6 absolute (one fp32 sum of the same products per column).
 - class preference vectors (Eq. 9), port under both kernel flags vs the
   reference under ``use_kernel=True`` (its Pallas kernel in interpret
   mode): 1e-4 absolute (measured below 1e-6), inside the JAX test's
@@ -109,6 +113,171 @@ def test_feature_stats_rejects_bad_inputs():
         kfs.feature_stats(m, m)
     with pytest.raises(ValueError, match="share a device"):
         kfs.feature_stats(x, m)
+
+
+# ---------------------------------------------------------------------------
+# the batched call: many (S, B, I) segments, one launch on the card
+# ---------------------------------------------------------------------------
+
+# the auto-depth path's tapped widths (vgg9.baseline(): 6 convs, 2 FCs)
+AUTO_DEPTH_WIDTHS = (32, 64, 128, 128, 256, 256, 512, 512)
+MANY_TABLES = {     # name -> [(S, B, I), ...]
+    "auto_depth": [(10, 64, i) for i in AUTO_DEPTH_WIDTHS],
+    "odd_s1": [(1, 7, 3), (1, 100, 1000)],
+    "odd_s3": [(3, 7, 3), (3, 100, 1000)],
+}
+
+
+def _segments(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=s).astype(np.float32),
+             rng.normal(size=s).astype(np.float32)) for s in shapes]
+
+
+@pytest.mark.parametrize("table", sorted(MANY_TABLES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_feature_stats_many_ref_matches_reference(table, dtype):
+    """Each instance of each segment against the reference's oracle: fp32
+    at 1e-4, bf16 at the JAX kernel test's bounds (atol 0.2, rtol 1e-2;
+    tests/test_kernels.py)."""
+    shapes = MANY_TABLES[table]
+    segs = _segments(shapes, seed=len(table) * 31 + len(dtype))
+    tdt = getattr(torch, dtype)
+    a_t = [torch.tensor(a).to(tdt) for a, _ in segs]
+    g_t = [torch.tensor(g).to(tdt) for _, g in segs]
+    before = kfs.feature_stats.launches
+    got = kfs.feature_stats_many(a_t, g_t)     # CPU: the plain version
+    assert kfs.feature_stats.launches == before
+    tol = ({"atol": TOL, "rtol": 0} if dtype == "float32"
+           else {"atol": 2e-1, "rtol": 1e-2})
+    for (a, g), p, (s, _, i) in zip(segs, got, shapes):
+        assert p.dtype == torch.float32 and p.shape == (i, s)
+        for k in range(s):
+            want = jref.feature_stats_ref(jnp.asarray(a[k]).astype(dtype),
+                                          jnp.asarray(g[k]).astype(dtype))
+            np.testing.assert_allclose(p[:, k].numpy(), np.asarray(want),
+                                       **tol)
+    for p, a, g in zip(got, a_t, g_t):      # instance k = feature_stats
+        for k in range(a.shape[0]):
+            torch.testing.assert_close(p[:, k],
+                                       kfs.feature_stats(a[k], g[k]),
+                                       atol=0, rtol=0)
+
+
+def test_feature_stats_many_writes_strided_outs():
+    """``outs`` may be strided (I, S) views: the results land in them (and
+    nowhere else) and the same tensors come back."""
+    segs = _segments([(4, 5, 6), (4, 3, 2)], seed=2)
+    a_t = [torch.tensor(a) for a, _ in segs]
+    g_t = [torch.tensor(g) for _, g in segs]
+    big = torch.full((6, 9), -7.0)
+    outs = [big[:, 1:9:2], torch.full((4, 2), -7.0).t()]
+    got = kfs.feature_stats_many(a_t, g_t, outs=outs)
+    assert got[0] is outs[0] and got[1] is outs[1]
+    want = kfs.feature_stats_many_ref(a_t, g_t)
+    for o, w in zip(outs, want):
+        torch.testing.assert_close(o, w, atol=0, rtol=0)
+    assert bool((big[:, 0::2] == -7.0).all())      # untouched columns
+
+
+def test_feature_stats_many_rejects_bad_inputs():
+    x = torch.zeros(2, 4, 6)
+    with pytest.raises(ValueError, match="one or more"):
+        kfs.feature_stats_many([], [])
+    with pytest.raises(ValueError, match="one or more"):
+        kfs.feature_stats_many([x, x], [x])
+    with pytest.raises(ValueError, match="one shape"):
+        kfs.feature_stats_many([x], [torch.zeros(2, 4, 5)])
+    with pytest.raises(ValueError, match="one shape"):
+        kfs.feature_stats_many([x[0]], [x[0]])
+    with pytest.raises(ValueError, match="empty"):
+        kfs.feature_stats_many([torch.zeros(0, 4, 6)], [torch.zeros(0, 4, 6)])
+    with pytest.raises(TypeError):
+        kfs.feature_stats_many([x, x.bfloat16()], [x, x.bfloat16()])
+    with pytest.raises(TypeError):
+        kfs.feature_stats_many([x], [x.bfloat16()])
+    with pytest.raises(TypeError):
+        kfs.feature_stats_many([x.double()], [x.double()])
+    m = torch.zeros(2, 4, 6, device="meta")
+    with pytest.raises(ValueError, match="share a device"):
+        kfs.feature_stats_many([x, m], [x, m])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kfs.feature_stats_many([m], [m])
+    with pytest.raises(ValueError, match="contiguous"):
+        kfs.feature_stats_many([torch.zeros(2, 6, 4).transpose(1, 2)], [x])
+    with pytest.raises(ValueError, match="outs for"):
+        kfs.feature_stats_many([x], [x], outs=[])
+    for bad in (torch.zeros(2, 6), torch.zeros(6, 2, dtype=torch.float64),
+                torch.zeros(6, 3)):
+        with pytest.raises(ValueError, match=r"\(I, S\)"):
+            kfs.feature_stats_many([x], [x], outs=[bad])
+    with pytest.raises(ValueError, match="overlaps"):
+        kfs.feature_stats_many([x], [x],
+                               outs=[torch.zeros(6, 1).expand(6, 2)])
+
+
+class _FakeCuda:
+    """Shape, dtype and device of a contiguous CUDA tensor and no memory:
+    enough for the wrapper's checks, which come before the build."""
+
+    def __init__(self, *shape):
+        self.shape, self.dtype = torch.Size(shape), torch.float32
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+
+def test_feature_stats_many_raises_when_the_build_fails(monkeypatch):
+    """No fallback: on CUDA tensors a failed build raises and counts no
+    launch."""
+    from repro_torch.kernels import build
+
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed building {name}")
+
+    monkeypatch.setattr(build, "load", no_nvcc)
+    before = kfs.feature_stats.launches
+    t = _FakeCuda(2, 4, 8)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kfs.feature_stats_many([t], [t])
+    assert kfs.feature_stats.launches == before
+
+
+def _narrow_vgg16():
+    """VGG16's 13 convs and 2 hidden FCs at a sixteenth of the width, on
+    100 classes: the Eq. 9 table of vgg16 (100 x 15 reductions) at a size
+    the CPU runs in seconds."""
+    from repro_torch.configs import vgg16
+    plan = tuple(s if s[0] == "p" else ("c", s[1] // 16)
+                 for s in tcnn.VGG16_PLAN)
+    return dataclasses.replace(vgg16.baseline(), plan=plan, fc_dims=(32, 32))
+
+
+@pytest.mark.parametrize("name", ["vgg9", "vgg16"])
+def test_class_preference_vectors_kernel_route_matches_plain(name):
+    """The batched route (one feature_stats_many call) against the plain
+    per-class route of the port, on the CPU: no launch, within 1e-6."""
+    from repro_torch.configs import vgg9
+    cfg = (vgg9.reduced(fed2_groups=0, norm="none") if name == "vgg9"
+           else _narrow_vgg16())
+    n_taps = 15 if name == "vgg16" else 4
+    p = tcnn.init_cnn(torch.Generator().manual_seed(2), cfg)
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(16, 32, 32, 3)).astype(np.float32))
+    y = torch.tensor(rng.integers(0, cfg.n_classes, 16))
+    before = kfs.feature_stats.launches
+    on = tfs.class_preference_vectors(p, cfg, x, y, use_kernel=True)
+    assert kfs.feature_stats.launches == before
+    off = tfs.class_preference_vectors(p, cfg, x, y, use_kernel=False)
+    assert len(on) == len(off) == n_taps
+    for a, b in zip(on, off):
+        assert a.shape == b.shape and a.shape[1] == cfg.n_classes
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    assert any(bool((b != 0).any()) for b in off)
 
 
 # ---------------------------------------------------------------------------
