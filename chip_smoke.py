@@ -6,7 +6,8 @@
 Phases, each announced on its own line; any failure raises and the
 script exits non-zero:
 
-1. device   the card's name and power limit (nvidia-smi), torch/CUDA
+1. device   the card's name and power limit (nvidia-smi), torch/CUDA,
+            triton and scipy
 2. build    the CUDA C++ kernels (one nvcc per source) and the Triton
             kernel, all started together; each CUDA kernel's registers
             and spills (ptxas) and grouped_matmul's dynamic shared memory
@@ -19,7 +20,10 @@ script exits non-zero:
             tables (auto-depth's, ragged and misaligned ones, one over a
             launch's capacity, vgg16's 100 x 15), and Eq. 9's reduction
             timed as one batched launch, as 80 single-pair calls and as
-            8 torch.linalg.vecdot calls
+            8 torch.linalg.vecdot calls; and presence-weighted fusion
+            of leaves whose group axis does not lead (a (2, 4, 5) leaf
+            at axis 1, a stacked (4, 8, 256, 256) leaf), one launch per
+            (pre index, group) block
 5. main     the CLI's main path at full width (VGG9, 10 clients, 8 steps
             of batch 32): fed2 on the default routes, fed2 with
             --use-local-kernel, fedavg on the baseline VGG9; then fed2
@@ -29,23 +33,41 @@ script exits non-zero:
             fuses once per round through paired_fusion, only the
             --use-local-kernel run launches local_step (once per local
             step), and none launches feature_stats
-6. auto_depth  Fed2's structure adaptation at full width
+6. methods  fedavgm, fedadam, fednova, scaffold and fedma through the
+            CLI's defaults (vgg9.baseline), 3 rounds each, with and
+            without --use-local-kernel, counted: paired_fusion once a
+            round (fedma: never, it fuses on the host), local_step once
+            a local step with the flag (scaffold: never); s/round, and
+            FedMA's matching time per round. fedadam runs the CLI's
+            inputs at server_lr 1e-3 (at the CLI's 1.0 it overflows)
+7. fednova parity  one fednova and one fedavg round from one init (TF32
+            off, deterministic convolutions): equal within 1e-5
+8. samplers the CLI's fed2 under --sampler uniform, weighted and
+            round_robin at --cohort-size 5, and the full sampler over
+            --nodes 20 at --cohort-size 10 (2 tiles, 2 launches a
+            round); the ids of each round
+9. auto_depth  Fed2's structure adaptation at full width
             (launch/auto_depth.py): warm-up of the baseline VGG9, Eq. 9
             through feature_stats (one feature_stats_many launch for
             all 10 classes x 8 tapped layers), TV profile -> decouple
             depth, 6 rounds of Fed2 (one paired_fusion each); it must
             learn. Then Eq. 9 on the warm model with the kernel on and
             off (TF32 off): preference vectors, TV profile and depth
-            agree; and each route's wall time, median of 5
-7. profile  the main path again under torch.profiler: device busy
+            agree; and each route's wall time, median of 5; and Eq. 9
+            on the warm model cast to bf16, kernel route (one launch)
+            against plain
+10. profile the main path again under torch.profiler: device busy
             share and device time by kernel category
-8. parity   one fed2 round from one init and one batch stream with the
+11. parity  one fed2 round from one init and one batch stream with the
             kernels on and off (TF32 off, deterministic convolutions):
             the fusion kernel alone agrees to round-off, both kernels
             within what a one-ulp change of the init does to the round
-9. scenario nxc2_fed2 for its 10 rounds, counted like the main path;
-            it must learn
-10. serve   Mamba-2 1.3B at full width through the serving CLI
+12. scenario nxc2_fed2, nxc2_fedma, dir05_fed2, qskew_fed2 and
+            iid_fedavg for their 10 rounds, counted like the main path;
+            each must learn; the JAX package's committed final
+            accuracies beside them, and whether every FedMA permutation
+            was the identity
+13. serve   Mamba-2 1.3B at full width through the serving CLI
             (launch/serve.py, the reference's defaults: batch 4, 32
             prompt + 16 decoded tokens): --full (ssd_update in every
             layer of every step: 48 x 48 launches) and --full
@@ -55,9 +77,9 @@ script exits non-zero:
             counted, grouped_matmul by route too, with prefill/decode
             time, tok/s, peak device memory and the parameter count,
             which must equal the reference's
-11. serve profile  a short Fed2 serve under torch.profiler: device
+14. serve profile  a short Fed2 serve under torch.profiler: device
             busy share and device time by kernel category
-12. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
+15. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
             the kernels and with the plain versions: logits and the
             final cache within the stated limits
 
@@ -76,6 +98,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -89,9 +112,25 @@ FUSION_PARITY_TOL = 1e-5       # see phase_parity
 # Eq. 9 with the feature_stats kernel vs without, on one warm model:
 # tests/test_fed2_core.py's bound between the JAX package's two routes
 PVEC_ATOL = PVEC_RTOL = 1e-3
-# the JAX package's committed nxc2_fed2 record
-# (benchmarks/artifacts_perf/scenario_nxc2_fed2.json)
-SCENARIO_REFERENCE = 0.5075
+# the JAX package's committed final accuracies
+# (benchmarks/artifacts_perf/scenario_<name>.json): shown beside the
+# port's, not matched (the inits differ)
+SCENARIO_REFERENCE = {"nxc2_fed2": 0.5075, "nxc2_fedma": 0.4125,
+                      "dir05_fed2": 0.96, "qskew_fed2": 0.9925,
+                      "iid_fedavg": 0.9925}
+# one fednova round vs one fedavg round from the same init (TF32 off,
+# deterministic convs): under uniform tau the two are one function, and
+# differ by fp32 round-off of the normalize/rescale (the reference pins
+# 1e-5 between them, tests/test_methods.py)
+FEDNOVA_PARITY_TOL = 1e-5
+# fedadam's server step size on the card. Its Adam step moves every
+# weight by about server_lr a round whatever the round delta, and the
+# full VGG9 (no normalization) overflows at the CLI's default 1.0 (round
+# 2) and at the reference's own test value 0.05 (tests/test_methods.py,
+# round 1), and stalls at 0.01 (the port's CPU runs; ROADMAP Queue 3).
+# 1e-3 learns, and is the value tests/test_torch_methods.py holds
+# fedadam at against the reference.
+FEDADAM_SERVER_LR = 1e-3
 BF16_FLOPS = 989e12            # H100 SXM bf16, dense tensor cores
 # parameters of mamba2-1.3b and of with_fed2(groups=8) of it: the
 # reference's param_count(jax.eval_shape(init_params, ...)) on its
@@ -347,6 +386,39 @@ def phase_check_paired_fusion(layout) -> dict:
             "replaces": "src/repro/kernels/paired_fusion.py:43",
             "max_abs_err": err_main, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": lib}
+
+
+def phase_check_group_axis():
+    """Presence-weighted fusion of leaves whose group axis does not lead
+    (pre > 1): the kernel route launches paired_fusion once per (pre
+    index, group) block and once per shared leaf; held against the plain
+    version within 1e-5 (the kernel check's). A (2, 4, 5) leaf with
+    GroupAxis(1, 2), and a stacked (L, G, i, o) leaf of lm_group_axes'
+    shape at L = 4, G = 8, i = o = 256."""
+    from repro_torch.core import fusion
+    from repro_torch.kernels.paired_fusion import paired_fusion
+    from repro_torch.models.module import FlatLayout
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 10
+    for shape, axis, g in (((2, 4, 5), 1, 2), ((4, 8, 256, 256), 1, 8)):
+        tree = {"g": torch.zeros(shape), "s": torch.zeros(4099)}
+        layout = FlatLayout(tree)
+        x = cohort(layout, n, torch.float32, gen)
+        axes = {"g": fusion.GroupAxis(axis, g), "s": None}
+        gw = torch.rand(n, g, generator=gen, device="cuda")
+        gw[:, 0] = 0.0                       # a column no client holds
+        w = torch.rand(n, generator=gen, device="cuda") + 0.1
+        before = paired_fusion.launches
+        got = fusion.paired_average(x, layout, axes, weights=w,
+                                    group_weights=gw, use_kernel=True)
+        launches = paired_fusion.launches - before
+        want = fusion.paired_average(x, layout, axes, weights=w,
+                                     group_weights=gw, use_kernel=False)
+        pre = math.prod(shape[:axis])
+        check(f"paired_fusion, group axis {axis} of {shape} ({pre} x {g} "
+              f"blocks + 1 shared leaf, {launches} launches)", got, want,
+              1e-5)
+        assert launches == pre * g + 1, launches
 
 
 def phase_check_local_step(layout) -> dict:
@@ -817,12 +889,16 @@ def cli(*extra):
     print("  python -m repro_torch.launch.train", " ".join(argv), flush=True)
     h = train.main(argv)
     finite_params(h)
+    rounds_line(h)
+    return h
+
+
+def rounds_line(h):
     w = h["wall"]
     print(f"  -> {MAIN_ROUNDS / h['wall_total']:.3f} rounds/s over the run "
           f"({h['wall_total']:.3f} s; first round {w[0]:.3f} s, later "
           f"rounds {(w[-1] - w[0]) / (len(w) - 1):.3f} s each), final acc "
           f"{h['acc'][-1]:.4f}", flush=True)
-    return h
 
 
 def wrappers() -> dict:
@@ -888,6 +964,136 @@ def phase_main() -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def fedma_probe():
+    """Times each matched average (one per FedMA round) and records
+    whether each permutation it found was the identity."""
+    from repro_torch.core import matching
+    stats = {"ms": [], "perms": 0, "identity": 0}
+    orig_avg, orig_match = matching.matched_average, matching.match_permutation
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig_avg(*a, **k)
+        torch.cuda.synchronize()
+        stats["ms"].append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def recorded(*a, **k):
+        perm = orig_match(*a, **k)
+        stats["perms"] += 1
+        stats["identity"] += int(np.array_equal(perm,
+                                                np.arange(len(perm))))
+        return perm
+
+    matching.matched_average, matching.match_permutation = timed, recorded
+    try:
+        yield stats
+    finally:
+        matching.matched_average = orig_avg
+        matching.match_permutation = orig_match
+
+
+def fedma_line(stats) -> str:
+    return (f"FedMA matched averaging {[round(t, 1) for t in stats['ms']]} "
+            f"ms per round; {stats['identity']} of {stats['perms']} "
+            f"permutations were the identity"
+            f"{' (all)' if stats['identity'] == stats['perms'] else ''}")
+
+
+def fedadam_run(*extra):
+    """The CLI's fedadam run (its inputs, ``run_federated`` as the CLI
+    calls it) at server_lr FEDADAM_SERVER_LR: at the CLI's default 1.0
+    the Adam step moves every weight by about 1.0 a round, and the full
+    VGG9 overflows (ROADMAP Queue 3)."""
+    import dataclasses
+
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    args = train.parse_args(["--method", "fedadam", "--rounds",
+                             str(MAIN_ROUNDS), *extra])
+    task, fl, parts, get_batch, test = train.fl_inputs(args)
+    fl = dataclasses.replace(fl, server_lr=FEDADAM_SERVER_LR)
+    print(f"  the CLI's inputs for --method fedadam {' '.join(extra)}, "
+          f"server_lr {fl.server_lr}", flush=True)
+    h = run_federated(task, fl, parts, get_batch, test,
+                      use_local_kernel=args.use_local_kernel,
+                      device="cuda")
+    finite_params(h)
+    rounds_line(h)
+    return h
+
+
+def phase_methods():
+    """The five other methods through the CLI's defaults (vgg9.baseline,
+    10 clients, 8 steps of batch 32), 3 rounds each, with and without
+    --use-local-kernel: fedavgm, fedadam and fednova fuse through
+    paired_fusion once a round (fednova over the normalized deltas);
+    scaffold too, and never takes local_step (its own momentum-free
+    client update); fedma fuses on the host (no paired_fusion). fedadam
+    runs at server_lr FEDADAM_SERVER_LR (``fedadam_run``)."""
+    from repro_torch.launch import train
+    d = train.parse_args([])
+    steps = d.local_epochs * d.steps_per_epoch
+    for method in ("fedavgm", "fedadam", "fednova", "scaffold", "fedma"):
+        fuse = 0 if method == "fedma" else MAIN_ROUNDS
+        local = 0 if method == "scaffold" else steps * MAIN_ROUNDS
+        for flag, n_local in (((), 0), (("--use-local-kernel",), local)):
+            label = " ".join((method,) + flag)
+            run = ((lambda: fedadam_run(*flag)) if method == "fedadam"
+                   else (lambda: cli("--method", method, *flag)))
+            with fedma_probe() as stats:
+                counted(label, run,
+                        {"paired_fusion": fuse, "local_step": n_local})
+            if method == "fedma":
+                assert len(stats["ms"]) == MAIN_ROUNDS
+                print(f"  {fedma_line(stats)}", flush=True)
+
+
+def phase_fednova_parity():
+    """One fednova round and one fedavg round from one init and one batch
+    stream (TF32 off, deterministic convolutions): under uniform tau the
+    two are one function."""
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    from repro_torch.models.module import tree_leaves
+    finals = {}
+    init = None
+    for method in ("fedavg", "fednova"):
+        task, fl, parts, get_batch, test = train.fl_inputs(
+            train.parse_args(["--rounds", "1", "--method", method]))
+        if init is None:
+            init = task.init_fn(torch.Generator().manual_seed(0))
+        h = run_federated(task, fl, parts, get_batch, test, device="cuda",
+                          init_params=init)
+        finite_params(h)
+        finals[method] = h["final_params"]
+    d = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(finals["fednova"]), tree_leaves(finals["fedavg"])))
+    print(f"  max |dparam| after one round, fednova vs fedavg: {d:.3g} "
+          f"(tol {FEDNOVA_PARITY_TOL:g})")
+    assert d <= FEDNOVA_PARITY_TOL, f"fednova drifts from fedavg: {d}"
+
+
+def phase_samplers():
+    """The CLI's default method (fed2 on vgg9.full(fed2_groups=8)) under
+    each cohort sampler at cohort 5 of 10 (one paired_fusion a round),
+    and the full sampler over 20 clients at cohort 10 (2 tiles a round,
+    so 2 launches a round)."""
+    for extra, fuse in (
+            (("--sampler", "uniform", "--cohort-size", "5"), MAIN_ROUNDS),
+            (("--sampler", "weighted", "--cohort-size", "5"), MAIN_ROUNDS),
+            (("--sampler", "round_robin", "--cohort-size", "5"),
+             MAIN_ROUNDS),
+            (("--nodes", "20", "--cohort-size", "10"), 2 * MAIN_ROUNDS)):
+        h, _ = counted(" ".join(extra), lambda: cli(*extra),
+                       {"paired_fusion": fuse, "local_step": 0})
+        print(f"  ids per round: "
+              f"{[[int(i) for i in p] for p in h['participants']]}",
+              flush=True)
+
+
 def phase_auto_depth() -> int:
     """The full-width structure-adaptation path; returns its
     feature_stats launches."""
@@ -947,7 +1153,39 @@ def phase_auto_depth() -> int:
     med = {k: sorted(v)[2] * 1e3 for k, v in walls.items()}
     print(f"  Eq. 9 wall time on the warm model, median of 5: kernel "
           f"route {med[True]:.2f} ms, plain route {med[False]:.2f} ms")
+    phase_eq9_bf16(out)
     return counts["feature_stats"]
+
+
+def phase_eq9_bf16(out):
+    """Eq. 9 of the warm model cast to bf16 (CNNConfig(dtype=bf16)),
+    kernel route (one counted feature_stats launch) against the plain
+    route, TF32 off. Both sum the same exact products of bf16 values in
+    fp32, so the fp32 Eq. 9 check's tolerances hold."""
+    import dataclasses
+
+    from repro_torch.core.feature_stats import class_preference_vectors
+    from repro_torch.models.module import tree_map
+    cfg = dataclasses.replace(out["warm_cfg"], dtype=torch.bfloat16)
+    params = tree_map(lambda t: t.to(torch.bfloat16), out["warm_params"])
+    images, labels = out["probe"]
+    images = images.to(torch.bfloat16)
+
+    def eq9(use_kernel):
+        return class_preference_vectors(params, cfg, images, labels,
+                                        use_kernel=use_kernel)
+
+    with tf32_off(), deterministic_convs():
+        on, _ = counted("Eq. 9, bf16 warm model, kernel route",
+                        lambda: eq9(True), {"feature_stats": 1})
+        off = eq9(False)
+    err = max((a - b).abs().max().item() for a, b in zip(on, off))
+    ok = all(a.dtype == torch.float32 and torch.allclose(
+        a, b, atol=PVEC_ATOL, rtol=PVEC_RTOL) for a, b in zip(on, off))
+    print(f"  Eq. 9 on the bf16 warm model, feature_stats kernel vs plain "
+          f"(TF32 off): max_abs_err {err:.3g} (atol {PVEC_ATOL:g}, rtol "
+          f"{PVEC_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    assert ok, "bf16 Eq. 9 through the kernel disagrees with the plain route"
 
 
 def _category(name: str) -> str:
@@ -1054,17 +1292,27 @@ def phase_parity():
 
 
 def phase_scenario():
+    """nxc2_fed2 and the added scenarios, each for its 10 rounds,
+    counted like the main path; each must learn (final > twice
+    chance). The JAX package's committed final accuracies are shown
+    beside them, not matched: the inits differ."""
     from repro_torch.fl import scenarios
-    spec = scenarios.get("nxc2_fed2")
-    rec, _ = counted(
-        "nxc2_fed2", lambda: scenarios.run_scenario(spec, device="cuda"),
-        {"paired_fusion": spec.rounds, "local_step": 0,
-         "feature_stats": 0})
-    print(f"  nxc2_fed2 ({spec.rounds} rounds, {rec.wall_total:.2f} s): "
-          f"final acc {rec.final_acc:.4f} (the JAX package's committed "
-          f"record: {SCENARIO_REFERENCE}; inits differ), accs "
-          f"{[round(a, 4) for a in rec.acc]}")
-    assert rec.final_acc > 0.2, "nxc2_fed2 did not learn (<= 2x chance)"
+    for name in ("nxc2_fed2", "nxc2_fedma", "dir05_fed2", "qskew_fed2",
+                 "iid_fedavg"):
+        spec = scenarios.get(name)
+        fuse = 0 if spec.method == "fedma" else spec.rounds
+        with fedma_probe() as stats:
+            rec, _ = counted(
+                name, lambda: scenarios.run_scenario(spec, device="cuda"),
+                {"paired_fusion": fuse, "local_step": 0})
+        print(f"  {name} ({spec.protocol_label()}, {spec.rounds} rounds, "
+              f"{rec.wall_total:.2f} s): final acc {rec.final_acc:.4f} "
+              f"(the JAX package's committed record: "
+              f"{SCENARIO_REFERENCE[name]}; inits differ), accs "
+              f"{[round(a, 4) for a in rec.acc]}", flush=True)
+        if spec.method == "fedma":
+            print(f"  {fedma_line(stats)}", flush=True)
+        assert rec.final_acc > 0.2, f"{name} did not learn (<= 2x chance)"
 
 
 def free_device_memory():
@@ -1233,8 +1481,9 @@ def main() -> int:
         smi = nvidia_smi()
         print(f"  {smi}")
         import triton
+        import scipy
         print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-              f"triton {triton.__version__}, "
+              f"triton {triton.__version__}, scipy {scipy.__version__}, "
               f"{torch.cuda.get_device_name(0)} x "
               f"{torch.cuda.device_count()}")
     with phase("build"):
@@ -1252,6 +1501,7 @@ def main() -> int:
                    phase_check_feature_stats(),
                    phase_check_grouped_matmul(),
                    phase_check_ssd_update()]
+        phase_check_group_axis()
         for r in records:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms'] * 1e3:.1f} us")
@@ -1261,6 +1511,13 @@ def main() -> int:
     free_device_memory()
     with phase("main"):
         counts = phase_main()
+    with phase("methods"):
+        phase_methods()
+    with phase("fednova parity (TF32 off, deterministic convs)"), \
+            tf32_off(), deterministic_convs():
+        phase_fednova_parity()
+    with phase("samplers"):
+        phase_samplers()
     with phase("auto_depth"):
         counts["feature_stats"] = phase_auto_depth()
     with phase("profile"):

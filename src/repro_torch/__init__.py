@@ -2,9 +2,11 @@
 H100.
 
 The package mirrors ``repro``'s layout module for module and imports
-torch, numpy and the standard library only: never jax, never ``repro``.
-Entry points (``fl.runtime.run_federated``, ``fl.scenarios.run_scenario``,
+torch, numpy, scipy (FedMA's Hungarian matching, ``core/matching.py``)
+and the standard library only: never jax, never ``repro``. Entry points
+(``fl.runtime.run_federated``, ``fl.scenarios.run_scenario``,
 ``python -m repro_torch.launch.train``, ``python -m
+repro_torch.launch.scenarios``, ``python -m
 repro_torch.launch.auto_depth``, ``python -m repro_torch.launch.serve``)
 run on the CUDA card unless the caller asks for the CPU. The kernels of
 these paths are written by hand for Hopper: ``kernels/paired_fusion.py``

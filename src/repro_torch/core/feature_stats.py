@@ -98,9 +98,12 @@ def class_preference_vectors(params, cfg, images, labels, *,
             else:
                 pvecs[li][:, c] = (a * sel * gp).sum(0).to(torch.float32)
     if use_kernel:
-        onehot = (labels[None, :] == torch.arange(
-            n_cls, device=labels.device)[:, None]).to(torch.float32)
-        masked = [a[None] * onehot[:, :, None] for a in acts]  # (C, B, I_l)
+        # the class mask in the activations' dtype (0/1 is exact in
+        # bf16), so the masked activations share the gradients' dtype
+        onehot = labels[None, :] == torch.arange(
+            n_cls, device=labels.device)[:, None]
+        masked = [a[None] * onehot[:, :, None].to(a.dtype)
+                  for a in acts]                            # (C, B, I_l)
         feature_stats_many(masked, gbufs, outs=pvecs)
     return pvecs
 

@@ -16,8 +16,8 @@ leaves are described by ``GroupAxis`` per layout slot.
 ``use_kernel=True`` routes the reduction through the fused
 ``kernels/paired_fusion.py`` kernel (``_kernel_fuse``): ONE launch over
 the whole (N, M) buffer when every leaf shares the sample weights, and
-otherwise one launch per shared leaf and per group block of each grouped
-leaf, each with its own presence column. Every parameter is read once
+otherwise one launch per shared leaf and per (pre index, group) block
+of each grouped leaf, each with its own presence column. Every parameter is read once
 either way. ``use_kernel=False`` is the per-leaf reference reduction.
 """
 from __future__ import annotations
@@ -142,11 +142,13 @@ def _kernel_fuse(stacked: torch.Tensor, layout, group_axes,
     Without presence weights every leaf shares ``w_shared``, so the
     whole (N, M) buffer is ONE kernel launch. With ``gw_norm`` (N, G),
     column-normalized, each shared leaf is one launch with the sample
-    weights and each group block g of a grouped leaf one launch with
-    column g. A group block is a contiguous column range when the group
-    axis leads its leaf (every grouped leaf of ``cnn_group_axes``); the
-    kernel then reads it in place through the buffer's row stride and
-    writes its slice of the result, so no temporary is made."""
+    weights, and a grouped leaf of (pre, G, blk, post) view dims is
+    ``pre * G`` launches, one per (pre index, group) block with column
+    g. Each such block is a contiguous column range of the leaf's slot
+    (``cnn_group_axes`` puts every group axis first, so pre = 1 there;
+    ``lm``-style stacked (L, G, ...) leaves have pre = L). The kernel
+    reads a block in place through the buffer's row stride and writes
+    its slice of the result, so no temporary is made."""
     if gw_norm is None:
         return paired_fusion(stacked, w_shared)
     out = torch.empty(stacked.shape[1], dtype=stacked.dtype,
@@ -157,17 +159,13 @@ def _kernel_fuse(stacked: torch.Tensor, layout, group_axes,
             paired_fusion(stacked[:, lo:hi], w_shared, out=out[lo:hi])
             continue
         pre, g, blk, post = _blocks(slot, ga)
-        if pre != 1:
-            raise ValueError(
-                f"leaf {slot.path}: the kernel route fuses group blocks "
-                f"in place, which needs the group axis to lead the leaf "
-                f"(got axis {ga.axis} of {slot.shape})")
         size = blk * post
-        for gi in range(g):
-            a = lo + gi * size
-            paired_fusion(stacked[:, a:a + size],
-                          gw_norm[:, gi].contiguous(),
-                          out=out[a:a + size])
+        cols = [gw_norm[:, gi].contiguous() for gi in range(g)]
+        for pi in range(pre):
+            for gi in range(g):
+                a = lo + (pi * g + gi) * size
+                paired_fusion(stacked[:, a:a + size], cols[gi],
+                              out=out[a:a + size])
     return out
 
 

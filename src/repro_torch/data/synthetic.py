@@ -1,5 +1,5 @@
 """Deterministic synthetic image dataset + the paper's N x C and FedMA's
-Dirichlet partitioners.
+Dirichlet partitioners, and the IID and quantity-skew controls.
 
 CIFAR-10 is not available offline: a class-clustered image dataset
 stands in, whose difficulty knobs (prototype separation, noise,
@@ -7,7 +7,7 @@ intra-class variation) make FedAvg-vs-Fed2 orderings measurable at
 laptop scale. Images are class prototypes (low-frequency random
 patterns) composed with instance-specific affine jitter + noise.
 
-Both functions draw from numpy ``default_rng`` in exactly the reference
+Every function draws from numpy ``default_rng`` in exactly the reference
 order (``src/repro/data/synthetic.py``), so the same seed gives the same
 arrays in both packages.
 """
@@ -99,3 +99,25 @@ def dirichlet_partition(labels: np.ndarray, n_clients: int,
         for j, chunk in enumerate(np.split(idx, cuts)):
             parts[j].append(chunk)
     return [np.concatenate(p) for p in parts]
+
+
+def iid_partition(labels: np.ndarray, n_clients: int,
+                  seed: int = 0) -> list[np.ndarray]:
+    """IID control: a uniform shuffle split into n_clients equal shards."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(labels))
+    return [np.sort(p) for p in np.array_split(order, n_clients)]
+
+
+def quantity_partition(labels: np.ndarray, n_clients: int,
+                       alpha: float = 0.5,
+                       seed: int = 0) -> list[np.ndarray]:
+    """Quantity skew: shard SIZES follow Dir(alpha) proportions while the
+    label distribution stays IID per shard (every client sees every
+    class, some clients see far less data). The size-only counterpart of
+    ``dirichlet_partition``'s label skew."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(labels))
+    props = rng.dirichlet(alpha * np.ones(n_clients))
+    cuts = (np.cumsum(props)[:-1] * len(order)).astype(int)
+    return [np.sort(p) for p in np.split(order, cuts)]

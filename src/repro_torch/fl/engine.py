@@ -7,6 +7,7 @@ One round over a fixed-width COHORT of client slots (width =
     stacked, cstate <- method.client_update(stacked, batches, cstate)
     fused   <- method.fuse(stacked)            # the only cross-cohort op
     sstate, global <- method.server_update(sstate, fused)
+    global  <- method.host_fuse(stacked)       # host_fusion methods only
 
 The cohort lives in ONE flat (C, M) buffer (rows = clients, per-leaf
 views through ``FlatLayout``), allocated once and reused every round:
@@ -23,7 +24,12 @@ arguments: fusion renormalizes them over the participants it sees.
 For rounds whose participant set exceeds one cohort (cohort tiling),
 ``run_tile`` executes local phase + fuse for one tile, and
 ``finish_round`` applies the server step once to the tiles' combined
-fusion result.
+fusion result (``host_fuse`` once to the tiles' stacked params, for
+host-fusion methods).
+
+Client state comes in as host (numpy) rows or as device tensors and
+goes out on the device; the runtime decides where it lives between
+rounds (fl/runtime.py).
 """
 from __future__ import annotations
 
@@ -79,31 +85,38 @@ class RoundEngine:
 
     def _local_and_fuse(self, clients_state, server_state, global_params,
                         batches, weights, group_weights):
+        """The shared cohort-tile body: broadcast -> local phase -> fuse.
+        Returns (clients_state on the device, new client states, fuse
+        output, the round's context)."""
         ctx = dataclasses.replace(self.ctx, weights=self._w32(weights),
                                   group_weights=self._w32(group_weights))
+        clients_state = self._to_device(clients_state)
         stacked = fusion_lib.broadcast_global(global_params, self.cohort)
         stacked, new_clients = self.method.client_update(
-            stacked, batches, global_params,
-            self._to_device(clients_state), server_state, ctx)
+            stacked, batches, global_params, clients_state, server_state,
+            ctx)
         fused = self.method.fuse(stacked, global_params, ctx)
-        new_clients = tree_map(lambda t: t.cpu().numpy(), new_clients)
-        return new_clients, fused, ctx
+        return clients_state, new_clients, fused, ctx
 
     def run_round(self, state, global_params, batches, weights=None,
                   group_weights=None) -> tuple:
-        new_clients, fused, ctx = self._local_and_fuse(
+        """One whole round. For host-fusion methods the round ends in
+        ``host_fuse`` with the participants' raw ``weights``."""
+        old_clients, new_clients, fused, ctx = self._local_and_fuse(
             state["clients"], state["server"], global_params, batches,
             weights, group_weights)
-        new_server, new_global = self.method.server_update(
-            state["server"], state["clients"], new_clients, global_params,
+        new_server, out = self.method.server_update(
+            state["server"], old_clients, new_clients, global_params,
             fused, ctx)
-        return {"server": new_server, "clients": new_clients}, new_global
+        if self.method.host_fusion:
+            out = self.host_fuse(out, weights)
+        return {"server": new_server, "clients": new_clients}, out
 
     def run_tile(self, client_states, server_state, global_params,
                  batches, weights=None, group_weights=None) -> tuple:
         """One cohort tile of a tiled round: local phase + fuse only.
-        Returns (new_client_states, fused)."""
-        new_clients, fused, _ = self._local_and_fuse(
+        Returns (new_client_states, fuse output)."""
+        _, new_clients, fused, _ = self._local_and_fuse(
             client_states, server_state, global_params, batches, weights,
             group_weights)
         return new_clients, fused
@@ -113,6 +126,13 @@ class RoundEngine:
         fusion result (``cohort_tiling`` methods only)."""
         return self.method.server_update(server_state, (), (),
                                          global_params, fused, self.ctx)
+
+    def host_fuse(self, stacked, weights=None):
+        """Host-side fusion completion (host_fusion methods) of the
+        (n, M) stacked params with the participants' raw weights."""
+        ctx = (self.ctx if weights is None
+               else dataclasses.replace(self.ctx, raw_weights=weights))
+        return self.method.host_fuse(stacked, ctx)
 
 
 def make_round_engine(task, cfg, params_like, *, device,
@@ -130,13 +150,23 @@ def make_round_engine(task, cfg, params_like, *, device,
     ``local_step`` kernel; a no-op for methods without
     ``fused_local_step``."""
     meth = method if method is not None else methods_lib.get(cfg.method)
+    if meth.host_fusion and (
+            type(meth).init_server_state is not FedMethod.init_server_state
+            or type(meth).server_update is not FedMethod.server_update):
+        raise ValueError(
+            f"{meth.name}: host_fusion methods end the device round at the "
+            "stacked params — server_update/init_server_state never run; "
+            "fold server-side work into host_fuse instead")
     layout = FlatLayout(params_like)
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:
         ga = task.group_axes_fn(params_like)
     ctx = MethodContext(
-        task=task, cfg=cfg, opt=meth.local_opt(cfg), layout=layout,
-        weights=None, group_axes=ga, group_weights=None,
+        task=task, cfg=cfg, population=cfg.population,
+        cohort_size=cfg.cohort_size,
+        local_steps=cfg.local_epochs * cfg.steps_per_epoch,
+        opt=meth.local_opt(cfg), layout=layout, weights=None,
+        raw_weights=None, group_axes=ga, group_weights=None,
         use_kernel=use_kernel is None or bool(use_kernel),
         use_local_kernel=bool(use_local_kernel) and meth.fused_local_step)
     meth.check(ctx)

@@ -15,11 +15,22 @@ Hook order inside a round:
                                             cohort slots
     fuse                                    aggregation over the cohort
     server_update                           server-state step -> global
+    host_fuse                               host_fusion methods only
+                                            (fedma): completes the round
+                                            from the stacked params
 
-``fedavg`` is the all-defaults method; ``fedprox`` overrides only
-``local_loss_term`` and ``fed2`` only ``fuse`` (paired averaging,
-Eq. 19). Consumers enumerate ``available()`` and resolve instances with
-``get(name)``: nothing branches on a method's name.
+``fedavg`` is the all-defaults method; every other method overrides the
+smallest hook set: ``fedprox`` only ``local_loss_term``, ``fed2`` only
+``fuse`` (paired averaging, Eq. 19), ``fedma`` only ``fuse`` and
+``host_fuse``, ``scaffold`` ``client_update`` and ``local_opt`` with
+server control-variate state, ``fednova`` only ``fuse``, and
+``fedavgm``/``fedadam`` only ``server_update``. Consumers enumerate
+``available()`` and resolve instances with ``get(name)``: nothing
+branches on a method's name.
+
+Persistent state is flat like the params: a client's state row is an
+(M,) tensor (scaffold's control variate), stacked (C, M) over the
+cohort, and the server state a dict of (M,) tensors.
 
 The cohort's parameters are one flat (C, M) tensor (rows = clients,
 ``models/module.FlatLayout``); gradients come back flat from
@@ -42,8 +53,14 @@ from repro_torch.kernels.local_step import local_step
 class MethodContext:
     """Per-run context handed to every hook (built by make_round_engine).
 
+    population: the number of logical clients behind the run;
+    cohort_size: the engine width (cohort slots). Hooks that scale by
+    participation (scaffold's server control update) read both.
+    local_steps: optimizer steps of each client's local phase.
     layout: the ``FlatLayout`` of one client's parameters.
-    weights: per-cohort-slot sample weights (float32 tensor) or None.
+    weights: per-cohort-slot sample weights (float32 tensor) or None;
+    raw_weights keeps the host-side array (fedma's matched averaging
+    reads it).
     group_axes: the task's GroupAxis tree (only when uses_groups).
     group_weights: per-slot (C, G) presence weights or None.
     use_kernel: fuse through the paired_fusion kernel.
@@ -51,9 +68,13 @@ class MethodContext:
     kernel (``fused_local_step`` methods only)."""
     task: Any
     cfg: Any
+    population: int
+    cohort_size: int
+    local_steps: int
     opt: Any
     layout: Any
     weights: torch.Tensor | None
+    raw_weights: Any
     group_axes: Any
     group_weights: torch.Tensor | None
     use_kernel: bool
@@ -64,9 +85,15 @@ class FedMethod:
     """Strategy base class; defaults compose to exactly FedAvg (Eq. 1)."""
 
     name: str = ""
+    summary: str = ""          # one line for a method table
     uses_groups = False        # needs task.group_axes_fn (structural groups)
+    host_fusion = False        # fuse completes on the host (fedma)
+    client_stateful = False    # client_update reads per-client state
     cohort_tiling = True       # round may split into fuse-only cohort
-    #                            tiles + one trailing server step
+    #                            tiles + one trailing server step; False
+    #                            when server_update reads per-client state
+    #                            (scaffold), which caps participants per
+    #                            round at cohort_size
 
     @property
     def fused_local_step(self) -> bool:
@@ -93,7 +120,7 @@ class FedMethod:
         return ()
 
     def init_client_state(self, params, ctx: MethodContext):
-        """ONE client's state tree (() for stateless methods)."""
+        """ONE client's state ((M,) rows; () for stateless methods)."""
         return ()
 
     # -- local phase --------------------------------------------------------
@@ -141,6 +168,11 @@ class FedMethod:
         return fusion_lib.fedavg(stacked, ctx.weights,
                                  use_kernel=ctx.use_kernel)
 
+    def host_fuse(self, stacked, ctx: MethodContext):
+        """Completion of the round from the stacked params (only when
+        ``host_fusion``)."""
+        raise NotImplementedError
+
     # -- server step --------------------------------------------------------
 
     def server_update(self, server_state, client_states, new_client_states,
@@ -183,12 +215,14 @@ def get(name: str) -> FedMethod:
 class FedAvg(FedMethod):
     """Coordinate-based averaging (Eq. 1/18): the all-defaults method."""
     name = "fedavg"
+    summary = "coordinate-based (sample-weighted) mean, Eq. 1/18"
 
 
 @register
 class FedProx(FedMethod):
     """FedAvg + proximal local loss (Li et al., MLSys'20)."""
     name = "fedprox"
+    summary = "fedavg + proximal local-loss penalty toward the global"
 
     def local_loss_term(self, params, batch, global_params, ctx):
         return fusion_lib.fedprox_penalty(params, global_params,
@@ -199,6 +233,7 @@ class FedProx(FedMethod):
 class Fed2(FedMethod):
     """Feature paired averaging (Eq. 19) over the group-axis tree."""
     name = "fed2"
+    summary = "feature paired averaging over structure groups, Eq. 19"
     uses_groups = True
 
     def fuse(self, stacked, global_params, ctx):
@@ -207,3 +242,153 @@ class Fed2(FedMethod):
                                          weights=ctx.weights,
                                          group_weights=ctx.group_weights,
                                          use_kernel=ctx.use_kernel)
+
+
+@register
+class FedMA(FedMethod):
+    """Matched averaging (Wang et al., ICLR'20 style, core/matching.py):
+    the device round ends at the stacked client params; Hungarian
+    matching fuses them between rounds."""
+    name = "fedma"
+    summary = "host-side Hungarian matched averaging (core/matching.py)"
+    host_fusion = True
+
+    def check(self, ctx):
+        if ctx.task.matched_average_fn is None:
+            raise ValueError("fedma requires task.matched_average_fn "
+                             "(defined for non-grouped CNNs)")
+
+    def fuse(self, stacked, global_params, ctx):
+        return stacked          # fused by host_fuse
+
+    def host_fuse(self, stacked, ctx):
+        """(C, M) stacked params -> the matched average, flat (M,)."""
+        fused = ctx.task.matched_average_fn(ctx.layout.unflatten(stacked),
+                                            ctx.raw_weights)
+        return ctx.layout.flatten(fused)
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper methods
+# ---------------------------------------------------------------------------
+
+
+@register
+class Scaffold(FedMethod):
+    """SCAFFOLD (Karimireddy et al., ICML'20): per-client control variates
+    c_i and a server variate c correct client drift: every local gradient
+    becomes g - c_i + c. c_i rides the cohort's (C, M) state rows through
+    the local phase, c lives in the server state. The local phase runs
+    momentum-free SGD: the option-II control update reads the mean local
+    gradient off (x - y_i)/(K*lr), which heavy-ball momentum would
+    inflate.
+
+    Participation: c_i lives in the population state (a client that
+    sits a round out keeps its variate); the server update scales by
+    |S|/N (cohort/population). ``cohort_tiling = False``: the server
+    update reads the participating clients' state deltas, so one round
+    must fit one cohort."""
+    name = "scaffold"
+    summary = "client/server control variates correct local drift"
+    client_stateful = True
+    cohort_tiling = False
+
+    def local_opt(self, cfg):
+        from repro_torch.optim.optimizers import sgd
+        return sgd(cfg.lr, 0.0)
+
+    def init_server_state(self, params, ctx):
+        return {"c": torch.zeros_like(params)}
+
+    def init_client_state(self, params, ctx):
+        return torch.zeros_like(params)
+
+    def client_update(self, stacked, batches, global_params, client_state,
+                      server_state, ctx):
+        layout, opt = ctx.layout, ctx.opt
+        ci, c = client_state, server_state["c"]
+        grad_fn = torch.func.vmap(torch.func.grad(
+            lambda row, batch: ctx.task.loss_fn(layout.unflatten(row),
+                                                batch)))
+        n_steps = next(iter(batches.values())).shape[1]
+        p, s = stacked, opt.init(stacked)
+        for i in range(n_steps):
+            g = grad_fn(p, {k: b[:, i] for k, b in batches.items()})
+            p, s = opt.update(g - ci + c, s, p)
+        # option-II control update: c_i+ = c_i - c + (x - y_i) / (K * lr)
+        k_lr = ctx.local_steps * ctx.cfg.lr
+        return p, ci - c + (global_params - p) / k_lr
+
+    def server_update(self, server_state, client_states, new_client_states,
+                      global_params, fused, ctx):
+        # c <- c + (|S|/N) mean_{i in S}(c_i+ - c_i); |S| = cohort slots,
+        # N = population. Full participation (|S| == N) leaves the factor
+        # out, as the reference does.
+        scale = ctx.cohort_size / ctx.population
+        step = (new_client_states - client_states).mean(0)
+        c = server_state["c"]
+        return {"c": c + step if scale == 1.0 else c + scale * step}, fused
+
+
+@register
+class FedNova(FedMethod):
+    """FedNova (Wang et al., NeurIPS'20): aggregate NORMALIZED client
+    deltas d_i = (x - y_i)/tau_i and apply their weighted mean rescaled by
+    the effective step count tau_eff. Every client runs the same
+    tau = local_steps, under which fednova equals fedavg."""
+    name = "fednova"
+    summary = "normalized-delta aggregation (tau-rescaled fedavg)"
+
+    def fuse(self, stacked, global_params, ctx):
+        tau = float(ctx.local_steps)
+        deltas = (global_params[None] - stacked) / tau
+        d = fusion_lib.fedavg(deltas, ctx.weights,
+                              use_kernel=ctx.use_kernel)
+        tau_eff = tau            # all clients run local_steps steps
+        return global_params - tau_eff * d
+
+
+@register
+class FedAvgM(FedMethod):
+    """FedAvg with server momentum (Hsu et al. '19): the server treats the
+    round delta x - fused as a pseudo-gradient and applies heavy-ball
+    momentum (cfg.server_momentum, cfg.server_lr) over rounds."""
+    name = "fedavgm"
+    summary = "server heavy-ball momentum on round deltas"
+
+    def init_server_state(self, params, ctx):
+        return {"v": torch.zeros_like(params)}
+
+    def server_update(self, server_state, client_states, new_client_states,
+                      global_params, fused, ctx):
+        v = ctx.cfg.server_momentum * server_state["v"] + (global_params
+                                                            - fused)
+        return {"v": v}, global_params - ctx.cfg.server_lr * v
+
+
+@register
+class FedAdam(FedMethod):
+    """FedAdam (Reddi et al., ICLR'21 FedOpt): Adam on the server over
+    round pseudo-gradients; m/v state threads across rounds. Step size is
+    cfg.server_lr with the FedOpt adaptivity floor eps=1e-3."""
+    name = "fedadam"
+    summary = "server Adam over round pseudo-gradients (FedOpt)"
+    b1, b2, eps = 0.9, 0.99, 1e-3
+
+    def init_server_state(self, params, ctx):
+        z = torch.zeros_like(params)
+        return {"m": z, "v": z,
+                "t": torch.zeros((), dtype=torch.float32,
+                                 device=params.device)}
+
+    def server_update(self, server_state, client_states, new_client_states,
+                      global_params, fused, ctx):
+        d = global_params - fused
+        t = server_state["t"] + 1.0
+        m = self.b1 * server_state["m"] + (1 - self.b1) * d
+        v = self.b2 * server_state["v"] + (1 - self.b2) * torch.square(d)
+        mh = m / (1 - self.b1 ** t)
+        vh = v / (1 - self.b2 ** t)
+        new = global_params - ctx.cfg.server_lr * mh / (torch.sqrt(vh)
+                                                        + self.eps)
+        return {"m": m, "v": v, "t": t}, new

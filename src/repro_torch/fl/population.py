@@ -3,7 +3,9 @@
 - ``Population``: the P logical clients: per-client shard indices,
   sample-count weights, optional (P, G) presence weights, and the
   persistent per-client method state, kept host-side as stacked
-  (P, ...) numpy rows outside the round.
+  (P, ...) numpy rows outside the round; when the whole population
+  is one cohort in natural order the runtime keeps it on the device
+  instead (``clients`` then holds the engine's device tensors).
 - ``ClientSampler``: which client ids train in round r, registered by
   name like the federated methods: ``register`` / ``get`` /
   ``available()``.
@@ -65,12 +67,12 @@ class Population:
         return tree_map(lambda a: a[ids], self.clients)
 
     def scatter(self, ids, new_states) -> None:
-        """Write cohort slots back to the sampled clients' rows; the
-        others keep their state."""
+        """Write cohort slots (the engine's device tensors) back to the
+        sampled clients' host rows; the others keep their state."""
         ids = np.asarray(ids)
 
         def put(a, new):
-            a[ids] = np.asarray(new)
+            a[ids] = new.cpu().numpy()
             return a
 
         self.clients = tree_map(put, self.clients, new_states)
@@ -78,10 +80,23 @@ class Population:
 
 class ClientSampler:
     """Participation strategy: which client ids train in round r.
-    ``full`` MUST NOT draw from ``rng``: the batch-packing rng stream then
-    matches the reference's draw for draw."""
+
+    ``sample`` returns a 1-D int array of client ids. Strategies that
+    return exactly ``cohort_size`` ids run as one engine invocation;
+    longer id lists (``full`` over a large population) run as cohort
+    tiles. Each sampler draws from ``rng`` exactly as the reference's
+    does (``full`` and ``round_robin`` never draw), so the batch-packing
+    rng stream that follows matches the reference's draw for draw."""
 
     name: str = ""
+    summary: str = ""          # one line for a sampler table
+    # how a cohort's fusion weights are built: "sample" = shard-size
+    # weights renormalized over the participants (full/uniform/
+    # round_robin); "uniform" = every participant contributes equally,
+    # because the sampling probability already encodes shard size
+    # (weighted). Shard-size weights under shard-size sampling would
+    # count large shards twice.
+    fusion_weights: str = "sample"
 
     def sample(self, round_idx: int, population: int, cohort_size: int,
                rng: np.random.Generator, weights=None) -> np.ndarray:
@@ -116,6 +131,67 @@ class FullParticipation(ClientSampler):
     """Every client, every round. With population > cohort_size the host
     loop tiles the population over cohort-width engine invocations."""
     name = "full"
+    summary = "every client every round (cohort tiling past the width)"
 
     def sample(self, round_idx, population, cohort_size, rng, weights=None):
         return np.arange(population, dtype=np.int64)
+
+
+@register
+class UniformSampler(ClientSampler):
+    """cohort_size clients drawn uniformly without replacement."""
+    name = "uniform"
+    summary = "cohort_size clients uniformly, without replacement"
+
+    def sample(self, round_idx, population, cohort_size, rng, weights=None):
+        return np.sort(rng.choice(population, size=cohort_size,
+                                  replace=False)).astype(np.int64)
+
+
+@register
+class WeightedSampler(ClientSampler):
+    """Sampling probability proportional to shard size (weights), without
+    replacement: large-shard clients participate more often, and each
+    participant then contributes EQUALLY to fusion
+    (``fusion_weights = "uniform"``).
+
+    Draws through a Walker alias table (``fl/statestore.AliasTable``),
+    built once per weights array (cached on the sampler instance and
+    rebuilt only when another weights array arrives). Zero-weight
+    clients are never sampled, and an all-zero weight vector raises.
+    Returns sorted unique ids."""
+    name = "weighted"
+    summary = "probability proportional to shard size, w/o replacement"
+    fusion_weights = "uniform"
+
+    def __init__(self):
+        self._src = None          # the weights array the table was built on
+        self._table = None
+
+    def _alias_table(self, population, weights):
+        from repro_torch.fl.statestore import AliasTable
+        if weights is None:
+            weights = np.ones(population, np.float64)
+        if self._table is None or self._src is not weights \
+                or self._table.n != population:
+            self._table = AliasTable(weights)
+            self._src = weights
+        return self._table
+
+    def sample(self, round_idx, population, cohort_size, rng, weights=None):
+        table = self._alias_table(population, weights)
+        return table.sample_without_replacement(rng, cohort_size)
+
+
+@register
+class RoundRobinSampler(ClientSampler):
+    """Deterministic cycling window: round r trains clients
+    [r*C, r*C + C) mod population. A pure function of (round_idx,
+    population, cohort_size): it never draws from ``rng``."""
+    name = "round_robin"
+    summary = "deterministic cycling window over client ids"
+
+    def sample(self, round_idx, population, cohort_size, rng, weights=None):
+        start = (round_idx * cohort_size) % population
+        return ((start + np.arange(cohort_size)) % population).astype(
+            np.int64)

@@ -8,10 +8,14 @@ which a cohort of ``cfg.cohort_size`` slots trains at once. Per round:
     state, global <- engine.run_round(state, global, batches, w[ids])
     population.scatter(ids, state)             # slots -> rows
 
-When the participants exceed one cohort, the round runs as several
-engine tiles whose fusion results accumulate in a running weighted sum,
-unbiased because each tile's fuse is a weighted mean renormalized over
-its participants.
+When the whole population is one cohort in natural order, client state
+needs no slot remapping and stays on the device across rounds; otherwise
+it is gathered from and scattered to host rows. When the participants
+exceed one cohort, the round runs as several engine tiles whose fusion
+results accumulate in a running weighted sum, unbiased because each
+tile's fuse is a weighted mean renormalized over its participants
+(host-fusion methods keep each tile's stacked params and fuse them once
+at the end of the round).
 
 Batches are drawn host-side from one numpy ``default_rng(cfg.seed)`` in
 the reference's order (sampler, then per tile: padding, then one
@@ -67,6 +71,8 @@ class FLConfig:
     momentum: float = 0.9
     method: str = "fed2"        # any name in methods.available()
     prox_mu: float = 0.01
+    server_lr: float = 1.0      # server-step methods (fedavgm, fedadam)
+    server_momentum: float = 0.9
     seed: int = 0
     eval_batch: int = 512
 
@@ -100,13 +106,16 @@ class FLTask:
     init_fn(generator) -> params tree on the CPU; loss_fn(params, batch)
     -> scalar; predict_fn(params, batch) -> (pred, gold, weight) for the
     tiled eval's ``n_classes`` x ``n_classes`` confusion counts;
-    group_axes_fn(params) -> GroupAxis tree (fed2).
+    group_axes_fn(params) -> GroupAxis tree (fed2);
+    matched_average_fn(stacked, weights) -> params tree (fedma): stacked
+    is a tree of (n, ...) leaves.
     """
     init_fn: Callable
     loss_fn: Callable
     predict_fn: Callable
     n_classes: int
     group_axes_fn: Callable | None = None
+    matched_average_fn: Callable | None = None
 
 
 def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng):
@@ -130,16 +139,18 @@ def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng):
 
 
 def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
-                    batch_size, rng):
+                    batch_size, rng, uniform_weights: bool = False):
     """Pad one engine tile to ``width`` slots (repeating the first
     participant at zero weight) and assemble its weights, presence rows
-    and packed batches. Returns (padded_ids, weights, group_weights,
-    batches)."""
+    and packed batches. uniform_weights: every participant weighs 1
+    (samplers whose draw already encodes shard size). Returns
+    (padded_ids, weights, group_weights, batches)."""
     tids = np.asarray(tids, np.int64)
     n_real = len(tids)
     padded = np.concatenate(
         [tids, np.full(width - n_real, tids[0], np.int64)])
-    w = pop.weights[padded].copy()
+    w = (np.ones(width) if uniform_weights
+         else pop.weights[padded].copy())
     w[n_real:] = 0.0
     gw = None
     if pop.group_weights is not None:
@@ -150,55 +161,85 @@ def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
     return padded, w, gw, batches
 
 
+def _fit_hint(n_ids: int, width: int) -> str:
+    return ("raise cohort_size to hold all participants or use a "
+            "cohort-sized sampler (uniform/weighted/round_robin)"
+            if n_ids > width else
+            "use a sampler that fills the cohort, or lower "
+            "cohort_size to the participant count")
+
+
 def run_sampled_round(engine, pop: Population, method, server_state,
-                      global_params, ids, get_batch, n_steps, cfg, rng):
+                      global_params, ids, get_batch, n_steps, cfg, rng,
+                      uniform_weights: bool = False):
     """One round for participant ``ids``: a single engine invocation
     when the cohort holds them all, cohort tiling otherwise. Returns
     (server_state, new_global); client state is gathered/scattered on
-    ``pop`` in place."""
+    ``pop`` in place. uniform_weights: every participant contributes
+    equally to fusion (``ClientSampler.fusion_weights``)."""
     C = engine.cohort_size
     ids = np.asarray(ids, np.int64)
 
     def tile_inputs(tids):
         padded, w, gw, batches = pad_tile_inputs(
-            pop, tids, C, get_batch, n_steps, cfg.batch_size, rng)
+            pop, tids, C, get_batch, n_steps, cfg.batch_size, rng,
+            uniform_weights=uniform_weights)
         batches = {k: torch.as_tensor(v, device=engine.device)
                    for k, v in batches.items()}
         return padded, w, gw, batches
 
     if len(ids) == C:
         _, w, gw, batches = tile_inputs(ids)
-        state = {"server": server_state, "clients": pop.gather(ids)}
+        # the whole population in one cohort in natural order: client
+        # state needs no slot remapping, so it stays on the device
+        whole = C == pop.size and np.array_equal(ids, np.arange(C))
+        state = {"server": server_state,
+                 "clients": pop.clients if whole else pop.gather(ids)}
         state, new_global = engine.run_round(state, global_params, batches,
                                              weights=w, group_weights=gw)
-        pop.scatter(ids, state["clients"])
+        if whole:
+            pop.clients = state["clients"]
+        else:
+            pop.scatter(ids, state["clients"])
         return state["server"], new_global
 
-    if not method.cohort_tiling:
+    if not method.cohort_tiling and not method.host_fusion:
         raise ValueError(
             f"{method.name}: server step reads the participating cohort "
-            f"slots, so a round needs exactly cohort_size participants; "
-            f"got {len(ids)} for cohort_size={C}")
+            f"slots (cohort_tiling=False), so a round needs exactly "
+            f"cohort_size participants — got {len(ids)} for "
+            f"cohort_size={C}; " + _fit_hint(len(ids), C))
     if pop.group_weights is not None:
         raise ValueError(
             "presence-weighted group fusion needs exactly one unpadded "
             "cohort of participants: tiling renormalizes each group "
             "column per tile, and padded slots would join a no-holder "
-            "column's uniform fallback; either biases Eq. 19. Got "
-            f"{len(ids)} participants for cohort_size={C}")
+            "column's uniform fallback — either biases Eq. 19. Got "
+            f"{len(ids)} participants for cohort_size={C}; "
+            + _fit_hint(len(ids), C))
     acc, w_acc = None, 0.0
+    stacked_tiles = []              # host_fusion: stacked params per tile
     for t0 in range(0, len(ids), C):
         tids = ids[t0:t0 + C]
         n_real = len(tids)
         padded, w, gw, batches = tile_inputs(tids)
-        new_cstate, fused = engine.run_tile(pop.gather(padded),
-                                            server_state, global_params,
-                                            batches, weights=w,
-                                            group_weights=gw)
+        new_cstate, fuse_out = engine.run_tile(pop.gather(padded),
+                                               server_state, global_params,
+                                               batches, weights=w,
+                                               group_weights=gw)
         pop.scatter(tids, tree_map(lambda a: a[:n_real], new_cstate))
+        if method.host_fusion:
+            # a copy: the next tile overwrites the engine's cohort buffer
+            stacked_tiles.append(fuse_out[:n_real].clone())
+            continue
         s_t = float(w.sum())
-        acc = fused * s_t if acc is None else acc + fused * s_t
+        acc = fuse_out * s_t if acc is None else acc + fuse_out * s_t
         w_acc += s_t
+    if method.host_fusion:
+        w_all = (np.ones(len(ids)) if uniform_weights
+                 else pop.weights[ids])
+        return server_state, engine.host_fuse(torch.cat(stacked_tiles),
+                                              w_all)
     return engine.finish_round(server_state, global_params, acc / w_acc)
 
 
@@ -261,12 +302,13 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     n_steps = cfg.local_epochs * cfg.steps_per_epoch
     counts = []                    # device tensors; read after the loop
     t0 = time.time()
+    uniform_w = sampler.fusion_weights == "uniform"
     for r in range(cfg.rounds):
         ids = sampler.sample(r, cfg.population, cfg.cohort_size, rng,
                              weights=pop.weights)
         server_state, global_params = run_sampled_round(
             engine, pop, method, server_state, global_params, ids,
-            get_batch, n_steps, cfg, rng)
+            get_batch, n_steps, cfg, rng, uniform_weights=uniform_w)
         c = eval_engine.run(engine.layout.unflatten(global_params),
                             eval_tiles)
         counts.append(c)
@@ -292,6 +334,7 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
 
 
 def cnn_task(model_cfg) -> FLTask:
+    from repro_torch.core import matching as matching_lib
     from repro_torch.models.cnn import apply_cnn, cnn_loss, init_cnn
 
     def predict(params, batch):
@@ -304,6 +347,8 @@ def cnn_task(model_cfg) -> FLTask:
         init_fn=lambda gen: init_cnn(gen, model_cfg),
         loss_fn=lambda p, b: cnn_loss(p, model_cfg, b),
         group_axes_fn=lambda p: fusion_lib.cnn_group_axes(p, model_cfg),
+        matched_average_fn=lambda s, w: matching_lib.matched_average(
+            s, model_cfg, w),
         predict_fn=predict,
         n_classes=model_cfg.n_classes,
     )

@@ -4,9 +4,9 @@
 the data protocol, the method, the population/cohort/sampler triple and
 the round schedule. Specs are registered by name like the federated
 methods: ``register`` / ``get`` / ``available()``. The registered specs
-are the reference's ``nxc2_fedavg`` and ``nxc2_fed2`` field for field
-(paper Tables 1-2 protocol at laptop scale: synthetic class-clustered
-images, a width-calibrated reduced VGG9).
+are the reference's 8 seeded synchronous specs field for field (the
+paper's protocols at laptop scale: synthetic class-clustered images, a
+width-calibrated reduced VGG9).
 
 ``run_scenario`` executes a spec end to end through ``run_federated``
 and returns a ``ConvergenceRecord``: per-round global, per-class and
@@ -16,28 +16,34 @@ per-group accuracy (group g over the eval samples whose label is in
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 from repro_torch.core.grouping import GroupSpec
 from repro_torch.fl import methods as methods_lib
 from repro_torch.fl import population as population_lib
 
-PROTOCOLS = ("nxc",)
+PROTOCOLS = ("iid", "nxc", "dirichlet", "quantity")
 
 
 @dataclasses.dataclass(frozen=True)
 class ScenarioSpec:
     """One runnable federated scenario, fully pinned by its fields.
 
-    protocol: data heterogeneity; ``nxc`` = each client sees
-    ``classes_per_node`` classes.
+    protocol: data heterogeneity: ``iid`` | ``nxc`` (each client sees
+    ``classes_per_node`` classes) | ``dirichlet`` (label skew, Dir(alpha)
+    per class) | ``quantity`` (size skew, Dir(alpha) shard sizes).
     groups/decouple: Fed2 structure adaptation for group-structured
     methods (coordinate methods train the plain net of the same widths).
+    server_lr/server_momentum: the server step of fedavgm and fedadam
+    (``FLConfig``'s defaults; the reference's specs leave them there).
     """
     name: str
     summary: str
     protocol: str
     method: str
-    classes_per_node: int = 2
+    classes_per_node: int = 2          # nxc
+    alpha: float = 0.5                 # dirichlet / quantity
     n_classes: int = 10
     groups: int = 5
     decouple: int = 1
@@ -50,6 +56,8 @@ class ScenarioSpec:
     batch_size: int = 16
     lr: float = 0.015
     momentum: float = 0.9
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
     seed: int = 0
     train_size: int = 1200
     test_size: int = 400
@@ -77,13 +85,28 @@ class ScenarioSpec:
 
     def partition(self, labels):
         """The spec's data protocol applied to a label array."""
-        from repro_torch.data.synthetic import nxc_partition
-        return nxc_partition(labels, self.population,
-                             self.classes_per_node, self.n_classes,
-                             seed=self.seed)
+        from repro_torch.data import synthetic as data
+        if self.protocol == "iid":
+            return data.iid_partition(labels, self.population,
+                                      seed=self.seed)
+        if self.protocol == "nxc":
+            return data.nxc_partition(labels, self.population,
+                                      self.classes_per_node,
+                                      self.n_classes, seed=self.seed)
+        if self.protocol == "dirichlet":
+            return data.dirichlet_partition(labels, self.population,
+                                            self.alpha, self.n_classes,
+                                            seed=self.seed)
+        return data.quantity_partition(labels, self.population,
+                                       self.alpha, seed=self.seed)
 
     def protocol_label(self) -> str:
-        return f"nxc({self.classes_per_node})"
+        """Human-readable protocol cell for tables and records."""
+        if self.protocol == "nxc":
+            return f"nxc({self.classes_per_node})"
+        if self.protocol in ("dirichlet", "quantity"):
+            return f"{self.protocol}({self.alpha:g})"
+        return self.protocol
 
     def model_config(self):
         """Width-calibrated reduced VGG9: Fed2 structure adaptation for
@@ -109,6 +132,8 @@ class ScenarioSpec:
                         steps_per_epoch=self.steps_per_epoch,
                         batch_size=self.batch_size, lr=self.lr,
                         momentum=self.momentum, method=self.method,
+                        server_lr=self.server_lr,
+                        server_momentum=self.server_momentum,
                         seed=self.seed, eval_batch=self.eval_batch)
 
     def group_spec(self) -> GroupSpec:
@@ -151,13 +176,29 @@ class ConvergenceRecord:
     def best_acc(self) -> float:
         return max(self.acc)
 
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["final_acc"] = self.final_acc
+        d["best_acc"] = self.best_acc
+        return d
+
+    def save(self, outdir: str) -> str:
+        """Write ``<outdir>/scenario_<name>.json``; returns the path."""
+        os.makedirs(outdir, exist_ok=True)
+        path = os.path.join(outdir, f"scenario_{self.scenario}.json")
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=1)
+        return path
+
 
 def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
                  use_local_kernel: bool = False, device=None,
-                 init_params=None, log=None) -> ConvergenceRecord:
+                 init_params=None, outdir: str | None = None,
+                 log=None) -> ConvergenceRecord:
     """Execute one scenario end to end (partition -> run_federated ->
     per-class/per-group accuracy rows) on ``device`` (None = the CUDA
-    card)."""
+    card), and write the record to ``<outdir>/scenario_<name>.json``
+    when ``outdir`` is given."""
     from repro_torch.fl import evaluation as evaluation_lib
     from repro_torch.fl.runtime import cnn_task, resolve_device, \
         run_federated
@@ -191,6 +232,8 @@ def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
         wall=[round(float(w), 3) for w in h["wall"]],
         wall_total=round(float(h["wall_total"]), 3),
         device=str(device))
+    if outdir is not None:
+        rec.save(outdir)
     return rec
 
 
@@ -221,11 +264,34 @@ def get(name: str) -> ScenarioSpec:
             f"{', '.join(available())}") from None
 
 
-# nxc(2): the N x C protocol of Tables 1-2 at severe skew (2 of 10
-# classes per client), seed 0, momentum 0.9, 10 rounds.
+# The seeded matrix: the paper's protocols at laptop scale, the
+# reference's 8 synchronous specs. One seed (0) pins every run. nxc(2)
+# is the N x C protocol of Tables 1-2 at severe skew (2 of 10 classes
+# per client), dirichlet(0.5) is Fig. 6-7's alpha; iid and quantity(0.5)
+# are the homogeneous-label controls. The per-protocol lr is the
+# reference's calibration (momentum 0.9, 10 rounds).
+
+register(ScenarioSpec(
+    name="iid_fedavg", protocol="iid", method="fedavg",
+    summary="IID control: coordinate averaging without heterogeneity"))
 register(ScenarioSpec(
     name="nxc2_fedavg", protocol="nxc", method="fedavg",
     summary="paper Tables 1-2 protocol, FedAvg baseline"))
 register(ScenarioSpec(
     name="nxc2_fed2", protocol="nxc", method="fed2",
     summary="paper Tables 1-2 protocol, feature-paired averaging"))
+register(ScenarioSpec(
+    name="nxc2_fedma", protocol="nxc", method="fedma",
+    summary="paper Tables 1-2 protocol, matched-averaging (WLA) baseline"))
+register(ScenarioSpec(
+    name="dir05_fedavg", protocol="dirichlet", method="fedavg", lr=0.01,
+    summary="paper Fig. 6-7 Dirichlet(0.5) label skew, FedAvg baseline"))
+register(ScenarioSpec(
+    name="dir05_fed2", protocol="dirichlet", method="fed2", lr=0.01,
+    summary="paper Fig. 6-7 Dirichlet(0.5) label skew, Fed2"))
+register(ScenarioSpec(
+    name="qskew_fedavg", protocol="quantity", method="fedavg",
+    summary="quantity-skew control (Dir(0.5) shard sizes), FedAvg"))
+register(ScenarioSpec(
+    name="qskew_fed2", protocol="quantity", method="fed2",
+    summary="quantity-skew control (Dir(0.5) shard sizes), Fed2"))

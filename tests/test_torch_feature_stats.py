@@ -1,7 +1,7 @@
 """Fed2's feature interpretation in the port (``repro_torch.core.
-feature_stats``, ``kernels/feature_stats.py``, the grouping helpers and
-``launch/auto_depth.py``) against the reference's, on the same numpy
-inputs and converted parameters.
+feature_stats``, ``kernels/feature_stats.py`` and the grouping helpers)
+against the reference's, on the same numpy inputs and converted
+parameters.
 
 Tolerances:
 - ``feature_stats_ref`` vs the reference's oracle: 1e-4 absolute at
@@ -10,21 +10,15 @@ Tolerances:
   multiplied in fp32, so bf16 is held to the same figure.
 - ``feature_stats_many_ref`` vs the same oracle, instance by instance:
   fp32 at 1e-4; bf16 at the JAX kernel test's atol 0.2 / rtol 1e-2.
-- Eq. 9's batched route vs the port's per-class plain route, on the
-  CPU: 1e-6 absolute (one fp32 sum of the same products per column).
 - class preference vectors (Eq. 9), port under both kernel flags vs the
   reference under ``use_kernel=True`` (its Pallas kernel in interpret
   mode): 1e-4 absolute (measured below 1e-6), inside the JAX test's
   own 1e-3 between its two routes.
-- the auto-depth workflow: the same TV profile (1e-4 relative) and
-  chosen depth, accuracies within one eval example, and final
-  parameters within 1e-4 or, if larger, twice what a one-ulp change of
-  the initial parameters does to the port's own run. After one round the
-  port and the reference agree to 1.2e-7; the second round's 8 local
-  steps amplify round-off of any origin to about 1.2e-4 (measured: port
-  vs reference 1.22e-4, port vs port from an init moved by one ulp
-  1.21e-4), so a fixed 1e-4 would test this run's conditioning, not
-  the port.
+
+Eq. 9's batched route against the port's plain route is in
+tests/test_torch_eq9_kernel_route.py, and the auto-depth workflow in
+tests/test_torch_auto_depth.py: each file is its own unit for
+``--dist loadfile``, so the slow cases run on other workers.
 """
 import dataclasses
 import functools
@@ -40,29 +34,28 @@ from repro.configs import vgg9 as jvgg9
 from repro.configs import vgg16 as jvgg16
 from repro.core import feature_stats as jfs
 from repro.core import grouping as jgrouping
-from repro.data import synthetic as jdata
-from repro.fl import runtime as jruntime
 from repro.kernels import ref as jref
 from repro.models import cnn as jcnn
-from repro.optim.optimizers import sgd as jsgd
 from repro_torch import convert
 from repro_torch.core import feature_stats as tfs
 from repro_torch.core import fusion as tfusion
 from repro_torch.core import grouping as tgrouping
 from repro_torch.kernels import feature_stats as kfs
-from repro_torch.kernels import paired_fusion as pf
-from repro_torch.launch import auto_depth
 from repro_torch.models import cnn as tcnn
-from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.models.module import tree_map
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's xdist workers share the cores
+    (see tests/test_torch_eq9_kernel_route.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TOL = 1e-4
-
-
-def _jax_cfg(tcfg):
-    """The reference's CNNConfig with the port config's fields."""
-    return jcnn.CNNConfig(**{f.name: getattr(tcfg, f.name)
-                             for f in dataclasses.fields(tcfg)
-                             if f.name != "dtype"})
 
 
 def _jax_init_np(jcfg, seed=0):
@@ -247,39 +240,6 @@ def test_feature_stats_many_raises_when_the_build_fails(monkeypatch):
     assert kfs.feature_stats.launches == before
 
 
-def _narrow_vgg16():
-    """VGG16's 13 convs and 2 hidden FCs at a sixteenth of the width, on
-    100 classes: the Eq. 9 table of vgg16 (100 x 15 reductions) at a size
-    the CPU runs in seconds."""
-    from repro_torch.configs import vgg16
-    plan = tuple(s if s[0] == "p" else ("c", s[1] // 16)
-                 for s in tcnn.VGG16_PLAN)
-    return dataclasses.replace(vgg16.baseline(), plan=plan, fc_dims=(32, 32))
-
-
-@pytest.mark.parametrize("name", ["vgg9", "vgg16"])
-def test_class_preference_vectors_kernel_route_matches_plain(name):
-    """The batched route (one feature_stats_many call) against the plain
-    per-class route of the port, on the CPU: no launch, within 1e-6."""
-    from repro_torch.configs import vgg9
-    cfg = (vgg9.reduced(fed2_groups=0, norm="none") if name == "vgg9"
-           else _narrow_vgg16())
-    n_taps = 15 if name == "vgg16" else 4
-    p = tcnn.init_cnn(torch.Generator().manual_seed(2), cfg)
-    rng = np.random.default_rng(7)
-    x = torch.tensor(rng.normal(size=(16, 32, 32, 3)).astype(np.float32))
-    y = torch.tensor(rng.integers(0, cfg.n_classes, 16))
-    before = kfs.feature_stats.launches
-    on = tfs.class_preference_vectors(p, cfg, x, y, use_kernel=True)
-    assert kfs.feature_stats.launches == before
-    off = tfs.class_preference_vectors(p, cfg, x, y, use_kernel=False)
-    assert len(on) == len(off) == n_taps
-    for a, b in zip(on, off):
-        assert a.shape == b.shape and a.shape[1] == cfg.n_classes
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
-    assert any(bool((b != 0).any()) for b in off)
-
-
 # ---------------------------------------------------------------------------
 # Eq. 9 preference vectors on the three CNN families
 # ---------------------------------------------------------------------------
@@ -434,93 +394,3 @@ def test_gradient_redirection_isolation(family):
                     assert blocks[g] > 0, (c, path, g)
                 else:
                     assert blocks[g] == 0, (c, path, g, float(blocks[g]))
-
-
-# ---------------------------------------------------------------------------
-# the auto-depth workflow against the same steps composed in JAX
-# ---------------------------------------------------------------------------
-
-AUTO_WARMUP, AUTO_ROUNDS = 6, 2
-
-
-@functools.lru_cache(maxsize=None)
-def _reference_auto_depth():
-    """examples/auto_depth_fed2.py's steps, composed from the reference's
-    functions, with AUTO_WARMUP warm-up steps and AUTO_ROUNDS rounds."""
-    A = auto_depth
-    ds = jdata.make_image_dataset(A.TRAIN_SIZE, n_classes=10, seed=0,
-                                  noise=A.NOISE)
-    test = jdata.make_image_dataset(A.TEST_SIZE, n_classes=10, seed=99,
-                                    noise=A.NOISE)
-    base = jvgg9.reduced(fed2_groups=0, norm="none")
-    p = jcnn.init_cnn(jax.random.PRNGKey(0), base)
-    opt = jsgd(A.WARMUP_LR, 0.9)
-    st = opt.init(p)
-
-    @jax.jit
-    def step(p, st, b):
-        return opt.update(jax.grad(jcnn.cnn_loss)(p, base, b), st, p, 0)
-
-    rng = np.random.default_rng(0)
-    for _ in range(AUTO_WARMUP):
-        sel = rng.integers(0, len(ds.labels), A.WARMUP_BATCH)
-        p, st = step(p, st, {"images": jnp.asarray(ds.images[sel]),
-                             "labels": jnp.asarray(ds.labels[sel])})
-    pv = jfs.class_preference_vectors(
-        p, base, jnp.asarray(ds.images[:A.PROBE_IMAGES]),
-        jnp.asarray(ds.labels[:A.PROBE_IMAGES]), use_kernel=True)
-    tvs = [float(jfs.total_variance(v)) for v in pv]
-    depth = max(jgrouping.choose_decouple_depth(tvs, threshold_frac=0.5,
-                                                min_shared=2), 1)
-    cfg = jvgg9.reduced(fed2_groups=A.GROUPS, decouple=depth, norm="gn")
-    parts = jdata.nxc_partition(ds.labels, A.CLIENTS, A.CLASSES_PER_NODE,
-                                10, seed=1)
-    fl = jruntime.FLConfig(population=A.CLIENTS, rounds=AUTO_ROUNDS,
-                           local_epochs=1, steps_per_epoch=A.STEPS,
-                           batch_size=A.BATCH, lr=A.LR, momentum=0.9,
-                           method="fed2")
-    h = jruntime.run_federated(
-        jruntime.cnn_task(cfg), fl, parts,
-        lambda s: {"images": jnp.asarray(ds.images[s]),
-                   "labels": jnp.asarray(ds.labels[s])},
-        [{"images": jnp.asarray(test.images),
-          "labels": jnp.asarray(test.labels)}], mesh=None,
-        use_kernel=False)
-    return tvs, depth, h
-
-
-def test_auto_depth_matches_reference_workflow():
-    tvs_j, depth_j, hj = _reference_auto_depth()
-
-    def init_params(tcfg):       # the reference's PRNGKey(0) inits
-        return convert.to_port(_jax_init_np(_jax_cfg(tcfg)))
-
-    def init_ulp(tcfg):          # the same, moved up by one ulp
-        return tree_map(lambda t: torch.nextafter(
-            t, torch.full_like(t, np.inf)), init_params(tcfg))
-
-    def run(init):
-        return auto_depth.run_auto_depth(
-            reduced=True, device="cpu", init_params=init,
-            warmup_steps=AUTO_WARMUP, rounds=AUTO_ROUNDS)
-
-    before = (kfs.feature_stats.launches, pf.paired_fusion.launches)
-    out = run(init_params)
-    assert (kfs.feature_stats.launches, pf.paired_fusion.launches) == before
-    ulp = max(float((a - b).abs().max()) for a, b in zip(
-        tree_leaves(out["history"]["final_params"]),
-        tree_leaves(run(init_ulp)["history"]["final_params"])))
-    limit = max(TOL, 2 * ulp)
-    np.testing.assert_allclose(out["tvs"], tvs_j, rtol=1e-4)
-    assert out["depth"] == depth_j
-    assert out["cfg"].decouple == depth_j
-    h = out["history"]
-    np.testing.assert_allclose(h["acc"], hj["acc"], atol=1.0 / 400 + 1e-9)
-    got = convert.to_reference(h["final_params"])
-    want = jax.tree_util.tree_map(np.asarray, hj["final_params"])
-    fg = jax.tree_util.tree_leaves(got)
-    fw = jax.tree_util.tree_leaves(want)
-    assert len(fg) == len(fw)
-    for a, b in zip(fg, fw):
-        np.testing.assert_allclose(a, b, atol=limit)
-    assert all(t.device.type == "cpu" for t in tree_leaves(h["final_params"]))

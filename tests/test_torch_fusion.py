@@ -219,3 +219,47 @@ def test_broadcast_global_fills_every_row():
     out = tfusion.broadcast_global(g, flat)
     assert out.data_ptr() == flat.data_ptr()
     assert all(torch.equal(flat[i], g) for i in range(3))
+
+
+@pytest.mark.parametrize("shape,axis,groups", [
+    ((2, 4, 5), 1, 2),          # the group axis between two others
+    ((3, 2, 6), 2, 3),          # the last axis: blocks of one element
+    ((4, 8, 6, 3), 1, 8),       # a stacked (L, G, i, o) leaf, reduced
+])
+def test_kernel_route_fuses_a_group_axis_that_does_not_lead(shape, axis,
+                                                            groups):
+    """Presence-weighted fusion of a leaf whose group axis has leading
+    dims (pre > 1): the kernel route fuses each (pre index, group) block
+    on its own, one launch each, and matches the reference's kernel
+    route within 1e-6. A shared leaf beside it takes the sample
+    weights."""
+    rng = np.random.default_rng(21)
+    n = 4
+    leaves = {"g": rng.normal(size=(n,) + shape).astype(np.float32),
+              "s": rng.normal(size=(n, 7)).astype(np.float32)}
+    gw = rng.uniform(0.0, 3.0, (n, groups))
+    gw[:, 0] = 0.0                       # a column no client holds
+    gw[1, -1] = 0.0
+    w = np.array([2.0, 1.0, 4.0, 3.0])
+    jaxes = {"g": jfusion.GroupAxis(axis, groups), "s": None}
+    want = jfusion.paired_average(
+        jax.tree_util.tree_map(jnp.asarray, leaves), jaxes, weights=w,
+        group_weights=gw, use_kernel=True)
+    tree = {k: torch.tensor(v[0]) for k, v in leaves.items()}
+    layout = FlatLayout(tree)
+    flat = layout.alloc((n,))
+    for i in range(n):
+        layout.flatten({k: torch.tensor(v[i]) for k, v in leaves.items()},
+                       out=flat[i])
+    taxes = {"g": tfusion.GroupAxis(axis, groups), "s": None}
+    before = pf.paired_fusion.launches
+    got = tfusion.paired_average(flat, layout, taxes, weights=w,
+                                 group_weights=gw, use_kernel=True)
+    assert pf.paired_fusion.launches == before     # CPU: plain version
+    plain = tfusion.paired_average(flat, layout, taxes, weights=w,
+                                   group_weights=gw, use_kernel=False)
+    out = layout.unflatten(got)
+    for k in leaves:
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-6)
+    torch.testing.assert_close(got, plain, atol=1e-6, rtol=0)

@@ -68,6 +68,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.fl import runtime, scenarios
     from repro_torch.launch import auto_depth, serve, train
+    from repro_torch.launch import scenarios as launch_scenarios
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runtime.resolve_device(None)
@@ -81,6 +82,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         scenarios.run_scenario(spec)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--reduced", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_scenarios.main(["--scenarios", "nxc2_fed2", "--rounds", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         auto_depth.main(["--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

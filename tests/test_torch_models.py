@@ -37,6 +37,17 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models.module import (FlatLayout, param_count, tree_leaves,
                                        tree_map)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's xdist workers share the cores
+    (see tests/test_torch_eq9_kernel_route.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 
 # benchmarks/flbench.py's MobileNet plan (stride-2 depthwise blocks at

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.fl import runtime as jruntime
 from repro.fl import scenarios as jscen
@@ -25,6 +26,17 @@ from repro_torch.fl import scenarios as tscen
 from repro_torch.kernels import local_step as ls
 from repro_torch.kernels import paired_fusion as pf
 from repro_torch.models.module import tree_leaves
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's xdist workers share the cores
+    (see tests/test_torch_eq9_kernel_route.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # batch 8 (the scenario's is 16) cuts both packages' CPU time
 SMALL = dict(rounds=2, train_size=240, test_size=80, steps_per_epoch=3,

@@ -1,0 +1,126 @@
+"""The port's scenario matrix (``repro_torch.fl.scenarios``) and its CLI
+(``repro_torch.launch.scenarios``) against the reference's.
+
+- The port registers the reference's 8 seeded synchronous specs; each
+  spec's partition (to the bit), ``fl_config`` and ``protocol_label``
+  equal the reference's.
+- Two rounds of ``dir05_fed2`` and ``qskew_fedavg`` at a small size from
+  the reference's init (converted) and the same seed: final parameters
+  within 1e-4, accuracies within one eval example, as
+  tests/test_torch_runtime.py holds ``nxc2``.
+- The CLI lists the registry and writes one record per scenario.
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.fl import runtime as jruntime
+from repro.fl import scenarios as jscen
+from repro_torch import convert
+from repro_torch.fl import runtime as truntime
+from repro_torch.fl import scenarios as tscen
+from repro_torch.launch import scenarios as tlaunch
+
+SYNC = ("dir05_fed2", "dir05_fedavg", "iid_fedavg", "nxc2_fed2",
+        "nxc2_fedavg", "nxc2_fedma", "qskew_fed2", "qskew_fedavg")
+SMALL = dict(rounds=2, train_size=240, test_size=80, steps_per_epoch=3,
+             batch_size=8)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's xdist workers share the cores
+    (see tests/test_torch_eq9_kernel_route.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_registry_holds_the_reference_sync_specs():
+    assert tscen.available() == SYNC
+    assert set(SYNC) <= set(jscen.available())
+    assert tscen.PROTOCOLS == jscen.PROTOCOLS
+
+
+@pytest.mark.parametrize("name", SYNC)
+def test_spec_matches_reference(name):
+    t, j = tscen.get(name), jscen.get(name)
+    assert (t.summary, t.protocol, t.method) == (j.summary, j.protocol,
+                                                j.method)
+    assert t.protocol_label() == j.protocol_label()
+    ct, cj = t.fl_config(), j.fl_config()
+    for f in dataclasses.fields(ct):
+        assert getattr(ct, f.name) == getattr(cj, f.name), f.name
+    labels = t.datasets()[0].labels
+    for a, b in zip(t.partition(labels), j.partition(labels)):
+        np.testing.assert_array_equal(a, b)
+    assert t.model_config().plan == j.model_config().plan
+
+
+def test_unknown_protocol_is_refused():
+    with pytest.raises(ValueError, match="unknown scenario protocol"):
+        tscen.get("iid_fedavg").override(protocol="zipf")
+
+
+@pytest.mark.parametrize("name", ["dir05_fed2", "qskew_fedavg"])
+def test_two_rounds_match_reference(name):
+    tspec = tscen.get(name).override(**SMALL)
+    jspec = jscen.get(name).override(**SMALL)
+    ds, test = tspec.datasets()
+    parts = tspec.partition(ds.labels)
+    jtask = jruntime.cnn_task(jspec.model_config())
+    init = jax.tree_util.tree_map(
+        np.asarray, jtask.init_fn(jax.random.PRNGKey(jspec.seed)))
+    tests = [{"images": test.images, "labels": test.labels}]
+    hj = jruntime.run_federated(
+        jtask, jspec.fl_config(), parts,
+        lambda s: {"images": jnp.asarray(ds.images[s]),
+                   "labels": jnp.asarray(ds.labels[s])}, tests, mesh=None,
+        use_kernel=False)
+    rec = tscen.run_scenario(tspec, device="cpu",
+                             init_params=convert.to_port(init))
+    assert rec.protocol == jspec.protocol_label()
+    np.testing.assert_allclose(rec.acc, hj["acc"],
+                               atol=1 / SMALL["test_size"] + 1e-9)
+    ht = truntime.run_federated(
+        truntime.cnn_task(tspec.model_config()), tspec.fl_config(), parts,
+        lambda s: {"images": ds.images[s], "labels": ds.labels[s]}, tests,
+        device="cpu", init_params=convert.to_port(init))
+    for a, b in zip(jax.tree_util.tree_leaves(convert.to_reference(
+            ht["final_params"])), jax.tree_util.tree_leaves(
+            hj["final_params"])):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
+
+
+def test_cli_lists_the_registry(capsys):
+    assert tlaunch.main(["--list"]) == []
+    out = capsys.readouterr().out.splitlines()
+    assert [line.split()[0] for line in out] == list(SYNC)
+    assert "dirichlet(0.5)" in out[0]
+
+
+def test_cli_runs_a_scenario_on_the_cpu(tmp_path):
+    recs = tlaunch.main(["--scenarios", "qskew_fed2", "--rounds", "1",
+                         "--train-size", "120", "--device", "cpu",
+                         "--out", str(tmp_path)])
+    assert len(recs) == 1 and recs[0].device == "cpu"
+    saved = json.loads((tmp_path / "scenario_qskew_fed2.json").read_text())
+    assert saved["protocol"] == "quantity(0.5)"
+    assert saved["final_acc"] == recs[0].final_acc
+    assert len(saved["acc"]) == 1
+
+
+def test_cli_refuses_an_unknown_scenario():
+    with pytest.raises(SystemExit, match="unknown scenarios"):
+        tlaunch.main(["--scenarios", "nxc2_fedavg_tiers", "--device", "cpu"])
+
+
+def test_default_out_is_not_the_reference_records():
+    assert tlaunch.DEFAULT_OUT.endswith("runs_torch")
+    assert "artifacts_perf" not in tlaunch.DEFAULT_OUT
