@@ -67,7 +67,28 @@ script exits non-zero:
             each must learn; the JAX package's committed final
             accuracies beside them, and whether every FedMA permutation
             was the identity
-13. serve   Mamba-2 1.3B at full width through the serving CLI
+13. axes    the sync round's feature axes through the CLI at full
+            width, 3 rounds each, counted: fed2 --compute-dtype bfloat16
+            (with and without --use-local-kernel: local_step on the bf16
+            shadow buffer), --codec int8 and topk(0.05), sign_flip(4) on
+            20 % of the clients under trimmed_mean(0.25) (no
+            paired_fusion: a reducing rule has no kernel) and under
+            norm_clip(10), fedavg under label_flip and --alignment pan,
+            and --fed-mode one_shot (one fusion); the robust reductions'
+            time on the (10, M) cohort. local_step on bf16 (10, M) is
+            timed in the check phase against its bound and
+            torch._fused_sgd_
+14. axes parity  one fed2 round (TF32 off, deterministic convolutions):
+            the identity codec, trimmed_mean(0), norm_clip(inf) and
+            --local-unroll 4 give the plain round to the bit; bf16 with
+            and without --use-local-kernel within BF16_ROUTES_TOL
+15. axes scenarios  the 12 feature-axis scenarios and nxc2_fedavg, 10
+            rounds each (deterministic convolutions), counted, beside the
+            JAX package's records: one row per one-shot run,
+            nxc2_fedavg_none equal to nxc2_fedavg to the bit, label-flip
+            best accuracy >= 0.2, finite params under trimmed_mean; the
+            paper-claims orderings printed, not asserted
+16. serve   Mamba-2 1.3B at full width through the serving CLI
             (launch/serve.py, the reference's defaults: batch 4, 32
             prompt + 16 decoded tokens): --full (ssd_update in every
             layer of every step: 48 x 48 launches) and --full
@@ -77,9 +98,9 @@ script exits non-zero:
             counted, grouped_matmul by route too, with prefill/decode
             time, tok/s, peak device memory and the parameter count,
             which must equal the reference's
-14. serve profile  a short Fed2 serve under torch.profiler: device
+17. serve profile  a short Fed2 serve under torch.profiler: device
             busy share and device time by kernel category
-15. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
+18. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
             the kernels and with the plain versions: logits and the
             final cache within the stated limits
 
@@ -132,6 +153,29 @@ FEDNOVA_PARITY_TOL = 1e-5
 # fedadam at against the reference.
 FEDADAM_SERVER_LR = 1e-3
 BF16_FLOPS = 989e12            # H100 SXM bf16, dense tensor cores
+# one round of the CLI's fed2 at --compute-dtype bfloat16 with and
+# without --use-local-kernel (TF32 off, deterministic convs): the two
+# routes round the momentum step differently (the kernel keeps v' in
+# fp32 before p' = p - lr*v', the plain route rounds v' to bf16), so a
+# client's coordinate moves by bf16 ulps (2^-8 below 1.0) and the fp32
+# fusion averages them. tests/test_torch_axes.py holds the port's bf16
+# round to the JAX package's within the same 2^-7; the full-width CPU
+# run of one round differs by 6.9e-4 between the two routes.
+BF16_ROUTES_TOL = 2.0 ** -7
+# the JAX package's committed final accuracies of the sync round's
+# feature-axis scenarios and of nxc2_fedavg
+# (benchmarks/artifacts_perf/scenario_<name>.json): shown beside the
+# port's, not matched (the inits differ)
+AXES_SCENARIO_REFERENCE = {
+    "nxc2_fedavg_flip20": 0.325, "nxc2_fed2_flip20": 0.255,
+    "nxc2_fedavg_signflip20": 0.085, "nxc2_fed2_signflip20": 0.085,
+    "nxc2_fedavg_signflip20_trim": 0.405,
+    "nxc2_fed2_signflip20_trim": 0.3375, "nxc2_fedavg_pan": 0.44,
+    "nxc2_fedavg_none": 0.42, "dir05_fedavg_pan": 0.91,
+    "dir05_fedavg_none": 0.775, "nxc2_fed2_oneshot": 0.305,
+    "nxc2_fedavg_oneshot": 0.2225, "nxc2_fedavg": 0.4125}
+# tests/test_paper_claims.py's margin for the robust orderings
+CLAIMS_MARGIN = 0.10
 # parameters of mamba2-1.3b and of with_fed2(groups=8) of it: the
 # reference's param_count(jax.eval_shape(init_params, ...)) on its
 # configs/mamba2_1_3b.full()
@@ -433,7 +477,10 @@ def phase_check_local_step(layout) -> dict:
               lambda: cohort(layout, 10, torch.bfloat16, gen), 2e-2),
              ("fp32 odd M=100003", torch.float32,
               lambda: torch.randn(100003, generator=gen, device="cuda"),
-              1e-6)]
+              1e-6),
+             ("bf16 ragged (3, 100003)", torch.bfloat16,
+              lambda: torch.randn(3, 100003, generator=gen, device="cuda")
+              .to(torch.bfloat16), 2e-2)]
     err_main = None
     for name, dt, make, tol in cases:
         p, v, g = make(), 0.1 * make(), make()
@@ -463,7 +510,34 @@ def phase_check_local_step(layout) -> dict:
             "source": "src/repro_torch/kernels/local_step.py",
             "replaces": "src/repro/kernels/local_step.py:47",
             "max_abs_err": err_main, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": lib}
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "bf16": local_step_bf16_times(layout, lr, mu, gen)}
+
+
+def local_step_bf16_times(layout, lr, mu, gen) -> dict:
+    """local_step on the bf16 (10, M) shadow of the cohort buffer (the
+    --compute-dtype bfloat16 path), against its plain version and
+    torch._fused_sgd_ on the same bf16 buffers: device times by graph
+    replay and the bound (10 bytes an element: p, v, g read, p, v
+    written, 2 bytes each)."""
+    from repro_torch.kernels.local_step import local_step, local_step_ref
+    r, m, esz = 10, layout.size, 2
+    sets = [tuple(cohort(layout, r, torch.bfloat16, gen, s)
+                  for s in (1.0, 0.1, 1.0))
+            for _ in range(copies_for(3 * r * m * esz))]
+    reps = 100
+    ms = time_ms([lambda s=s: local_step(*s, lr=lr, mu=mu) for s in sets],
+                 reps)
+    plain = time_ms([lambda s=s: local_step_ref(*s, lr, mu) for s in sets],
+                    reps)
+    dense = [tuple(t.contiguous() for t in s) for s in sets]
+    lib = time_ms([lambda s=s: torch._fused_sgd_(
+        [s[0]], [s[2]], [s[1]], weight_decay=0.0, momentum=mu, lr=lr,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
+        for s in dense], reps)
+    b, by = bound(5 * r * m * esz, 4 * r * m)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b,
+            "bound_by": by}
 
 
 def tapped_widths(cfg):
@@ -895,10 +969,11 @@ def cli(*extra):
 
 def rounds_line(h):
     w = h["wall"]
-    print(f"  -> {MAIN_ROUNDS / h['wall_total']:.3f} rounds/s over the run "
-          f"({h['wall_total']:.3f} s; first round {w[0]:.3f} s, later "
-          f"rounds {(w[-1] - w[0]) / (len(w) - 1):.3f} s each), final acc "
-          f"{h['acc'][-1]:.4f}", flush=True)
+    later = (f"later rounds {(w[-1] - w[0]) / (len(w) - 1):.3f} s each"
+             if len(w) > 1 else "one round (one-shot)")
+    print(f"  -> {len(w) / h['wall_total']:.3f} rounds/s over the run "
+          f"({h['wall_total']:.3f} s; first round {w[0]:.3f} s, {later}), "
+          f"final acc {h['acc'][-1]:.4f}", flush=True)
 
 
 def wrappers() -> dict:
@@ -1291,12 +1366,14 @@ def phase_parity():
         f"one-ulp change of the init ({d['plain, init + 1 ulp']})")
 
 
-def phase_scenario():
+def phase_scenario() -> dict:
     """nxc2_fed2 and the added scenarios, each for its 10 rounds,
     counted like the main path; each must learn (final > twice
     chance). The JAX package's committed final accuracies are shown
-    beside them, not matched: the inits differ."""
+    beside them, not matched: the inits differ. Returns the records by
+    name."""
     from repro_torch.fl import scenarios
+    recs = {}
     for name in ("nxc2_fed2", "nxc2_fedma", "dir05_fed2", "qskew_fed2",
                  "iid_fedavg"):
         spec = scenarios.get(name)
@@ -1313,6 +1390,202 @@ def phase_scenario():
         if spec.method == "fedma":
             print(f"  {fedma_line(stats)}", flush=True)
         assert rec.final_acc > 0.2, f"{name} did not learn (<= 2x chance)"
+        recs[name] = rec
+    return recs
+
+
+def phase_axes():
+    """The sync round's feature axes through the CLI at its full-width
+    defaults (vgg9.full(fed2_groups=8) for fed2, vgg9.baseline for
+    fedavg; 10 clients, 8 steps of batch 32), 3 rounds each, counted:
+    the fusion kernel runs once a round after the bf16 local phase, the
+    codecs, norm_clip, the attacks and PAN, never under
+    trimmed_mean(0.25) (a reducing rule has no kernel), and once in the
+    whole one-shot run; local_step once a local step with
+    --use-local-kernel (on the bf16 shadow buffer under bfloat16). Then
+    the robust reductions' device time on the (10, M) cohort."""
+    from repro_torch.launch import train
+    d = train.parse_args([])
+    steps = d.local_epochs * d.steps_per_epoch
+    r = MAIN_ROUNDS
+    atk = ("--attack", "sign_flip(4)", "--attack-fraction", "0.2")
+    for extra, fuse, local in (
+            (("--compute-dtype", "bfloat16"), r, 0),
+            (("--compute-dtype", "bfloat16", "--use-local-kernel"), r,
+             steps * r),
+            (("--codec", "int8"), r, 0),
+            (("--codec", "topk(0.05)"), r, 0),
+            (atk + ("--robust", "trimmed_mean(0.25)"), 0, 0),
+            (atk + ("--robust", "norm_clip(10)"), r, 0),
+            (("--method", "fedavg", "--attack", "label_flip",
+              "--attack-fraction", "0.2"), r, 0),
+            (("--method", "fedavg", "--alignment", "pan"), r, 0),
+            (("--fed-mode", "one_shot", "--use-local-kernel"), 1,
+             steps * r)):
+        h, _ = counted(" ".join(extra), lambda: cli(*extra),
+                       {"paired_fusion": fuse, "local_step": local})
+        if "one_shot" in extra:
+            assert len(h["acc"]) == 1, "one-shot ran more than one fusion"
+    robust_sort_times()
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean time of ``fn()`` between two CUDA events over ``reps`` eager
+    calls (after one warm-up call)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def robust_sort_times():
+    """trimmed_mean(0.25) and coordinate_median over the main path's
+    (10, M) fp32 cohort (a stable sort of the client axis, then
+    cumulative weights), against the weighted mean of paired_fusion on
+    the same buffer; device time between CUDA events."""
+    from repro_torch.fl.robust import parse_robust
+    from repro_torch.kernels.paired_fusion import paired_fusion
+    layout = main_layout()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = cohort(layout, 10, torch.float32, gen)
+    w = torch.full((10,), 0.1, device="cuda")
+    times = {name: event_ms(lambda rule=parse_robust(name):
+                            rule.reduce(x, w), 20)
+             for name in ("trimmed_mean(0.25)", "coordinate_median")}
+    fuse = event_ms(lambda: paired_fusion(x, w), 20)
+    print(f"  robust reductions of the (10, {layout.size}) cohort: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; paired_fusion (weighted mean) {fuse:.3f} ms", flush=True)
+
+
+def phase_axes_parity():
+    """One round of the CLI's fed2 from one init and one batch stream
+    (TF32 off, deterministic convolutions): the identity codec,
+    trimmed_mean(0), norm_clip(inf) and local_unroll 4 give the plain
+    round to the bit; bf16 with and without --use-local-kernel agree
+    within BF16_ROUTES_TOL."""
+    import dataclasses
+
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    from repro_torch.models.module import FlatLayout
+    task, fl, parts, get_batch, test = train.fl_inputs(
+        train.parse_args(["--rounds", "1"]))
+    init = task.init_fn(torch.Generator().manual_seed(0))
+    layout = FlatLayout(init)
+
+    def run(use_local_kernel=False, **over):
+        h = run_federated(task, dataclasses.replace(fl, **over), parts,
+                          get_batch, test, device="cuda", init_params=init,
+                          use_local_kernel=use_local_kernel)
+        finite_params(h)
+        return layout.flatten(h["final_params"])
+
+    plain = run()
+    for label, over in (("plain again", {}),
+                        ("--codec identity", {"codec": "identity"}),
+                        ("--robust trimmed_mean(0)",
+                         {"robust": "trimmed_mean(0)"}),
+                        ("--robust norm_clip(inf)",
+                         {"robust": "norm_clip(inf)"}),
+                        ("--local-unroll 4", {"local_unroll": 4})):
+        same = torch.equal(run(**over), plain)
+        print(f"  {label} vs plain: "
+              f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
+        assert same, f"{label} is not the plain round bit for bit"
+    a = run(compute_dtype="bfloat16")
+    b = run(True, compute_dtype="bfloat16")
+    dev = (a - b).abs().max().item()
+    print(f"  --compute-dtype bfloat16, local_step vs plain route: max "
+          f"|dparam| {dev:.3g} (tol {BF16_ROUTES_TOL:g}); vs the fp32 "
+          f"round: {(a - plain).abs().max().item():.3g}", flush=True)
+    assert dev <= BF16_ROUTES_TOL, f"bf16 routes drift apart: {dev}"
+
+
+@contextlib.contextmanager
+def history_probe():
+    """Keeps the history of every run_federated call (run_scenario
+    returns a record without the final parameters)."""
+    from repro_torch.fl import runtime
+    hist, orig = [], runtime.run_federated
+
+    def kept(*a, **k):
+        hist.append(orig(*a, **k))
+        return hist[-1]
+
+    runtime.run_federated = kept
+    try:
+        yield hist
+    finally:
+        runtime.run_federated = orig
+
+
+def phase_axes_scenarios(recs: dict):
+    """The 12 feature-axis scenarios and nxc2_fedavg for their 10 rounds
+    (deterministic convolutions), counted: paired_fusion once a round,
+    never under trimmed_mean, once in a one-shot run. Each final
+    accuracy beside the JAX package's record. Asserted: one history row
+    per one-shot run, nxc2_fedavg_none equal to nxc2_fedavg to the bit,
+    label-flip best accuracy >= 0.2, finite parameters on the trimmed
+    rows. The orderings of tests/test_paper_claims.py are printed, not
+    asserted (the inits differ from the JAX package's)."""
+    from repro_torch.fl import scenarios
+    from repro_torch.models.module import tree_leaves
+    finals = {}
+    for name in AXES_SCENARIO_REFERENCE:
+        spec = scenarios.get(name)
+        fuse = (1 if spec.mode == "one_shot" else
+                0 if spec.robust.startswith("trimmed") else spec.rounds)
+        with history_probe() as hist:
+            rec, _ = counted(
+                name, lambda: scenarios.run_scenario(spec, device="cuda"),
+                {"paired_fusion": fuse, "local_step": 0})
+        recs[name], finals[name] = rec, hist[-1]["final_params"]
+        print(f"  {name} ({spec.protocol_label()}, {len(rec.acc)} rows, "
+              f"{rec.wall_total:.2f} s): final acc {rec.final_acc:.4f}, "
+              f"best {rec.best_acc:.4f} (the JAX package's committed "
+              f"record: {AXES_SCENARIO_REFERENCE[name]}; inits differ), "
+              f"accs {[round(a, 4) for a in rec.acc]}", flush=True)
+        if spec.mode == "one_shot":
+            assert len(rec.acc) == 1, f"{name}: {len(rec.acc)} rows"
+        if "flip20" in name and "signflip" not in name:
+            assert rec.best_acc >= 0.2, f"{name} did not survive label flip"
+        if name.endswith("_trim"):
+            finite_params(hist[-1])
+    same = recs["nxc2_fedavg_none"].acc == recs["nxc2_fedavg"].acc and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(finals[
+            "nxc2_fedavg_none"]), tree_leaves(finals["nxc2_fedavg"])))
+    print(f"  nxc2_fedavg_none vs nxc2_fedavg: "
+          f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
+    assert same, "nxc2_fedavg_none is not nxc2_fedavg bit for bit"
+    f = {k: v.final_acc for k, v in recs.items()}
+    for claim, held in (
+            ("fed2 + trim >= plain fedavg + 0.10 under sign flip",
+             f["nxc2_fed2_signflip20_trim"]
+             >= f["nxc2_fedavg_signflip20"] + CLAIMS_MARGIN),
+            ("fedavg + trim >= fedavg + 0.10 under sign flip",
+             f["nxc2_fedavg_signflip20_trim"]
+             >= f["nxc2_fedavg_signflip20"] + CLAIMS_MARGIN),
+            ("fed2 + trim >= fed2 + 0.10 under sign flip",
+             f["nxc2_fed2_signflip20_trim"]
+             >= f["nxc2_fed2_signflip20"] + CLAIMS_MARGIN),
+            ("nxc: grouped >= pan >= none",
+             f["nxc2_fed2"] >= f["nxc2_fedavg_pan"]
+             >= f["nxc2_fedavg_none"]),
+            ("dirichlet: grouped >= pan >= none",
+             f["dir05_fed2"] >= f["dir05_fedavg_pan"]
+             >= f["dir05_fedavg_none"]),
+            ("one-shot fed2 >= one-shot fedavg",
+             f["nxc2_fed2_oneshot"] >= f["nxc2_fedavg_oneshot"]),
+            ("multi-round fedavg >= one-shot fedavg",
+             f["nxc2_fedavg"] >= f["nxc2_fedavg_oneshot"])):
+        print(f"  claim ({'holds' if held else 'does not hold'} here): "
+              f"{claim}", flush=True)
 
 
 def free_device_memory():
@@ -1502,12 +1775,13 @@ def main() -> int:
                    phase_check_grouped_matmul(),
                    phase_check_ssd_update()]
         phase_check_group_axis()
-        for r in records:
+        for r in records + [{**records[1]["bf16"],
+                             "name": "local_step bf16 (10, M)"}]:
             lib = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms'] * 1e3:.1f} us")
-            print(f"  {r['name']}: {r['ms'] * 1e3:.1f} us, plain "
-                  f"{r['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
-                  f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+                   else f"{r['library_ms'] * 1e3:.2f} us")
+            print(f"  {r['name']}: {r['ms'] * 1e3:.2f} us, plain "
+                  f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
     free_device_memory()
     with phase("main"):
         counts = phase_main()
@@ -1526,7 +1800,15 @@ def main() -> int:
             deterministic_convs():
         phase_parity()
     with phase("scenario"):
-        phase_scenario()
+        recs = phase_scenario()
+    with phase("axes"):
+        phase_axes()
+    with phase("axes parity (TF32 off, deterministic convs)"), \
+            tf32_off(), deterministic_convs():
+        phase_axes_parity()
+    with phase("axes scenarios (deterministic convs)"), \
+            deterministic_convs():
+        phase_axes_scenarios(recs)
     with phase("serve"):
         serve_counts = phase_serve()
     counts["grouped_matmul"] = serve_counts["grouped_matmul"]

@@ -19,6 +19,13 @@ the whole (N, M) buffer when every leaf shares the sample weights, and
 otherwise one launch per shared leaf and per (pre index, group) block
 of each grouped leaf, each with its own presence column. Every parameter is read once
 either way. ``use_kernel=False`` is the per-leaf reference reduction.
+
+``robust=rule`` (a reducing rule of fl/robust.py) replaces the weighted
+mean with the rule's sort-based statistic. It has no kernel: the kernel
+route is skipped, as the JAX package skips it. Without presence weights
+a coordinate rule is one reduction over the whole (N, M) buffer; with
+them, each grouped leaf reduces per group column with that column's
+weights.
 """
 from __future__ import annotations
 
@@ -52,9 +59,12 @@ def _weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def fedavg(stacked: torch.Tensor, weights=None, *,
-           use_kernel: bool = False) -> torch.Tensor:
-    """Coordinate-based averaging (Eq. 1): (N, M) -> (M,)."""
+           use_kernel: bool = False, robust=None) -> torch.Tensor:
+    """Coordinate-based averaging (Eq. 1): (N, M) -> (M,). ``robust``: a
+    reducing rule replaces the weighted mean (use_kernel is ignored)."""
     w = _norm_weights(weights, stacked.shape[0], stacked.device)
+    if robust is not None:
+        return robust.reduce(stacked, w)
     if use_kernel:
         return paired_fusion(stacked, w)
     if weights is None:
@@ -92,7 +102,7 @@ def _permute_groups(stacked, layout, group_axes, perms):
 
 def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
                    weights=None, group_weights=None, *,
-                   use_kernel: bool = False) -> torch.Tensor:
+                   use_kernel: bool = False, robust=None) -> torch.Tensor:
     """Feature paired averaging (Eq. 19): (N, M) -> (M,).
 
     layout: the ``FlatLayout`` of one client's parameters.
@@ -104,7 +114,11 @@ def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
     group_weights: optional (N, G) per-node, per-group fusion weights:
     a node that never saw group g's classes is down- or zero-weighted
     for that group. All-zero columns fall back to uniform (no holder:
-    plain mean)."""
+    plain mean).
+    robust: a reducing rule replaces every reduction; grouped leaves
+    under presence weights reduce per group column with that column's
+    weights, so the trimmed mass renormalizes within each group. No
+    kernel route: use_kernel is ignored."""
     dev = stacked.device
     n = stacked.shape[0]
     if perms is not None:
@@ -116,7 +130,9 @@ def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
         gw = torch.where(col > 0, gw, torch.ones_like(gw))
         gw = gw / gw.sum(0, keepdim=True)  # (N, G)
     w = _norm_weights(weights, n, dev)
-    if use_kernel:
+    if robust is not None and gw is None:
+        return robust.reduce(stacked, w)   # coordinate-wise: every leaf
+    if use_kernel and robust is None:
         return _kernel_fuse(stacked, layout, group_axes, w, gw)
     out = torch.empty(stacked.shape[1], dtype=stacked.dtype, device=dev)
     for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
@@ -124,8 +140,14 @@ def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
         if ga is not None and gw is not None:
             pre, g, blk, post = _blocks(slot, ga)
             xg = x.reshape(n, pre, g, blk * post)
-            wb = gw.reshape(n, 1, g, 1).to(xg.dtype)
-            res = (xg * wb).sum(0).reshape(-1)
+            if robust is not None:
+                res = torch.stack([robust.reduce(xg[:, :, gi], gw[:, gi])
+                                   for gi in range(g)], dim=1).reshape(-1)
+            else:
+                wb = gw.reshape(n, 1, g, 1).to(xg.dtype)
+                res = (xg * wb).sum(0).reshape(-1)
+        elif robust is not None:
+            res = robust.reduce(x, w)
         elif weights is None:
             res = x.mean(0)
         else:

@@ -21,6 +21,26 @@ branches on its name. Because cohorts are sampled each round, the
 per-slot fusion weights ``w`` (and fed2's presence rows ``gw``) are round
 arguments: fusion renormalizes them over the participants it sees.
 
+The feature axes of the sync round slot in at its boundaries, in the
+JAX package's order (``local_and_fuse``, its fl/engine.py):
+
+    stacked <- broadcast(global)
+    work    <- stacked cast to the compute dtype   # bf16: the shadow
+    work    <- method.client_update(work, batches cast down, ...)
+    work    <- attack.poison_update(work, global)  # malicious rows, in
+    #                                                the compute dtype
+    stacked <- work cast back to fp32
+    stacked <- codec.roundtrip(stacked, global)   # decode-then-fuse
+    stacked <- robust.pre(stacked, global)        # norm_clip
+    fused   <- method.fuse(stacked)               # robust.reduce inside
+
+With ``compute_dtype="bfloat16"`` the local phase runs in a bf16 (C, M)
+shadow of the cohort buffer, allocated once: broadcast writes the
+global into it (the cast down), the ``local_step`` kernel route updates
+it in place with a bf16 velocity, the batches' float leaves are cast to
+bf16 (integer leaves are not), and the trained rows are copied back
+into the fp32 buffer, which the fusion reads.
+
 For rounds whose participant set exceeds one cohort (cohort tiling),
 ``run_tile`` executes local phase + fuse for one tile, and
 ``finish_round`` applies the server step once to the tiles' combined
@@ -40,9 +60,37 @@ import numpy as np
 import torch
 
 from repro_torch.core import fusion as fusion_lib
+from repro_torch.fl import attacks as attacks_lib
+from repro_torch.fl import codec as codec_lib
+from repro_torch.fl import compat as compat_lib
 from repro_torch.fl import methods as methods_lib
+from repro_torch.fl import robust as robust_lib
 from repro_torch.fl.methods import FedMethod, MethodContext
 from repro_torch.models.module import FlatLayout, tree_map
+
+
+def resolve_compute_dtype(compute_dtype, method: FedMethod):
+    """The engine's mixed-precision decision: ``"float32"``/None keeps
+    the fp32 local phase (None); ``"bfloat16"`` returns torch.bfloat16
+    for the LOCAL phase, with fp32 fusion. Refused for methods without
+    ``FedMethod.mixed_precision``."""
+    if compute_dtype in (None, "", "float32"):
+        return None
+    if compute_dtype != "bfloat16":
+        raise ValueError(
+            f"unknown compute_dtype {compute_dtype!r}; choose 'float32' "
+            "or 'bfloat16'")
+    compat_lib.check_bf16_support(method)
+    return torch.bfloat16
+
+
+def resolve_local_unroll(cfg, local_steps: int) -> int:
+    """``cfg.local_unroll`` clamped to the step count, as the JAX
+    package resolves it. There it unrolls the local phase's
+    ``lax.scan`` (batched dispatch, same step arithmetic); eager torch
+    has no scan, so in the port the knob is validated and recorded and
+    changes neither the result nor the dispatch."""
+    return max(1, min(int(getattr(cfg, "local_unroll", 1)), local_steps))
 
 
 @dataclasses.dataclass
@@ -57,13 +105,21 @@ class RoundEngine:
     ``batches`` a dict of (C, steps, B, ...) tensors on the device;
     ``state`` = {"server": tree, "clients": stacked (C, ...) rows}.
     ``weights``/``group_weights`` are per round: the sampled cohort's
-    sample weights (and fed2 presence rows) in slot order."""
+    sample weights (and fed2 presence rows) in slot order.
+    ``malicious`` is the tile's (host attacker row, round key) pair when
+    a model-poisoning attack is configured, else None."""
     cohort_size: int
     method: FedMethod
     layout: FlatLayout
     device: torch.device
     ctx: MethodContext
     cohort: torch.Tensor          # the reusable (C, M) buffer
+    attack: Any = None            # model-poisoning Attack or None
+    robust: Any = None            # reducing RobustRule or None
+    pre_rule: Any = None          # pre-fuse RobustRule (norm_clip) or None
+    codec: Any = None             # UplinkCodec or None
+    compute_dtype: Any = None     # torch.bfloat16 or None (fp32)
+    shadow: torch.Tensor | None = None  # bf16 (C, M) local-phase buffer
 
     def _w32(self, w):
         return (None if w is None else
@@ -84,27 +140,46 @@ class RoundEngine:
                                                       self.ctx))
 
     def _local_and_fuse(self, clients_state, server_state, global_params,
-                        batches, weights, group_weights):
-        """The shared cohort-tile body: broadcast -> local phase -> fuse.
-        Returns (clients_state on the device, new client states, fuse
-        output, the round's context)."""
+                        batches, weights, group_weights, malicious=None):
+        """The shared cohort-tile body: broadcast -> (cast down) -> local
+        phase -> (poison) -> (cast back) -> (codec) -> (robust pre) ->
+        fuse. Returns (clients_state on the device, new client states,
+        fuse output, the round's context)."""
         ctx = dataclasses.replace(self.ctx, weights=self._w32(weights),
                                   group_weights=self._w32(group_weights))
         clients_state = self._to_device(clients_state)
         stacked = fusion_lib.broadcast_global(global_params, self.cohort)
-        stacked, new_clients = self.method.client_update(
-            stacked, batches, global_params, clients_state, server_state,
-            ctx)
+        work, gp_local = stacked, global_params
+        if self.compute_dtype is not None:
+            work = fusion_lib.broadcast_global(global_params, self.shadow)
+            batches = {k: v.to(self.compute_dtype)
+                       if v.is_floating_point() else v
+                       for k, v in batches.items()}
+            gp_local = global_params.to(self.compute_dtype)
+        work, new_clients = self.method.client_update(
+            work, batches, gp_local, clients_state, server_state, ctx)
+        if self.attack is not None and malicious is not None:
+            row, key = malicious
+            work = self.attack.poison_update(work, global_params, row, key,
+                                             self.layout)
+        if self.compute_dtype is not None:
+            work = stacked.copy_(work)          # back to the fp32 buffer
+        stacked = work
+        if self.codec is not None:
+            stacked = self.codec.roundtrip(stacked, global_params,
+                                           self.layout)
+        if self.pre_rule is not None:
+            stacked = self.pre_rule.pre(stacked, global_params)
         fused = self.method.fuse(stacked, global_params, ctx)
         return clients_state, new_clients, fused, ctx
 
     def run_round(self, state, global_params, batches, weights=None,
-                  group_weights=None) -> tuple:
+                  group_weights=None, malicious=None) -> tuple:
         """One whole round. For host-fusion methods the round ends in
         ``host_fuse`` with the participants' raw ``weights``."""
         old_clients, new_clients, fused, ctx = self._local_and_fuse(
             state["clients"], state["server"], global_params, batches,
-            weights, group_weights)
+            weights, group_weights, malicious)
         new_server, out = self.method.server_update(
             state["server"], old_clients, new_clients, global_params,
             fused, ctx)
@@ -113,12 +188,13 @@ class RoundEngine:
         return {"server": new_server, "clients": new_clients}, out
 
     def run_tile(self, client_states, server_state, global_params,
-                 batches, weights=None, group_weights=None) -> tuple:
+                 batches, weights=None, group_weights=None,
+                 malicious=None) -> tuple:
         """One cohort tile of a tiled round: local phase + fuse only.
         Returns (new_client_states, fuse output)."""
         _, new_clients, fused, _ = self._local_and_fuse(
             client_states, server_state, global_params, batches, weights,
-            group_weights)
+            group_weights, malicious)
         return new_clients, fused
 
     def finish_round(self, server_state, global_params, fused) -> tuple:
@@ -148,8 +224,17 @@ def make_round_engine(task, cfg, params_like, *, device,
     version).
     use_local_kernel: run the local optimizer tail through the
     ``local_step`` kernel; a no-op for methods without
-    ``fused_local_step``."""
+    ``fused_local_step``.
+
+    cfg's feature knobs (each off by default) are resolved here, so
+    every construction path hits the same refusals (``compat.validate``):
+    ``attack`` (model-poisoning attacks only enter the round; data
+    poisoning happens at batch packing), ``robust`` (identity-shortcut
+    parameters drop the rule; a reducing rule turns the fusion kernel
+    off, as the JAX package does), ``codec``, ``compute_dtype`` and
+    ``local_unroll``."""
     meth = method if method is not None else methods_lib.get(cfg.method)
+    compat_lib.validate(cfg, meth)
     if meth.host_fusion and (
             type(meth).init_server_state is not FedMethod.init_server_state
             or type(meth).server_update is not FedMethod.server_update):
@@ -161,17 +246,42 @@ def make_round_engine(task, cfg, params_like, *, device,
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:
         ga = task.group_axes_fn(params_like)
+    use_kernel = use_kernel is None or bool(use_kernel)
+    attack = None
+    if getattr(cfg, "attack", None):
+        atk = attacks_lib.parse_attack(cfg.attack).build()
+        if atk.model_poisoning:
+            attack = atk
+    rule = None
+    if getattr(cfg, "robust", None):
+        rule = robust_lib.parse_robust(cfg.robust)
+        if not rule.active:
+            rule = None
+        elif rule.reduces:
+            use_kernel = False   # sort-based reductions have no kernel
+    cdtype = resolve_compute_dtype(getattr(cfg, "compute_dtype", None),
+                                   meth)
+    codec = (codec_lib.parse_codec(cfg.codec)
+             if getattr(cfg, "codec", None) else None)
+    steps = cfg.local_epochs * cfg.steps_per_epoch
     ctx = MethodContext(
         task=task, cfg=cfg, population=cfg.population,
-        cohort_size=cfg.cohort_size,
-        local_steps=cfg.local_epochs * cfg.steps_per_epoch,
+        cohort_size=cfg.cohort_size, local_steps=steps,
         opt=meth.local_opt(cfg), layout=layout, weights=None,
         raw_weights=None, group_axes=ga, group_weights=None,
-        use_kernel=use_kernel is None or bool(use_kernel),
-        use_local_kernel=bool(use_local_kernel) and meth.fused_local_step)
+        use_kernel=use_kernel,
+        robust=rule if rule is not None and rule.reduces else None,
+        local_unroll=resolve_local_unroll(cfg, steps),
+        use_local_kernel=(bool(use_local_kernel)
+                          and compat_lib.supports(meth, "kernel")))
     meth.check(ctx)
     device = torch.device(device)
+    c = cfg.cohort_size
     return RoundEngine(
-        cohort_size=cfg.cohort_size, method=meth, layout=layout,
-        device=device, ctx=ctx,
-        cohort=layout.alloc((cfg.cohort_size,), device=device))
+        cohort_size=c, method=meth, layout=layout, device=device, ctx=ctx,
+        cohort=layout.alloc((c,), device=device), attack=attack,
+        robust=ctx.robust,
+        pre_rule=rule if rule is not None and rule.has_pre else None,
+        codec=codec, compute_dtype=cdtype,
+        shadow=(None if cdtype is None
+                else layout.alloc((c,), device=device, dtype=cdtype)))

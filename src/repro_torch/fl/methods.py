@@ -64,6 +64,10 @@ class MethodContext:
     group_axes: the task's GroupAxis tree (only when uses_groups).
     group_weights: per-slot (C, G) presence weights or None.
     use_kernel: fuse through the paired_fusion kernel.
+    robust: the reducing robust rule (fl/robust.py) that replaces the
+    fusion's weighted mean, or None.
+    local_unroll: the validated ``FLConfig.local_unroll`` (eager torch
+    has no scan to unroll: it changes neither result nor dispatch).
     use_local_kernel: run the optimizer tail through the local_step
     kernel (``fused_local_step`` methods only)."""
     task: Any
@@ -78,6 +82,8 @@ class MethodContext:
     group_axes: Any
     group_weights: torch.Tensor | None
     use_kernel: bool
+    robust: Any = None
+    local_unroll: int = 1
     use_local_kernel: bool = False
 
 
@@ -94,6 +100,45 @@ class FedMethod:
     #                            when server_update reads per-client state
     #                            (scaffold), which caps participants per
     #                            round at cohort_size
+
+    @property
+    def tier_fusion(self) -> bool:
+        """Whether overlap-aware tiered fusion may drive this method: the
+        cohort-tiling eligibility, minus per-client state and host
+        fusion (the JAX package's ``FedMethod.tier_fusion``; the port
+        has no tier engine yet, fl/compat.py)."""
+        return (self.cohort_tiling and not self.host_fusion
+                and not self.client_stateful)
+
+    @property
+    def async_eligible(self) -> bool:
+        """Whether buffered-async federation may run this method:
+        exactly the tier-fusion eligibility."""
+        return self.tier_fusion
+
+    @property
+    def robust_fusion(self) -> bool:
+        """Whether the robust rules of fl/robust.py may wrap this
+        method's fuse: a rule replaces or precedes the cross-client
+        reduction inside core/fusion.py, which every device-fused method
+        runs; host fusion (fedma) has no coordinate reduction."""
+        return not self.host_fusion
+
+    @property
+    def mixed_precision(self) -> bool:
+        """Whether the engine may run this method's local phase in bf16
+        with fp32 fusion: the cast happens at the round boundary, so the
+        method must be client-stateless and fuse on the device. Exactly
+        the tier-fusion eligibility."""
+        return self.tier_fusion
+
+    @property
+    def uplink_codec(self) -> bool:
+        """Whether an uplink codec (fl/codec.py) may compress this
+        method's uplink: decode-then-fuse needs a device fuse and no
+        client state that assumes the server saw the exact params.
+        Exactly the tier-fusion eligibility."""
+        return self.tier_fusion
 
     @property
     def fused_local_step(self) -> bool:
@@ -166,7 +211,8 @@ class FedMethod:
     def fuse(self, stacked, global_params, ctx: MethodContext):
         """Aggregation of the cohort's (C, M) params into (M,)."""
         return fusion_lib.fedavg(stacked, ctx.weights,
-                                 use_kernel=ctx.use_kernel)
+                                 use_kernel=ctx.use_kernel,
+                                 robust=ctx.robust)
 
     def host_fuse(self, stacked, ctx: MethodContext):
         """Completion of the round from the stacked params (only when
@@ -241,7 +287,8 @@ class Fed2(FedMethod):
                                          ctx.group_axes,
                                          weights=ctx.weights,
                                          group_weights=ctx.group_weights,
-                                         use_kernel=ctx.use_kernel)
+                                         use_kernel=ctx.use_kernel,
+                                         robust=ctx.robust)
 
 
 @register
@@ -343,7 +390,8 @@ class FedNova(FedMethod):
         tau = float(ctx.local_steps)
         deltas = (global_params[None] - stacked) / tau
         d = fusion_lib.fedavg(deltas, ctx.weights,
-                              use_kernel=ctx.use_kernel)
+                              use_kernel=ctx.use_kernel,
+                              robust=ctx.robust)
         tau_eff = tau            # all clients run local_steps steps
         return global_params - tau_eff * d
 
@@ -374,6 +422,21 @@ class FedAdam(FedMethod):
     name = "fedadam"
     summary = "server Adam over round pseudo-gradients (FedOpt)"
     b1, b2, eps = 0.9, 0.99, 1e-3
+
+    @property
+    def mixed_precision(self) -> bool:
+        """False despite tier fusion: the server step divides the round
+        pseudo-gradient by sqrt(v) + eps, so on coordinates whose v is
+        near zero a bf16 perturbation flips the sign of an O(server_lr)
+        step. Exact local phases only, as in the JAX package."""
+        return False
+
+    @property
+    def uplink_codec(self) -> bool:
+        """False for the same reason: the adaptive normalization turns a
+        lossy uplink's reconstruction error into sign-flipped server
+        steps. Exact uplinks only."""
+        return False
 
     def init_server_state(self, params, ctx):
         z = torch.zeros_like(params)

@@ -37,11 +37,19 @@ class Population:
     group_weights: optional (P, G) presence weights for fed2's non-IID
     refinement (rows gathered per cohort).
     clients: the stacked (P, ...) client-state tree as numpy arrays
-    (() for stateless methods)."""
+    (() for stateless methods).
+    malicious: optional (P,) bool attacker mask by client id
+    (``attacks.assign_attackers``); sampling, tiling and gather index it
+    by id, so the flagged set holds under every participation pattern.
+    poison: the data-poisoning hook ``batch -> batch`` applied to the
+    malicious clients' batches on the host (None for model-poisoning or
+    honest runs)."""
     parts: list
     weights: np.ndarray
     group_weights: np.ndarray | None = None
     clients: Any = ()
+    malicious: np.ndarray | None = None
+    poison: Any = None
 
     @classmethod
     def from_parts(cls, parts, group_weights=None) -> "Population":

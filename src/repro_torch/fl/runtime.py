@@ -23,6 +23,18 @@ the reference's order (sampler, then per tile: padding, then one
 examples in both packages. Each tile's batches go to the device in one
 copy.
 
+The feature axes of the sync round (fl/engine.py) come in through
+``FLConfig``: ``attack``/``attack_fraction`` (attackers are assigned by
+client id from their own numpy stream; a data-poisoning attack corrupts
+the malicious clients' batches after the rng draw, so the packing
+stream stays the honest one; model poisoning gets the tile's attacker
+row, pad rows forced honest), ``robust``, ``codec``, ``compute_dtype``,
+``local_unroll``, ``alignment`` (recorded: the model must be built
+through ``alignment.build_model_config``) and ``mode="one_shot"``
+(``one_shot_config``: the whole step budget trained locally, one
+fusion). ``mode="async"`` and ``tiers`` are not ported yet and are
+refused.
+
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device named, ``run_federated``
 raises rather than falling back.
@@ -31,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -75,6 +87,29 @@ class FLConfig:
     server_momentum: float = 0.9
     seed: int = 0
     eval_batch: int = 512
+    # not ported yet (capacity tiers, buffered async): refused when set
+    tiers: Any = None
+    # "sync" runs the round loop; "one_shot" trains the whole rounds x
+    # local_epochs x steps_per_epoch budget locally and fuses exactly
+    # once (one_shot_config); "async" is not ported yet
+    mode: str = "sync"
+    # byzantine behavior ("label_flip" | "sign_flip(s)" |
+    # "scaled_update(s)" | "gauss_noise(sigma)") on attack_fraction of
+    # the population (>= 1 = an explicit count); robust fusion rule
+    # ("coordinate_median" | "trimmed_mean(beta)" | "norm_clip(tau)").
+    # None/"" = honest run / plain fusion.
+    attack: str | None = None
+    attack_fraction: float = 0.0
+    robust: str | None = None
+    # local-phase dtype ("float32" | "bfloat16": cast at the round
+    # boundary, fp32 fusion); uplink codec ("identity" | "int8" |
+    # "topk(f)"); local_unroll is validated and clamped as the JAX
+    # package's (a scan unroll there; no effect on eager torch)
+    compute_dtype: str = "float32"
+    codec: str | None = None
+    local_unroll: int = 1
+    # alignment strategy (fl/alignment.py): "grouped" | "pan" | "none"
+    alignment: str = "grouped"
 
     def __post_init__(self):
         if self.method not in methods_lib.available():
@@ -97,6 +132,52 @@ class FLConfig:
             raise ValueError(
                 f"FLConfig.cohort_size ({self.cohort_size}) must not "
                 f"exceed population ({self.population})")
+        if not self.tiers:
+            object.__setattr__(self, "tiers", None)
+        if self.mode not in ("sync", "async", "one_shot"):
+            raise ValueError(
+                f"FLConfig.mode must be 'sync', 'async' or 'one_shot', "
+                f"got {self.mode!r}")
+        from repro_torch.fl import compat as compat_lib
+        if self.tiers is not None:
+            raise compat_lib.not_ported("capacity tiers (FLConfig.tiers)")
+        if self.mode == "async":
+            raise compat_lib.not_ported("mode='async'")
+        if not self.attack:
+            object.__setattr__(self, "attack", None)
+            if self.attack_fraction:
+                raise ValueError(
+                    f"FLConfig.attack_fraction="
+                    f"{self.attack_fraction!r} without attack: name the "
+                    "byzantine behavior (FLConfig.attack, e.g. "
+                    "'sign_flip') or drop the fraction")
+        else:
+            from repro_torch.fl import attacks as attacks_lib
+            attacks_lib.parse_attack(self.attack)
+            attacks_lib.attacker_count(self.attack_fraction,
+                                       self.population)
+        if not self.robust:
+            object.__setattr__(self, "robust", None)
+        else:
+            from repro_torch.fl import robust as robust_lib
+            robust_lib.parse_robust(self.robust)
+        from repro_torch.fl.engine import resolve_compute_dtype
+        resolve_compute_dtype(self.compute_dtype,
+                              methods_lib.get(self.method))
+        if (not isinstance(self.local_unroll, int)
+                or isinstance(self.local_unroll, bool)
+                or self.local_unroll <= 0):
+            raise ValueError(
+                f"FLConfig.local_unroll must be a positive int (local "
+                f"optimizer steps batched per dispatch), got "
+                f"{self.local_unroll!r}")
+        if not self.codec:
+            object.__setattr__(self, "codec", None)
+        else:
+            from repro_torch.fl import codec as codec_lib
+            codec_lib.parse_codec(self.codec)
+        # method eligibility for every knob above, in one place
+        compat_lib.validate(self, methods_lib.get(self.method))
 
 
 @dataclasses.dataclass
@@ -118,12 +199,16 @@ class FLTask:
     matched_average_fn: Callable | None = None
 
 
-def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng):
+def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng,
+                         poison_fns=None):
     """Per cohort tile: dict of (C, n_steps, B, ...) numpy arrays for the
     given clients' shards, sampling with replacement where a shard is
-    short (empty shards index sample 0)."""
+    short (empty shards index sample 0). poison_fns: optional
+    per-client ``batch -> batch`` hooks (None = honest), applied after
+    the rng draw, so the packing stream is the honest run's."""
     per_client = []
-    for idx in parts:
+    for ci, idx in enumerate(parts):
+        hook = poison_fns[ci] if poison_fns is not None else None
         steps = []
         for _ in range(n_steps):
             if len(idx) == 0:
@@ -131,7 +216,8 @@ def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng):
             else:
                 sel = rng.choice(idx, size=batch_size,
                                  replace=len(idx) < batch_size)
-            steps.append(get_batch(sel))
+            b = get_batch(sel)
+            steps.append(b if hook is None else hook(b))
         per_client.append({k: np.stack([np.asarray(s[k]) for s in steps])
                            for k in steps[0]})
     return {k: np.stack([c[k] for c in per_client])
@@ -156,9 +242,33 @@ def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
     if pop.group_weights is not None:
         gw = pop.group_weights[padded].copy()
         gw[n_real:] = 0.0
+    pois = None
+    if pop.poison is not None and pop.malicious is not None:
+        pois = [pop.poison if pop.malicious[i] else None for i in padded]
     batches = _pack_client_batches([pop.parts[i] for i in padded],
-                                   get_batch, n_steps, batch_size, rng)
+                                   get_batch, n_steps, batch_size, rng,
+                                   poison_fns=pois)
     return padded, w, gw, batches
+
+
+def _malicious_inputs(engine, pop: Population, padded, n_real, cfg,
+                      round_idx):
+    """The engine's malicious argument for one tile: the slots' attacker
+    flags (pad rows forced honest; they carry zero weight anyway) and
+    the round's key. None for engines without a model-poisoning
+    attack."""
+    if engine.attack is None:
+        return None
+    if pop.malicious is None:
+        raise ValueError(
+            "cfg.attack is set but the Population carries no attacker "
+            "mask; build the run through run_federated (it assigns "
+            "attackers seed-deterministically via "
+            "attacks.assign_attackers) or set pop.malicious")
+    from repro_torch.fl import attacks as attacks_lib
+    row = pop.malicious[np.asarray(padded)].astype(np.float32)
+    row[n_real:] = 0.0
+    return row, attacks_lib.round_key(cfg.seed, round_idx)
 
 
 def _fit_hint(n_ids: int, width: int) -> str:
@@ -171,12 +281,13 @@ def _fit_hint(n_ids: int, width: int) -> str:
 
 def run_sampled_round(engine, pop: Population, method, server_state,
                       global_params, ids, get_batch, n_steps, cfg, rng,
-                      uniform_weights: bool = False):
+                      uniform_weights: bool = False, round_idx: int = 0):
     """One round for participant ``ids``: a single engine invocation
     when the cohort holds them all, cohort tiling otherwise. Returns
     (server_state, new_global); client state is gathered/scattered on
     ``pop`` in place. uniform_weights: every participant contributes
-    equally to fusion (``ClientSampler.fusion_weights``)."""
+    equally to fusion (``ClientSampler.fusion_weights``). round_idx
+    keys the round's attack noise."""
     C = engine.cohort_size
     ids = np.asarray(ids, np.int64)
 
@@ -190,13 +301,15 @@ def run_sampled_round(engine, pop: Population, method, server_state,
 
     if len(ids) == C:
         _, w, gw, batches = tile_inputs(ids)
+        mal = _malicious_inputs(engine, pop, ids, C, cfg, round_idx)
         # the whole population in one cohort in natural order: client
         # state needs no slot remapping, so it stays on the device
         whole = C == pop.size and np.array_equal(ids, np.arange(C))
         state = {"server": server_state,
                  "clients": pop.clients if whole else pop.gather(ids)}
         state, new_global = engine.run_round(state, global_params, batches,
-                                             weights=w, group_weights=gw)
+                                             weights=w, group_weights=gw,
+                                             malicious=mal)
         if whole:
             pop.clients = state["clients"]
         else:
@@ -217,16 +330,28 @@ def run_sampled_round(engine, pop: Population, method, server_state,
             "column's uniform fallback — either biases Eq. 19. Got "
             f"{len(ids)} participants for cohort_size={C}; "
             + _fit_hint(len(ids), C))
+    if engine.robust is not None:
+        # a reducing rule is not affine: a median of per-tile medians is
+        # not the round's median (norm_clip is a pre-step and tiles
+        # exactly; the engine keeps it out of engine.robust)
+        raise ValueError(
+            f"robust rule {engine.robust.describe()!r} reduces over the "
+            "full cohort and has no exact tiled form (the weighted "
+            f"quantile is not affine); got {len(ids)} participants for "
+            f"cohort_size={C} — " + _fit_hint(len(ids), C))
     acc, w_acc = None, 0.0
     stacked_tiles = []              # host_fusion: stacked params per tile
     for t0 in range(0, len(ids), C):
         tids = ids[t0:t0 + C]
         n_real = len(tids)
         padded, w, gw, batches = tile_inputs(tids)
+        mal = _malicious_inputs(engine, pop, padded, n_real, cfg,
+                                round_idx)
         new_cstate, fuse_out = engine.run_tile(pop.gather(padded),
                                                server_state, global_params,
                                                batches, weights=w,
-                                               group_weights=gw)
+                                               group_weights=gw,
+                                               malicious=mal)
         pop.scatter(tids, tree_map(lambda a: a[:n_real], new_cstate))
         if method.host_fusion:
             # a copy: the next tile overwrites the engine's cohort buffer
@@ -241,6 +366,19 @@ def run_sampled_round(engine, pop: Population, method, server_state,
         return server_state, engine.host_fuse(torch.cat(stacked_tiles),
                                               w_all)
     return engine.finish_round(server_state, global_params, acc / w_acc)
+
+
+def one_shot_config(cfg: FLConfig) -> FLConfig:
+    """The sync config a ``mode='one_shot'`` run executes: every client
+    trains the WHOLE round budget locally (rounds x local_epochs x
+    steps_per_epoch optimizer steps) and the server fuses exactly once:
+    a 1-round sync run, so the history has one row."""
+    if cfg.mode != "one_shot":
+        return cfg
+    return dataclasses.replace(
+        cfg, mode="sync", rounds=1, local_epochs=1,
+        steps_per_epoch=(cfg.rounds * cfg.local_epochs
+                         * cfg.steps_per_epoch))
 
 
 def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
@@ -274,6 +412,7 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
         raise ValueError(
             f"run_federated got {len(parts)} client shards for "
             f"FLConfig.population={cfg.population}")
+    cfg = one_shot_config(cfg)
     rng = np.random.default_rng(cfg.seed)
     if init_params is None:
         init_params = task.init_fn(torch.Generator().manual_seed(cfg.seed))
@@ -285,6 +424,21 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             and group_spec is not None:
         gw = fusion_lib.presence_group_weights(class_counts, group_spec)
     pop = Population.from_parts(parts, group_weights=gw)
+    if cfg.attack is not None:
+        from repro_torch.fl import attacks as attacks_lib
+        atk = attacks_lib.parse_attack(cfg.attack).build()
+        pop.malicious = attacks_lib.assign_attackers(
+            cfg.attack_fraction, cfg.population, seed=cfg.seed)
+        if atk.data_poisoning:
+            if task.n_classes is None:
+                raise ValueError(
+                    f"attack {cfg.attack!r} poisons labels and needs "
+                    "task.n_classes (defined for classification tasks; "
+                    "LM tasks have no flip target) — use a "
+                    "model-poisoning attack (sign_flip/scaled_update/"
+                    "gauss_noise) instead")
+            pop.poison = (lambda b, _a=atk, _n=task.n_classes:
+                          _a.poison_batch(b, _n))
     engine = make_round_engine(task, cfg, params, device=device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,
@@ -308,7 +462,8 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                              weights=pop.weights)
         server_state, global_params = run_sampled_round(
             engine, pop, method, server_state, global_params, ids,
-            get_batch, n_steps, cfg, rng, uniform_weights=uniform_w)
+            get_batch, n_steps, cfg, rng, uniform_weights=uniform_w,
+            round_idx=r)
         c = eval_engine.run(engine.layout.unflatten(global_params),
                             eval_tiles)
         counts.append(c)

@@ -1,12 +1,14 @@
 """Scenario matrix: federated runs as data.
 
 ``ScenarioSpec`` is a frozen record pinning everything one run needs:
-the data protocol, the method, the population/cohort/sampler triple and
-the round schedule. Specs are registered by name like the federated
-methods: ``register`` / ``get`` / ``available()``. The registered specs
-are the reference's 8 seeded synchronous specs field for field (the
-paper's protocols at laptop scale: synthetic class-clustered images, a
-width-calibrated reduced VGG9).
+the data protocol, the method, the population/cohort/sampler triple,
+the round schedule and the sync round's feature axes (attack, robust
+rule, alignment strategy, one-shot mode). Specs are registered by name
+like the federated methods: ``register`` / ``get`` / ``available()``.
+The registered specs are the reference's 20 seeded specs that run on
+the synchronous engine, field for field (the paper's protocols at
+laptop scale: synthetic class-clustered images, a width-calibrated
+reduced VGG9); its tier and async specs wait for those engines.
 
 ``run_scenario`` executes a spec end to end through ``run_federated``
 and returns a ``ConvergenceRecord``: per-round global, per-class and
@@ -37,6 +39,13 @@ class ScenarioSpec:
     methods (coordinate methods train the plain net of the same widths).
     server_lr/server_momentum: the server step of fedavgm and fedadam
     (``FLConfig``'s defaults; the reference's specs leave them there).
+    attack/attack_fraction/robust: byzantine clients (fl/attacks.py) on
+    a seed-deterministic share of the population, and the robust fusion
+    rule (fl/robust.py). Empty = honest run / plain fusion.
+    alignment: "grouped" (the method's own structural declaration),
+    "pan" or "none" (fl/alignment.py). mode="one_shot" trains the whole
+    round budget locally and fuses once (fl/runtime.py
+    one_shot_config).
     """
     name: str
     summary: str
@@ -63,6 +72,11 @@ class ScenarioSpec:
     test_size: int = 400
     noise: float = 0.8
     eval_batch: int = 256
+    mode: str = "sync"
+    attack: str = ""
+    attack_fraction: float = 0.0
+    robust: str = ""
+    alignment: str = "grouped"
 
     def __post_init__(self):
         if self.protocol not in PROTOCOLS:
@@ -77,6 +91,25 @@ class ScenarioSpec:
             raise ValueError(
                 f"unknown client sampler {self.sampler!r}; available: "
                 f"{', '.join(population_lib.available())}")
+        if self.mode not in ("sync", "async", "one_shot"):
+            raise ValueError(
+                f"ScenarioSpec.mode must be 'sync', 'async' or "
+                f"'one_shot', got {self.mode!r}")
+        if self.attack:
+            from repro_torch.fl import attacks as attacks_lib
+            attacks_lib.parse_attack(self.attack)
+            attacks_lib.attacker_count(self.attack_fraction,
+                                       self.population)
+        elif self.attack_fraction:
+            raise ValueError(
+                f"ScenarioSpec.attack_fraction={self.attack_fraction!r} "
+                "without attack: name the byzantine behavior or drop "
+                "the fraction")
+        if self.robust:
+            from repro_torch.fl import robust as robust_lib
+            robust_lib.parse_robust(self.robust)
+        from repro_torch.fl import compat as compat_lib
+        compat_lib.validate(self, methods_lib.get(self.method))
 
     def override(self, **kw) -> "ScenarioSpec":
         """A copy with fields replaced (smoke runs: fewer rounds, less
@@ -109,19 +142,24 @@ class ScenarioSpec:
         return self.protocol
 
     def model_config(self):
-        """Width-calibrated reduced VGG9: Fed2 structure adaptation for
-        group-structured methods, the plain net of the same widths
-        otherwise."""
+        """Width-calibrated reduced VGG9, built through the alignment
+        strategy (fl/alignment.py): "grouped" gives Fed2 structure
+        adaptation for group-structured methods and the plain net of the
+        same widths otherwise; "pan"/"none" always build the plain
+        net."""
+        from repro_torch.fl import alignment as alignment_lib
         from repro_torch.models.cnn import CNNConfig
         plan = (("c", 24), ("p",), ("c", 48), ("p",), ("c", 48), ("p",))
-        if methods_lib.get(self.method).uses_groups:
-            return CNNConfig(arch_id="vgg9-scenario", plan=plan,
-                             fc_dims=(160,), n_classes=self.n_classes,
-                             fed2_groups=self.groups,
-                             decouple=self.decouple, norm="gn")
-        return CNNConfig(arch_id="vgg9-scenario", plan=plan, fc_dims=(160,),
-                         n_classes=self.n_classes, fed2_groups=0,
-                         norm="none")
+        return alignment_lib.build_model_config(
+            alignment_lib.get(self.alignment),
+            methods_lib.get(self.method),
+            grouped_fn=lambda: CNNConfig(
+                arch_id="vgg9-scenario", plan=plan, fc_dims=(160,),
+                n_classes=self.n_classes, fed2_groups=self.groups,
+                decouple=self.decouple, norm="gn"),
+            plain_fn=lambda: CNNConfig(
+                arch_id="vgg9-scenario", plan=plan, fc_dims=(160,),
+                n_classes=self.n_classes, fed2_groups=0, norm="none"))
 
     def fl_config(self):
         from repro_torch.fl.runtime import FLConfig
@@ -134,7 +172,11 @@ class ScenarioSpec:
                         momentum=self.momentum, method=self.method,
                         server_lr=self.server_lr,
                         server_momentum=self.server_momentum,
-                        seed=self.seed, eval_batch=self.eval_batch)
+                        seed=self.seed, eval_batch=self.eval_batch,
+                        mode=self.mode, attack=self.attack or None,
+                        attack_fraction=self.attack_fraction,
+                        robust=self.robust or None,
+                        alignment=self.alignment)
 
     def group_spec(self) -> GroupSpec:
         """The canonical class->group map the per-group rows report
@@ -167,6 +209,11 @@ class ConvergenceRecord:
     wall: list              # per-round host timestamps (s)
     wall_total: float
     device: str = ""
+    mode: str = "sync"
+    attack: str = ""        # byzantine behavior ("" = honest run)
+    attack_fraction: float = 0.0
+    robust: str = ""        # robust fusion rule ("" = plain fusion)
+    alignment: str = "grouped"
 
     @property
     def final_acc(self) -> float:
@@ -231,7 +278,9 @@ def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
                           for g in range(gspec.n_groups)],
         wall=[round(float(w), 3) for w in h["wall"]],
         wall_total=round(float(h["wall_total"]), 3),
-        device=str(device))
+        device=str(device), mode=spec.mode, attack=spec.attack,
+        attack_fraction=spec.attack_fraction, robust=spec.robust,
+        alignment=spec.alignment)
     if outdir is not None:
         rec.save(outdir)
     return rec
@@ -295,3 +344,66 @@ register(ScenarioSpec(
 register(ScenarioSpec(
     name="qskew_fed2", protocol="quantity", method="fed2",
     summary="quantity-skew control (Dir(0.5) shard sizes), Fed2"))
+
+# Byzantine clients on the N x C protocol at population 10, so a 20%
+# attacker fraction is exactly 2 seed-deterministic clients
+# (assign_attackers, the seed + 14407 stream). label_flip poisons the
+# data; sign_flip(4) poisons the update hard enough that plain averaging
+# diverges, the regime where trimmed_mean must restore learning.
+register(ScenarioSpec(
+    name="nxc2_fedavg_flip20", protocol="nxc", method="fedavg",
+    population=10, attack="label_flip", attack_fraction=0.2,
+    summary="N x C skew, 20% label-flip data poisoning, plain FedAvg"))
+register(ScenarioSpec(
+    name="nxc2_fed2_flip20", protocol="nxc", method="fed2",
+    population=10, attack="label_flip", attack_fraction=0.2,
+    summary="N x C skew, 20% label-flip data poisoning, plain Fed2"))
+register(ScenarioSpec(
+    name="nxc2_fedavg_signflip20", protocol="nxc", method="fedavg",
+    population=10, attack="sign_flip(4)", attack_fraction=0.2,
+    summary="N x C skew, 20% sign-flip model poisoning, plain FedAvg"))
+register(ScenarioSpec(
+    name="nxc2_fed2_signflip20", protocol="nxc", method="fed2",
+    population=10, attack="sign_flip(4)", attack_fraction=0.2,
+    summary="N x C skew, 20% sign-flip model poisoning, plain Fed2"))
+register(ScenarioSpec(
+    name="nxc2_fedavg_signflip20_trim", protocol="nxc", method="fedavg",
+    population=10, attack="sign_flip(4)", attack_fraction=0.2,
+    robust="trimmed_mean(0.25)",
+    summary="20% sign-flip vs FedAvg + 0.25-trimmed-mean robust fusion"))
+register(ScenarioSpec(
+    name="nxc2_fed2_signflip20_trim", protocol="nxc", method="fed2",
+    population=10, attack="sign_flip(4)", attack_fraction=0.2,
+    robust="trimmed_mean(0.25)",
+    summary="20% sign-flip vs Fed2 + per-group 0.25-trimmed-mean fusion"))
+
+# Alignment strategies and one-shot fusion. nxc2_fedavg_none builds the
+# model nxc2_fedavg builds (a coordinate method never had structure), so
+# their runs are equal bit for bit; the pan rows add the fixed
+# per-channel anchors without touching the fuse. The one-shot rows spend
+# the same step budget (10 rounds x 6 steps = 60 local steps) in one
+# fusion.
+register(ScenarioSpec(
+    name="nxc2_fedavg_pan", protocol="nxc", method="fedavg",
+    alignment="pan",
+    summary="N x C skew, FedAvg on a plain net + PAN position encodings"))
+register(ScenarioSpec(
+    name="nxc2_fedavg_none", protocol="nxc", method="fedavg",
+    alignment="none",
+    summary="N x C skew, FedAvg unaligned control (== nxc2_fedavg)"))
+register(ScenarioSpec(
+    name="dir05_fedavg_pan", protocol="dirichlet", method="fedavg",
+    lr=0.01, alignment="pan",
+    summary="Dirichlet(0.5) skew, FedAvg + PAN position encodings"))
+register(ScenarioSpec(
+    name="dir05_fedavg_none", protocol="dirichlet", method="fedavg",
+    lr=0.01, alignment="none",
+    summary="Dirichlet(0.5) skew, FedAvg unaligned control"))
+register(ScenarioSpec(
+    name="nxc2_fed2_oneshot", protocol="nxc", method="fed2",
+    mode="one_shot",
+    summary="N x C skew, Fed2 one-shot: 60 local steps, ONE fusion"))
+register(ScenarioSpec(
+    name="nxc2_fedavg_oneshot", protocol="nxc", method="fedavg",
+    mode="one_shot",
+    summary="N x C skew, FedAvg one-shot: 60 local steps, ONE fusion"))

@@ -7,7 +7,11 @@ structure groups for fed2 (the plain baseline VGG9 for fedavg/fedprox),
 round, N x C partition with 5 classes per node, 4000 synthetic images.
 ``--arch vgg16|mobilenet`` picks the paper's other testbeds (VGG16 on
 100 classes, MobileNetV1 on 10), and ``--dirichlet ALPHA`` FedMA's
-Dir(alpha) label split in place of N x C.
+Dir(alpha) label split in place of N x C. The sync round's feature axes
+take the JAX CLI's flags: ``--attack``/``--attack-fraction``,
+``--robust``, ``--codec``, ``--compute-dtype``, ``--local-unroll``,
+``--alignment`` and ``--fed-mode sync|one_shot``;
+``--list-capabilities`` prints the method x feature table.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
@@ -18,6 +22,11 @@ Examples:
       --scenario nxc2_fed2                      # a registered scenario
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --arch mobilenet --dirichlet 0.5          # MobileNetV1, Dir(0.5)
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --attack 'sign_flip(4)' --attack-fraction 0.2 \\
+      --robust 'trimmed_mean(0.25)'             # adversarial + robust
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --compute-dtype bfloat16 --use-local-kernel   # bf16 local phase
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --reduced --rounds 2 --train-size 400 --device cpu
 """
@@ -30,15 +39,18 @@ ARCHS = ("vgg9", "vgg16", "mobilenet")
 
 
 def build_model_config(args, method):
-    """The CLI's model, from ``repro_torch.configs.<arch>``: Fed2
-    structure adaptation for group-structured methods, the plain
-    baseline of the same widths otherwise."""
+    """The CLI's model, from ``repro_torch.configs.<arch>``, through the
+    alignment rule (fl/alignment.py): under "grouped", Fed2 structure
+    adaptation for group-structured methods and the plain baseline of
+    the same widths otherwise; "pan"/"none" build the plain net."""
+    from repro_torch.fl import alignment as alignment_lib
     mod = importlib.import_module(f"repro_torch.configs.{args.arch}")
-    if method.uses_groups:
-        return (mod.reduced() if args.reduced
-                else mod.full(fed2_groups=args.fed2_groups))
-    return (mod.reduced(fed2_groups=0, norm="none") if args.reduced
-            else mod.baseline())
+    return alignment_lib.build_model_config(
+        alignment_lib.get(args.alignment), method,
+        grouped_fn=lambda: (mod.reduced() if args.reduced
+                            else mod.full(fed2_groups=args.fed2_groups)),
+        plain_fn=lambda: (mod.reduced(fed2_groups=0, norm="none")
+                          if args.reduced else mod.baseline()))
 
 
 def fl_inputs(args):
@@ -73,13 +85,24 @@ def fl_inputs(args):
                   local_epochs=args.local_epochs,
                   steps_per_epoch=args.steps_per_epoch,
                   batch_size=args.batch, lr=args.lr, momentum=0.9,
-                  method=args.method, seed=args.seed)
+                  method=args.method, seed=args.seed, mode=args.fed_mode,
+                  attack=args.attack or None,
+                  attack_fraction=args.attack_fraction,
+                  robust=args.robust or None,
+                  compute_dtype=args.compute_dtype,
+                  codec=args.codec or None,
+                  local_unroll=args.local_unroll,
+                  alignment=args.alignment)
     return cnn_task(cfg), fl, parts, get_batch, test_batches
 
 
 def run_fl(args):
     from repro_torch.fl.runtime import resolve_device, run_federated
 
+    if args.list_capabilities:
+        from repro_torch.fl import compat as compat_lib
+        print(compat_lib.capability_table())
+        return None
     device = resolve_device(args.device)
     if args.scenario:
         # a registered scenario IS the full run config (fl/scenarios.py)
@@ -101,8 +124,12 @@ def run_fl(args):
 
 def parse_args(argv=None):
     """The CLI's flags (``argv=None`` reads ``sys.argv``)."""
+    from repro_torch.fl import alignment as alignment_lib
+    from repro_torch.fl import attacks as attacks_lib
+    from repro_torch.fl import codec as codec_lib
     from repro_torch.fl import methods as methods_lib
     from repro_torch.fl import population as population_lib
+    from repro_torch.fl import robust as robust_lib
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["fl"], default="fl")
@@ -122,6 +149,48 @@ def parse_args(argv=None):
                          "= the full population")
     ap.add_argument("--sampler", default="full",
                     choices=list(population_lib.available()))
+    ap.add_argument("--fed-mode", default="sync",
+                    choices=["sync", "one_shot"],
+                    help="'one_shot' = train the whole round budget "
+                         "locally and fuse exactly once (fl/runtime.py "
+                         "one_shot_config); 'async' is not ported yet")
+    ap.add_argument("--attack", default="",
+                    help="byzantine client behavior as name[(param)], "
+                         "e.g. label_flip or sign_flip(4) (fl/attacks.py "
+                         "registry: " + ", ".join(attacks_lib.available())
+                         + ")")
+    ap.add_argument("--attack-fraction", type=float, default=0.0,
+                    help="attacker share of the population in (0, 1), or "
+                         "an explicit count >= 1; assignment is "
+                         "seed-deterministic (requires --attack)")
+    ap.add_argument("--robust", default="",
+                    help="robust fusion rule as name[(param)], e.g. "
+                         "coordinate_median or trimmed_mean(0.25) "
+                         "(fl/robust.py registry: "
+                         + ", ".join(robust_lib.available()) + ")")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="local-phase compute dtype; bfloat16 casts at "
+                         "the round boundary and fuses in fp32 "
+                         "(mixed_precision methods only)")
+    ap.add_argument("--codec", default="",
+                    help="uplink codec as name[(param)], e.g. 'int8' or "
+                         "'topk(0.05)' (fl/codec.py registry: "
+                         + ", ".join(codec_lib.available()) + ")")
+    ap.add_argument("--local-unroll", type=int, default=1,
+                    help="validated and clamped like the JAX CLI's scan "
+                         "unroll; eager torch has no scan, so it changes "
+                         "neither result nor dispatch")
+    ap.add_argument("--alignment", default="grouped",
+                    choices=list(alignment_lib.available()),
+                    help="feature-alignment strategy (fl/alignment.py): "
+                         "'grouped' = the method's own structural "
+                         "declaration (the default), 'pan' = PAN position "
+                         "encodings on a plain net, 'none' = unaligned "
+                         "plain-net control")
+    ap.add_argument("--list-capabilities", action="store_true",
+                    help="print the method x feature capability table "
+                         "(fl/compat.py) and exit")
     ap.add_argument("--use-local-kernel", action="store_true",
                     help="run the local optimizer tail through the fused "
                          "local_step kernel")

@@ -1,13 +1,20 @@
 """The port's scenario matrix (``repro_torch.fl.scenarios``) and its CLI
 (``repro_torch.launch.scenarios``) against the reference's.
 
-- The port registers the reference's 8 seeded synchronous specs; each
-  spec's partition (to the bit), ``fl_config`` and ``protocol_label``
-  equal the reference's.
-- Two rounds of ``dir05_fed2`` and ``qskew_fedavg`` at a small size from
-  the reference's init (converted) and the same seed: final parameters
-  within 1e-4, accuracies within one eval example, as
-  tests/test_torch_runtime.py holds ``nxc2``.
+- The port registers the reference's 20 seeded specs that run on the
+  synchronous engine (the 8 of the paper's protocols and the 12 of the
+  sync round's feature axes: attacks, robust fusion, alignment,
+  one-shot); each spec's partition (to the bit), ``fl_config``,
+  ``protocol_label`` and model plan (and PAN scale) equal the
+  reference's.
+- Two rounds of ``dir05_fed2``, ``qskew_fedavg``,
+  ``nxc2_fed2_signflip20_trim``, ``nxc2_fedavg_flip20`` and
+  ``nxc2_fed2_oneshot`` at a small size from the reference's init
+  (converted) and the same seed: final parameters within 1e-4,
+  accuracies within one eval example, as tests/test_torch_runtime.py
+  holds ``nxc2``.
+- ``nxc2_fedavg_none`` builds ``nxc2_fedavg``'s model: their runs are
+  equal to the bit.
 - The CLI lists the registry and writes one record per scenario.
 """
 import dataclasses
@@ -26,8 +33,13 @@ from repro_torch.fl import runtime as truntime
 from repro_torch.fl import scenarios as tscen
 from repro_torch.launch import scenarios as tlaunch
 
-SYNC = ("dir05_fed2", "dir05_fedavg", "iid_fedavg", "nxc2_fed2",
-        "nxc2_fedavg", "nxc2_fedma", "qskew_fed2", "qskew_fedavg")
+SYNC = ("dir05_fed2", "dir05_fedavg", "dir05_fedavg_none",
+        "dir05_fedavg_pan", "iid_fedavg", "nxc2_fed2", "nxc2_fed2_flip20",
+        "nxc2_fed2_oneshot", "nxc2_fed2_signflip20",
+        "nxc2_fed2_signflip20_trim", "nxc2_fedavg", "nxc2_fedavg_flip20",
+        "nxc2_fedavg_none", "nxc2_fedavg_oneshot", "nxc2_fedavg_pan",
+        "nxc2_fedavg_signflip20", "nxc2_fedavg_signflip20_trim",
+        "nxc2_fedma", "qskew_fed2", "qskew_fedavg")
 SMALL = dict(rounds=2, train_size=240, test_size=80, steps_per_epoch=3,
              batch_size=8)
 
@@ -61,6 +73,11 @@ def test_spec_matches_reference(name):
     for a, b in zip(t.partition(labels), j.partition(labels)):
         np.testing.assert_array_equal(a, b)
     assert t.model_config().plan == j.model_config().plan
+    assert t.model_config().pan == j.model_config().pan
+    assert (t.model_config().fed2_groups
+            == j.model_config().fed2_groups)
+    for f in ("mode", "attack", "attack_fraction", "robust", "alignment"):
+        assert getattr(t, f) == getattr(j, f), f
 
 
 def test_unknown_protocol_is_refused():
@@ -68,7 +85,9 @@ def test_unknown_protocol_is_refused():
         tscen.get("iid_fedavg").override(protocol="zipf")
 
 
-@pytest.mark.parametrize("name", ["dir05_fed2", "qskew_fedavg"])
+@pytest.mark.parametrize("name", ["dir05_fed2", "qskew_fedavg",
+                                  "nxc2_fed2_signflip20_trim",
+                                  "nxc2_fedavg_flip20", "nxc2_fed2_oneshot"])
 def test_two_rounds_match_reference(name):
     tspec = tscen.get(name).override(**SMALL)
     jspec = jscen.get(name).override(**SMALL)
@@ -86,6 +105,9 @@ def test_two_rounds_match_reference(name):
     rec = tscen.run_scenario(tspec, device="cpu",
                              init_params=convert.to_port(init))
     assert rec.protocol == jspec.protocol_label()
+    assert len(rec.acc) == len(hj["acc"])
+    assert (rec.mode, rec.attack, rec.robust) == (tspec.mode, tspec.attack,
+                                                  tspec.robust)
     np.testing.assert_allclose(rec.acc, hj["acc"],
                                atol=1 / SMALL["test_size"] + 1e-9)
     ht = truntime.run_federated(
@@ -96,6 +118,23 @@ def test_two_rounds_match_reference(name):
             ht["final_params"])), jax.tree_util.tree_leaves(
             hj["final_params"])):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
+
+
+def test_unaligned_fedavg_equals_nxc2_fedavg_to_the_bit():
+    runs = []
+    for name in ("nxc2_fedavg", "nxc2_fedavg_none"):
+        spec = tscen.get(name).override(**SMALL)
+        ds, test = spec.datasets()
+        h = truntime.run_federated(
+            truntime.cnn_task(spec.model_config()), spec.fl_config(),
+            spec.partition(ds.labels),
+            lambda s: {"images": ds.images[s], "labels": ds.labels[s]},
+            [{"images": test.images, "labels": test.labels}], device="cpu")
+        runs.append(h)
+    assert runs[0]["acc"] == runs[1]["acc"]
+    for a, b in zip(jax.tree_util.tree_leaves(runs[0]["final_params"]),
+                    jax.tree_util.tree_leaves(runs[1]["final_params"])):
+        assert torch.equal(a, b)
 
 
 def test_cli_lists_the_registry(capsys):
