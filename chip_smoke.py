@@ -23,7 +23,12 @@ script exits non-zero:
             8 torch.linalg.vecdot calls; and presence-weighted fusion
             of leaves whose group axis does not lead (a (2, 4, 5) leaf
             at axis 1, a stacked (4, 8, 256, 256) leaf), one launch per
-            (pre index, group) block
+            (pre index, group) block; paired_fusion and local_step at
+            every tier layout of the capacity-tier paths A and B (whose
+            parameter counts must be the reference's) on (2, M_t) rows
+            and (3, M_t) rows with a weight-0 pad row, and paired_fusion
+            on a (2, 521,616) async event buffer under staleness-
+            discounted weights
 5. main     the CLI's main path at full width (VGG9, 10 clients, 8 steps
             of batch 32): fed2 on the default routes, fed2 with
             --use-local-kernel, fedavg on the baseline VGG9; then fed2
@@ -88,7 +93,32 @@ script exits non-zero:
             nxc2_fedavg_none equal to nxc2_fedavg to the bit, label-flip
             best accuracy >= 0.2, finite params under trimmed_mean; the
             paper-claims orderings printed, not asserted
-16. serve   Mamba-2 1.3B at full width through the serving CLI
+16. tiers   capacity tiers through the CLI at full width, 3 rounds each,
+            with and without --use-local-kernel, counted: path A
+            (fedavg, vgg9.baseline, --tiers 1.0x2,0.5x2,0.25x2) and B
+            (fed2, --fed2-groups 5, --tiers 1.0x2,0.6x2,0.2x2):
+            paired_fusion once per tier tile a round (3), local_step
+            3 x 8 a round with the flag; s/round and the tier combine's
+            CUDA-event time per round
+17. tiers parity  at path A's width (TF32 off, deterministic convs):
+            the tiered engine forced onto one width-1.0 tier within
+            2e-6 of the homogeneous round; a round in which only the
+            0.25 tier trains keeps every other coordinate of the global
+            to the bit
+18. async   path C through the CLI (fed2 and fedavg, 10 nodes, 4 in
+            flight, --buffer-k 2, polynomial(0.5), pareto(1.5)), 6
+            fusion events each, with and without --use-local-kernel,
+            counted: paired_fusion once per event, local_step 8 per
+            dispatch-group tile with the flag; s/event, local tiles,
+            staleness lists
+19. async parity  buffer_k = cohort, zero latency, constant discount
+            (TF32 off, deterministic convs): the async run equals the
+            sync run bit for bit, with and without --use-local-kernel
+20. tier and async scenarios  the 5 tier and 2 async specs at their
+            registered settings, counted, beside the JAX package's
+            records; the async specs' sim_time equal to the records'
+21. tier and async profile  paths A and C under torch.profiler
+22. serve   Mamba-2 1.3B at full width through the serving CLI
             (launch/serve.py, the reference's defaults: batch 4, 32
             prompt + 16 decoded tokens): --full (ssd_update in every
             layer of every step: 48 x 48 launches) and --full
@@ -98,9 +128,9 @@ script exits non-zero:
             counted, grouped_matmul by route too, with prefill/decode
             time, tok/s, peak device memory and the parameter count,
             which must equal the reference's
-17. serve profile  a short Fed2 serve under torch.profiler: device
+23. serve profile  a short Fed2 serve under torch.profiler: device
             busy share and device time by kernel category
-18. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
+24. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
             the kernels and with the plain versions: logits and the
             final cache within the stated limits
 
@@ -187,6 +217,30 @@ SERVE_LAYERS = 48
 # lost term moves logits (O(1)) and the state by O(1)
 PARITY_LOGIT_ATOL = 1e-3
 PARITY_STATE_RTOL = 1e-4   # of the cache leaf's max |value|
+# the capacity-tier paths at full width: A plain tiers on vgg9.baseline,
+# B Fed2 tiers on vgg9.full(fed2_groups=5) (the CLI's default G = 8
+# refuses every tier on 10 classes); per tier, the parameter count of
+# the JAX package's cnn_tier_model (its CPU run)
+TIER_PATHS = {
+    "A": (("--method", "fedavg", "--nodes", "6", "--tiers",
+           "1.0x2,0.5x2,0.25x2"), (3_491_530, 874_858, 219_706)),
+    "B": (("--method", "fed2", "--fed2-groups", "5", "--nodes", "6",
+           "--tiers", "1.0x2,0.6x2,0.2x2"), (796_645, 454_821, 143_885)),
+}
+# the forced one-tier engine vs the homogeneous round: the reference's
+# tests/test_capacity.py bound (the combine's w*mean/w differs from the
+# mean by round-off)
+FORCED_TIER_TOL = 2e-6
+# path C: buffered async at the CLI's 10 nodes, 4 in flight, a fusion
+# every 2 arrivals (the async scenarios' settings)
+ASYNC_PATH = ("--cohort-size", "4", "--sampler", "uniform", "--fed-mode",
+              "async", "--buffer-k", "2", "--staleness", "polynomial(0.5)",
+              "--latency", "pareto(1.5)")
+ASYNC_EVENTS = 6
+TIER_ASYNC_SCENARIOS = ("nxc2_fedavg_tiers", "nxc2_fed2_tiers",
+                        "nxc2_fed2_tiers_cal", "dir05_fed2_tiers",
+                        "dir05_fedavg_tiers", "nxc2_fedavg_async",
+                        "nxc2_fed2_async")
 
 
 @contextlib.contextmanager
@@ -988,14 +1042,14 @@ def wrappers() -> dict:
             "ssd_update": ssd_update}
 
 
-def counted(label: str, run, expect: dict, gmm_routes: dict | None = None):
+def counted(label: str, run, expect, gmm_routes: dict | None = None):
     """``run()`` with every launch counter set to 0 just before it and
-    read just after; the counts must equal ``expect`` (a kernel it does
-    not name must not launch), and grouped_matmul's launches by route
-    ``gmm_routes`` (a route it does not name must not launch)."""
+    read just after; the counts must equal ``expect`` (a dict, or a
+    function of run's output giving one: a kernel it does not name must
+    not launch), and grouped_matmul's launches by route ``gmm_routes``
+    (a route it does not name must not launch)."""
     fns = wrappers()
     gmm = fns["grouped_matmul"]
-    expect = {**{k: 0 for k in fns}, **expect}
     expect_routes = {**{r: 0 for r in gmm.route_launches},
                      **(gmm_routes or {})}
     for f in fns.values():
@@ -1005,6 +1059,8 @@ def counted(label: str, run, expect: dict, gmm_routes: dict | None = None):
     out = run()
     counts = {k: f.launches for k, f in fns.items()}
     routes = dict(gmm.route_launches)
+    expect = {**{k: 0 for k in fns},
+              **(expect(out) if callable(expect) else expect)}
     print(f"  launches, {label}: {counts} (expected {expect}); "
           f"grouped_matmul by route {routes} (expected {expect_routes})",
           flush=True)
@@ -1270,6 +1326,8 @@ def _category(name: str) -> str:
                       ("ssd_update", ("ssd_update",)),
                       ("grouped_matmul", ("grouped_matmul",)),
                       ("memcpy/memset", ("memcpy", "memset")),
+                      ("index_select/index_add (tier extract, combine)",
+                       ("indexselect", "indexfunc")),
                       ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
                                         "wgrad", "dgrad", "winograd")),
                       ("gemm", ("gemm", "gemv", "cutlass", "cublas",
@@ -1279,25 +1337,23 @@ def _category(name: str) -> str:
     return "other (elementwise, reductions, norms, pooling)"
 
 
-def phase_profile():
-    """The main path (fed2, --use-local-kernel, 3 rounds) under
-    torch.profiler: device time by kernel category, and the share of
-    the run's wall time in which the card ran a kernel or a copy."""
+def profiled(label: str, run):
+    """``run()`` under torch.profiler: device time by kernel category,
+    and the share of the run's wall time in which the card ran a kernel
+    or a copy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.fl.runtime import run_federated
-    from repro_torch.launch import train
-    inputs = train.fl_inputs(train.parse_args(["--rounds", "3"]))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run_federated(*inputs, use_local_kernel=True, device="cuda")
+        run()
+        torch.cuda.synchronize()
         wall = time.time() - t0
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     total_us = sum(e.self_device_time_total for e in dev)
-    print(f"  3 rounds: wall {wall * 1e3:.1f} ms, device busy "
+    print(f"  {label}: wall {wall * 1e3:.1f} ms, device busy "
           f"{total_us / 1e3:.1f} ms ({100 * total_us / 1e3 / wall / 1e3:.1f}"
           f" %), {sum(e.count for e in dev)} device ops")
     if not dev:
@@ -1313,6 +1369,16 @@ def phase_profile():
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
+
+
+def phase_profile():
+    """The main path (fed2, --use-local-kernel, 3 rounds) under
+    torch.profiler."""
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    inputs = train.fl_inputs(train.parse_args(["--rounds", "3"]))
+    profiled("3 rounds", lambda: run_federated(
+        *inputs, use_local_kernel=True, device="cuda"))
 
 
 def phase_parity():
@@ -1588,6 +1654,278 @@ def phase_axes_scenarios(recs: dict):
               f"{claim}", flush=True)
 
 
+@contextlib.contextmanager
+def combine_probe():
+    """CUDA events around each tier combine (``TieredEngine.combine``):
+    the stream time from its first to its last op, one per round."""
+    from repro_torch.fl import capacity
+    events, orig = [], capacity.TieredEngine.combine
+
+    def timed(self, *a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(self, *a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    capacity.TieredEngine.combine = timed
+    try:
+        yield events
+    finally:
+        capacity.TieredEngine.combine = orig
+
+
+def steps_per_round() -> int:
+    from repro_torch.launch import train
+    d = train.parse_args([])                    # the CLI's defaults
+    return d.local_epochs * d.steps_per_epoch
+
+
+def phase_check_tier_layouts():
+    """paired_fusion and local_step at every tier layout of paths A and
+    B, whose parameter counts must be the reference's: a (2, M_t)
+    cohort, and a (3, M_t) one whose third row (a padded slot) has
+    weight 0. Tolerances: the kernel checks' (fp32 1e-5 and 1e-6)."""
+    from repro_torch.configs import vgg9
+    from repro_torch.fl.capacity import cnn_tier_model, parse_tiers
+    from repro_torch.kernels.local_step import local_step, local_step_ref
+    from repro_torch.kernels.paired_fusion import (paired_fusion,
+                                                   paired_fusion_ref)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    models = {"A": vgg9.baseline(), "B": vgg9.full(fed2_groups=5)}
+    for path, (extra, counts) in TIER_PATHS.items():
+        widths = [w for w, _ in parse_tiers(extra[-1])]
+        for width, want in zip(widths, counts):
+            layout = layout_of(cnn_tier_model(models[path], width).model_cfg)
+            assert layout.size == want, (path, width, layout.size, want)
+            x = cohort(layout, 3, torch.float32, gen)
+            w = torch.rand(2, generator=gen, device="cuda") + 0.1
+            w = w / w.sum()
+            w0 = torch.cat([w, torch.zeros(1, device="cuda")])
+            name = f"path {path}, width {width} (M_t={layout.size})"
+            check(f"paired_fusion (2, M_t), {name}",
+                  paired_fusion(x[:2], w), paired_fusion_ref(x[:2], w), 1e-5)
+            check(f"paired_fusion (3, M_t) with a weight-0 pad row, {name}",
+                  paired_fusion(x, w0), paired_fusion_ref(x, w0), 1e-5)
+            p, v, g = (cohort(layout, 2, torch.float32, gen, sc)
+                       for sc in (1.0, 0.1, 1.0))
+            wp, wv = local_step_ref(p, v, g, 0.01, 0.9)
+            local_step(p, v, g, lr=0.01, mu=0.9)
+            check(f"local_step (2, M_t) p, {name}", p, wp, 1e-6)
+            check(f"local_step (2, M_t) v, {name}", v, wv, 1e-6)
+
+
+def phase_check_event_fusion():
+    """paired_fusion on a (2, 521,616) async event buffer (the main
+    model's layout and row stride) under the raw effective weights of
+    staleness [0, 3] at polynomial(0.5), which the fuse normalizes; and
+    the whole fedavg fuse on it, kernel route vs plain (1e-5)."""
+    from repro_torch.core import fusion
+    from repro_torch.fl.async_engine import effective_weights, \
+        parse_staleness
+    from repro_torch.kernels.paired_fusion import (paired_fusion,
+                                                   paired_fusion_ref)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    layout = main_layout()
+    buf = cohort(layout, 2, torch.float32, gen)
+    w_eff = effective_weights([412.0, 389.0], [0, 3],
+                              parse_staleness("polynomial(0.5)"))
+    wn = torch.as_tensor(w_eff / w_eff.sum(), dtype=torch.float32,
+                         device="cuda")
+    name = f"(2, {layout.size}) event buffer, staleness [0, 3]"
+    check(f"paired_fusion {name}", paired_fusion(buf, wn),
+          paired_fusion_ref(buf, wn), 1e-5)
+    check(f"fedavg fuse, kernel vs plain, {name}",
+          fusion.fedavg(buf, w_eff, use_kernel=True),
+          fusion.fedavg(buf, w_eff, use_kernel=False), 1e-5)
+
+
+def phase_tiers():
+    """Paths A and B through the CLI at full width, 3 rounds each, with
+    and without --use-local-kernel, counted: paired_fusion once per tier
+    tile a round (3), local_step once per local step per tile with the
+    flag (3 x 8 a round); s/round and the combine's time per round."""
+    r, steps = MAIN_ROUNDS, steps_per_round()
+    for path, (extra, _) in TIER_PATHS.items():
+        for flag, local in (((), 0), (("--use-local-kernel",),
+                                      3 * steps * r)):
+            with combine_probe() as events:
+                counted(f"path {path}: {' '.join(extra + flag)}",
+                        lambda: cli(*extra, *flag),
+                        {"paired_fusion": 3 * r, "local_step": local})
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in events]
+            assert len(ms) == r, ms
+            print(f"  tier combine, CUDA-event ms per round: "
+                  f"{[round(t, 3) for t in ms]}", flush=True)
+
+
+def phase_tiers_parity():
+    """At path A's full width (TF32 off, deterministic convs): the
+    tiered engine forced onto one width-1.0 tier vs the homogeneous
+    round (within FORCED_TIER_TOL), and a round in which only the 0.25
+    tier trains: every coordinate it does not hold keeps the previous
+    global to the bit."""
+    from repro_torch.fl import capacity, methods
+    from repro_torch.fl.engine import make_round_engine
+    from repro_torch.fl.population import Population
+    from repro_torch.fl.runtime import _pack_client_batches, \
+        device_batches, initial_params
+    from repro_torch.launch import train
+    args = train.parse_args(["--method", "fedavg", "--nodes", "6",
+                             "--rounds", "1"])
+    task, fl, parts, get_batch, _ = train.fl_inputs(args)
+    params = initial_params(task, fl, None, "cuda")
+    meth = methods.get("fedavg")
+    steps = fl.local_epochs * fl.steps_per_epoch
+
+    def tiered_round(mix, ids):
+        plan = capacity.TierPlan.from_mix(mix, 6, seed=fl.seed)
+        tiered = capacity.make_tiered_engine(task, fl, params, plan,
+                                             device="cuda", method=meth)
+        pop = Population.from_parts(parts)
+        pop.tiers = plan.assignment
+        gp = tiered.full.layout.flatten(params)
+        _, out = capacity.run_tiered_round(
+            tiered, pop, meth, tiered.full.init_server_state(gp), gp,
+            ids(plan), get_batch, steps, fl, np.random.default_rng(0))
+        return tiered, gp, out
+
+    _, gp, g_t = tiered_round(((1.0, 6),), lambda plan: np.arange(6))
+    engine = make_round_engine(task, fl, params, device="cuda", method=meth)
+    batches = _pack_client_batches(parts, get_batch, steps, fl.batch_size,
+                                   np.random.default_rng(0))
+    _, g_h = engine.run_round(
+        {"server": engine.init_server_state(gp), "clients": ()}, gp,
+        device_batches(batches, "cuda"),
+        weights=Population.from_parts(parts).weights)
+    d = (g_t - g_h).abs().max().item()
+    print(f"  forced one-tier engine vs homogeneous round: max |dparam| "
+          f"{d:.3g} (tol {FORCED_TIER_TOL:g})", flush=True)
+    assert d <= FORCED_TIER_TOL, f"forced tier round drifts: {d}"
+    mix = ((1.0, 2), (0.5, 2), (0.25, 2))
+    tiered, gp, g_q = tiered_round(mix, lambda plan: plan.ids_of(2))
+    covered = torch.zeros_like(gp, dtype=torch.bool)
+    covered[tiered.tiles[2].index] = True
+    kept = torch.equal(g_q[~covered], gp[~covered])
+    moved = (g_q[covered] - gp[covered]).abs().max().item()
+    print(f"  only the 0.25 tier trains: {int((~covered).sum())} "
+          f"uncovered coordinates "
+          f"{'keep the previous global bit for bit' if kept else 'MOVED'};"
+          f" covered ones move by up to {moved:.3g}", flush=True)
+    assert kept and moved > 0, "the uncovered region left the global"
+
+
+def phase_async():
+    """Path C (fed2 on vgg9.full(fed2_groups=8), fedavg on
+    vgg9.baseline) through the CLI, 6 fusion events each, with and
+    without --use-local-kernel, counted: paired_fusion once per event,
+    local_step once per local step of every dispatch-group tile with
+    the flag; s/event, local tiles and the staleness lists."""
+    steps = steps_per_round()
+    for method in ("fed2", "fedavg"):
+        for flag in ((), ("--use-local-kernel",)):
+            extra = (("--method", method) + ASYNC_PATH
+                     + ("--rounds", str(ASYNC_EVENTS)) + flag)
+            h, _ = counted(
+                " ".join(extra), lambda: cli(*extra),
+                lambda h: {"paired_fusion": ASYNC_EVENTS,
+                           "local_step": h["local_tiles"] * steps
+                           if flag else 0})
+            w = h["wall"]
+            assert len(h["acc"]) == ASYNC_EVENTS
+            print(f"  {ASYNC_EVENTS} events, {h['local_tiles']} local "
+                  f"tiles, later events {(w[-1] - w[0]) / (len(w) - 1):.3f}"
+                  f" s each; staleness {h['staleness']}; sim_time "
+                  f"{[round(t, 4) for t in h['sim_time']]}", flush=True)
+
+
+def phase_async_parity():
+    """The CLI's fed2 at --cohort-size 4 --sampler uniform (TF32 off,
+    deterministic convs), 3 rounds sync and 3 events async with
+    buffer_k = cohort, zero latency and the constant discount, with and
+    without --use-local-kernel: final params and every accuracy equal
+    bit for bit."""
+    import dataclasses
+
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    from repro_torch.models.module import tree_leaves
+    task, fl, parts, get_batch, test = train.fl_inputs(train.parse_args(
+        ["--cohort-size", "4", "--sampler", "uniform", "--rounds", "3"]))
+    init = task.init_fn(torch.Generator().manual_seed(0))
+    for local in (False, True):
+        runs = [run_federated(task, dataclasses.replace(fl, mode=mode),
+                              parts, get_batch, test, device="cuda",
+                              init_params=init, use_local_kernel=local)
+                for mode in ("sync", "async")]
+        for h in runs:
+            finite_params(h)
+        sync, asyn = runs
+        same = sync["acc"] == asyn["acc"] and all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(sync["final_params"]),
+                tree_leaves(asyn["final_params"])))
+        print(f"  async (buffer_k = cohort, zero latency, constant) vs "
+              f"sync{' --use-local-kernel' if local else ''}: "
+              f"{'bit-identical' if same else 'DIFFERS'}; staleness "
+              f"{asyn['staleness']}, accs {asyn['acc']}", flush=True)
+        assert same, "the degenerate async run is not the sync run"
+        assert all(s == [0] * 4 for s in asyn["staleness"])
+
+
+def phase_tier_async_scenarios():
+    """The 5 tier and 2 async scenarios at their registered settings (10
+    rounds; 15 events), counted: paired_fusion once per tier tile a
+    round (3) or once per event. Finite params, one history row per
+    round or event; each final accuracy beside the JAX package's
+    committed record (read as JSON; inits differ, so not matched); the
+    async schedule is numpy's alone, so sim_time must equal the
+    record's to 4 decimals."""
+    from repro_torch.fl import scenarios
+    for name in TIER_ASYNC_SCENARIOS:
+        spec = scenarios.get(name)
+        ref = json.loads((ROOT / "benchmarks" / "artifacts_perf"
+                          / f"scenario_{name}.json").read_text())
+        fuse = spec.rounds * (len(spec.tiers) or 1)
+        with history_probe() as hist:
+            rec, _ = counted(
+                name, lambda: scenarios.run_scenario(spec, device="cuda"),
+                {"paired_fusion": fuse, "local_step": 0})
+        finite_params(hist[-1])
+        assert len(rec.acc) == spec.rounds, (name, len(rec.acc))
+        print(f"  {name} ({spec.protocol_label()}, {len(rec.acc)} "
+              f"{'events' if spec.mode == 'async' else 'rounds'}, "
+              f"{rec.wall_total:.2f} s): final acc {rec.final_acc:.4f}, "
+              f"best {rec.best_acc:.4f} (the JAX package's committed "
+              f"record: {ref['final_acc']:.4f}; inits differ), accs "
+              f"{[round(a, 4) for a in rec.acc]}", flush=True)
+        if ref.get("sim_time"):
+            same = rec.sim_time == ref["sim_time"]
+            print(f"  {name} sim_time {rec.sim_time} "
+                  f"{'equals' if same else 'DIFFERS FROM'} the record's",
+                  flush=True)
+            assert same, f"{name}: sim_time differs from the record"
+
+
+def phase_tier_async_profile():
+    """Path A (--use-local-kernel, 3 rounds) and path C (fed2,
+    --use-local-kernel, 6 events) under torch.profiler."""
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    a = train.parse_args(list(TIER_PATHS["A"][0]) + ["--rounds", "3"])
+    inputs = train.fl_inputs(a)
+    profiled("path A, 3 rounds", lambda: run_federated(
+        *inputs, use_local_kernel=True, device="cuda"))
+    c = train.parse_args(["--method", "fed2", *ASYNC_PATH, "--rounds",
+                          str(ASYNC_EVENTS)])
+    inputs = train.fl_inputs(c)
+    profiled(f"path C (fed2), {ASYNC_EVENTS} events", lambda: run_federated(
+        *inputs, latency=c.latency, use_local_kernel=True, device="cuda"))
+
+
 def free_device_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -1775,6 +2113,8 @@ def main() -> int:
                    phase_check_grouped_matmul(),
                    phase_check_ssd_update()]
         phase_check_group_axis()
+        phase_check_tier_layouts()
+        phase_check_event_fusion()
         for r in records + [{**records[1]["bf16"],
                              "name": "local_step bf16 (10, M)"}]:
             lib = ("none" if r["library_ms"] is None
@@ -1809,6 +2149,21 @@ def main() -> int:
     with phase("axes scenarios (deterministic convs)"), \
             deterministic_convs():
         phase_axes_scenarios(recs)
+    with phase("tiers"):
+        phase_tiers()
+    with phase("tiers parity (TF32 off, deterministic convs)"), \
+            tf32_off(), deterministic_convs():
+        phase_tiers_parity()
+    with phase("async"):
+        phase_async()
+    with phase("async parity (TF32 off, deterministic convs)"), \
+            tf32_off(), deterministic_convs():
+        phase_async_parity()
+    with phase("tier and async scenarios"):
+        phase_tier_async_scenarios()
+    with phase("tier and async profile"):
+        phase_tier_async_profile()
+    free_device_memory()
     with phase("serve"):
         serve_counts = phase_serve()
     counts["grouped_matmul"] = serve_counts["grouped_matmul"]

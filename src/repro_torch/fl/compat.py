@@ -21,10 +21,8 @@ flags are read in exactly one place:
   hit identical refusals.
 - ``capability_matrix()`` / ``capability_table()``: what
   ``launch/train.py --list-capabilities`` prints.
-
-The tiers and async columns describe the methods as the JAX package
-does; the port does not run those two features yet, and ``FLConfig``
-refuses them before eligibility is asked.
+- ``not_ported(what)``: the refusal of a knob the JAX package has and
+  the port does not run yet (the mmap client-state store).
 """
 from __future__ import annotations
 
@@ -222,9 +220,9 @@ def check_one_shot_support(method: FedMethod) -> None:
 
 def not_ported(what: str) -> ValueError:
     return ValueError(
-        f"{what} is not ported to repro_torch yet (the capacity-tier and "
-        "buffered-async engines come in a later slice); run the JAX "
-        "package for it, or use mode='sync' without tiers")
+        f"{what} is not ported to repro_torch yet (the out-of-core "
+        "statestore comes in a later slice); run the JAX package for "
+        "it, or keep the in-memory store")
 
 
 def validate(cfg, method: FedMethod) -> None:
@@ -233,12 +231,14 @@ def validate(cfg, method: FedMethod) -> None:
     off-default), so a missing knob means "feature off". Value parsing
     stays with the callers; this owns method eligibility, plus the
     robust x codec composition rule."""
-    if getattr(cfg, "tiers", None):
-        raise not_ported("capacity tiers (FLConfig.tiers)")
+    tiers = getattr(cfg, "tiers", None)
+    if tiers:
+        from repro_torch.fl import capacity as capacity_lib
+        check_tier_support(method, capacity_lib.parse_tiers(tiers))
     mode = getattr(cfg, "mode", "sync")
     if mode == "async":
-        raise not_ported("mode='async'")
-    if mode == "one_shot":
+        check_async_support(method)
+    elif mode == "one_shot":
         check_one_shot_support(method)
     rule = None
     if getattr(cfg, "robust", None):

@@ -45,7 +45,11 @@ For rounds whose participant set exceeds one cohort (cohort tiling),
 ``run_tile`` executes local phase + fuse for one tile, and
 ``finish_round`` applies the server step once to the tiles' combined
 fusion result (``host_fuse`` once to the tiles' stacked params, for
-host-fusion methods).
+host-fusion methods). The capacity tiers (fl/capacity.py) run one
+engine per tier through ``run_tile``; the buffered-async driver
+(fl/async_engine.py) splits the tile at the fusion boundary:
+``local_phase`` for a dispatch group, ``method.fuse`` and
+``server_update`` under ``round_ctx`` for a fusion event.
 
 Client state comes in as host (numpy) rows or as device tensors and
 goes out on the device; the runtime decides where it lives between
@@ -139,15 +143,20 @@ class RoundEngine:
                         self.method.init_client_state(global_params,
                                                       self.ctx))
 
-    def _local_and_fuse(self, clients_state, server_state, global_params,
-                        batches, weights, group_weights, malicious=None):
-        """The shared cohort-tile body: broadcast -> (cast down) -> local
-        phase -> (poison) -> (cast back) -> (codec) -> (robust pre) ->
-        fuse. Returns (clients_state on the device, new client states,
-        fuse output, the round's context)."""
-        ctx = dataclasses.replace(self.ctx, weights=self._w32(weights),
-                                  group_weights=self._w32(group_weights))
-        clients_state = self._to_device(clients_state)
+    def round_ctx(self, weights=None, group_weights=None) -> MethodContext:
+        """The engine's context with one round's (or fusion event's)
+        sample weights and presence rows, as float32 device tensors."""
+        return dataclasses.replace(self.ctx, weights=self._w32(weights),
+                                   group_weights=self._w32(group_weights))
+
+    def local_phase(self, clients_state, server_state, global_params,
+                    batches, ctx, malicious=None) -> tuple:
+        """The uplink half of a cohort tile: broadcast -> (cast down) ->
+        local phase -> (poison) -> (cast back) -> (codec) -> (robust
+        pre). ``clients_state`` must be on the device already. Returns
+        (stacked, new client states): ``stacked`` is the engine's (C, M)
+        cohort buffer (or a tensor made from it), which the next tile
+        overwrites."""
         stacked = fusion_lib.broadcast_global(global_params, self.cohort)
         work, gp_local = stacked, global_params
         if self.compute_dtype is not None:
@@ -170,6 +179,18 @@ class RoundEngine:
                                            self.layout)
         if self.pre_rule is not None:
             stacked = self.pre_rule.pre(stacked, global_params)
+        return stacked, new_clients
+
+    def _local_and_fuse(self, clients_state, server_state, global_params,
+                        batches, weights, group_weights, malicious=None):
+        """The shared cohort-tile body: ``local_phase``, then the fuse.
+        Returns (clients_state on the device, new client states, fuse
+        output, the round's context)."""
+        ctx = self.round_ctx(weights, group_weights)
+        clients_state = self._to_device(clients_state)
+        stacked, new_clients = self.local_phase(
+            clients_state, server_state, global_params, batches, ctx,
+            malicious)
         fused = self.method.fuse(stacked, global_params, ctx)
         return clients_state, new_clients, fused, ctx
 

@@ -43,13 +43,17 @@ class Population:
     by id, so the flagged set holds under every participation pattern.
     poison: the data-poisoning hook ``batch -> batch`` applied to the
     malicious clients' batches on the host (None for model-poisoning or
-    honest runs)."""
+    honest runs).
+    tiers: optional (P,) int tier index per client, the capacity class
+    each logical client trains (fl/capacity.py ``TierPlan.assignment``);
+    None for homogeneous runs."""
     parts: list
     weights: np.ndarray
     group_weights: np.ndarray | None = None
     clients: Any = ()
     malicious: np.ndarray | None = None
     poison: Any = None
+    tiers: np.ndarray | None = None
 
     @classmethod
     def from_parts(cls, parts, group_weights=None) -> "Population":

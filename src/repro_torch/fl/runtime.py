@@ -32,8 +32,13 @@ row, pad rows forced honest), ``robust``, ``codec``, ``compute_dtype``,
 ``local_unroll``, ``alignment`` (recorded: the model must be built
 through ``alignment.build_model_config``) and ``mode="one_shot"``
 (``one_shot_config``: the whole step budget trained locally, one
-fusion). ``mode="async"`` and ``tiers`` are not ported yet and are
-refused.
+fusion).
+
+``tiers`` routes the rounds through the heterogeneous-capacity engine
+(fl/capacity.py): one engine per tier, overlap-aware combine. A single
+width-1.0 tier is the homogeneous engine and runs it unchanged.
+``mode="async"`` routes the whole run through the buffered-async driver
+(fl/async_engine.py): one history row per fusion event.
 
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device named, ``run_federated``
@@ -87,12 +92,20 @@ class FLConfig:
     server_momentum: float = 0.9
     seed: int = 0
     eval_batch: int = 512
-    # not ported yet (capacity tiers, buffered async): refused when set
+    # heterogeneous capacity (fl/capacity.py): per-tier (width, client
+    # count) pairs, "1.0x2,0.5x2,0.25x2" or a tuple of pairs; None/() =
+    # homogeneous. Counts must sum to the population.
     tiers: Any = None
-    # "sync" runs the round loop; "one_shot" trains the whole rounds x
-    # local_epochs x steps_per_epoch budget locally and fuses exactly
-    # once (one_shot_config); "async" is not ported yet
+    # "sync" runs the round loop; "async" makes the fusion event the
+    # unit of progress (fl/async_engine.py): rounds counts events,
+    # cohort_size is the in-flight concurrency, buffer_k updates fuse
+    # per event (None -> cohort_size) under the staleness discount
+    # ("constant" | "polynomial(a)"); "one_shot" trains the whole
+    # rounds x local_epochs x steps_per_epoch budget locally and fuses
+    # exactly once (one_shot_config)
     mode: str = "sync"
+    buffer_k: int | None = None
+    staleness: str = "constant"
     # byzantine behavior ("label_flip" | "sign_flip(s)" |
     # "scaled_update(s)" | "gauss_noise(sigma)") on attack_fraction of
     # the population (>= 1 = an explicit count); robust fusion rule
@@ -134,15 +147,41 @@ class FLConfig:
                 f"exceed population ({self.population})")
         if not self.tiers:
             object.__setattr__(self, "tiers", None)
+        else:
+            from repro_torch.fl import capacity as capacity_lib
+            mix = capacity_lib.parse_tiers(self.tiers)
+            capacity_lib.validate_mix(mix, self.population)
+            object.__setattr__(self, "tiers", mix)
         if self.mode not in ("sync", "async", "one_shot"):
             raise ValueError(
                 f"FLConfig.mode must be 'sync', 'async' or 'one_shot', "
                 f"got {self.mode!r}")
-        from repro_torch.fl import compat as compat_lib
-        if self.tiers is not None:
-            raise compat_lib.not_ported("capacity tiers (FLConfig.tiers)")
         if self.mode == "async":
-            raise compat_lib.not_ported("mode='async'")
+            from repro_torch.fl import async_engine as async_lib
+            async_lib.parse_staleness(self.staleness)
+            if self.tiers is not None:
+                raise ValueError(
+                    "FLConfig.tiers and mode='async' are mutually "
+                    "exclusive: the buffered-async driver dispatches "
+                    "full-width cohort tiles (DESIGN.md §12); drop the "
+                    "tiers or run mode='sync'")
+            if self.buffer_k is None:
+                object.__setattr__(self, "buffer_k", self.cohort_size)
+            k = self.buffer_k
+            if not isinstance(k, int) or isinstance(k, bool) or k <= 0:
+                raise ValueError(
+                    f"FLConfig.buffer_k must be a positive int, got "
+                    f"{k!r}")
+        else:
+            if self.buffer_k is not None:
+                raise ValueError(
+                    "FLConfig.buffer_k is only meaningful with "
+                    "mode='async' (the per-fusion-event buffer bound); "
+                    "leave it None for sync rounds")
+            if self.staleness != "constant":
+                raise ValueError(
+                    "FLConfig.staleness is only meaningful with "
+                    "mode='async'; leave it 'constant' for sync rounds")
         if not self.attack:
             object.__setattr__(self, "attack", None)
             if self.attack_fraction:
@@ -161,6 +200,24 @@ class FLConfig:
         else:
             from repro_torch.fl import robust as robust_lib
             robust_lib.parse_robust(self.robust)
+        if self.attack or self.robust:
+            what = "attack" if self.attack else "robust"
+            if self.tiers is not None:
+                raise ValueError(
+                    f"FLConfig.{what} and tiers are mutually exclusive "
+                    "for now: tiered rounds fuse width-sliced sub-model "
+                    "tiles (DESIGN.md §11), where neither the "
+                    "malicious-presence row nor a cross-tile robust "
+                    "reduction is defined; drop the tiers or the "
+                    "adversarial knobs")
+            if self.mode == "async":
+                raise ValueError(
+                    f"FLConfig.{what} and mode='async' are mutually "
+                    "exclusive for now: a fusion event mixes updates "
+                    "from different global versions, so the "
+                    "per-round malicious row / robust reduction "
+                    "(DESIGN.md §14) has no buffered form yet; run "
+                    "mode='sync'")
         from repro_torch.fl.engine import resolve_compute_dtype
         resolve_compute_dtype(self.compute_dtype,
                               methods_lib.get(self.method))
@@ -176,7 +233,25 @@ class FLConfig:
         else:
             from repro_torch.fl import codec as codec_lib
             codec_lib.parse_codec(self.codec)
+        if self.compute_dtype != "float32" or self.codec is not None:
+            knob = ("compute_dtype" if self.compute_dtype != "float32"
+                    else "codec")
+            if self.tiers is not None:
+                raise ValueError(
+                    f"FLConfig.{knob} and tiers are mutually exclusive "
+                    "for now: tiered rounds fuse width-sliced sub-model "
+                    "tiles (DESIGN.md §11) whose per-tier byte/precision "
+                    "accounting the §15 knobs don't define yet; drop the "
+                    "tiers or the knob")
+            if self.mode == "async":
+                raise ValueError(
+                    f"FLConfig.{knob} and mode='async' are mutually "
+                    "exclusive for now: the buffered-async tile/event "
+                    "split (DESIGN.md §12) implements neither the round-"
+                    "boundary dtype cast nor the decode-then-fuse "
+                    "round-trip; run mode='sync'")
         # method eligibility for every knob above, in one place
+        from repro_torch.fl import compat as compat_lib
         compat_lib.validate(self, methods_lib.get(self.method))
 
 
@@ -189,7 +264,9 @@ class FLTask:
     tiled eval's ``n_classes`` x ``n_classes`` confusion counts;
     group_axes_fn(params) -> GroupAxis tree (fed2);
     matched_average_fn(stacked, weights) -> params tree (fedma): stacked
-    is a tree of (n, ...) leaves.
+    is a tree of (n, ...) leaves; tier_fn(width) -> the family's
+    width-``width`` sub-model (``capacity.TierModel``), None when the
+    family has no tier support.
     """
     init_fn: Callable
     loss_fn: Callable
@@ -197,6 +274,7 @@ class FLTask:
     n_classes: int
     group_axes_fn: Callable | None = None
     matched_average_fn: Callable | None = None
+    tier_fn: Callable | None = None
 
 
 def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng,
@@ -225,12 +303,16 @@ def _pack_client_batches(parts, get_batch, n_steps, batch_size, rng,
 
 
 def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
-                    batch_size, rng, uniform_weights: bool = False):
+                    batch_size, rng, uniform_weights: bool = False,
+                    gw_cols: int | None = None):
     """Pad one engine tile to ``width`` slots (repeating the first
     participant at zero weight) and assemble its weights, presence rows
-    and packed batches. uniform_weights: every participant weighs 1
-    (samplers whose draw already encodes shard size). Returns
-    (padded_ids, weights, group_weights, batches)."""
+    and packed batches: the padding of cohort tiling, the capacity
+    tiers' tiles and the async dispatch groups. uniform_weights: every
+    participant weighs 1 (samplers whose draw already encodes shard
+    size). gw_cols keeps the first K presence columns (a tier that
+    dropped the rest). Returns (padded_ids, weights, group_weights,
+    batches)."""
     tids = np.asarray(tids, np.int64)
     n_real = len(tids)
     padded = np.concatenate(
@@ -240,7 +322,8 @@ def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
     w[n_real:] = 0.0
     gw = None
     if pop.group_weights is not None:
-        gw = pop.group_weights[padded].copy()
+        gw = pop.group_weights[padded]
+        gw = (gw if gw_cols is None else gw[:, :gw_cols]).copy()
         gw[n_real:] = 0.0
     pois = None
     if pop.poison is not None and pop.malicious is not None:
@@ -249,6 +332,12 @@ def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
                                    get_batch, n_steps, batch_size, rng,
                                    poison_fns=pois)
     return padded, w, gw, batches
+
+
+def device_batches(batches: dict, device) -> dict:
+    """A tile's packed numpy batches as tensors on ``device``, one copy
+    per leaf."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
 
 
 def _malicious_inputs(engine, pop: Population, padded, n_real, cfg,
@@ -295,9 +384,7 @@ def run_sampled_round(engine, pop: Population, method, server_state,
         padded, w, gw, batches = pad_tile_inputs(
             pop, tids, C, get_batch, n_steps, cfg.batch_size, rng,
             uniform_weights=uniform_weights)
-        batches = {k: torch.as_tensor(v, device=engine.device)
-                   for k, v in batches.items()}
-        return padded, w, gw, batches
+        return padded, w, gw, device_batches(batches, engine.device)
 
     if len(ids) == C:
         _, w, gw, batches = tile_inputs(ids)
@@ -382,8 +469,8 @@ def one_shot_config(cfg: FLConfig) -> FLConfig:
 
 
 def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
-                  test_batches, *, log=None, class_counts=None,
-                  group_spec=None, use_kernel=None,
+                  test_batches, *, latency: str = "zero", log=None,
+                  class_counts=None, group_spec=None, use_kernel=None,
                   use_local_kernel: bool = False, device=None,
                   init_params=None) -> dict:
     """parts: cfg.population per-client index arrays; get_batch(sel) ->
@@ -395,12 +482,21 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     across participants that hold g's classes.
     use_kernel: fuse through the paired_fusion kernel (None = default,
     the kernel). use_local_kernel: run the local optimizer tail through
-    the local_step kernel.
+    the local_step kernel (the tier tiles' and the async dispatch
+    groups' too).
     device: where the run computes; None = the CUDA card (raises when
     there is none).
     init_params: a params tree to start from (e.g. a reference init
     converted by ``repro_torch.convert``); None draws one from
     ``torch.Generator().manual_seed(cfg.seed)``.
+
+    ``cfg.tiers`` runs each round through the capacity-tier engine
+    (fl/capacity.py); a single width-1.0 tier runs the homogeneous
+    engine unchanged. ``cfg.mode == "async"`` routes the whole run
+    through the buffered-async driver (fl/async_engine.py): one history
+    row per fusion event, ``latency`` names its seed-deterministic
+    client-latency trace ("zero" | "pareto(a)" | "lognormal(sigma)").
+    A non-zero ``latency`` under mode='sync' is refused.
 
     Returns history {round, acc, wall, wall_total, participants,
     confusion, per_class_acc, final_params}: per round, the (C, C)
@@ -413,10 +509,23 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             f"run_federated got {len(parts)} client shards for "
             f"FLConfig.population={cfg.population}")
     cfg = one_shot_config(cfg)
+    if cfg.mode == "async":
+        from repro_torch.fl import async_engine as async_lib
+        return async_lib.run_async_federated(
+            task, cfg, parts, get_batch, test_batches, latency=latency,
+            log=log, class_counts=class_counts, group_spec=group_spec,
+            use_kernel=use_kernel, use_local_kernel=use_local_kernel,
+            device=device, init_params=init_params)
+    if latency != "zero":
+        from repro_torch.fl import async_engine as async_lib
+        async_lib.parse_latency(latency)   # helpful error for typos
+        raise ValueError(
+            "a latency trace is only meaningful with mode='async': the "
+            "sync round barrier just waits out the slowest client — "
+            "simulate its round times with "
+            "async_engine.sync_round_times instead")
     rng = np.random.default_rng(cfg.seed)
-    if init_params is None:
-        init_params = task.init_fn(torch.Generator().manual_seed(cfg.seed))
-    params = tree_map(lambda t: torch.as_tensor(t).to(device), init_params)
+    params = initial_params(task, cfg, init_params, device)
     method = methods_lib.get(cfg.method)
     sampler = population_lib.get(cfg.sampler)
     gw = None
@@ -439,10 +548,25 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                     "gauss_noise) instead")
             pop.poison = (lambda b, _a=atk, _n=task.n_classes:
                           _a.poison_batch(b, _n))
-    engine = make_round_engine(task, cfg, params, device=device,
-                               use_kernel=use_kernel,
-                               use_local_kernel=use_local_kernel,
-                               method=method)
+    tiered = None
+    if cfg.tiers is not None:
+        from repro_torch.fl import capacity as capacity_lib
+        plan = capacity_lib.TierPlan.from_mix(cfg.tiers, cfg.population,
+                                              seed=cfg.seed)
+        if not plan.trivial:      # one width-1.0 tier IS the homogeneous
+            #                       engine
+            pop.tiers = plan.assignment
+            tiered = capacity_lib.make_tiered_engine(
+                task, cfg, params, plan, device=device,
+                use_kernel=use_kernel, use_local_kernel=use_local_kernel,
+                method=method, use_gw=pop.group_weights is not None)
+    if tiered is not None:
+        engine = tiered.full
+    else:
+        engine = make_round_engine(task, cfg, params, device=device,
+                                   use_kernel=use_kernel,
+                                   use_local_kernel=use_local_kernel,
+                                   method=method)
     global_params = engine.layout.flatten(params)
     server_state = engine.init_server_state(global_params)
     pop.initialize(engine.init_client_row(global_params))
@@ -460,10 +584,16 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     for r in range(cfg.rounds):
         ids = sampler.sample(r, cfg.population, cfg.cohort_size, rng,
                              weights=pop.weights)
-        server_state, global_params = run_sampled_round(
-            engine, pop, method, server_state, global_params, ids,
-            get_batch, n_steps, cfg, rng, uniform_weights=uniform_w,
-            round_idx=r)
+        if tiered is not None:
+            from repro_torch.fl.capacity import run_tiered_round
+            server_state, global_params = run_tiered_round(
+                tiered, pop, method, server_state, global_params, ids,
+                get_batch, n_steps, cfg, rng, uniform_weights=uniform_w)
+        else:
+            server_state, global_params = run_sampled_round(
+                engine, pop, method, server_state, global_params, ids,
+                get_batch, n_steps, cfg, rng, uniform_weights=uniform_w,
+                round_idx=r)
         c = eval_engine.run(engine.layout.unflatten(global_params),
                             eval_tiles)
         counts.append(c)
@@ -473,13 +603,30 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
         if log:                    # logging opts into a per-round sync
             log(f"round {r:3d} acc "
                 f"{evaluation_lib.accuracy(c.cpu().numpy()):.4f}")
+    return close_history(history, counts, t0,
+                         engine.layout.unflatten(global_params))
+
+
+def initial_params(task: FLTask, cfg: FLConfig, init_params, device):
+    """The run's starting params tree on ``device``: ``init_params`` when
+    given, else drawn from ``torch.Generator().manual_seed(cfg.seed)``."""
+    if init_params is None:
+        init_params = task.init_fn(torch.Generator().manual_seed(cfg.seed))
+    return tree_map(lambda t: torch.as_tensor(t).to(device), init_params)
+
+
+def close_history(history: dict, counts: list, t0: float,
+                  final_params) -> dict:
+    """Read the per-row confusion counts off the device and complete a
+    run's history: confusion, per_class_acc, acc, wall_total and
+    final_params."""
     conf = [c.cpu().numpy() for c in counts]
     history["confusion"] = conf
     history["per_class_acc"] = [evaluation_lib.per_class_accuracy(c)
                                 for c in conf]
     history["acc"] = [evaluation_lib.accuracy(c) for c in conf]
     history["wall_total"] = time.time() - t0
-    history["final_params"] = engine.layout.unflatten(global_params)
+    history["final_params"] = final_params
     return history
 
 
@@ -498,6 +645,10 @@ def cnn_task(model_cfg) -> FLTask:
                 torch.ones(batch["labels"].shape, dtype=torch.float32,
                            device=logits.device))
 
+    def tier_fn(width):
+        from repro_torch.fl import capacity as capacity_lib
+        return capacity_lib.cnn_tier_model(model_cfg, width)
+
     return FLTask(
         init_fn=lambda gen: init_cnn(gen, model_cfg),
         loss_fn=lambda p, b: cnn_loss(p, model_cfg, b),
@@ -506,5 +657,6 @@ def cnn_task(model_cfg) -> FLTask:
             s, model_cfg, w),
         predict_fn=predict,
         n_classes=model_cfg.n_classes,
+        tier_fn=tier_fn,
     )
 

@@ -2,13 +2,14 @@
 
 ``ScenarioSpec`` is a frozen record pinning everything one run needs:
 the data protocol, the method, the population/cohort/sampler triple,
-the round schedule and the sync round's feature axes (attack, robust
-rule, alignment strategy, one-shot mode). Specs are registered by name
-like the federated methods: ``register`` / ``get`` / ``available()``.
-The registered specs are the reference's 20 seeded specs that run on
-the synchronous engine, field for field (the paper's protocols at
-laptop scale: synthetic class-clustered images, a width-calibrated
-reduced VGG9); its tier and async specs wait for those engines.
+the round schedule, the capacity tiers, the federation mode (sync,
+buffered async with its buffer, staleness discount and latency trace,
+or one-shot) and the sync round's feature axes (attack, robust rule,
+alignment strategy). Specs are registered by name like the federated
+methods: ``register`` / ``get`` / ``available()``. The registered specs
+are the reference's 27 seeded specs, field for field (the paper's
+protocols at laptop scale: synthetic class-clustered images, a
+width-calibrated reduced VGG9).
 
 ``run_scenario`` executes a spec end to end through ``run_federated``
 and returns a ``ConvergenceRecord``: per-round global, per-class and
@@ -46,6 +47,11 @@ class ScenarioSpec:
     "pan" or "none" (fl/alignment.py). mode="one_shot" trains the whole
     round budget locally and fuses once (fl/runtime.py
     one_shot_config).
+    tiers: capacity mix ``((width, count), ...)`` (fl/capacity.py); ()
+    = homogeneous. mode="async" runs the buffered-async driver
+    (fl/async_engine.py): rounds counts fusion events, buffer_k updates
+    fuse per event under the staleness discount, latency names the
+    client-latency trace (async only).
     """
     name: str
     summary: str
@@ -59,6 +65,7 @@ class ScenarioSpec:
     population: int = 6
     cohort_size: int | None = None
     sampler: str = "full"
+    tiers: tuple = ()
     rounds: int = 10
     local_epochs: int = 1
     steps_per_epoch: int = 6
@@ -73,6 +80,9 @@ class ScenarioSpec:
     noise: float = 0.8
     eval_batch: int = 256
     mode: str = "sync"
+    buffer_k: int | None = None
+    staleness: str = "constant"
+    latency: str = "zero"
     attack: str = ""
     attack_fraction: float = 0.0
     robust: str = ""
@@ -91,10 +101,24 @@ class ScenarioSpec:
             raise ValueError(
                 f"unknown client sampler {self.sampler!r}; available: "
                 f"{', '.join(population_lib.available())}")
+        if self.tiers:
+            from repro_torch.fl import capacity as capacity_lib
+            mix = capacity_lib.parse_tiers(self.tiers)
+            capacity_lib.validate_mix(mix, self.population)
+            object.__setattr__(self, "tiers", mix)
         if self.mode not in ("sync", "async", "one_shot"):
             raise ValueError(
                 f"ScenarioSpec.mode must be 'sync', 'async' or "
                 f"'one_shot', got {self.mode!r}")
+        from repro_torch.fl import async_engine as async_lib
+        async_lib.parse_latency(self.latency)
+        if self.mode == "async":
+            async_lib.parse_staleness(self.staleness)
+        elif self.latency != "zero":
+            raise ValueError(
+                "ScenarioSpec.latency is only meaningful with "
+                "mode='async' (the sync round barrier just waits out "
+                "the slowest client); keep it 'zero' for sync scenarios")
         if self.attack:
             from repro_torch.fl import attacks as attacks_lib
             attacks_lib.parse_attack(self.attack)
@@ -173,7 +197,9 @@ class ScenarioSpec:
                         server_lr=self.server_lr,
                         server_momentum=self.server_momentum,
                         seed=self.seed, eval_batch=self.eval_batch,
-                        mode=self.mode, attack=self.attack or None,
+                        tiers=self.tiers or None, mode=self.mode,
+                        buffer_k=self.buffer_k, staleness=self.staleness,
+                        attack=self.attack or None,
                         attack_fraction=self.attack_fraction,
                         robust=self.robust or None,
                         alignment=self.alignment)
@@ -209,7 +235,13 @@ class ConvergenceRecord:
     wall: list              # per-round host timestamps (s)
     wall_total: float
     device: str = ""
-    mode: str = "sync"
+    tiers: list = dataclasses.field(default_factory=list)
+    #                       # capacity mix [[width, count], ...]; [] =
+    #                       # homogeneous
+    mode: str = "sync"      # "async": rows are fusion EVENTS and
+    sim_time: list = dataclasses.field(default_factory=list)
+    #                       # per-event simulated clock under the spec's
+    #                       # latency trace ([] for sync runs)
     attack: str = ""        # byzantine behavior ("" = honest run)
     attack_fraction: float = 0.0
     robust: str = ""        # robust fusion rule ("" = plain fusion)
@@ -259,7 +291,8 @@ def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
 
     test_batches = [{"images": test.images, "labels": test.labels}]
     h = run_federated(cnn_task(spec.model_config()), spec.fl_config(),
-                      parts, get_batch, test_batches, log=log,
+                      parts, get_batch, test_batches, latency=spec.latency,
+                      log=log,
                       use_kernel=use_kernel,
                       use_local_kernel=use_local_kernel, device=device,
                       init_params=init_params)
@@ -278,7 +311,11 @@ def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
                           for g in range(gspec.n_groups)],
         wall=[round(float(w), 3) for w in h["wall"]],
         wall_total=round(float(h["wall_total"]), 3),
-        device=str(device), mode=spec.mode, attack=spec.attack,
+        device=str(device),
+        tiers=[[w, c] for w, c in spec.tiers] if spec.tiers else [],
+        mode=spec.mode,
+        sim_time=[round(float(t), 4) for t in h.get("sim_time", [])],
+        attack=spec.attack,
         attack_fraction=spec.attack_fraction, robust=spec.robust,
         alignment=spec.alignment)
     if outdir is not None:
@@ -314,7 +351,7 @@ def get(name: str) -> ScenarioSpec:
 
 
 # The seeded matrix: the paper's protocols at laptop scale, the
-# reference's 8 synchronous specs. One seed (0) pins every run. nxc(2)
+# reference's 8 protocol specs. One seed (0) pins every run. nxc(2)
 # is the N x C protocol of Tables 1-2 at severe skew (2 of 10 classes
 # per client), dirichlet(0.5) is Fig. 6-7's alpha; iid and quantity(0.5)
 # are the homogeneous-label controls. The per-protocol lr is the
@@ -344,6 +381,48 @@ register(ScenarioSpec(
 register(ScenarioSpec(
     name="qskew_fed2", protocol="quantity", method="fed2",
     summary="quantity-skew control (Dir(0.5) shard sizes), Fed2"))
+
+# Heterogeneous capacity (fl/capacity.py): every client trains a
+# sub-model of its tier's width, fusion is overlap-aware. fedavg slices
+# hidden channels by prefix and keeps the full head, so any width
+# works; fed2 drops WHOLE feature groups (width*G integral at G=5:
+# widths from {0.2, 0.4, 0.6, 0.8, 1.0}).
+register(ScenarioSpec(
+    name="nxc2_fedavg_tiers", protocol="nxc", method="fedavg",
+    tiers=((1.0, 2), (0.5, 2), (0.25, 2)),
+    summary="N x C skew + 1.0/0.5/0.25-width capacity tiers, FedAvg"))
+register(ScenarioSpec(
+    name="nxc2_fed2_tiers", protocol="nxc", method="fed2",
+    tiers=((1.0, 2), (0.6, 2), (0.2, 2)),
+    summary="N x C skew + group-whole 1.0/0.6/0.2 tiers, Fed2"))
+register(ScenarioSpec(
+    name="nxc2_fed2_tiers_cal", protocol="nxc", method="fed2", lr=0.02,
+    tiers=((1.0, 2), (0.6, 2), (0.2, 2)),
+    summary="N x C skew + group-whole tiers, Fed2 at calibrated lr"))
+register(ScenarioSpec(
+    name="dir05_fed2_tiers", protocol="dirichlet", method="fed2", lr=0.01,
+    tiers=((1.0, 2), (0.6, 2), (0.2, 2)),
+    summary="Dirichlet(0.5) skew + group-whole 1.0/0.6/0.2 tiers, Fed2"))
+register(ScenarioSpec(
+    name="dir05_fedavg_tiers", protocol="dirichlet", method="fedavg",
+    lr=0.01, tiers=((1.0, 2), (0.5, 2), (0.25, 2)),
+    summary="Dirichlet(0.5) skew + 1.0/0.5/0.25-width tiers, FedAvg"))
+
+# Buffered-async federation (fl/async_engine.py), the straggler regime
+# on the N x C protocol: 4 of 6 clients in flight, a fusion every 2
+# arrivals under the polynomial staleness discount, Pareto(1.5)
+# heavy-tail client latencies. Fusion events replace rounds in the
+# record.
+register(ScenarioSpec(
+    name="nxc2_fedavg_async", protocol="nxc", method="fedavg",
+    mode="async", cohort_size=4, sampler="uniform", buffer_k=2,
+    staleness="polynomial(0.5)", latency="pareto(1.5)", rounds=15,
+    summary="N x C skew, buffered-async FedAvg under Pareto stragglers"))
+register(ScenarioSpec(
+    name="nxc2_fed2_async", protocol="nxc", method="fed2",
+    mode="async", cohort_size=4, sampler="uniform", buffer_k=2,
+    staleness="polynomial(0.5)", latency="pareto(1.5)", rounds=15,
+    summary="N x C skew, buffered-async Fed2 under Pareto stragglers"))
 
 # Byzantine clients on the N x C protocol at population 10, so a 20%
 # attacker fraction is exactly 2 seed-deterministic clients

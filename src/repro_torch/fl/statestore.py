@@ -1,14 +1,27 @@
-"""Client-state storage helpers: the Walker/Vose alias table.
+"""Client-state storage helpers: the store names and the Walker/Vose
+alias table.
 
-The port's copy of ``AliasTable`` from the reference's
-``fl/statestore.py``, which ``fl/population.WeightedSampler`` draws its
-cohorts through. The table and its draws use numpy only, in the
-reference's order, so the same weights and rng give the same ids in
-both packages.
+The reference's ``fl/statestore.py`` registers two client-state stores:
+``memory`` (stacked host rows, the port's ``Population``) and ``mmap``
+(chunked on-disk shards). The port's CLI takes both names as the
+reference's does (``--store``) and refuses ``mmap``, which is not
+ported yet.
+
+``AliasTable`` is the port's copy of the reference's, which
+``fl/population.WeightedSampler`` draws its cohorts through. The table
+and its draws use numpy only, in the reference's order, so the same
+weights and rng give the same ids in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
+
+STORES = ("memory", "mmap")
+
+
+def available() -> tuple[str, ...]:
+    """The reference's client-state store names, sorted."""
+    return STORES
 
 
 class AliasTable:

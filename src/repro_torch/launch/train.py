@@ -11,7 +11,11 @@ Dir(alpha) label split in place of N x C. The sync round's feature axes
 take the JAX CLI's flags: ``--attack``/``--attack-fraction``,
 ``--robust``, ``--codec``, ``--compute-dtype``, ``--local-unroll``,
 ``--alignment`` and ``--fed-mode sync|one_shot``;
-``--list-capabilities`` prints the method x feature table.
+``--list-capabilities`` prints the method x feature table. Capacity
+tiers take ``--tiers`` (fl/capacity.py) and buffered-async federation
+``--fed-mode async`` with ``--buffer-k``, ``--staleness`` and
+``--latency`` (fl/async_engine.py). ``--store mmap`` is refused: the
+out-of-core client-state store is not ported yet.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
@@ -27,6 +31,13 @@ Examples:
       --robust 'trimmed_mean(0.25)'             # adversarial + robust
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --compute-dtype bfloat16 --use-local-kernel   # bf16 local phase
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --method fed2 --fed2-groups 5 --nodes 6 \\
+      --tiers 1.0x2,0.6x2,0.2x2                 # capacity tiers
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --method fed2 --cohort-size 4 --sampler uniform --fed-mode async \\
+      --buffer-k 2 --staleness 'polynomial(0.5)' \\
+      --latency 'pareto(1.5)'                   # buffered async
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --reduced --rounds 2 --train-size 400 --device cpu
 """
@@ -60,9 +71,13 @@ def fl_inputs(args):
     from repro_torch.data.synthetic import (dirichlet_partition,
                                             make_image_dataset,
                                             nxc_partition)
+    from repro_torch.fl import compat as compat_lib
     from repro_torch.fl import methods as methods_lib
     from repro_torch.fl.runtime import FLConfig, cnn_task
 
+    if args.store != "memory":
+        raise compat_lib.not_ported(
+            f"the {args.store!r} client-state store (--store)")
     cfg = build_model_config(args, methods_lib.get(args.method))
     ds = make_image_dataset(args.train_size, n_classes=cfg.n_classes,
                             seed=args.seed, noise=args.noise)
@@ -85,7 +100,9 @@ def fl_inputs(args):
                   local_epochs=args.local_epochs,
                   steps_per_epoch=args.steps_per_epoch,
                   batch_size=args.batch, lr=args.lr, momentum=0.9,
-                  method=args.method, seed=args.seed, mode=args.fed_mode,
+                  method=args.method, seed=args.seed,
+                  tiers=args.tiers or None, mode=args.fed_mode,
+                  buffer_k=args.buffer_k, staleness=args.staleness,
                   attack=args.attack or None,
                   attack_fraction=args.attack_fraction,
                   robust=args.robust or None,
@@ -116,7 +133,7 @@ def run_fl(args):
               f"best {rec.best_acc:.4f}")
         return rec
 
-    h = run_federated(*fl_inputs(args), log=print,
+    h = run_federated(*fl_inputs(args), latency=args.latency, log=print,
                       use_local_kernel=args.use_local_kernel, device=device)
     print("final acc:", h["acc"][-1])
     return h
@@ -130,6 +147,7 @@ def parse_args(argv=None):
     from repro_torch.fl import methods as methods_lib
     from repro_torch.fl import population as population_lib
     from repro_torch.fl import robust as robust_lib
+    from repro_torch.fl import statestore as statestore_lib
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["fl"], default="fl")
@@ -149,11 +167,34 @@ def parse_args(argv=None):
                          "= the full population")
     ap.add_argument("--sampler", default="full",
                     choices=list(population_lib.available()))
+    ap.add_argument("--store", default="memory",
+                    choices=list(statestore_lib.available()),
+                    help="client-state store backend: 'memory' stacks "
+                         "all client rows on the host; the JAX package's "
+                         "'mmap' (chunked on-disk shards) is not ported "
+                         "yet and is refused")
+    ap.add_argument("--tiers", default="",
+                    help="heterogeneous capacity tiers as <width>x<count> "
+                         "pairs summing to --nodes, e.g. "
+                         "1.0x2,0.5x2,0.25x2 (fl/capacity.py; "
+                         "group-structured methods need width*G integer)")
     ap.add_argument("--fed-mode", default="sync",
-                    choices=["sync", "one_shot"],
-                    help="'one_shot' = train the whole round budget "
-                         "locally and fuse exactly once (fl/runtime.py "
-                         "one_shot_config); 'async' is not ported yet")
+                    choices=["sync", "async", "one_shot"],
+                    help="'async' = buffered-async federation "
+                         "(fl/async_engine.py): --rounds counts fusion "
+                         "events, --cohort-size is the in-flight "
+                         "concurrency; 'one_shot' = train the whole round "
+                         "budget locally and fuse exactly once "
+                         "(fl/runtime.py one_shot_config)")
+    ap.add_argument("--buffer-k", type=int, default=None,
+                    help="async: updates fused per event (default = the "
+                         "cohort size, the sync-equivalent bound)")
+    ap.add_argument("--staleness", default="constant",
+                    help="async: staleness discount, 'constant' or "
+                         "'polynomial(a)'")
+    ap.add_argument("--latency", default="zero",
+                    help="async: seed-deterministic client-latency trace, "
+                         "'zero', 'pareto(a)' or 'lognormal(sigma)'")
     ap.add_argument("--attack", default="",
                     help="byzantine client behavior as name[(param)], "
                          "e.g. label_flip or sign_flip(4) (fl/attacks.py "

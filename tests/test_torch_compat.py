@@ -5,9 +5,10 @@ reference's (``repro.fl.compat``).
   8 methods;
 - every ``check_*_support`` refusal raises the reference's message, word
   for word, for every method;
-- ``FLConfig`` constructs iff the feature is supported, and a refusal
-  carries the reference's message; the not-yet-ported features (tiers,
-  mode='async') are refused with a message that says so;
+- ``FLConfig`` constructs iff the feature is supported (capacity tiers
+  and mode='async' included), and a refusal carries the reference's
+  message; the CLI refuses the not-yet-ported mmap client-state store
+  with a message that says so, for sync and async runs;
 - ``validate`` fires from ``FLConfig``, ``ScenarioSpec`` and
   ``make_round_engine``;
 - no module of the port outside fl/compat.py and fl/methods.py reads a
@@ -38,6 +39,8 @@ METHODS = tmethods.available()
 
 # the smallest config that turns each ported, refusing feature on
 FEATURE_KW = {
+    "tiers": dict(tiers="1.0x2,0.5x1"),
+    "async": dict(mode="async"),
     "robust": dict(robust="trimmed_mean(0.25)"),
     "codec": dict(codec="int8"),
     "bf16": dict(compute_dtype="bfloat16"),
@@ -123,14 +126,14 @@ def test_config_constructs_iff_supported(method, feature):
         assert tcompat.flag_name(feature) in got
 
 
-@pytest.mark.parametrize("kw,want", [
-    (dict(mode="async"), "mode='async' is not ported"),
-    (dict(tiers="1.0x3"), r"capacity tiers \(FLConfig.tiers\) is not "
-                          "ported"),
-])
-def test_unported_features_are_refused(kw, want):
-    with pytest.raises(ValueError, match=want):
-        _cfg(truntime, "fedavg", **kw)
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_unported_features_are_refused(mode):
+    from repro_torch.launch import train
+    assert _cfg(jruntime, "fedavg", store="mmap").store == "mmap"
+    with pytest.raises(ValueError, match=r"the 'mmap' client-state store "
+                                         r"\(--store\) is not ported"):
+        train.main(["--store", "mmap", "--fed-mode", mode, "--reduced",
+                    "--rounds", "1", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -146,6 +149,10 @@ def test_unported_features_are_refused(kw, want):
     dict(local_unroll=0),
     dict(mode="eventual"),
     dict(alignment="diagonal"),
+    dict(tiers="1.0x2"),
+    dict(tiers="1.0x3", mode="async"),
+    dict(mode="async", staleness="linear"),
+    dict(buffer_k=3),
     dict(robust="trimmed_mean(0.25)", codec="topk(0.1)"),
 ])
 def test_config_refusals_match_reference(kw):
@@ -180,7 +187,8 @@ def test_fl_config_fields_cover_the_reference_knobs():
     t = {f.name: f.default for f in dataclasses.fields(truntime.FLConfig)}
     j = {f.name: f.default for f in dataclasses.fields(jruntime.FLConfig)}
     for k in ("mode", "tiers", "attack", "attack_fraction", "robust",
-              "compute_dtype", "codec", "local_unroll", "alignment"):
+              "compute_dtype", "codec", "local_unroll", "alignment",
+              "buffer_k", "staleness"):
         assert t[k] == j[k], k
 
 

@@ -1,18 +1,19 @@
 """The port's scenario matrix (``repro_torch.fl.scenarios``) and its CLI
 (``repro_torch.launch.scenarios``) against the reference's.
 
-- The port registers the reference's 20 seeded specs that run on the
-  synchronous engine (the 8 of the paper's protocols and the 12 of the
-  sync round's feature axes: attacks, robust fusion, alignment,
-  one-shot); each spec's partition (to the bit), ``fl_config``,
-  ``protocol_label`` and model plan (and PAN scale) equal the
-  reference's.
-- Two rounds of ``dir05_fed2``, ``qskew_fedavg``,
-  ``nxc2_fed2_signflip20_trim``, ``nxc2_fedavg_flip20`` and
-  ``nxc2_fed2_oneshot`` at a small size from the reference's init
-  (converted) and the same seed: final parameters within 1e-4,
-  accuracies within one eval example, as tests/test_torch_runtime.py
-  holds ``nxc2``.
+- The port registers all 27 of the reference's seeded specs (the 8 of
+  the paper's protocols, the 12 of the sync round's feature axes:
+  attacks, robust fusion, alignment, one-shot; the 5 capacity-tier and
+  the 2 buffered-async specs); each spec's partition (to the bit),
+  ``fl_config``, ``protocol_label``, model plan (and PAN scale) and
+  tier, mode and latency fields equal the reference's.
+- Two rounds (or fusion events) of ``dir05_fed2``, ``qskew_fedavg``,
+  ``nxc2_fed2_signflip20_trim``, ``nxc2_fedavg_flip20``,
+  ``nxc2_fed2_oneshot``, ``nxc2_fedavg_tiers`` and ``nxc2_fed2_async``
+  at a small size from the reference's init (converted) and the same
+  seed: final parameters within 1e-4, accuracies within one eval
+  example, as tests/test_torch_runtime.py holds ``nxc2``; the record's
+  tiers and the async run's simulated times equal the reference's.
 - ``nxc2_fedavg_none`` builds ``nxc2_fedavg``'s model: their runs are
   equal to the bit.
 - The CLI lists the registry and writes one record per scenario.
@@ -40,6 +41,10 @@ SYNC = ("dir05_fed2", "dir05_fedavg", "dir05_fedavg_none",
         "nxc2_fedavg_none", "nxc2_fedavg_oneshot", "nxc2_fedavg_pan",
         "nxc2_fedavg_signflip20", "nxc2_fedavg_signflip20_trim",
         "nxc2_fedma", "qskew_fed2", "qskew_fedavg")
+TIERS = ("dir05_fed2_tiers", "dir05_fedavg_tiers", "nxc2_fed2_tiers",
+         "nxc2_fed2_tiers_cal", "nxc2_fedavg_tiers")
+ASYNC = ("nxc2_fed2_async", "nxc2_fedavg_async")
+ALL = tuple(sorted(SYNC + TIERS + ASYNC))
 SMALL = dict(rounds=2, train_size=240, test_size=80, steps_per_epoch=3,
              batch_size=8)
 
@@ -55,12 +60,12 @@ def _one_thread():
 
 
 def test_registry_holds_the_reference_sync_specs():
-    assert tscen.available() == SYNC
-    assert set(SYNC) <= set(jscen.available())
+    assert tscen.available() == ALL == jscen.available()
+    assert len(ALL) == 27
     assert tscen.PROTOCOLS == jscen.PROTOCOLS
 
 
-@pytest.mark.parametrize("name", SYNC)
+@pytest.mark.parametrize("name", ALL)
 def test_spec_matches_reference(name):
     t, j = tscen.get(name), jscen.get(name)
     assert (t.summary, t.protocol, t.method) == (j.summary, j.protocol,
@@ -76,7 +81,9 @@ def test_spec_matches_reference(name):
     assert t.model_config().pan == j.model_config().pan
     assert (t.model_config().fed2_groups
             == j.model_config().fed2_groups)
-    for f in ("mode", "attack", "attack_fraction", "robust", "alignment"):
+    for f in ("mode", "attack", "attack_fraction", "robust", "alignment",
+              "tiers", "buffer_k", "staleness", "latency", "cohort_size",
+              "sampler", "rounds", "lr"):
         assert getattr(t, f) == getattr(j, f), f
 
 
@@ -87,7 +94,8 @@ def test_unknown_protocol_is_refused():
 
 @pytest.mark.parametrize("name", ["dir05_fed2", "qskew_fedavg",
                                   "nxc2_fed2_signflip20_trim",
-                                  "nxc2_fedavg_flip20", "nxc2_fed2_oneshot"])
+                                  "nxc2_fedavg_flip20", "nxc2_fed2_oneshot",
+                                  "nxc2_fedavg_tiers", "nxc2_fed2_async"])
 def test_two_rounds_match_reference(name):
     tspec = tscen.get(name).override(**SMALL)
     jspec = jscen.get(name).override(**SMALL)
@@ -101,19 +109,24 @@ def test_two_rounds_match_reference(name):
         jtask, jspec.fl_config(), parts,
         lambda s: {"images": jnp.asarray(ds.images[s]),
                    "labels": jnp.asarray(ds.labels[s])}, tests, mesh=None,
-        use_kernel=False)
+        use_kernel=False, latency=jspec.latency)
     rec = tscen.run_scenario(tspec, device="cpu",
                              init_params=convert.to_port(init))
     assert rec.protocol == jspec.protocol_label()
     assert len(rec.acc) == len(hj["acc"])
     assert (rec.mode, rec.attack, rec.robust) == (tspec.mode, tspec.attack,
                                                   tspec.robust)
+    assert rec.tiers == ([[w, c] for w, c in jspec.tiers]
+                         if jspec.tiers else [])
+    assert rec.sim_time == [round(float(t), 4)
+                            for t in hj.get("sim_time", [])]
     np.testing.assert_allclose(rec.acc, hj["acc"],
                                atol=1 / SMALL["test_size"] + 1e-9)
     ht = truntime.run_federated(
         truntime.cnn_task(tspec.model_config()), tspec.fl_config(), parts,
         lambda s: {"images": ds.images[s], "labels": ds.labels[s]}, tests,
-        device="cpu", init_params=convert.to_port(init))
+        latency=tspec.latency, device="cpu",
+        init_params=convert.to_port(init))
     for a, b in zip(jax.tree_util.tree_leaves(convert.to_reference(
             ht["final_params"])), jax.tree_util.tree_leaves(
             hj["final_params"])):
@@ -140,7 +153,7 @@ def test_unaligned_fedavg_equals_nxc2_fedavg_to_the_bit():
 def test_cli_lists_the_registry(capsys):
     assert tlaunch.main(["--list"]) == []
     out = capsys.readouterr().out.splitlines()
-    assert [line.split()[0] for line in out] == list(SYNC)
+    assert [line.split()[0] for line in out] == list(ALL)
     assert "dirichlet(0.5)" in out[0]
 
 
@@ -157,7 +170,7 @@ def test_cli_runs_a_scenario_on_the_cpu(tmp_path):
 
 def test_cli_refuses_an_unknown_scenario():
     with pytest.raises(SystemExit, match="unknown scenarios"):
-        tlaunch.main(["--scenarios", "nxc2_fedavg_tiers", "--device", "cpu"])
+        tlaunch.main(["--scenarios", "nxc2_fedavg_tier", "--device", "cpu"])
 
 
 def test_default_out_is_not_the_reference_records():
