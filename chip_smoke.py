@@ -118,7 +118,21 @@ script exits non-zero:
             registered settings, counted, beside the JAX package's
             records; the async specs' sim_time equal to the records'
 21. tier and async profile  paths A and C under torch.profiler
-22. serve   Mamba-2 1.3B at full width through the serving CLI
+22. store   the client-state stores and checkpoints (TF32 off,
+            deterministic convs), counted: (a) the CLI's main path with
+            --store mmap --chunk-size 4, with and without
+            --use-local-kernel (paired_fusion 3, local_step 0 or 24),
+            each equal to its --store memory run to the bit; (b)
+            scaffold on vgg9.baseline over 100 clients at a uniform
+            cohort of 10, 8 rows a shard (13 shards, 1.40 GB on disk):
+            4 rounds through each store (equal to the bit; s/round of
+            both), then 2 rounds saving every round and a resume to 4
+            (paired_fusion 2, local_step 0) equal to the straight run to
+            the bit; shards flushed, bytes and wall time of each save;
+            (c) the reference's bench_cohort rung, fedavg at a weighted
+            cohort of 8 over 10^4 and 10^6 striped clients through the
+            mmap store: s/round and RSS (paired_fusion once a round)
+23. serve   Mamba-2 1.3B at full width through the serving CLI
             (launch/serve.py, the reference's defaults: batch 4, 32
             prompt + 16 decoded tokens): --full (ssd_update in every
             layer of every step: 48 x 48 launches) and --full
@@ -128,9 +142,9 @@ script exits non-zero:
             counted, grouped_matmul by route too, with prefill/decode
             time, tok/s, peak device memory and the parameter count,
             which must equal the reference's
-23. serve profile  a short Fed2 serve under torch.profiler: device
+24. serve profile  a short Fed2 serve under torch.profiler: device
             busy share and device time by kernel category
-24. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
+25. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
             the kernels and with the plain versions: logits and the
             final cache within the stated limits
 
@@ -143,6 +157,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -241,6 +256,23 @@ TIER_ASYNC_SCENARIOS = ("nxc2_fedavg_tiers", "nxc2_fed2_tiers",
                         "nxc2_fed2_tiers_cal", "dir05_fed2_tiers",
                         "dir05_fedavg_tiers", "nxc2_fedavg_async",
                         "nxc2_fed2_async")
+# the store phase: (a) the CLI's main path through --store mmap at 4
+# rows a shard; (b) scaffold on vgg9.baseline over 100 clients at cohort
+# 10, 8 rows a shard (13 shards, 1.40 GB of control variates on disk),
+# 4 rounds, resumed after 2; (c) the reference's bench_cohort rung
+# (benchmarks/flbench.py): fedavg on vgg9.baseline, weighted cohort of
+# 8, 4 steps of batch 16, striped parts, 4096 rows a shard, one warm and
+# 4 timed rounds at each population
+STORE_CLI_CHUNK = 4
+STORE_RESUME = ("--method", "scaffold", "--nodes", "100", "--cohort-size",
+                "10", "--sampler", "uniform", "--store", "mmap",
+                "--chunk-size", "8")
+STORE_RESUME_ROUNDS = 4
+STORE_POPULATIONS = (10_000, 1_000_000)
+STORE_RUNG = dict(cohort_size=8, sampler="weighted", local_epochs=1,
+                  steps_per_epoch=4, batch_size=16, lr=0.008, momentum=0.9,
+                  method="fedavg", seed=0, store="mmap", chunk_size=4096)
+STORE_RUNG_ROUNDS = 4
 
 
 @contextlib.contextmanager
@@ -1926,6 +1958,277 @@ def phase_tier_async_profile():
         *inputs, latency=c.latency, use_local_kernel=True, device="cuda"))
 
 
+def same_run(a, b) -> bool:
+    """Two histories with the same rounds, accuracies, per-class rows,
+    confusion counts and sampled ids, and the same final params, bit
+    for bit."""
+    from repro_torch.models.module import tree_leaves
+    keys = ("round", "acc", "per_class_acc", "confusion", "participants")
+    return all(len(a[k]) == len(b[k]) and all(
+        np.array_equal(x, y) for x, y in zip(a[k], b[k])) for k in keys) \
+        and all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["final_params"]), tree_leaves(b["final_params"])))
+
+
+@contextlib.contextmanager
+def save_probe():
+    """Records each FL checkpoint save: its round, the mmap store's
+    shards flushed (of all), the client-shard bytes it wrote and the
+    save's wall time."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.fl.statestore import MmapShardStore
+    saves = []
+    orig_save, orig_shards = (ckpt_io.save_fl_checkpoint,
+                              MmapShardStore.checkpoint_shards)
+
+    def shards(self, clients_dir, step):
+        before = dict(self._ckpt_files)
+        files = orig_shards(self, clients_dir, step)
+        fresh = {k: v for k, v in files.items() if before.get(k) != v}
+        saves[-1].update(
+            flushed=len({k.split(":")[1] for k in fresh}),
+            shards=self.n_shards,
+            bytes=sum(os.path.getsize(os.path.join(clients_dir, v))
+                      for v in fresh.values()))
+        return files
+
+    def save(path, **kw):
+        saves.append({"round": kw["round_idx"]})
+        t0 = time.perf_counter()
+        orig_save(path, **kw)
+        saves[-1]["s"] = time.perf_counter() - t0
+
+    ckpt_io.save_fl_checkpoint, MmapShardStore.checkpoint_shards = (
+        save, shards)
+    try:
+        yield saves
+    finally:
+        ckpt_io.save_fl_checkpoint = orig_save
+        MmapShardStore.checkpoint_shards = orig_shards
+
+
+def save_lines(saves):
+    for sv in saves:
+        print(f"  save after round {sv['round']}: {sv['flushed']} of "
+              f"{sv['shards']} shards flushed, "
+              f"{sv['bytes'] / 1e6:.1f} MB of client shards written, "
+              f"{sv['s']:.3f} s", flush=True)
+
+
+def phase_store_cli():
+    """(a) The CLI's main path (fed2 on vgg9.full(fed2_groups=8), 10
+    clients, 3 rounds) with --store mmap --chunk-size 4, with and
+    without --use-local-kernel, counted like the main phase; each run
+    equal to the --store memory run of the same flags to the bit."""
+    steps = steps_per_round()
+    for flag, local in (((), 0), (("--use-local-kernel",),
+                                  steps * MAIN_ROUNDS)):
+        runs = {}
+        for store in ("memory", "mmap"):
+            extra = (("--method", "fed2", "--store", store) + flag
+                     + (("--chunk-size", str(STORE_CLI_CHUNK))
+                        if store == "mmap" else ()))
+            runs[store], _ = counted(
+                " ".join(extra), lambda: cli(*extra),
+                {"paired_fusion": MAIN_ROUNDS, "local_step": local})
+        same = same_run(runs["memory"], runs["mmap"])
+        print(f"  --store mmap vs --store memory{' ' if flag else ''}"
+              f"{' '.join(flag)}: {'bit-identical' if same else 'DIFFER'}",
+              flush=True)
+        assert same, "the mmap store changed the CLI's run"
+
+
+def phase_store_resume():
+    """(b) scaffold (client control variates) on vgg9.baseline over 100
+    clients, uniform cohort of 10, mmap store at 8 rows a shard: 4
+    rounds straight through each store (s/round of both; the two runs
+    equal to the bit), then 2 rounds saving every round and a resume to
+    4, counted (paired_fusion 2, local_step 0): rounds [2, 3], accuracies
+    and final params equal to the straight run's to the bit. Each save:
+    shards flushed (every shard the first time, at most the cohort's
+    after), bytes written, wall time."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    from repro_torch.models.module import param_count, tree_leaves
+    args = train.parse_args(list(STORE_RESUME) + [
+        "--rounds", str(STORE_RESUME_ROUNDS)])
+    task, fl, parts, get_batch, test = train.fl_inputs(args)
+    init = task.init_fn(torch.Generator().manual_seed(0))
+    n_par = param_count(init)
+    shards = -(-fl.population // fl.chunk_size)
+    print(f"  scaffold, {n_par:,} params ({4 * n_par / 1e6:.2f} MB a "
+          f"client row), population {fl.population}, cohort "
+          f"{fl.cohort_size}, {fl.chunk_size} rows a shard: {shards} "
+          f"shards, {4 * n_par * fl.population / 1e9:.2f} GB of client "
+          f"state", flush=True)
+
+    def run(cfg, **kw):
+        h = run_federated(task, cfg, parts, get_batch, test, device="cuda",
+                          init_params=init, **kw)
+        finite_params(h)
+        rounds_line(h)
+        return h
+
+    straight = {}
+    for store in ("memory", "mmap"):
+        print(f"  straight, --store {store}:", flush=True)
+        straight[store] = run(dataclasses.replace(fl, store=store))
+    same = same_run(straight["memory"], straight["mmap"])
+    print(f"  straight runs, mmap vs memory store: "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    assert same, "the mmap store changed scaffold's run"
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-store-")
+    try:
+        ck = os.path.join(tmp, "ck")
+        with save_probe() as saves:
+            print("  2 rounds, saving every round:", flush=True)
+            run(dataclasses.replace(fl, rounds=2), checkpoint_dir=ck)
+            print("  resumed to 4 rounds:", flush=True)
+            resumed, _ = counted(
+                "scaffold resume, rounds 2-3",
+                lambda: run(fl, checkpoint_dir=ck, resume=True),
+                {"paired_fusion": 2, "local_step": 0})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    save_lines(saves)
+    assert [sv["round"] for sv in saves] == [1, 2, 3, 4], saves
+    assert saves[0]["flushed"] == shards
+    assert all(sv["flushed"] <= fl.cohort_size for sv in saves[1:]), saves
+    ref = straight["mmap"]
+    same = (resumed["round"] == [2, 3] and resumed["acc"] == ref["acc"][2:]
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(resumed["final_params"]),
+                tree_leaves(ref["final_params"]))))
+    print(f"  resumed rounds {resumed['round']}, accs {resumed['acc']} vs "
+          f"straight {ref['acc'][2:]}: "
+          f"{'bit-identical' if same else 'DIFFER'}", flush=True)
+    assert same, "the resumed run differs from the straight run"
+
+
+def _rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+@contextlib.contextmanager
+def rss_peak():
+    """The process's resident set, sampled every 5 ms on a thread while
+    the block runs: {"start", "end", "peak"} in MB."""
+    rec = {"start": _rss_mb()}
+    rec["peak"] = rec["start"]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.wait(0.005):
+            rec["peak"] = max(rec["peak"], _rss_mb())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield rec
+    finally:
+        stop.set()
+        t.join(timeout=5)
+        rec["end"] = _rss_mb()
+        rec["peak"] = max(rec["peak"], rec["end"])
+
+
+def phase_store_population():
+    """(c) The reference's bench_cohort rung: fedavg on vgg9.baseline,
+    one engine of cohort width 8 for every population, parts striped
+    over the CLI's 4000 images (ShardIndices.striped), the weighted
+    sampler's alias table, the mmap store (4096 rows a shard) holding
+    parts and weights on disk; one warm round, then 4 timed rounds
+    through run_sampled_round, counted (paired_fusion once a round).
+    s/round and the process's RSS over each rung; no timing is
+    asserted."""
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.fl import methods, population, statestore
+    from repro_torch.fl.engine import make_round_engine
+    from repro_torch.fl.population import Population
+    from repro_torch.fl.runtime import (FLConfig, cnn_task, initial_params,
+                                        run_sampled_round)
+    from repro_torch.launch import train
+    args = train.parse_args(["--method", "fedavg"])
+    meth, smp = methods.get("fedavg"), population.get(STORE_RUNG["sampler"])
+    task = cnn_task(train.build_model_config(args, meth))
+    ds = make_image_dataset(args.train_size, n_classes=10, seed=args.seed,
+                            noise=args.noise)
+
+    def get_batch(sel):
+        return {"images": ds.images[sel], "labels": ds.labels[sel]}
+
+    cfg0 = FLConfig(population=STORE_POPULATIONS[0],
+                    rounds=STORE_RUNG_ROUNDS, **STORE_RUNG)
+    params = initial_params(task, cfg0, None, "cuda")
+    engine = make_round_engine(task, cfg0, params, device="cuda",
+                               method=meth)
+    steps = cfg0.local_epochs * cfg0.steps_per_epoch
+
+    def rung(n_pop):
+        """Set-up and warm round, then the timed rounds: (set-up s,
+        timed s)."""
+        t_set = time.perf_counter()
+        fl = FLConfig(population=n_pop, rounds=STORE_RUNG_ROUNDS,
+                      **STORE_RUNG)
+        pop = Population.from_parts(statestore.ShardIndices.striped(
+            len(ds.labels), n_pop))
+        pop.use_store(statestore.get("mmap", chunk_size=fl.chunk_size))
+        try:
+            gp = engine.layout.flatten(params)
+            state = [engine.init_server_state(gp), gp]
+            pop.initialize(engine.init_client_row(gp), engine.layout)
+            rng = np.random.default_rng(0)
+
+            def one_round(r):
+                ids = smp.sample(r, n_pop, fl.cohort_size, rng,
+                                 weights=pop.weights)
+                state[:] = run_sampled_round(
+                    engine, pop, meth, state[0], state[1], ids, get_batch,
+                    steps, fl, rng, uniform_weights=True, round_idx=r)
+
+            one_round(0)
+            torch.cuda.synchronize()
+            set_up = time.perf_counter() - t_set
+
+            def timed():
+                t0 = time.perf_counter()
+                for r in range(1, STORE_RUNG_ROUNDS + 1):
+                    one_round(r)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            dt, _ = counted(f"population {n_pop:,}", timed,
+                            {"paired_fusion": STORE_RUNG_ROUNDS})
+            assert bool(torch.isfinite(state[1]).all()), "non-finite global"
+        finally:
+            pop.store.close()
+        return set_up, dt
+
+    for n_pop in STORE_POPULATIONS:
+        with rss_peak() as rss:
+            set_up, dt = rung(n_pop)
+        print(f"  population {n_pop:,}: {dt / STORE_RUNG_ROUNDS:.4f} "
+              f"s/round over {STORE_RUNG_ROUNDS} rounds (set-up and warm "
+              f"round {set_up:.2f} s); RSS {rss['start']:.0f} -> "
+              f"{rss['end']:.0f} MB, peak {rss['peak']:.0f} MB "
+              f"(+{rss['peak'] - rss['start']:.0f} MB over the rung, "
+              f"sampled every 5 ms)", flush=True)
+
+
+def phase_store():
+    phase_store_cli()
+    phase_store_resume()
+    phase_store_population()
+
+
 def free_device_memory():
     gc.collect()
     torch.cuda.empty_cache()
@@ -2163,6 +2466,10 @@ def main() -> int:
         phase_tier_async_scenarios()
     with phase("tier and async profile"):
         phase_tier_async_profile()
+    free_device_memory()
+    with phase("store (TF32 off, deterministic convs)"), tf32_off(), \
+            deterministic_convs():
+        phase_store()
     free_device_memory()
     with phase("serve"):
         serve_counts = phase_serve()

@@ -11,6 +11,19 @@ The reference's trees come in as numpy arrays (callers turn jax arrays
 into numpy first), so a run of the port can start from exactly the
 reference's initial parameters (``run_federated(init_params=...)``).
 
+Stacked trees (``stacked_to_reference``, ``stacked_to_port``): client
+rows stacked on a leading axis, whose conv leaves are 5-D ``(P, k, k,
+c_in/g, c_out)`` in the reference and ``(P, c_out, c_in/g, k, k)`` in
+the port.
+
+Flat state (``flat_to_reference``, ``flat_from_reference``): the port
+keeps the global params, the method's server state and the client rows
+as flat vectors of a ``FlatLayout`` (``(M,)``, or ``(P, M)`` rows); the
+reference keeps each as a params tree. These two map a port state tree
+onto the reference's and back, leaf for leaf, so a checkpoint holds the
+reference's arrays under the reference's keys
+(``repro_torch.checkpoint.io``).
+
 LMs (``lm_to_port``, ``lm_to_reference``): every leaf keeps its layout
 and its own dtype. An LM tree mixes dtypes (a full-width Mamba-2 keeps
 its weights in bf16 but ``a_log``, ``dt_bias`` and ``d_skip`` in fp32),
@@ -46,6 +59,99 @@ def to_reference(tree):
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0)
                                     if a.ndim == 4 else a)
     return tree_map(one, tree)
+
+
+def _conv_perm(lead: int, to_reference: bool) -> tuple:
+    """The transpose of a conv leaf behind ``lead`` stacked axes: OIHW ->
+    HWIO, or back."""
+    o, i, h, w = range(lead, lead + 4)
+    tail = (h, w, i, o) if to_reference else (lead + 3, lead + 2, lead,
+                                              lead + 1)
+    return tuple(range(lead)) + tail
+
+
+def _host(x) -> np.ndarray:
+    """A leaf as a numpy array (torch tensors copied off the device;
+    CPU tensors viewed)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def stacked_to_reference(tree):
+    """Port client rows (torch or numpy, leaves (P, ...), convs
+    (P, O, I, H, W)) -> the reference's stacked layout (numpy, convs
+    (P, H, W, I, O)). Leaves come back as views where no copy off the
+    device is needed."""
+    perm = _conv_perm(1, True)
+
+    def one(t):
+        a = _host(t)
+        return a.transpose(perm) if a.ndim == 5 else a
+    return tree_map(one, tree)
+
+
+def stacked_to_port(tree, *, device=None, dtype=torch.float32):
+    """Reference stacked rows (numpy, convs (P, H, W, I, O)) -> the
+    port's (torch, convs (P, O, I, H, W))."""
+    perm = _conv_perm(1, False)
+
+    def one(a):
+        a = np.asarray(a)
+        if a.ndim == 5:
+            a = a.transpose(perm)
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device)
+    return tree_map(one, tree)
+
+
+def _is_flat(x, layout) -> bool:
+    """A leaf whose last axis is the layout's M: a flat params vector,
+    or stacked rows of them."""
+    return (layout is not None and np.ndim(x) >= 1
+            and np.shape(x)[-1] == layout.size)
+
+
+def flat_to_reference(tree, layout):
+    """A port state tree -> the reference's layout, as numpy. A flat
+    leaf (``(M,)`` or ``(P, M)`` over ``layout``) becomes the params tree
+    it flattens, in the reference's layout (``to_reference``, or
+    ``stacked_to_reference`` for rows); any other leaf (fedadam's step
+    count) passes as numpy. ``layout`` None: every leaf as numpy."""
+    def one(x):
+        if not _is_flat(x, layout):
+            return _host(x)
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.asarray(x))
+        params = layout.unflatten(t)
+        return (to_reference(params) if t.dim() == 1
+                else stacked_to_reference(params))
+    return tree_map(one, tree)
+
+
+def flat_from_reference(ref, like, layout):
+    """``flat_to_reference`` inverted, into the structure of ``like`` (a
+    port state tree): each flat leaf of ``like`` is rebuilt from its
+    params subtree in ``ref``; other leaves from their arrays. Leaves
+    come back as ``like``'s are: torch tensors on its device and of its
+    dtype (flat ones in a buffer of the layout's row stride), or
+    numpy."""
+    def one(x, r):
+        as_torch = isinstance(x, torch.Tensor)
+        if not _is_flat(x, layout):
+            a = np.asarray(r, dtype=_host(x).dtype)
+            return torch.as_tensor(a).to(x.device) if as_torch else a
+        lead = tuple(np.shape(x)[:-1])
+        dtype = (x.dtype if as_torch
+                 else torch.from_numpy(np.zeros(0, np.asarray(x).dtype)).dtype)
+        params = (to_port(r, dtype=dtype) if not lead
+                  else stacked_to_port(r, dtype=dtype))
+        if as_torch:
+            return layout.flatten(params, out=layout.alloc(
+                lead, device=x.device, dtype=dtype))
+        out = torch.empty(lead + (layout.size,), dtype=dtype)
+        return layout.flatten(params, out=out).numpy()
+    return tree_map(one, like, ref)
 
 
 def _np_to_torch(a, device):

@@ -471,6 +471,29 @@ def run_async_federated(task, cfg, parts, get_batch, test_batches, *,
     rng = np.random.default_rng(cfg.seed)
     params = initial_params(task, cfg, init_params, device)
     pop = Population.from_parts(parts)
+    # async-eligible methods are stateless-client (check_async_support),
+    # so the store only ever holds the aux arrays here: with
+    # store="mmap" parts and weights come off read-only memory maps and
+    # a dispatch reads just its clients' rows
+    from repro_torch.fl import statestore as statestore_lib
+    pop.use_store(statestore_lib.get(cfg.store, chunk_size=cfg.chunk_size))
+    try:
+        return _async_run(task, cfg, pop, sampler, trace, policy, rng,
+                          params, get_batch, test_batches, log=log,
+                          use_kernel=use_kernel,
+                          use_local_kernel=use_local_kernel, method=method,
+                          device=device)
+    finally:
+        pop.store.close()
+
+
+def _async_run(task, cfg, pop, sampler, trace, policy, rng, params,
+               get_batch, test_batches, *, log, use_kernel,
+               use_local_kernel, method, device) -> dict:
+    """``run_async_federated`` once its population holds its store: the
+    engine, the event loop and the history."""
+    from repro_torch.fl.runtime import close_history
+
     engine = make_async_engine(task, cfg, params, device=device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,

@@ -21,8 +21,6 @@ flags are read in exactly one place:
   hit identical refusals.
 - ``capability_matrix()`` / ``capability_table()``: what
   ``launch/train.py --list-capabilities`` prints.
-- ``not_ported(what)``: the refusal of a knob the JAX package has and
-  the port does not run yet (the mmap client-state store).
 """
 from __future__ import annotations
 
@@ -216,13 +214,6 @@ def check_one_shot_support(method: FedMethod) -> None:
 # ---------------------------------------------------------------------------
 # The single eligibility entry point
 # ---------------------------------------------------------------------------
-
-
-def not_ported(what: str) -> ValueError:
-    return ValueError(
-        f"{what} is not ported to repro_torch yet (the out-of-core "
-        "statestore comes in a later slice); run the JAX package for "
-        "it, or keep the in-memory store")
 
 
 def validate(cfg, method: FedMethod) -> None:

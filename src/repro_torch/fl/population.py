@@ -2,10 +2,13 @@
 
 - ``Population``: the P logical clients: per-client shard indices,
   sample-count weights, optional (P, G) presence weights, and the
-  persistent per-client method state, kept host-side as stacked
-  (P, ...) numpy rows outside the round; when the whole population
-  is one cohort in natural order the runtime keeps it on the device
-  instead (``clients`` then holds the engine's device tensors).
+  persistent per-client method state, held by a ``ClientStateStore``
+  (fl/statestore.py) outside the round. The default ``InMemoryStore``
+  keeps stacked (P, ...) numpy rows; ``MmapShardStore`` keeps the
+  population on disk and the host at O(cohort). When the whole
+  population is one cohort in natural order and the store is in
+  memory, the runtime keeps the state on the device instead
+  (``clients`` then holds the engine's device tensors).
 - ``ClientSampler``: which client ids train in round r, registered by
   name like the federated methods: ``register`` / ``get`` /
   ``available()``.
@@ -24,20 +27,22 @@ from typing import Any
 
 import numpy as np
 
-from repro_torch.models.module import tree_map
-
 
 @dataclasses.dataclass
 class Population:
     """The P logical clients behind a federated run.
 
-    parts: per-client sample index arrays (the data shards).
+    parts: per-client sample index arrays (the data shards): a list of P
+    arrays or a ``statestore.ShardIndices`` (flat + offsets, the form
+    out-of-core stores map from disk).
     weights: (P,) float64 sample counts, floored at 1 (the fusion
-    weights before per-cohort renormalization).
+    weights before per-cohort renormalization). May be a read-only
+    memory map after ``use_store`` offloads it.
     group_weights: optional (P, G) presence weights for fed2's non-IID
     refinement (rows gathered per cohort).
-    clients: the stacked (P, ...) client-state tree as numpy arrays
-    (() for stateless methods).
+    store: the ``ClientStateStore`` holding the per-client method state,
+    an ``InMemoryStore`` by default. ``clients`` is its stacked-tree
+    view (in-memory stores only).
     malicious: optional (P,) bool attacker mask by client id
     (``attacks.assign_attackers``); sampling, tiling and gather index it
     by id, so the flagged set holds under every participation pattern.
@@ -46,19 +51,34 @@ class Population:
     honest runs).
     tiers: optional (P,) int tier index per client, the capacity class
     each logical client trains (fl/capacity.py ``TierPlan.assignment``);
-    None for homogeneous runs."""
-    parts: list
+    None for homogeneous runs.
+
+    ``gather`` and ``scatter`` go to the store directly. The JAX package
+    routes them through ``FedMethod.gather_client_state`` /
+    ``scatter_client_state`` hooks, which no method overrides there or
+    here: every port method's client state is plain flat rows."""
+    parts: Any
     weights: np.ndarray
     group_weights: np.ndarray | None = None
-    clients: Any = ()
+    store: Any = None
     malicious: np.ndarray | None = None
     poison: Any = None
     tiers: np.ndarray | None = None
 
+    def __post_init__(self):
+        if self.store is None:
+            from repro_torch.fl import statestore
+            self.store = statestore.InMemoryStore()
+
     @classmethod
     def from_parts(cls, parts, group_weights=None) -> "Population":
-        parts = list(parts)
-        weights = np.maximum([len(p) for p in parts], 1).astype(np.float64)
+        from repro_torch.fl import statestore
+        if isinstance(parts, statestore.ShardIndices):
+            weights = np.maximum(parts.lengths(), 1).astype(np.float64)
+        else:
+            parts = list(parts)
+            weights = np.maximum([len(p) for p in parts],
+                                 1).astype(np.float64)
         gw = (None if group_weights is None
               else np.asarray(group_weights, np.float64))
         return cls(parts=parts, weights=weights, group_weights=gw)
@@ -67,27 +87,37 @@ class Population:
     def size(self) -> int:
         return len(self.parts)
 
-    def initialize(self, row) -> None:
-        """Broadcast ONE client's round-0 state row to all P clients."""
-        self.clients = tree_map(
-            lambda a: np.array(np.broadcast_to(
-                np.asarray(a)[None], (self.size,) + np.shape(a))), row)
+    @property
+    def clients(self) -> Any:
+        """The full stacked (P, ...) state tree, served by the store
+        (out-of-core stores refuse: gather rows)."""
+        return self.store.tree
+
+    @clients.setter
+    def clients(self, stacked) -> None:
+        self.store.adopt(stacked)
+
+    def use_store(self, store) -> None:
+        """Swap in a ClientStateStore and let it take over the
+        population-wide storage it owns (out-of-core stores also offload
+        parts/weights/presence rows to disk)."""
+        self.store = store
+        store.offload_aux(self)
+
+    def initialize(self, row, layout=None) -> None:
+        """Broadcast ONE client's round-0 state row to all P clients
+        (``layout``: the engine's FlatLayout of flat rows)."""
+        self.store.initialize(row, self.size, layout)
 
     def gather(self, ids):
         """Sampled clients' state rows -> cohort-slot stacked arrays."""
-        ids = np.asarray(ids)
-        return tree_map(lambda a: a[ids], self.clients)
+        return self.store.gather(np.asarray(ids))
 
     def scatter(self, ids, new_states) -> None:
-        """Write cohort slots (the engine's device tensors) back to the
-        sampled clients' host rows; the others keep their state."""
-        ids = np.asarray(ids)
-
-        def put(a, new):
-            a[ids] = new.cpu().numpy()
-            return a
-
-        self.clients = tree_map(put, self.clients, new_states)
+        """Write cohort slots (numpy, or the engine's device tensors)
+        back to the sampled clients' rows; the others keep their
+        state."""
+        self.store.scatter(np.asarray(ids), new_states)
 
 
 class ClientSampler:

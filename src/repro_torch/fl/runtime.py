@@ -8,14 +8,17 @@ which a cohort of ``cfg.cohort_size`` slots trains at once. Per round:
     state, global <- engine.run_round(state, global, batches, w[ids])
     population.scatter(ids, state)             # slots -> rows
 
-When the whole population is one cohort in natural order, client state
-needs no slot remapping and stays on the device across rounds; otherwise
-it is gathered from and scattered to host rows. When the participants
-exceed one cohort, the round runs as several engine tiles whose fusion
-results accumulate in a running weighted sum, unbiased because each
-tile's fuse is a weighted mean renormalized over its participants
-(host-fusion methods keep each tile's stacked params and fuse them once
-at the end of the round).
+Client state lives in the population's store (fl/statestore.py,
+``cfg.store``): stacked host rows (``memory``) or chunked memory-mapped
+shards on disk (``mmap``, O(cohort) host memory). When the whole
+population is one cohort in natural order and the store is in memory,
+client state needs no slot remapping and stays on the device across
+rounds; otherwise it is gathered from and scattered to host rows. When
+the participants exceed one cohort, the round runs as several engine
+tiles whose fusion results accumulate in a running weighted sum,
+unbiased because each tile's fuse is a weighted mean renormalized over
+its participants (host-fusion methods keep each tile's stacked params
+and fuse them once at the end of the round).
 
 Batches are drawn host-side from one numpy ``default_rng(cfg.seed)`` in
 the reference's order (sampler, then per tile: padding, then one
@@ -40,6 +43,12 @@ width-1.0 tier is the homogeneous engine and runs it unchanged.
 ``mode="async"`` routes the whole run through the buffered-async driver
 (fl/async_engine.py): one history row per fusion event.
 
+``run_federated(checkpoint_dir=...)`` saves the resumable run state
+(global params, server state, client state, the host rng) in the JAX
+package's checkpoint format (checkpoint/io.py), converted from the flat
+state to the reference's params trees; ``resume=True`` continues a run
+from it to the bit, and either package resumes the other's checkpoint.
+
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device named, ``run_federated``
 raises rather than falling back.
@@ -53,6 +62,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import convert
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import fusion as fusion_lib
 from repro_torch.fl import evaluation as evaluation_lib
 from repro_torch.fl import methods as methods_lib
@@ -92,6 +103,12 @@ class FLConfig:
     server_momentum: float = 0.9
     seed: int = 0
     eval_batch: int = 512
+    # client-state storage (fl/statestore.py): "memory" keeps stacked
+    # (P, ...) host rows (O(P) RAM); "mmap" keeps the population on disk
+    # as chunk_size-row mmap shards (O(cohort) RAM, incremental
+    # checkpoints)
+    store: str = "memory"
+    chunk_size: int = 1024
     # heterogeneous capacity (fl/capacity.py): per-tier (width, client
     # count) pairs, "1.0x2,0.5x2,0.25x2" or a tuple of pairs; None/() =
     # homogeneous. Counts must sum to the population.
@@ -133,6 +150,17 @@ class FLConfig:
             raise ValueError(
                 f"unknown client sampler {self.sampler!r}; available: "
                 f"{', '.join(population_lib.available())}")
+        from repro_torch.fl import statestore as statestore_lib
+        if self.store not in statestore_lib.available():
+            raise ValueError(
+                f"unknown client-state store {self.store!r}; available: "
+                f"{', '.join(statestore_lib.available())}")
+        if (not isinstance(self.chunk_size, int)
+                or isinstance(self.chunk_size, bool)
+                or self.chunk_size <= 0):
+            raise ValueError(
+                f"FLConfig.chunk_size must be a positive int (rows per "
+                f"client-state shard), got {self.chunk_size!r}")
         if self.cohort_size is None:
             object.__setattr__(self, "cohort_size", self.population)
         for field in ("rounds", "population", "cohort_size", "batch_size",
@@ -390,8 +418,11 @@ def run_sampled_round(engine, pop: Population, method, server_state,
         _, w, gw, batches = tile_inputs(ids)
         mal = _malicious_inputs(engine, pop, ids, C, cfg, round_idx)
         # the whole population in one cohort in natural order: client
-        # state needs no slot remapping, so it stays on the device
-        whole = C == pop.size and np.array_equal(ids, np.arange(C))
+        # state needs no slot remapping, so it stays on the device.
+        # Out-of-core stores opt out (store.in_memory): their state
+        # stays on their shards
+        whole = (C == pop.size and pop.store.in_memory
+                 and np.array_equal(ids, np.arange(C)))
         state = {"server": server_state,
                  "clients": pop.clients if whole else pop.gather(ids)}
         state, new_global = engine.run_round(state, global_params, batches,
@@ -472,10 +503,11 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                   test_batches, *, latency: str = "zero", log=None,
                   class_counts=None, group_spec=None, use_kernel=None,
                   use_local_kernel: bool = False, device=None,
-                  init_params=None) -> dict:
-    """parts: cfg.population per-client index arrays; get_batch(sel) ->
-    batch dict of numpy arrays; test_batches: list of such dicts for the
-    global eval.
+                  init_params=None, checkpoint_dir=None,
+                  checkpoint_every: int = 1, resume: bool = False) -> dict:
+    """parts: cfg.population per-client index arrays (or a
+    ``statestore.ShardIndices``); get_batch(sel) -> batch dict of numpy
+    arrays; test_batches: list of such dicts for the global eval.
 
     class_counts (population, C) + group_spec enable Eq. 19's non-IID
     refinement for group-structured methods (fed2): group g fuses only
@@ -495,8 +527,18 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     engine unchanged. ``cfg.mode == "async"`` routes the whole run
     through the buffered-async driver (fl/async_engine.py): one history
     row per fusion event, ``latency`` names its seed-deterministic
-    client-latency trace ("zero" | "pareto(a)" | "lognormal(sigma)").
-    A non-zero ``latency`` under mode='sync' is refused.
+    client-latency trace ("zero" | "pareto(a)" | "lognormal(sigma)"),
+    and checkpointing is refused. A non-zero ``latency`` under
+    mode='sync' is refused.
+
+    checkpoint_dir: save the resumable run state (global params, server
+    state, the population's client state, the host rng) after every
+    ``checkpoint_every``-th round and after the last; with
+    ``resume=True`` an existing checkpoint restores it and the loop
+    continues from the saved round, equal to the uninterrupted run to
+    the bit (the history then covers only the resumed rounds; resuming
+    a finished run trains nothing and reports one eval of the restored
+    model). Without a checkpoint there, the run starts fresh.
 
     Returns history {round, acc, wall, wall_total, participants,
     confusion, per_class_acc, final_params}: per round, the (C, C)
@@ -511,6 +553,12 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     cfg = one_shot_config(cfg)
     if cfg.mode == "async":
         from repro_torch.fl import async_engine as async_lib
+        if checkpoint_dir or resume:
+            raise ValueError(
+                "checkpointing is not supported with mode='async': the "
+                "resumable state would have to capture the in-flight "
+                "dispatch buffer (DESIGN.md §12); run mode='sync' or "
+                "drop checkpoint_dir/resume")
         return async_lib.run_async_federated(
             task, cfg, parts, get_batch, test_batches, latency=latency,
             log=log, class_counts=class_counts, group_spec=group_spec,
@@ -524,6 +572,14 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             "sync round barrier just waits out the slowest client — "
             "simulate its round times with "
             "async_engine.sync_round_times instead")
+    if checkpoint_dir and (not isinstance(checkpoint_every, int)
+                           or isinstance(checkpoint_every, bool)
+                           or checkpoint_every < 1):
+        raise ValueError(
+            f"checkpoint_every must be a positive int (rounds between "
+            f"saves; the final round always saves), got "
+            f"{checkpoint_every!r}")
+    from repro_torch.fl import statestore as statestore_lib
     rng = np.random.default_rng(cfg.seed)
     params = initial_params(task, cfg, init_params, device)
     method = methods_lib.get(cfg.method)
@@ -533,6 +589,25 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             and group_spec is not None:
         gw = fusion_lib.presence_group_weights(class_counts, group_spec)
     pop = Population.from_parts(parts, group_weights=gw)
+    pop.use_store(statestore_lib.get(cfg.store, chunk_size=cfg.chunk_size))
+    try:
+        return _sync_rounds(task, cfg, pop, method, sampler, params,
+                            get_batch, test_batches, rng, log=log,
+                            use_kernel=use_kernel,
+                            use_local_kernel=use_local_kernel,
+                            device=device, checkpoint_dir=checkpoint_dir,
+                            checkpoint_every=checkpoint_every,
+                            resume=resume)
+    finally:
+        pop.store.close()      # out-of-core stores drop their shards
+
+
+def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
+                 test_batches, rng, *, log, use_kernel, use_local_kernel,
+                 device, checkpoint_dir, checkpoint_every, resume) -> dict:
+    """``run_federated``'s sync run once its population holds its store:
+    attackers, engines, state (restored from a checkpoint on resume),
+    the round loop with its saves, and the history."""
     if cfg.attack is not None:
         from repro_torch.fl import attacks as attacks_lib
         atk = attacks_lib.parse_attack(cfg.attack).build()
@@ -567,21 +642,40 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                                    use_kernel=use_kernel,
                                    use_local_kernel=use_local_kernel,
                                    method=method)
-    global_params = engine.layout.flatten(params)
+    layout = engine.layout
+    global_params = layout.flatten(params)
     server_state = engine.init_server_state(global_params)
-    pop.initialize(engine.init_client_row(global_params))
+    pop.initialize(engine.init_client_row(global_params), layout)
 
     eval_engine = evaluation_lib.make_eval_engine(task.predict_fn,
                                                   task.n_classes)
     eval_tiles = evaluation_lib.stage(test_batches, tile=cfg.eval_batch,
                                       device=device)
 
+    start_round = 0
+    if checkpoint_dir and resume and ckpt_io.checkpoint_exists(
+            checkpoint_dir):
+        start_round, global_params, server_state = restore_run(
+            checkpoint_dir, layout, global_params, server_state, pop, rng)
+    already_complete = start_round >= cfg.rounds
+
     history = {"round": [], "acc": [], "wall": [], "participants": []}
     n_steps = cfg.local_epochs * cfg.steps_per_epoch
     counts = []                    # device tensors; read after the loop
     t0 = time.time()
     uniform_w = sampler.fusion_weights == "uniform"
-    for r in range(cfg.rounds):
+
+    def eval_and_record(r, participants):
+        """Evaluate the current global and append one history row (the
+        round loop's and the finished run's resume tail's)."""
+        c = eval_engine.run(layout.unflatten(global_params), eval_tiles)
+        counts.append(c)
+        history["round"].append(r)
+        history["participants"].append(participants)
+        history["wall"].append(time.time() - t0)
+        return c
+
+    for r in range(start_round, cfg.rounds):
         ids = sampler.sample(r, cfg.population, cfg.cohort_size, rng,
                              weights=pop.weights)
         if tiered is not None:
@@ -594,17 +688,56 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                 engine, pop, method, server_state, global_params, ids,
                 get_batch, n_steps, cfg, rng, uniform_weights=uniform_w,
                 round_idx=r)
-        c = eval_engine.run(engine.layout.unflatten(global_params),
-                            eval_tiles)
-        counts.append(c)
-        history["round"].append(r)
-        history["participants"].append(np.asarray(ids))
-        history["wall"].append(time.time() - t0)
+        if checkpoint_dir and ((r + 1) % checkpoint_every == 0
+                               or r == cfg.rounds - 1):
+            save_run(checkpoint_dir, r + 1, layout, global_params,
+                     server_state, pop, rng)
+        c = eval_and_record(r, np.asarray(ids))
         if log:                    # logging opts into a per-round sync
             log(f"round {r:3d} acc "
                 f"{evaluation_lib.accuracy(c.cpu().numpy()):.4f}")
+    if already_complete:
+        # resuming a finished run: nothing to train, but callers index
+        # h["acc"][-1], so report one eval of the restored model
+        eval_and_record(cfg.rounds - 1, np.asarray([], np.int64))
     return close_history(history, counts, t0,
-                         engine.layout.unflatten(global_params))
+                         layout.unflatten(global_params))
+
+
+def save_run(path, round_idx, layout, global_params, server_state, pop,
+             rng) -> None:
+    """One FL checkpoint after ``round_idx`` rounds, in the JAX
+    package's format: the flat global params and server state as the
+    reference's params trees, the client state as the store's shards
+    (incremental stores) or as one stacked tree. A device-resident
+    client stack (the whole-population fast path) is copied to the host
+    for the save and stays where it is."""
+    ckpt_io.save_fl_checkpoint(
+        path, round_idx=round_idx,
+        global_params=convert.flat_to_reference(global_params, layout),
+        server_state=convert.flat_to_reference(server_state, layout),
+        client_state=(pop.store if pop.store.incremental else
+                      convert.flat_to_reference(pop.clients, layout)),
+        rng=rng)
+
+
+def restore_run(path, layout, global_params, server_state, pop, rng):
+    """Restore a ``save_run`` checkpoint (or the JAX package's) into a
+    run built for it: ``pop``'s client state and ``rng``'s state in
+    place. Returns (round_idx, global_params, server_state) as the run's
+    flat tensors."""
+    like_clients = (convert.flat_to_reference(pop.clients, layout)
+                    if pop.store.in_memory else None)
+    step, glob, server, clients, rng_state = ckpt_io.load_fl_checkpoint(
+        path, like_global=convert.flat_to_reference(global_params, layout),
+        like_server=convert.flat_to_reference(server_state, layout),
+        like_clients=like_clients, store=pop.store)
+    if clients is not None:    # incremental stores restore their shards
+        pop.clients = convert.flat_from_reference(clients, pop.clients,
+                                                  layout)
+    rng.bit_generator.state = rng_state
+    return (step, convert.flat_from_reference(glob, global_params, layout),
+            convert.flat_from_reference(server, server_state, layout))
 
 
 def initial_params(task: FLTask, cfg: FLConfig, init_params, device):

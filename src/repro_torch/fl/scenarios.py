@@ -43,6 +43,10 @@ class ScenarioSpec:
     attack/attack_fraction/robust: byzantine clients (fl/attacks.py) on
     a seed-deterministic share of the population, and the robust fusion
     rule (fl/robust.py). Empty = honest run / plain fusion.
+    store/chunk_size: the client-state store (fl/statestore.py):
+    ``memory`` stacks every client's rows on the host; ``mmap`` keeps
+    them in chunk_size-row shards on disk. Either store gives the same
+    history to the bit.
     alignment: "grouped" (the method's own structural declaration),
     "pan" or "none" (fl/alignment.py). mode="one_shot" trains the whole
     round budget locally and fuses once (fl/runtime.py
@@ -79,6 +83,8 @@ class ScenarioSpec:
     test_size: int = 400
     noise: float = 0.8
     eval_batch: int = 256
+    store: str = "memory"
+    chunk_size: int = 1024
     mode: str = "sync"
     buffer_k: int | None = None
     staleness: str = "constant"
@@ -106,6 +112,11 @@ class ScenarioSpec:
             mix = capacity_lib.parse_tiers(self.tiers)
             capacity_lib.validate_mix(mix, self.population)
             object.__setattr__(self, "tiers", mix)
+        from repro_torch.fl import statestore as statestore_lib
+        if self.store not in statestore_lib.available():
+            raise ValueError(
+                f"unknown client-state store {self.store!r}; available: "
+                f"{', '.join(statestore_lib.available())}")
         if self.mode not in ("sync", "async", "one_shot"):
             raise ValueError(
                 f"ScenarioSpec.mode must be 'sync', 'async' or "
@@ -197,6 +208,7 @@ class ScenarioSpec:
                         server_lr=self.server_lr,
                         server_momentum=self.server_momentum,
                         seed=self.seed, eval_batch=self.eval_batch,
+                        store=self.store, chunk_size=self.chunk_size,
                         tiers=self.tiers or None, mode=self.mode,
                         buffer_k=self.buffer_k, staleness=self.staleness,
                         attack=self.attack or None,

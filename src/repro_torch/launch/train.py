@@ -14,8 +14,9 @@ take the JAX CLI's flags: ``--attack``/``--attack-fraction``,
 ``--list-capabilities`` prints the method x feature table. Capacity
 tiers take ``--tiers`` (fl/capacity.py) and buffered-async federation
 ``--fed-mode async`` with ``--buffer-k``, ``--staleness`` and
-``--latency`` (fl/async_engine.py). ``--store mmap`` is refused: the
-out-of-core client-state store is not ported yet.
+``--latency`` (fl/async_engine.py). ``--store mmap`` keeps the
+client state in ``--chunk-size``-row shards on disk
+(fl/statestore.py), in sync and async runs.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
@@ -38,6 +39,9 @@ Examples:
       --method fed2 --cohort-size 4 --sampler uniform --fed-mode async \\
       --buffer-k 2 --staleness 'polynomial(0.5)' \\
       --latency 'pareto(1.5)'                   # buffered async
+  PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
+      --method fedavg --nodes 100000 --cohort-size 8 --sampler weighted \\
+      --store mmap --chunk-size 4096            # client state on disk
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --reduced --rounds 2 --train-size 400 --device cpu
 """
@@ -71,13 +75,9 @@ def fl_inputs(args):
     from repro_torch.data.synthetic import (dirichlet_partition,
                                             make_image_dataset,
                                             nxc_partition)
-    from repro_torch.fl import compat as compat_lib
     from repro_torch.fl import methods as methods_lib
     from repro_torch.fl.runtime import FLConfig, cnn_task
 
-    if args.store != "memory":
-        raise compat_lib.not_ported(
-            f"the {args.store!r} client-state store (--store)")
     cfg = build_model_config(args, methods_lib.get(args.method))
     ds = make_image_dataset(args.train_size, n_classes=cfg.n_classes,
                             seed=args.seed, noise=args.noise)
@@ -103,6 +103,7 @@ def fl_inputs(args):
                   method=args.method, seed=args.seed,
                   tiers=args.tiers or None, mode=args.fed_mode,
                   buffer_k=args.buffer_k, staleness=args.staleness,
+                  store=args.store, chunk_size=args.chunk_size,
                   attack=args.attack or None,
                   attack_fraction=args.attack_fraction,
                   robust=args.robust or None,
@@ -170,9 +171,11 @@ def parse_args(argv=None):
     ap.add_argument("--store", default="memory",
                     choices=list(statestore_lib.available()),
                     help="client-state store backend: 'memory' stacks "
-                         "all client rows on the host; the JAX package's "
-                         "'mmap' (chunked on-disk shards) is not ported "
-                         "yet and is refused")
+                         "all P client rows in RAM; 'mmap' keeps them in "
+                         "chunked on-disk shards so server memory is "
+                         "O(cohort) (fl/statestore.py)")
+    ap.add_argument("--chunk-size", type=int, default=1024,
+                    help="client rows per on-disk shard for --store mmap")
     ap.add_argument("--tiers", default="",
                     help="heterogeneous capacity tiers as <width>x<count> "
                          "pairs summing to --nodes, e.g. "

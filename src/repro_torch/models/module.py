@@ -78,6 +78,12 @@ def tree_leaves(tree) -> list:
     return [tree_get(tree, p) for p in tree_paths(tree)]
 
 
+def tree_unflatten(like, leaves) -> Any:
+    """A tree of ``like``'s structure holding ``leaves`` in flattening
+    order (``tree_leaves`` inverted)."""
+    return _rebuild(like, (), dict(zip(tree_paths(like), leaves)))
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` applied leafwise over trees of one structure."""
     kids = _children(tree)
@@ -89,6 +95,32 @@ def tree_map(fn: Callable, tree, *rest):
     out = [tree_map(fn, v, *(r[i] for r in rest))
            for i, v in enumerate(tree)]
     return type(tree)(out)
+
+
+def key_path(path: tuple) -> str:
+    """A leaf's path as the JAX package names it in a checkpoint: the
+    keys of ``jax.tree_util.tree_flatten_with_path`` joined by ``/``,
+    dict keys as ``['name']`` and list or tuple indices as ``[0]``."""
+    return "/".join(f"[{k!r}]" for k in path)
+
+
+def tree_leaves_with_path(tree) -> list[tuple[str, Any]]:
+    """(``key_path``, leaf) of every leaf in flattening order. None is
+    an empty subtree, as in jax, and yields nothing."""
+    return [(key_path(p), leaf) for p in tree_paths(tree)
+            if (leaf := tree_get(tree, p)) is not None]
+
+
+def tree_map_with_path(fn: Callable, tree, _path: tuple = ()):
+    """``fn(key_path, leaf)`` applied leafwise (None passes through)."""
+    kids = _children(tree)
+    if kids is None:
+        return None if tree is None else fn(key_path(_path), tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, _path + (k,))
+                for k, v in tree.items()}
+    return type(tree)(tree_map_with_path(fn, v, _path + (i,))
+                      for i, v in enumerate(tree))
 
 
 def stack_init(init_fn: Callable[..., Params], generator: torch.Generator,

@@ -7,8 +7,8 @@ reference's (``repro.fl.compat``).
   for word, for every method;
 - ``FLConfig`` constructs iff the feature is supported (capacity tiers
   and mode='async' included), and a refusal carries the reference's
-  message; the CLI refuses the not-yet-ported mmap client-state store
-  with a message that says so, for sync and async runs;
+  message; the CLI's ``--store mmap --chunk-size 2`` runs for sync and
+  async runs and gives the ``--store memory`` history to the bit;
 - ``validate`` fires from ``FLConfig``, ``ScenarioSpec`` and
   ``make_round_engine``;
 - no module of the port outside fl/compat.py and fl/methods.py reads a
@@ -128,12 +128,35 @@ def test_config_constructs_iff_supported(method, feature):
 
 @pytest.mark.parametrize("mode", ["sync", "async"])
 def test_unported_features_are_refused(mode):
+    """The JAX CLI's --store mmap (with --chunk-size) runs on the CPU in
+    both modes and gives the --store memory run to the bit (history and
+    final params)."""
+    import numpy as np
+    import torch
+
     from repro_torch.launch import train
+    from repro_torch.models.module import tree_leaves
     assert _cfg(jruntime, "fedavg", store="mmap").store == "mmap"
-    with pytest.raises(ValueError, match=r"the 'mmap' client-state store "
-                                         r"\(--store\) is not ported"):
-        train.main(["--store", "mmap", "--fed-mode", mode, "--reduced",
-                    "--rounds", "1", "--device", "cpu"])
+    argv = ["--fed-mode", mode, "--reduced", "--rounds", "2", "--nodes",
+            "4", "--cohort-size", "2", "--sampler", "uniform",
+            "--steps-per-epoch", "2", "--batch", "8", "--train-size", "200",
+            "--device", "cpu"]
+    if mode == "async":
+        argv += ["--buffer-k", "1", "--latency", "pareto(1.5)"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        mem = train.main(argv + ["--store", "memory"])
+        mm = train.main(argv + ["--store", "mmap", "--chunk-size", "2"])
+    finally:
+        torch.set_num_threads(n)
+    for key in ("round", "acc", "per_class_acc", "participants"):
+        assert len(mem[key]) == len(mm[key]) == 2, key
+        for a, b in zip(mem[key], mm[key]):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(tree_leaves(mem["final_params"]),
+                    tree_leaves(mm["final_params"])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kw", [
@@ -188,7 +211,7 @@ def test_fl_config_fields_cover_the_reference_knobs():
     j = {f.name: f.default for f in dataclasses.fields(jruntime.FLConfig)}
     for k in ("mode", "tiers", "attack", "attack_fraction", "robust",
               "compute_dtype", "codec", "local_unroll", "alignment",
-              "buffer_k", "staleness"):
+              "buffer_k", "staleness", "store", "chunk_size"):
         assert t[k] == j[k], k
 
 
