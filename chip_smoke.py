@@ -16,7 +16,9 @@ script exits non-zero:
             at its paths' shapes and on ragged ones (TF32 off), with
             device times (CUDA-graph replay) of the kernel, the plain
             version and one library call (where one exists), beside the
-            bound; feature_stats also as feature_stats_many on segment
+            bound (grouped_matmul also at the LM's no-grad unembedding,
+            M = 4096 rows, and its refusal under autograd);
+            feature_stats also as feature_stats_many on segment
             tables (auto-depth's, ragged and misaligned ones, one over a
             launch's capacity, vgg16's 100 x 15), and Eq. 9's reduction
             timed as one batched launch, as 80 single-pair calls and as
@@ -147,6 +149,42 @@ script exits non-zero:
 25. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
             the kernels and with the plain versions: logits and the
             final cache within the stated limits
+26. lm train  Mamba-2 1.3B training at full width and depth through the
+            CLI (--mode lm --fed2 --fed2-groups 8, batch 8 x 1024
+            tokens, bf16, AdamW with fp32 state, 6 steps), with and
+            without --microbatches 2, counted: no kernel launches (the
+            training routes take the einsum unembedding); losses finite
+            and falling, step time, tokens/s, peak device memory. Then
+            make_eval_step and make_prefill_loss_step on the trained
+            params: grouped_matmul once per loss chunk (2, wgmma), the
+            eval loss against the einsum route's
+27. lm federation  run_federated(lm_task) at full width, depth cut to 12
+            layers, fp32, Fed2 over 4 vocab clusters: 4 clients (one
+            token domain each), 4 local steps of batch 8 at seq 64, 2
+            rounds, fedavg and fed2, with and without
+            --use-local-kernel, counted: paired_fusion once a round,
+            local_step once a local step with the flag, grouped_matmul
+            once a round (the eval's unembedding, simt); s/round and
+            next-token accuracy per round; every leaf moved, and the
+            held-out loss (make_eval_step, same-language held-out set)
+            below the init's, falling round by round for fed2. TF32
+            off: one fed2 round in which every local_step and
+            paired_fusion call is held, element by element, against
+            its plain version on that call's own inputs within an fp32
+            round-off bound; the same check must fail on two planted
+            faults (local_step without momentum, one fusion weight 0.1
+            % high). The whole round with the kernels against the plain
+            routes, within what a one-ulp change of the init or a
+            second plain run does, per leaf; the loss's sharpest
+            direction (Hessian power iteration: its curvature and its
+            leaves), and the one-ulp readings again with the embedding
+            table at unit RMS
+28. lm cross-check  the full config with Fed2 (groups 8) in fp32 (TF32
+            off): the chunked forward over 300 tokens against 300
+            decode steps through ssd_update: logits at every position
+            and every layer's final SSM state within the stated limits
+29. lm profile  one --mode lm step, with and without --microbatches
+            2, and one fed2 LM round under torch.profiler
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -273,6 +311,44 @@ STORE_RUNG = dict(cohort_size=8, sampler="weighted", local_epochs=1,
                   steps_per_epoch=4, batch_size=16, lr=0.008, momentum=0.9,
                   method="fedavg", seed=0, store="mmap", chunk_size=4096)
 STORE_RUNG_ROUNDS = 4
+# --mode lm at full width and depth: mamba2_1_3b.full() in bf16, Fed2
+# over 8 vocab clusters, batch 8 of 1024 tokens (four SSD chunks of 256,
+# two loss chunks of 512), with and without --microbatches 2. AdamW at
+# lr 1e-3 (the CLI's 0.01 is the fl mode's SGD rate)
+LM_TRAIN = ("--mode", "lm", "--arch", "mamba2-1.3b", "--fed2",
+            "--fed2-groups", "8", "--batch", "8", "--seq", "1024", "--lr",
+            "1e-3")
+LM_TRAIN_STEPS = 6
+# the eval step's loss through grouped_matmul vs through the einsum, one
+# bf16 batch: both round the logits to bf16 (2^-8 relative) from fp32
+# sums in other orders; the mean CE over 8,192 tokens averages that.
+# Measured on an H100: equal to every printed digit (11.52316, |d| 0)
+LM_EVAL_ROUTES_TOL = 1e-3
+# LM federation at full width, depth cut from 48 to 12 layers (in fp32 a
+# flat row of the full depth is 5.4 GB; four rows, the velocity and the
+# vmapped grads would take about 65 GB before activations): 4 clients, one
+# token domain each (examples/llm_federated_finetune.py's split), 4 local
+# steps of batch 8 at seq 64, 2 rounds; the eval is 64 held-out
+# sequences of 64 drawn with the training set (the example draws them
+# from another seed, whose bigram tables differ: nothing learned shows
+# there)
+LM_FL_LAYERS = 12
+LM_FL_SEQ = 64
+# power iterations for the LM loss's sharpest direction (the Rayleigh
+# quotient settles to 3 digits in about 10 at 4 layers of the full width)
+LM_SHARPNESS_ITERS = 12
+LM_FL = dict(population=4, rounds=2, local_epochs=1, steps_per_epoch=4,
+             batch_size=8, lr=0.01, momentum=0.9, seed=0, eval_batch=64)
+# the chunked forward (ssd_chunked) vs L decode steps through ssd_update,
+# full width and depth in fp32 (TF32 off), L = 300 (a second, padded
+# chunk of 256): two algorithms for one recurrence, with sums in other
+# orders through 48 layers. An fp32 CPU run of 2 and 8 layers of the full
+# width put logits 3.6e-4 and 8.5e-4 apart (max |logit| 5.5) and the
+# states 7e-6 and 2.2e-5 of their largest value; a lost or misplaced
+# term moves both by O(1)
+CROSSCHECK_LEN = 300
+CROSSCHECK_LOGIT_ATOL = 2e-2
+CROSSCHECK_STATE_RTOL = 1e-3
 
 
 @contextlib.contextmanager
@@ -1005,34 +1081,61 @@ def phase_check_grouped_matmul() -> dict:
         assert torch.equal(grouped_matmul(x, w), grouped_matmul(x, w)), \
             f"grouped_matmul M={m}: two calls on the same inputs differ"
 
+    # the LM's no-grad unembedding (M = B * min(S, loss_chunk) rows):
+    # make_eval_step / make_prefill_loss_step at --batch 8 --seq 1024
+    # (two chunks of 512: M = 4096, bf16, G = 8) and lm_task's eval (64
+    # sequences of 64 tokens: M = 4096, fp32, G = 4, K = 512, N = 12576)
+    check_one("lm eval chunk", "wgmma", (8, 512), g0, k0, n0, bf16)
+    check_one("lm_task eval", "simt", (64, 64), 4, 512, 12576, f32)
+    # autograd: the kernel has no backward, so the wrapper refuses
+    x, w, _ = gmm_inputs((4,), g0, k0, n0, bf16, gen)
+    before = grouped_matmul.launches
+    try:
+        grouped_matmul(x.requires_grad_(), w)
+    except RuntimeError as e:
+        assert "no backward" in str(e), e
+        print("  grouped_matmul under autograd: raises (no backward) ok")
+    else:
+        raise AssertionError("grouped_matmul returned a detached result "
+                             "under autograd")
+    assert grouped_matmul.launches == before
+
     timings = {}
-    for m in (4, 128):
-        esz = 2
-        w_bytes = g0 * k0 * n0 * esz
-        nbytes = w_bytes + esz * m * g0 * (k0 + n0)
-        sets = [gmm_inputs((m,), g0, k0, n0, bf16, gen)[:2]
+    for label, m, g, k, n, dt in (
+            ("serve M=4", 4, g0, k0, n0, bf16),
+            ("serve M=128", 128, g0, k0, n0, bf16),
+            ("lm eval chunk M=4096", 4096, g0, k0, n0, bf16),
+            ("lm_task eval M=4096", 4096, 4, 512, 12576, f32)):
+        esz = dt.itemsize
+        w_bytes = g * k * n * esz
+        nbytes = w_bytes + esz * m * g * (k + n)
+        sets = [gmm_inputs((m,), g, k, n, dt, gen)[:2]
                 for _ in range(copies_for(w_bytes))]
-        reps = max(200, len(sets))
+        # each replayed call writes its own (M, G*N) output: at M = 4096
+        # that is 0.4-0.8 GB, so fewer calls a graph
+        reps = max(200 if m <= 128 else 10, len(sets))
         t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets],
                            reps),
              "plain_ms": time_ms([lambda a=a: grouped_matmul_ref(*a)
                                   for a in sets], reps),
-             "library_ms": time_ms([lambda a=a: torch.bmm(
-                 a[0].view(m, g0, k0).transpose(0, 1), a[1])
+             "library_ms": time_ms([lambda a=a, m=m, g=g, k=k: torch.bmm(
+                 a[0].view(m, g, k).transpose(0, 1), a[1])
                  for a in sets], reps)}
-        t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * g0 * k0 * n0,
-                                             BF16_FLOPS)
-        timings[m] = t
-        print(f"  grouped_matmul M={m} (8, 256, 6288) bf16 "
-              f"[{gm.route(m, g0, k0, n0, bf16, 0, 0)}]: "
+        t["bound_ms"], t["bound_by"] = bound(
+            nbytes, 2 * m * g * k * n, BF16_FLOPS if dt == bf16 else
+            FP32_FLOPS)
+        timings[label] = t
+        print(f"  grouped_matmul {label} ({g}, {k}, {n}) {str(dt)[6:]} "
+              f"[{gm.route(m, g, k, n, dt, 0, 0)}]: "
               f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"torch.bmm {t['library_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
         del sets
+        free_device_memory()
     return {"name": "grouped_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/grouped_matmul.cu",
             "replaces": "src/repro/kernels/grouped_matmul.py:48",
-            "max_abs_err": err_path, **timings[4]}
+            "max_abs_err": err_path, **timings["serve M=4"]}
 
 
 def finite_params(h):
@@ -1360,6 +1463,10 @@ def _category(name: str) -> str:
                       ("memcpy/memset", ("memcpy", "memset")),
                       ("index_select/index_add (tier extract, combine)",
                        ("indexselect", "indexfunc")),
+                      # cuBLAS's own GEMMs (the LM's projections, the
+                      # SSD chunks' fp32 products); cuDNN's convs are
+                      # xmma_fprop/dgrad/wgrad, caught below
+                      ("gemm", ("xmma_gemm",)),
                       ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
                                         "wgrad", "dgrad", "winograd")),
                       ("gemm", ("gemm", "gemv", "cutlass", "cublas",
@@ -2384,6 +2491,579 @@ def phase_decode_parity():
     assert ok, "decode with the kernels drifts from the plain versions"
 
 
+def lm_cli(*extra):
+    """``python -m repro_torch.launch.train --mode lm`` at full width
+    (LM_TRAIN) plus ``extra``: losses finite and falling; prints the
+    step times, tokens/s and peak device memory."""
+    from repro_torch.launch import train
+    argv = [*LM_TRAIN, "--steps", str(LM_TRAIN_STEPS), *extra]
+    print("  python -m repro_torch.launch.train", " ".join(argv), flush=True)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    loss, w = out["loss"], out["wall"]
+    assert all(math.isfinite(x) for x in loss), f"non-finite loss {loss}"
+    assert loss[-1] < loss[0], f"the loss did not fall: {loss}"
+    later = (w[-1] - w[0]) / (len(w) - 1)
+    print(f"  -> losses {[round(x, 4) for x in loss]}; first step "
+          f"{w[0]:.3f} s, later steps {later:.3f} s each "
+          f"({out['tokens_per_step'] / later:.0f} tokens/s); peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    finite_params({"final_params": out["final_params"]})
+    return out
+
+
+def phase_lm_train():
+    """--mode lm at full width and depth (LM_TRAIN), with and without
+    --microbatches 2, counted: no kernel launches (every training route
+    takes the einsum unembedding). Then the eval and prefill steps on the
+    trained params, counted: grouped_matmul once per loss chunk (2, the
+    wgmma route), and the eval loss against the einsum route."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.launch.steps import (make_eval_step,
+                                          make_prefill_loss_step)
+    from repro_torch.models.forward import lm_loss
+    out, _ = counted("--mode lm", lm_cli, {})
+    del out
+    out, _ = counted("--mode lm --microbatches 2",
+                     lambda: lm_cli("--microbatches", "2"), {})
+    params = out.pop("final_params")
+    cfg = with_fed2(get_config("mamba2-1.3b"), groups=8)
+    toks, _ = make_token_dataset(8, 1025, cfg.vocab, seed=1)
+    batch = lm_batch_from_tokens(toks, device="cuda")
+    losses = {}
+    for name, make in (("eval step", make_eval_step),
+                       ("prefill step", make_prefill_loss_step)):
+        step = make(cfg)
+        t0 = time.time()
+        loss, _ = counted(f"{name}, batch 8 x 1024",
+                          lambda: step(params, batch).item(),
+                          {"grouped_matmul": 2}, {"wgmma": 2})
+        losses[name] = loss
+        print(f"  -> {name} loss {loss:.4f} in {time.time() - t0:.3f} s")
+    with torch.no_grad():
+        plain = lm_loss(params, cfg, batch).item()
+    err = abs(losses["eval step"] - plain)
+    print(f"  eval loss, grouped_matmul vs einsum route: "
+          f"{losses['eval step']:.5f} vs {plain:.5f}, |d| {err:.3g} (tol "
+          f"{LM_EVAL_ROUTES_TOL:g}) "
+          f"{'ok' if err <= LM_EVAL_ROUTES_TOL else 'FAIL'}", flush=True)
+    assert err <= LM_EVAL_ROUTES_TOL, "the eval step's kernel route drifts"
+    assert abs(losses["prefill step"] - losses["eval step"]) <= 1e-6
+    del params, out
+    free_device_memory()
+
+
+def lm_fl_inputs():
+    """The LM federation's model, data and init (LM_FL): the full-width
+    Mamba-2 cut to LM_FL_LAYERS layers in fp32, Fed2 over 4 vocab
+    clusters; 4 clients, one token domain each; 64 held-out sequences of
+    the same bigram tables; the weights drawn on the card. Returns (cfg,
+    parts, get_batch, test_batches, init)."""
+    import dataclasses
+
+    from repro_torch.configs import mamba2_1_3b
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.models import transformer as tfm
+    cfg = with_fed2(dataclasses.replace(
+        mamba2_1_3b.full(dtype=torch.float32), n_layers=LM_FL_LAYERS),
+        groups=4)
+    n_dom, n_train, n_test = LM_FL["population"], 800, 64
+    toks, domains = make_token_dataset(n_train + n_test, LM_FL_SEQ + 1,
+                                       cfg.vocab, n_domains=n_dom, seed=0)
+    test = toks[n_train:]
+    parts = [np.flatnonzero(domains[:n_train] == j) for j in range(n_dom)]
+
+    def get_batch(sel):
+        sl = toks[sel]
+        return {"tokens": sl[:, :-1], "labels": sl[:, 1:],
+                "mask": np.ones((len(sel), LM_FL_SEQ), np.float32)}
+
+    test_batches = [{"tokens": test[:, :-1], "labels": test[:, 1:],
+                     "mask": np.ones((n_test, LM_FL_SEQ), np.float32)}]
+    init = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    return cfg, parts, get_batch, test_batches, init
+
+
+def lm_held_out_loss(cfg, test_batches):
+    """params -> make_eval_step's loss on the held-out batch (no grad;
+    the Fed2 unembedding through grouped_matmul)."""
+    from repro_torch.launch.steps import make_eval_step
+    b = test_batches[0]
+    batch = {"tokens": torch.as_tensor(b["tokens"], dtype=torch.long,
+                                       device="cuda"),
+             "labels": torch.as_tensor(b["labels"], dtype=torch.long,
+                                       device="cuda"),
+             "mask": torch.as_tensor(b["mask"], device="cuda")}
+    step = make_eval_step(cfg)
+    return lambda params: step(params, batch).item()
+
+
+def lm_cohort_kernels(init):
+    """paired_fusion and local_step on the LM federation's (4, M) fp32
+    cohort buffer (LM_FL's model: 7 GB a buffer, the engine's row
+    stride), each against its plain version (1e-5 and 1e-6, the check
+    phase's), with device times beside the bound and the library call.
+    One call moves gigabytes, so the times are CUDA events around eager
+    calls: a wrapper's ~30 us of host time is under 1 % of one."""
+    from repro_torch.kernels.local_step import local_step, local_step_ref
+    from repro_torch.kernels.paired_fusion import (paired_fusion,
+                                                   paired_fusion_ref)
+    from repro_torch.models.module import FlatLayout
+    layout = FlatLayout(init)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, m, esz, lr, mu = LM_FL["population"], layout.size, 4, 0.01, 0.9
+    x = cohort(layout, n, torch.float32, gen)
+    w = torch.rand(n, generator=gen, device="cuda") + 0.1
+    w = w / w.sum()
+    err = check(f"paired_fusion LM cohort ({n}, {m})", paired_fusion(x, w),
+                paired_fusion_ref(x, w), 1e-5)
+    t = {"ms": event_ms(lambda: paired_fusion(x, w), 5),
+         "plain_ms": event_ms(lambda: paired_fusion_ref(x, w), 3),
+         "library_ms": event_ms(lambda: torch.mv(x.t(), w), 5)}
+    t["bound_ms"], t["bound_by"] = bound(n * m * esz + m * esz + n * 4,
+                                         2 * n * m)
+    out = {"paired_fusion": {**t, "max_abs_err": err}}
+    del x
+    free_device_memory()
+    p, v, g = (cohort(layout, n, torch.float32, gen, sc)
+               for sc in (1.0, 0.1, 1.0))
+    wp, wv = local_step_ref(p, v, g, lr, mu)
+    local_step(p, v, g, lr=lr, mu=mu)
+    err = max(check(f"local_step LM cohort ({n}, {m}) p", p, wp, 1e-6),
+              check(f"local_step LM cohort ({n}, {m}) v", v, wv, 1e-6))
+    del wp, wv
+    free_device_memory()
+    t = {"ms": event_ms(lambda: local_step(p, v, g, lr=lr, mu=mu), 5),
+         "plain_ms": event_ms(lambda: local_step_ref(p, v, g, lr, mu), 3)}
+    dense = [a.contiguous() for a in (p, v, g)]
+    del p, v, g
+    t["library_ms"] = event_ms(lambda: torch._fused_sgd_(
+        [dense[0]], [dense[2]], [dense[1]], weight_decay=0.0, momentum=mu,
+        lr=lr, dampening=0.0, nesterov=False, maximize=False,
+        is_first_step=False), 5)
+    t["bound_ms"], t["bound_by"] = bound(5 * n * m * esz, 4 * n * m)
+    out["local_step"] = {**t, "max_abs_err": err}
+    del dense
+    free_device_memory()
+    for name, r in out.items():
+        print(f"  {name} LM cohort ({n}, {m}) fp32: {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, library "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})", flush=True)
+    return out
+
+
+def phase_lm_fl():
+    """run_federated(lm_task) at full width (LM_FL), fedavg and fed2,
+    with and without --use-local-kernel, counted: paired_fusion once a
+    round (one launch over the (4, M) buffer), local_step once a local
+    step with the flag, grouped_matmul once a round (the eval's Fed2
+    unembedding, simt route: fp32 at M = 64 x 64); s/round and
+    next-token accuracy per round. Each run must move every leaf and
+    bring the held-out loss below the init's."""
+    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
+    from repro_torch.models.module import param_count, tree_leaves
+    cfg, parts, get_batch, test, init = lm_fl_inputs()
+    n = param_count(init)
+    print(f"  {cfg.arch_id}, {cfg.n_layers} of 48 layers, fp32, Fed2 over "
+          f"{cfg.fed2_groups} groups: {n:,} parameters, a flat row "
+          f"{4 * n / 1e9:.2f} GB", flush=True)
+    with tf32_off():
+        lm_cohort_kernels(init)
+    task = lm_task(cfg)
+    loss_of = lm_held_out_loss(cfg, test)
+    losses = {"init": loss_of(init)}
+    print(f"  held-out loss at the init {losses['init']:.5f}", flush=True)
+    rounds, steps = LM_FL["rounds"], LM_FL["steps_per_epoch"]
+    for method in ("fedavg", "fed2"):
+        for flag in (False, True):
+            fl = FLConfig(method=method, **LM_FL)
+            label = f"lm_task {method}{' --use-local-kernel' if flag else ''}"
+            h, _ = counted(
+                label,
+                lambda: run_federated(task, fl, parts, get_batch, test,
+                                      use_local_kernel=flag, device="cuda",
+                                      init_params=init),
+                {"paired_fusion": rounds, "grouped_matmul": rounds,
+                 "local_step": rounds * steps if flag else 0},
+                {"simt": rounds})
+            finite_params(h)
+            w = h["wall"]
+            per = [w[0]] + [b - a for a, b in zip(w, w[1:])]
+            moved = min((a - b).abs().max().item() for a, b in zip(
+                tree_leaves(h["final_params"]), tree_leaves(init)))
+            loss = losses[label] = loss_of(h["final_params"])
+            print(f"  -> s/round {[round(x, 3) for x in per]}; next-token "
+                  f"acc per round {[round(a, 4) for a in h['acc']]}; "
+                  f"held-out loss {losses['init']:.5f} -> {loss:.5f}; the "
+                  f"least-moved leaf moved {moved:.3g}", flush=True)
+            assert moved > 0, f"{label}: a leaf did not move"
+            assert loss < losses["init"], \
+                f"{label}: the held-out loss did not fall"
+            del h
+            free_device_memory()
+    with tf32_off():
+        phase_lm_fl_parity(cfg, task, parts, get_batch, test, init,
+                           (losses["init"], losses["lm_task fed2"]), loss_of)
+
+
+class LmKernelTaps:
+    """Every local_step and paired_fusion call of a run held against the
+    plain version on that call's own inputs, leaf by leaf of the flat
+    layout and element by element, within an fp32 round-off bound
+    (eps = 2^-23; each route rounds every operation once, the kernel's
+    perhaps fused): for local_step |dv'| <= 2 eps (|mu v| + |g|) and
+    |dp'| <= 2 eps (|p| + 2 lr (|mu v| + |g|)); for an N-row fusion
+    |d| <= N eps sum_n w_n |x_n|. The run calls the kernels as it would
+    untapped (the plain versions work on copies), so no round-off
+    carries from one call into the next comparison. ``fault`` plants a
+    defect in the kernel route, to show that the bound catches it.
+    ``worst[(kernel, leaf)]``: the largest |kernel - plain| / bound."""
+
+    FAULTS = ("local_step without momentum",
+              "paired_fusion with weight 0 0.1 % high")
+
+    def __init__(self, layout, paths, fault=None):
+        self.slots = [(path, s.offset, s.offset + s.size)
+                      for path, s in zip(paths, layout.slots)]
+        self.m, self.fault, self.worst = layout.size, fault, {}
+        self.calls = {"local_step": 0, "paired_fusion": 0}
+
+    def __enter__(self):
+        from repro_torch.core import fusion
+        from repro_torch.fl import methods
+        self._saved = (methods.local_step, fusion.paired_fusion)
+        methods.local_step = self.local_step
+        fusion.paired_fusion = self.paired_fusion
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import fusion
+        from repro_torch.fl import methods
+        methods.local_step, fusion.paired_fusion = self._saved
+
+    def _note(self, kernel, path, err, tol):
+        r = torch.where(err == 0, 0.0, err / tol).max().item()
+        self.worst[kernel, path] = max(self.worst.get((kernel, path), 0.0),
+                                       r)
+
+    def local_step(self, p, v, g, *, lr, mu):
+        from repro_torch.kernels.local_step import local_step, local_step_ref
+        p0, v0 = p.clone(), v.clone()
+        local_step(p, v, g, lr=lr,
+                   mu=0.0 if self.fault == self.FAULTS[0] else mu)
+        eps = torch.finfo(torch.float32).eps
+        for path, lo, hi in self.slots:
+            c = slice(lo, hi)
+            wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
+            mag = mu * v0[:, c].abs() + g[:, c].abs()
+            self._note("local_step", path, (v[:, c] - wv).abs(),
+                       2 * eps * mag)
+            self._note("local_step", path, (p[:, c] - wp).abs(),
+                       2 * eps * (p0[:, c].abs() + 2 * lr * mag))
+            del wp, wv, mag
+        self.calls["local_step"] += 1
+        return p, v
+
+    def paired_fusion(self, x, w, out=None):
+        from repro_torch.kernels.paired_fusion import (paired_fusion,
+                                                       paired_fusion_ref)
+        assert x.shape[1] == self.m, "the LM round fuses in one call"
+        wk = w
+        if self.fault == self.FAULTS[1]:
+            wk = w.clone()
+            wk[0] *= 1.001
+        res = paired_fusion(x, wk, out=out)
+        eps = torch.finfo(torch.float32).eps
+        for path, lo, hi in self.slots:
+            c = slice(lo, hi)
+            self._note("paired_fusion", path,
+                       (res[c] - paired_fusion_ref(x[:, c], w)).abs(),
+                       x.shape[0] * eps * (x[:, c].abs() * w[:, None]).sum(0))
+        self.calls["paired_fusion"] += 1
+        return res
+
+    def report(self, label, kernels=("local_step", "paired_fusion")):
+        """Prints, per kernel, its calls and its worst leaf; returns the
+        worst ratio of each kernel."""
+        out = {}
+        for k in kernels:
+            (r, path) = max((r, p) for (kk, p), r in self.worst.items()
+                            if kk == k)
+            out[k] = r
+            print(f"  {label}: {k} x {self.calls[k]}, worst |kernel - "
+                  f"plain| {r:.3g} of its round-off bound (at {path})",
+                  flush=True)
+        return out
+
+
+def lm_sharpness(loss_fn, init, batch, iters: int):
+    """``loss_fn``'s sharpest direction at ``init`` on one batch:
+    power iteration on Hessian-vector products (double backward,
+    plain autograd). Returns (Rayleigh quotient, [(leaf, share of the
+    vector's squared norm)] largest first)."""
+    from repro_torch.models.module import (tree_leaves,
+                                           tree_leaves_with_path,
+                                           tree_unflatten)
+    paths = [p for p, _ in tree_leaves_with_path(init)]
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(init)]
+    grads = torch.autograd.grad(
+        loss_fn(tree_unflatten(init, leaves), batch), leaves,
+        create_graph=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    v = [torch.randn(t.shape, generator=gen, device="cuda") for t in leaves]
+    lam = 0.0
+    for _ in range(iters):
+        norm = math.sqrt(sum((x * x).sum().item() for x in v))
+        v = [x / norm for x in v]
+        hv = torch.autograd.grad(grads, leaves, grad_outputs=v,
+                                 retain_graph=True)
+        lam = sum((a * b).sum().item() for a, b in zip(hv, v))
+        v = list(hv)
+    norm2 = sum((x * x).sum().item() for x in v)
+    shares = sorted(((p, (x * x).sum().item() / norm2)
+                     for p, x in zip(paths, v)), key=lambda t: -t[1])
+    return lam, shares
+
+
+def phase_lm_fl_parity(cfg, task, parts, get_batch, test, init, losses,
+                       loss_of):
+    """One fed2 LM round (TF32 off) from one init:
+
+    - the kernels on the round's own inputs (``LmKernelTaps``): every
+      call within its round-off bound; the same check must fail on each
+      planted fault;
+    - the whole round, kernels vs plain, against what round-off in its
+      inputs does: a second plain run, and the plain route from the
+      init moved by one ulp. The round is chaotic (the sharpness below:
+      momentum SGD at lr 0.01 is unstable along the embedding table and
+      w_xbc), so this coarse limit is only a guard; the taps are the
+      check. Readings per leaf, and the one-ulp readings again with the
+      embedding table scaled to unit RMS (the first block's norm then
+      sees the same input, its curvature along the table is d times
+      smaller);
+    - the held-out loss falls round by round: init, this round, the
+      2-round fed2 run (``losses``)."""
+    import dataclasses
+
+    from repro_torch.fl.runtime import FLConfig, run_federated
+    from repro_torch.models.forward import lm_loss
+    from repro_torch.models.module import (FlatLayout, tree_leaves,
+                                           tree_leaves_with_path, tree_map,
+                                           tree_unflatten)
+    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
+    layout = FlatLayout(init)
+    paths = [p for p, _ in tree_leaves_with_path(init)]
+
+    def one_round(start, kernels):
+        h = run_federated(task, fl, parts, get_batch, test,
+                          use_kernel=kernels, use_local_kernel=kernels,
+                          device="cuda", init_params=start)
+        return [t.clone() for t in tree_leaves(h["final_params"])]
+
+    def plus_ulp(tree):
+        return tree_map(lambda t: torch.nextafter(
+            t, torch.full_like(t, math.inf)), tree)
+
+    out = {}
+    with LmKernelTaps(layout, paths) as taps:
+        out["kernels"] = one_round(init, True)
+    worst = taps.report("kernels on the round's own inputs")
+    assert taps.calls == {"local_step": LM_FL["steps_per_epoch"],
+                          "paired_fusion": 1}, taps.calls
+    assert max(worst.values()) <= 1.0, \
+        "a kernel call of the LM round exceeds its round-off bound"
+    for fault, kernel in zip(LmKernelTaps.FAULTS,
+                             ("local_step", "paired_fusion")):
+        with LmKernelTaps(layout, paths, fault) as taps:
+            one_round(init, True)
+        r = taps.report(f"planted fault, {fault}", (kernel,))[kernel]
+        print(f"  planted fault: {fault}: "
+              f"{'caught' if r > 1.0 else 'MISSED'}", flush=True)
+        assert r > 1.0, f"the taps miss a planted fault: {fault}"
+    free_device_memory()
+    out["plain"] = one_round(init, False)
+    out["plain again"] = one_round(init, False)
+    out["plain, init + 1 ulp"] = one_round(plus_ulp(init), False)
+    upd = [(a - b).abs().max().item()
+           for a, b in zip(out["plain"], tree_leaves(init))]
+    d = {label: [(a - b).abs().max().item()
+                 for a, b in zip(out[label], out["plain"])]
+         for label in ("kernels", "plain again", "plain, init + 1 ulp")}
+    print("  one fed2 LM round, max |dparam| against the plain route, per "
+          "leaf (its update beside it):")
+    print(f"    {'leaf':<40s} {'update':>9s} {'kernels':>9s} {'again':>9s} "
+          f"{'1 ulp':>9s}")
+    for i, path in enumerate(paths):
+        print(f"    {path:<40s} {upd[i]:9.3g} {d['kernels'][i]:9.3g} "
+              f"{d['plain again'][i]:9.3g} "
+              f"{d['plain, init + 1 ulp'][i]:9.3g}")
+    lim = max(max(d["plain again"]), max(d["plain, init + 1 ulp"]))
+    ok = max(d["kernels"]) <= lim
+    print(f"  the round's largest update {max(upd):.3g}; kernels "
+          f"{max(d['kernels']):.3g} (limit {lim:.3g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "the LM round's kernel routes drift from the plain routes " \
+        "beyond round-off in its inputs"
+    l0, l2 = losses
+    l1 = loss_of(tree_unflatten(init, out["plain"]))
+    print(f"  held-out loss, fed2: init {l0:.5f}, round 1 {l1:.5f}, round 2 "
+          f"{l2:.5f}", flush=True)
+    assert l0 > l1 > l2, "the held-out loss does not fall round by round"
+    del out
+    free_device_memory()
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in get_batch(parts[0][:LM_FL["batch_size"]]).items()}
+    batch["tokens"], batch["labels"] = (batch["tokens"].long(),
+                                        batch["labels"].long())
+    no_remat = dataclasses.replace(cfg, remat_blocks=False)
+    lam, shares = lm_sharpness(lambda p, b: lm_loss(p, no_remat, b), init,
+                               batch, LM_SHARPNESS_ITERS)
+    lr, mu = LM_FL["lr"], LM_FL["momentum"]
+    print(f"  sharpest direction at the init (client 0's first batch, "
+          f"{LM_SHARPNESS_ITERS} power iterations): curvature {lam:.4g}, "
+          f"lr x |curvature| {lr * abs(lam):.3g} against momentum SGD's "
+          f"stability limit 2 (1 + mu) = {2 * (1 + mu):.3g}; its leaves "
+          + ", ".join(f"{p} {s:.3f}" for p, s in shares[:3]), flush=True)
+    free_device_memory()
+    scale = math.sqrt(cfg.d_model)
+    unit = tree_map(lambda t: t, init)
+    unit["embed"] = {"table": init["embed"]["table"] * scale}
+    base = one_round(unit, False)
+    moved = one_round(plus_ulp(unit), False)
+    du = [(a - b).abs().max().item() for a, b in zip(moved, base)]
+    upd = [(a - b).abs().max().item()
+           for a, b in zip(base, tree_leaves(unit))]
+    i = max(range(len(du)), key=du.__getitem__)
+    j = paths.index("['embed']/['table']")
+    print(f"  the embedding table x {scale:.4g} (unit RMS): one fed2 LM "
+          f"round, init + 1 ulp vs plain: max |dparam| {du[i]:.3g} (at "
+          f"{paths[i]}), at the table {du[j]:.3g} of its update "
+          f"{upd[j]:.3g}", flush=True)
+    del base, moved, unit
+    free_device_memory()
+
+
+def phase_lm_crosscheck():
+    """The full mamba2-1.3b with Fed2 (groups 8) in fp32, TF32 off: the
+    chunked forward over L = CROSSCHECK_LEN tokens (ssd_chunked in every
+    layer, no kernel) against L steps of decode_step (ssd_update in every
+    layer, grouped_matmul's stream route), from one init: logits at
+    every position within CROSSCHECK_LOGIT_ATOL, and each layer's SSM
+    state after the last token within CROSSCHECK_STATE_RTOL of its
+    largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, forward, init_cache
+    from repro_torch.models.layers import embed_apply
+    from repro_torch.models.module import tree_map
+    cfg = with_fed2(get_config("mamba2-1.3b", dtype=torch.float32), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    bs, n = 2, CROSSCHECK_LEN
+    toks = torch.randint(0, cfg.vocab, (bs, n), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+
+    @torch.no_grad()
+    def chunked():
+        h = forward(params, cfg, toks)
+        logits = tfm.unembed_apply(params["unembed"], h, cfg,
+                                   use_kernel=False)
+        # forward's blocks again, one by one, keeping each SSM state
+        x, states = embed_apply(params["embed"], toks), []
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda t: t[i], params["blocks"])
+            y, st = ssm.mamba2_apply(
+                lp["mixer"], tfm._norm_apply(cfg, lp["ln1"], x), cfg.ssm,
+                with_state=True)
+            x = x + y
+            states.append(st)
+        d = (tfm._norm_apply(cfg, params["final_norm"], x) - h).abs().max()
+        assert d.item() <= 1e-5 * h.abs().max().item(), d
+        return logits, torch.stack(states)
+
+    @torch.no_grad()
+    def decoded():
+        cache = init_cache(cfg, bs, n, device="cuda")
+        logits = [decode_step(params, cfg, cache, toks[:, t:t + 1], t)[0]
+                  for t in range(n)]
+        return torch.cat(logits, 1), cache
+
+    t0 = time.time()
+    (logits, states), _ = counted("chunked forward", chunked, {})
+    t1 = time.time()
+    (dlogits, cache), _ = counted(
+        f"{n} decode steps", decoded,
+        {"ssd_update": SERVE_LAYERS * n, "grouped_matmul": n}, {"stream": n})
+    t2 = time.time()
+    err_l = (dlogits - logits).abs().max().item()
+    mag = logits.abs().max().item()
+    rel = max(((cache["blocks"]["ssm"][i] - states[i]).abs().max()
+               / states[i].abs().max()).item()
+              for i in range(cfg.n_layers))
+    ok = err_l <= CROSSCHECK_LOGIT_ATOL and rel <= CROSSCHECK_STATE_RTOL
+    print(f"  batch {bs}, {n} tokens, fp32: chunked forward {t1 - t0:.2f} "
+          f"s, decode {t2 - t1:.2f} s; max |dlogits| {err_l:.3g} (limit "
+          f"{CROSSCHECK_LOGIT_ATOL:g}; max |logit| {mag:.3g}); SSM states, "
+          f"worst layer {rel:.3g} of its largest value (limit "
+          f"{CROSSCHECK_STATE_RTOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "the chunked forward and the ssd_update decode disagree"
+    del params, cache, states
+    free_device_memory()
+
+
+def phase_lm_profile():
+    """One --mode lm step at full width (LM_TRAIN's shapes, after a
+    warm-up step), the same with --microbatches 2, and one fed2 LM round (LM_FL, with --use-local-kernel,
+    after a warm-up run) under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    cfg = with_fed2(get_config("mamba2-1.3b"), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    step_fn, opt = make_train_step(cfg, lr=1e-3)
+    state = opt.init(params)
+    toks, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
+    b0, b1 = (lm_batch_from_tokens(toks[i:i + 8], device="cuda")
+              for i in (0, 8))
+    params, state, _ = step_fn(params, state, 0, b0)
+    profiled("one --mode lm step, batch 8 x 1024",
+             lambda: step_fn(params, state, 1, b1))
+    step_mb2, _ = make_train_step(cfg, lr=1e-3, microbatches=2)
+    params, state, _ = step_mb2(params, state, 1, b1)
+    profiled("one --mode lm --microbatches 2 step, batch 8 x 1024",
+             lambda: step_mb2(params, state, 2, b0))
+    del params, state
+    free_device_memory()
+    cfg, parts, get_batch, test, init = lm_fl_inputs()
+    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
+
+    def one_round():
+        run_federated(lm_task(cfg), fl, parts, get_batch, test,
+                      use_local_kernel=True, device="cuda",
+                      init_params=init)
+
+    one_round()
+    profiled("one fed2 LM round (4 clients x 4 steps, eval)", one_round)
+    del init
+    free_device_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2481,6 +3161,14 @@ def main() -> int:
     with phase("decode parity (TF32 off)"), tf32_off():
         phase_decode_parity()
     free_device_memory()
+    with phase("lm train"):
+        phase_lm_train()
+    with phase("lm federation"):
+        phase_lm_fl()
+    with phase("lm cross-check (TF32 off)"), tf32_off():
+        phase_lm_crosscheck()
+    with phase("lm profile"):
+        phase_lm_profile()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

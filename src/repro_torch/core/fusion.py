@@ -241,3 +241,50 @@ def cnn_group_axes(params, cfg):
         axes["fcs"].append({k: GroupAxis(0, g) if m.grouped_fc else None
                             for k in fc})
     return axes
+
+
+def lm_group_axes(params, cfg):
+    """GroupAxis tree for LM params (the reference's ``lm_group_axes``,
+    over every family's tree): leaves are shared (None) except the
+    block-diagonal unembedding ``(G, d/G, V/G)``, grouped on its leading
+    axis, the decoupled blocks' grouped FFN leaves (``gblocks``, stacked
+    ``(L, G, i, o)``: axis 1), and for a MoE config (one with
+    ``moe.n_experts``) the stacked expert weights ``(L, E, d, f)`` of the
+    routed FFNs, whose experts are the structure groups (axis 1)."""
+    from repro_torch.models.module import tree_map, tree_map_with_path
+    g = cfg.fed2_groups
+
+    def shared(tree):
+        return tree_map(lambda _: None, tree)
+
+    def names(path: str) -> list:
+        return path.split("/")
+
+    axes = {k: shared(v) for k, v in params.items()
+            if k not in ("gblocks", "unembed")}
+    moe = getattr(cfg, "moe", None)
+    if cfg.family == "moe" and moe is not None:
+        e = moe.n_experts
+
+        def mark_moe(path, leaf):
+            ns = names(path)
+            if (any("ffn" in n for n in ns)
+                    and any(n.endswith(k) for n in ns
+                            for k in ("w_gate']", "w_up']", "w_down']"))
+                    and "shared" not in "".join(ns) and leaf.ndim == 4):
+                return GroupAxis(1, e)
+            return None
+
+        axes["blocks"] = tree_map_with_path(mark_moe, params["blocks"])
+    if "gblocks" in params:
+        def mark(path, leaf):
+            if any("ffn" in n for n in names(path)) and leaf.ndim >= 3:
+                return GroupAxis(1, g)
+            return None
+        axes["gblocks"] = tree_map_with_path(mark, params["gblocks"])
+    if "unembed" in params:
+        if g > 0 and params["unembed"]["w"].ndim == 3:
+            axes["unembed"] = {k: GroupAxis(0, g) for k in params["unembed"]}
+        else:
+            axes["unembed"] = shared(params["unembed"])
+    return axes

@@ -1,5 +1,6 @@
 """Deterministic synthetic image dataset + the paper's N x C and FedMA's
-Dirichlet partitioners, and the IID and quantity-skew controls.
+Dirichlet partitioners, and the IID and quantity-skew controls; and the
+synthetic LM corpus (``make_token_dataset``, ``lm_batch_from_tokens``).
 
 CIFAR-10 is not available offline: a class-clustered image dataset
 stands in, whose difficulty knobs (prototype separation, noise,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,3 +123,46 @@ def quantity_partition(labels: np.ndarray, n_clients: int,
     props = rng.dirichlet(alpha * np.ones(n_clients))
     cuts = (np.cumsum(props)[:-1] * len(order)).astype(int)
     return [np.sort(p) for p in np.split(order, cuts)]
+
+
+# ---------------------------------------------------------------------------
+# Synthetic LM corpus (vocab-cluster domains)
+# ---------------------------------------------------------------------------
+
+
+def make_token_dataset(n_seqs: int, seq_len: int, vocab: int,
+                       n_domains: int = 8, seed: int = 0,
+                       in_domain_p: float = 0.9):
+    """Per-domain Markov sequences concentrated on contiguous vocab
+    clusters (the LM analog of class-clustered images, matching Fed2's
+    vocab-cluster groups). Returns (tokens (n, L) int32, domains (n,)
+    int32)."""
+    rng = np.random.default_rng(seed)
+    cluster = vocab // n_domains
+    domains = rng.integers(0, n_domains, size=n_seqs).astype(np.int32)
+    toks = np.empty((n_seqs, seq_len), np.int32)
+    # per-domain sparse bigram structure inside the cluster
+    n_modes = 32
+    mode_next = rng.integers(0, cluster, size=(n_domains, n_modes, 4))
+    for i in range(n_seqs):
+        d = domains[i]
+        lo = d * cluster
+        t = rng.integers(0, cluster)
+        for s in range(seq_len):
+            if rng.random() < in_domain_p:
+                m = t % n_modes
+                t = int(mode_next[d, m, rng.integers(0, 4)])
+                toks[i, s] = lo + t
+            else:
+                toks[i, s] = rng.integers(0, vocab)
+                t = rng.integers(0, cluster)
+    return toks, domains
+
+
+def lm_batch_from_tokens(toks: np.ndarray, *, device) -> dict:
+    """Next-token prediction batch on ``device`` from raw sequences (n,
+    L + 1): tokens and labels (n, L) int64, mask (n, L) fp32 ones."""
+    x = torch.as_tensor(toks[:, :-1], dtype=torch.long, device=device)
+    y = torch.as_tensor(toks[:, 1:], dtype=torch.long, device=device)
+    return {"tokens": x, "labels": y,
+            "mask": torch.ones(y.shape, dtype=torch.float32, device=device)}

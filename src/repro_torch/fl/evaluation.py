@@ -1,4 +1,4 @@
-"""Tiled evaluation by confusion counts.
+"""Tiled evaluation by example-weighted counts.
 
     tiles  <- stage(batches, tile=B, device=...)  # (T, B, ...) tiles on
                                                   # the device + (T, B)
@@ -8,11 +8,14 @@
 ``stage`` concatenates the eval batches host-side, pads the tail tile
 by repeating sample 0 at mask 0 so every tile has the same width, and
 moves the tiles to the device once. The engine computes
-example-weighted counts, never per-batch means: a (C, C) confusion-count
-matrix (rows = gold, cols = predicted); accuracy = trace / total, and
-per-class and per-group accuracies fall out of the rows
-(``per_class_accuracy``, ``group_accuracy``, group g via
-``GroupSpec.logit_signature``).
+example-weighted counts, never per-batch means:
+
+- ``n_classes`` given: a (C, C) confusion-count matrix (rows = gold,
+  cols = predicted); accuracy = trace / total, and per-class and
+  per-group accuracies fall out of the rows (``per_class_accuracy``,
+  ``group_accuracy``, group g via ``GroupSpec.logit_signature``);
+- ``n_classes=None`` (LM tasks, where the classes are the vocab):
+  weighted (correct, total) sums over every position.
 
 Counts stay on the device until the caller reads them.
 """
@@ -68,20 +71,26 @@ def stage(batches: list, *, tile: int, device) -> EvalTiles:
 @dataclasses.dataclass(frozen=True)
 class EvalEngine:
     """``run(params, tiles)`` -> device tensor: (C, C) float32 confusion
-    counts."""
+    counts, or (correct, total) float32 sums when ``n_classes`` is
+    None."""
     run: Callable
-    n_classes: int
+    n_classes: int | None
 
 
 def make_eval_engine(predict_fn: Callable,
-                     n_classes: int) -> EvalEngine:
-    """predict_fn(params, batch) -> (pred, gold, weight) per example. The
-    staging mask multiplies into ``weight``."""
+                     n_classes: int | None = None) -> EvalEngine:
+    """predict_fn(params, batch) -> (pred, gold, weight): per-position
+    predictions, gold labels and example weights, (B,) for classifiers,
+    (B, L) for LMs (weight = the batch's own mask). The staging mask
+    multiplies into ``weight``, broadcast over its trailing axes."""
 
     def one_tile(params, batch, m):
         pred, gold, w = predict_fn(params, batch)
-        w = (w.to(torch.float32) * m).reshape(-1)
+        w = w.to(torch.float32) * m.reshape(m.shape + (1,) * (w.dim() - 1))
+        w = w.reshape(-1)
         pred, gold = pred.reshape(-1).long(), gold.reshape(-1).long()
+        if n_classes is None:
+            return torch.stack([((pred == gold) * w).sum(), w.sum()])
         idx = gold * n_classes + pred
         flat = torch.zeros(n_classes * n_classes, dtype=torch.float32,
                            device=w.device).index_add_(0, idx, w)
@@ -104,9 +113,12 @@ def make_eval_engine(predict_fn: Callable,
 # ---------------------------------------------------------------------------
 
 
-def accuracy(confusion) -> float:
-    """Global accuracy from a confusion-count matrix."""
-    c = np.asarray(confusion)
+def accuracy(counts) -> float:
+    """Global accuracy from an engine result: a (correct, total) pair or
+    a confusion-count matrix."""
+    c = np.asarray(counts)
+    if c.ndim == 1:
+        return float(c[0] / max(c[1], 1.0))
     return float(np.trace(c) / max(c.sum(), 1.0))
 
 

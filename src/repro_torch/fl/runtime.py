@@ -287,9 +287,11 @@ class FLConfig:
 class FLTask:
     """Model-family adapter consumed by ``run_federated``.
 
-    init_fn(generator) -> params tree on the CPU; loss_fn(params, batch)
-    -> scalar; predict_fn(params, batch) -> (pred, gold, weight) for the
-    tiled eval's ``n_classes`` x ``n_classes`` confusion counts;
+    init_fn(generator) -> params tree on the CPU; loss_fn(params,
+    batch) -> scalar; predict_fn(params, batch) ->
+    (pred, gold, weight) for the tiled eval: ``n_classes`` x
+    ``n_classes`` confusion counts, or (correct, total) sums when
+    ``n_classes`` is None (LM tasks, where the classes are the vocab);
     group_axes_fn(params) -> GroupAxis tree (fed2);
     matched_average_fn(stacked, weights) -> params tree (fedma): stacked
     is a tree of (n, ...) leaves; tier_fn(width) -> the family's
@@ -299,7 +301,7 @@ class FLTask:
     init_fn: Callable
     loss_fn: Callable
     predict_fn: Callable
-    n_classes: int
+    n_classes: int | None
     group_axes_fn: Callable | None = None
     matched_average_fn: Callable | None = None
     tier_fn: Callable | None = None
@@ -542,9 +544,10 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
 
     Returns history {round, acc, wall, wall_total, participants,
     confusion, per_class_acc, final_params}: per round, the (C, C)
-    confusion counts and per-class accuracy rows. ``acc`` is the pooled
-    accuracy over the eval set; ``wall`` holds host
-    timestamps after each round's eval was queued."""
+    confusion counts and per-class accuracy rows (tasks with
+    ``n_classes`` only). ``acc`` is the pooled accuracy over the eval set
+    (an LM's next-token accuracy over every masked position); ``wall``
+    holds host timestamps after each round's eval was queued."""
     device = resolve_device(device)
     if len(parts) != cfg.population:
         raise ValueError(
@@ -750,13 +753,14 @@ def initial_params(task: FLTask, cfg: FLConfig, init_params, device):
 
 def close_history(history: dict, counts: list, t0: float,
                   final_params) -> dict:
-    """Read the per-row confusion counts off the device and complete a
-    run's history: confusion, per_class_acc, acc, wall_total and
-    final_params."""
+    """Read the per-row eval counts off the device and complete a run's
+    history: acc, wall_total and final_params, and for confusion counts
+    (tasks with ``n_classes``) confusion and per_class_acc."""
     conf = [c.cpu().numpy() for c in counts]
-    history["confusion"] = conf
-    history["per_class_acc"] = [evaluation_lib.per_class_accuracy(c)
-                                for c in conf]
+    if conf and conf[0].ndim == 2:
+        history["confusion"] = conf
+        history["per_class_acc"] = [evaluation_lib.per_class_accuracy(c)
+                                    for c in conf]
     history["acc"] = [evaluation_lib.accuracy(c) for c in conf]
     history["wall_total"] = time.time() - t0
     history["final_params"] = final_params
@@ -791,5 +795,30 @@ def cnn_task(model_cfg) -> FLTask:
         predict_fn=predict,
         n_classes=model_cfg.n_classes,
         tier_fn=tier_fn,
+    )
+
+
+def lm_task(model_cfg) -> FLTask:
+    """The LM family's adapter (the port's: Mamba-2). The loss is
+    ``lm_loss`` on the reference's einsum unembedding; the eval predicts
+    the argmax next token at every position under ``torch.no_grad``,
+    where a Fed2 unembedding takes the ``grouped_matmul`` kernel route
+    on the card. No confusion counts (``n_classes=None``), no tiers
+    (``tier_fn=None``), no host matched averaging (fedma refuses)."""
+    from repro_torch.models.forward import forward, lm_loss
+    from repro_torch.models.transformer import init_params, unembed_apply
+
+    @torch.no_grad()
+    def predict(params, batch):
+        h = forward(params, model_cfg, batch["tokens"])
+        logits = unembed_apply(params["unembed"], h, model_cfg)
+        return logits.argmax(-1), batch["labels"], batch["mask"]
+
+    return FLTask(
+        init_fn=lambda gen: init_params(gen, model_cfg),
+        loss_fn=lambda p, b: lm_loss(p, model_cfg, b),
+        group_axes_fn=lambda p: fusion_lib.lm_group_axes(p, model_cfg),
+        predict_fn=predict,
+        n_classes=None,
     )
 

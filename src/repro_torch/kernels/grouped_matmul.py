@@ -34,8 +34,13 @@ raises) when they fail; nothing switches route or falls back.
 raises. The bias is added outside the kernel, as the reference's
 wrapper adds it. ``grouped_matmul.launches`` counts kernel launches
 (one per call) and ``grouped_matmul.route_launches`` the launches of
-each route. The kernel has no backward: it serves forward passes only
-(``models.layers.grouped_dense_apply(use_kernel=True)``).
+each route. The kernel has no backward: it serves no-grad passes only
+(``models.layers.grouped_dense_apply(use_kernel=True)``: decode, the
+LM eval and prefill losses, the federated LM eval). Its output, written
+through a raw pointer, carries no ``grad_fn``, so on CUDA tensors the
+wrapper raises when autograd is recording and an input requires grad
+(``check_no_autograd``), rather than return a result that would cut
+the gradient silently.
 """
 from __future__ import annotations
 
@@ -128,17 +133,32 @@ def _check(x, w, b):
                          "and w")
 
 
+def check_no_autograd(x, w, b) -> None:
+    """Raise when autograd records the call (grad mode on and an input
+    requires grad): the kernel's output would carry no ``grad_fn``, and
+    a gradient through it would be lost."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        raise RuntimeError(
+            "grouped_matmul has no backward: called with grad enabled on "
+            "inputs that require grad, its result would be detached and "
+            "cut the gradient. Train through the einsum route "
+            "(grouped_dense_apply(use_kernel=False)) and take the kernel "
+            "under torch.no_grad() only")
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None) -> torch.Tensor:
     """Block-diagonal product ``x @ blockdiag(w) (+ b)``: x (..., G*K),
     w (G, K, N), b (G, N) or None -> (..., G*N) in x's dtype. CPU
-    tensors take ``grouped_matmul_ref``; CUDA tensors launch the
-    kernel."""
+    tensors take ``grouped_matmul_ref``; CUDA tensors launch the kernel,
+    under no autograd only (``check_no_autograd``)."""
     _check(x, w, b)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
+    check_no_autograd(x, w, b)
     lib = _library()
     g, k, n = w.shape
     lead = x.shape[:-1]

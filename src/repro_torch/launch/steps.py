@@ -1,12 +1,88 @@
-"""Serve step shared by the serving launcher and its tests: the port of
-``repro.launch.steps.make_serve_step`` (PyTorch runs eagerly, so there
-is nothing to jit)."""
+"""Train, eval, prefill and serve steps shared by the launchers and their
+tests: the port of ``repro.launch.steps`` (PyTorch runs eagerly, so
+there is nothing to jit).
+
+The train step takes its gradients with plain autograd, so the model's
+remat (``ModelConfig.remat_blocks`` and the SSD chunks) applies. The
+eval and prefill steps run under ``torch.no_grad`` and take the Fed2
+unembedding's ``grouped_matmul`` kernel route; the train step never
+does (the kernel has no backward).
+"""
 from __future__ import annotations
 
-from repro_torch.models.forward import decode_step
+import torch
+
+from repro_torch.models.forward import decode_step, lm_loss
+from repro_torch.models.module import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim.optimizers import adamw
+
+
+def value_and_grad(params, cfg, batch):
+    """(lm_loss, its gradient tree) by plain autograd; the loss
+    detached."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    loss = lm_loss(tree_unflatten(params, leaves), cfg, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg, *, lr: float = 3e-4, microbatches: int = 1):
+    """``microbatches > 1`` splits the global batch and accumulates the
+    grads in fp32, then scales loss and grads by ``1/microbatches``:
+    saved activations are bounded by one microbatch.
+
+    The grads are cast to bf16 before the optimizer, as the reference
+    does by default (its ``grad_sync_dtype``, which halves a gradient
+    all-reduce that one card does not have): the update stays the
+    reference's only with that rounding.
+
+    Returns (train_step, opt): ``train_step(params, opt_state, step,
+    batch) -> (params, opt_state, loss)``, step an int from 0."""
+    opt = adamw(lr, weight_decay=0.1, state_dtype=torch.float32)
+
+    def train_step(params, opt_state, step, batch):
+        if microbatches == 1:
+            loss, grads = value_and_grad(params, cfg, batch)
+        else:
+            mb = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))
+                  for k, v in batch.items()}
+            dev = tree_leaves(params)[0].device
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device), params)
+            for i in range(microbatches):
+                l_, g = value_and_grad(params, cfg,
+                                       {k: v[i] for k, v in mb.items()})
+                loss = loss + l_
+                grads = tree_map(lambda a, gg: a + gg.to(a.dtype), grads, g)
+            inv = 1.0 / microbatches
+            loss = loss * inv
+            grads = tree_map(lambda g: g * inv, grads)
+        grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+        params, opt_state = opt.update(grads, opt_state, params, step)
+        return params, opt_state, loss
+
+    return train_step, opt
+
+
+def make_eval_step(cfg):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return lm_loss(params, cfg, batch, use_kernel=True)
+    return eval_step
 
 
 def make_serve_step(cfg):
     def serve_step(params, cache, tokens, pos):
         return decode_step(params, cfg, cache, tokens, pos)
     return serve_step
+
+
+def make_prefill_loss_step(cfg):
+    """Forward-only loss (the reference's prefill_32k target: one
+    full-context forward pass, no optimizer)."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        return lm_loss(params, cfg, batch, use_kernel=True)
+    return prefill_step

@@ -1,6 +1,14 @@
-"""Training launcher: the paper's federated scenario (``--mode fl``).
+"""Training launcher. Two modes, as in ``repro.launch.train``:
 
-Runs on the CUDA card unless ``--device cpu`` is given. Defaults match
+  --mode lm    : language-model training of the port's LM family
+                 (Mamba-2 1.3B, ``--arch mamba2-1.3b``, ``--reduced`` or
+                 full, ``--fed2`` for the block-diagonal unembedding) on
+                 the synthetic token corpus: AdamW, ``--microbatches``,
+                 ``--ckpt``;
+  --mode fl    : the paper's federated scenario (CNN + Fed2/fedavg/...).
+
+Runs on the CUDA card unless ``--device cpu`` is given. ``--mode fl``'s
+defaults match
 ``python -m repro.launch.train --mode fl``: the full VGG9 with 8
 structure groups for fed2 (the plain baseline VGG9 for fedavg/fedprox),
 10 clients at full participation, 8 momentum-SGD steps of batch 32 per
@@ -19,6 +27,11 @@ client state in ``--chunk-size``-row shards on disk
 (fl/statestore.py), in sync and async runs.
 
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch mamba2-1.3b --fed2 --batch 8 --seq 1024 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch mamba2-1.3b --reduced --steps 50 --batch 8 --seq 128 \\
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
       --method fed2 --rounds 10
   PYTHONPATH=src python -m repro_torch.launch.train --mode fl \\
@@ -49,8 +62,63 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import time
 
-ARCHS = ("vgg9", "vgg16", "mobilenet")
+ARCHS = ("vgg9", "vgg16", "mobilenet")      # --mode fl
+LM_ARCHS = ("mamba2-1.3b",)                 # --mode lm
+
+
+def run_lm(args) -> dict:
+    """LM training on the synthetic token corpus: ``args.steps`` AdamW
+    steps of ``args.batch`` sequences of ``args.seq`` tokens, the
+    weights drawn on the run's device from ``args.seed``. Prints the
+    loss at the reference's cadence and returns {"loss", "wall" (host
+    seconds after each step, its loss read), "tokens_per_step",
+    "final_params"}."""
+    import torch
+
+    from repro_torch.checkpoint.io import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.fl.runtime import resolve_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.module import tree_map
+    from repro_torch.models.transformer import init_params
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if args.fed2:
+        cfg = with_fed2(cfg, groups=args.fed2_groups)
+    params = init_params(torch.Generator(device=device).manual_seed(
+        args.seed), cfg)
+    step_fn, opt = make_train_step(cfg, lr=args.lr,
+                                   microbatches=args.microbatches)
+    ostate = opt.init(params)
+    toks, _ = make_token_dataset(args.batch * args.steps, args.seq + 1,
+                                 cfg.vocab, seed=args.seed)
+    losses, wall = [], []
+    t0 = time.time()
+    for i in range(args.steps):
+        batch = lm_batch_from_tokens(toks[i * args.batch:(i + 1) * args.batch],
+                                     device=device)
+        params, ostate, loss = step_fn(params, ostate, i, batch)
+        losses.append(float(loss))
+        wall.append(time.time() - t0)
+        if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
+            print(f"step {i:5d} loss {losses[-1]:.4f} ({wall[-1]:.1f}s)")
+    if args.ckpt:
+        # numpy has no bfloat16 of its own: bf16 leaves are stored as
+        # their (exact) fp32 values
+        save_checkpoint(args.ckpt, tree_map(
+            lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+            params),
+            step=args.steps)
+        print("checkpoint ->", args.ckpt)
+    return {"loss": losses, "wall": wall,
+            "tokens_per_step": args.batch * args.seq,
+            "final_params": params}
 
 
 def build_model_config(args, method):
@@ -151,15 +219,23 @@ def parse_args(argv=None):
     from repro_torch.fl import statestore as statestore_lib
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["fl"], default="fl")
-    ap.add_argument("--arch", default="vgg9", choices=ARCHS)
+    ap.add_argument("--mode", choices=["lm", "fl"], default="fl")
+    ap.add_argument("--arch", default="vgg9", choices=ARCHS + LM_ARCHS,
+                    help="fl mode: a CNN (" + ", ".join(ARCHS) + "); lm "
+                         "mode: an LM (" + ", ".join(LM_ARCHS) + ")")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--fed2", action="store_true",
+                    help="lm mode: Fed2 structure adaptation (the "
+                         "block-diagonal unembedding over --fed2-groups "
+                         "vocab clusters)")
     ap.add_argument("--fed2-groups", type=int, default=8)
     ap.add_argument("--method", default="fed2",
                     choices=list(methods_lib.available()))
     ap.add_argument("--scenario", default="",
                     help="run a registered scenario from fl/scenarios.py "
                          "verbatim; overrides the per-knob flags")
+    ap.add_argument("--steps", type=int, default=100,
+                    help="lm mode: optimizer steps")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--nodes", type=int, default=10,
                     help="logical client population")
@@ -248,15 +324,59 @@ def parse_args(argv=None):
     ap.add_argument("--local-epochs", type=int, default=1)
     ap.add_argument("--steps-per-epoch", type=int, default=8)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="lm mode: tokens per sequence")
     ap.add_argument("--lr", type=float, default=0.01)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="lm mode: split each batch, accumulating grads "
+                         "in fp32")
     ap.add_argument("--train-size", type=int, default=4000)
     ap.add_argument("--noise", type=float, default=1.2)
     ap.add_argument("--seed", type=int, default=0)
-    return ap.parse_args(argv)
+    ap.add_argument("--ckpt", default="",
+                    help="lm mode: save the final params here "
+                         "(checkpoint/io.py's format)")
+    args = ap.parse_args(argv)
+    check_mode_flags(ap, args)
+    return args
+
+
+def check_mode_flags(ap, args) -> None:
+    """The reference's refusals of fl-only flags outside --mode fl (its
+    messages), and the arch each mode takes."""
+    if args.list_capabilities:
+        return
+    if args.scenario and args.mode != "fl":
+        ap.error("--scenario is only supported with --mode fl")
+    if args.tiers and args.mode != "fl":
+        ap.error("--tiers is only supported with --mode fl")
+    if args.mode != "fl" and (args.fed_mode != "sync"
+                              or args.buffer_k is not None
+                              or args.staleness != "constant"
+                              or args.latency != "zero"):
+        ap.error("--fed-mode/--buffer-k/--staleness/--latency are only "
+                 "supported with --mode fl")
+    if args.mode != "fl" and (args.attack or args.attack_fraction
+                              or args.robust):
+        ap.error("--attack/--attack-fraction/--robust are only supported "
+                 "with --mode fl")
+    if args.mode != "fl" and (args.compute_dtype != "float32"
+                              or args.codec or args.local_unroll != 1
+                              or args.use_local_kernel):
+        ap.error("--compute-dtype/--codec/--local-unroll/"
+                 "--use-local-kernel are only supported with --mode fl")
+    if args.mode != "fl" and args.alignment != "grouped":
+        ap.error("--alignment is only supported with --mode fl")
+    archs = LM_ARCHS if args.mode == "lm" else ARCHS
+    if args.arch not in archs:
+        ap.error(f"--mode {args.mode} takes --arch "
+                 + "|".join(archs) + f", got {args.arch!r}")
 
 
 def main(argv=None):
-    return run_fl(parse_args(argv))
+    args = parse_args(argv)
+    lm = args.mode == "lm" and not args.list_capabilities
+    return (run_lm if lm else run_fl)(args)
 
 
 if __name__ == "__main__":

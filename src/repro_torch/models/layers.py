@@ -1,6 +1,6 @@
 """Primitive layers: dense, grouped (block-diagonal) dense, conv2d with
 feature groups, GroupNorm and batch-statistics BatchNorm; for the LMs,
-RMSNorm, the depthwise causal conv1d's weights, the embedding and SiLU.
+RMSNorm, the depthwise causal conv1d, the embedding and SiLU.
 
 Each layer is an (init, apply) pair of plain functions over a dict of
 tensors, so the round engine can take gradients per client with
@@ -54,12 +54,12 @@ def grouped_dense_init(gen, groups: int, d_in: int, d_out: int, *,
 def grouped_dense_apply(p, x, *, use_kernel: bool = False):
     """x: (..., G*gi) -> (..., G*go). ``use_kernel`` routes the product
     through ``kernels/grouped_matmul.py`` (the hand-written kernel on CUDA
-    tensors, its plain version on the CPU). It has no backward, so it is
-    opt-in: the CNNs' training path keeps the einsum, as the reference
-    does."""
+    tensors, its plain version on the CPU). It has no backward (it raises
+    under autograd on the card), so it is opt-in and for no-grad passes
+    only: every training path keeps the einsum, as the reference does."""
     if use_kernel:
         from repro_torch.kernels.grouped_matmul import grouped_matmul
-        return grouped_matmul(x, p["w"], p.get("b"))
+        return grouped_matmul(x.contiguous(), p["w"], p.get("b"))
     g, gi, go = p["w"].shape
     xg = x.reshape(x.shape[:-1] + (g, gi))
     y = torch.einsum("...gi,gio->...go", xg, p["w"])
@@ -69,7 +69,7 @@ def grouped_dense_apply(p, x, *, use_kernel: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# LM layers: RMSNorm, depthwise causal conv1d weights, embedding, SiLU
+# LM layers: RMSNorm, depthwise causal conv1d, embedding, SiLU
 # ---------------------------------------------------------------------------
 
 
@@ -90,6 +90,19 @@ def conv1d_depthwise_init(gen, channels: int, k: int, dtype=torch.float32):
     the reference (its "LIO" layout), bias ``(C,)``."""
     return {"w": default_init(gen, (k, 1, channels), fan_in=k, dtype=dtype),
             "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+
+
+def conv1d_depthwise_apply(p, x):
+    """The depthwise causal conv over a whole sequence: x (B, L, C) ->
+    (B, L, C), ``y[t] = sum_k x[t - (k-1) + i] w[i] + b`` with zeros
+    before the first position (the reference's cross-correlation; the
+    decode's ``ssm.conv_step`` is one position of it)."""
+    k, l = p["w"].shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    y = xp[:, :l] * p["w"][0, 0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + l] * p["w"][i, 0]
+    return y + p["b"]
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32):

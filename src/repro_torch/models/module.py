@@ -132,6 +132,21 @@ def stack_init(init_fn: Callable[..., Params], generator: torch.Generator,
     return tree_map(lambda *leaves: torch.stack(leaves), *layers)
 
 
+def rematerialized(fn: Callable, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    rather than kept (the reference's ``jax.checkpoint``): through
+    ``torch.utils.checkpoint`` (non-reentrant) when plain autograd
+    records the call. Under a ``torch.func`` transform (the round
+    engine's ``vmap(grad(...))``), which refuses checkpoint's saved-
+    tensor hooks, and under ``no_grad``, ``fn`` runs as it is. Remat
+    moves memory, not numbers: both routes compute the same values."""
+    if (not torch.is_grad_enabled()
+            or torch._C._functorch.peek_interpreter_stack() is not None):
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def param_count(params: Params) -> int:
     return sum(int(p.numel()) for p in tree_leaves(params))
 

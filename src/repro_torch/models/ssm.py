@@ -1,13 +1,17 @@
-"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) block: the
-decode half of ``repro.models.ssm``.
+"""Mamba-2 (SSD, state-space duality, arXiv:2405.21060) block: the port
+of ``repro.models.ssm``.
 
-Decode is the O(1) recurrent state update, one token at a time. The
-reference's chunked SSD scan (``ssd_chunked``) and full-sequence mixer
-(``mamba2_apply``), its prefill and training path, are not ported yet:
-the port's serving loop prefills by repeated decode, as the reference's
+Train/prefill uses the chunked SSD algorithm (``ssd_chunked``): a Python
+loop over chunks, each an intra-chunk attention-like product plus the
+read-out of the carried state, and the inter-chunk state recurrence, so
+one (B, Q, Q, H) decay tile is alive at a time. Each chunk's body is
+rematerialized on the plain-autograd route (``models.module.
+rematerialized``), as the reference checkpoints its scan body. Decode
+is the O(1) recurrent state update, one token at a time; the port's
+serving loop prefills by repeated decode, as the reference's
 ``launch/serve.py`` does.
 
-Layout: x (B, H, P) heads x headdim; B/C projections shared across
+Layout: x (B, L, H, P) heads x headdim; B/C projections shared across
 heads (ngroups = 1); A is a per-head scalar decay (log-parameterized).
 Parameters keep the reference's shapes, so weights map across one to
 one (``convert.lm_to_port``).
@@ -20,9 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_update import ssd_update
-from repro_torch.models.layers import (conv1d_depthwise_init, dense_apply,
+from repro_torch.models.layers import (conv1d_depthwise_apply,
+                                       conv1d_depthwise_init, dense_apply,
                                        dense_init, rmsnorm_apply,
                                        rmsnorm_init, silu)
+from repro_torch.models.module import rematerialized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +51,69 @@ class SSMConfig:
     @property
     def conv_dim(self):
         return self.d_inner + 2 * self.d_state
+
+
+def _ssd_chunk(hstate, xc, dtc, bc, cc, a, d_skip, tri):
+    """One chunk of ``ssd_chunked``: (carried state (B, H, P, N), the
+    chunk's x (B, q, H, P), dt (B, q, H), b and c (B, q, N)) -> (the
+    state after the chunk, y (B, q, H, P) in fp32). The reference's
+    scan body; its four- and three-operand einsums are written as
+    two-operand contractions in the reference's operand order, so no
+    (B, q, q, H, P) product is ever formed."""
+    f32 = torch.float32
+    dtc, bc, cc, xc = (dtc.to(f32), bc.to(f32), cc.to(f32), xc.to(f32))
+    da = dtc * a                              # (B, q, H) log-decay, < 0
+    cum = torch.cumsum(da, dim=1)             # inclusive cumsum
+    total = cum[:, -1]                        # (B, H)
+    # pairwise decay exp(cum_i - cum_j) for i >= j, masked in log space:
+    # exp of the upper triangle would overflow, and inf * 0 is NaN in
+    # the backward pass
+    logdec = cum[:, :, None, :] - cum[:, None, :, :]          # (B, i, j, H)
+    ldec = torch.exp(torch.where(tri[None, :, :, None], logdec,
+                                 float("-inf")))
+    cb = torch.einsum("bin,bjn->bij", cc, bc)
+    # intra = einsum("bij,bijh,bjh,bjhp->bihp", cb, ldec, dt, x)
+    m = cb[..., None] * ldec * dtc[:, None]                   # (B, i, j, H)
+    intra = torch.einsum("bijh,bjhp->bihp", m, xc)
+    # the carried state, decayed to position i and read out:
+    # einsum("bih,bin,bhpn->bihp", exp(cum), c, h)
+    ec = torch.exp(cum)[..., None] * cc[:, :, None, :]        # (B, i, H, N)
+    y_prev = torch.einsum("bihn,bhpn->bihp", ec, hstate)
+    # the chunk's own state: sum_j exp(total - cum_j) dt_j B_j x_j^T
+    # einsum("bjh,bjn,bjhp->bhpn", decay_out * dt, b, x)
+    decay_out = torch.exp(total[:, None] - cum)               # (B, q, H)
+    wb = (decay_out * dtc)[..., None] * bc[:, :, None, :]     # (B, j, H, N)
+    s_new = torch.einsum("bjhn,bjhp->bhpn", wb, xc)
+    hstate = torch.exp(total)[:, :, None, None] * hstate + s_new
+    y = intra + y_prev + d_skip[None, None, :, None] * xc
+    return hstate, y
+
+
+def ssd_chunked(x, dt, a_log, b, c, d_skip, *, chunk: int):
+    """Chunked SSD scan. x: (B, L, H, P); dt: (B, L, H) (post-softplus,
+    > 0); a_log: (H,) (A = -exp); b, c: (B, L, N); d_skip: (H,).
+    Returns (y (B, L, H, P) in x's dtype, the final state (B, H, P, N)
+    fp32). L is right-padded to a multiple of q = min(chunk, L); the
+    padding (dt = 0 there) leaves the state as it was."""
+    bs, l, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, l)
+    nc = -(-l // q)
+    pad = nc * q - l
+
+    def chunks(t):
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((bs, nc, q) + tuple(t.shape[2:])).unbind(1)
+
+    a = -torch.exp(a_log.to(torch.float32))                   # (H,) < 0
+    tri = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    hstate = x.new_zeros((bs, h, p, n), dtype=torch.float32)
+    ys = []
+    for xc, dtc, bc, cc in zip(chunks(x), chunks(dt), chunks(b), chunks(c)):
+        hstate, y = rematerialized(_ssd_chunk, hstate, xc, dtc, bc, cc, a,
+                                   d_skip, tri)
+        ys.append(y.to(x.dtype))
+    return torch.cat(ys, dim=1)[:, :l], hstate
 
 
 def ssd_step(hstate, x, dt, a_log, b, c, d_skip):
@@ -89,6 +158,26 @@ def mamba2_init(gen, cfg: SSMConfig, dtype=torch.float32):
 def _project_in(p, x):
     return dense_apply(p["w_z"], x), dense_apply(p["w_xbc"], x), \
         dense_apply(p["w_dt"], x)
+
+
+def mamba2_apply(p, x, cfg: SSMConfig, *, with_state: bool = False):
+    """Full-sequence mixer. x: (B, L, d_model) -> (B, L, d_model).
+    ``with_state`` also returns the SSM state after the last position
+    (B, H, P, N) fp32, the state that L decode steps reach."""
+    bs, l, _ = x.shape
+    di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
+    z, xbc, dt = _project_in(p, x)
+    xbc = silu(conv1d_depthwise_apply(p["conv"], xbc))
+    xs = xbc[..., :di].reshape(bs, l, h, cfg.headdim)
+    bmat = xbc[..., di:di + n]
+    cmat = xbc[..., di + n:]
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    y, state = ssd_chunked(xs, dt, p["a_log"], bmat, cmat, p["d_skip"],
+                           chunk=cfg.chunk)
+    y = y.reshape(bs, l, di)
+    y = rmsnorm_apply(p["norm"], y * silu(z))
+    out = dense_apply(p["out_proj"], y)
+    return (out, state) if with_state else out
 
 
 def mamba2_cache_init(cfg: SSMConfig, batch: int, dtype, device=None):

@@ -124,10 +124,12 @@ class FakeCuda:
     no memory: enough for a wrapper's checks, which come before any
     device memory is touched."""
 
-    def __init__(self, *shape, dtype=torch.float32, ptr=0):
+    def __init__(self, *shape, dtype=torch.float32, ptr=0,
+                 requires_grad=False):
         self.shape, self.dtype = torch.Size(shape), dtype
         self.device = torch.device("cuda", 0)
         self.ptr = ptr
+        self.requires_grad = requires_grad
 
     def data_ptr(self):
         return self.ptr
@@ -238,6 +240,27 @@ def test_grouped_matmul_raises_on_every_route_when_the_build_fails(
     assert (gm.grouped_matmul.launches,
             gm.grouped_matmul.route_launches) == before
     assert set(gm.grouped_matmul.route_launches) == set(gm.ROUTES)
+
+
+def test_grouped_matmul_refuses_autograd_on_the_card(monkeypatch):
+    """On CUDA tensors the wrapper raises when autograd records the call
+    (its output would carry no grad_fn and cut the gradient), before the
+    build and before any launch; under no_grad it goes on to the build."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import grouped_matmul as gm
+    monkeypatch.setattr(build, "load", _no_nvcc)
+    before = gm.grouped_matmul.launches
+    x = FakeCuda(4, 8 * 256, ptr=1 << 20, requires_grad=True)
+    w = FakeCuda(8, 256, 6288, ptr=1 << 21)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gm.grouped_matmul(x, w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gm.grouped_matmul(FakeCuda(4, 8 * 256, ptr=1 << 20),
+                          FakeCuda(8, 256, 6288, ptr=1 << 21,
+                                   requires_grad=True))
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc failed"):
+        gm.grouped_matmul(x, w)
+    assert gm.grouped_matmul.launches == before
 
 
 def test_library_path_follows_the_shared_headers(monkeypatch, tmp_path):

@@ -318,3 +318,23 @@ def test_grouped_matmul_rejects_bad_inputs():
         gm.grouped_matmul(x, w.bfloat16())
     with pytest.raises(ValueError):                   # strided x
         gm.grouped_matmul(torch.zeros(16, 4).t(), w)
+
+
+def test_grouped_matmul_refuses_autograd():
+    """The kernel's output carries no grad_fn, so on CUDA tensors the
+    wrapper raises when autograd records the call (``check_no_autograd``,
+    which it calls before launching) rather than return a detached
+    result; under no_grad, or on inputs that need no grad, it passes.
+    The CPU route is the differentiable plain version."""
+    x, w, b = (torch.tensor(a) for a in _gmm_inputs((4,), 2, 8, 6))
+    for args in ((x.clone().requires_grad_(), w, None),
+                 (x, w.clone().requires_grad_(), b),
+                 (x, w, b.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="no backward"):
+            gm.check_no_autograd(*args)
+        with torch.no_grad():
+            gm.check_no_autograd(*args)
+    gm.check_no_autograd(x, w, b)
+    xg = x.clone().requires_grad_()
+    gm.grouped_matmul(xg, w, b).sum().backward()
+    assert xg.grad is not None and bool(xg.grad.abs().sum() > 0)
