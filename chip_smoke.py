@@ -17,7 +17,10 @@ script exits non-zero:
             device times (CUDA-graph replay) of the kernel, the plain
             version and one library call (where one exists), beside the
             bound (grouped_matmul also at the LM's no-grad unembedding,
-            M = 4096 rows, and its refusal under autograd);
+            M = 4096 rows, at the dense decode's shapes: a decoupled
+            FFN's gate/up (8, 256, 1024) and down (8, 1024, 256)
+            products, timed at M = 4 and 128, and the llama
+            unembedding, and its refusal under autograd);
             feature_stats also as feature_stats_many on segment
             tables (auto-depth's, ragged and misaligned ones, one over a
             launch's capacity, vgg16's 100 x 15), and Eq. 9's reduction
@@ -135,8 +138,9 @@ script exits non-zero:
             cohort of 8 over 10^4 and 10^6 striped clients through the
             mmap store: s/round and RSS (paired_fusion once a round)
 23. serve   Mamba-2 1.3B at full width through the serving CLI
-            (launch/serve.py, the reference's defaults: batch 4, 32
-            prompt + 16 decoded tokens): --full (ssd_update in every
+            (launch/serve.py --arch mamba2-1.3b, the reference's other
+            defaults: batch 4, 32 prompt + 16 decoded tokens): --full
+            (ssd_update in every
             layer of every step: 48 x 48 launches) and --full
             --fed2-groups 8 (also grouped_matmul, once a step, on its
             stream route), then --batch 128 with Fed2 (decode_32k's
@@ -185,6 +189,34 @@ script exits non-zero:
             and every layer's final SSM state within the stated limits
 29. lm profile  one --mode lm step, with and without --microbatches
             2, and one fed2 LM round under torch.profiler
+30. dense serve  Llama-3.2-1B at full width through the serving CLI's
+            default arch (batch 4, 32 + 16 tokens): --full and --full
+            --fed2-groups 8 (grouped_matmul 13 a step: the unembedding
+            and the 4 decoupled FFNs' three products, stream route),
+            then Fed2 at batch 128 over a 2048-slot KV cache (8.6 GB in
+            bf16; wgmma route); counted, with tok/s, peak memory and
+            the parameter counts, which must equal the reference's
+31. dense decode parity  the full llama with Fed2 in fp32 (TF32 off):
+            16 decode steps with the kernels against the plain versions
+            (logits and KV caches), and the chunked forward (q chunks of
+            128, kv chunks of 256) over 300 tokens against 300 decode
+            steps, logits within the stated limit
+32. dense lm train  the chunked attention at the training shape beside
+            F.scaled_dot_product_attention (time, bound, agreement);
+            --mode lm --arch llama3.2-1b --fed2 --fed2-groups 8 at full
+            width and depth as in 26 (no launch in training; the eval
+            and prefill steps 2 wgmma launches each)
+33. dense lm federation  lm_task on the llama in fp32 under
+            with_fed2(groups=4), cut to 6 of 16 layers (its 4 decoupled
+            blocks kept), as in 27: fedavg and fed2 with and without
+            --use-local-kernel, counted, every leaf moved and the
+            held-out loss below the init's; then one fed2 round with
+            every local_step and paired_fusion call held against its
+            plain version (LmKernelTaps), and the held-out loss per
+            round
+34. dense lm profile  one llama --mode lm step (the attention's
+            elementwise and softmax passes split out) and one fed2 dense
+            LM round under torch.profiler
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -259,10 +291,13 @@ AXES_SCENARIO_REFERENCE = {
     "nxc2_fedavg_oneshot": 0.2225, "nxc2_fedavg": 0.4125}
 # tests/test_paper_claims.py's margin for the robust orderings
 CLAIMS_MARGIN = 0.10
-# parameters of mamba2-1.3b and of with_fed2(groups=8) of it: the
-# reference's param_count(jax.eval_shape(init_params, ...)) on its
-# configs/mamba2_1_3b.full()
-SERVE_PARAMS = {0: 1_446_812_672, 8: 1_356_667_904}
+# parameters of the full mamba2-1.3b and llama3.2-1b, and of
+# with_fed2(groups=8) of each: the reference's
+# param_count(jax.eval_shape(init_params, ...)) on its configs/<arch>.full()
+SERVE_PARAMS = {("mamba2-1.3b", 0): 1_446_812_672,
+                ("mamba2-1.3b", 8): 1_356_667_904,
+                ("llama3.2-1b", 0): 1_498_482_688,
+                ("llama3.2-1b", 8): 1_092_487_168}
 SERVE_LAYERS = 48
 # decode parity, kernels vs plain versions at full width in fp32: fp32
 # round-off (~1e-7 relative per operation) carried through 48 layers
@@ -349,6 +384,43 @@ LM_FL = dict(population=4, rounds=2, local_epochs=1, steps_per_epoch=4,
 CROSSCHECK_LEN = 300
 CROSSCHECK_LOGIT_ATOL = 2e-2
 CROSSCHECK_STATE_RTOL = 1e-3
+# the dense family at llama3.2-1b: 16 layers, with_fed2(groups=8)
+# decouples the last 4, so a Fed2 decode step launches grouped_matmul
+# 1 + 3 x 4 times (the unembedding and each decoupled FFN's gate, up
+# and down products); the batch-128 serve holds a 2048-slot bf16 KV
+# cache (2 x 16 x 128 x 2048 x 8 x 64 x 2 bytes = 8.6 GB)
+DENSE_LAYERS = 16
+DENSE_GBLOCKS = 4
+DENSE_GMM_PER_STEP = 1 + 3 * DENSE_GBLOCKS
+DENSE_SERVE_BATCH128 = ("--max-len", "2048", "--batch", "128",
+                        "--prompt-len", "2", "--gen", "8")
+DENSE_KV_BYTES = 2 * DENSE_LAYERS * 128 * 2048 * 8 * 64 * 2
+DENSE_LM_TRAIN = ("--mode", "lm", "--arch", "llama3.2-1b", "--fed2",
+                  "--fed2-groups", "8", "--batch", "8", "--seq", "1024",
+                  "--lr", "1e-3")
+# the dense decode parity's 16 tokens, and the cross-check: the chunked
+# forward at q chunks of 128 and kv chunks of 256 (300 tokens: three q
+# chunks and two kv chunks, each padded) against 300 decode steps, full
+# width and depth, fp32 (TF32 off). The limit was set before the first
+# run on the card: both paths compute one function, rounding fp32 sums
+# in other orders (the CPU parity tests hold them within 1e-5 of max
+# |logit| at reduced width); a wrong rotation, mask or cache slot moves
+# logits by O(1)
+DENSE_PARITY_STEPS = 16
+DENSE_CROSSCHECK = dict(attn_q_chunk=128, attn_kv_chunk=256)
+DENSE_CROSSCHECK_LOGIT_ATOL = 5e-3
+# LM federation of the dense family: llama3_2_1b.full(float32) with
+# with_fed2(groups=4) (4 decoupled blocks, a (4, 512, 32064) unembedding)
+# at depth 6 of 16: at full depth a flat fp32 row is 4.60 GB (1,150,486,528
+# params), and the global, 4 rows, 4 velocities and 4 gradients come to
+# ~60 GB before activations and the per-call kernel taps' copies of the
+# rows; at 8 layers (2.66 GB a row) the taps' round would peak near 80 GB
+DENSE_FL_LAYERS = 6
+# the chunked attention at the training shape (batch 8 x 1024, 32 heads,
+# 8 KV heads, head_dim 64, bf16, causal) against
+# F.scaled_dot_product_attention on the same q, k, v: both keep fp32
+# accumulators and round p and the output to bf16
+ATTN_SDPA_ATOL = 2e-2
 
 
 @contextlib.contextmanager
@@ -1087,6 +1159,16 @@ def phase_check_grouped_matmul() -> dict:
     # sequences of 64 tokens: M = 4096, fp32, G = 4, K = 512, N = 12576)
     check_one("lm eval chunk", "wgmma", (8, 512), g0, k0, n0, bf16)
     check_one("lm_task eval", "simt", (64, 64), 4, 512, 12576, f32)
+    # the dense family's decode (llama3.2-1b, 8 groups): the decoupled
+    # FFN's gate/up (8, 256, 1024) and down (8, 1024, 256) products and
+    # the unembedding (8, 256, 16032), on x (B, 1, G*K); bf16 serve at
+    # batch 4 (stream) and 128 (wgmma), fp32 at batch 4 (the decode
+    # parity); and the dense lm_task eval, (4, 512, 32064) fp32
+    for k, n in ((256, 1024), (1024, 256), (256, 16032)):
+        check_one("dense decode", "stream", (4, 1), g0, k, n, bf16)
+        check_one("dense decode", "wgmma", (128, 1), g0, k, n, bf16)
+        check_one("dense decode", "stream", (4, 1), g0, k, n, f32)
+    check_one("dense lm_task eval", "simt", (64, 64), 4, 512, 32064, f32)
     # autograd: the kernel has no backward, so the wrapper refuses
     x, w, _ = gmm_inputs((4,), g0, k0, n0, bf16, gen)
     before = grouped_matmul.launches
@@ -1105,7 +1187,11 @@ def phase_check_grouped_matmul() -> dict:
             ("serve M=4", 4, g0, k0, n0, bf16),
             ("serve M=128", 128, g0, k0, n0, bf16),
             ("lm eval chunk M=4096", 4096, g0, k0, n0, bf16),
-            ("lm_task eval M=4096", 4096, 4, 512, 12576, f32)):
+            ("lm_task eval M=4096", 4096, 4, 512, 12576, f32),
+            ("gffn gate/up M=4", 4, g0, 256, 1024, bf16),
+            ("gffn down M=4", 4, g0, 1024, 256, bf16),
+            ("gffn gate/up M=128", 128, g0, 256, 1024, bf16),
+            ("gffn down M=128", 128, g0, 1024, 256, bf16)):
         esz = dt.itemsize
         w_bytes = g * k * n * esz
         nbytes = w_bytes + esz * m * g * (k + n)
@@ -1476,15 +1562,38 @@ def _category(name: str) -> str:
     return "other (elementwise, reductions, norms, pooling)"
 
 
-def profiled(label: str, run):
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+            "aten::mv", "aten::addmv", "aten::matmul", "aten::einsum")
+
+
+def attention_us(prof, tile: tuple) -> float:
+    """Device time (us) of the operators, GEMMs aside, that read or write
+    an attention score tile: an input of 4 or more dims whose last two
+    are ``tile`` = (q chunk, kv chunk) rows. Those are the chunked
+    attention's elementwise and softmax passes (scale, mask, max, exp,
+    sum, casts), forward, rematerialized and backward."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or e.key in GEMM_OPS:
+            continue
+        if any(isinstance(sh, (list, tuple)) and len(sh) >= 4
+               and tuple(sh[-2:]) == tile for sh in e.input_shapes):
+            total += e.self_device_time_total
+    return total
+
+
+def profiled(label: str, run, attention_tile: tuple | None = None):
     """``run()`` under torch.profiler: device time by kernel category,
     and the share of the run's wall time in which the card ran a kernel
-    or a copy."""
+    or a copy. With ``attention_tile`` (records shapes) the chunked
+    attention's elementwise and softmax passes are split out of the
+    non-GEMM time (``attention_us``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=attention_tile is not None) as prof:
         t0 = time.time()
         run()
         torch.cuda.synchronize()
@@ -1503,6 +1612,12 @@ def profiled(label: str, run):
     for e in dev:
         c = _category(e.key)
         by_cat[c] = by_cat.get(c, 0.0) + e.self_device_time_total
+    if attention_tile is not None:
+        att = attention_us(prof, attention_tile)
+        other = "other (elementwise, reductions, norms, pooling)"
+        by_cat[other] = by_cat.get(other, 0.0) - att
+        by_cat["attention's elementwise and softmax passes "
+               f"({attention_tile[0]} x {attention_tile[1]} tiles)"] = att
     for c, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {c:<48s} {us / 1e3:8.2f} ms  {100 * us / total_us:5.1f} %")
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
@@ -2359,7 +2474,7 @@ def serve_cli(*extra):
     assert ((toks >= 0) & (toks < cfg.vocab)).all(), "token out of range"
     assert logits.shape == (args.batch, 1, cfg.vocab) and logits.is_cuda
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
-    want = SERVE_PARAMS[args.fed2_groups]
+    want = SERVE_PARAMS[args.arch, args.fed2_groups]
     print(f"  -> prefill {args.prompt_len} tok x {args.batch} in "
           f"{out['prefill_s']:.3f} s ({args.prompt_len * args.batch / out['prefill_s']:.1f} tok/s), "
           f"decode {args.gen} tok x {args.batch} in {out['decode_s']:.3f} s "
@@ -2379,16 +2494,18 @@ def phase_serve() -> dict:
     d = serve.parse_args([])
     steps = d.prompt_len + d.gen
     ssd = SERVE_LAYERS * steps
-    counted("serve --full", lambda: serve_cli("--full"),
-            {"ssd_update": ssd})
+    arch = ("--arch", "mamba2-1.3b")
+    counted("serve --arch mamba2-1.3b --full",
+            lambda: serve_cli(*arch, "--full"), {"ssd_update": ssd})
     _, counts = counted(
-        "serve --full --fed2-groups 8",
-        lambda: serve_cli("--full", "--fed2-groups", "8"),
+        "serve --arch mamba2-1.3b --full --fed2-groups 8",
+        lambda: serve_cli(*arch, "--full", "--fed2-groups", "8"),
         {"ssd_update": ssd, "grouped_matmul": steps}, {"stream": steps})
     peak, _ = counted(
-        "serve --full --fed2-groups 8 --batch 128 (decode_32k's batch)",
-        lambda: serve_cli("--full", "--fed2-groups", "8", "--batch", "128",
-                          "--prompt-len", "2", "--gen", "2"),
+        "serve --arch mamba2-1.3b --full --fed2-groups 8 --batch 128 "
+        "(decode_32k's batch)",
+        lambda: serve_cli(*arch, "--full", "--fed2-groups", "8", "--batch",
+                          "128", "--prompt-len", "2", "--gen", "2"),
         {"ssd_update": SERVE_LAYERS * 4, "grouped_matmul": 4}, {"wgmma": 4})
     state = SERVE_LAYERS * 128 * 64 * 64 * 128 * 4
     print(f"  SSM state at batch 128: {state / 1e9:.1f} GB; peak "
@@ -2491,12 +2608,13 @@ def phase_decode_parity():
     assert ok, "decode with the kernels drifts from the plain versions"
 
 
-def lm_cli(*extra):
-    """``python -m repro_torch.launch.train --mode lm`` at full width
-    (LM_TRAIN) plus ``extra``: losses finite and falling; prints the
-    step times, tokens/s and peak device memory."""
+def lm_cli(flags, *extra):
+    """``python -m repro_torch.launch.train`` with ``flags`` (LM_TRAIN or
+    DENSE_LM_TRAIN: --mode lm at full width) plus ``extra``: losses
+    finite and falling; prints the step times, tokens/s and peak device
+    memory."""
     from repro_torch.launch import train
-    argv = [*LM_TRAIN, "--steps", str(LM_TRAIN_STEPS), *extra]
+    argv = [*flags, "--steps", str(LM_TRAIN_STEPS), *extra]
     print("  python -m repro_torch.launch.train", " ".join(argv), flush=True)
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
@@ -2514,12 +2632,14 @@ def lm_cli(*extra):
     return out
 
 
-def phase_lm_train():
-    """--mode lm at full width and depth (LM_TRAIN), with and without
-    --microbatches 2, counted: no kernel launches (every training route
-    takes the einsum unembedding). Then the eval and prefill steps on the
-    trained params, counted: grouped_matmul once per loss chunk (2, the
-    wgmma route), and the eval loss against the einsum route."""
+def phase_lm_train(flags=LM_TRAIN):
+    """--mode lm at full width and depth (``flags``: LM_TRAIN, Mamba-2,
+    or DENSE_LM_TRAIN, Llama-3.2-1B), with and without --microbatches 2,
+    counted: no kernel launches (every training route takes the einsum
+    unembedding and, for the dense LM, the einsum decoupled FFNs). Then
+    the eval and prefill steps on the trained params, counted:
+    grouped_matmul once per loss chunk (2, the wgmma route), and the
+    eval loss against the einsum route."""
     from repro_torch.configs import get_config
     from repro_torch.configs.common import with_fed2
     from repro_torch.data.synthetic import (lm_batch_from_tokens,
@@ -2527,12 +2647,13 @@ def phase_lm_train():
     from repro_torch.launch.steps import (make_eval_step,
                                           make_prefill_loss_step)
     from repro_torch.models.forward import lm_loss
-    out, _ = counted("--mode lm", lm_cli, {})
+    arch = flags[flags.index("--arch") + 1]
+    out, _ = counted(f"--mode lm --arch {arch}", lambda: lm_cli(flags), {})
     del out
-    out, _ = counted("--mode lm --microbatches 2",
-                     lambda: lm_cli("--microbatches", "2"), {})
+    out, _ = counted(f"--mode lm --arch {arch} --microbatches 2",
+                     lambda: lm_cli(flags, "--microbatches", "2"), {})
     params = out.pop("final_params")
-    cfg = with_fed2(get_config("mamba2-1.3b"), groups=8)
+    cfg = with_fed2(get_config(arch), groups=8)
     toks, _ = make_token_dataset(8, 1025, cfg.vocab, seed=1)
     batch = lm_batch_from_tokens(toks, device="cuda")
     losses = {}
@@ -2558,21 +2679,37 @@ def phase_lm_train():
     free_device_memory()
 
 
-def lm_fl_inputs():
-    """The LM federation's model, data and init (LM_FL): the full-width
-    Mamba-2 cut to LM_FL_LAYERS layers in fp32, Fed2 over 4 vocab
-    clusters; 4 clients, one token domain each; 64 held-out sequences of
-    the same bigram tables; the weights drawn on the card. Returns (cfg,
-    parts, get_batch, test_batches, init)."""
+def mamba_fl_config():
+    """The full-width Mamba-2 cut to LM_FL_LAYERS layers in fp32, Fed2
+    over 4 vocab clusters."""
     import dataclasses
 
     from repro_torch.configs import mamba2_1_3b
     from repro_torch.configs.common import with_fed2
-    from repro_torch.data.synthetic import make_token_dataset
-    from repro_torch.models import transformer as tfm
-    cfg = with_fed2(dataclasses.replace(
+    return with_fed2(dataclasses.replace(
         mamba2_1_3b.full(dtype=torch.float32), n_layers=LM_FL_LAYERS),
         groups=4)
+
+
+def dense_fl_config():
+    """The full-width Llama-3.2-1B in fp32 under with_fed2(groups=4),
+    cut to DENSE_FL_LAYERS layers keeping its 4 decoupled blocks."""
+    import dataclasses
+
+    from repro_torch.configs import llama3_2_1b
+    from repro_torch.configs.common import with_fed2
+    return with_fed2(dataclasses.replace(
+        llama3_2_1b.full(dtype=torch.float32), n_layers=DENSE_FL_LAYERS),
+        groups=4, decouple=DENSE_GBLOCKS)
+
+
+def lm_fl_inputs(cfg):
+    """The LM federation's data and init (LM_FL) for model ``cfg``: 4
+    clients, one token domain each; 64 held-out sequences of the same
+    bigram tables; the weights drawn on the card. Returns (cfg, parts,
+    get_batch, test_batches, init)."""
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.models import transformer as tfm
     n_dom, n_train, n_test = LM_FL["population"], 800, 64
     toks, domains = make_token_dataset(n_train + n_test, LM_FL_SEQ + 1,
                                        cfg.vocab, n_domains=n_dom, seed=0)
@@ -2661,24 +2798,41 @@ def lm_cohort_kernels(init):
 
 
 def phase_lm_fl():
-    """run_federated(lm_task) at full width (LM_FL), fedavg and fed2,
-    with and without --use-local-kernel, counted: paired_fusion once a
-    round (one launch over the (4, M) buffer), local_step once a local
-    step with the flag, grouped_matmul once a round (the eval's Fed2
-    unembedding, simt route: fp32 at M = 64 x 64); s/round and
-    next-token accuracy per round. Each run must move every leaf and
-    bring the held-out loss below the init's."""
-    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
-    from repro_torch.models.module import param_count, tree_leaves
-    cfg, parts, get_batch, test, init = lm_fl_inputs()
-    n = param_count(init)
-    print(f"  {cfg.arch_id}, {cfg.n_layers} of 48 layers, fp32, Fed2 over "
-          f"{cfg.fed2_groups} groups: {n:,} parameters, a flat row "
-          f"{4 * n / 1e9:.2f} GB", flush=True)
+    """run_federated(lm_task) on the Mamba-2 at full width (LM_FL): the
+    kernels on its (4, M) cohort buffer, the counted runs
+    (``lm_fl_runs``) and the round's parity checks
+    (``phase_lm_fl_parity``)."""
+    from repro_torch.fl.runtime import lm_task
+    cfg, parts, get_batch, test, init = lm_fl_inputs(mamba_fl_config())
+    lm_fl_header(cfg, init, SERVE_LAYERS)
     with tf32_off():
         lm_cohort_kernels(init)
     task = lm_task(cfg)
     loss_of = lm_held_out_loss(cfg, test)
+    losses = lm_fl_runs(task, parts, get_batch, test, init, loss_of)
+    with tf32_off():
+        phase_lm_fl_parity(cfg, task, parts, get_batch, test, init,
+                           (losses["init"], losses["lm_task fed2"]), loss_of)
+
+
+def lm_fl_header(cfg, init, depth):
+    from repro_torch.models.module import param_count
+    n = param_count(init)
+    print(f"  {cfg.arch_id}, {cfg.n_layers} of {depth} layers "
+          f"({cfg.fed2_decouple} decoupled), fp32, Fed2 over "
+          f"{cfg.fed2_groups} groups: {n:,} parameters, a flat row "
+          f"{4 * n / 1e9:.2f} GB", flush=True)
+
+
+def lm_fl_runs(task, parts, get_batch, test, init, loss_of) -> dict:
+    """run_federated(lm_task) for LM_FL's 2 rounds, fedavg and fed2,
+    with and without --use-local-kernel, counted: paired_fusion once a
+    round, local_step once a local step with the flag, grouped_matmul
+    once a round (the eval's Fed2 unembedding, simt: fp32 at M = 64 x
+    64). Each run must move every leaf and bring the held-out loss below
+    the init's. Returns the held-out losses by run ("init" too)."""
+    from repro_torch.fl.runtime import FLConfig, run_federated
+    from repro_torch.models.module import tree_leaves
     losses = {"init": loss_of(init)}
     print(f"  held-out loss at the init {losses['init']:.5f}", flush=True)
     rounds, steps = LM_FL["rounds"], LM_FL["steps_per_epoch"]
@@ -2709,9 +2863,7 @@ def phase_lm_fl():
                 f"{label}: the held-out loss did not fall"
             del h
             free_device_memory()
-    with tf32_off():
-        phase_lm_fl_parity(cfg, task, parts, get_batch, test, init,
-                           (losses["init"], losses["lm_task fed2"]), loss_of)
+    return losses
 
 
 class LmKernelTaps:
@@ -3050,7 +3202,7 @@ def phase_lm_profile():
              lambda: step_mb2(params, state, 2, b0))
     del params, state
     free_device_memory()
-    cfg, parts, get_batch, test, init = lm_fl_inputs()
+    cfg, parts, get_batch, test, init = lm_fl_inputs(mamba_fl_config())
     fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
 
     def one_round():
@@ -3060,6 +3212,248 @@ def phase_lm_profile():
 
     one_round()
     profiled("one fed2 LM round (4 clients x 4 steps, eval)", one_round)
+    del init
+    free_device_memory()
+
+
+# ---------------------------------------------------------------------------
+# the dense family (Llama-3.2-1B)
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_serve():
+    """Llama-3.2-1B at full width through the serving CLI's default arch
+    (batch 4, 32 prompt + 16 decoded tokens), without and with
+    --fed2-groups 8, then Fed2 at batch 128 over a 2048-slot KV cache
+    (8.6 GB in bf16); counted, grouped_matmul by route: none without
+    Fed2, DENSE_GMM_PER_STEP a step with it (stream at batch 4, wgmma at
+    128), ssd_update never."""
+    from repro_torch.launch import serve
+    d = serve.parse_args([])
+    assert d.arch == "llama3.2-1b", d.arch
+    steps = d.prompt_len + d.gen
+    gmm = DENSE_GMM_PER_STEP * steps
+    counted("serve --full (llama3.2-1b)", lambda: serve_cli("--full"), {})
+    counted("serve --full --fed2-groups 8 (llama3.2-1b)",
+            lambda: serve_cli("--full", "--fed2-groups", "8"),
+            {"grouped_matmul": gmm}, {"stream": gmm})
+    b128 = serve.parse_args(list(DENSE_SERVE_BATCH128))
+    gmm = DENSE_GMM_PER_STEP * (b128.prompt_len + b128.gen)
+    peak, _ = counted(
+        "serve --full --fed2-groups 8 " + " ".join(DENSE_SERVE_BATCH128),
+        lambda: serve_cli("--full", "--fed2-groups", "8",
+                          *DENSE_SERVE_BATCH128),
+        {"grouped_matmul": gmm}, {"wgmma": gmm})
+    print(f"  KV cache at batch 128 x 2048 slots: "
+          f"{DENSE_KV_BYTES / 1e9:.2f} GB; peak {peak / 1e9:.2f} GB",
+          flush=True)
+    assert peak > DENSE_KV_BYTES, "the batch-128 run did not hold its cache"
+
+
+def phase_dense_decode_parity():
+    """The full llama3.2-1b with Fed2 in fp32 (TF32 off), from one init:
+
+    - DENSE_PARITY_STEPS tokens through decode_step with the kernels
+      (grouped_matmul's stream route in the unembedding and the 4
+      decoupled FFNs) and with the plain versions (no launch): logits
+      within PARITY_LOGIT_ATOL, the final KV caches within
+      PARITY_STATE_RTOL of each leaf's largest value;
+    - the chunked forward (DENSE_CROSSCHECK: q chunks of 128, kv chunks
+      of 256) over CROSSCHECK_LEN tokens against that many decode steps:
+      logits at every position within DENSE_CROSSCHECK_LOGIT_ATOL."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, forward, init_cache
+    cfg = with_fed2(get_config("llama3.2-1b", dtype=torch.float32), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    bs, steps = 4, DENSE_PARITY_STEPS
+    toks = torch.randint(0, cfg.vocab, (bs, CROSSCHECK_LEN), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+
+    @torch.no_grad()
+    def decoded(n, use_kernel, batch=bs):
+        cache = init_cache(cfg, batch, n, device="cuda")
+        logits = [decode_step(params, cfg, cache, toks[:batch, t:t + 1], t,
+                              use_kernel=use_kernel)[0] for t in range(n)]
+        return torch.cat(logits, 1), cache
+
+    gmm = DENSE_GMM_PER_STEP * steps
+    (on, c_on), _ = counted("dense decode parity, kernels",
+                            lambda: decoded(steps, True),
+                            {"grouped_matmul": gmm}, {"stream": gmm})
+    (off, c_off), _ = counted("dense decode parity, plain versions",
+                              lambda: decoded(steps, False), {})
+    err = (on - off).abs().max().item()
+    mag = off.abs().max().item()
+    cache_err = max(
+        ((c_on[st][k] - c_off[st][k]).abs().max()
+         / c_off[st][k].abs().max()).item()
+        for st in ("blocks", "gblocks") for k in ("k", "v"))
+    ok = err <= PARITY_LOGIT_ATOL and cache_err <= PARITY_STATE_RTOL
+    print(f"  {steps} tokens, batch {bs}, fp32: max |dlogits| {err:.3g} "
+          f"(limit {PARITY_LOGIT_ATOL:g}; max |logit| {mag:.3g}); KV "
+          f"caches, worst leaf {cache_err:.3g} of its largest value (limit "
+          f"{PARITY_STATE_RTOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "dense decode with the kernels drifts from the plain versions"
+    del on, off, c_on, c_off
+    free_device_memory()
+
+    n, bc = CROSSCHECK_LEN, 2
+    ccfg = dataclasses.replace(cfg, **DENSE_CROSSCHECK)
+
+    @torch.no_grad()
+    def chunked():
+        h = forward(params, ccfg, toks[:bc])
+        return tfm.unembed_apply(params["unembed"], h, ccfg,
+                                 use_kernel=False)
+
+    t0 = time.time()
+    want, _ = counted("dense chunked forward", chunked, {})
+    t1 = time.time()
+    gmm = DENSE_GMM_PER_STEP * n
+    (got, _), _ = counted(f"dense: {n} decode steps",
+                          lambda: decoded(n, True, bc),
+                          {"grouped_matmul": gmm}, {"stream": gmm})
+    t2 = time.time()
+    err = (got - want).abs().max().item()
+    mag = want.abs().max().item()
+    ok = err <= DENSE_CROSSCHECK_LOGIT_ATOL
+    print(f"  batch {bc}, {n} tokens, fp32, q/kv chunks "
+          f"{ccfg.attn_q_chunk}/{ccfg.attn_kv_chunk}: chunked forward "
+          f"{t1 - t0:.2f} s, decode {t2 - t1:.2f} s; max |dlogits| "
+          f"{err:.3g} (limit {DENSE_CROSSCHECK_LOGIT_ATOL:g}; max |logit| "
+          f"{mag:.3g}) {'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "the dense chunked forward and the decode disagree"
+    del params, got, want
+    free_device_memory()
+
+
+def attention_yardstick():
+    """The port's chunked attention (forward, no grad) at the training
+    shape against F.scaled_dot_product_attention on the same q, k, v
+    (the library yardstick; not a route of the port): each one's device
+    time (CUDA events around eager calls) beside the bound, and their
+    outputs within ATTN_SDPA_ATOL."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import chunked_attention
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, s, hq, hkv, d = 8, 1024, 32, 8, 64
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    pos = torch.arange(s, device="cuda")
+
+    def ours():
+        return chunked_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                                 causal=True, q_chunk=512, kv_chunk=1024)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    with torch.no_grad():
+        err = (ours().float() - sdpa().transpose(1, 2).float()).abs().max()
+        err = err.item()
+        t = {"ms": event_ms(ours, 5), "library_ms": event_ms(sdpa, 20)}
+    t["bound_ms"], t["bound_by"] = bound(
+        2 * b * s * d * (2 * hq + 2 * hkv), 2 * b * hq * s * s * d,
+        BF16_FLOPS)
+    print(f"  chunked attention, batch {b} x {s}, {hq} heads / {hkv} KV, "
+          f"head_dim {d}, bf16, causal: {t['ms'] * 1e3:.1f} us, "
+          f"F.scaled_dot_product_attention {t['library_ms'] * 1e3:.1f} us, "
+          f"bound {t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}); max "
+          f"|d| {err:.3g} (tol {ATTN_SDPA_ATOL:g}) "
+          f"{'ok' if err <= ATTN_SDPA_ATOL else 'FAIL'}", flush=True)
+    assert err <= ATTN_SDPA_ATOL, "the chunked attention and SDPA disagree"
+    del q, k, v, qt, kt, vt
+    free_device_memory()
+
+
+def phase_dense_lm_fl():
+    """run_federated(lm_task) on the dense LM (dense_fl_config: fp32,
+    Fed2 over 4 groups, 6 of 16 layers, 4 decoupled): the counted runs
+    (``lm_fl_runs``: fedavg and fed2, with and without
+    --use-local-kernel); then one fed2 round with the flag (TF32 off) in
+    which every local_step and paired_fusion call is held against its
+    plain version on that call's own inputs (``LmKernelTaps``), and the
+    held-out loss after each fed2 round."""
+    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
+    from repro_torch.models.module import FlatLayout, tree_leaves_with_path
+    cfg, parts, get_batch, test, init = lm_fl_inputs(dense_fl_config())
+    lm_fl_header(cfg, init, DENSE_LAYERS)
+    task = lm_task(cfg)
+    loss_of = lm_held_out_loss(cfg, test)
+    losses = lm_fl_runs(task, parts, get_batch, test, init, loss_of)
+    layout = FlatLayout(init)
+    paths = [p for p, _ in tree_leaves_with_path(init)]
+    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
+    with tf32_off(), LmKernelTaps(layout, paths) as taps:
+        h = run_federated(task, fl, parts, get_batch, test,
+                          use_local_kernel=True, device="cuda",
+                          init_params=init)
+    worst = taps.report("dense LM round, kernels on the round's own inputs")
+    assert taps.calls == {"local_step": LM_FL["steps_per_epoch"],
+                          "paired_fusion": 1}, taps.calls
+    assert max(worst.values()) <= 1.0, \
+        "a kernel call of the dense LM round exceeds its round-off bound"
+    l1 = loss_of(h["final_params"])
+    print(f"  held-out loss, fed2 with the flag: init {losses['init']:.5f}, "
+          f"round 1 {l1:.5f}, round 2 "
+          f"{losses['lm_task fed2 --use-local-kernel']:.5f}", flush=True)
+    del h, init
+    free_device_memory()
+
+
+def phase_dense_lm_profile():
+    """One --mode lm step of the dense LM (DENSE_LM_TRAIN's shapes, after
+    a warm-up step; the attention passes split out) and one fed2 round
+    of its federation (LM_FL on dense_fl_config, with
+    --use-local-kernel, after a warm-up run) under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    cfg = with_fed2(get_config("llama3.2-1b"), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    step_fn, opt = make_train_step(cfg, lr=1e-3)
+    state = opt.init(params)
+    toks, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
+    b0, b1 = (lm_batch_from_tokens(toks[i:i + 8], device="cuda")
+              for i in (0, 8))
+    params, state, _ = step_fn(params, state, 0, b0)
+    profiled("one --mode lm --arch llama3.2-1b step, batch 8 x 1024",
+             lambda: step_fn(params, state, 1, b1),
+             (cfg.attn_q_chunk, cfg.attn_kv_chunk))
+    del params, state
+    free_device_memory()
+    cfg, parts, get_batch, test, init = lm_fl_inputs(dense_fl_config())
+    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
+
+    def one_round():
+        run_federated(lm_task(cfg), fl, parts, get_batch, test,
+                      use_local_kernel=True, device="cuda",
+                      init_params=init)
+
+    one_round()
+    # the warm-up run's engine holds reference cycles (its buffers,
+    # ~20 GB at this width) until a collection
+    free_device_memory()
+    # no attention split here: with record_shapes the profiled vmapped
+    # round kept its memory until it ran out of the card's 80 GB (from
+    # 2.1 GiB allocated at its start); its score tiles are 64 x 64
+    profiled("one fed2 dense LM round (4 clients x 4 steps, eval)",
+             one_round)
     del init
     free_device_memory()
 
@@ -3169,6 +3563,20 @@ def main() -> int:
         phase_lm_crosscheck()
     with phase("lm profile"):
         phase_lm_profile()
+    free_device_memory()
+    with phase("dense serve"):
+        phase_dense_serve()
+    free_device_memory()
+    with phase("dense decode parity (TF32 off)"), tf32_off():
+        phase_dense_decode_parity()
+    with phase("dense lm train"):
+        attention_yardstick()
+        phase_lm_train(DENSE_LM_TRAIN)
+    free_device_memory()
+    with phase("dense lm federation"):
+        phase_dense_lm_fl()
+    with phase("dense lm profile"):
+        phase_dense_lm_profile()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

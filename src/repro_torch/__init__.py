@@ -15,7 +15,7 @@ these paths are written by hand for Hopper: ``kernels/paired_fusion.py``
 C++, ``csrc/feature_stats.cu``) in Eq. 9's class preference vectors,
 where one launch reduces every (tapped layer, class) pair, and
 ``kernels/ssd_update.py`` and ``kernels/grouped_matmul.py`` (CUDA C++,
-``csrc/ssd_update.cu``, ``csrc/grouped_matmul.cu``) in Mamba-2 serving:
-the SSM recurrence of every decode step and the Fed2 block-diagonal
-unembedding.
+``csrc/ssd_update.cu``, ``csrc/grouped_matmul.cu``) in LM serving and
+evaluation: the SSM recurrence of every Mamba-2 decode step, and the
+Fed2 block-diagonal unembedding and a Fed2 Llama's decoupled FFNs.
 """

@@ -1,10 +1,10 @@
 """Model configurations: the paper's CNNs (VGG9, VGG16, MobileNetV1) and
-the LM families the port has (Mamba-2 1.3B)."""
+the LMs of the families the port has (Llama-3.2-1B, Mamba-2 1.3B)."""
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("vgg9", "vgg16", "mobilenet", "mamba2-1.3b")
+ARCHS = ("vgg9", "vgg16", "mobilenet", "llama3.2-1b", "mamba2-1.3b")
 
 
 def get_config(arch_id: str, *, reduced: bool = False, **overrides):

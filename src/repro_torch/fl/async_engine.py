@@ -263,7 +263,8 @@ def make_async_engine(task, cfg, params_like, *, device,
     k = cfg.buffer_k if cfg.buffer_k is not None else cfg.cohort_size
     return AsyncEngine(cohort_size=cfg.cohort_size, buffer_k=k,
                        method=meth, engine=engine,
-                       buffer=engine.layout.alloc((k,), device=device))
+                       buffer=engine.layout.alloc(
+                           (k,), device=device, dtype=engine.cohort.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ One round over a fixed-width COHORT of client slots (width =
     global  <- method.host_fuse(stacked)       # host_fusion methods only
 
 The cohort lives in ONE flat (C, M) buffer (rows = clients, per-leaf
-views through ``FlatLayout``), allocated once and reused every round:
+views through ``FlatLayout``) of the params' dtype, allocated once and
+reused every round (a tree that mixes leaf dtypes is refused: one
+buffer would round its leaves to one dtype):
 broadcast is one copy into it, the local phase takes a vmapped gradient
 over its rows, the ``local_step`` kernel route updates it in place, and
 the fusion reads it in one ``paired_fusion`` launch when all leaves share
@@ -70,7 +72,7 @@ from repro_torch.fl import compat as compat_lib
 from repro_torch.fl import methods as methods_lib
 from repro_torch.fl import robust as robust_lib
 from repro_torch.fl.methods import FedMethod, MethodContext
-from repro_torch.models.module import FlatLayout, tree_map
+from repro_torch.models.module import FlatLayout, tree_leaves, tree_map
 
 
 def resolve_compute_dtype(compute_dtype, method: FedMethod):
@@ -232,6 +234,25 @@ class RoundEngine:
         return self.method.host_fuse(stacked, ctx)
 
 
+def params_dtype(params_like) -> torch.dtype:
+    """The one leaf dtype of a params tree, which the engine's flat
+    buffers take. A tree that mixes dtypes (a bf16 Mamba-2 keeps
+    ``a_log``, ``dt_bias`` and ``d_skip`` in fp32) is refused: the flat
+    (C, M) cohort has one dtype, and the JAX package keeps every leaf in
+    its own."""
+    dtypes = {t.dtype for t in tree_leaves(params_like) if t is not None}
+    if len(dtypes) != 1:
+        names = ", ".join(sorted(str(d).replace("torch.", "")
+                                 for d in dtypes))
+        raise ValueError(
+            f"the params tree has leaves of {len(dtypes)} dtypes "
+            f"({names}); the round engine keeps a cohort in one flat "
+            "buffer of one dtype and would round the others to it. Use a "
+            "config of one dtype, e.g. "
+            "mamba2_1_3b.full(dtype=torch.float32)")
+    return dtypes.pop()
+
+
 def make_round_engine(task, cfg, params_like, *, device,
                       use_kernel: bool | None = None,
                       use_local_kernel: bool = False,
@@ -263,6 +284,7 @@ def make_round_engine(task, cfg, params_like, *, device,
             f"{meth.name}: host_fusion methods end the device round at the "
             "stacked params — server_update/init_server_state never run; "
             "fold server-side work into host_fuse instead")
+    dtype = params_dtype(params_like)
     layout = FlatLayout(params_like)
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:
@@ -300,7 +322,8 @@ def make_round_engine(task, cfg, params_like, *, device,
     c = cfg.cohort_size
     return RoundEngine(
         cohort_size=c, method=meth, layout=layout, device=device, ctx=ctx,
-        cohort=layout.alloc((c,), device=device), attack=attack,
+        cohort=layout.alloc((c,), device=device, dtype=dtype),
+        attack=attack,
         robust=ctx.robust,
         pre_rule=rule if rule is not None and rule.has_pre else None,
         codec=codec, compute_dtype=cdtype,

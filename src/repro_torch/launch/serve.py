@@ -3,20 +3,22 @@ sampled token-by-token decode. The port of ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --full --fed2-groups 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      --full --fed2-groups 8
 
-It takes the reference's flags and defaults (``--batch 4 --prompt-len 32
---gen 16 --max-len 128 --temperature 0 --seed 0``) and serves the
-reduced config, as the reference does; ``--arch`` defaults to
-``mamba2-1.3b``, the LM family the port has. Two flags are added:
-``--full`` serves the full config (``get_config(reduced=False)``) and
-``--fed2-groups G`` applies ``with_fed2(cfg, groups=G)``; together they
-give the config the reference's ``launch/dryrun.py --fed2`` lowers.
-Weights are random from ``--seed``, drawn on the serving device. Every
-layer of every step runs the ``ssd_update`` kernel on the card, and a
-Fed2 unembedding the ``grouped_matmul`` kernel. Runs on the CUDA card
-unless ``--device cpu`` is given. Sampling (``--temperature > 0``)
-draws from a ``torch.Generator`` seeded with ``--seed``, so its tokens
-differ from the reference's ``jax.random`` draws.
+It takes the reference's flags and defaults (``--arch llama3.2-1b
+--batch 4 --prompt-len 32 --gen 16 --max-len 128 --temperature 0 --seed
+0``) and serves the reduced config, as the reference does. Two flags are
+added: ``--full`` serves the full config (``get_config(reduced=False)``)
+and ``--fed2-groups G`` applies ``with_fed2(cfg, groups=G)``; together
+they give the config the reference's ``launch/dryrun.py --fed2`` lowers.
+Weights are random from ``--seed``, drawn on the serving device. On the
+card a Fed2 unembedding runs the ``grouped_matmul`` kernel every step,
+and so do a Fed2 llama's decoupled FFNs (three products a decoupled
+block); every Mamba-2 layer runs the ``ssd_update`` kernel. Runs on the
+CUDA card unless ``--device cpu`` is given. Sampling (``--temperature >
+0``) draws from a ``torch.Generator`` seeded with ``--seed``, so its
+tokens differ from the reference's ``jax.random`` draws.
 """
 from __future__ import annotations
 
@@ -87,7 +89,7 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -99,7 +101,8 @@ def parse_args(argv=None):
                          "the reference)")
     ap.add_argument("--fed2-groups", type=int, default=0,
                     help="apply with_fed2(cfg, groups=G): a block-diagonal "
-                         "unembedding over G vocab clusters")
+                         "unembedding over G vocab clusters (and a dense "
+                         "LM's decoupled grouped-FFN blocks)")
     ap.add_argument("--device", default=None,
                     help="torch device; default = the CUDA card (fails "
                          "without one), 'cpu' to run on the CPU")

@@ -1,9 +1,10 @@
 """Training launcher. Two modes, as in ``repro.launch.train``:
 
-  --mode lm    : language-model training of the port's LM family
-                 (Mamba-2 1.3B, ``--arch mamba2-1.3b``, ``--reduced`` or
-                 full, ``--fed2`` for the block-diagonal unembedding) on
-                 the synthetic token corpus: AdamW, ``--microbatches``,
+  --mode lm    : language-model training of the port's LMs
+                 (``--arch llama3.2-1b`` or ``mamba2-1.3b``, ``--reduced``
+                 or full, ``--fed2`` for the block-diagonal unembedding
+                 and, for the dense llama, decoupled grouped-FFN blocks)
+                 on the synthetic token corpus: AdamW, ``--microbatches``,
                  ``--ckpt``;
   --mode fl    : the paper's federated scenario (CNN + Fed2/fedavg/...).
 
@@ -27,6 +28,8 @@ client state in ``--chunk-size``-row shards on disk
 (fl/statestore.py), in sync and async runs.
 
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
+      --arch llama3.2-1b --fed2 --batch 8 --seq 1024 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
       --arch mamba2-1.3b --fed2 --batch 8 --seq 1024 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --mode lm \\
@@ -65,7 +68,7 @@ import importlib
 import time
 
 ARCHS = ("vgg9", "vgg16", "mobilenet")      # --mode fl
-LM_ARCHS = ("mamba2-1.3b",)                 # --mode lm
+LM_ARCHS = ("mamba2-1.3b", "llama3.2-1b")  # --mode lm
 
 
 def run_lm(args) -> dict:

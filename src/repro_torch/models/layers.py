@@ -1,6 +1,7 @@
 """Primitive layers: dense, grouped (block-diagonal) dense, conv2d with
 feature groups, GroupNorm and batch-statistics BatchNorm; for the LMs,
-RMSNorm, the depthwise causal conv1d, the embedding and SiLU.
+RMSNorm, the depthwise causal conv1d, rotary position embeddings, the
+embedding, SiLU and GELU.
 
 Each layer is an (init, apply) pair of plain functions over a dict of
 tensors, so the round engine can take gradients per client with
@@ -12,6 +13,7 @@ cannot cross groups, Fed2's feature isolation (Eq. 13-14).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,7 +71,7 @@ def grouped_dense_apply(p, x, *, use_kernel: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# LM layers: RMSNorm, depthwise causal conv1d, embedding, SiLU
+# LM layers: RMSNorm, depthwise causal conv1d, RoPE, embedding, SiLU, GELU
 # ---------------------------------------------------------------------------
 
 
@@ -105,6 +107,34 @@ def conv1d_depthwise_apply(p, x):
     return y + p["b"]
 
 
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               rotary_dim: int | None = None, *, device=None):
+    """The rotary inverse frequencies ``theta^(-2i/rd)``, (rd/2,) fp32,
+    computed in numpy's float32 as the reference computes them."""
+    rd = rotary_dim if rotary_dim is not None else head_dim
+    if rd % 2:
+        raise ValueError(f"rotary_dim must be even, got {rd}")
+    inv = 1.0 / (theta ** (np.arange(0, rd, 2, dtype=np.float32) / rd))
+    return torch.as_tensor(inv, device=device)
+
+
+def apply_rope(x, positions, inv_freq, *, rotary_dim: int | None = None):
+    """x (B, S, H, D); positions (B, S) int. Rotates the first
+    ``rotary_dim`` features by fp32 angles ``position * inv_freq``, the
+    two halves concatenated (not interleaved), and passes the rest
+    through; the result in x's dtype."""
+    d = x.shape[-1]
+    rd = rotary_dim if rotary_dim is not None else d
+    ang = positions[..., None].to(torch.float32) * inv_freq   # (B,S,rd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., :rd // 2], xr[..., rd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                    dim=-1).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rd < d else out
+
+
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32):
     return {"table": default_init(gen, (vocab, d), fan_in=d, dtype=dtype)}
 
@@ -115,6 +145,11 @@ def embed_apply(p, ids):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def gelu(x):
+    """GELU, tanh form (``jax.nn.gelu``'s default)."""
+    return F.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------

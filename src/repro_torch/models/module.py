@@ -202,12 +202,22 @@ class FlatLayout:
 
     def flatten(self, tree: Params, out: torch.Tensor | None = None,
                 *, device=None) -> torch.Tensor:
-        """Copy a tree (leaves (*lead, *shape)) into a (*lead, M) buffer."""
+        """Copy a tree (leaves (*lead, *shape)) into a (*lead, M) buffer,
+        by default one of the first leaf's dtype. Every leaf must have
+        the buffer's dtype: a copy into another would round it (a bf16
+        buffer rounds an fp32 leaf) with no trace in the result."""
         first = tree_get(tree, self.slots[0].path)
         lead = tuple(first.shape[:first.dim() - len(self.slots[0].shape)])
         if out is None:
             out = self.alloc(lead, device=device or first.device,
                              dtype=first.dtype)
+        stray = sorted({str(leaf.dtype) for leaf in self.leaves(tree)}
+                       - {str(out.dtype)})
+        if stray:
+            raise ValueError(
+                f"FlatLayout.flatten: leaves of dtype {', '.join(stray)} "
+                f"into a {out.dtype} buffer; a flat buffer holds one "
+                "dtype, so give the tree one")
         for s in self.slots:
             leaf = tree_get(tree, s.path)
             out[..., s.offset:s.offset + s.size].copy_(

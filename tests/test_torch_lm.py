@@ -115,11 +115,10 @@ def test_with_fed2_decouple_rule_matches_reference():
 def test_get_config_names_the_ports_archs():
     assert get_config("vgg9").arch_id == "vgg9"
     with pytest.raises(ValueError, match="mamba2-1.3b"):
-        get_config("llama3.2-1b")
+        get_config("qwen2-7b")
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "hybrid", "encdec",
-                                    "vlm"])
+@pytest.mark.parametrize("family", ["moe", "hybrid", "encdec", "vlm"])
 def test_other_families_raise_naming_the_family(family):
     cfg = tfm.ModelConfig("x", family, 2, 64, 128, d_ff=128)
     with pytest.raises(NotImplementedError, match=family):
@@ -366,22 +365,28 @@ def test_run_serve_greedy_tokens_match_reference(groups):
 
 
 def test_serve_cli_on_the_cpu(capsys):
-    out = serve.main(["--device", "cpu", "--prompt-len", "3", "--gen", "2",
-                      "--fed2-groups", "4"])
+    out = serve.main(["--arch", ARCH, "--device", "cpu", "--prompt-len",
+                      "3", "--gen", "2", "--fed2-groups", "4"])
     assert out["tokens"].shape == (4, 2)
     assert out["logits"].shape == (4, 1, 512)
     assert bool(torch.isfinite(out["logits"]).all())
     text = capsys.readouterr().out
     assert "arch=mamba2-1.3b-reduced prefill 3 tok" in text
     assert "tok/s" in text
-    args = serve.parse_args(["--full", "--fed2-groups", "8"])
+    args = serve.parse_args(["--arch", ARCH, "--full", "--fed2-groups", "8"])
     cfg = serve.config_of(args)
     assert (cfg.arch_id, cfg.fed2_groups, cfg.fed2_decouple) == \
         ("mamba2-1.3b", 8, 0)
     d = serve.parse_args([])
     assert (d.arch, d.batch, d.prompt_len, d.gen, d.max_len, d.temperature,
             d.seed, d.full, d.fed2_groups) == \
-        ("mamba2-1.3b", 4, 32, 16, 128, 0.0, 0, False, 0)
+        ("llama3.2-1b", 4, 32, 16, 128, 0.0, 0, False, 0)
+    # the default arch, the reference's: the reduced llama
+    out = serve.main(["--device", "cpu", "--prompt-len", "3", "--gen", "2"])
+    assert out["tokens"].shape == (4, 2)
+    assert bool(torch.isfinite(out["logits"]).all())
+    assert "arch=llama3.2-1b-reduced prefill 3 tok" in \
+        capsys.readouterr().out
 
 
 def test_sampled_serve_is_seeded():

@@ -36,7 +36,8 @@ from repro_torch.core import fusion
 from repro_torch.fl import capacity, evaluation, methods
 from repro_torch.fl import runtime as rt
 from repro_torch.fl.engine import make_round_engine
-from repro_torch.models.module import key_path, tree_leaves, tree_paths
+from repro_torch.models.module import (FlatLayout, key_path, tree_leaves,
+                                       tree_paths)
 
 ARCH = "mamba2-1.3b"
 SEQ, N_CLIENTS, STEPS, BATCH = 16, 4, 2, 4
@@ -52,12 +53,15 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _configs(groups=4):
-    jc = jax_get_config(ARCH, reduced=True)
-    tc = get_config(ARCH, reduced=True)
+def _configs(groups=4, arch=ARCH):
+    """The reduced configs of ``arch``; a dense LM under Fed2 decouples
+    one block, as the reference's LM example does."""
+    jc = jax_get_config(arch, reduced=True)
+    tc = get_config(arch, reduced=True)
     if groups:
-        jc, tc = jax_with_fed2(jc, groups=groups), with_fed2(tc,
-                                                             groups=groups)
+        dec = 1 if jc.family == "dense" else None
+        jc = jax_with_fed2(jc, groups=groups, decouple=dec)
+        tc = with_fed2(tc, groups=groups, decouple=dec)
     return jc, tc
 
 
@@ -181,16 +185,23 @@ def _fl(method, **kw):
 _JAX_RUNS = {}
 
 
-def _jax_run(method):
-    """The reference's run from its reduced Fed2 init (``init_params`` at
-    PRNGKey(0), jitted, drawn once), and that init as numpy; cached per
-    method."""
-    if method not in _JAX_RUNS:
-        jc, _ = _configs()
-        if "init" not in _JAX_RUNS:
-            _JAX_RUNS["init"] = jax.tree_util.tree_map(np.asarray, jax.jit(
-                lambda k: jtfm.init_params(k, jc))(jax.random.PRNGKey(0)))
-        init = _JAX_RUNS["init"]
+def _jax_init(arch=ARCH):
+    """The reference's reduced Fed2 init of ``arch`` (``init_params`` at
+    PRNGKey(0), jitted, drawn once) as numpy."""
+    if ("init", arch) not in _JAX_RUNS:
+        jc, _ = _configs(arch=arch)
+        _JAX_RUNS["init", arch] = jax.tree_util.tree_map(
+            np.asarray, jax.jit(lambda k: jtfm.init_params(k, jc))(
+                jax.random.PRNGKey(0)))
+    return _JAX_RUNS["init", arch]
+
+
+def _jax_run(method, arch=ARCH):
+    """The reference's run from its reduced Fed2 init, and that init;
+    cached per (method, arch)."""
+    if (method, arch) not in _JAX_RUNS:
+        jc, _ = _configs(arch=arch)
+        init = _jax_init(arch)
 
         def get_batch(sel):
             return {k: jnp.asarray(v) for k, v in _get_batch(sel).items()}
@@ -198,12 +209,12 @@ def _jax_run(method):
         task = dataclasses.replace(jrt.lm_task(jc), init_fn=lambda k: init)
         h = jrt.run_federated(task, jrt.FLConfig(**_fl(method)),
                               _data()["parts"], get_batch, _test_batches())
-        _JAX_RUNS[method] = (init, h)
-    return _JAX_RUNS[method]
+        _JAX_RUNS[method, arch] = (init, h)
+    return _JAX_RUNS[method, arch]
 
 
-def _port_run(method, init, **kw):
-    _, tc = _configs()
+def _port_run(method, init, arch=ARCH, **kw):
+    _, tc = _configs(arch=arch)
     return rt.run_federated(rt.lm_task(tc), rt.FLConfig(**_fl(method)),
                             _data()["parts"], _get_batch, _test_batches(),
                             device="cpu", init_params=lm_to_port(init), **kw)
@@ -220,6 +231,67 @@ def test_run_federated_lm_task_matches_reference(method):
                     jax.tree_util.tree_leaves(want["final_params"])):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["fedavg", "fed2"])
+def test_run_federated_dense_lm_task_matches_reference(method):
+    """The same two rounds on the reduced Fed2 llama (one decoupled
+    block, whose grouped FFN leaves fed2 fuses per group): final params
+    within rtol = atol = 1e-5 and the accuracy within one position, as
+    for Mamba-2."""
+    init, want = _jax_run(method, "llama3.2-1b")
+    got = _port_run(method, init, "llama3.2-1b")
+    assert got["round"] == [0, 1] and "gblocks" in got["final_params"]
+    np.testing.assert_allclose(got["acc"], want["acc"], atol=1.0 / (16 * SEQ))
+    for a, b in zip(tree_leaves(got["final_params"]),
+                    jax.tree_util.tree_leaves(want["final_params"])):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_lm_task_refuses_a_mixed_dtype_tree():
+    """A bf16 Mamba-2 keeps a_log, dt_bias and d_skip in fp32: one flat
+    buffer would round them to bf16, so the engine refuses the tree,
+    naming both dtypes, before a round runs; FlatLayout.flatten refuses
+    it too. The fp32 config runs."""
+    tc = with_fed2(get_config(ARCH, reduced=True, dtype=torch.bfloat16), 4)
+    params = rt.lm_task(tc).init_fn(torch.Generator().manual_seed(0))
+    assert {t.dtype for t in tree_leaves(params)} == {torch.bfloat16,
+                                                      torch.float32}
+    with pytest.raises(ValueError, match="bfloat16, float32") as e:
+        rt.run_federated(rt.lm_task(tc), rt.FLConfig(**_fl("fed2")),
+                         _data()["parts"], _get_batch, _test_batches(),
+                         device="cpu", init_params=params)
+    assert "mamba2_1_3b.full(dtype=torch.float32)" in str(e.value)
+    with pytest.raises(ValueError, match="dtype"):
+        FlatLayout(params).flatten(params)
+    _, tc32 = _configs()
+    h = rt.run_federated(rt.lm_task(tc32),
+                         rt.FLConfig(**{**_fl("fed2"), "rounds": 1}),
+                         _data()["parts"], _get_batch, _test_batches(),
+                         device="cpu")
+    assert all(t.dtype == torch.float32
+               for t in tree_leaves(h["final_params"]))
+
+
+def test_lm_task_runs_a_bf16_dense_model_in_bf16():
+    """Every leaf of a bf16 llama is bf16, so its cohort buffer is bf16
+    too: one fed2 round (with the local_step route) runs, keeps every
+    leaf bf16 and finite, and moves the params."""
+    _, tc = _configs(arch="llama3.2-1b")
+    tc = dataclasses.replace(tc, dtype=torch.bfloat16)
+    init = rt.lm_task(tc).init_fn(torch.Generator().manual_seed(0))
+    h = rt.run_federated(rt.lm_task(tc),
+                         rt.FLConfig(**{**_fl("fed2"), "rounds": 1}),
+                         _data()["parts"], _get_batch, _test_batches(),
+                         device="cpu", init_params=init,
+                         use_local_kernel=True)
+    leaves = tree_leaves(h["final_params"])
+    assert all(t.dtype == torch.bfloat16 and bool(torch.isfinite(t).all())
+               for t in leaves)
+    assert any(not torch.equal(a, b)
+               for a, b in zip(leaves, tree_leaves(init)))
 
 
 def test_lm_task_kernel_routes(monkeypatch):
