@@ -20,7 +20,10 @@ script exits non-zero:
             M = 4096 rows, at the dense decode's shapes: a decoupled
             FFN's gate/up (8, 256, 1024) and down (8, 1024, 256)
             products, timed at M = 4 and 128, and the llama
-            unembedding, and its refusal under autograd);
+            unembedding, the other dense configs' and zamba2's
+            unembeddings and decoupled FFN products at M = 4 and 128
+            (stablelm 64), and its refusal under autograd; ssd_update
+            also at zamba2's (4 | 128, 80, 64, 64));
             feature_stats also as feature_stats_many on segment
             tables (auto-depth's, ragged and misaligned ones, one over a
             launch's capacity, vgg16's 100 x 15), and Eq. 9's reduction
@@ -217,6 +220,34 @@ script exits non-zero:
 34. dense lm profile  one llama --mode lm step (the attention's
             elementwise and softmax passes split out) and one fed2 dense
             LM round under torch.profiler
+35. other dense and hybrid serve  qwen2-7b, h2o-danube-1.8b,
+            stablelm-12b and zamba2-2.7b at full width through the
+            serving CLI (batch 4, 32 + 16 tokens), without and with
+            --fed2-groups 8 (grouped_matmul 19 a dense step: the
+            unembedding and 6 decoupled FFNs' three products; 1 a
+            zamba2 step; stream route), then Fed2 at batch 128 over 2048
+            slots (stablelm: 64; wgmma route); ssd_update 54 a zamba2
+            step; counted, with tok/s, peak memory, the decode cache's
+            bytes and the parameter counts, which must equal the
+            reference's
+36. other dense and hybrid decode parity  fp32, TF32 off: qwen2-7b and
+            zamba2-2.7b with Fed2, 16 decode steps with the kernels
+            against the plain versions (logits, every cache leaf);
+            zamba2's chunked forward against 300 decode steps (logits
+            and SSM states, the Mamba-2 limits); h2o-danube-1.8b at 2
+            layers, its 4096 window kept, 4,400 tokens decoded into its
+            ring buffer against the chunked forward
+37. other dense and hybrid lm train  --mode lm --fed2 --fed2-groups 8
+            (bf16, batch 8 x 1024, 6 steps) for danube and zamba2 at
+            full depth through the CLI, and stablelm cut to 8 layers
+            (its 6 decoupled blocks kept) through the CLI's step; no
+            launch
+38. other dense and hybrid lm federation  lm_task as in 27 (fedavg and
+            fed2, with and without --use-local-kernel, counted) on
+            zamba2 cut to 6 layers and danube cut to 8 (its 6 decoupled
+            blocks kept)
+39. hybrid profile  one zamba2 Fed2 decode step at batch 4 and one
+            zamba2 --mode lm step under torch.profiler
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -291,13 +322,22 @@ AXES_SCENARIO_REFERENCE = {
     "nxc2_fedavg_oneshot": 0.2225, "nxc2_fedavg": 0.4125}
 # tests/test_paper_claims.py's margin for the robust orderings
 CLAIMS_MARGIN = 0.10
-# parameters of the full mamba2-1.3b and llama3.2-1b, and of
+# parameters of the full mamba2-1.3b, llama3.2-1b, qwen2-7b,
+# h2o-danube-1.8b, stablelm-12b and zamba2-2.7b, and of
 # with_fed2(groups=8) of each: the reference's
 # param_count(jax.eval_shape(init_params, ...)) on its configs/<arch>.full()
 SERVE_PARAMS = {("mamba2-1.3b", 0): 1_446_812_672,
                 ("mamba2-1.3b", 8): 1_356_667_904,
                 ("llama3.2-1b", 0): 1_498_482_688,
-                ("llama3.2-1b", 8): 1_092_487_168}
+                ("llama3.2-1b", 8): 1_092_487_168,
+                ("qwen2-7b", 0): 7_615_616_512,
+                ("qwen2-7b", 8): 6_069_392_896,
+                ("h2o-danube-1.8b", 0): 1_831_201_280,
+                ("h2o-danube-1.8b", 8): 1_480_829_440,
+                ("stablelm-12b", 0): 12_142_937_600,
+                ("stablelm-12b", 8): 10_578_593_280,
+                ("zamba2-2.7b", 0): 2_422_670_240,
+                ("zamba2-2.7b", 8): 2_350_990_240}
 SERVE_LAYERS = 48
 # decode parity, kernels vs plain versions at full width in fp32: fp32
 # round-off (~1e-7 relative per operation) carried through 48 layers
@@ -421,6 +461,69 @@ DENSE_FL_LAYERS = 6
 # F.scaled_dot_product_attention on the same q, k, v: both keep fp32
 # accumulators and round p and the output to bf16
 ATTN_SDPA_ATOL = 2e-2
+# the other dense configs (qwen2-7b: QKV biases; h2o-danube-1.8b: a 4096
+# sliding window; stablelm-12b: QK-norm and partial rotary) and the
+# hybrid zamba2-2.7b (54 Mamba-2 layers, one shared attention block
+# applied after every 6). with_fed2(groups=8) decouples the last 6 blocks
+# of each dense config (19 grouped_matmul launches a decode step: the
+# unembedding and 6 x 3 FFN products) and none of the hybrid (1: the
+# unembedding); every zamba2 step launches ssd_update in its 54 layers
+OTHER_ARCHS = ("qwen2-7b", "h2o-danube-1.8b", "stablelm-12b", "zamba2-2.7b")
+OTHER_GMM_PER_STEP = {"qwen2-7b": 19, "h2o-danube-1.8b": 19,
+                      "stablelm-12b": 19, "zamba2-2.7b": 1}
+OTHER_SSD_PER_STEP = {"qwen2-7b": 0, "h2o-danube-1.8b": 0,
+                      "stablelm-12b": 0, "zamba2-2.7b": 54}
+# the large-batch Fed2 serve over 2048 slots: batch 128, but 64 for
+# stablelm, whose 40-layer bf16 KV cache (8 KV heads of 160) is 54 GB at
+# 128 beside its 21 GB of weights
+OTHER_BIG_BATCH = {"qwen2-7b": 128, "h2o-danube-1.8b": 128,
+                   "stablelm-12b": 64, "zamba2-2.7b": 128}
+OTHER_SERVE_BIG = ("--max-len", "2048", "--prompt-len", "2", "--gen", "8")
+# --mode lm, bf16, --fed2-groups 8, batch 8 x 1024 (as LM_TRAIN): danube
+# and zamba2 at full depth through the CLI; stablelm cut from 40 to 8
+# layers keeping its 6 decoupled blocks (at full depth its 10.6 B
+# parameters take ~230 GB at the ~22 bytes a parameter that llama's step
+# took on an H100 80GB HBM3 at 700 W; 8 layers are 1.69 B)
+OTHER_LM_TRAIN = {arch: ("--mode", "lm", "--arch", arch, "--fed2",
+                         "--fed2-groups", "8", "--batch", "8", "--seq",
+                         "1024", "--lr", "1e-3")
+                  for arch in ("h2o-danube-1.8b", "zamba2-2.7b")}
+STABLELM_TRAIN_LAYERS = 8
+# danube past its window: 2 of its 24 layers at full width (every width
+# and the 4096 window kept), fp32, TF32 off; 4,400 tokens decoded one by
+# one into a ring buffer of 4096 slots (positions 4096-4399 overwrite
+# slots 0-303) against the chunked forward over the same tokens, which
+# masks keys older than the window. Both compute one function; the
+# dense limit DENSE_CROSSCHECK_LOGIT_ATOL (a wrong slot or a lost mask
+# moves logits by O(1))
+DANUBE_WRAP_LAYERS = 2
+DANUBE_WRAP_LEN = 4400
+# zamba2's chunked forward vs decode, 300 tokens (inside max_len, where
+# the reference's decode window min(max_len, 4096) is the whole
+# context): its 54 SSM layers are Mamba-2's chunked-SSD vs recurrence
+# pair, which measured 6.67e-3 at Mamba-2's 48 layers on an H100 80GB
+# HBM3 at 700 W (PERF.md), above the dense 5e-3; so the Mamba-2 limits
+# hold it
+HYBRID_CROSSCHECK = dict(attn_q_chunk=128, attn_kv_chunk=256)
+# LM federation (LM_FL, fp32): zamba2 under with_fed2(groups=4) cut from
+# 54 to 6 layers (one super-block: 6 SSM layers and the shared block, a
+# 1.8 GB row; at 12 layers, a 2.74 GB row, the round ran out of an
+# H100 80GB HBM3's memory (700 W) in the vmapped backward, 72.8 GiB
+# allocated: the rounds run without remat under torch.func); danube under
+# with_fed2(groups=4) cut from 24 to 8 layers keeping its 6 decoupled
+# blocks (a 1.7 GB row)
+HYBRID_FL_LAYERS = 6
+DANUBE_FL_LAYERS = 8
+# grouped_matmul's weights (K, N) a group, 8 groups, on these configs'
+# Fed2 decode: the unembeddings (d/8, V/8) and the decoupled FFNs'
+# gate/up (d/8, d_ff/8) and down (d_ff/8, d/8); danube and zamba2 share
+# their unembedding's shape
+OTHER_GMM_SHAPES = (
+    ("qwen2-7b", 448, 19008), ("qwen2-7b", 448, 2368),
+    ("qwen2-7b", 2368, 448), ("stablelm-12b", 640, 12544),
+    ("stablelm-12b", 640, 1728), ("stablelm-12b", 1728, 640),
+    ("zamba2-2.7b", 320, 4000), ("h2o-danube-1.8b", 320, 864),
+    ("h2o-danube-1.8b", 864, 320))
 
 
 @contextlib.contextmanager
@@ -1029,10 +1132,15 @@ def phase_check_ssd_update() -> dict:
         check_one("ragged", *shape, f32)
         check_one("ragged", *shape, bf16, in_place=False)
     check_one("unaligned state", 2, 4, 16, 128, f32, misalign=True)
+    # zamba2's layers: 80 heads of 64, a state of 64 (bf16 x at full
+    # width, fp32 in the decode parity)
+    for b in (4, 128):
+        check_one("zamba2", b, 80, 64, 64, bf16)
+        check_one("zamba2", b, 80, 64, 64, f32)
 
     timings = {}
-    for b in (4, 128):
-        h, p, n = 64, 64, 128
+    for b, h, p, n in ((4, 64, 64, 128), (128, 64, 64, 128),
+                       (4, 80, 64, 64), (128, 80, 64, 64)):
         # the state read and written (fp32); x, b, c read and y written
         # (bf16); dt, a_log, d_skip read (fp32)
         nbytes = 8 * b * h * p * n + 2 * (2 * b * h * p + 2 * b * n) \
@@ -1046,7 +1154,7 @@ def phase_check_ssd_update() -> dict:
                                   for a in sets], reps),
              "library_ms": None}
         t["bound_ms"], t["bound_by"] = bound(nbytes, 6 * b * h * p * n)
-        timings[b] = t
+        timings[b, h, p, n] = t
         print(f"  ssd_update ({b}, {h}, {p}, {n}) x bf16: "
               f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"library none, bound {t['bound_ms'] * 1e3:.2f} us "
@@ -1055,7 +1163,7 @@ def phase_check_ssd_update() -> dict:
     return {"name": "ssd_update", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_update.cu",
             "replaces": "src/repro/kernels/ssd_update.py:50",
-            "max_abs_err": err_path, **timings[4]}
+            "max_abs_err": err_path, **timings[4, 64, 64, 128]}
 
 
 def gmm_inputs(lead, g, k, n, dt, gen, bias=False):
@@ -1169,6 +1277,19 @@ def phase_check_grouped_matmul() -> dict:
         check_one("dense decode", "wgmma", (128, 1), g0, k, n, bf16)
         check_one("dense decode", "stream", (4, 1), g0, k, n, f32)
     check_one("dense lm_task eval", "simt", (64, 64), 4, 512, 32064, f32)
+    # the other dense configs' and zamba2's Fed2 decode (8 groups, bf16):
+    # each unembedding and decoupled FFN product at batch 4 (stream) and
+    # at the large-batch serve's batch (wgmma), fp32 at batch 4 where the
+    # decode parity runs (qwen2, zamba2); and their lm_task eval's
+    # unembedding, (4, 640, 8000) fp32 (danube and zamba2 at 4 groups)
+    for arch, k, n in OTHER_GMM_SHAPES:
+        check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, bf16)
+        check_one(f"{arch} decode", "wgmma", (OTHER_BIG_BATCH[arch], 1), g0,
+                  k, n, bf16)
+        if arch in ("qwen2-7b", "zamba2-2.7b"):
+            check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, f32)
+    check_one("danube/zamba2 lm_task eval", "simt", (64, 64), 4, 640, 8000,
+              f32)
     # autograd: the kernel has no backward, so the wrapper refuses
     x, w, _ = gmm_inputs((4,), g0, k0, n0, bf16, gen)
     before = grouped_matmul.launches
@@ -1191,7 +1312,11 @@ def phase_check_grouped_matmul() -> dict:
             ("gffn gate/up M=4", 4, g0, 256, 1024, bf16),
             ("gffn down M=4", 4, g0, 1024, 256, bf16),
             ("gffn gate/up M=128", 128, g0, 256, 1024, bf16),
-            ("gffn down M=128", 128, g0, 1024, 256, bf16)):
+            ("gffn down M=128", 128, g0, 1024, 256, bf16),
+            ("dense lm_task eval M=4096", 4096, 4, 512, 32064, f32),
+            *((f"{arch} ({k}, {n}) M={m}", m, g0, k, n, bf16)
+              for arch, k, n in OTHER_GMM_SHAPES
+              for m in (4, OTHER_BIG_BATCH[arch]))):
         esz = dt.itemsize
         w_bytes = g * k * n * esz
         nbytes = w_bytes + esz * m * g * (k + n)
@@ -3378,7 +3503,8 @@ def attention_yardstick():
 
 def phase_dense_lm_fl():
     """run_federated(lm_task) on the dense LM (dense_fl_config: fp32,
-    Fed2 over 4 groups, 6 of 16 layers, 4 decoupled): the counted runs
+    Fed2 over 4 groups, 6 of 16 layers, 4 decoupled): the kernels on its
+    (4, M) cohort buffer (``lm_cohort_kernels``), the counted runs
     (``lm_fl_runs``: fedavg and fed2, with and without
     --use-local-kernel); then one fed2 round with the flag (TF32 off) in
     which every local_step and paired_fusion call is held against its
@@ -3388,6 +3514,8 @@ def phase_dense_lm_fl():
     from repro_torch.models.module import FlatLayout, tree_leaves_with_path
     cfg, parts, get_batch, test, init = lm_fl_inputs(dense_fl_config())
     lm_fl_header(cfg, init, DENSE_LAYERS)
+    with tf32_off():
+        lm_cohort_kernels(init)
     task = lm_task(cfg)
     loss_of = lm_held_out_loss(cfg, test)
     losses = lm_fl_runs(task, parts, get_batch, test, init, loss_of)
@@ -3455,6 +3583,345 @@ def phase_dense_lm_profile():
     profiled("one fed2 dense LM round (4 clients x 4 steps, eval)",
              one_round)
     del init
+    free_device_memory()
+
+
+# ---------------------------------------------------------------------------
+# the other dense configs (Qwen2-7B, H2O-Danube-1.8B, StableLM-2-12B) and
+# the hybrid (Zamba2-2.7B)
+# ---------------------------------------------------------------------------
+
+
+def kv_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of a dense LM's or a hybrid's decode cache at ``batch`` x
+    ``max_len`` (the cache's own slots: a window caps them; a hybrid's
+    fp32 SSM states too)."""
+    esz = cfg.dtype.itemsize
+    if cfg.family == "hybrid":
+        slots = min(max_len, 4096)
+        n_kv = cfg.n_layers // cfg.hybrid_attn_every
+        ssm = cfg.n_layers * batch * cfg.ssm.n_heads * cfg.ssm.headdim \
+            * cfg.ssm.d_state * 4
+    else:
+        slots = min(max_len, cfg.window) if cfg.window else max_len
+        n_kv, ssm = cfg.n_layers, 0
+    return 2 * n_kv * batch * slots * cfg.n_kv_heads * cfg.head_dim * esz \
+        + ssm
+
+
+def phase_other_serve():
+    """Each of OTHER_ARCHS at full width through the serving CLI (batch
+    4, 32 + 16 tokens), without and with --fed2-groups 8, then Fed2 at
+    OTHER_BIG_BATCH over a 2048-slot cache; counted: grouped_matmul
+    OTHER_GMM_PER_STEP a Fed2 step (stream at batch 4, wgmma above) and
+    never without Fed2; ssd_update OTHER_SSD_PER_STEP a step. serve_cli
+    checks each parameter count against the reference's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    d = serve.parse_args([])
+    steps = d.prompt_len + d.gen
+    for arch in OTHER_ARCHS:
+        gmm, ssd = OTHER_GMM_PER_STEP[arch], OTHER_SSD_PER_STEP[arch]
+        a = ("--arch", arch, "--full")
+        counted(f"serve --arch {arch} --full",
+                lambda: serve_cli(*a), {"ssd_update": ssd * steps})
+        counted(f"serve --arch {arch} --full --fed2-groups 8",
+                lambda: serve_cli(*a, "--fed2-groups", "8"),
+                {"ssd_update": ssd * steps, "grouped_matmul": gmm * steps},
+                {"stream": gmm * steps})
+        big = ("--batch", str(OTHER_BIG_BATCH[arch]), *OTHER_SERVE_BIG)
+        b = serve.parse_args(list(big))
+        n = b.prompt_len + b.gen
+        peak, _ = counted(
+            f"serve --arch {arch} --full --fed2-groups 8 " + " ".join(big),
+            lambda: serve_cli(*a, "--fed2-groups", "8", *big),
+            {"ssd_update": ssd * n, "grouped_matmul": gmm * n},
+            {"wgmma": gmm * n})
+        cache = kv_bytes(get_config(arch), b.batch, b.max_len)
+        print(f"  decode cache at batch {b.batch} x {b.max_len} positions: "
+              f"{cache / 1e9:.2f} GB; peak {peak / 1e9:.2f} GB", flush=True)
+        assert peak > cache, f"{arch}: the large-batch run did not hold " \
+            "its cache"
+
+
+def decode_kernels_vs_plain(label, cfg, expect, routes, steps=16, bs=4):
+    """``steps`` tokens through decode_step with the kernels and with the
+    plain versions (no launch), from one init (seed 1) and two empty
+    caches: logits within PARITY_LOGIT_ATOL, every float cache leaf
+    within PARITY_STATE_RTOL of its largest value, slot positions equal.
+    ``expect``/``routes``: the kernel route's launches per step."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, init_cache
+    from repro_torch.models.module import tree_leaves_with_path
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    toks = torch.randint(0, cfg.vocab, (bs, steps), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+
+    @torch.no_grad()
+    def decoded(use_kernel):
+        cache = init_cache(cfg, bs, steps, device="cuda")
+        logits = [decode_step(params, cfg, cache, toks[:, t:t + 1], t,
+                              use_kernel=use_kernel)[0]
+                  for t in range(steps)]
+        return torch.cat(logits, 1), cache
+
+    (on, c_on), _ = counted(f"{label} decode parity, kernels",
+                            lambda: decoded(True),
+                            {k: v * steps for k, v in expect.items()},
+                            {k: v * steps for k, v in routes.items()})
+    (off, c_off), _ = counted(f"{label} decode parity, plain versions",
+                              lambda: decoded(False), {})
+    err = (on - off).abs().max().item()
+    mag = off.abs().max().item()
+    worst, where = 0.0, ""
+    for (path, a), (_, b) in zip(tree_leaves_with_path(c_on),
+                                 tree_leaves_with_path(c_off)):
+        if not a.is_floating_point():
+            assert torch.equal(a, b), f"{label}: {path} differs"
+            continue
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        if rel > worst:
+            worst, where = rel, path
+    ok = err <= PARITY_LOGIT_ATOL and worst <= PARITY_STATE_RTOL
+    print(f"  {label}: {steps} tokens, batch {bs}, fp32: max |dlogits| "
+          f"{err:.3g} (limit {PARITY_LOGIT_ATOL:g}; max |logit| {mag:.3g});"
+          f" caches, worst leaf {worst:.3g} of its largest value at "
+          f"{where} (limit {PARITY_STATE_RTOL:g}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    assert ok, f"{label}: decode with the kernels drifts from the plain " \
+        "versions"
+    del params, on, off, c_on, c_off
+    free_device_memory()
+
+
+def chunked_vs_decode(label, cfg, n, bs, limit, expect, routes,
+                      state_rtol=None):
+    """The chunked forward over ``n`` tokens against ``n`` decode steps
+    (kernels on, ``expect``/``routes`` launches a step), from one init
+    (seed 1), fp32: logits at every position within ``limit``; with
+    ``state_rtol`` (a hybrid) each SSM layer's state after the last
+    token (from the forward's blocks again, one by one) within that
+    share of its largest value."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, forward, init_cache
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    toks = torch.randint(0, cfg.vocab, (bs, n), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(3))
+
+    @torch.no_grad()
+    def chunked():
+        h = forward(params, cfg, toks)
+        return tfm.unembed_apply(params["unembed"], h, cfg,
+                                 use_kernel=False)
+
+    @torch.no_grad()
+    def decoded():
+        cache = init_cache(cfg, bs, n, device="cuda")
+        logits = [decode_step(params, cfg, cache, toks[:, t:t + 1], t)[0]
+                  for t in range(n)]
+        return torch.cat(logits, 1), cache
+
+    t0 = time.time()
+    want, _ = counted(f"{label} chunked forward", chunked, {})
+    t1 = time.time()
+    (got, cache), _ = counted(f"{label}: {n} decode steps", decoded,
+                              {k: v * n for k, v in expect.items()},
+                              {k: v * n for k, v in routes.items()})
+    t2 = time.time()
+    err = (got - want).abs().max().item()
+    mag = want.abs().max().item()
+    ok = err <= limit
+    line = (f"  {label}: batch {bs}, {n} tokens, fp32: chunked forward "
+            f"{t1 - t0:.2f} s, decode {t2 - t1:.2f} s; max |dlogits| "
+            f"{err:.3g} (limit {limit:g}; max |logit| {mag:.3g})")
+    if state_rtol is not None:
+        from repro_torch.models.layers import embed_apply
+        from repro_torch.models.module import tree_map
+        with torch.no_grad():
+            x, rel = embed_apply(params["embed"], toks), 0.0
+            k = cfg.hybrid_attn_every
+            for i in range(cfg.n_layers):
+                lp = tree_map(lambda t: t[i], params["blocks"])
+                y, st = ssm.mamba2_apply(
+                    lp["mixer"], tfm._norm_apply(cfg, lp["ln1"], x),
+                    cfg.ssm, with_state=True)
+                x = x + y
+                if (i + 1) % k == 0:
+                    x = tfm.block_apply(params["shared_attn"], x, cfg,
+                                        kind="attn_ffn",
+                                        positions=torch.arange(
+                                            n, device="cuda"))
+                rel = max(rel, ((cache["blocks"]["ssm"][i] - st).abs().max()
+                                / st.abs().max()).item())
+        line += (f"; SSM states, worst layer {rel:.3g} of its largest "
+                 f"value (limit {state_rtol:g})")
+        ok = ok and rel <= state_rtol
+    print(line + (" ok" if ok else " FAIL"), flush=True)
+    assert ok, f"{label}: the chunked forward and the decode disagree"
+    del params, got, want, cache
+    free_device_memory()
+
+
+def phase_other_decode_parity():
+    """fp32, TF32 off: qwen2-7b and zamba2-2.7b with Fed2 (groups 8) at
+    full width and depth, 16 decode steps with the kernels against the
+    plain versions; zamba2's chunked forward (q 128 / kv 256 attention
+    chunks, SSD chunks of 256) against 300 decode steps within the
+    Mamba-2 limits; danube cut to DANUBE_WRAP_LAYERS layers, its window
+    of 4096 kept, decoded DANUBE_WRAP_LEN tokens past the window against
+    its chunked forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    f32 = torch.float32
+    qwen = with_fed2(get_config("qwen2-7b", dtype=f32), groups=8)
+    g = OTHER_GMM_PER_STEP["qwen2-7b"]
+    decode_kernels_vs_plain("qwen2-7b", qwen, {"grouped_matmul": g},
+                            {"stream": g})
+    zamba = with_fed2(get_config("zamba2-2.7b", dtype=f32), groups=8)
+    ssd = {"ssd_update": OTHER_SSD_PER_STEP["zamba2-2.7b"],
+           "grouped_matmul": 1}
+    decode_kernels_vs_plain("zamba2-2.7b", zamba, ssd, {"stream": 1})
+    chunked_vs_decode("zamba2-2.7b", dataclasses.replace(
+        zamba, **HYBRID_CROSSCHECK), CROSSCHECK_LEN, 2,
+        CROSSCHECK_LOGIT_ATOL, ssd, {"stream": 1},
+        state_rtol=CROSSCHECK_STATE_RTOL)
+    danube = dataclasses.replace(get_config("h2o-danube-1.8b", dtype=f32),
+                                 n_layers=DANUBE_WRAP_LAYERS)
+    assert danube.window == 4096 < DANUBE_WRAP_LEN
+    chunked_vs_decode(f"h2o-danube-1.8b ({DANUBE_WRAP_LAYERS} layers, "
+                      "window 4096)", danube, DANUBE_WRAP_LEN, 1,
+                      DENSE_CROSSCHECK_LOGIT_ATOL, {}, {})
+
+
+def lm_steps(cfg, n_steps, batch=8, seq=1024):
+    """``n_steps`` of make_train_step (the --mode lm step: AdamW at lr
+    1e-3, bf16 grads) on the synthetic corpus, the weights drawn on the
+    card: losses finite and falling; prints the step times, tokens/s
+    and peak device memory."""
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import param_count
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    step_fn, opt = make_train_step(cfg, lr=1e-3)
+    state = opt.init(params)
+    toks, _ = make_token_dataset(batch * n_steps, seq + 1, cfg.vocab,
+                                 seed=0)
+    loss, wall = [], []
+    t0 = time.time()
+    for i in range(n_steps):
+        b = lm_batch_from_tokens(toks[i * batch:(i + 1) * batch],
+                                 device="cuda")
+        params, state, l_ = step_fn(params, state, i, b)
+        loss.append(float(l_))
+        wall.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in loss), f"non-finite loss {loss}"
+    assert loss[-1] < loss[0], f"the loss did not fall: {loss}"
+    later = (wall[-1] - wall[0]) / (n_steps - 1)
+    print(f"  {cfg.arch_id}, {cfg.n_layers} layers ({cfg.fed2_decouple} "
+          f"decoupled), {param_count(params):,} parameters: losses "
+          f"{[round(x, 4) for x in loss]}; first step {wall[0]:.3f} s, "
+          f"later steps {later:.3f} s each ({batch * seq / later:.0f} "
+          f"tokens/s); peak device memory {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    finite_params({"final_params": params})
+    del params, state
+    free_device_memory()
+
+
+def phase_other_lm_train():
+    """--mode lm --fed2 --fed2-groups 8 (bf16, batch 8 x 1024, AdamW)
+    counted, no kernel launch: danube and zamba2 at full depth through
+    the CLI; stablelm cut to STABLELM_TRAIN_LAYERS layers (its 6
+    decoupled blocks kept) through the CLI's step (the CLI has no depth
+    flag, as the reference's has none)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    for arch, flags in OTHER_LM_TRAIN.items():
+        counted(f"--mode lm --arch {arch}", lambda: lm_cli(flags), {})
+        free_device_memory()
+    cfg = dataclasses.replace(with_fed2(get_config("stablelm-12b"),
+                                        groups=8),
+                              n_layers=STABLELM_TRAIN_LAYERS)
+    assert cfg.fed2_decouple == 6
+    counted(f"--mode lm step, stablelm-12b at {STABLELM_TRAIN_LAYERS} "
+            "layers", lambda: lm_steps(cfg, LM_TRAIN_STEPS), {})
+
+
+def other_fl_config(arch, layers):
+    """``arch``'s full width in fp32 under with_fed2(groups=4), cut to
+    ``layers`` (a dense config keeps its decoupled blocks)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    cfg = with_fed2(get_config(arch, dtype=torch.float32), groups=4)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def phase_other_lm_fl():
+    """run_federated(lm_task), fp32, LM_FL's 2 rounds (``lm_fl_runs``:
+    fedavg and fed2, with and without --use-local-kernel, counted:
+    paired_fusion 1, grouped_matmul 1 (simt) and with the flag
+    local_step 4 a round), on zamba2 cut to HYBRID_FL_LAYERS layers and
+    danube cut to DANUBE_FL_LAYERS (its 6 decoupled blocks kept)."""
+    from repro_torch.fl.runtime import lm_task
+    for arch, layers, depth in (("zamba2-2.7b", HYBRID_FL_LAYERS, 54),
+                                ("h2o-danube-1.8b", DANUBE_FL_LAYERS, 24)):
+        cfg, parts, get_batch, test, init = lm_fl_inputs(
+            other_fl_config(arch, layers))
+        lm_fl_header(cfg, init, depth)
+        lm_fl_runs(lm_task(cfg), parts, get_batch, test, init,
+                   lm_held_out_loss(cfg, test))
+        del init
+        free_device_memory()
+
+
+def phase_other_profile():
+    """zamba2-2.7b with Fed2 (groups 8), bf16, full width and depth under
+    torch.profiler: one decode step at batch 4 (after 8 warm-up steps),
+    and one --mode lm step at batch 8 x 1024 (after a warm-up step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, init_cache
+    cfg = with_fed2(get_config("zamba2-2.7b"), groups=8)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    cache = init_cache(cfg, 4, 128, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 9), device="cuda")
+    with torch.no_grad():
+        for t in range(8):
+            decode_step(params, cfg, cache, toks[:, t:t + 1], t)
+        profiled("one zamba2-2.7b Fed2 decode step, batch 4",
+                 lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8))
+    del cache
+    step_fn, opt = make_train_step(cfg, lr=1e-3)
+    state = opt.init(params)
+    data, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
+    b0, b1 = (lm_batch_from_tokens(data[i:i + 8], device="cuda")
+              for i in (0, 8))
+    params, state, _ = step_fn(params, state, 0, b0)
+    profiled("one --mode lm --arch zamba2-2.7b step, batch 8 x 1024",
+             lambda: step_fn(params, state, 1, b1))
+    del params, state
     free_device_memory()
 
 
@@ -3577,6 +4044,19 @@ def main() -> int:
         phase_dense_lm_fl()
     with phase("dense lm profile"):
         phase_dense_lm_profile()
+    free_device_memory()
+    with phase("other dense and hybrid serve"):
+        phase_other_serve()
+    free_device_memory()
+    with phase("other dense and hybrid decode parity (TF32 off)"), \
+            tf32_off():
+        phase_other_decode_parity()
+    with phase("other dense and hybrid lm train"):
+        phase_other_lm_train()
+    with phase("other dense and hybrid lm federation"):
+        phase_other_lm_fl()
+    with phase("hybrid profile"):
+        phase_other_profile()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

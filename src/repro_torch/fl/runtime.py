@@ -799,7 +799,7 @@ def cnn_task(model_cfg) -> FLTask:
 
 
 def lm_task(model_cfg) -> FLTask:
-    """The LM family's adapter (the port's: Mamba-2). The loss is
+    """The LM families' adapter (dense, ssm and hybrid). The loss is
     ``lm_loss`` on the reference's einsum unembedding; the eval predicts
     the argmax next token at every position under ``torch.no_grad``,
     where a Fed2 unembedding takes the ``grouped_matmul`` kernel route

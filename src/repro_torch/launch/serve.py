@@ -5,6 +5,8 @@ sampled token-by-token decode. The port of ``repro.launch.serve``.
   PYTHONPATH=src python -m repro_torch.launch.serve --full --fed2-groups 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
       --full --fed2-groups 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --full --fed2-groups 8   # or qwen2-7b | h2o-danube-1.8b | stablelm-12b
 
 It takes the reference's flags and defaults (``--arch llama3.2-1b
 --batch 4 --prompt-len 32 --gen 16 --max-len 128 --temperature 0 --seed
@@ -14,8 +16,9 @@ and ``--fed2-groups G`` applies ``with_fed2(cfg, groups=G)``; together
 they give the config the reference's ``launch/dryrun.py --fed2`` lowers.
 Weights are random from ``--seed``, drawn on the serving device. On the
 card a Fed2 unembedding runs the ``grouped_matmul`` kernel every step,
-and so do a Fed2 llama's decoupled FFNs (three products a decoupled
-block); every Mamba-2 layer runs the ``ssd_update`` kernel. Runs on the
+and so do a Fed2 dense LM's decoupled FFNs (three products a decoupled
+block); every Mamba-2 layer (of a Mamba-2 or a Zamba2) runs the
+``ssd_update`` kernel. Runs on the
 CUDA card unless ``--device cpu`` is given. Sampling (``--temperature >
 0``) draws from a ``torch.Generator`` seeded with ``--seed``, so its
 tokens differ from the reference's ``jax.random`` draws.

@@ -1,9 +1,11 @@
 """Training launcher. Two modes, as in ``repro.launch.train``:
 
   --mode lm    : language-model training of the port's LMs
-                 (``--arch llama3.2-1b`` or ``mamba2-1.3b``, ``--reduced``
-                 or full, ``--fed2`` for the block-diagonal unembedding
-                 and, for the dense llama, decoupled grouped-FFN blocks)
+                 (``--arch`` one of ``LM_ARCHS``: the dense llama3.2-1b,
+                 qwen2-7b, h2o-danube-1.8b and stablelm-12b, the ssm
+                 mamba2-1.3b and the hybrid zamba2-2.7b; ``--reduced`` or
+                 full, ``--fed2`` for the block-diagonal unembedding and,
+                 for a dense LM, decoupled grouped-FFN blocks)
                  on the synthetic token corpus: AdamW, ``--microbatches``,
                  ``--ckpt``;
   --mode fl    : the paper's federated scenario (CNN + Fed2/fedavg/...).
@@ -68,7 +70,8 @@ import importlib
 import time
 
 ARCHS = ("vgg9", "vgg16", "mobilenet")      # --mode fl
-LM_ARCHS = ("mamba2-1.3b", "llama3.2-1b")  # --mode lm
+LM_ARCHS = ("mamba2-1.3b", "llama3.2-1b", "qwen2-7b",  # --mode lm
+            "h2o-danube-1.8b", "stablelm-12b", "zamba2-2.7b")
 
 
 def run_lm(args) -> dict:

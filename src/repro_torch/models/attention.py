@@ -12,16 +12,19 @@ engine's ``vmap(grad(...))``) the steps run without remat. The math is
 the reference's einsums as plain torch; the reference has no kernel
 here.
 
+The block has the reference's options: QKV biases (qwen2), a per-head
+RMSNorm of q and k before the rotation (stablelm's QK-norm), partial
+rotary (the first ``rotary_dim`` features of a head rotate, the rest
+pass through) and a sliding window (h2o-danube).
+
 Decode keeps the reference's cache: ``k``, ``v`` (B, size, Hkv, D) and
 a shared ``slot_pos`` (size,) int32 of the absolute position held in
-each slot, -1 while empty. ``gqa_decode`` writes the new row and its
-position IN PLACE: at batch 128 and 2048 positions the 16-layer cache
-of Llama-3.2-1B is 8.6 GB in bf16, and a copy per token would double it.
-
-Sliding windows (the ring-buffer cache), QKV biases, QK-norm and
-partial rotary are fields of ``AttnConfig`` but not ported yet:
-``check_gqa_ported`` refuses a config that sets them, at init, cache
-init and every forward (``transformer.check_ported``). MLA and
+each slot, -1 while empty. Without a window, position ``pos`` lives in
+slot ``pos`` (size = max_len); with one, the cache is a ring buffer of
+``min(max_len, window)`` slots and position ``pos`` lives in slot ``pos
+% size``. ``gqa_decode`` writes the new row and its position IN PLACE:
+at batch 128 and 2048 positions the 16-layer cache of Llama-3.2-1B is
+8.6 GB in bf16, and a copy per token would double it. MLA and
 cross-attention wait for the MoE and encoder-decoder families.
 """
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
+                                       rmsnorm_apply, rmsnorm_init,
                                        rope_freqs)
 from repro_torch.models.module import rematerialized
 
@@ -159,34 +163,33 @@ class AttnConfig:
         return rd - rd % 2
 
 
-def check_gqa_ported(cfg: AttnConfig):
-    """Raise unless the port has every feature ``cfg`` asks for."""
-    unported = [name for name, on in (
-        ("window", cfg.window is not None), ("qkv_bias", cfg.qkv_bias),
-        ("qk_norm", cfg.qk_norm),
-        ("rotary_pct < 1", 0 < cfg.rotary_dim < cfg.head_dim)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"attention with {', '.join(unported)} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 2)")
-
-
 def gqa_init(gen, cfg: AttnConfig, dtype=torch.float32):
-    check_gqa_ported(cfg)
+    """wq, wk, wv (with zero biases under ``qkv_bias``) and wo; with
+    ``qk_norm`` the per-head ``q_norm`` and ``k_norm`` RMSNorm scales
+    over ``head_dim`` (ones)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": dense_init(gen, d, hq * hd, dtype=dtype),
-            "wk": dense_init(gen, d, hkv * hd, dtype=dtype),
-            "wv": dense_init(gen, d, hkv * hd, dtype=dtype),
-            "wo": dense_init(gen, hq * hd, d, dtype=dtype)}
+    bias = cfg.qkv_bias
+    p = {"wq": dense_init(gen, d, hq * hd, bias=bias, dtype=dtype),
+         "wk": dense_init(gen, d, hkv * hd, bias=bias, dtype=dtype),
+         "wv": dense_init(gen, d, hkv * hd, bias=bias, dtype=dtype),
+         "wo": dense_init(gen, hq * hd, d, dtype=dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device=gen.device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device=gen.device)
+    return p
 
 
 def _project_qkv(p, x, cfg: AttnConfig, positions):
-    """x (B, S, d) -> q (B, S, Hq, D), k, v (B, S, Hkv, D), q and k
-    rotated at ``positions`` (S,)."""
+    """x (B, S, d) -> q (B, S, Hq, D), k, v (B, S, Hkv, D): q and k
+    normalized per head under ``qk_norm``, then their first
+    ``rotary_dim`` features rotated at ``positions`` (S,)."""
     b, s, _ = x.shape
     q = dense_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = dense_apply(p["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = dense_apply(p["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q)
+        k = rmsnorm_apply(p["k_norm"], k)
     if cfg.rotary_dim > 0:
         inv = rope_freqs(cfg.head_dim, cfg.rope_theta, cfg.rotary_dim,
                          device=x.device)
@@ -216,38 +219,47 @@ def gqa_apply(p, x, cfg: AttnConfig, *, positions=None, q_chunk=512,
 
 def gqa_cache_init(cfg: AttnConfig, batch: int, max_len: int, dtype, *,
                    device=None):
-    """One layer's decode cache: zeroed k, v (batch, max_len, Hkv, D) and
-    slot_pos (max_len,) int32 at -1 (empty)."""
-    check_gqa_ported(cfg)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """One layer's decode cache: zeroed k, v (batch, size, Hkv, D) and
+    slot_pos (size,) int32 at -1 (empty); size is ``max_len``, or
+    ``min(max_len, window)`` with a sliding window (a ring buffer)."""
+    size = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "slot_pos": torch.full((max_len,), -1, dtype=torch.int32,
+            "slot_pos": torch.full((size,), -1, dtype=torch.int32,
                                    device=device)}
 
 
 def gqa_decode(p, x, cache, cfg: AttnConfig, *, pos: int):
     """One-token decode: x (B, 1, d) at absolute position ``pos``.
-    Writes k, v and slot_pos at slot ``pos`` of ``cache`` in place and
-    attends over the slots that hold a position in [0, pos]. Returns
-    (y (B, 1, d), cache)."""
+    Writes k, v and slot_pos at slot ``pos`` of ``cache`` in place (slot
+    ``pos % size`` with a window, overwriting the oldest position) and
+    attends over the slots that hold a position in [0, pos], and with a
+    window only those past ``pos - window``. Returns (y (B, 1, d),
+    cache)."""
     b = x.shape[0]
     pos = int(pos)
     size = cache["k"].shape[1]
-    if not 0 <= pos < size:
+    if cfg.window:
+        slot = pos % size
+    elif 0 <= pos < size:
+        slot = pos
+    else:
         raise ValueError(f"decode position {pos} outside the cache's "
                          f"{size} slots (init_cache's max_len)")
     q, k, v = _project_qkv(p, x, cfg, torch.full((1,), pos,
                                                  device=x.device))
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    cache["slot_pos"][pos] = pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    cache["slot_pos"][slot] = pos
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qg = q.reshape(b, hkv, hq // hkv, hd)
     s = torch.einsum("bgrd,bsgd->bgrs", qg, ck).to(torch.float32)
     s = s * (1.0 / math.sqrt(hd))
     valid = (spos >= 0) & (spos <= pos)
+    if cfg.window:
+        valid = valid & (spos > pos - cfg.window)
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bsgd->bgrd", w.to(cv.dtype), cv)

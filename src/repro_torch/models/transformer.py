@@ -1,11 +1,16 @@
 """LM assembly: the parts of ``repro.models.transformer`` that the
-``dense`` family (Llama-3.2-1B) and the ``ssm`` family (Mamba-2) need to
-train, prefill and decode.
+``dense`` family (Llama-3.2-1B, Qwen2-7B, H2O-Danube-1.8B,
+StableLM-2-12B), the ``ssm`` family (Mamba-2) and the ``hybrid`` family
+(Zamba2-2.7B) need to train, prefill and decode.
 
-One ``ModelConfig`` describes an LM; this port builds the ``dense`` and
-``ssm`` families, and every other family (moe, hybrid, encdec, vlm)
-raises ``NotImplementedError`` naming it. Parameters are stacked over
-layers (a leading layer axis on every leaf of ``blocks``), as the
+One ``ModelConfig`` describes an LM; this port builds the ``dense``,
+``ssm`` and ``hybrid`` families, and every other family (moe, encdec,
+vlm) raises ``NotImplementedError`` naming it. A hybrid holds
+``n_layers`` Mamba-2 blocks and ONE shared attention block
+(``shared_attn``: pre-norm GQA and a pre-norm SwiGLU FFN at ``d_ff``),
+applied after every ``hybrid_attn_every`` of them. Parameters are
+stacked over layers (a leading layer axis on every leaf of
+``blocks``), as the
 reference stacks them for ``lax.scan``, so its weights map across one to
 one; the port loops over the layers in Python. The LM loss is a
 sequence-chunked, rematerialized cross-entropy (``chunked_ce_loss``), so
@@ -17,7 +22,7 @@ clusters, and for ``dense`` the last ``fed2_decouple`` blocks
 (``gblocks``) take block-diagonal SwiGLU FFNs (``gffn_*``), the
 transformer's counterpart of the paper's group convolutions; the lower
 ``n_dense_blocks`` stay shared. ``with_fed2`` forces ``fed2_decouple =
-0`` for ``ssm``.
+0`` for ``ssm`` and ``hybrid``.
 """
 from __future__ import annotations
 
@@ -37,16 +42,17 @@ from repro_torch.models.layers import (dense_apply, dense_init, embed_init,
 from repro_torch.models.module import rematerialized, stack_init
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields that the ``dense`` and ``ssm`` families
-    and ``with_fed2`` read; the other families' fields (MoE, encoder,
-    vision) come with them. ``remat_blocks`` recomputes each block's
-    activations in the backward pass (plain autograd only:
-    ``models.module.rematerialized``); ``tie_embeddings`` stays False."""
+    """The reference's fields that the ``dense``, ``ssm`` and ``hybrid``
+    families and ``with_fed2`` read; the other families' fields (MoE,
+    encoder, vision) come with them. ``remat_blocks`` recomputes each
+    block's activations in the backward pass (plain autograd only:
+    ``models.module.rematerialized``); ``tie_embeddings`` stays
+    False."""
     arch_id: str
     family: str                     # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -65,6 +71,7 @@ class ModelConfig:
     window: int | None = None       # sliding-window attention
     use_rope: bool = True
     ssm: ssm_lib.SSMConfig | None = None
+    hybrid_attn_every: int = 0      # zamba2: shared attn block every k layers
     # fed2 structure adaptation
     fed2_groups: int = 0
     fed2_decouple: int = 0
@@ -104,27 +111,31 @@ class ModelConfig:
 
 def check_ported(cfg: ModelConfig):
     """Raise unless the port builds, trains and decodes ``cfg``: the
-    ``dense`` family (decoupled blocks allowed) without the attention
-    features of the other dense configs, or the ``ssm`` family without
-    decoupled blocks; untied embeddings either way."""
+    ``dense`` family (decoupled blocks allowed), or the ``ssm`` or
+    ``hybrid`` family without decoupled blocks (a hybrid's layers in
+    whole super-blocks of ``hybrid_attn_every``); untied embeddings
+    either way."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown LM family {cfg.family!r}")
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet ({cfg.arch_id}); "
-            f"the port has the {' and '.join(map(repr, PORTED_FAMILIES))} "
+            f"the port has the {', '.join(map(repr, PORTED_FAMILIES))} "
             "families")
     if cfg.fed2_decouple and cfg.family != "dense":
         raise NotImplementedError(
             f"decoupled blocks (fed2_decouple={cfg.fed2_decouple}) are "
             f"ported for the 'dense' family only; with_fed2 sets 0 for "
             f"{cfg.family!r}")
+    if cfg.family == "hybrid" and (cfg.hybrid_attn_every < 1 or
+                                   cfg.n_layers % cfg.hybrid_attn_every):
+        raise ValueError(
+            f"a hybrid's {cfg.n_layers} layers must split into "
+            f"super-blocks of hybrid_attn_every={cfg.hybrid_attn_every}")
     if cfg.tie_embeddings:
         raise NotImplementedError(
             "tied embeddings are not ported; the ported families keep "
             "tie_embeddings=False")
-    if cfg.family == "dense":
-        attn.check_gqa_ported(cfg.attn_cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -195,16 +206,19 @@ def gffn_apply(p, x, cfg: ModelConfig, *, use_kernel: bool = False):
 
 
 def _default_kind(cfg: ModelConfig) -> str:
-    """The block kind of a ported family: 'ssm' or 'attn_ffn'."""
+    """The block kind of a ported family: 'ssm' or 'attn_ffn' (a
+    hybrid's stacked blocks are 'ssm', passed as ``kind``)."""
     return "ssm" if cfg.family == "ssm" else "attn_ffn"
 
 
-def block_init(gen, cfg: ModelConfig, *, grouped: bool = False):
-    """One block of the config's kind: 'ssm' (pre-norm + Mamba-2 mixer)
-    or 'attn_ffn' (pre-norm GQA, pre-norm FFN; ``grouped`` takes the
-    block-diagonal FFN of a decoupled block)."""
+def block_init(gen, cfg: ModelConfig, *, grouped: bool = False,
+               kind: str | None = None):
+    """One block of ``kind`` (default: the config's): 'ssm' (pre-norm +
+    Mamba-2 mixer) or 'attn_ffn' (pre-norm GQA, pre-norm FFN;
+    ``grouped`` takes the block-diagonal FFN of a decoupled block)."""
+    kind = kind or _default_kind(cfg)
     p = {"ln1": _norm_init(cfg, device=gen.device)}
-    if _default_kind(cfg) == "ssm":
+    if kind == "ssm":
         p["mixer"] = ssm_lib.mamba2_init(gen, cfg.ssm, cfg.dtype)
         return p
     p["attn"] = attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype)
@@ -214,12 +228,12 @@ def block_init(gen, cfg: ModelConfig, *, grouped: bool = False):
 
 
 def block_apply(p, x, cfg: ModelConfig, *, grouped: bool = False,
-                positions=None):
+                kind: str | None = None, positions=None):
     """A whole sequence through one block: x + mixer(norm(x)) for 'ssm';
     x + attn(norm(x)), then + ffn(norm(.)) for 'attn_ffn' at
     ``positions`` (S,). The reference also returns an aux loss, always 0
     for these kinds."""
-    if _default_kind(cfg) == "ssm":
+    if (kind or _default_kind(cfg)) == "ssm":
         return x + ssm_lib.mamba2_apply(p["mixer"],
                                         _norm_apply(cfg, p["ln1"], x),
                                         cfg.ssm)
@@ -233,12 +247,13 @@ def block_apply(p, x, cfg: ModelConfig, *, grouped: bool = False,
 
 
 def block_decode(p, x, cache, cfg: ModelConfig, *, pos: int,
-                 grouped: bool = False, use_kernel: bool = True):
+                 grouped: bool = False, kind: str | None = None,
+                 use_kernel: bool = True):
     """One token through one block at position ``pos``; ``cache`` is
     updated in place. ``use_kernel`` takes the kernels' routes
     (``ssd_update``; ``grouped_matmul`` in a decoupled FFN)."""
     h = _norm_apply(cfg, p["ln1"], x)
-    if _default_kind(cfg) == "ssm":
+    if (kind or _default_kind(cfg)) == "ssm":
         y, cache = ssm_lib.mamba2_decode(p["mixer"], h, cache, cfg.ssm,
                                          use_kernel=use_kernel)
         return x + y, cache
@@ -315,18 +330,25 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random parameters from ``gen``, drawn on its device in the
-    config's dtype (a full-width model is drawn on the card): the
-    ``n_dense_blocks`` shared blocks under ``blocks`` and the
+    config's dtype (a full-width model is drawn on the card). Dense and
+    ssm: the ``n_dense_blocks`` shared blocks under ``blocks`` and the
     ``fed2_decouple`` decoupled ones under ``gblocks``, as the reference
-    splits them."""
+    splits them; hybrid: ``n_layers`` SSM blocks under ``blocks`` and
+    the one ``shared_attn`` block."""
     check_ported(cfg)
     params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                  cfg.dtype),
-              "blocks": stack_init(block_init, gen, cfg.n_dense_blocks,
-                                   cfg=cfg)}
-    if cfg.fed2_decouple:
-        params["gblocks"] = stack_init(block_init, gen, cfg.fed2_decouple,
-                                       cfg=cfg, grouped=True)
+                                  cfg.dtype)}
+    if cfg.family == "hybrid":
+        params["blocks"] = stack_init(block_init, gen, cfg.n_layers,
+                                      cfg=cfg, kind="ssm")
+        params["shared_attn"] = block_init(gen, cfg, kind="attn_ffn")
+    else:
+        params["blocks"] = stack_init(block_init, gen, cfg.n_dense_blocks,
+                                      cfg=cfg)
+        if cfg.fed2_decouple:
+            params["gblocks"] = stack_init(block_init, gen,
+                                           cfg.fed2_decouple, cfg=cfg,
+                                           grouped=True)
     params["final_norm"] = _norm_init(cfg, device=gen.device)
     params["unembed"] = unembed_init(gen, cfg)
     return params

@@ -212,27 +212,35 @@ def test_lm_group_axes_on_the_ports_dense_tree():
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# the other dense configs and the hybrid build and run
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("over", [dict(window=16), dict(qkv_bias=True),
-                                  dict(qk_norm=True),
-                                  dict(rotary_pct=0.5)])
-def test_unported_attention_features_are_refused(over):
-    """The other dense configs' attention features wait for their own
-    port: a config that sets one is refused, naming where it is queued,
-    at init, at cache init and in the forward."""
-    _, tc = _configs(**over)
-    name = next(iter(over)) if "rotary_pct" not in over else "rotary_pct"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2") as e:
-        tfm.init_params(torch.Generator().manual_seed(0), tc)
-    assert name in str(e.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        fwd.init_cache(tc, 1, 8)
-    _, tp = _params(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        fwd.forward(tp, tc, torch.zeros((1, 4), dtype=torch.long))
+@pytest.mark.parametrize("arch", ["qwen2-7b", "h2o-danube-1.8b",
+                                  "stablelm-12b", "zamba2-2.7b"])
+def test_the_other_dense_configs_and_the_hybrid_build_and_run(arch):
+    """The attention features the llama lacks (QKV biases, a sliding
+    window, QK-norm, partial rotary) and the hybrid family build, run
+    a forward and decode through their caches (their parity with the
+    reference: tests/test_torch_dense_configs.py and
+    tests/test_torch_hybrid.py); the families still unported (moe,
+    encdec, vlm) raise (tests/test_torch_lm.py)."""
+    tc = with_fed2(get_config(arch, reduced=True), groups=4)
+    params = tfm.init_params(torch.Generator().manual_seed(0), tc)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, tc.vocab, size=(2, 6)))
+    with torch.no_grad():
+        h = fwd.forward(params, tc, toks)
+        cache = fwd.init_cache(tc, 2, 8)
+        for t in range(6):
+            logits, _ = fwd.decode_step(params, tc, cache, toks[:, t:t + 1],
+                                        t)
+    assert h.shape == (2, 6, tc.d_model) and bool(torch.isfinite(h).all())
+    assert logits.shape == (2, 1, tc.vocab)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError, match="moe"):
+        tfm.init_params(torch.Generator().manual_seed(0),
+                        dataclasses.replace(tc, family="moe"))
 
 
 # ---------------------------------------------------------------------------
