@@ -22,7 +22,9 @@ script exits non-zero:
             products, timed at M = 4 and 128, and the llama
             unembedding, the other dense configs' and zamba2's
             unembeddings and decoupled FFN products at M = 4 and 128
-            (stablelm 64), and its refusal under autograd; ssd_update
+            (stablelm 64), the MoE configs' Fed2 unembeddings (8, 768,
+            4096) and (8, 640, 12800) at M = 4 and 128, and its
+            refusal under autograd; ssd_update
             also at zamba2's (4 | 128, 80, 64, 64));
             feature_stats also as feature_stats_many on segment
             tables (auto-depth's, ragged and misaligned ones, one over a
@@ -248,6 +250,30 @@ script exits non-zero:
             blocks kept)
 39. hybrid profile  one zamba2 Fed2 decode step at batch 4 and one
             zamba2 --mode lm step under torch.profiler
+40. moe serve  mixtral-8x22b and deepseek-v2-236b: the full configs'
+            parameter counts ± Fed2 8 (initialized under
+            FakeTensorMode) equal to the reference's; then each cut to
+            8 layers at full width (neither model fits one card; the
+            cut's count is the reference's) through the serving
+            function, batch 4 (32 + 16 tokens) ± Fed2 8 and Fed2 at
+            batch 128 over 2048 slots, counted: grouped_matmul once a
+            Fed2 step (stream at 4, wgmma at 128), nothing else; tok/s,
+            the decode cache's bytes and peak memory
+41. moe decode parity  fp32, TF32 off, each arch with Fed2 8 at 2
+            layers: 16 decode steps with the kernels against the plain
+            versions (logits, every cache leaf), and the chunked
+            forward against 64 decode steps at capacity factor 16
+42. moe lm train  the --mode lm step (bf16, batch 8 x 1024, Fed2 8):
+            mixtral at 1 layer, deepseek at 3 layers with 16 of its 160
+            routed experts, every other width kept; no launch; losses
+            falling, the aux loss finite and non-zero
+43. moe lm federation  lm_task as in 27 (fedavg and fed2, with and
+            without --use-local-kernel, counted) on each arch with
+            every routing parameter and MLA's dims kept, d_model, d_ff,
+            vocab and depth cut to a 1.6-1.8 GB fp32 row
+44. moe profile  under torch.profiler: one deepseek Fed2 decode step at
+            8 layers and batch 128 over 2048 slots, one mixtral step at
+            batch 4, and one deepseek --mode lm step at 42's cut
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -323,9 +349,10 @@ AXES_SCENARIO_REFERENCE = {
 # tests/test_paper_claims.py's margin for the robust orderings
 CLAIMS_MARGIN = 0.10
 # parameters of the full mamba2-1.3b, llama3.2-1b, qwen2-7b,
-# h2o-danube-1.8b, stablelm-12b and zamba2-2.7b, and of
-# with_fed2(groups=8) of each: the reference's
+# h2o-danube-1.8b, stablelm-12b, zamba2-2.7b, mixtral-8x22b and
+# deepseek-v2-236b, and of with_fed2(groups=8) of each: the reference's
 # param_count(jax.eval_shape(init_params, ...)) on its configs/<arch>.full()
+# (tests/test_torch_*.py pin them)
 SERVE_PARAMS = {("mamba2-1.3b", 0): 1_446_812_672,
                 ("mamba2-1.3b", 8): 1_356_667_904,
                 ("llama3.2-1b", 0): 1_498_482_688,
@@ -337,7 +364,11 @@ SERVE_PARAMS = {("mamba2-1.3b", 0): 1_446_812_672,
                 ("stablelm-12b", 0): 12_142_937_600,
                 ("stablelm-12b", 8): 10_578_593_280,
                 ("zamba2-2.7b", 0): 2_422_670_240,
-                ("zamba2-2.7b", 8): 2_350_990_240}
+                ("zamba2-2.7b", 8): 2_350_990_240,
+                ("mixtral-8x22b", 0): 140_630_071_296,
+                ("mixtral-8x22b", 8): 140_453_910_528,
+                ("deepseek-v2-236b", 0): 235_741_434_880,
+                ("deepseek-v2-236b", 8): 235_282_682_880}
 SERVE_LAYERS = 48
 # decode parity, kernels vs plain versions at full width in fp32: fp32
 # round-off (~1e-7 relative per operation) carried through 48 layers
@@ -524,6 +555,57 @@ OTHER_GMM_SHAPES = (
     ("stablelm-12b", 640, 1728), ("stablelm-12b", 1728, 640),
     ("zamba2-2.7b", 320, 4000), ("h2o-danube-1.8b", 320, 864),
     ("h2o-danube-1.8b", 864, 320))
+# the MoE family. Neither full model fits on one card (281 and 471 GB of
+# bf16 weights), so each phase cuts the depth, every width kept:
+# serving at MOE_SERVE_LAYERS of 56 (mixtral) and of 60 (deepseek: its
+# dense first layer and 7 MoE layers), ~41 and ~58 GB of bf16 weights,
+# with Fed2 also at batch 128 over 2048 slots; fp32 decode parity and
+# the chunked forward vs decode at MOE_PARITY_LAYERS (deepseek: the dense
+# layer and one MoE layer; ~21.5 GB each). The parameter counts of the
+# cuts are the reference's (tests/test_torch_moe_lm.py pins them).
+# with_fed2(groups=8) decouples no MoE block: a Fed2 decode step launches
+# grouped_matmul once (the unembedding)
+MOE_ARCHS = ("mixtral-8x22b", "deepseek-v2-236b")
+MOE_SERVE_LAYERS = 8
+MOE_PARITY_LAYERS = 2
+MOE_CUT_PARAMS = {("mixtral-8x22b", 0, 8): 20_435_146_752,
+                  ("mixtral-8x22b", 8, 8): 20_258_985_984,
+                  ("deepseek-v2-236b", 0, 8): 29_191_377_920,
+                  ("deepseek-v2-236b", 8, 8): 28_732_625_920,
+                  ("mixtral-8x22b", 8, 2): 5_234_620_416,
+                  ("deepseek-v2-236b", 8, 2): 4_899_927_040,
+                  ("mixtral-8x22b", 8, 1): 2_730_559_488,
+                  ("deepseek-v2-236b", 8, 3): 2_075_796_480}
+# the chunked forward vs MOE_CROSSCHECK_LEN decode steps at batch 2, at
+# capacity factor 16 (nothing drops; the reference's
+# test_prefill_decode_agreement) and attention chunks of 32: MLA's
+# expanded prefill and absorbed decode, the ring buffer's window, and
+# routing that a round-off near a top-k tie could flip (a flipped
+# expert moves logits by O(1)), so few tokens: the dense limit
+MOE_CROSSCHECK_LEN = 64
+MOE_CROSSCHECK = dict(attn_q_chunk=32, attn_kv_chunk=32)
+# --mode lm, bf16, --fed2-groups 8, batch 8 x 1024 (as LM_TRAIN), through
+# the CLI's step: mixtral at 1 layer (2.73 B), deepseek at 3 layers (the
+# dense one and 2 MoE) with 16 of its 160 routed experts (2.08 B; one
+# full MoE layer alone would take ~87 GB at the ~22 bytes a parameter a
+# step takes), every other width kept
+MOE_TRAIN = {"mixtral-8x22b": dict(n_layers=1),
+             "deepseek-v2-236b": dict(n_layers=3, n_experts=16)}
+# LM federation (LM_FL, fp32, groups 4): every routing parameter kept (E,
+# top-k, the shared experts, router_norm_topk, the capacity factor; MLA's
+# heads and latent dims), d_model, d_ff, vocab and depth cut until a flat
+# fp32 row is <= 1.8 GB (danube's 1.68, zamba2's 1.79): mixtral d 1536,
+# d_ff 4096 (its 8/3 ratio), its vocab, 2 layers (1.64 GB); deepseek d
+# 1280, expert d_ff 384, shared 768, dense 3072 (its ratios), vocab 25600,
+# 2 layers: the dense one and one MoE layer (1.79 GB)
+MOE_FL = {"mixtral-8x22b": dict(d_model=1536, d_ff=4096, vocab=32768,
+                                n_layers=2),
+          "deepseek-v2-236b": dict(d_model=1280, d_ff=384, vocab=25600,
+                                   n_layers=2, moe_dense_ff=3072,
+                                   d_ff_shared=768)}
+# grouped_matmul at the MoE configs' Fed2 unembeddings, (d/8, V/8)
+MOE_GMM_SHAPES = (("mixtral-8x22b", 768, 4096),
+                  ("deepseek-v2-236b", 640, 12800))
 
 
 @contextlib.contextmanager
@@ -1290,6 +1372,17 @@ def phase_check_grouped_matmul() -> dict:
             check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, f32)
     check_one("danube/zamba2 lm_task eval", "simt", (64, 64), 4, 640, 8000,
               f32)
+    # the MoE configs' Fed2 unembedding: decode at batch 4 (stream, bf16
+    # and the fp32 parity's) and 128 (wgmma), an eval chunk (M = 4096,
+    # wgmma); their lm_task eval (fp32, 4 groups, MOE_FL's widths)
+    for arch, k, n in MOE_GMM_SHAPES:
+        check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, bf16)
+        check_one(f"{arch} decode", "wgmma", (128, 1), g0, k, n, bf16)
+        check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, f32)
+        check_one(f"{arch} eval chunk", "wgmma", (8, 512), g0, k, n, bf16)
+    for arch, w in MOE_FL.items():
+        check_one(f"{arch} lm_task eval", "simt", (64, 64), 4,
+                  w["d_model"] // 4, w["vocab"] // 4, f32)
     # autograd: the kernel has no backward, so the wrapper refuses
     x, w, _ = gmm_inputs((4,), g0, k0, n0, bf16, gen)
     before = grouped_matmul.launches
@@ -1316,7 +1409,9 @@ def phase_check_grouped_matmul() -> dict:
             ("dense lm_task eval M=4096", 4096, 4, 512, 32064, f32),
             *((f"{arch} ({k}, {n}) M={m}", m, g0, k, n, bf16)
               for arch, k, n in OTHER_GMM_SHAPES
-              for m in (4, OTHER_BIG_BATCH[arch]))):
+              for m in (4, OTHER_BIG_BATCH[arch])),
+            *((f"{arch} ({k}, {n}) M={m}", m, g0, k, n, bf16)
+              for arch, k, n in MOE_GMM_SHAPES for m in (4, 128))):
         esz = dt.itemsize
         w_bytes = g * k * n * esz
         nbytes = w_bytes + esz * m * g * (k + n)
@@ -3253,7 +3348,7 @@ def phase_lm_crosscheck():
 
     @torch.no_grad()
     def chunked():
-        h = forward(params, cfg, toks)
+        h, _ = forward(params, cfg, toks)
         logits = tfm.unembed_apply(params["unembed"], h, cfg,
                                    use_kernel=False)
         # forward's blocks again, one by one, keeping each SSM state
@@ -3433,7 +3528,7 @@ def phase_dense_decode_parity():
 
     @torch.no_grad()
     def chunked():
-        h = forward(params, ccfg, toks[:bc])
+        h, _ = forward(params, ccfg, toks[:bc])
         return tfm.unembed_apply(params["unembed"], h, ccfg,
                                  use_kernel=False)
 
@@ -3506,12 +3601,9 @@ def phase_dense_lm_fl():
     Fed2 over 4 groups, 6 of 16 layers, 4 decoupled): the kernels on its
     (4, M) cohort buffer (``lm_cohort_kernels``), the counted runs
     (``lm_fl_runs``: fedavg and fed2, with and without
-    --use-local-kernel); then one fed2 round with the flag (TF32 off) in
-    which every local_step and paired_fusion call is held against its
-    plain version on that call's own inputs (``LmKernelTaps``), and the
-    held-out loss after each fed2 round."""
-    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
-    from repro_torch.models.module import FlatLayout, tree_leaves_with_path
+    --use-local-kernel), then one tapped fed2 round
+    (``lm_tapped_round``)."""
+    from repro_torch.fl.runtime import lm_task
     cfg, parts, get_batch, test, init = lm_fl_inputs(dense_fl_config())
     lm_fl_header(cfg, init, DENSE_LAYERS)
     with tf32_off():
@@ -3519,6 +3611,21 @@ def phase_dense_lm_fl():
     task = lm_task(cfg)
     loss_of = lm_held_out_loss(cfg, test)
     losses = lm_fl_runs(task, parts, get_batch, test, init, loss_of)
+    lm_tapped_round("dense LM round", task, parts, get_batch, test, init,
+                    loss_of, losses)
+    del init
+    free_device_memory()
+
+
+def lm_tapped_round(label, task, parts, get_batch, test, init, loss_of,
+                    losses):
+    """One fed2 round with --use-local-kernel (TF32 off) in which every
+    local_step and paired_fusion call is held against its plain version
+    on that call's own inputs (``LmKernelTaps``: each within its
+    round-off bound, 4 and 1 calls), and the held-out loss after each
+    fed2 round (``losses``: ``lm_fl_runs``') falls."""
+    from repro_torch.fl.runtime import FLConfig, run_federated
+    from repro_torch.models.module import FlatLayout, tree_leaves_with_path
     layout = FlatLayout(init)
     paths = [p for p, _ in tree_leaves_with_path(init)]
     fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
@@ -3526,16 +3633,17 @@ def phase_dense_lm_fl():
         h = run_federated(task, fl, parts, get_batch, test,
                           use_local_kernel=True, device="cuda",
                           init_params=init)
-    worst = taps.report("dense LM round, kernels on the round's own inputs")
+    worst = taps.report(f"{label}, kernels on the round's own inputs")
     assert taps.calls == {"local_step": LM_FL["steps_per_epoch"],
                           "paired_fusion": 1}, taps.calls
     assert max(worst.values()) <= 1.0, \
-        "a kernel call of the dense LM round exceeds its round-off bound"
-    l1 = loss_of(h["final_params"])
-    print(f"  held-out loss, fed2 with the flag: init {losses['init']:.5f}, "
-          f"round 1 {l1:.5f}, round 2 "
-          f"{losses['lm_task fed2 --use-local-kernel']:.5f}", flush=True)
-    del h, init
+        f"a kernel call of the {label} exceeds its round-off bound"
+    l0, l1 = losses["init"], loss_of(h["final_params"])
+    l2 = losses["lm_task fed2 --use-local-kernel"]
+    print(f"  held-out loss, fed2 with the flag: init {l0:.5f}, round 1 "
+          f"{l1:.5f}, round 2 {l2:.5f}", flush=True)
+    assert l0 > l1 > l2, "the held-out loss does not fall round by round"
+    del h
     free_device_memory()
 
 
@@ -3715,7 +3823,7 @@ def chunked_vs_decode(label, cfg, n, bs, limit, expect, routes,
 
     @torch.no_grad()
     def chunked():
-        h = forward(params, cfg, toks)
+        h, _ = forward(params, cfg, toks)
         return tfm.unembed_apply(params["unembed"], h, cfg,
                                  use_kernel=False)
 
@@ -3752,10 +3860,10 @@ def chunked_vs_decode(label, cfg, n, bs, limit, expect, routes,
                     cfg.ssm, with_state=True)
                 x = x + y
                 if (i + 1) % k == 0:
-                    x = tfm.block_apply(params["shared_attn"], x, cfg,
-                                        kind="attn_ffn",
-                                        positions=torch.arange(
-                                            n, device="cuda"))
+                    x, _ = tfm.block_apply(params["shared_attn"], x, cfg,
+                                           kind="attn_ffn",
+                                           positions=torch.arange(
+                                               n, device="cuda"))
                 rel = max(rel, ((cache["blocks"]["ssm"][i] - st).abs().max()
                                 / st.abs().max()).item())
         line += (f"; SSM states, worst layer {rel:.3g} of its largest "
@@ -3800,11 +3908,12 @@ def phase_other_decode_parity():
                       DENSE_CROSSCHECK_LOGIT_ATOL, {}, {})
 
 
-def lm_steps(cfg, n_steps, batch=8, seq=1024):
+def lm_steps(cfg, n_steps, batch=8, seq=1024, check=None):
     """``n_steps`` of make_train_step (the --mode lm step: AdamW at lr
     1e-3, bf16 grads) on the synthetic corpus, the weights drawn on the
     card: losses finite and falling; prints the step times, tokens/s
-    and peak device memory."""
+    and peak device memory. ``check(params, last batch)`` runs after
+    the last step."""
     from repro_torch.data.synthetic import (lm_batch_from_tokens,
                                             make_token_dataset)
     from repro_torch.launch.steps import make_train_step
@@ -3837,6 +3946,8 @@ def lm_steps(cfg, n_steps, batch=8, seq=1024):
           f"tokens/s); peak device memory {peak / 2 ** 30:.2f} GiB",
           flush=True)
     finite_params({"final_params": params})
+    if check is not None:
+        check(params, b)
     del params, state
     free_device_memory()
 
@@ -3921,6 +4032,273 @@ def phase_other_profile():
     params, state, _ = step_fn(params, state, 0, b0)
     profiled("one --mode lm --arch zamba2-2.7b step, batch 8 x 1024",
              lambda: step_fn(params, state, 1, b1))
+    del params, state
+    free_device_memory()
+
+
+def moe_config(arch, groups=8, dtype=None, **cut):
+    """``arch``'s full config (in ``dtype``), under
+    with_fed2(``groups``) when ``groups``, with ``cut``'s fields
+    replaced (``n_experts``, ``d_ff_shared`` and ``capacity_factor`` on
+    its MoEConfig; ``d_model`` and ``d_ff`` on both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    cfg = get_config(arch, **({"dtype": dtype} if dtype else {}))
+    if groups:
+        cfg = with_fed2(cfg, groups=groups)
+    moe_keys = ("n_experts", "d_ff_shared", "capacity_factor")
+    moe_cut = {k: cut.pop(k) for k in moe_keys if k in cut}
+    if "d_model" in cut:
+        moe_cut["d_model"] = cut["d_model"]
+    if "d_ff" in cut:
+        moe_cut["d_ff_expert"] = cut["d_ff"]
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            **moe_cut),
+                               **cut)
+
+
+def moe_serve(cfg, groups, *, batch=4, prompt_len=32, gen=16,
+              max_len=128):
+    """launch/serve.py's serving function (``run_serve``) on ``cfg`` (a
+    depth-cut full config): tokens in range, finite logits, the cut's
+    parameter count the reference's; prints prefill and decode tok/s,
+    the decode cache's bytes and the peak device memory. Returns the
+    peak."""
+    from repro_torch.launch.serve import run_serve
+    from repro_torch.models.forward import init_cache
+    from repro_torch.models.module import tree_leaves
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+                    max_len=max_len, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    toks, logits = out["tokens"], out["logits"]
+    assert toks.shape == (batch, gen) and ((toks >= 0)
+                                           & (toks < cfg.vocab)).all()
+    assert logits.shape == (batch, 1, cfg.vocab) and logits.is_cuda
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    with torch.device("meta"):
+        cache = init_cache(cfg, batch, max_len)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache))
+    want = MOE_CUT_PARAMS[cfg.arch_id, groups, cfg.n_layers]
+    print(f"  {cfg.arch_id} at {cfg.n_layers} layers, batch {batch}, "
+          f"{prompt_len} + {gen} tokens over {max_len} slots: prefill "
+          f"{prompt_len * batch / out['prefill_s']:.1f} tok/s, decode "
+          f"{out['tok_s']:.1f} tok/s "
+          f"({out['decode_s'] / gen * 1e3:.2f} ms a step); decode cache {cache_bytes / 1e9:.3g} GB; peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB; {out['param_count']:,} "
+          f"parameters (reference: {want:,})", flush=True)
+    assert out["param_count"] == want, "parameter count differs from the " \
+        "reference's"
+    assert peak > cache_bytes
+    del out
+    free_device_memory()
+    return peak
+
+
+def phase_moe_serve():
+    """Each MoE arch's full config: its parameter count ± Fed2 8 (init
+    under FakeTensorMode) against the reference's, then serving at
+    MOE_SERVE_LAYERS layers, full width, through run_serve: batch 4 (32
+    + 16 tokens) without and with Fed2 8, and Fed2 at batch 128 over
+    2048 slots (2 + 8 tokens); counted: grouped_matmul once a Fed2 step
+    (stream at batch 4, wgmma at 128), nothing else."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import param_count
+    for arch in MOE_ARCHS:
+        for g in (0, 8):
+            with FakeTensorMode():
+                n = param_count(tfm.init_params(torch.Generator(),
+                                                moe_config(arch, g)))
+            print(f"  {arch} full, Fed2 {g}: {n:,} parameters (reference "
+                  f"{SERVE_PARAMS[arch, g]:,})", flush=True)
+            assert n == SERVE_PARAMS[arch, g]
+        plain, fed2 = (dataclasses.replace(moe_config(arch, g),
+                                           n_layers=MOE_SERVE_LAYERS)
+                       for g in (0, 8))
+        label = f"serve {arch} ({MOE_SERVE_LAYERS} layers)"
+        steps = 32 + 16
+        counted(label, lambda: moe_serve(plain, 0), {})
+        counted(f"{label}, Fed2 8", lambda: moe_serve(fed2, 8),
+                {"grouped_matmul": steps}, {"stream": steps})
+        n = 2 + 8
+        counted(f"{label}, Fed2 8, batch 128 over 2048 slots",
+                lambda: moe_serve(fed2, 8, batch=128, prompt_len=2, gen=8,
+                                  max_len=2048),
+                {"grouped_matmul": n}, {"wgmma": n})
+
+
+def phase_moe_decode_parity():
+    """fp32, TF32 off, each MoE arch with Fed2 8 cut to
+    MOE_PARITY_LAYERS layers at full width: 16 decode steps with the
+    kernels against the plain versions (logits, every cache leaf), and
+    the chunked forward against MOE_CROSSCHECK_LEN decode steps at
+    capacity factor 16 (nothing drops), logits within the dense
+    limit."""
+    import dataclasses
+    for arch in MOE_ARCHS:
+        cfg = moe_config(arch, 8, torch.float32,
+                         n_layers=MOE_PARITY_LAYERS)
+        decode_kernels_vs_plain(f"{arch} ({MOE_PARITY_LAYERS} layers)", cfg,
+                                {"grouped_matmul": 1}, {"stream": 1})
+        chunked_vs_decode(
+            f"{arch} ({MOE_PARITY_LAYERS} layers, capacity factor 16)",
+            dataclasses.replace(moe_config(
+                arch, 8, torch.float32, n_layers=MOE_PARITY_LAYERS,
+                capacity_factor=16.0), **MOE_CROSSCHECK),
+            MOE_CROSSCHECK_LEN, 2, DENSE_CROSSCHECK_LOGIT_ATOL,
+            {"grouped_matmul": 1}, {"stream": 1})
+
+
+def phase_moe_lm_train():
+    """--mode lm's step (make_train_step: bf16, AdamW, batch 8 x 1024,
+    Fed2 8) on each MoE arch at MOE_TRAIN's cut, counted (no launch):
+    losses finite and falling, and the forward's aux loss after
+    training finite and non-zero."""
+    from repro_torch.models.forward import forward
+    from repro_torch.models.module import param_count
+
+    def aux_check(params, cfg, batch):
+        assert param_count(params) == MOE_CUT_PARAMS[arch, 8, cfg.n_layers]
+        with torch.no_grad():
+            _, aux = forward(params, cfg, batch["tokens"])
+        print(f"  aux loss after training {aux.item():.5f}", flush=True)
+        assert math.isfinite(aux.item()) and aux.item() > 0
+
+    for arch, cut in MOE_TRAIN.items():
+        cfg = moe_config(arch, 8, **cut)
+        counted(f"--mode lm step, {arch} at {cut}",
+                lambda: lm_steps(cfg, LM_TRAIN_STEPS,
+                                 check=lambda p, b: aux_check(p, cfg, b)),
+                {})
+
+
+def phase_moe_lm_fl():
+    """run_federated(lm_task), fp32, on each MoE arch at MOE_FL's widths,
+    every routing parameter kept: the kernels on its (4, M) cohort buffer
+    (``lm_cohort_kernels``), LM_FL's 2 rounds (``lm_fl_runs``: fedavg and
+    fed2, with and without --use-local-kernel, counted: paired_fusion 1,
+    grouped_matmul 1 (simt) and with the flag local_step 4 a round), and
+    one tapped fed2 round (``lm_tapped_round``)."""
+    from repro_torch.fl.runtime import lm_task
+    for arch, cut in MOE_FL.items():
+        cfg, parts, get_batch, test, init = lm_fl_inputs(
+            moe_config(arch, 4, torch.float32, **cut))
+        lm_fl_header(cfg, init, moe_config(arch, 0).n_layers)
+        print(f"  routing kept: {cfg.moe}", flush=True)
+        with tf32_off():
+            lm_cohort_kernels(init)
+        task = lm_task(cfg)
+        loss_of = lm_held_out_loss(cfg, test)
+        losses = lm_fl_runs(task, parts, get_batch, test, init, loss_of)
+        lm_tapped_round(f"{arch} LM round", task, parts, get_batch, test,
+                        init, loss_of, losses)
+        del init
+        free_device_memory()
+
+
+def moe_decode_parts(cfg, params, cache, pos):
+    """CUDA-event times of a Fed2 decode step's parts at ``cache``'s
+    batch, on ``blocks``' layer 0 at ``pos`` (its cache slot rewritten
+    with the same values): the pre-norm and attention, the pre-norm and
+    experts (drop-free: every expert over n·k rows), the whole block;
+    with the expert products' bound (the experts' bf16 weights read
+    once, or their FLOPs at the bf16 tensor-core peak)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import tree_leaves, tree_map
+    p = tree_map(lambda t: t[0], params["blocks"])
+    c = tree_map(lambda t: t[0], cache["blocks"])
+    n = tree_leaves(cache)[0].shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(n, 1, cfg.d_model, generator=gen, device="cuda",
+                    dtype=cfg.dtype)
+
+    def attention():
+        h = tfm._norm_apply(cfg, p["ln1"], x)
+        if cfg.mla_cfg:
+            return attn.mla_decode(p["attn"], h, c, cfg.mla_cfg, pos=pos)
+        return attn.gqa_decode(p["attn"], h, c, cfg.attn_cfg, pos=pos)
+
+    def experts():
+        return moe_lib.moe_apply(p["ffn"], tfm._norm_apply(cfg, p["ln2"], x),
+                                 cfg.moe)
+
+    t = {"attention": event_ms(attention, 5),
+         "experts": event_ms(experts, 5),
+         "block": event_ms(lambda: tfm.block_decode(p, x, c, cfg, pos=pos),
+                           5)}
+    m = cfg.moe
+    wbytes = 3 * m.n_experts * m.d_model * m.d_ff_expert * 2
+    flops = 6 * m.n_experts * n * m.top_k * m.d_model * m.d_ff_expert
+    b, by = bound(wbytes, flops, BF16_FLOPS)
+    print(f"  its layer 0 at batch {n} (CUDA events): attention "
+          f"{t['attention']:.3f} ms, experts {t['experts']:.3f} ms (their "
+          f"products' bound {b:.3f} ms, {by}: {wbytes / 1e9:.2f} GB, "
+          f"{flops / 1e12:.2f} TFLOP over (E, n·k) = ({m.n_experts}, "
+          f"{n * m.top_k}) rows), the block {t['block']:.3f} ms; x "
+          f"{cfg.n_layers} layers {cfg.n_layers * t['block']:.1f} ms",
+          flush=True)
+
+
+def phase_moe_profile():
+    """Under torch.profiler, after warm-up steps: one Fed2 decode step
+    of each MoE arch at MOE_SERVE_LAYERS layers, batch 128 over 2048
+    slots (the drop-free (E, n·k, d) dispatch buffers: (160, 768, 5120)
+    and (8, 256, 6144)) and mixtral's at batch 4, each at batch 128 with
+    its layer-0 parts timed (``moe_decode_parts``); and one --mode lm
+    step of deepseek at MOE_TRAIN's cut (the MLA attention's passes
+    split out)."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, init_cache
+    for arch, shapes in (("deepseek-v2-236b", ((128, 2048),)),
+                         ("mixtral-8x22b", ((4, 128), (128, 2048)))):
+        cfg = dataclasses.replace(moe_config(arch, 8),
+                                  n_layers=MOE_SERVE_LAYERS)
+        params = tfm.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        for bs, max_len in shapes:
+            cache = init_cache(cfg, bs, max_len, device="cuda")
+            toks = torch.randint(0, cfg.vocab, (bs, 4), device="cuda")
+            with torch.no_grad():
+                for t in range(3):
+                    decode_step(params, cfg, cache, toks[:, t:t + 1], t)
+                profiled(f"one {arch} Fed2 decode step ({MOE_SERVE_LAYERS} "
+                         f"layers), batch {bs} over {max_len} slots",
+                         lambda: decode_step(params, cfg, cache,
+                                             toks[:, 3:4], 3))
+                if bs == 128:
+                    moe_decode_parts(cfg, params, cache, 3)
+            del cache
+            free_device_memory()
+        del params
+        free_device_memory()
+    arch = "deepseek-v2-236b"
+    cfg = moe_config(arch, 8, **MOE_TRAIN[arch])
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    step_fn, opt = make_train_step(cfg, lr=1e-3)
+    state = opt.init(params)
+    data, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
+    b0, b1 = (lm_batch_from_tokens(data[i:i + 8], device="cuda")
+              for i in (0, 8))
+    params, state, _ = step_fn(params, state, 0, b0)
+    profiled(f"one --mode lm step, {arch} at {MOE_TRAIN[arch]}, batch 8 x "
+             "1024", lambda: step_fn(params, state, 1, b1),
+             attention_tile=(cfg.attn_q_chunk, cfg.attn_kv_chunk))
     del params, state
     free_device_memory()
 
@@ -4057,6 +4435,17 @@ def main() -> int:
         phase_other_lm_fl()
     with phase("hybrid profile"):
         phase_other_profile()
+    free_device_memory()
+    with phase("moe serve"):
+        phase_moe_serve()
+    with phase("moe decode parity (TF32 off)"), tf32_off():
+        phase_moe_decode_parity()
+    with phase("moe lm train"):
+        phase_moe_lm_train()
+    with phase("moe lm federation"):
+        phase_moe_lm_fl()
+    with phase("moe profile"):
+        phase_moe_profile()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

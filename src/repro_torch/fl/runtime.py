@@ -799,8 +799,9 @@ def cnn_task(model_cfg) -> FLTask:
 
 
 def lm_task(model_cfg) -> FLTask:
-    """The LM families' adapter (dense, ssm and hybrid). The loss is
-    ``lm_loss`` on the reference's einsum unembedding; the eval predicts
+    """The LM families' adapter (dense, moe, ssm and hybrid). The loss
+    is ``lm_loss`` (the CE and the MoE aux loss) on the reference's
+    einsum unembedding; the eval predicts
     the argmax next token at every position under ``torch.no_grad``,
     where a Fed2 unembedding takes the ``grouped_matmul`` kernel route
     on the card. No confusion counts (``n_classes=None``), no tiers
@@ -810,7 +811,7 @@ def lm_task(model_cfg) -> FLTask:
 
     @torch.no_grad()
     def predict(params, batch):
-        h = forward(params, model_cfg, batch["tokens"])
+        h, _ = forward(params, model_cfg, batch["tokens"])
         logits = unembed_apply(params["unembed"], h, model_cfg)
         return logits.argmax(-1), batch["labels"], batch["mask"]
 

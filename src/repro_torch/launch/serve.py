@@ -7,6 +7,8 @@ sampled token-by-token decode. The port of ``repro.launch.serve``.
       --full --fed2-groups 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --full --fed2-groups 8   # or qwen2-7b | h2o-danube-1.8b | stablelm-12b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch deepseek-v2-236b --fed2-groups 4   # or mixtral-8x22b
 
 It takes the reference's flags and defaults (``--arch llama3.2-1b
 --batch 4 --prompt-len 32 --gen 16 --max-len 128 --temperature 0 --seed
@@ -18,8 +20,10 @@ Weights are random from ``--seed``, drawn on the serving device. On the
 card a Fed2 unembedding runs the ``grouped_matmul`` kernel every step,
 and so do a Fed2 dense LM's decoupled FFNs (three products a decoupled
 block); every Mamba-2 layer (of a Mamba-2 or a Zamba2) runs the
-``ssd_update`` kernel. Runs on the
-CUDA card unless ``--device cpu`` is given. Sampling (``--temperature >
+``ssd_update`` kernel. The MoE archs' ``--full`` holds 281 GB
+(mixtral-8x22b) and 471 GB (deepseek-v2-236b) of bf16 weights, more
+than one card: ``run_serve`` serves a depth-cut ``full()`` there. Runs
+on the CUDA card unless ``--device cpu`` is given. Sampling (``--temperature >
 0``) draws from a ``torch.Generator`` seeded with ``--seed``, so its
 tokens differ from the reference's ``jax.random`` draws.
 """

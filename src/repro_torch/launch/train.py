@@ -2,10 +2,11 @@
 
   --mode lm    : language-model training of the port's LMs
                  (``--arch`` one of ``LM_ARCHS``: the dense llama3.2-1b,
-                 qwen2-7b, h2o-danube-1.8b and stablelm-12b, the ssm
-                 mamba2-1.3b and the hybrid zamba2-2.7b; ``--reduced`` or
-                 full, ``--fed2`` for the block-diagonal unembedding and,
-                 for a dense LM, decoupled grouped-FFN blocks)
+                 qwen2-7b, h2o-danube-1.8b and stablelm-12b, the moe
+                 mixtral-8x22b and deepseek-v2-236b, the ssm mamba2-1.3b
+                 and the hybrid zamba2-2.7b; ``--reduced`` or full,
+                 ``--fed2`` for the block-diagonal unembedding and, for
+                 a dense LM, decoupled grouped-FFN blocks)
                  on the synthetic token corpus: AdamW, ``--microbatches``,
                  ``--ckpt``;
   --mode fl    : the paper's federated scenario (CNN + Fed2/fedavg/...).
@@ -71,7 +72,8 @@ import time
 
 ARCHS = ("vgg9", "vgg16", "mobilenet")      # --mode fl
 LM_ARCHS = ("mamba2-1.3b", "llama3.2-1b", "qwen2-7b",  # --mode lm
-            "h2o-danube-1.8b", "stablelm-12b", "zamba2-2.7b")
+            "h2o-danube-1.8b", "stablelm-12b", "mixtral-8x22b",
+            "deepseek-v2-236b", "zamba2-2.7b")
 
 
 def run_lm(args) -> dict:

@@ -1,5 +1,6 @@
-"""Grouped-query attention (GQA) with rotary positions: the GQA half of
-``repro.models.attention``.
+"""Grouped-query attention (GQA) with rotary positions and DeepSeek-V2's
+multi-head latent attention (MLA): ``repro.models.attention`` but its
+cross-attention.
 
 Train and prefill use a flash-style chunked attention: a Python loop
 over query chunks and, inside it, over key/value chunks with an online
@@ -24,8 +25,15 @@ slot ``pos`` (size = max_len); with one, the cache is a ring buffer of
 ``min(max_len, window)`` slots and position ``pos`` lives in slot ``pos
 % size``. ``gqa_decode`` writes the new row and its position IN PLACE:
 at batch 128 and 2048 positions the 16-layer cache of Llama-3.2-1B is
-8.6 GB in bf16, and a copy per token would double it. MLA and
-cross-attention wait for the MoE and encoder-decoder families.
+8.6 GB in bf16, and a copy per token would double it.
+
+MLA compresses K and V into a (kv_lora,) latent and one shared rotary
+key per position. Train and prefill (``mla_apply``) expand the latent to
+per-head K and V and take the chunked attention above (V zero-padded to
+the q/k head dim, as the reference pads it); decode (``mla_decode``)
+caches only the latent and the rotary key, (B, max_len, kv_lora +
+rope_dim), and absorbs the K and V up-projections into the query and
+the output. Cross-attention waits for the encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -264,3 +272,146 @@ def gqa_decode(p, x, cache, cfg: AttnConfig, *, pos: int):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bsgd->bgrd", w.to(cv.dtype), cv)
     return dense_apply(p["wo"], o.reshape(b, 1, hq * hd)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora: int = 512
+    q_lora: int = 1536
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_head_dim(self):
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def mla_init(gen, cfg: MLAConfig, dtype=torch.float32):
+    """The query's low-rank pair wq_a (d, q_lora), q_a_norm, wq_b
+    (q_lora, H * (nope + rope)); the latent's wkv_a (d, kv_lora + rope),
+    kv_a_norm; its up-projections wk_b (kv_lora, H * nope) and wv_b
+    (kv_lora, H * v); and wo (H * v, d)."""
+    h = cfg.n_heads
+    return {
+        "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora, dtype=dtype),
+        "q_a_norm": rmsnorm_init(cfg.q_lora, dtype, device=gen.device),
+        "wq_b": dense_init(gen, cfg.q_lora, h * cfg.qk_head_dim,
+                           dtype=dtype),
+        "wkv_a": dense_init(gen, cfg.d_model, cfg.kv_lora + cfg.qk_rope_dim,
+                            dtype=dtype),
+        "kv_a_norm": rmsnorm_init(cfg.kv_lora, dtype, device=gen.device),
+        "wk_b": dense_init(gen, cfg.kv_lora, h * cfg.qk_nope_dim,
+                           dtype=dtype),
+        "wv_b": dense_init(gen, cfg.kv_lora, h * cfg.v_head_dim,
+                           dtype=dtype),
+        "wo": dense_init(gen, h * cfg.v_head_dim, cfg.d_model, dtype=dtype),
+    }
+
+
+def _mla_rope(x, positions, cfg: MLAConfig):
+    """x (B, S, H, rope_dim) rotated at ``positions`` (S,)."""
+    inv = rope_freqs(cfg.qk_rope_dim, cfg.rope_theta, device=x.device)
+    return apply_rope(x, positions[None, :].expand(x.shape[0], -1), inv)
+
+
+def _mla_q(p, x, cfg: MLAConfig, positions):
+    """x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope)
+    rotated at ``positions``."""
+    b, s, _ = x.shape
+    cq = rmsnorm_apply(p["q_a_norm"], dense_apply(p["wq_a"], x))
+    q = dense_apply(p["wq_b"], cq).reshape(b, s, cfg.n_heads,
+                                           cfg.qk_head_dim)
+    return (q[..., :cfg.qk_nope_dim],
+            _mla_rope(q[..., cfg.qk_nope_dim:], positions, cfg))
+
+
+def _mla_latent(p, x, cfg: MLAConfig, positions):
+    """x (B, S, d) -> the normalized latent c_kv (B, S, kv_lora) and the
+    shared rotary key k_rope (B, S, rope) rotated at ``positions``."""
+    b, s, _ = x.shape
+    kv = dense_apply(p["wkv_a"], x)
+    c_kv = rmsnorm_apply(p["kv_a_norm"], kv[..., :cfg.kv_lora])
+    k_rope = kv[..., cfg.kv_lora:].reshape(b, s, 1, cfg.qk_rope_dim)
+    return c_kv, _mla_rope(k_rope, positions, cfg)[:, :, 0]
+
+
+def mla_apply(p, x, cfg: MLAConfig, *, positions=None, q_chunk=512,
+              kv_chunk=1024):
+    """Train / prefill: x (B, S, d) -> (B, S, d). The latent expanded to
+    per-head K (nope features from wk_b, the shared rotary key on every
+    head) and V (zero-padded from v_head_dim to the q/k head dim), then
+    the causal chunked attention at scale 1/sqrt(qk_head_dim)."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = dense_apply(p["wk_b"], c_kv).reshape(b, s, h, cfg.qk_nope_dim)
+    v = dense_apply(p["wv_b"], c_kv).reshape(b, s, h, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    vpad = F.pad(v, (0, cfg.qk_head_dim - cfg.v_head_dim))
+    o = chunked_attention(q, k, vpad, q_positions=positions,
+                          kv_positions=positions, causal=True,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk)
+    o = o[..., :cfg.v_head_dim].reshape(b, s, h * cfg.v_head_dim)
+    return dense_apply(p["wo"], o)
+
+
+def mla_cache_init(cfg: MLAConfig, batch: int, max_len: int, dtype, *,
+                   device=None):
+    """One layer's decode cache: zeroed c_kv (batch, max_len, kv_lora)
+    and k_rope (batch, max_len, rope_dim), slot_pos (max_len,) int32 at
+    -1 (empty)."""
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device),
+            "slot_pos": torch.full((max_len,), -1, dtype=torch.int32,
+                                   device=device)}
+
+
+def mla_decode(p, x, cache, cfg: MLAConfig, *, pos: int):
+    """Absorbed one-token decode: x (B, 1, d) at position ``pos``. Writes
+    the token's latent, rotary key and position at slot ``pos`` of
+    ``cache`` in place (a position past the cache's ``max_len`` slots
+    raises, as ``gqa_decode`` without a window does), then scores every
+    filled slot as q_nope W_uk . c_kv + q_rope . k_rope at scale
+    1/sqrt(qk_head_dim) and absorbs W_uv into the output. Returns (y
+    (B, 1, d), cache)."""
+    b = x.shape[0]
+    pos = int(pos)
+    size = cache["c_kv"].shape[1]
+    if not 0 <= pos < size:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{size} slots (init_cache's max_len)")
+    positions = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)        # (B, 1, H, *)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)     # (B, 1, *)
+    cache["c_kv"][:, pos] = c_kv[:, 0]
+    cache["k_rope"][:, pos] = k_rope[:, 0]
+    cache["slot_pos"][pos] = pos
+    ck, cr, spos = cache["c_kv"], cache["k_rope"], cache["slot_pos"]
+    h = cfg.n_heads
+    wk_b = p["wk_b"]["w"].reshape(cfg.kv_lora, h, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], wk_b)
+    s = (torch.einsum("bhl,bsl->bhs", q_lat, ck)
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0], cr))
+    s = s.to(torch.float32) * (1.0 / math.sqrt(cfg.qk_head_dim))
+    valid = (spos >= 0) & (spos <= pos)
+    w = torch.softmax(torch.where(valid[None, None, :], s, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", w.to(ck.dtype), ck)
+    wv_b = p["wv_b"]["w"].reshape(cfg.kv_lora, h, cfg.v_head_dim)
+    o = torch.einsum("bhl,lhd->bhd", o_lat, wv_b)
+    return dense_apply(p["wo"], o.reshape(b, 1, h * cfg.v_head_dim)), cache

@@ -127,9 +127,18 @@ def stack_init(init_fn: Callable[..., Params], generator: torch.Generator,
                n: int, *args, **kwargs) -> Params:
     """``n`` copies of a layer, stacked on a leading layer axis (the
     reference's layout, which it applies with ``lax.scan``; the port
-    loops over the layers in Python)."""
-    layers = [init_fn(generator, *args, **kwargs) for _ in range(n)]
-    return tree_map(lambda *leaves: torch.stack(leaves), *layers)
+    loops over the layers in Python). Each layer is drawn in turn and
+    copied into the stack, so the peak is the stack and one layer (a
+    full-width MoE layer is 5-8 GB)."""
+    stack = None
+    for i in range(n):
+        layer = init_fn(generator, *args, **kwargs)
+        if stack is None:
+            stack = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                             layer)
+        tree_map(lambda s, t: s[i].copy_(t), stack, layer)
+        del layer
+    return stack
 
 
 def rematerialized(fn: Callable, *args):

@@ -1,18 +1,23 @@
 """LM assembly: the parts of ``repro.models.transformer`` that the
 ``dense`` family (Llama-3.2-1B, Qwen2-7B, H2O-Danube-1.8B,
-StableLM-2-12B), the ``ssm`` family (Mamba-2) and the ``hybrid`` family
-(Zamba2-2.7B) need to train, prefill and decode.
+StableLM-2-12B), the ``moe`` family (Mixtral-8x22B, DeepSeek-V2-236B),
+the ``ssm`` family (Mamba-2) and the ``hybrid`` family (Zamba2-2.7B)
+need to train, prefill and decode.
 
 One ``ModelConfig`` describes an LM; this port builds the ``dense``,
-``ssm`` and ``hybrid`` families, and every other family (moe, encdec,
-vlm) raises ``NotImplementedError`` naming it. A hybrid holds
-``n_layers`` Mamba-2 blocks and ONE shared attention block
-(``shared_attn``: pre-norm GQA and a pre-norm SwiGLU FFN at ``d_ff``),
-applied after every ``hybrid_attn_every`` of them. Parameters are
-stacked over layers (a leading layer axis on every leaf of
-``blocks``), as the
-reference stacks them for ``lax.scan``, so its weights map across one to
-one; the port loops over the layers in Python. The LM loss is a
+``moe``, ``ssm`` and ``hybrid`` families, and the other two (encdec,
+vlm) raise ``NotImplementedError`` naming them. A MoE block is a
+pre-norm GQA (Mixtral, with its sliding window) or MLA (any arch id
+starting with ``deepseek``: the reference's rule) and a pre-norm
+routed-expert FFN (``models.moe``); DeepSeek's first
+``moe_first_dense`` layers (``pre_blocks``) keep MLA with a dense
+SwiGLU FFN of width ``moe_dense_ff``. A hybrid holds ``n_layers``
+Mamba-2 blocks and ONE shared attention block (``shared_attn``:
+pre-norm GQA and a pre-norm SwiGLU FFN at ``d_ff``), applied after
+every ``hybrid_attn_every`` of them. Parameters are stacked over layers
+(a leading layer axis on every leaf of ``blocks``), as the reference
+stacks them for ``lax.scan``, so its weights map across one to one; the
+port loops over the layers in Python. The LM loss is a
 sequence-chunked, rematerialized cross-entropy (``chunked_ce_loss``), so
 (B, S, V) logits are never alive at once.
 
@@ -22,7 +27,8 @@ clusters, and for ``dense`` the last ``fed2_decouple`` blocks
 (``gblocks``) take block-diagonal SwiGLU FFNs (``gffn_*``), the
 transformer's counterpart of the paper's group convolutions; the lower
 ``n_dense_blocks`` stay shared. ``with_fed2`` forces ``fed2_decouple =
-0`` for ``ssm`` and ``hybrid``.
+0`` for ``ssm``, ``hybrid`` and ``moe`` (whose experts are the
+structure groups).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_apply, dense_init, embed_init,
                                        gelu, grouped_dense_apply,
@@ -42,14 +49,14 @@ from repro_torch.models.layers import (dense_apply, dense_init, embed_init,
 from repro_torch.models.module import rematerialized, stack_init
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields that the ``dense``, ``ssm`` and ``hybrid``
-    families and ``with_fed2`` read; the other families' fields (MoE,
-    encoder, vision) come with them. ``remat_blocks`` recomputes each
+    """The reference's fields that the ``dense``, ``moe``, ``ssm`` and
+    ``hybrid`` families and ``with_fed2`` read; the other families'
+    fields (encoder, vision) come with them. ``remat_blocks`` recomputes each
     block's activations in the backward pass (plain autograd only:
     ``models.module.rematerialized``); ``tie_embeddings`` stays
     False."""
@@ -70,6 +77,10 @@ class ModelConfig:
     qk_norm: bool = False
     window: int | None = None       # sliding-window attention
     use_rope: bool = True
+    # moe
+    moe: moe_lib.MoEConfig | None = None
+    moe_first_dense: int = 0        # deepseek-v2: first layer dense FFN
+    moe_dense_ff: int = 0
     ssm: ssm_lib.SSMConfig | None = None
     hybrid_attn_every: int = 0      # zamba2: shared attn block every k layers
     # fed2 structure adaptation
@@ -97,6 +108,16 @@ class ModelConfig:
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm, window=self.window)
 
     @property
+    def mla_cfg(self) -> attn.MLAConfig | None:
+        """MLA (its latent and head dims at the MLAConfig defaults) for
+        any arch id starting with ``deepseek``, the reference's rule;
+        None otherwise."""
+        if self.arch_id.startswith("deepseek"):
+            return attn.MLAConfig(d_model=self.d_model, n_heads=self.n_heads,
+                                  rope_theta=self.rope_theta)
+        return None
+
+    @property
     def n_dense_blocks(self) -> int:
         return self.n_layers - self.fed2_decouple
 
@@ -111,8 +132,8 @@ class ModelConfig:
 
 def check_ported(cfg: ModelConfig):
     """Raise unless the port builds, trains and decodes ``cfg``: the
-    ``dense`` family (decoupled blocks allowed), or the ``ssm`` or
-    ``hybrid`` family without decoupled blocks (a hybrid's layers in
+    ``dense`` family (decoupled blocks allowed), or the ``moe``, ``ssm``
+    or ``hybrid`` family without decoupled blocks (a hybrid's layers in
     whole super-blocks of ``hybrid_attn_every``); untied embeddings
     either way."""
     if cfg.family not in FAMILIES:
@@ -122,6 +143,9 @@ def check_ported(cfg: ModelConfig):
             f"the {cfg.family!r} family is not ported yet ({cfg.arch_id}); "
             f"the port has the {', '.join(map(repr, PORTED_FAMILIES))} "
             "families")
+    if cfg.family == "moe" and cfg.moe is None:
+        raise ValueError(f"a 'moe' config needs its MoEConfig (cfg.moe); "
+                         f"{cfg.arch_id} has none")
     if cfg.fed2_decouple and cfg.family != "dense":
         raise NotImplementedError(
             f"decoupled blocks (fed2_decouple={cfg.fed2_decouple}) are "
@@ -206,44 +230,84 @@ def gffn_apply(p, x, cfg: ModelConfig, *, use_kernel: bool = False):
 
 
 def _default_kind(cfg: ModelConfig) -> str:
-    """The block kind of a ported family: 'ssm' or 'attn_ffn' (a
-    hybrid's stacked blocks are 'ssm', passed as ``kind``)."""
-    return "ssm" if cfg.family == "ssm" else "attn_ffn"
+    """The block kind of a ported family: 'ssm', 'moe' (GQA + experts),
+    'mla_moe' (MLA + experts) or 'attn_ffn' (a hybrid's stacked blocks
+    are 'ssm', passed as ``kind``; a MoE config's ``pre_blocks`` are
+    ``pre_block_kind``'s)."""
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.family == "moe":
+        return "mla_moe" if cfg.mla_cfg else "moe"
+    return "attn_ffn"
+
+
+def pre_block_kind(cfg: ModelConfig) -> str:
+    """The block kind of ``pre_blocks``: 'mla_dense' (MLA + a dense
+    FFN) or, without MLA, 'attn_ffn'."""
+    return "mla_dense" if cfg.mla_cfg else "attn_ffn"
+
+
+def pre_block_config(cfg: ModelConfig) -> ModelConfig:
+    """The config of ``pre_blocks``: the dense FFN at ``moe_dense_ff``."""
+    return dataclasses.replace(cfg, d_ff=cfg.moe_dense_ff)
+
+
+_MOE_KINDS = ("moe", "mla_moe")
 
 
 def block_init(gen, cfg: ModelConfig, *, grouped: bool = False,
                kind: str | None = None):
     """One block of ``kind`` (default: the config's): 'ssm' (pre-norm +
-    Mamba-2 mixer) or 'attn_ffn' (pre-norm GQA, pre-norm FFN;
-    ``grouped`` takes the block-diagonal FFN of a decoupled block)."""
+    Mamba-2 mixer); 'attn_ffn', 'moe', 'mla_dense' or 'mla_moe'
+    (pre-norm GQA, or MLA for the 'mla_' kinds, then a pre-norm FFN:
+    routed experts for 'moe' and 'mla_moe', else dense at the config's
+    ``d_ff``, ``grouped`` block-diagonal in a decoupled block)."""
     kind = kind or _default_kind(cfg)
     p = {"ln1": _norm_init(cfg, device=gen.device)}
     if kind == "ssm":
         p["mixer"] = ssm_lib.mamba2_init(gen, cfg.ssm, cfg.dtype)
         return p
-    p["attn"] = attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype)
+    p["attn"] = (attn.mla_init(gen, cfg.mla_cfg, cfg.dtype)
+                 if kind.startswith("mla_")
+                 else attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype))
     p["ln2"] = _norm_init(cfg, device=gen.device)
-    p["ffn"] = gffn_init(gen, cfg) if grouped else ffn_init(gen, cfg)
+    if kind in _MOE_KINDS:
+        p["ffn"] = moe_lib.moe_init(gen, cfg.moe, cfg.dtype)
+    else:
+        p["ffn"] = gffn_init(gen, cfg) if grouped else ffn_init(gen, cfg)
     return p
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_apply(p, x, cfg: ModelConfig, *, grouped: bool = False,
                 kind: str | None = None, positions=None):
     """A whole sequence through one block: x + mixer(norm(x)) for 'ssm';
-    x + attn(norm(x)), then + ffn(norm(.)) for 'attn_ffn' at
-    ``positions`` (S,). The reference also returns an aux loss, always 0
-    for these kinds."""
-    if (kind or _default_kind(cfg)) == "ssm":
-        return x + ssm_lib.mamba2_apply(p["mixer"],
-                                        _norm_apply(cfg, p["ln1"], x),
-                                        cfg.ssm)
-    x = x + attn.gqa_apply(p["attn"], _norm_apply(cfg, p["ln1"], x),
-                           cfg.attn_cfg, positions=positions,
+    x + attn(norm(x)) (GQA, or MLA for the 'mla_' kinds) at
+    ``positions`` (S,), then + ffn(norm(.)) for the others. Returns (x,
+    aux): the experts' load-balance loss for 'moe' and 'mla_moe', an
+    fp32 0 otherwise."""
+    kind = kind or _default_kind(cfg)
+    h = _norm_apply(cfg, p["ln1"], x)
+    if kind == "ssm":
+        return x + ssm_lib.mamba2_apply(p["mixer"], h, cfg.ssm), _zero_aux(x)
+    if kind.startswith("mla_"):
+        a = attn.mla_apply(p["attn"], h, cfg.mla_cfg, positions=positions,
                            q_chunk=cfg.attn_q_chunk,
                            kv_chunk=cfg.attn_kv_chunk)
+    else:
+        a = attn.gqa_apply(p["attn"], h, cfg.attn_cfg, positions=positions,
+                           q_chunk=cfg.attn_q_chunk,
+                           kv_chunk=cfg.attn_kv_chunk)
+    x = x + a
     h = _norm_apply(cfg, p["ln2"], x)
+    if kind in _MOE_KINDS:
+        y, aux = moe_lib.moe_apply(p["ffn"], h, cfg.moe)
+        return x + y, aux
     return x + (gffn_apply(p["ffn"], h, cfg) if grouped
-                else ffn_apply(p["ffn"], h, cfg))
+                else ffn_apply(p["ffn"], h, cfg)), _zero_aux(x)
 
 
 def block_decode(p, x, cache, cfg: ModelConfig, *, pos: int,
@@ -251,17 +315,27 @@ def block_decode(p, x, cache, cfg: ModelConfig, *, pos: int,
                  use_kernel: bool = True):
     """One token through one block at position ``pos``; ``cache`` is
     updated in place. ``use_kernel`` takes the kernels' routes
-    (``ssd_update``; ``grouped_matmul`` in a decoupled FFN)."""
+    (``ssd_update``; ``grouped_matmul`` in a decoupled FFN). The
+    experts run drop-free (one token a sequence: capacity n * k) and
+    their aux loss is dropped, as the reference's."""
+    kind = kind or _default_kind(cfg)
     h = _norm_apply(cfg, p["ln1"], x)
-    if (kind or _default_kind(cfg)) == "ssm":
+    if kind == "ssm":
         y, cache = ssm_lib.mamba2_decode(p["mixer"], h, cache, cfg.ssm,
                                          use_kernel=use_kernel)
         return x + y, cache
-    a, cache = attn.gqa_decode(p["attn"], h, cache, cfg.attn_cfg, pos=pos)
+    if kind.startswith("mla_"):
+        a, cache = attn.mla_decode(p["attn"], h, cache, cfg.mla_cfg, pos=pos)
+    else:
+        a, cache = attn.gqa_decode(p["attn"], h, cache, cfg.attn_cfg,
+                                   pos=pos)
     x = x + a
     h = _norm_apply(cfg, p["ln2"], x)
-    y = (gffn_apply(p["ffn"], h, cfg, use_kernel=use_kernel) if grouped
-         else ffn_apply(p["ffn"], h, cfg))
+    if kind in _MOE_KINDS:
+        y, _ = moe_lib.moe_apply(p["ffn"], h, cfg.moe)
+    else:
+        y = (gffn_apply(p["ffn"], h, cfg, use_kernel=use_kernel) if grouped
+             else ffn_apply(p["ffn"], h, cfg))
     return x + y, cache
 
 
@@ -330,10 +404,11 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random parameters from ``gen``, drawn on its device in the
-    config's dtype (a full-width model is drawn on the card). Dense and
-    ssm: the ``n_dense_blocks`` shared blocks under ``blocks`` and the
+    config's dtype (a full-width model is drawn on the card). Dense,
+    moe and ssm: the shared blocks under ``blocks`` and the
     ``fed2_decouple`` decoupled ones under ``gblocks``, as the reference
-    splits them; hybrid: ``n_layers`` SSM blocks under ``blocks`` and
+    splits them, a MoE config's first ``moe_first_dense`` layers under
+    ``pre_blocks``; hybrid: ``n_layers`` SSM blocks under ``blocks`` and
     the one ``shared_attn`` block."""
     check_ported(cfg)
     params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -343,8 +418,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
                                       cfg=cfg, kind="ssm")
         params["shared_attn"] = block_init(gen, cfg, kind="attn_ffn")
     else:
-        params["blocks"] = stack_init(block_init, gen, cfg.n_dense_blocks,
-                                      cfg=cfg)
+        n_blocks = cfg.n_dense_blocks
+        if cfg.family == "moe" and cfg.moe_first_dense:
+            params["pre_blocks"] = stack_init(
+                block_init, gen, cfg.moe_first_dense,
+                cfg=pre_block_config(cfg), kind=pre_block_kind(cfg))
+            n_blocks -= cfg.moe_first_dense
+        params["blocks"] = stack_init(block_init, gen, n_blocks, cfg=cfg)
         if cfg.fed2_decouple:
             params["gblocks"] = stack_init(block_init, gen,
                                            cfg.fed2_decouple, cfg=cfg,

@@ -223,24 +223,25 @@ def test_the_other_dense_configs_and_the_hybrid_build_and_run(arch):
     window, QK-norm, partial rotary) and the hybrid family build, run
     a forward and decode through their caches (their parity with the
     reference: tests/test_torch_dense_configs.py and
-    tests/test_torch_hybrid.py); the families still unported (moe,
-    encdec, vlm) raise (tests/test_torch_lm.py)."""
+    tests/test_torch_hybrid.py); the families still unported (encdec,
+    vlm) raise (tests/test_torch_lm.py)."""
     tc = with_fed2(get_config(arch, reduced=True), groups=4)
     params = tfm.init_params(torch.Generator().manual_seed(0), tc)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, tc.vocab, size=(2, 6)))
     with torch.no_grad():
-        h = fwd.forward(params, tc, toks)
+        h, aux = fwd.forward(params, tc, toks)
         cache = fwd.init_cache(tc, 2, 8)
         for t in range(6):
             logits, _ = fwd.decode_step(params, tc, cache, toks[:, t:t + 1],
                                         t)
     assert h.shape == (2, 6, tc.d_model) and bool(torch.isfinite(h).all())
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
     assert logits.shape == (2, 1, tc.vocab)
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(NotImplementedError, match="encdec"):
         tfm.init_params(torch.Generator().manual_seed(0),
-                        dataclasses.replace(tc, family="moe"))
+                        dataclasses.replace(tc, family="encdec"))
 
 
 # ---------------------------------------------------------------------------
@@ -417,8 +418,8 @@ def test_forward_and_lm_loss_match_reference(groups):
     jp, tp = _params(groups)
     batch = _batch(tc.vocab, 3, 40, seed=groups)
     jh, _ = jfwd.forward(jp, jc, jnp.asarray(batch["tokens"]))
-    th = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
-    assert th.shape == (3, 40, tc.d_model)
+    th, taux = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
+    assert th.shape == (3, 40, tc.d_model) and float(taux) == 0.0
     _close(th, jh)
     jl = jfwd.lm_loss(jp, jc, _jb(batch))
     tl = fwd.lm_loss(tp, tc, _tb(batch))
@@ -514,7 +515,8 @@ def test_chunked_forward_equals_token_by_token_decode():
     toks = torch.as_tensor(np.random.default_rng(8).integers(
         0, tc.vocab, size=(2, 20)))
     with torch.no_grad():
-        want = tfm.unembed_apply(tp["unembed"], fwd.forward(tp, tc, toks), tc)
+        want = tfm.unembed_apply(tp["unembed"], fwd.forward(tp, tc, toks)[0],
+                                 tc)
         cache = fwd.init_cache(tc, 2, 20)
         got = torch.cat([fwd.decode_step(tp, tc, cache, toks[:, t:t + 1],
                                          t)[0] for t in range(20)], 1)

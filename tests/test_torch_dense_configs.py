@@ -430,8 +430,8 @@ def test_sliding_window_masks_old_tokens():
     toks = np.random.default_rng(9).integers(0, tc.vocab, size=(1, 32))
     toks2 = toks.copy()
     toks2[0, 0] = (toks[0, 0] + 1) % tc.vocab
-    h = fwd.forward(tp, tc, torch.as_tensor(toks))
-    h2 = fwd.forward(tp, tc, torch.as_tensor(toks2))
+    h, _ = fwd.forward(tp, tc, torch.as_tensor(toks))
+    h2, _ = fwd.forward(tp, tc, torch.as_tensor(toks2))
     np.testing.assert_allclose(_np(h)[0, -1], _np(h2)[0, -1], atol=1e-5)
     assert np.abs(_np(h)[0, 0] - _np(h2)[0, 0]).max() > 1e-3
     want, _ = jax.jit(lambda p, t: jfwd.forward(p, jc, t))(
@@ -471,7 +471,7 @@ def test_swa_ring_buffer_wraparound():
                                                         13, 14, 15]
     with torch.no_grad():
         full = tfm.unembed_apply(
-            tp["unembed"], fwd.forward(tp, tc, torch.as_tensor(toks)), tc)
+            tp["unembed"], fwd.forward(tp, tc, torch.as_tensor(toks))[0], tc)
     _close(torch.cat(outs, 1), _np(full))
 
 
@@ -492,8 +492,8 @@ def test_forward_and_lm_loss_match_reference(arch, groups):
     batch = _batch(tc.vocab, 2, 80, seed=groups)
     jh, _ = jax.jit(lambda p, t: jfwd.forward(p, jc, t))(
         jp, jnp.asarray(batch["tokens"]))
-    th = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
-    assert th.shape == (2, 80, tc.d_model)
+    th, taux = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
+    assert th.shape == (2, 80, tc.d_model) and float(taux) == 0.0
     _close(th, jh)
     jl = jax.jit(lambda p, b: jfwd.lm_loss(p, jc, b))(jp, _jb(batch))
     tl = fwd.lm_loss(tp, tc, _tb(batch))
@@ -567,7 +567,8 @@ def test_chunked_forward_equals_token_by_token_decode(arch):
     toks = torch.as_tensor(np.random.default_rng(8).integers(
         0, tc.vocab, size=(2, 20)))
     with torch.no_grad():
-        want = tfm.unembed_apply(tp["unembed"], fwd.forward(tp, tc, toks), tc)
+        want = tfm.unembed_apply(tp["unembed"], fwd.forward(tp, tc, toks)[0],
+                                 tc)
         cache = fwd.init_cache(tc, 2, 20)
         got = torch.cat([fwd.decode_step(tp, tc, cache, toks[:, t:t + 1],
                                          t)[0] for t in range(20)], 1)

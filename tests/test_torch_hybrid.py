@@ -290,8 +290,8 @@ def test_forward_and_lm_loss_match_reference(groups, layers):
     batch = _batch(tc.vocab, 2, 80, seed=groups + layers)
     jh, _ = jax.jit(lambda p, t: jfwd.forward(p, jc, t))(
         jp, jnp.asarray(batch["tokens"]))
-    th = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
-    assert th.shape == (2, 80, tc.d_model)
+    th, taux = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
+    assert th.shape == (2, 80, tc.d_model) and float(taux) == 0.0
     _close(th, jh, 2e-5)
     jl = jax.jit(lambda p, b: jfwd.lm_loss(p, jc, b))(jp, _jb(batch))
     tl = fwd.lm_loss(tp, tc, _tb(batch))
@@ -314,12 +314,12 @@ def test_forward_applies_the_shared_block_once_per_super_block():
         x = tp["embed"]["table"][toks]
         for j in range(4):
             lp = tree_map(lambda t: t[j], tp["blocks"])
-            x = tfm.block_apply(lp, x, tc, kind="ssm")
+            x, _ = tfm.block_apply(lp, x, tc, kind="ssm")
             if j % 2:
-                x = tfm.block_apply(tp["shared_attn"], x, tc,
-                                    kind="attn_ffn", positions=pos)
+                x, _ = tfm.block_apply(tp["shared_attn"], x, tc,
+                                       kind="attn_ffn", positions=pos)
         want = tfm._norm_apply(tc, tp["final_norm"], x)
-        got = fwd.forward(tp, tc, toks)
+        got, _ = fwd.forward(tp, tc, toks)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                atol=1e-6)
 
@@ -417,7 +417,8 @@ def test_chunked_forward_equals_token_by_token_decode(layers):
     toks = torch.as_tensor(np.random.default_rng(8).integers(
         0, tc.vocab, size=(2, 40)))
     with torch.no_grad():
-        want = tfm.unembed_apply(tp["unembed"], fwd.forward(tp, tc, toks), tc)
+        want = tfm.unembed_apply(tp["unembed"], fwd.forward(tp, tc, toks)[0],
+                                 tc)
         cache = fwd.init_cache(tc, 2, 40)
         got = torch.cat([fwd.decode_step(tp, tc, cache, toks[:, t:t + 1],
                                          t)[0] for t in range(40)], 1)

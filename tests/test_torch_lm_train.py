@@ -251,8 +251,8 @@ def test_forward_and_lm_loss_match_reference(groups):
     jp, tp = _params(groups)
     batch = _batch(tc.vocab, 3, 40, seed=groups)
     jh, _ = jfwd.forward(jp, jc, jnp.asarray(batch["tokens"]))
-    th = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
-    assert th.shape == (3, 40, tc.d_model)
+    th, taux = fwd.forward(tp, tc, torch.as_tensor(batch["tokens"]))
+    assert th.shape == (3, 40, tc.d_model) and float(taux) == 0.0
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-4,
                                atol=1e-4)
     jl = jfwd.lm_loss(jp, jc, _jb(batch))
