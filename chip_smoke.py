@@ -23,8 +23,11 @@ script exits non-zero:
             unembedding, the other dense configs' and zamba2's
             unembeddings and decoupled FFN products at M = 4 and 128
             (stablelm 64), the MoE configs' Fed2 unembeddings (8, 768,
-            4096) and (8, 640, 12800) at M = 4 and 128, and its
-            refusal under autograd; ssd_update
+            4096) and (8, 640, 12800) at M = 4 and 128, Whisper's
+            decoupled GELU FFN up (8, 64, 256) and down (8, 256, 64)
+            with biases and InternVL's unembedding (8, 256, 11584) at M
+            = 4 and 128 (bf16) and 4 (fp32), InternVL's eval chunks,
+            and its refusal under autograd; ssd_update
             also at zamba2's (4 | 128, 80, 64, 64));
             feature_stats also as feature_stats_many on segment
             tables (auto-depth's, ragged and misaligned ones, one over a
@@ -274,6 +277,36 @@ script exits non-zero:
 44. moe profile  under torch.profiler: one deepseek Fed2 decode step at
             8 layers and batch 128 over 2048 slots, one mixtral step at
             batch 4, and one deepseek --mode lm step at 42's cut
+45. encdec and vlm serve  whisper-base and internvl2-2b at full width
+            and depth through the serving CLI (batch 4, 32 + 16 tokens),
+            without and with --fed2-groups 8, then Fed2 at batch 128
+            over 2048 slots, counted: grouped_matmul 2 (Whisper: its
+            one decoupled block's GELU FFN) or 19 (InternVL: the
+            unembedding and 6 decoupled FFNs) a Fed2 step, stream at 4
+            and wgmma at 128, none without Fed2; Whisper against the
+            zeroed cross cache and InternVL text only, as the
+            reference's serve; tok/s, peak memory, the decode cache's
+            bytes and the parameter counts, which must equal the
+            reference's
+46. encdec and vlm decode parity  fp32, TF32 off, Fed2 8: 16 decode
+            steps of each with the kernels against the plain versions;
+            Whisper's real serving path (frames (4, 1500, 512) from a
+            seed, encdec_prefill_cache, 16 decode steps) against
+            forward(embeds=frames)'s tied logits within 5e-3 of max
+            |logit|, and apart from the zeroed-cache decode; InternVL's
+            eval loss over 256 patches + 768 tokens through
+            grouped_matmul (simt) and through the einsum
+47. encdec and vlm lm train  make_train_step at full width and depth
+            (bf16, Fed2 8, AdamW, 6 steps; the CLI refuses these
+            families): Whisper 8 x 448 tokens over 8 x 1500 frames,
+            InternVL 8 x (256 patches + 768 tokens); no launch; losses
+            falling; then the eval step on the trained params
+            (InternVL: grouped_matmul 2, wgmma) against the einsum
+            route
+48. encdec and vlm profile  under torch.profiler, bf16, Fed2 8: one
+            decode step of each arch at batch 4, Whisper's at batch 128
+            over 2048 slots, and one Whisper --mode lm step at 47's
+            batch
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -349,8 +382,9 @@ AXES_SCENARIO_REFERENCE = {
 # tests/test_paper_claims.py's margin for the robust orderings
 CLAIMS_MARGIN = 0.10
 # parameters of the full mamba2-1.3b, llama3.2-1b, qwen2-7b,
-# h2o-danube-1.8b, stablelm-12b, zamba2-2.7b, mixtral-8x22b and
-# deepseek-v2-236b, and of with_fed2(groups=8) of each: the reference's
+# h2o-danube-1.8b, stablelm-12b, zamba2-2.7b, mixtral-8x22b,
+# deepseek-v2-236b, whisper-base and internvl2-2b, and of
+# with_fed2(groups=8) of each: the reference's
 # param_count(jax.eval_shape(init_params, ...)) on its configs/<arch>.full()
 # (tests/test_torch_*.py pin them)
 SERVE_PARAMS = {("mamba2-1.3b", 0): 1_446_812_672,
@@ -368,7 +402,11 @@ SERVE_PARAMS = {("mamba2-1.3b", 0): 1_446_812_672,
                 ("mixtral-8x22b", 0): 140_630_071_296,
                 ("mixtral-8x22b", 8): 140_453_910_528,
                 ("deepseek-v2-236b", 0): 235_741_434_880,
-                ("deepseek-v2-236b", 8): 235_282_682_880}
+                ("deepseek-v2-236b", 8): 235_282_682_880,
+                ("whisper-base", 0): 88_256_512,
+                ("whisper-base", 8): 86_421_504,
+                ("internvl2-2b", 0): 1_889_634_304,
+                ("internvl2-2b", 8): 1_459_324_928}
 SERVE_LAYERS = 48
 # decode parity, kernels vs plain versions at full width in fp32: fp32
 # round-off (~1e-7 relative per operation) carried through 48 layers
@@ -606,6 +644,44 @@ MOE_FL = {"mixtral-8x22b": dict(d_model=1536, d_ff=4096, vocab=32768,
 # grouped_matmul at the MoE configs' Fed2 unembeddings, (d/8, V/8)
 MOE_GMM_SHAPES = (("mixtral-8x22b", 768, 4096),
                   ("deepseek-v2-236b", 640, 12800))
+# the encdec and vlm families, at full width and depth (both fit on one
+# card: 0.18 and 3.8 GB of bf16 weights). with_fed2(groups=8) decouples
+# one Whisper decoder block (decouple = max(1, min(6, 6 // 4))): its
+# GELU FFN's up (8, 64, 256) and down (8, 256, 64) products, with
+# biases, are the grouped_matmul launches of a Fed2 Whisper decode step
+# (the unembedding stays the tied table: the reference tests
+# tie_embeddings first); InternVL decouples 6 blocks (Llama's FFN
+# shapes) and unembeds through (8, 256, 11584): 19 a step
+FRONTEND_ARCHS = ("whisper-base", "internvl2-2b")
+FRONTEND_GMM_PER_STEP = {"whisper-base": 2, "internvl2-2b": 19}
+# grouped_matmul's (K, N) a group on their Fed2 decode, with a bias?
+FRONTEND_GMM_SHAPES = (("whisper-base", 64, 256, True),
+                       ("whisper-base", 256, 64, True),
+                       ("internvl2-2b", 256, 11584, False))
+# Whisper's serving path at full width in fp32 (TF32 off): frames (B,
+# 1500, 512) from a numpy seed, encdec_prefill_cache, then
+# WHISPER_DECODE_LEN decode steps (the Fed2 block's FFN on the kernel)
+# against forward(embeds=frames)'s tied logits. Both run the same fp32
+# function: the forward pads the encoder's 1500 frames to 1536 queries
+# and 2048 keys and sums its online softmax over chunks, the decode
+# takes one softmax over 1500 cached keys; fp32 round-off through 6 + 6
+# layers stays near 1e-5 of the logits, a wrong mask, position or cache
+# row moves them O(1). The limit is set before the run
+WHISPER_DECODE_LEN = 16
+WHISPER_PREFILL_LOGIT_RTOL = 5e-3       # of max |logit|
+# InternVL's eval loss in fp32 through grouped_matmul (simt) and through
+# the einsum, on a batch of 2 x (256 patches + 768 tokens): fp32 logits
+# differ by ~1e-6 relative (256-term sums in other orders); the mean CE
+# over ~1,200 masked tokens a few 1e-6
+FRONTEND_EVAL_FP32_TOL = 1e-4
+FRONTEND_EVAL_TEXT = 768
+# the --mode lm step (make_train_step: bf16, AdamW at lr 1e-3, Fed2 8)
+# at full width and depth on batches that carry the frontends' embeds:
+# Whisper 8 x 448 text tokens (its decoder's context) over 8 x 1500
+# frames; InternVL 8 x 1024 positions, 256 patches and 768 tokens (the
+# split of the reference's launch/sharding.py)
+FRONTEND_TRAIN = {"whisper-base": dict(batch=8, seq=448, embeds=1500),
+                  "internvl2-2b": dict(batch=8, seq=768, embeds=256)}
 
 
 @contextlib.contextmanager
@@ -1383,6 +1459,23 @@ def phase_check_grouped_matmul() -> dict:
     for arch, w in MOE_FL.items():
         check_one(f"{arch} lm_task eval", "simt", (64, 64), 4,
                   w["d_model"] // 4, w["vocab"] // 4, f32)
+    # the encdec and vlm families' Fed2 decode (8 groups): Whisper's
+    # decoupled GELU FFN, up (8, 64, 256) and down (8, 256, 64) with
+    # biases (K under one stage of the stream and wgmma routes, N under
+    # one column unit and one tile: the smallest shapes yet), and
+    # InternVL's unembedding (8, 256, 11584); bf16 at batch 4 (stream)
+    # and 128 (wgmma), fp32 at batch 4 (the decode parity and Whisper's
+    # prefilled decode); InternVL's eval chunks, bf16 (wgmma, after
+    # training) and fp32 (simt, the parity phase's 2 x 768 tokens)
+    for arch, k, n, bias in FRONTEND_GMM_SHAPES:
+        for route, m, dt in (("stream", 4, bf16), ("wgmma", 128, bf16),
+                             ("stream", 4, f32)):
+            check_one(f"{arch} decode", route, (m, 1), g0, k, n, dt,
+                      bias=bias)
+    check_one("internvl2-2b eval chunk", "wgmma", (8, 512), g0, 256, 11584,
+              bf16)
+    check_one("internvl2-2b eval chunk", "simt", (2, 512), g0, 256, 11584,
+              f32)
     # autograd: the kernel has no backward, so the wrapper refuses
     x, w, _ = gmm_inputs((4,), g0, k0, n0, bf16, gen)
     before = grouped_matmul.launches
@@ -1411,7 +1504,9 @@ def phase_check_grouped_matmul() -> dict:
               for arch, k, n in OTHER_GMM_SHAPES
               for m in (4, OTHER_BIG_BATCH[arch])),
             *((f"{arch} ({k}, {n}) M={m}", m, g0, k, n, bf16)
-              for arch, k, n in MOE_GMM_SHAPES for m in (4, 128))):
+              for arch, k, n in MOE_GMM_SHAPES for m in (4, 128)),
+            *((f"{arch} ({k}, {n}) M={m}", m, g0, k, n, bf16)
+              for arch, k, n, _ in FRONTEND_GMM_SHAPES for m in (4, 128))):
         esz = dt.itemsize
         w_bytes = g * k * n * esz
         nbytes = w_bytes + esz * m * g * (k + n)
@@ -1803,17 +1898,21 @@ def attention_us(prof, tile: tuple) -> float:
     return total
 
 
-def profiled(label: str, run, attention_tile: tuple | None = None):
+def profiled(label: str, run, attention_tile: tuple | None = None,
+             top_ops: int = 0):
     """``run()`` under torch.profiler: device time by kernel category,
     and the share of the run's wall time in which the card ran a kernel
     or a copy. With ``attention_tile`` (records shapes) the chunked
     attention's elementwise and softmax passes are split out of the
-    non-GEMM time (``attention_us``)."""
+    non-GEMM time (``attention_us``). With ``top_ops`` (records shapes)
+    the ``top_ops`` operators, by their input shapes, that took the most
+    device time are listed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=attention_tile is not None) as prof:
+                 record_shapes=attention_tile is not None or top_ops > 0
+                 ) as prof:
         t0 = time.time()
         run()
         torch.cuda.synchronize()
@@ -1843,6 +1942,11 @@ def profiled(label: str, run, attention_tile: tuple | None = None):
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == DeviceType.CPU and e.self_device_time_total]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top_ops]:
+        print(f"    op {e.self_device_time_total / 1e3:8.2f} ms "
+              f"x{e.count:<4d} {e.key} {e.input_shapes}")
 
 
 def phase_profile():
@@ -3908,12 +4012,14 @@ def phase_other_decode_parity():
                       DENSE_CROSSCHECK_LOGIT_ATOL, {}, {})
 
 
-def lm_steps(cfg, n_steps, batch=8, seq=1024, check=None):
+def lm_steps(cfg, n_steps, batch=8, seq=1024, check=None, embeds=0):
     """``n_steps`` of make_train_step (the --mode lm step: AdamW at lr
     1e-3, bf16 grads) on the synthetic corpus, the weights drawn on the
     card: losses finite and falling; prints the step times, tokens/s
-    and peak device memory. ``check(params, last batch)`` runs after
-    the last step."""
+    (of text) and peak device memory. ``embeds`` > 0 adds to each batch
+    that many N(0, 1) frontend positions (B, embeds, d) in the model's
+    dtype, drawn on the card (an encdec's frames, a vlm's patches).
+    ``check(params, last batch)`` runs after the last step."""
     from repro_torch.data.synthetic import (lm_batch_from_tokens,
                                             make_token_dataset)
     from repro_torch.launch.steps import make_train_step
@@ -3927,11 +4033,16 @@ def lm_steps(cfg, n_steps, batch=8, seq=1024, check=None):
     state = opt.init(params)
     toks, _ = make_token_dataset(batch * n_steps, seq + 1, cfg.vocab,
                                  seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
     loss, wall = [], []
     t0 = time.time()
     for i in range(n_steps):
         b = lm_batch_from_tokens(toks[i * batch:(i + 1) * batch],
                                  device="cuda")
+        if embeds:
+            b["embeds"] = torch.randn((batch, embeds, cfg.d_model),
+                                      generator=gen, device="cuda",
+                                      dtype=cfg.dtype)
         params, state, l_ = step_fn(params, state, i, b)
         loss.append(float(l_))
         wall.append(time.time() - t0)
@@ -3939,8 +4050,10 @@ def lm_steps(cfg, n_steps, batch=8, seq=1024, check=None):
     assert all(math.isfinite(x) for x in loss), f"non-finite loss {loss}"
     assert loss[-1] < loss[0], f"the loss did not fall: {loss}"
     later = (wall[-1] - wall[0]) / (n_steps - 1)
+    front = f" over {embeds} frontend positions" if embeds else ""
     print(f"  {cfg.arch_id}, {cfg.n_layers} layers ({cfg.fed2_decouple} "
-          f"decoupled), {param_count(params):,} parameters: losses "
+          f"decoupled), batch {batch} x {seq} tokens{front}, "
+          f"{param_count(params):,} parameters: losses "
           f"{[round(x, 4) for x in loss]}; first step {wall[0]:.3f} s, "
           f"later steps {later:.3f} s each ({batch * seq / later:.0f} "
           f"tokens/s); peak device memory {peak / 2 ** 30:.2f} GiB",
@@ -4036,6 +4149,16 @@ def phase_other_profile():
     free_device_memory()
 
 
+def decode_cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """Bytes of ``init_cache(cfg, batch, max_len)`` (built on the meta
+    device: no memory)."""
+    from repro_torch.models.forward import init_cache
+    from repro_torch.models.module import tree_leaves
+    with torch.device("meta"):
+        cache = init_cache(cfg, batch, max_len)
+    return sum(t.numel() * t.element_size() for t in tree_leaves(cache))
+
+
 def moe_config(arch, groups=8, dtype=None, **cut):
     """``arch``'s full config (in ``dtype``), under
     with_fed2(``groups``) when ``groups``, with ``cut``'s fields
@@ -4067,8 +4190,6 @@ def moe_serve(cfg, groups, *, batch=4, prompt_len=32, gen=16,
     the decode cache's bytes and the peak device memory. Returns the
     peak."""
     from repro_torch.launch.serve import run_serve
-    from repro_torch.models.forward import init_cache
-    from repro_torch.models.module import tree_leaves
     free_device_memory()
     torch.cuda.reset_peak_memory_stats()
     out = run_serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen,
@@ -4079,10 +4200,7 @@ def moe_serve(cfg, groups, *, batch=4, prompt_len=32, gen=16,
                                            & (toks < cfg.vocab)).all()
     assert logits.shape == (batch, 1, cfg.vocab) and logits.is_cuda
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
-    with torch.device("meta"):
-        cache = init_cache(cfg, batch, max_len)
-    cache_bytes = sum(t.numel() * t.element_size()
-                      for t in tree_leaves(cache))
+    cache_bytes = decode_cache_bytes(cfg, batch, max_len)
     want = MOE_CUT_PARAMS[cfg.arch_id, groups, cfg.n_layers]
     print(f"  {cfg.arch_id} at {cfg.n_layers} layers, batch {batch}, "
           f"{prompt_len} + {gen} tokens over {max_len} slots: prefill "
@@ -4303,6 +4421,263 @@ def phase_moe_profile():
     free_device_memory()
 
 
+def frontend_config(arch, groups=8, dtype=None):
+    """``arch``'s full config (in ``dtype``), under with_fed2(``groups``)
+    when ``groups``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    cfg = get_config(arch, **({"dtype": dtype} if dtype else {}))
+    return with_fed2(cfg, groups=groups) if groups else cfg
+
+
+def phase_frontend_serve():
+    """Whisper-base and InternVL2-2B at full width and depth through the
+    serving CLI (batch 4, 32 + 16 tokens), without and with
+    --fed2-groups 8, then Fed2 at batch 128 over 2048 slots; counted:
+    grouped_matmul FRONTEND_GMM_PER_STEP a Fed2 step (stream at batch 4,
+    wgmma at 128), never without Fed2. As the reference's serve does,
+    Whisper decodes against its zeroed cross cache and InternVL text
+    only. serve_cli checks each parameter count against the
+    reference's."""
+    from repro_torch.launch import serve
+    d = serve.parse_args([])
+    steps = d.prompt_len + d.gen
+    big = ("--batch", "128", *OTHER_SERVE_BIG)
+    b = serve.parse_args(list(big))
+    n = b.prompt_len + b.gen
+    for arch in FRONTEND_ARCHS:
+        gmm = FRONTEND_GMM_PER_STEP[arch]
+        a = ("--arch", arch, "--full")
+        counted(f"serve --arch {arch} --full", lambda: serve_cli(*a), {})
+        counted(f"serve --arch {arch} --full --fed2-groups 8",
+                lambda: serve_cli(*a, "--fed2-groups", "8"),
+                {"grouped_matmul": gmm * steps}, {"stream": gmm * steps})
+        peak, counts = counted(
+            f"serve --arch {arch} --full --fed2-groups 8 " + " ".join(big),
+            lambda: serve_cli(*a, "--fed2-groups", "8", *big),
+            {"grouped_matmul": gmm * n}, {"wgmma": gmm * n})
+        cache = decode_cache_bytes(frontend_config(arch), b.batch, b.max_len)
+        print(f"  {arch} Fed2: grouped_matmul {gmm} a decode step (stream "
+              f"at batch 4, {counts['grouped_matmul'] // n} wgmma at batch "
+              f"128); decode cache at batch {b.batch} x {b.max_len} "
+              f"positions {cache / 1e9:.3g} GB, peak {peak / 1e9:.2f} GB",
+              flush=True)
+        assert peak > cache, f"{arch}: the batch-128 run did not hold its " \
+            "cache"
+
+
+def whisper_prefilled_decode():
+    """Whisper's real serving path in fp32 with Fed2 8: frames (4, 1500,
+    512) from a numpy seed, encdec_prefill_cache (no launch), then
+    WHISPER_DECODE_LEN decode steps (the decoupled FFN on the kernel,
+    stream), against forward(embeds=frames)'s tied logits: within
+    WHISPER_PREFILL_LOGIT_RTOL of max |logit|; and the same decode
+    against the zeroed cross cache (the serve CLI's) must differ by
+    more than that limit (the encoder's K and V reached the logits)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import (decode_step,
+                                            encdec_prefill_cache, forward,
+                                            init_cache)
+    cfg = frontend_config("whisper-base", dtype=torch.float32)
+    bs, n = 4, WHISPER_DECODE_LEN
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    rng = np.random.default_rng(6)
+    frames = torch.as_tensor(rng.standard_normal(
+        (bs, cfg.enc_frames, cfg.d_model), dtype=np.float32), device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (bs, n)),
+                           device="cuda")
+
+    @torch.no_grad()
+    def chunked():
+        h, _ = forward(params, cfg, toks, embeds=frames)
+        return tfm.unembed_apply(None, h, cfg, params["embed"]["table"])
+
+    @torch.no_grad()
+    def decoded(prefill):
+        cache = init_cache(cfg, bs, n, device="cuda")
+        if prefill:
+            cache = encdec_prefill_cache(params, cfg, cache, frames)
+        return torch.cat([decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                      t)[0] for t in range(n)], 1)
+
+    gmm = FRONTEND_GMM_PER_STEP["whisper-base"] * n
+    t0 = time.time()
+    want, _ = counted("whisper-base forward(embeds=frames)", chunked, {})
+    t1 = time.time()
+    got, _ = counted(f"whisper-base encdec_prefill_cache + {n} decode "
+                     "steps", lambda: decoded(True), {"grouped_matmul": gmm},
+                     {"stream": gmm})
+    t2 = time.time()
+    zero, _ = counted(f"whisper-base {n} decode steps, zeroed cross cache",
+                      lambda: decoded(False), {"grouped_matmul": gmm},
+                      {"stream": gmm})
+    mag = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    off = (zero - want).abs().max().item()
+    limit = WHISPER_PREFILL_LOGIT_RTOL * mag
+    ok = err <= limit < off
+    print(f"  whisper-base, batch {bs}, {n} tokens over {cfg.enc_frames} "
+          f"frames, fp32, Fed2 8: forward {t1 - t0:.2f} s, prefill + "
+          f"decode {t2 - t1:.2f} s; max |dlogits| {err:.3g} (limit "
+          f"{limit:.3g} = {WHISPER_PREFILL_LOGIT_RTOL:g} of max |logit| "
+          f"{mag:.3g}); against the zeroed cross cache {off:.3g} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "whisper-base: the prefilled decode and the forward disagree"
+    del params, want, got, zero
+    free_device_memory()
+
+
+def internvl_eval_routes():
+    """InternVL (Fed2 8, fp32) eval loss on 2 x (256 patches + 768 text
+    tokens): make_eval_step (grouped_matmul once a loss chunk, simt)
+    against lm_loss's einsum route, within FRONTEND_EVAL_FP32_TOL."""
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.launch.steps import make_eval_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import lm_loss
+    cfg = frontend_config("internvl2-2b", dtype=torch.float32)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+    toks, _ = make_token_dataset(2, FRONTEND_EVAL_TEXT + 1, cfg.vocab,
+                                 seed=2)
+    batch = lm_batch_from_tokens(toks, device="cuda")
+    batch["embeds"] = torch.randn(
+        (2, cfg.n_patches, cfg.d_model), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    chunks = -(-FRONTEND_EVAL_TEXT // cfg.loss_chunk)
+    kern, _ = counted("internvl2-2b eval step, fp32",
+                      lambda: make_eval_step(cfg)(params, batch).item(),
+                      {"grouped_matmul": chunks}, {"simt": chunks})
+    with torch.no_grad():
+        plain, _ = counted("internvl2-2b lm_loss, einsum route",
+                           lambda: lm_loss(params, cfg, batch).item(), {})
+    err = abs(kern - plain)
+    print(f"  internvl2-2b eval loss over {cfg.n_patches} patches + "
+          f"{FRONTEND_EVAL_TEXT} tokens, fp32: grouped_matmul {kern:.6f}, "
+          f"einsum {plain:.6f}, |d| {err:.3g} (tol "
+          f"{FRONTEND_EVAL_FP32_TOL:g}) "
+          f"{'ok' if err <= FRONTEND_EVAL_FP32_TOL else 'FAIL'}", flush=True)
+    assert err <= FRONTEND_EVAL_FP32_TOL, "the eval's kernel route drifts"
+    del params
+    free_device_memory()
+
+
+def phase_frontend_decode_parity():
+    """fp32, TF32 off, full width and depth with Fed2 8: each arch's 16
+    decode steps with the kernels against the plain versions (logits,
+    every cache leaf); Whisper's prefilled decode against its forward;
+    InternVL's eval loss through both routes."""
+    f32 = torch.float32
+    for arch in FRONTEND_ARCHS:
+        g = FRONTEND_GMM_PER_STEP[arch]
+        decode_kernels_vs_plain(arch, frontend_config(arch, dtype=f32),
+                                {"grouped_matmul": g}, {"stream": g})
+    whisper_prefilled_decode()
+    internvl_eval_routes()
+
+
+def phase_frontend_lm_train():
+    """make_train_step (the --mode lm step, which the CLI refuses for
+    these families: its token batch has no embeds) at full width and
+    depth, bf16, Fed2 8, LM_TRAIN_STEPS AdamW steps on batches
+    carrying the frontends' embeds, counted: no launch; losses finite and
+    falling. Then the eval step on the trained params, counted
+    (grouped_matmul once a loss chunk for InternVL, wgmma; none for
+    Whisper's tied unembedding), against the einsum route."""
+    from repro_torch.launch.steps import make_eval_step
+    from repro_torch.models.forward import lm_loss
+    for arch, kw in FRONTEND_TRAIN.items():
+        cfg = frontend_config(arch)
+        kept = {}
+        counted(f"--mode lm step, {arch}, batch {kw['batch']} x "
+                f"{kw['seq']} tokens over {kw['embeds']} frontend "
+                "positions",
+                lambda: lm_steps(cfg, LM_TRAIN_STEPS,
+                                 check=lambda p, b: kept.update(p=p, b=b),
+                                 **kw), {})
+        chunks = 0 if cfg.tie_embeddings else -(-kw["seq"] // cfg.loss_chunk)
+        loss, _ = counted(f"{arch} eval step on the trained params",
+                          lambda: make_eval_step(cfg)(kept["p"],
+                                                      kept["b"]).item(),
+                          {"grouped_matmul": chunks}, {"wgmma": chunks})
+        with torch.no_grad():
+            plain = lm_loss(kept["p"], cfg, kept["b"]).item()
+        err = abs(loss - plain)
+        print(f"  {arch} eval loss, kernel vs einsum route: {loss:.5f} vs "
+              f"{plain:.5f}, |d| {err:.3g} (tol {LM_EVAL_ROUTES_TOL:g}) "
+              f"{'ok' if err <= LM_EVAL_ROUTES_TOL else 'FAIL'}", flush=True)
+        assert err <= LM_EVAL_ROUTES_TOL, f"{arch}: the eval step drifts"
+        del kept
+        free_device_memory()
+
+
+def phase_frontend_profile():
+    """Under torch.profiler, bf16 with Fed2 8 at full width and depth,
+    after warm-up steps: one decode step of each arch at batch 4 over
+    128 slots and Whisper's at batch 128 over 2048 slots (its cross
+    cache (128, 1500, 8, 64)), and one Whisper --mode lm step at
+    FRONTEND_TRAIN's batch (the chunked attention's passes split
+    out); the decode steps list their costliest operators by input
+    shapes."""
+    from repro_torch.data.synthetic import (lm_batch_from_tokens,
+                                            make_token_dataset)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.forward import decode_step, init_cache
+    for arch, shapes in (("whisper-base", ((4, 128), (128, 2048))),
+                         ("internvl2-2b", ((4, 128),))):
+        cfg = frontend_config(arch)
+        params = tfm.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        for bs, max_len in shapes:
+            cache = init_cache(cfg, bs, max_len, device="cuda")
+            toks = torch.randint(0, cfg.vocab, (bs, 4), device="cuda")
+            with torch.no_grad():
+                for t in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    decode_step(params, cfg, cache, toks[:, t:t + 1], t)
+                    torch.cuda.synchronize()
+                print(f"  one {arch} Fed2 decode step unprofiled, batch {bs}"
+                      f": {(time.time() - t0) * 1e3:.1f} ms")
+                profiled(f"the same step, batch {bs} over {max_len} slots",
+                         lambda: decode_step(params, cfg, cache,
+                                             toks[:, 3:4], 3), top_ops=8)
+            del cache
+            free_device_memory()
+        del params
+        free_device_memory()
+    arch = "whisper-base"
+    cfg, kw = frontend_config(arch), FRONTEND_TRAIN[arch]
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    step_fn, opt = make_train_step(cfg, lr=1e-3)
+    state = opt.init(params)
+    data, _ = make_token_dataset(3 * kw["batch"], kw["seq"] + 1, cfg.vocab,
+                                 seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batches = [lm_batch_from_tokens(data[i:i + kw["batch"]], device="cuda")
+               for i in range(0, 3 * kw["batch"], kw["batch"])]
+    for b in batches:
+        b["embeds"] = torch.randn((kw["batch"], kw["embeds"], cfg.d_model),
+                                  generator=gen, device="cuda",
+                                  dtype=cfg.dtype)
+    for i in range(2):
+        params, state, _ = step_fn(params, state, i, batches[i])
+    t0 = time.time()
+    step_fn(params, state, 2, batches[2])
+    torch.cuda.synchronize()
+    print(f"  the same step unprofiled: {time.time() - t0:.3f} s")
+    profiled(f"one --mode lm step, {arch}, batch {kw['batch']} x "
+             f"{kw['seq']} tokens over {kw['embeds']} frames",
+             lambda: step_fn(params, state, 2, batches[2]),
+             attention_tile=(cfg.attn_q_chunk, cfg.attn_kv_chunk))
+    del params, state
+    free_device_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4446,6 +4821,15 @@ def main() -> int:
         phase_moe_lm_fl()
     with phase("moe profile"):
         phase_moe_profile()
+    free_device_memory()
+    with phase("encdec and vlm serve"):
+        phase_frontend_serve()
+    with phase("encdec and vlm decode parity (TF32 off)"), tf32_off():
+        phase_frontend_decode_parity()
+    with phase("encdec and vlm lm train"):
+        phase_frontend_lm_train()
+    with phase("encdec and vlm profile"):
+        phase_frontend_profile()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

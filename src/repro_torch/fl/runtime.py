@@ -805,9 +805,14 @@ def lm_task(model_cfg) -> FLTask:
     the argmax next token at every position under ``torch.no_grad``,
     where a Fed2 unembedding takes the ``grouped_matmul`` kernel route
     on the card. No confusion counts (``n_classes=None``), no tiers
-    (``tier_fn=None``), no host matched averaging (fedma refuses)."""
-    from repro_torch.models.forward import forward, lm_loss
+    (``tier_fn=None``), no host matched averaging (fedma refuses).
+    The encdec and vlm families are refused (a ValueError): their loss
+    and eval need frontend embeds that the token batches do not carry
+    (the reference's eval fails on them)."""
+    from repro_torch.models.forward import (forward, lm_loss,
+                                            refuse_frontend_families)
     from repro_torch.models.transformer import init_params, unembed_apply
+    refuse_frontend_families(model_cfg, "lm_task")
 
     @torch.no_grad()
     def predict(params, batch):

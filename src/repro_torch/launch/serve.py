@@ -9,6 +9,8 @@ sampled token-by-token decode. The port of ``repro.launch.serve``.
       --full --fed2-groups 8   # or qwen2-7b | h2o-danube-1.8b | stablelm-12b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch deepseek-v2-236b --fed2-groups 4   # or mixtral-8x22b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+      --full --fed2-groups 8                    # or internvl2-2b
 
 It takes the reference's flags and defaults (``--arch llama3.2-1b
 --batch 4 --prompt-len 32 --gen 16 --max-len 128 --temperature 0 --seed
@@ -22,7 +24,17 @@ and so do a Fed2 dense LM's decoupled FFNs (three products a decoupled
 block); every Mamba-2 layer (of a Mamba-2 or a Zamba2) runs the
 ``ssd_update`` kernel. The MoE archs' ``--full`` holds 281 GB
 (mixtral-8x22b) and 471 GB (deepseek-v2-236b) of bf16 weights, more
-than one card: ``run_serve`` serves a depth-cut ``full()`` there. Runs
+than one card: ``run_serve`` serves a depth-cut ``full()`` there. The
+encdec whisper-base and the vlm internvl2-2b are served as the
+reference's serve serves them: Whisper decodes against its cache's
+cross-attention K and V as ``init_cache`` makes them, zeros (no
+encoder pass: ``models.forward.encdec_prefill_cache`` is the real
+serving step 0, and this launcher, like the reference's, never calls
+it), so the cross-attention adds zero; InternVL decodes text only (no
+patch embeddings: the reference has no decode entry for them). A Fed2
+Whisper runs ``grouped_matmul`` twice a step (its one decoupled block's
+GELU FFN; its unembedding stays the tied table), a Fed2 InternVL 19
+times (the unembedding and its 6 decoupled FFNs' three products). Runs
 on the CUDA card unless ``--device cpu`` is given. Sampling (``--temperature >
 0``) draws from a ``torch.Generator`` seeded with ``--seed``, so its
 tokens differ from the reference's ``jax.random`` draws.

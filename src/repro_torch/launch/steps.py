@@ -27,9 +27,10 @@ def value_and_grad(params, cfg, batch):
 
 
 def make_train_step(cfg, *, lr: float = 3e-4, microbatches: int = 1):
-    """``microbatches > 1`` splits the global batch and accumulates the
-    grads in fp32, then scales loss and grads by ``1/microbatches``:
-    saved activations are bounded by one microbatch.
+    """``microbatches > 1`` splits the global batch (every entry of it,
+    ``"embeds"`` too, along the batch axis) and accumulates the grads in
+    fp32, then scales loss and grads by ``1/microbatches``: saved
+    activations are bounded by one microbatch.
 
     The grads are cast to bf16 before the optimizer, as the reference
     does by default (its ``grad_sync_dtype``, which halves a gradient

@@ -8,7 +8,11 @@
                  ``--fed2`` for the block-diagonal unembedding and, for
                  a dense LM, decoupled grouped-FFN blocks)
                  on the synthetic token corpus: AdamW, ``--microbatches``,
-                 ``--ckpt``;
+                 ``--ckpt``. The encdec whisper-base and the vlm
+                 internvl2-2b (``FRONTEND_ARCHS``) are refused up front
+                 with a ValueError: their forward needs frontend embeds
+                 that the token batch does not carry (the reference's
+                 CLI fails on them in its loss);
   --mode fl    : the paper's federated scenario (CNN + Fed2/fedavg/...).
 
 Runs on the CUDA card unless ``--device cpu`` is given. ``--mode fl``'s
@@ -74,6 +78,7 @@ ARCHS = ("vgg9", "vgg16", "mobilenet")      # --mode fl
 LM_ARCHS = ("mamba2-1.3b", "llama3.2-1b", "qwen2-7b",  # --mode lm
             "h2o-danube-1.8b", "stablelm-12b", "mixtral-8x22b",
             "deepseek-v2-236b", "zamba2-2.7b")
+FRONTEND_ARCHS = ("whisper-base", "internvl2-2b")  # --mode lm refuses
 
 
 def run_lm(args) -> dict:
@@ -92,11 +97,13 @@ def run_lm(args) -> dict:
                                             make_token_dataset)
     from repro_torch.fl.runtime import resolve_device
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.forward import refuse_frontend_families
     from repro_torch.models.module import tree_map
     from repro_torch.models.transformer import init_params
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    refuse_frontend_families(cfg, "--mode lm")
+    device = resolve_device(args.device)
     if args.fed2:
         cfg = with_fed2(cfg, groups=args.fed2_groups)
     params = init_params(torch.Generator(device=device).manual_seed(
@@ -228,7 +235,8 @@ def parse_args(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["lm", "fl"], default="fl")
-    ap.add_argument("--arch", default="vgg9", choices=ARCHS + LM_ARCHS,
+    ap.add_argument("--arch", default="vgg9",
+                    choices=ARCHS + LM_ARCHS + FRONTEND_ARCHS,
                     help="fl mode: a CNN (" + ", ".join(ARCHS) + "); lm "
                          "mode: an LM (" + ", ".join(LM_ARCHS) + ")")
     ap.add_argument("--reduced", action="store_true")
@@ -375,7 +383,7 @@ def check_mode_flags(ap, args) -> None:
                  "--use-local-kernel are only supported with --mode fl")
     if args.mode != "fl" and args.alignment != "grouped":
         ap.error("--alignment is only supported with --mode fl")
-    archs = LM_ARCHS if args.mode == "lm" else ARCHS
+    archs = LM_ARCHS + FRONTEND_ARCHS if args.mode == "lm" else ARCHS
     if args.arch not in archs:
         ap.error(f"--mode {args.mode} takes --arch "
                  + "|".join(archs) + f", got {args.arch!r}")

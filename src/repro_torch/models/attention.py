@@ -1,6 +1,6 @@
 """Grouped-query attention (GQA) with rotary positions and DeepSeek-V2's
-multi-head latent attention (MLA): ``repro.models.attention`` but its
-cross-attention.
+multi-head latent attention (MLA): ``repro.models.attention``, with the
+cross-attention of the encoder-decoder family (Whisper).
 
 Train and prefill use a flash-style chunked attention: a Python loop
 over query chunks and, inside it, over key/value chunks with an online
@@ -33,7 +33,13 @@ per-head K and V and take the chunked attention above (V zero-padded to
 the q/k head dim, as the reference pads it); decode (``mla_decode``)
 caches only the latent and the rotary key, (B, max_len, kv_lora +
 rope_dim), and absorbs the K and V up-projections into the query and
-the output. Cross-attention waits for the encoder-decoder family.
+the output.
+
+Cross-attention (the Whisper decoder's) takes K and V that ``cross_kv``
+projects once from the encoder's output; ``gqa_apply(..., kv=(k, v),
+kv_positions=)`` then projects only q and attends without a causal
+mask. Its decode reads the same K and V from the cache that
+``forward.encdec_prefill_cache`` fills (``forward._decode_encdec``).
 """
 from __future__ import annotations
 
@@ -207,19 +213,43 @@ def _project_qkv(p, x, cfg: AttnConfig, positions):
     return q, k, v
 
 
-def gqa_apply(p, x, cfg: AttnConfig, *, positions=None, q_chunk=512,
-              kv_chunk=1024):
-    """Full-sequence self-attention (train / prefill): x (B, S, d) ->
-    (B, S, d); ``positions`` (S,) default arange(S)."""
+def gqa_apply(p, x, cfg: AttnConfig, *, positions=None, kv=None,
+              kv_positions=None, q_chunk=512, kv_chunk=1024):
+    """Full-sequence attention (train / prefill): x (B, S, d) -> (B, S,
+    d); ``positions`` (S,) default arange(S). Self-attention, or with
+    ``kv=(k, v)`` (B, S_kv, Hkv, D) precomputed by ``cross_kv``
+    cross-attention: only q is projected (and normalized under
+    ``qk_norm``; no rotation), the mask is not causal, and the keys sit
+    at ``kv_positions`` (S_kv,)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+        kv_positions, causal = positions, cfg.causal
+    else:
+        q = dense_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm_apply(p["q_norm"], q)
+        (k, v), causal = kv, False
     o = chunked_attention(q, k, v, q_positions=positions,
-                          kv_positions=positions, causal=cfg.causal,
+                          kv_positions=kv_positions, causal=causal,
                           window=cfg.window, q_chunk=q_chunk,
                           kv_chunk=kv_chunk)
     return dense_apply(p["wo"], o.reshape(b, s, cfg.n_heads * cfg.head_dim))
+
+
+def cross_kv(p, enc_out, cfg: AttnConfig):
+    """K and V (B, S_enc, Hkv, D) of cross-attention, projected once from
+    the encoder's output (B, S_enc, d); k normalized under ``qk_norm``."""
+    b, s, _ = enc_out.shape
+    k = dense_apply(p["wk"], enc_out).reshape(b, s, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    v = dense_apply(p["wv"], enc_out).reshape(b, s, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    if cfg.qk_norm:
+        k = rmsnorm_apply(p["k_norm"], k)
+    return k, v
 
 
 # --- decode -----------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""Forward, loss, decode cache and single-token decode: the ``dense``,
-``moe``, ``ssm`` and ``hybrid`` parts of ``repro.models.forward``.
+"""Forward, loss, decode cache and single-token decode for every
+family: the port of ``repro.models.forward``.
 
 Public API:
-  forward(params, cfg, tokens)                 -> (hidden, aux_loss)
-  lm_loss(params, cfg, batch)                  -> scalar CE + MoE aux
-  init_cache(cfg, batch, max_len, device=)     -> decode cache tree
-  decode_step(params, cfg, cache, tokens, pos) -> (logits, cache)
+  forward(params, cfg, tokens, embeds=)         -> (hidden, aux_loss)
+  lm_loss(params, cfg, batch)                   -> scalar CE + MoE aux
+  init_cache(cfg, batch, max_len, device=)      -> decode cache tree
+  encdec_prefill_cache(params, cfg, cache, frames) -> cache (encdec)
+  decode_step(params, cfg, cache, tokens, pos)  -> (logits, cache)
 
 ``forward`` applies the stacked blocks in a Python loop over the layer
 axis (the reference's ``lax.scan``): a MoE config's dense
@@ -35,26 +36,55 @@ The hybrid's window is the reference's: its forward attends over the
 whole sequence, while its decode caches (and attends over) the last
 ``min(max_len, 4096)`` positions in each shared application. The two
 agree up to 4096 positions and differ past them, by design.
+
+The modality frontends are stubs, as in the reference: ``embeds`` is
+their output. A ``vlm`` prepends ``n_patches`` patch embeddings (B,
+n_patches, d) to the token embeddings, and ``lm_loss`` scores only the
+text positions after them; its decode is text only (the reference has
+no patch-embedding decode entry). An ``encdec`` (Whisper) runs its
+encoder over ``enc_frames`` frame embeddings (B, enc_frames, d). Its
+decode cache holds, per decoder layer, a self-attention KV cache of
+``min(max_len, dec_pos_size)`` slots and the cross-attention K and V
+(B, enc_frames, Hkv, D), zeros until ``encdec_prefill_cache`` runs the
+encoder and fills them (the reference's serve CLI never does, so its
+cross-attention adds zero).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import embed_apply
+from repro_torch.models.layers import dense_apply, embed_apply
 from repro_torch.models.module import rematerialized, tree_leaves, tree_map
 from repro_torch.models.transformer import (ModelConfig, _default_kind,
-                                            _norm_apply, block_apply,
-                                            block_decode, check_ported,
-                                            chunked_ce_loss, pre_block_config,
-                                            pre_block_kind, unembed_apply)
+                                            _gelu_ffn_apply, _norm_apply,
+                                            _zero_aux,
+                                            block_apply, block_decode,
+                                            check_ported, chunked_ce_loss,
+                                            encdec_config, pre_block_config,
+                                            pre_block_kind, unembed)
 
 
 # the MoE load-balance loss's weight in lm_loss (the reference's default)
 AUX_WEIGHT = 0.01
+# the families whose forward needs a modality frontend's embeds
+FRONTEND_FAMILIES = ("encdec", "vlm")
+
+
+def refuse_frontend_families(cfg: ModelConfig, where: str):
+    """Raise a ValueError naming the family when ``cfg`` is an encdec or
+    a vlm: their forward needs frontend ``embeds`` that ``where``'s
+    token batches do not carry (the reference fails there too, deeper:
+    its ``lm_loss`` reads the missing embeds)."""
+    if cfg.family in FRONTEND_FAMILIES:
+        raise ValueError(
+            f"{where} cannot run the {cfg.family!r} family ({cfg.arch_id}): "
+            f"its forward needs frontend embeds (encoder frames or patch "
+            f"embeddings) that {where}'s token batch does not carry")
 
 
 def _scan_blocks(params_stack, x, apply_one, remat: bool):
@@ -93,12 +123,83 @@ def _forward_hybrid(params, cfg: ModelConfig, x, positions):
     return x
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """tokens: (B, S) int. Returns (the hidden state (B, S, d) after the
-    final norm, aux): aux is the MoE blocks' summed load-balance loss,
-    an fp32 0 for the other families; positions are arange(S)."""
+def _encode(params, cfg: ModelConfig, frames, remat: bool, q_chunk: int,
+            kv_chunk: int):
+    """The encdec's encoder: frames (B, enc_frames, d) plus ``enc_pos``
+    through the non-causal encoder blocks (attention chunks ``q_chunk``
+    x ``kv_chunk``) and ``enc_norm``. Returns (its output, the frames'
+    positions)."""
+    ecfg = encdec_config(cfg)
+    x = frames.to(cfg.dtype) + params["enc_pos"]["table"][None]
+    enc_pos = torch.arange(cfg.enc_frames, device=x.device)
+    acfg = dataclasses.replace(ecfg.attn_cfg, causal=False)
+
+    def enc_apply(p, h):
+        hh = _norm_apply(ecfg, p["ln1"], h)
+        h = h + attn.gqa_apply(p["attn"], hh, acfg, positions=enc_pos,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+        h = h + _gelu_ffn_apply(p["ffn"], _norm_apply(ecfg, p["ln2"], h))
+        return h, _zero_aux(h)
+
+    x, _ = _scan_blocks(params["enc_blocks"], x, enc_apply, remat)
+    return _norm_apply(ecfg, params["enc_norm"], x), enc_pos
+
+
+def _forward_encdec(params, cfg: ModelConfig, tokens, frames):
+    """Whisper: the encoder over ``frames``, then the decoder over
+    ``tokens`` at positions arange(S) (its position table's index
+    clamped to ``dec_pos_size - 1``), each block's cross-attention over
+    the encoder's output."""
+    ecfg = encdec_config(cfg)
+    enc_out, enc_pos = _encode(params, cfg, frames, cfg.remat_blocks,
+                               ecfg.attn_q_chunk, ecfg.attn_kv_chunk)
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=enc_out.device)
+    y = embed_apply(params["embed"], tokens).to(cfg.dtype)
+    y = y + params["dec_pos"]["table"][
+        torch.clamp(positions, max=cfg.dec_pos_size - 1)][None]
+    xcfg = dataclasses.replace(ecfg.attn_cfg, causal=False)
+
+    def dec_apply(p, h, grouped=False):
+        hh = _norm_apply(ecfg, p["ln1"], h)
+        h = h + attn.gqa_apply(p["attn"], hh, ecfg.attn_cfg,
+                               positions=positions, q_chunk=ecfg.attn_q_chunk,
+                               kv_chunk=ecfg.attn_kv_chunk)
+        hh = _norm_apply(ecfg, p["ln_x"], h)
+        kv = attn.cross_kv(p["xattn"], enc_out, xcfg)
+        h = h + attn.gqa_apply(p["xattn"], hh, xcfg, positions=positions,
+                               kv=kv, kv_positions=enc_pos,
+                               q_chunk=ecfg.attn_q_chunk,
+                               kv_chunk=ecfg.attn_kv_chunk)
+        h = h + _gelu_ffn_apply(p["ffn"], _norm_apply(ecfg, p["ln2"], h),
+                                grouped=grouped)
+        return h, _zero_aux(h)
+
+    for key, grouped in (("blocks", False), ("gblocks", True)):
+        if key in params:
+            y, _ = _scan_blocks(params[key], y,
+                                lambda p, h, g=grouped: dec_apply(p, h, g),
+                                cfg.remat_blocks)
+    return _norm_apply(ecfg, params["final_norm"], y), _zero_aux(y)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, embeds=None):
+    """tokens: (B, S) int; ``embeds``: the modality frontend's output
+    (encdec: the encoder's input frames (B, enc_frames, d); vlm: patch
+    embeddings (B, n_patches, d), prepended to the tokens' embeddings
+    in ``cfg.dtype``). Returns (the hidden state (B, S_total, d) after
+    the final norm, aux): aux is the MoE blocks' summed load-balance
+    loss, an fp32 0 for the other families; positions are
+    arange(S_total)."""
     check_ported(cfg)
+    if cfg.family in FRONTEND_FAMILIES and embeds is None:
+        raise ValueError(f"the {cfg.family!r} family ({cfg.arch_id}) "
+                         "needs its frontend's embeds")
+    if cfg.family == "encdec":
+        return _forward_encdec(params, cfg, tokens, embeds)
     x = embed_apply(params["embed"], tokens).to(cfg.dtype)
+    if cfg.family == "vlm":
+        x = torch.cat([embeds.to(cfg.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
@@ -123,11 +224,14 @@ def forward(params, cfg: ModelConfig, tokens):
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, use_kernel: bool = False):
-    """batch: {"tokens": (B, S), "labels": (B, S), "mask": (B, S)}. The
-    chunked CE plus AUX_WEIGHT times the forward's aux loss.
-    ``use_kernel`` takes the Fed2 unembedding's kernel route, for
+    """batch: {"tokens": (B, S), "labels": (B, S), "mask": (B, S), and
+    for encdec and vlm "embeds" (``forward``'s)}. The chunked CE (a vlm:
+    on the text positions only) plus AUX_WEIGHT times the forward's aux
+    loss. ``use_kernel`` takes the Fed2 unembedding's kernel route, for
     no-grad passes only (``chunked_ce_loss``)."""
-    h, aux = forward(params, cfg, batch["tokens"])
+    h, aux = forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+    if cfg.family == "vlm":
+        h = h[:, cfg.n_patches:]
     return chunked_ce_loss(params, h, batch["labels"], batch["mask"], cfg,
                            use_kernel=use_kernel) + AUX_WEIGHT * aux
 
@@ -144,11 +248,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
     """Decode cache for ``serve_step``: a zeroed SSM state, or a zeroed
     KV cache (MLA: latent cache) of ``max_len`` slots, all empty, per
     layer of ``pre_blocks``, ``blocks`` and ``gblocks``. ``max_len`` is
-    the context window to serve; an SSM cache does not grow with it. A hybrid's cache holds an SSM
-    state per layer (``blocks``) and a KV ring buffer of
-    ``min(max_len, 4096)`` slots per application of its shared block
-    (``shared``)."""
+    the context window to serve; an SSM cache does not grow with it. A
+    hybrid's cache holds an SSM state per layer (``blocks``) and a KV
+    ring buffer of ``min(max_len, 4096)`` slots per application of its
+    shared block (``shared``). An encdec's holds, per decoder layer of
+    ``blocks`` and ``gblocks``, ``self`` (a KV cache of ``min(max_len,
+    dec_pos_size)`` slots) and ``cross`` (zeroed k and v (batch,
+    enc_frames, Hkv, D), for ``encdec_prefill_cache`` to fill)."""
     check_ported(cfg)
+    if cfg.family == "encdec":
+        kv = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
+        one = {"self": attn.gqa_cache_init(
+                   encdec_config(cfg).attn_cfg, batch,
+                   min(max_len, cfg.dec_pos_size), cfg.dtype, device=device),
+               "cross": {k: torch.zeros(kv, dtype=cfg.dtype, device=device)
+                         for k in ("k", "v")}}
+        cache = {"blocks": _stacked(cfg.n_dense_blocks, one)}
+        if cfg.fed2_decouple:
+            cache["gblocks"] = _stacked(cfg.fed2_decouple, one)
+        return cache
     if cfg.family == "hybrid":
         one = ssm_lib.mamba2_cache_init(cfg.ssm, batch, cfg.dtype,
                                         device=device)
@@ -213,6 +331,64 @@ def _decode_hybrid(params, cfg: ModelConfig, cache, x, pos, use_kernel):
     return x
 
 
+def encdec_prefill_cache(params, cfg: ModelConfig, cache, frames):
+    """Whisper's serving step 0: the encoder runs once over ``frames``
+    (B, enc_frames, d) and each decoder layer's cross-attention K and V
+    are projected from its output into ``cache`` (in place; returned).
+    The encoder takes attention chunks of 512 x 1024 whatever the
+    config's, as the reference's does, and no remat."""
+    check_ported(cfg)
+    enc_out, _ = _encode(params, cfg, frames, False, 512, 1024)
+    xcfg = dataclasses.replace(encdec_config(cfg).attn_cfg, causal=False)
+    for key in ("blocks", "gblocks"):
+        if key in cache:
+            n = tree_leaves(params[key])[0].shape[0]
+            for i in range(n):
+                k, v = attn.cross_kv(
+                    tree_map(lambda t: t[i], params[key]["xattn"]), enc_out,
+                    xcfg)
+                cache[key]["cross"]["k"][i] = k
+                cache[key]["cross"]["v"][i] = v
+    return cache
+
+
+def _decode_encdec(params, cfg: ModelConfig, cache, x, pos, use_kernel):
+    """One token through the Whisper decoder at ``pos`` (its position
+    table's index clamped to ``dec_pos_size - 1``): each layer's
+    self-attention cache updated in place, then the cross-attention over
+    the cached encoder K and V as the reference writes it (scores in the
+    activations' dtype divided by sqrt(D) cast to that dtype, an fp32
+    softmax, the weights cast back before the PV product). A decoupled
+    block's grouped GELU FFN takes the ``grouped_matmul`` kernel route
+    under ``use_kernel``, a route the reference does not take (it has
+    the einsum)."""
+    ecfg = encdec_config(cfg)
+    x = x + params["dec_pos"]["table"][min(int(pos), cfg.dec_pos_size - 1)]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(x.dtype)
+
+    def step(p, h, c, grouped):
+        b = h.shape[0]
+        a, _ = attn.gqa_decode(p["attn"], _norm_apply(ecfg, p["ln1"], h),
+                               c["self"], ecfg.attn_cfg, pos=pos)
+        h = h + a
+        hh = _norm_apply(ecfg, p["ln_x"], h)
+        q = dense_apply(p["xattn"]["wq"], hh).reshape(b, hkv, hq // hkv, hd)
+        s = torch.einsum("bgrd,bsgd->bgrs", q, c["cross"]["k"]) / scale
+        w = torch.softmax(s.to(torch.float32), dim=-1)
+        o = torch.einsum("bgrs,bsgd->bgrd", w.to(h.dtype), c["cross"]["v"])
+        h = h + dense_apply(p["xattn"]["wo"], o.reshape(b, 1, hq * hd))
+        h = h + _gelu_ffn_apply(p["ffn"], _norm_apply(ecfg, p["ln2"], h),
+                                grouped, use_kernel=use_kernel)
+        return h, c
+
+    for key, grouped in (("blocks", False), ("gblocks", True)):
+        if key in params:
+            x, _ = _scan_decode(params[key], cache[key], x,
+                                lambda p, h, c, g=grouped: step(p, h, c, g))
+    return _norm_apply(ecfg, params["final_norm"], x)
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
                 use_kernel: bool = True):
     """One-token decode. tokens: (B, 1) int; pos: absolute position (an
@@ -220,9 +396,15 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
     cache), ``cache`` updated in place. ``use_kernel`` takes the
     kernels' routes (``ssd_update`` in every SSM layer,
     ``grouped_matmul`` in a decoupled FFN and a Fed2 unembedding);
-    False takes the plain ones."""
+    False takes the plain ones. A vlm decodes text only; an encdec
+    attends over the cross-attention K and V in ``cache`` (zeros unless
+    ``encdec_prefill_cache`` filled them) and unembeds through the tied
+    table."""
     check_ported(cfg)
     x = embed_apply(params["embed"], tokens).to(cfg.dtype)
+    if cfg.family == "encdec":
+        x = _decode_encdec(params, cfg, cache, x, pos, use_kernel)
+        return unembed(params, x, cfg, use_kernel=use_kernel), cache
     if cfg.family == "hybrid":
         x = _decode_hybrid(params, cfg, cache, x, pos, use_kernel)
     else:
@@ -240,5 +422,4 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
                         p, h, c, cfg, pos=pos, grouped=g,
                         use_kernel=use_kernel))
     x = _norm_apply(cfg, params["final_norm"], x)
-    logits = unembed_apply(params["unembed"], x, cfg, use_kernel=use_kernel)
-    return logits, cache
+    return unembed(params, x, cfg, use_kernel=use_kernel), cache

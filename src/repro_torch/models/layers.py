@@ -1,7 +1,7 @@
 """Primitive layers: dense, grouped (block-diagonal) dense, conv2d with
 feature groups, GroupNorm and batch-statistics BatchNorm; for the LMs,
-RMSNorm, the depthwise causal conv1d, rotary position embeddings, the
-embedding, SiLU and GELU.
+RMSNorm, LayerNorm, the depthwise causal conv1d, rotary position
+embeddings, the embedding, SiLU and GELU.
 
 Each layer is an (init, apply) pair of plain functions over a dict of
 tensors, so the round engine can take gradients per client with
@@ -71,7 +71,8 @@ def grouped_dense_apply(p, x, *, use_kernel: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# LM layers: RMSNorm, depthwise causal conv1d, RoPE, embedding, SiLU, GELU
+# LM layers: RMSNorm, LayerNorm, depthwise causal conv1d, RoPE, embedding,
+# SiLU, GELU
 # ---------------------------------------------------------------------------
 
 
@@ -85,6 +86,24 @@ def rmsnorm_apply(p, x, *, eps: float = 1e-6):
     x32 = x.to(torch.float32)
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"]
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x, *, eps: float = 1e-5):
+    """LayerNorm over the last axis in the reference's rounding order:
+    the mean and the population variance in fp32, the normalized value
+    cast to x's dtype, THEN the scale and the bias applied in that
+    dtype (``F.layer_norm`` rounds once, after the affine step: in bf16
+    another function)."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * p["scale"] + p["bias"]
 
 
 def conv1d_depthwise_init(gen, channels: int, k: int, dtype=torch.float32):

@@ -1,13 +1,20 @@
-"""LM assembly: the parts of ``repro.models.transformer`` that the
+"""LM assembly: ``repro.models.transformer`` for its six families: the
 ``dense`` family (Llama-3.2-1B, Qwen2-7B, H2O-Danube-1.8B,
 StableLM-2-12B), the ``moe`` family (Mixtral-8x22B, DeepSeek-V2-236B),
-the ``ssm`` family (Mamba-2) and the ``hybrid`` family (Zamba2-2.7B)
-need to train, prefill and decode.
+the ``ssm`` family (Mamba-2), the ``hybrid`` family (Zamba2-2.7B), the
+``encdec`` family (Whisper-base) and the ``vlm`` family (InternVL2-2B).
 
-One ``ModelConfig`` describes an LM; this port builds the ``dense``,
-``moe``, ``ssm`` and ``hybrid`` families, and the other two (encdec,
-vlm) raise ``NotImplementedError`` naming them. A MoE block is a
-pre-norm GQA (Mixtral, with its sliding window) or MLA (any arch id
+One ``ModelConfig`` describes an LM. A ``vlm`` is a dense decoder whose
+input sequence starts with ``n_patches`` patch embeddings from a vision
+frontend the reference stubs (``forward(embeds=)``). An ``encdec``
+holds an encoder of ``enc_layers`` non-causal pre-LayerNorm blocks over
+``enc_frames`` frame embeddings (from a stubbed audio frontend) plus a
+trained sinusoidal position table (``enc_pos``), and a decoder of
+pre-LayerNorm blocks (causal self-attention, cross-attention over the
+encoder's output, a GELU FFN with biases) over a learned position table
+of ``dec_pos_size`` rows (``dec_pos``); Whisper ties its unembedding to
+the embedding table (``tie_embeddings``: no ``unembed`` leaf). A MoE
+block is a pre-norm GQA (Mixtral, with its sliding window) or MLA (any arch id
 starting with ``deepseek``: the reference's rule) and a pre-norm
 routed-expert FFN (``models.moe``); DeepSeek's first
 ``moe_first_dense`` layers (``pre_blocks``) keep MLA with a dense
@@ -23,12 +30,14 @@ sequence-chunked, rematerialized cross-entropy (``chunked_ce_loss``), so
 
 Fed2 structure adaptation (the reference's DESIGN.md §3): with
 ``fed2_groups > 0`` the unembedding is block-diagonal over vocab
-clusters, and for ``dense`` the last ``fed2_decouple`` blocks
-(``gblocks``) take block-diagonal SwiGLU FFNs (``gffn_*``), the
+clusters, and for ``dense`` and ``vlm`` the last ``fed2_decouple``
+blocks (``gblocks``) take block-diagonal SwiGLU FFNs (``gffn_*``), the
 transformer's counterpart of the paper's group convolutions; the lower
-``n_dense_blocks`` stay shared. ``with_fed2`` forces ``fed2_decouple =
-0`` for ``ssm``, ``hybrid`` and ``moe`` (whose experts are the
-structure groups).
+``n_dense_blocks`` stay shared. An ``encdec``'s decoupled decoder blocks
+take a block-diagonal GELU FFN with biases; its unembedding stays the
+tied table, since the reference tests ``tie_embeddings`` before
+``fed2_groups``. ``with_fed2`` forces ``fed2_decouple = 0`` for ``ssm``,
+``hybrid`` and ``moe`` (whose experts are the structure groups).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,22 +54,22 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_apply, dense_init, embed_init,
                                        gelu, grouped_dense_apply,
-                                       grouped_dense_init, rmsnorm_apply,
+                                       grouped_dense_init, layernorm_apply,
+                                       layernorm_init, rmsnorm_apply,
                                        rmsnorm_init, silu)
 from repro_torch.models.module import rematerialized, stack_init
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose decoupled blocks the port builds (with_fed2 sets
+# fed2_decouple = 0 for the others)
+DECOUPLED_FAMILIES = ("dense", "vlm", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields that the ``dense``, ``moe``, ``ssm`` and
-    ``hybrid`` families and ``with_fed2`` read; the other families'
-    fields (encoder, vision) come with them. ``remat_blocks`` recomputes each
-    block's activations in the backward pass (plain autograd only:
-    ``models.module.rematerialized``); ``tie_embeddings`` stays
-    False."""
+    """The reference's fields, all six families' and ``with_fed2``'s.
+    ``remat_blocks`` recomputes each block's activations in the backward
+    pass (plain autograd only: ``models.module.rematerialized``)."""
     arch_id: str
     family: str                     # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
@@ -76,13 +86,19 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     window: int | None = None       # sliding-window attention
-    use_rope: bool = True
+    use_rope: bool = True           # whisper decoder uses learned abs pos
     # moe
     moe: moe_lib.MoEConfig | None = None
     moe_first_dense: int = 0        # deepseek-v2: first layer dense FFN
     moe_dense_ff: int = 0
     ssm: ssm_lib.SSMConfig | None = None
     hybrid_attn_every: int = 0      # zamba2: shared attn block every k layers
+    # encdec
+    enc_layers: int = 0
+    enc_frames: int = 0
+    dec_pos_size: int = 32768       # learned decoder pos table (encdec)
+    # vlm
+    n_patches: int = 0
     # fed2 structure adaptation
     fed2_groups: int = 0
     fed2_decouple: int = 0
@@ -131,35 +147,31 @@ class ModelConfig:
 
 
 def check_ported(cfg: ModelConfig):
-    """Raise unless the port builds, trains and decodes ``cfg``: the
-    ``dense`` family (decoupled blocks allowed), or the ``moe``, ``ssm``
-    or ``hybrid`` family without decoupled blocks (a hybrid's layers in
-    whole super-blocks of ``hybrid_attn_every``); untied embeddings
-    either way."""
+    """Raise unless the port builds, trains and decodes ``cfg``: any of
+    the six families, decoupled blocks in ``DECOUPLED_FAMILIES`` only (a
+    hybrid's layers in whole super-blocks of ``hybrid_attn_every``; an
+    encdec with an encoder)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown LM family {cfg.family!r}")
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet ({cfg.arch_id}); "
-            f"the port has the {', '.join(map(repr, PORTED_FAMILIES))} "
-            "families")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"a 'moe' config needs its MoEConfig (cfg.moe); "
                          f"{cfg.arch_id} has none")
-    if cfg.fed2_decouple and cfg.family != "dense":
+    if cfg.fed2_decouple and cfg.family not in DECOUPLED_FAMILIES:
         raise NotImplementedError(
             f"decoupled blocks (fed2_decouple={cfg.fed2_decouple}) are "
-            f"ported for the 'dense' family only; with_fed2 sets 0 for "
-            f"{cfg.family!r}")
+            f"ported for the {', '.join(map(repr, DECOUPLED_FAMILIES))} "
+            f"families only; with_fed2 sets 0 for {cfg.family!r}")
     if cfg.family == "hybrid" and (cfg.hybrid_attn_every < 1 or
                                    cfg.n_layers % cfg.hybrid_attn_every):
         raise ValueError(
             f"a hybrid's {cfg.n_layers} layers must split into "
             f"super-blocks of hybrid_attn_every={cfg.hybrid_attn_every}")
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            "tied embeddings are not ported; the ported families keep "
-            "tie_embeddings=False")
+    if cfg.family == "encdec" and (cfg.enc_layers < 1 or
+                                   cfg.enc_frames < 1):
+        raise ValueError(
+            f"an 'encdec' config needs an encoder (enc_layers >= 1 and "
+            f"enc_frames >= 1); {cfg.arch_id} has {cfg.enc_layers} layers "
+            f"over {cfg.enc_frames} frames")
 
 
 # ---------------------------------------------------------------------------
@@ -168,15 +180,12 @@ def check_ported(cfg: ModelConfig):
 
 
 def _norm_init(cfg, device=None):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return rmsnorm_init(cfg.d_model, cfg.dtype, device=device)
+    init = rmsnorm_init if cfg.norm == "rmsnorm" else layernorm_init
+    return init(cfg.d_model, cfg.dtype, device=device)
 
 
 def _norm_apply(cfg, p, x):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return rmsnorm_apply(p, x)
+    return (rmsnorm_apply if cfg.norm == "rmsnorm" else layernorm_apply)(p, x)
 
 
 def _act(cfg, g, u):
@@ -351,18 +360,31 @@ def unembed_init(gen, cfg: ModelConfig):
     return dense_init(gen, cfg.d_model, cfg.padded_vocab, dtype=cfg.dtype)
 
 
-def unembed_apply(p, h, cfg: ModelConfig, *, use_kernel: bool = True):
-    """Logits over the first ``vocab`` of ``padded_vocab`` columns. The
-    Fed2 (block-diagonal) unembedding goes through the
+def unembed_apply(p, h, cfg: ModelConfig, embed_table=None, *,
+                  use_kernel: bool = True):
+    """Logits over the first ``vocab`` of ``padded_vocab`` columns. Tied
+    embeddings (tested first, as the reference tests them: a Fed2
+    Whisper keeps them) take h against ``embed_table`` (padded_vocab,
+    d). The Fed2 (block-diagonal) unembedding goes through the
     ``grouped_matmul`` kernel when ``use_kernel`` and the tensors are on
     the card: a route the reference does not take (it computes the same
     function with an einsum), for no-grad passes only (the kernel raises
     under autograd); ``use_kernel=False`` is that einsum."""
-    if cfg.fed2_groups > 0:
+    if cfg.tie_embeddings:
+        logits = torch.einsum("...d,vd->...v", h, embed_table)
+    elif cfg.fed2_groups > 0:
         logits = grouped_dense_apply(p, h, use_kernel=use_kernel)
     else:
         logits = dense_apply(p, h)
     return logits[..., :cfg.vocab]
+
+
+def unembed(params, h, cfg: ModelConfig, *, use_kernel: bool = True):
+    """``unembed_apply`` on the whole parameter tree: it takes the tied
+    table from ``params["embed"]`` or the ``unembed`` leaf itself."""
+    table = params["embed"]["table"] if cfg.tie_embeddings else None
+    return unembed_apply(params.get("unembed"), h, cfg, table,
+                         use_kernel=use_kernel)
 
 
 def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
@@ -384,8 +406,8 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
     ms = F.pad(mask.to(torch.float32), (0, pad)).reshape(b, nc, ck).unbind(1)
 
     def chunk_loss(hc, lc, mc):
-        logits = unembed_apply(params["unembed"], hc, cfg,
-                               use_kernel=use_kernel).to(torch.float32)
+        logits = unembed(params, hc, cfg,
+                         use_kernel=use_kernel).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.take_along_dim(logits, lc[..., None], dim=-1)[..., 0]
         return ((lse - gold) * mc).sum(), mc.sum()
@@ -405,15 +427,34 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Random parameters from ``gen``, drawn on its device in the
     config's dtype (a full-width model is drawn on the card). Dense,
-    moe and ssm: the shared blocks under ``blocks`` and the
+    vlm, moe and ssm: the shared blocks under ``blocks`` and the
     ``fed2_decouple`` decoupled ones under ``gblocks``, as the reference
     splits them, a MoE config's first ``moe_first_dense`` layers under
     ``pre_blocks``; hybrid: ``n_layers`` SSM blocks under ``blocks`` and
-    the one ``shared_attn`` block."""
+    the one ``shared_attn`` block; encdec: the encoder (``enc_blocks``,
+    ``enc_norm``, ``enc_pos``), the decoder's position table
+    (``dec_pos``), its shared and decoupled blocks. Tied embeddings have
+    no ``unembed``."""
     check_ported(cfg)
     params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   cfg.dtype)}
-    if cfg.family == "hybrid":
+    if cfg.family == "encdec":
+        ecfg = encdec_config(cfg)
+        params["enc_blocks"] = stack_init(_encdec_enc_block_init, gen,
+                                          cfg.enc_layers, cfg=ecfg)
+        params["enc_norm"] = _norm_init(ecfg, device=gen.device)
+        params["enc_pos"] = _sinusoid_pos(cfg.enc_frames, cfg.d_model,
+                                          cfg.dtype, device=gen.device)
+        params["dec_pos"] = {"table": 0.02 * torch.randn(
+            (cfg.dec_pos_size, cfg.d_model), generator=gen, dtype=cfg.dtype,
+            device=gen.device)}
+        params["blocks"] = stack_init(_encdec_dec_block_init, gen,
+                                      cfg.n_dense_blocks, cfg=ecfg)
+        if cfg.fed2_decouple:
+            params["gblocks"] = stack_init(_encdec_dec_block_init, gen,
+                                           cfg.fed2_decouple, cfg=ecfg,
+                                           grouped=True)
+    elif cfg.family == "hybrid":
         params["blocks"] = stack_init(block_init, gen, cfg.n_layers,
                                       cfg=cfg, kind="ssm")
         params["shared_attn"] = block_init(gen, cfg, kind="attn_ffn")
@@ -429,6 +470,83 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
             params["gblocks"] = stack_init(block_init, gen,
                                            cfg.fed2_decouple, cfg=cfg,
                                            grouped=True)
-    params["final_norm"] = _norm_init(cfg, device=gen.device)
-    params["unembed"] = unembed_init(gen, cfg)
+    params["final_norm"] = _norm_init(
+        encdec_config(cfg) if cfg.family == "encdec" else cfg,
+        device=gen.device)
+    if not cfg.tie_embeddings:
+        params["unembed"] = unembed_init(gen, cfg)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper) blocks
+# ---------------------------------------------------------------------------
+
+
+def encdec_config(cfg: ModelConfig) -> ModelConfig:
+    """The config an encdec's blocks run under: LayerNorm, GELU, no
+    window, no rotary (the reference's ``ecfg``)."""
+    return dataclasses.replace(cfg, norm="layernorm", act="gelu",
+                               window=None, use_rope=False)
+
+
+def _sinusoid_pos(length: int, d: int, dtype, device=None):
+    """The encoder's sinusoidal position table (length, d): sin at even
+    features, cos at odd ones, computed in numpy and fp32 as the
+    reference computes it, then cast. A trained leaf."""
+    pos = np.arange(length)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    table = np.zeros((length, d), np.float32)
+    table[:, 0::2] = np.sin(ang)
+    table[:, 1::2] = np.cos(ang)
+    return {"table": torch.from_numpy(table).to(device=device, dtype=dtype)}
+
+
+def _encdec_enc_block_init(gen, cfg: ModelConfig):
+    """An encoder block: ln1, non-causal self-attention, ln2, a dense
+    GELU FFN with biases."""
+    return {"ln1": _norm_init(cfg, device=gen.device),
+            "attn": attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype),
+            "ln2": _norm_init(cfg, device=gen.device),
+            "ffn": _gelu_ffn_init(gen, cfg)}
+
+
+def _gelu_ffn_init(gen, cfg: ModelConfig, grouped: bool = False):
+    """w_up (d, d_ff) and w_down (d_ff, d), with zero biases; under
+    ``grouped`` block-diagonal over ``fed2_groups``."""
+    if grouped:
+        g = cfg.fed2_groups
+        return {"w_up": grouped_dense_init(gen, g, cfg.d_model, cfg.d_ff,
+                                           bias=True, dtype=cfg.dtype),
+                "w_down": grouped_dense_init(gen, g, cfg.d_ff, cfg.d_model,
+                                             bias=True, dtype=cfg.dtype)}
+    return {"w_up": dense_init(gen, cfg.d_model, cfg.d_ff, bias=True,
+                               dtype=cfg.dtype),
+            "w_down": dense_init(gen, cfg.d_ff, cfg.d_model, bias=True,
+                                 dtype=cfg.dtype)}
+
+
+def _gelu_ffn_apply(p, x, grouped: bool = False, *, use_kernel: bool = False):
+    """down(gelu(up(x))). ``use_kernel`` takes a grouped FFN's two
+    products through the ``grouped_matmul`` kernel (on CUDA tensors; its
+    plain version on the CPU): a route the reference does not take, for
+    no-grad passes only (decode). False is the reference's einsum."""
+    if grouped:
+        def ap(w, h):
+            return grouped_dense_apply(w, h, use_kernel=use_kernel)
+    else:
+        ap = dense_apply
+    return ap(p["w_down"], gelu(ap(p["w_up"], x)))
+
+
+def _encdec_dec_block_init(gen, cfg: ModelConfig, grouped: bool = False):
+    """A decoder block: ln1, causal self-attention, ln_x,
+    cross-attention, ln2, a GELU FFN with biases (block-diagonal under
+    ``grouped``)."""
+    return {"ln1": _norm_init(cfg, device=gen.device),
+            "attn": attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype),
+            "ln_x": _norm_init(cfg, device=gen.device),
+            "xattn": attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype),
+            "ln2": _norm_init(cfg, device=gen.device),
+            "ffn": _gelu_ffn_init(gen, cfg, grouped=grouped)}

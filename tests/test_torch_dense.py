@@ -223,8 +223,8 @@ def test_the_other_dense_configs_and_the_hybrid_build_and_run(arch):
     window, QK-norm, partial rotary) and the hybrid family build, run
     a forward and decode through their caches (their parity with the
     reference: tests/test_torch_dense_configs.py and
-    tests/test_torch_hybrid.py); the families still unported (encdec,
-    vlm) raise (tests/test_torch_lm.py)."""
+    tests/test_torch_hybrid.py); an encdec config without an encoder
+    (enc_layers 0) is refused, naming the family."""
     tc = with_fed2(get_config(arch, reduced=True), groups=4)
     params = tfm.init_params(torch.Generator().manual_seed(0), tc)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
@@ -239,7 +239,7 @@ def test_the_other_dense_configs_and_the_hybrid_build_and_run(arch):
     assert aux.dtype == torch.float32 and float(aux) == 0.0
     assert logits.shape == (2, 1, tc.vocab)
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="encdec"):
+    with pytest.raises(ValueError, match="encdec"):
         tfm.init_params(torch.Generator().manual_seed(0),
                         dataclasses.replace(tc, family="encdec"))
 

@@ -113,21 +113,45 @@ def test_with_fed2_decouple_rule_matches_reference():
 
 
 def test_get_config_names_the_ports_archs():
+    """An arch that neither package has is refused, naming the port's
+    archs."""
     assert get_config("vgg9").arch_id == "vgg9"
     with pytest.raises(ValueError, match="mamba2-1.3b"):
-        get_config("whisper-base")
+        get_config("gpt2-xl")
+    with pytest.raises(ModuleNotFoundError):
+        jax_get_config("gpt2-xl")
 
 
 @pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
 def test_other_families_raise_naming_the_family(family):
-    """encdec and vlm are not ported; a moe config is, but not one
-    without its MoEConfig (``cfg.moe``)."""
-    cfg = tfm.ModelConfig("x", family, 2, 64, 128, d_ff=128)
-    error = ValueError if family == "moe" else NotImplementedError
-    with pytest.raises(error, match=family):
-        tfm.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(error, match=family):
-        init_cache(cfg, 1, 8)
+    """A moe config without its MoEConfig (``cfg.moe``) is refused,
+    naming the family; the encdec and vlm families are ported:
+    ``init_params`` and ``init_cache`` build their trees (an encdec's
+    encoder, decoder position table and per-layer self and cross
+    caches; a vlm's dense decoder)."""
+    if family == "moe":
+        cfg = tfm.ModelConfig("x", family, 2, 64, 128, d_ff=128)
+        with pytest.raises(ValueError, match=family):
+            tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        with pytest.raises(ValueError, match=family):
+            init_cache(cfg, 1, 8)
+        return
+    cfg = tfm.ModelConfig("x", family, 2, 64, 128, d_ff=128, n_heads=4,
+                          n_kv_heads=2, enc_layers=1, enc_frames=6,
+                          dec_pos_size=16, n_patches=3,
+                          tie_embeddings=family == "encdec")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    cache = init_cache(cfg, 1, 8)
+    if family == "encdec":
+        assert sorted(params) == ["blocks", "dec_pos", "embed", "enc_blocks",
+                                  "enc_norm", "enc_pos", "final_norm"]
+        assert tuple(params["enc_pos"]["table"].shape) == (6, 64)
+        assert tuple(cache["blocks"]["cross"]["k"].shape) == (2, 1, 6, 2,
+                                                              16)
+        assert tuple(cache["blocks"]["self"]["k"].shape) == (2, 1, 8, 2, 16)
+    else:
+        assert sorted(params) == ["blocks", "embed", "final_norm", "unembed"]
+        assert tuple(cache["blocks"]["k"].shape) == (2, 1, 8, 2, 16)
 
 
 def test_decoupled_ssm_blocks_raise():

@@ -531,6 +531,7 @@ def test_lm_mode_defaults():
     assert tfm.ModelConfig("x", "ssm", 1, 8, 8).loss_chunk == \
         jtfm.ModelConfig("x", "ssm", 1, 8, 8).loss_chunk
     assert tfm.ModelConfig("x", "ssm", 1, 8, 8).remat_blocks
-    with pytest.raises(NotImplementedError, match="tied embeddings"):
-        tfm.check_ported(dataclasses.replace(_configs()[1],
-                                             tie_embeddings=True))
+    tied = dataclasses.replace(_configs()[1], tie_embeddings=True)
+    tfm.check_ported(tied)
+    assert "unembed" not in tfm.init_params(
+        torch.Generator().manual_seed(0), tied)

@@ -200,17 +200,17 @@ def test_configs_match_reference(arch, groups, reduced):
 
 def test_check_ported_keeps_refusing_decoupled_moe_blocks():
     """with_fed2 sets decouple 0 for MoE; a MoE config with decoupled
-    blocks (which the reference builds with routed experts) is refused,
-    as are the families still to port."""
+    blocks (which the reference builds with routed experts) is refused;
+    the encdec and vlm reduced configs, plain and Fed2, are accepted."""
     _, tc = _configs("mixtral-8x22b", 4)
-    with pytest.raises(NotImplementedError, match="'dense' family only"):
+    with pytest.raises(NotImplementedError,
+                       match="'dense', 'vlm', 'encdec' families only"):
         tfm.check_ported(dataclasses.replace(tc, fed2_decouple=1))
     for arch in ("whisper-base", "internvl2-2b"):
-        jc = jax_get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfm.check_ported(tfm.ModelConfig(
-                arch_id=jc.arch_id, family=jc.family, n_layers=1,
-                d_model=8, vocab=8))
+        cfg = get_config(arch, reduced=True)
+        assert cfg.family == jax_get_config(arch, reduced=True).family
+        tfm.check_ported(cfg)
+        tfm.check_ported(with_fed2(cfg, groups=4))
 
 
 def _fake_init(tc):
