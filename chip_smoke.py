@@ -195,8 +195,9 @@ script exits non-zero:
             off): the chunked forward over 300 tokens against 300
             decode steps through ssd_update: logits at every position
             and every layer's final SSM state within the stated limits
-29. lm profile  one --mode lm step, with and without --microbatches
-            2, and one fed2 LM round under torch.profiler
+29. lm profile  one --mode lm step at PROFILE_LM_LAYERS of 48 layers
+            (full width), with and without --microbatches 2, and one
+            fed2 LM round under torch.profiler
 30. dense serve  Llama-3.2-1B at full width through the serving CLI's
             default arch (batch 4, 32 + 16 tokens): --full and --full
             --fed2-groups 8 (grouped_matmul 13 a step: the unembedding
@@ -252,10 +253,11 @@ script exits non-zero:
             zamba2 cut to 6 layers and danube cut to 8 (its 6 decoupled
             blocks kept)
 39. hybrid profile  one zamba2 Fed2 decode step at batch 4 and one
-            zamba2 --mode lm step under torch.profiler
+            zamba2 --mode lm step at PROFILE_LM_LAYERS of 54 layers
+            (full width) under torch.profiler
 40. moe serve  mixtral-8x22b and deepseek-v2-236b: the full configs'
-            parameter counts ± Fed2 8 (initialized under
-            FakeTensorMode) equal to the reference's; then each cut to
+            parameter counts ± Fed2 8 (initialized on meta)
+            equal to the reference's; then each cut to
             8 layers at full width (neither model fits one card; the
             cut's count is the reference's) through the serving
             function, batch 4 (32 + 16 tokens) ± Fed2 8 and Fed2 at
@@ -307,6 +309,22 @@ script exits non-zero:
             decode step of each arch at batch 4, Whisper's at batch 128
             over 2048 slots, and one Whisper --mode lm step at 47's
             batch
+49. surfaces  the four examples (python -m repro_torch.examples.*) at
+            the reference's defaults (fed2_cifar_fl at --rounds 3
+            --methods all), counted against the launches the code
+            gives: quickstart none, fed2_cifar_fl paired_fusion once a
+            round for every method but fedma, llm_federated_finetune
+            paired_fusion and grouped_matmul (simt) once a round each
+            over 4 rounds of fedavg and fed2, serve_decode ssd_update 2
+            a step (the reduced Mamba-2) over 25 steps; then the
+            dry-run's byte accounting for all 10 archs x 4 shapes x both
+            production meshes x +- Fed2 (every applicable cell builds)
+            and the meta pass of every arch at decode_32k; then
+            mamba2-1.3b at decode_32k on real memory (batch 128 over
+            32,768 positions): the allocated bytes equal the record's
+            argument_bytes, one step launches ssd_update 48 times with
+            finite logits, and a plain-route step's FlopCounterMode
+            count on the card equals the meta pass's; one line per part
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -330,8 +348,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
+# the card's peaks (H100 SXM at 700 W, dense): device memory, fp32
+# outside the tensor cores, bf16 on them
+from repro_torch.launch.mesh import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS,
+    PEAK_FLOPS_FP32 as FP32_FLOPS)
+
 L2_BYTES = 50 * 2 ** 20
 MAIN_ROUNDS = 3
 FUSION_PARITY_TOL = 1e-5       # see phase_parity
@@ -357,7 +379,6 @@ FEDNOVA_PARITY_TOL = 1e-5
 # 1e-3 learns, and is the value tests/test_torch_methods.py holds
 # fedadam at against the reference.
 FEDADAM_SERVER_LR = 1e-3
-BF16_FLOPS = 989e12            # H100 SXM bf16, dense tensor cores
 # one round of the CLI's fed2 at --compute-dtype bfloat16 with and
 # without --use-local-kernel (TF32 off, deterministic convs): the two
 # routes round the momentum step differently (the kernel keeps v' in
@@ -463,6 +484,12 @@ LM_TRAIN = ("--mode", "lm", "--arch", "mamba2-1.3b", "--fed2",
             "--fed2-groups", "8", "--batch", "8", "--seq", "1024", "--lr",
             "1e-3")
 LM_TRAIN_STEPS = 6
+# the profiled --mode lm steps of Mamba-2 and Zamba2 run at full width
+# and this depth (Zamba2: 2 super-blocks): the profiler's cost grows with
+# the device ops it records (~2 ms a op on the card's host: 145k ops
+# made the lm profile phase 264 s), while a layer's ops and their shares
+# are the same at any depth. The lm train phases time the full depth.
+PROFILE_LM_LAYERS = 12
 # the eval step's loss through grouped_matmul vs through the einsum, one
 # bf16 batch: both round the logits to bf16 (2^-8 relative) from fp32
 # sums in other orders; the mean CE over 8,192 tokens averages that.
@@ -1539,6 +1566,13 @@ def phase_check_grouped_matmul() -> dict:
             "max_abs_err": err_path, **timings["serve M=4"]}
 
 
+def max_leaf_diff(a, b) -> float:
+    """max |a - b| over two params trees' leaves (either device)."""
+    from repro_torch.models.module import tree_leaves
+    return max((x.cpu() - y.cpu()).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
 def finite_params(h):
     from repro_torch.models.module import tree_leaves
     leaves = tree_leaves(h["final_params"])
@@ -1942,6 +1976,8 @@ def profiled(label: str, run, attention_tile: tuple | None = None,
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
+    if not top_ops:
+        return
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == DeviceType.CPU and e.self_device_time_total]
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top_ops]:
@@ -3499,9 +3535,12 @@ def phase_lm_crosscheck():
 
 
 def phase_lm_profile():
-    """One --mode lm step at full width (LM_TRAIN's shapes, after a
-    warm-up step), the same with --microbatches 2, and one fed2 LM round (LM_FL, with --use-local-kernel,
-    after a warm-up run) under torch.profiler."""
+    """One --mode lm step at full width and PROFILE_LM_LAYERS layers
+    (LM_TRAIN's shapes, after a warm-up step), the same with
+    --microbatches 2, and one fed2 LM round (LM_FL, with
+    --use-local-kernel, after a warm-up run) under torch.profiler."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.common import with_fed2
     from repro_torch.data.synthetic import (lm_batch_from_tokens,
@@ -3509,7 +3548,9 @@ def phase_lm_profile():
     from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as tfm
-    cfg = with_fed2(get_config("mamba2-1.3b"), groups=8)
+    cfg = with_fed2(dataclasses.replace(get_config("mamba2-1.3b"),
+                                        n_layers=PROFILE_LM_LAYERS),
+                    groups=8)
     params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
                              cfg)
     step_fn, opt = make_train_step(cfg, lr=1e-3)
@@ -3518,12 +3559,13 @@ def phase_lm_profile():
     b0, b1 = (lm_batch_from_tokens(toks[i:i + 8], device="cuda")
               for i in (0, 8))
     params, state, _ = step_fn(params, state, 0, b0)
-    profiled("one --mode lm step, batch 8 x 1024",
-             lambda: step_fn(params, state, 1, b1))
+    profiled(f"one --mode lm step ({PROFILE_LM_LAYERS} layers), batch 8 "
+             "x 1024", lambda: step_fn(params, state, 1, b1))
     step_mb2, _ = make_train_step(cfg, lr=1e-3, microbatches=2)
     params, state, _ = step_mb2(params, state, 1, b1)
-    profiled("one --mode lm --microbatches 2 step, batch 8 x 1024",
-             lambda: step_mb2(params, state, 2, b0))
+    profiled(f"one --mode lm --microbatches 2 step ({PROFILE_LM_LAYERS} "
+             "layers), batch 8 x 1024", lambda: step_mb2(params, state, 2,
+                                                         b0))
     del params, state
     free_device_memory()
     cfg, parts, get_batch, test, init = lm_fl_inputs(mamba_fl_config())
@@ -4116,9 +4158,12 @@ def phase_other_lm_fl():
 
 
 def phase_other_profile():
-    """zamba2-2.7b with Fed2 (groups 8), bf16, full width and depth under
-    torch.profiler: one decode step at batch 4 (after 8 warm-up steps),
-    and one --mode lm step at batch 8 x 1024 (after a warm-up step)."""
+    """zamba2-2.7b with Fed2 (groups 8), bf16, at full width under
+    torch.profiler: one decode step at full depth and batch 4 (after 8
+    warm-up steps), and one --mode lm step at PROFILE_LM_LAYERS layers
+    and batch 8 x 1024 (after a warm-up step)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.configs.common import with_fed2
     from repro_torch.data.synthetic import (lm_batch_from_tokens,
@@ -4136,15 +4181,19 @@ def phase_other_profile():
             decode_step(params, cfg, cache, toks[:, t:t + 1], t)
         profiled("one zamba2-2.7b Fed2 decode step, batch 4",
                  lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8))
-    del cache
+    del cache, params
+    cfg = dataclasses.replace(cfg, n_layers=PROFILE_LM_LAYERS)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
     step_fn, opt = make_train_step(cfg, lr=1e-3)
     state = opt.init(params)
     data, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
     b0, b1 = (lm_batch_from_tokens(data[i:i + 8], device="cuda")
               for i in (0, 8))
     params, state, _ = step_fn(params, state, 0, b0)
-    profiled("one --mode lm --arch zamba2-2.7b step, batch 8 x 1024",
-             lambda: step_fn(params, state, 1, b1))
+    profiled(f"one --mode lm --arch zamba2-2.7b step ({PROFILE_LM_LAYERS} "
+             "layers), batch 8 x 1024", lambda: step_fn(params, state, 1,
+                                                        b1))
     del params, state
     free_device_memory()
 
@@ -4219,22 +4268,19 @@ def moe_serve(cfg, groups, *, batch=4, prompt_len=32, gen=16,
 
 def phase_moe_serve():
     """Each MoE arch's full config: its parameter count ± Fed2 8 (init
-    under FakeTensorMode) against the reference's, then serving at
+    on meta) against the reference's, then serving at
     MOE_SERVE_LAYERS layers, full width, through run_serve: batch 4 (32
     + 16 tokens) without and with Fed2 8, and Fed2 at batch 128 over
     2048 slots (2 + 8 tokens); counted: grouped_matmul once a Fed2 step
     (stream at batch 4, wgmma at 128), nothing else."""
     import dataclasses
 
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
     from repro_torch.models import transformer as tfm
     from repro_torch.models.module import param_count
     for arch in MOE_ARCHS:
         for g in (0, 8):
-            with FakeTensorMode():
-                n = param_count(tfm.init_params(torch.Generator(),
-                                                moe_config(arch, g)))
+            n = param_count(tfm.init_params(
+                torch.Generator(), moe_config(arch, g), device="meta"))
             print(f"  {arch} full, Fed2 {g}: {n:,} parameters (reference "
                   f"{SERVE_PARAMS[arch, g]:,})", flush=True)
             assert n == SERVE_PARAMS[arch, g]
@@ -4678,6 +4724,378 @@ def phase_frontend_profile():
     free_device_memory()
 
 
+# ---------------------------------------------------------------------------
+# surfaces: the examples and the dry-run
+# ---------------------------------------------------------------------------
+
+# fed2_cifar_fl's flags here: every registered method, 3 rounds each
+CIFAR_EXAMPLE = ("--rounds", "3", "--methods", "all")
+# methods whose example run ends in non-finite params, in the reference
+# too: fedadam at the example's server_lr 1.0 (FLConfig's default)
+CIFAR_DIVERGES = ("fedadam",)
+# the example runs held against the same runs on the CPU, with the CPU
+# tests' tolerances (tests/test_torch_examples.py): a CIFAR accuracy
+# within one eval example (of 600; a group's within one of its
+# support), LM final params within rtol = atol = 1e-5 and its accuracy
+# within one eval position (of 64 x 64)
+CROSS_METHODS = ("fedavg", "fed2")
+CIFAR_ACC_TOL = 1.0 / 600 + 1e-9
+# the round-off of the init that bounds the CIFAR round's card-vs-CPU
+# distance: one ulp up and down, and 1e-7 relative noise (6 seeds)
+CIFAR_NOISE_SEEDS = tuple(range(100, 106))
+LM_PARAM_TOL = 1e-5
+LM_ACC_TOL = 1.0 / (64 * 64)
+# the phase's budget (printed beside its time)
+SURFACES_BUDGET_S = 120
+# the full-width dry-run cell held on real memory: mamba2-1.3b at
+# decode_32k on the one-card mesh, batch 128 over 32,768 positions
+SURFACE_CELL = ("mamba2-1.3b", "decode_32k")
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
+
+
+def surfaces_examples(smi) -> list:
+    """The four examples at the reference's defaults (fed2_cifar_fl
+    with CIFAR_EXAMPLE), counted against the launches the code gives:
+    quickstart none (Eq. 9 and the fusion on their plain routes, the
+    reference's use_kernel=False); fed2_cifar_fl one paired_fusion a
+    round for every method but fedma (host fusion); the LM example one
+    paired_fusion and one grouped_matmul (simt: the eval's 64 x 64 fp32
+    rows through the block-diagonal unembedding) a round, 4 rounds of
+    fedavg and fed2; serve_decode one ssd_update per reduced Mamba-2
+    layer per step (1 + 24 steps), nothing for the other four archs.
+
+    The CIFAR and LM runs take TF32 off (and deterministic convs). The
+    LM example's CROSS_METHODS run again on the CPU from the same init
+    and are held to the card's at the CPU tests' tolerances, and its
+    fed2 held-out loss must fall round by round (the card's runs of 1,
+    2, ... rounds); the CIFAR runs are held to the CPU by
+    ``cifar_cross_check``."""
+    from repro_torch.examples import (fed2_cifar_fl, llm_federated_finetune,
+                                      quickstart, serve_decode)
+    from repro_torch.fl import methods as methods_lib
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.models.transformer import init_params
+    lines = []
+
+    t0 = time.time()
+    q, _ = counted("examples.quickstart", lambda: quickstart.main([]), {})
+    assert len(q["tvs"]) == 4 and all(map(math.isfinite, q["tvs"])), q
+    assert math.isfinite(q["loss"]), q["loss"]
+    lines.append(f"quickstart {time.time() - t0:.1f} s, launches none, "
+                 f"fused loss {q['loss']:.4f}")
+
+    t0 = time.time()
+    rounds = int(CIFAR_EXAMPLE[1])
+    fused = [m for m in methods_lib.available()
+             if not methods_lib.get(m).host_fusion]
+    with tf32_off(), deterministic_convs():
+        res, counts = counted(
+            "examples.fed2_cifar_fl " + " ".join(CIFAR_EXAMPLE),
+            lambda: fed2_cifar_fl.main(list(CIFAR_EXAMPLE)),
+            {"paired_fusion": rounds * len(fused)})
+    assert list(res) == list(methods_lib.available()), list(res)
+    for m, h in res.items():
+        assert len(h["acc"]) == rounds, (m, h["acc"])
+        if m not in CIFAR_DIVERGES:
+            finite_params(h)
+    lines.append(f"fed2_cifar_fl {' '.join(CIFAR_EXAMPLE)} "
+                 f"{time.time() - t0:.1f} s, paired_fusion "
+                 f"{counts['paired_fusion']}, final acc "
+                 + ", ".join(f"{m} {h['acc'][-1]:.3f}"
+                             for m, h in res.items()))
+    lines.append(cifar_cross_check(res))
+
+    t0 = time.time()
+    d = llm_federated_finetune
+    cfg = d.model_config("llama3.2-1b")
+    init = init_params(torch.Generator().manual_seed(0), cfg)
+    lm_rounds, lm_methods = 4, ("fedavg", "fed2")
+    assert lm_methods == CROSS_METHODS
+
+    def lm_run(**kw):
+        return d.run_llm_federated_finetune(init_params=lambda c: init,
+                                            **kw)
+
+    with tf32_off():
+        res, counts = counted(
+            "examples.llm_federated_finetune", lambda: lm_run(log=print),
+            {"paired_fusion": lm_rounds * len(lm_methods),
+             "grouped_matmul": lm_rounds * len(lm_methods)},
+            {"simt": lm_rounds * len(lm_methods)})
+        assert tuple(res) == lm_methods, list(res)
+        for m, h in res.items():
+            finite_params(h)
+            moved = [bool((a.cpu() != b).any()) for a, b in
+                     zip(tree_leaves(h["final_params"]), tree_leaves(init))]
+            assert all(moved), f"{m}: {moved.count(False)} leaves unmoved"
+        t_card = time.time() - t0
+        # the held-out loss after 0, 1, ..., lm_rounds rounds of fed2
+        held_out = lm_held_out_loss(cfg, d.held_out_batches(cfg, 64))
+        losses = [held_out(tree_map(lambda t: t.cuda(), init))] + [
+            held_out(lm_run(rounds=r, methods="fed2", log=None)["fed2"]
+                     ["final_params"]) for r in range(1, lm_rounds)] + [
+            held_out(res["fed2"]["final_params"])]
+    assert all(a > b for a, b in zip(losses, losses[1:])), \
+        f"the held-out loss does not fall round by round: {losses}"
+    t0 = time.time()
+    cpu = lm_run(device="cpu", log=None)
+    t_cpu = time.time() - t0
+    for m in CROSS_METHODS:
+        np.testing.assert_allclose(res[m]["acc"], cpu[m]["acc"],
+                                   atol=LM_ACC_TOL, rtol=0, err_msg=m)
+        for a, b in zip(tree_leaves(res[m]["final_params"]),
+                        tree_leaves(cpu[m]["final_params"]), strict=True):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=LM_PARAM_TOL, atol=LM_PARAM_TOL,
+                                       err_msg=m)
+    dparam = {m: max_leaf_diff(res[m]["final_params"],
+                               cpu[m]["final_params"])
+              for m in CROSS_METHODS}
+    lines.append(f"llm_federated_finetune {t_card:.1f} s, "
+                 f"paired_fusion {counts['paired_fusion']}, grouped_matmul "
+                 f"{counts['grouped_matmul']} (simt), every leaf moved; "
+                 "fed2 held-out loss by round " + ", ".join(
+                     f"{x:.5f}" for x in losses))
+    lines.append(f"llm_federated_finetune on the CPU, same init "
+                 f"({t_cpu:.1f} s): final params within {LM_PARAM_TOL:g}, "
+                 "accuracies within one eval position; max |dparam| card "
+                 "vs CPU " + ", ".join(f"{m} {v:.3g}"
+                                        for m, v in dparam.items()))
+
+    t0 = time.time()
+    from repro_torch.configs import get_config
+    archs = serve_decode.ARCHS.split(",")
+    steps = 1 + serve_decode.parse_args([]).gen
+    mamba = get_config("mamba2-1.3b", reduced=True).n_layers
+    res, counts = counted("examples.serve_decode",
+                          lambda: serve_decode.main([]),
+                          {"ssd_update": mamba * steps})
+    for arch, r in res.items():
+        assert r["tokens"].shape == (4, steps - 1), (arch, r["tokens"].shape)
+        assert np.isfinite(r["logits"]).all(), arch
+    lines.append(f"serve_decode {time.time() - t0:.1f} s, ssd_update "
+                 f"{counts['ssd_update']}, tok/s " + ", ".join(
+                     f"{a} {res[a]['tok_s']:.1f}" for a in archs))
+    return [f"{x} ({smi})" for x in lines]
+
+
+def _perturbed_init(method, how):
+    """The CIFAR example's init for ``method`` (the CPU generator at the
+    run's seed), moved by ``how``: None, "up" or "down" (one ulp), or a
+    seed of 1e-7 relative noise."""
+    from repro_torch.examples import fed2_cifar_fl as ex
+    from repro_torch.fl.runtime import cnn_task
+    from repro_torch.models.module import tree_map
+    p = cnn_task(ex.model_config(method)).init_fn(
+        torch.Generator().manual_seed(0))
+    if how in ("up", "down"):
+        end = math.inf if how == "up" else -math.inf
+        return tree_map(lambda t: torch.nextafter(t, torch.full_like(t, end)),
+                        p)
+    if how is not None:
+        g = torch.Generator().manual_seed(how)
+        return tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+            t.shape, generator=g)), p)
+    return p
+
+
+def cifar_cross_check(res) -> str:
+    """The card's CIFAR example runs of CROSS_METHODS against the CPU:
+
+    - its eval: each card run's final params, evaluated on the CPU, give
+      the run's final confusion counts within one eval example;
+    - one round from one init on either device (TF32 off, deterministic
+      convs on the card): accuracy and per-group accuracies within one
+      eval example (the CPU tests' tolerance); params no further from
+      the CPU's than the CPU's own round moves when its init moves by
+      round-off (CIFAR_NOISE_SEEDS, one ulp either way), the parity
+      phase's rule. Longer trajectories are not compared: a unit of the
+      un-normalized net crosses its ReLU kink at round-off, and a 1e-7
+      change of the init moves one round's convs/2/w by 5.4e-5 on the
+      CPU alone; the runs part from there."""
+    from repro_torch.core.grouping import GroupSpec
+    from repro_torch.examples import fed2_cifar_fl as ex
+    from repro_torch.fl import evaluation as ev
+    from repro_torch.fl.runtime import cnn_task
+    from repro_torch.models.module import tree_map
+    evals = ev.stage(ex.held_out_batches(), tile=600, device="cpu")
+    for m in CROSS_METHODS:
+        task = cnn_task(ex.model_config(m))
+        conf = ev.make_eval_engine(task.predict_fn, ex.N_CLASSES).run(
+            tree_map(lambda t: t.cpu(), res[m]["final_params"]), evals)
+        card = np.asarray(res[m]["confusion"][-1])
+        assert np.abs(conf.numpy() - card).sum() <= 2, (m, conf, card)
+    t0 = time.time()
+
+    def one_round(device, how=None):
+        return {m: ex.run_fed2_cifar_fl(
+            rounds=1, methods=m, device=device, log=None,
+            init_params=lambda cfg: _perturbed_init(m, how))[m]
+            for m in CROSS_METHODS}
+
+    with tf32_off(), deterministic_convs():
+        card = one_round("cuda")
+    cpu = one_round("cpu")
+    spread = {m: 0.0 for m in CROSS_METHODS}
+    for how in ("up", "down") + CIFAR_NOISE_SEEDS:
+        moved = one_round("cpu", how)
+        for m in CROSS_METHODS:
+            spread[m] = max(spread[m], max_leaf_diff(
+                moved[m]["final_params"], cpu[m]["final_params"]))
+    card_groups = ex.group_accuracies(card)
+    cpu_groups = ex.group_accuracies(cpu)
+    dparam = {}
+    for m in CROSS_METHODS:
+        np.testing.assert_allclose(card[m]["acc"], cpu[m]["acc"],
+                                   atol=CIFAR_ACC_TOL, rtol=0, err_msg=m)
+        conf = np.asarray(cpu[m]["confusion"][-1], np.float64)
+        support = np.array([conf[sorted(c)].sum() for c in
+                            GroupSpec.contiguous(ex.GROUPS, ex.N_CLASSES)
+                            .classes_per_group])
+        assert np.all(np.abs(card_groups[m] - cpu_groups[m]) * support
+                      <= 1 + 1e-6), (m, card_groups[m], cpu_groups[m])
+        dparam[m] = max_leaf_diff(card[m]["final_params"],
+                                  cpu[m]["final_params"])
+        assert dparam[m] <= spread[m], (
+            f"{m}: one round on the card is {dparam[m]:.3g} from the CPU's,"
+            f" beyond the CPU's own {spread[m]:.3g} under round-off of the "
+            "init")
+    return ("fed2_cifar_fl on the CPU: the card runs' evals equal; one "
+            f"round from one init ({time.time() - t0:.1f} s, "
+            f"{2 + len(CIFAR_NOISE_SEEDS)} moved inits): acc " + ", ".join(
+                f"{m} {card[m]['acc'][0]:.4f} / {cpu[m]['acc'][0]:.4f}"
+                for m in CROSS_METHODS) + "; max |dparam| card vs CPU "
+            + ", ".join(f"{m} {dparam[m]:.3g} (CPU's own spread "
+                        f"{spread[m]:.3g})" for m in CROSS_METHODS))
+
+
+def surfaces_dryrun(smi) -> list:
+    """The dry-run's byte accounting for every ASSIGNED_ARCHS x
+    INPUT_SHAPES x both production meshes x +- Fed2 (no meta pass):
+    every applicable cell builds; then the meta pass of every arch at
+    decode_32k on the 16x16 mesh, each record ``ok``."""
+    import itertools
+
+    from repro_torch.configs import ASSIGNED_ARCHS
+    from repro_torch.configs.shapes import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    t0 = time.time()
+    built, skipped, most = 0, 0, (0, "")
+    for arch, shape, mp, fed2 in itertools.product(
+            ASSIGNED_ARCHS, INPUT_SHAPES, (False, True), (False, True)):
+        if not dryrun.applicable(arch, shape)[0]:
+            skipped += 1
+            continue
+        mesh = make_production_mesh(multi_pod=mp)
+        step, _ = dryrun.build_lowered(arch, shape, mesh=mesh, fed2=fed2)
+        nbytes = dryrun.argument_bytes(step, mesh)
+        assert nbytes > 0, (arch, shape, mp, fed2)
+        built += 1
+        most = max(most, (nbytes, f"{arch} {shape} "
+                          f"{dryrun.mesh_name(mesh)}{' fed2' * fed2}"))
+    n_cells = len(ASSIGNED_ARCHS) * len(INPUT_SHAPES) * 4
+    assert built + skipped == n_cells and built == n_cells - 24, \
+        (built, skipped)
+    t_bytes = time.time() - t0
+    t0 = time.time()
+    flops = {}
+    for arch in ASSIGNED_ARCHS:
+        rec = dryrun.run_one(arch, "decode_32k", mesh=make_production_mesh(),
+                             fed2=False, outdir=str(DRYRUN_OUT),
+                             verbose=False)
+        assert rec["status"] == "ok", rec
+        flops[arch] = rec["flops"]
+    return [f"dry-run bytes: {built} cells built, {skipped} skipped "
+            f"(long_500k on full attention) in {t_bytes:.1f} s; most per "
+            f"device {most[0] / 2**30:.2f} GiB ({most[1]}) ({smi})",
+            f"dry-run meta pass, decode_32k 16x16, all 10 archs ok in "
+            f"{time.time() - t0:.1f} s; FLOPs " + ", ".join(
+                f"{a} {f:.4g}" for a, f in flops.items()) + f" ({smi})"]
+
+
+def surfaces_card_cell(smi) -> list:
+    """SURFACE_CELL at full width on real memory: the host-mesh record
+    (meta pass), then its params, cache, tokens and position allocated
+    on the card, whose bytes must equal the record's argument_bytes;
+    one make_serve_step step through ssd_update (one launch a layer),
+    finite logits; a warm step under torch.profiler (device busy share,
+    the costliest operators); then one plain-route step under FlopCounterMode,
+    whose count must equal the meta pass's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.shapes import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import tree_bytes
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.forward import init_cache
+    from repro_torch.models.transformer import init_params
+    arch, name = SURFACE_CELL
+    shape = INPUT_SHAPES[name]
+    t0 = time.time()
+    rec = dryrun.run_one(arch, name, mesh=make_host_mesh(), fed2=False,
+                         outdir=str(DRYRUN_OUT), verbose=False)
+    assert rec["status"] == "ok", rec
+    t_meta = time.time() - t0
+    cfg = dryrun.config_of(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b = shape.global_batch
+    params = init_params(gen, cfg)
+    cache = init_cache(cfg, b, shape.seq_len, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                           dtype=torch.int32, device="cuda")
+    pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32, device="cuda")
+    held = sum(tree_bytes(t) for t in (params, cache, tokens, pos))
+    want = rec["memory"]["argument_bytes"]
+    assert held == want, f"allocated {held} B != the record's {want} B"
+    serve = make_serve_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (logits, _), counts = counted(
+        f"{arch} {name} serve step (batch {b})",
+        lambda: serve(params, cache, tokens, int(pos)),
+        {"ssd_update": cfg.n_layers})
+    torch.cuda.synchronize()
+    t_step = time.time() - t0
+    assert logits.shape == (b, 1, cfg.vocab), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    t0 = time.time()                 # a second step, warm
+    serve(params, cache, tokens, int(pos))
+    torch.cuda.synchronize()
+    t_warm = time.time() - t0
+    profiled(f"{arch} {name} serve step (batch {b}), warm",
+             lambda: serve(params, cache, tokens, int(pos)), top_ops=6)
+    plain = make_serve_step(cfg, use_kernel=False)
+    with FlopCounterMode(display=False) as counter:
+        plain(params, cache, tokens, int(pos))
+    assert counter.get_total_flops() == rec["flops"], \
+        (counter.get_total_flops(), rec["flops"])
+    state = tree_bytes(cache)
+    del params, cache, logits
+    free_device_memory()
+    return [f"{arch} {name} on (1, 1): record built and meta pass in "
+            f"{t_meta:.1f} s; allocated {held:,} B = the record's "
+            f"argument_bytes (cache {state / 1e9:.2f} GB); first step "
+            f"{t_step * 1e3:.1f} ms wall, a second {t_warm * 1e3:.1f} ms; "
+            f"ssd_update {counts['ssd_update']}, finite logits; "
+            f"plain-route FLOPs on the card {rec['flops']:.6g} = the meta "
+            f"pass's ({smi})"]
+
+
+def phase_surfaces():
+    """The examples, the dry-run's byte accounting and meta passes, and
+    one full-width dry-run cell on real memory; one line per part."""
+    smi = nvidia_smi()
+    t0 = time.time()
+    lines = (surfaces_examples(smi) + surfaces_dryrun(smi)
+             + surfaces_card_cell(smi))
+    for line in lines:
+        print(f"  {line}", flush=True)
+    print(f"  surfaces phase {time.time() - t0:.1f} s (budget "
+          f"{SURFACES_BUDGET_S} s)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4830,6 +5248,9 @@ def main() -> int:
         phase_frontend_lm_train()
     with phase("encdec and vlm profile"):
         phase_frontend_profile()
+    free_device_memory()
+    with phase("surfaces"):
+        phase_surfaces()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -7,6 +7,13 @@ from __future__ import annotations
 
 import importlib
 
+# the reference's registry, in its order
+ASSIGNED_ARCHS = (
+    "whisper-base", "zamba2-2.7b", "qwen2-7b", "deepseek-v2-236b",
+    "mixtral-8x22b", "h2o-danube-1.8b", "llama3.2-1b", "internvl2-2b",
+    "stablelm-12b", "mamba2-1.3b",
+)
+PAPER_ARCHS = ("vgg9", "vgg16", "mobilenet")
 ARCHS = ("vgg9", "vgg16", "mobilenet", "llama3.2-1b", "qwen2-7b",
          "h2o-danube-1.8b", "stablelm-12b", "mixtral-8x22b",
          "deepseek-v2-236b", "mamba2-1.3b", "zamba2-2.7b", "whisper-base",

@@ -74,16 +74,20 @@ def make_eval_step(cfg):
     return eval_step
 
 
-def make_serve_step(cfg):
+def make_serve_step(cfg, *, use_kernel: bool = True):
+    """``use_kernel=False`` takes the plain routes (``decode_step``'s):
+    the dry-run's pass over meta tensors, which no kernel accepts."""
     def serve_step(params, cache, tokens, pos):
-        return decode_step(params, cfg, cache, tokens, pos)
+        return decode_step(params, cfg, cache, tokens, pos,
+                           use_kernel=use_kernel)
     return serve_step
 
 
-def make_prefill_loss_step(cfg):
+def make_prefill_loss_step(cfg, *, use_kernel: bool = True):
     """Forward-only loss (the reference's prefill_32k target: one
-    full-context forward pass, no optimizer)."""
+    full-context forward pass, no optimizer); ``use_kernel=False`` takes
+    the unembedding's einsum, as ``make_serve_step``'s."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return lm_loss(params, cfg, batch, use_kernel=True)
+        return lm_loss(params, cfg, batch, use_kernel=use_kernel)
     return prefill_step

@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        rmsnorm_apply, rmsnorm_init,
                                        rope_freqs)
-from repro_torch.models.module import rematerialized
+from repro_torch.models.module import draw_device, rematerialized
 
 NEG_INF = -1e30
 
@@ -188,8 +188,8 @@ def gqa_init(gen, cfg: AttnConfig, dtype=torch.float32):
          "wv": dense_init(gen, d, hkv * hd, bias=bias, dtype=dtype),
          "wo": dense_init(gen, hq * hd, d, dtype=dtype)}
     if cfg.qk_norm:
-        p["q_norm"] = rmsnorm_init(hd, dtype, device=gen.device)
-        p["k_norm"] = rmsnorm_init(hd, dtype, device=gen.device)
+        p["q_norm"] = rmsnorm_init(hd, dtype, device=draw_device(gen))
+        p["k_norm"] = rmsnorm_init(hd, dtype, device=draw_device(gen))
     return p
 
 
@@ -333,12 +333,14 @@ def mla_init(gen, cfg: MLAConfig, dtype=torch.float32):
     h = cfg.n_heads
     return {
         "wq_a": dense_init(gen, cfg.d_model, cfg.q_lora, dtype=dtype),
-        "q_a_norm": rmsnorm_init(cfg.q_lora, dtype, device=gen.device),
+        "q_a_norm": rmsnorm_init(cfg.q_lora, dtype,
+                                 device=draw_device(gen)),
         "wq_b": dense_init(gen, cfg.q_lora, h * cfg.qk_head_dim,
                            dtype=dtype),
         "wkv_a": dense_init(gen, cfg.d_model, cfg.kv_lora + cfg.qk_rope_dim,
                             dtype=dtype),
-        "kv_a_norm": rmsnorm_init(cfg.kv_lora, dtype, device=gen.device),
+        "kv_a_norm": rmsnorm_init(cfg.kv_lora, dtype,
+                                  device=draw_device(gen)),
         "wk_b": dense_init(gen, cfg.kv_lora, h * cfg.qk_nope_dim,
                            dtype=dtype),
         "wv_b": dense_init(gen, cfg.kv_lora, h * cfg.v_head_dim,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.module import default_init
+from repro_torch.models.module import default_init, draw_device
 
 # ---------------------------------------------------------------------------
 # Dense / GroupedDense
@@ -28,7 +28,8 @@ def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
                dtype=torch.float32):
     p = {"w": default_init(gen, (d_in, d_out), fan_in=d_in, dtype=dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((d_out,), dtype=dtype,
+                             device=draw_device(gen))
     return p
 
 
@@ -49,7 +50,8 @@ def grouped_dense_init(gen, groups: int, d_in: int, d_out: int, *,
     gi, go = d_in // groups, d_out // groups
     p = {"w": default_init(gen, (groups, gi, go), fan_in=gi, dtype=dtype)}
     if bias:
-        p["b"] = torch.zeros((groups, go), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((groups, go), dtype=dtype,
+                             device=draw_device(gen))
     return p
 
 
@@ -110,7 +112,8 @@ def conv1d_depthwise_init(gen, channels: int, k: int, dtype=torch.float32):
     """Depthwise causal conv1d (Mamba-style): weight ``(k, 1, C)`` as in
     the reference (its "LIO" layout), bias ``(C,)``."""
     return {"w": default_init(gen, (k, 1, channels), fan_in=k, dtype=dtype),
-            "b": torch.zeros((channels,), dtype=dtype, device=gen.device)}
+            "b": torch.zeros((channels,), dtype=dtype,
+                             device=draw_device(gen))}
 
 
 def conv1d_depthwise_apply(p, x):

@@ -10,6 +10,8 @@ sorted, lists in index order, as jax flattens them.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable
@@ -18,21 +20,47 @@ import torch
 
 Params = Any
 
+# the device that init code draws on inside ``drawing_on``
+_DRAW_DEVICE = contextvars.ContextVar("draw_device", default=None)
+
+
+def draw_device(generator: torch.Generator) -> torch.device:
+    """Where init code puts what it draws from ``generator``: the device
+    of the innermost ``drawing_on``, else the generator's own."""
+    return _DRAW_DEVICE.get() or generator.device
+
+
+@contextlib.contextmanager
+def drawing_on(device):
+    """Init code inside draws on ``device`` whatever its generator's
+    device (None: the generator's). ``torch.Generator`` cannot live on
+    ``meta``, but a CPU generator can draw onto it: a tree of the full
+    236 B DeepSeek then allocates nothing."""
+    token = _DRAW_DEVICE.set(None if device is None
+                             else torch.device(device))
+    try:
+        yield
+    finally:
+        _DRAW_DEVICE.reset(token)
+
 
 @dataclasses.dataclass(frozen=True)
 class Initializer:
     """Fan-in scaled normal initializer: N(0, 1) * scale / sqrt(fan_in),
-    drawn from an explicit ``torch.Generator`` on the generator's device
-    (the CNNs draw on the CPU and callers move the tree; a full-width LM
-    draws on the card)."""
+    drawn from an explicit ``torch.Generator`` on ``draw_device`` (the
+    CNNs draw on the CPU and callers move the tree; a full-width LM
+    draws on the card; a shape-only tree on ``meta``)."""
     scale: float = 1.0
 
     def __call__(self, generator: torch.Generator, shape, fan_in=None,
                  dtype=torch.float32) -> torch.Tensor:
+        device = draw_device(generator)
+        if device.type == "meta":            # shapes only: nothing to draw
+            return torch.empty(tuple(shape), dtype=dtype, device=device)
         fan_in = fan_in if fan_in is not None else shape[0]
         std = self.scale / math.sqrt(max(fan_in, 1))
         return torch.randn(tuple(shape), generator=generator, dtype=dtype,
-                           device=generator.device) * std
+                           device=device) * std
 
 
 default_init = Initializer()

@@ -28,7 +28,7 @@ from repro_torch.models.layers import (conv1d_depthwise_apply,
                                        conv1d_depthwise_init, dense_apply,
                                        dense_init, rmsnorm_apply,
                                        rmsnorm_init, silu)
-from repro_torch.models.module import rematerialized
+from repro_torch.models.module import draw_device, rematerialized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,9 +136,9 @@ def ssd_step(hstate, x, dt, a_log, b, c, d_skip):
 
 def mamba2_init(gen, cfg: SSMConfig, dtype=torch.float32):
     """Input projections SPLIT (w_z, w_xbc, w_dt) as in the reference.
-    Drawn on the generator's device; ``a_log``, ``dt_bias`` and
+    Drawn on ``draw_device(gen)``; ``a_log``, ``dt_bias`` and
     ``d_skip`` are fp32 whatever ``dtype`` is."""
-    di, h, dev = cfg.d_inner, cfg.n_heads, gen.device
+    di, h, dev = cfg.d_inner, cfg.n_heads, draw_device(gen)
     f32 = torch.float32
     return {
         "w_z": dense_init(gen, cfg.d_model, di, dtype=dtype),

@@ -57,7 +57,8 @@ from repro_torch.models.layers import (dense_apply, dense_init, embed_init,
                                        grouped_dense_init, layernorm_apply,
                                        layernorm_init, rmsnorm_apply,
                                        rmsnorm_init, silu)
-from repro_torch.models.module import rematerialized, stack_init
+from repro_torch.models.module import (draw_device, drawing_on,
+                                       rematerialized, stack_init)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the families whose decoupled blocks the port builds (with_fed2 sets
@@ -144,6 +145,10 @@ class ModelConfig:
         g = max(self.fed2_groups, 1)
         unit = 128 * g // math.gcd(128, g)
         return -(-self.vocab // unit) * unit
+
+    @property
+    def is_subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid") or self.window is not None
 
 
 def check_ported(cfg: ModelConfig):
@@ -272,14 +277,14 @@ def block_init(gen, cfg: ModelConfig, *, grouped: bool = False,
     routed experts for 'moe' and 'mla_moe', else dense at the config's
     ``d_ff``, ``grouped`` block-diagonal in a decoupled block)."""
     kind = kind or _default_kind(cfg)
-    p = {"ln1": _norm_init(cfg, device=gen.device)}
+    p = {"ln1": _norm_init(cfg, device=draw_device(gen))}
     if kind == "ssm":
         p["mixer"] = ssm_lib.mamba2_init(gen, cfg.ssm, cfg.dtype)
         return p
     p["attn"] = (attn.mla_init(gen, cfg.mla_cfg, cfg.dtype)
                  if kind.startswith("mla_")
                  else attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype))
-    p["ln2"] = _norm_init(cfg, device=gen.device)
+    p["ln2"] = _norm_init(cfg, device=draw_device(gen))
     if kind in _MOE_KINDS:
         p["ffn"] = moe_lib.moe_init(gen, cfg.moe, cfg.dtype)
     else:
@@ -424,9 +429,12 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig):
+def init_params(gen: torch.Generator, cfg: ModelConfig, device=None):
     """Random parameters from ``gen``, drawn on its device in the
-    config's dtype (a full-width model is drawn on the card). Dense,
+    config's dtype (a full-width model is drawn on the card), or on
+    ``device`` when given: ``"meta"`` gives the tree's shapes, dtypes
+    and leaf paths and allocates nothing (``launch/analytic.py``,
+    ``launch/dryrun.py``). Dense,
     vlm, moe and ssm: the shared blocks under ``blocks`` and the
     ``fed2_decouple`` decoupled ones under ``gblocks``, as the reference
     splits them, a MoE config's first ``moe_first_dense`` layers under
@@ -436,18 +444,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     (``dec_pos``), its shared and decoupled blocks. Tied embeddings have
     no ``unembed``."""
     check_ported(cfg)
+    with drawing_on(device):
+        return _draw_params(gen, cfg)
+
+
+def _draw_params(gen: torch.Generator, cfg: ModelConfig):
     params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   cfg.dtype)}
     if cfg.family == "encdec":
         ecfg = encdec_config(cfg)
         params["enc_blocks"] = stack_init(_encdec_enc_block_init, gen,
                                           cfg.enc_layers, cfg=ecfg)
-        params["enc_norm"] = _norm_init(ecfg, device=gen.device)
+        params["enc_norm"] = _norm_init(ecfg, device=draw_device(gen))
         params["enc_pos"] = _sinusoid_pos(cfg.enc_frames, cfg.d_model,
-                                          cfg.dtype, device=gen.device)
+                                          cfg.dtype, device=draw_device(gen))
         params["dec_pos"] = {"table": 0.02 * torch.randn(
             (cfg.dec_pos_size, cfg.d_model), generator=gen, dtype=cfg.dtype,
-            device=gen.device)}
+            device=draw_device(gen))}
         params["blocks"] = stack_init(_encdec_dec_block_init, gen,
                                       cfg.n_dense_blocks, cfg=ecfg)
         if cfg.fed2_decouple:
@@ -472,7 +485,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
                                            grouped=True)
     params["final_norm"] = _norm_init(
         encdec_config(cfg) if cfg.family == "encdec" else cfg,
-        device=gen.device)
+        device=draw_device(gen))
     if not cfg.tie_embeddings:
         params["unembed"] = unembed_init(gen, cfg)
     return params
@@ -506,9 +519,9 @@ def _sinusoid_pos(length: int, d: int, dtype, device=None):
 def _encdec_enc_block_init(gen, cfg: ModelConfig):
     """An encoder block: ln1, non-causal self-attention, ln2, a dense
     GELU FFN with biases."""
-    return {"ln1": _norm_init(cfg, device=gen.device),
+    return {"ln1": _norm_init(cfg, device=draw_device(gen)),
             "attn": attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype),
-            "ln2": _norm_init(cfg, device=gen.device),
+            "ln2": _norm_init(cfg, device=draw_device(gen)),
             "ffn": _gelu_ffn_init(gen, cfg)}
 
 
@@ -544,9 +557,9 @@ def _encdec_dec_block_init(gen, cfg: ModelConfig, grouped: bool = False):
     """A decoder block: ln1, causal self-attention, ln_x,
     cross-attention, ln2, a GELU FFN with biases (block-diagonal under
     ``grouped``)."""
-    return {"ln1": _norm_init(cfg, device=gen.device),
+    return {"ln1": _norm_init(cfg, device=draw_device(gen)),
             "attn": attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype),
-            "ln_x": _norm_init(cfg, device=gen.device),
+            "ln_x": _norm_init(cfg, device=draw_device(gen)),
             "xattn": attn.gqa_init(gen, cfg.attn_cfg, cfg.dtype),
-            "ln2": _norm_init(cfg, device=gen.device),
+            "ln2": _norm_init(cfg, device=draw_device(gen)),
             "ffn": _gelu_ffn_init(gen, cfg, grouped=grouped)}

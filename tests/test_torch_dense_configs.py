@@ -32,7 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.common import with_fed2 as jax_with_fed2
@@ -181,11 +180,10 @@ def test_configs_match_reference(arch, groups, reduced):
     assert str(tc.dtype).split(".")[-1] == jnp.dtype(jc.dtype).name
 
 
-def _fake_init(tc):
-    """The port's init of ``tc`` as fake tensors: shapes and dtypes of a
+def _meta_init(tc):
+    """The port's init of ``tc`` on ``meta``: shapes and dtypes of a
     full-width tree without its memory."""
-    with FakeTensorMode():
-        return tfm.init_params(torch.Generator(), tc)
+    return tfm.init_params(torch.Generator(), tc, device="meta")
 
 
 @pytest.mark.parametrize("groups", [0, 8])
@@ -193,14 +191,14 @@ def _fake_init(tc):
 def test_full_config_sizes(arch, groups):
     """The reference's parameter count of the full config (its
     ``jax.eval_shape``) equals the pinned constant the card's serve
-    phase checks, and the port's init of the full config (as fake
-    tensors) has it leaf for leaf; under Fed2 8 the 6 decoupled blocks
+    phase checks, and the port's init of the full config (on
+    ``meta``) has it leaf for leaf; under Fed2 8 the 6 decoupled blocks
     and the block-diagonal unembedding (G, d/G, V/G)."""
     jc, tc = _configs(arch, groups, reduced=False)
     want = jax.eval_shape(lambda k: jtfm.init_params(k, jc),
                           jax.random.PRNGKey(0))
     assert jax_param_count(want) == FULL_PARAMS[arch, groups]
-    got = _fake_init(tc)
+    got = _meta_init(tc)
     assert param_count(got) == FULL_PARAMS[arch, groups]
     for w, g in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
         assert tuple(w.shape) == tuple(g.shape)

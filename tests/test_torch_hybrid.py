@@ -43,7 +43,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.common import with_fed2 as jax_with_fed2
@@ -180,16 +179,15 @@ def test_config_matches_reference(groups, reduced):
 def test_full_config_sizes(groups):
     """The reference's parameter count of the full config (its
     ``jax.eval_shape``) equals the pinned constant the card's serve
-    phase checks, and the port's init of the full config (fake
-    tensors) has it leaf for leaf: 54 SSM blocks with 80 heads of 64
+    phase checks, and the port's init of the full config (on
+    ``meta``) has it leaf for leaf: 54 SSM blocks with 80 heads of 64
     and a state of 64, one shared block, and under Fed2 8 the (8, 320,
     4000) unembedding."""
     jc, tc = _configs(groups, reduced=False)
     want = jax.eval_shape(lambda k: jtfm.init_params(k, jc),
                           jax.random.PRNGKey(0))
     assert jax_param_count(want) == FULL_PARAMS[groups]
-    with FakeTensorMode():
-        got = tfm.init_params(torch.Generator(), tc)
+    got = tfm.init_params(torch.Generator(), tc, device="meta")
     assert param_count(got) == FULL_PARAMS[groups]
     for w, g in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
         assert tuple(w.shape) == tuple(g.shape)

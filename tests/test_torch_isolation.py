@@ -46,6 +46,23 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert bad == "[]", bad
 
 
+# the dry-run surfaces and the examples, each its own module of the
+# package (so the import probe above walks them)
+SURFACES = ("configs.shapes", "launch.analytic", "launch.mesh",
+            "launch.sharding", "launch.dryrun", "examples.quickstart",
+            "examples.fed2_cifar_fl", "examples.llm_federated_finetune",
+            "examples.serve_decode")
+
+
+def test_the_surfaces_are_modules_of_the_port():
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {f"repro_torch.{s}" for s in SURFACES} <= names
+
+
 def test_regex_tells_the_port_from_the_reference():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import x",
                  "from repro.fl import runtime", "import repro",
@@ -93,6 +110,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run_serve(get_config("mamba2-1.3b", reduced=True), gen=1,
                         prompt_len=1)
+    from repro_torch.examples import (fed2_cifar_fl, llm_federated_finetune,
+                                      quickstart, serve_decode)
+    for example in (quickstart, fed2_cifar_fl, llm_federated_finetune,
+                    serve_decode):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main([])
     assert runtime.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -33,7 +33,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.common import with_fed2 as jax_with_fed2
@@ -213,11 +212,10 @@ def test_check_ported_keeps_refusing_decoupled_moe_blocks():
         tfm.check_ported(with_fed2(cfg, groups=4))
 
 
-def _fake_init(tc):
-    """The port's init of ``tc`` as fake tensors: shapes and dtypes of a
+def _meta_init(tc):
+    """The port's init of ``tc`` on ``meta``: shapes and dtypes of a
     full-width tree without its memory."""
-    with FakeTensorMode():
-        return tfm.init_params(torch.Generator(), tc)
+    return tfm.init_params(torch.Generator(), tc, device="meta")
 
 
 @pytest.mark.parametrize("groups", [0, 8])
@@ -225,14 +223,14 @@ def _fake_init(tc):
 def test_full_config_sizes(arch, groups):
     """The reference's parameter count of the full config (its
     ``jax.eval_shape``) equals the pinned constant (chip_smoke.py's
-    SERVE_PARAMS), and the port's init of the full config (as fake
-    tensors) has it leaf for leaf: the stacked experts (L, E, d, f),
+    SERVE_PARAMS), and the port's init of the full config (on
+    ``meta``) has it leaf for leaf: the stacked experts (L, E, d, f),
     DeepSeek's dense first layer under ``pre_blocks``."""
     jc, tc = _configs(arch, groups, reduced=False)
     want = jax.eval_shape(lambda k: jtfm.init_params(k, jc),
                           jax.random.PRNGKey(0))
     assert jax_param_count(want) == FULL_PARAMS[arch, groups]
-    got = _fake_init(tc)
+    got = _meta_init(tc)
     assert param_count(got) == FULL_PARAMS[arch, groups]
     assert tree_paths(got) == tree_paths(
         jax.tree_util.tree_map(lambda s: 0, want))
@@ -249,7 +247,7 @@ def test_full_config_sizes(arch, groups):
 def test_depth_cut_sizes(key):
     """The depth (and expert) cuts the card drives: the reference's
     parameter count of each equals the pinned constant, and so does the
-    port's (fake) init."""
+    port's (meta) init."""
     arch, groups, layers, experts = key
     jc, tc = _configs(arch, groups, reduced=False, n_layers=layers)
     if experts:
@@ -258,7 +256,7 @@ def test_depth_cut_sizes(key):
     want = jax.eval_shape(lambda k: jtfm.init_params(k, jc),
                           jax.random.PRNGKey(0))
     assert jax_param_count(want) == CUT_PARAMS[key]
-    assert param_count(_fake_init(tc)) == CUT_PARAMS[key]
+    assert param_count(_meta_init(tc)) == CUT_PARAMS[key]
 
 
 @pytest.mark.parametrize("groups", [0, 4])

@@ -34,7 +34,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.common import with_fed2 as jax_with_fed2
@@ -184,16 +183,15 @@ def test_configs_match_reference(reduced, groups):
 def test_full_config_sizes(groups):
     """The reference's parameter count of the full config (its
     ``jax.eval_shape``) equals the pinned constant the card's serve
-    phase checks, and the port's init of the full config (as fake
-    tensors) has it leaf for leaf; under Fed2 8 the 6 decoupled blocks'
+    phase checks, and the port's init of the full config (on
+    ``meta``) has it leaf for leaf; under Fed2 8 the 6 decoupled blocks'
     SwiGLU FFNs (8, 256, 1024) and (8, 1024, 256) and the unembedding
     (8, 256, 11584)."""
     jc, tc = _configs(groups, reduced=False)
     want = jax.eval_shape(lambda k: jtfm.init_params(k, jc),
                           jax.random.PRNGKey(0))
     assert jax_param_count(want) == FULL_PARAMS[groups]
-    with FakeTensorMode():
-        got = tfm.init_params(torch.Generator(), tc)
+    got = tfm.init_params(torch.Generator(), tc, device="meta")
     assert param_count(got) == FULL_PARAMS[groups]
     assert tree_paths(got) == tree_paths(
         jax.tree_util.tree_map(lambda s: 0, want))
