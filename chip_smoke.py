@@ -28,7 +28,9 @@ script exits non-zero:
             with biases and InternVL's unembedding (8, 256, 11584) at M
             = 4 and 128 (bf16) and 4 (fp32), InternVL's eval chunks,
             and its refusal under autograd; ssd_update
-            also at zamba2's (4 | 128, 80, 64, 64));
+            also at zamba2's (4 | 128, 80, 64, 64), on both of its
+            routes (tma, scalar), each shape launched twice more for
+            bit-equal repeats, with the timed shapes' plans);
             feature_stats also as feature_stats_many on segment
             tables (auto-depth's, ragged and misaligned ones, one over a
             launch's capacity, vgg16's 100 x 15), and Eq. 9's reduction
@@ -252,9 +254,10 @@ script exits non-zero:
             fed2, with and without --use-local-kernel, counted) on
             zamba2 cut to 6 layers and danube cut to 8 (its 6 decoupled
             blocks kept)
-39. hybrid profile  one zamba2 Fed2 decode step at batch 4 and one
-            zamba2 --mode lm step at PROFILE_LM_LAYERS of 54 layers
-            (full width) under torch.profiler
+39. hybrid profile  one zamba2 Fed2 decode step at batch 4, one at
+            batch 128 (with ssd_update's device time) and one zamba2
+            --mode lm step at PROFILE_LM_LAYERS of 54 layers (full
+            width) under torch.profiler
 40. moe serve  mixtral-8x22b and deepseek-v2-236b: the full configs'
             parameter counts ± Fed2 8 (initialized on meta)
             equal to the reference's; then each cut to
@@ -1261,19 +1264,38 @@ def ssd_inputs(b, h, p, n, dt_x, gen, state=None):
     return state, x, dt, a_log, bm, cm, d
 
 
+# ssd_update's timed shapes: Mamba-2 1.3B and Zamba2-2.7B's layers at
+# batch 4 and 128
+SSD_TIMED = ((4, 64, 64, 128), (128, 64, 64, 128), (4, 80, 64, 64),
+             (128, 80, 64, 64))
+
+
 def phase_check_ssd_update() -> dict:
     """ssd_update against ssd_update_ref at the serve path's shapes
     (batch 4 and decode_32k's 128, H = P = 64, N = 128; x in bf16 as at
     full width, and fp32) and on ragged shapes; in place (out = h) as
-    the decode calls it, and into a fresh buffer.
+    the decode calls it, and into a fresh buffer. Each line names the
+    route the launch took (both must run); two launches on the same
+    inputs must give the same bits of h' and y. The four timed shapes'
+    plans are printed.
 
     Limits: h' within 1e-5 (fp32; both compute decay*h + dt*x*b with
     one rounding more or less); y within 1e-5 of sum_n |h'_n c_n| +
     |d x| per output (fp32 sums of N terms in another order), plus one
     bf16 step of |y| when y is bf16."""
+    from repro_torch.kernels import ssd_update as su
     from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
     gen = torch.Generator(device="cuda").manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
+    routes_seen = set()
+
+    def launched_route(fn):
+        before = dict(ssd_update.route_launches)
+        out = fn()
+        took = [r for r in su.ROUTES
+                if ssd_update.route_launches[r] != before[r]]
+        assert len(took) == 1, took
+        return out, took[0]
 
     def check_one(name, b, h, p, n, dt_x, in_place=True, misalign=False):
         args = ssd_inputs(b, h, p, n, dt_x, gen)
@@ -1286,34 +1308,48 @@ def phase_check_ssd_update() -> dict:
         scale = torch.einsum("bhpn,bn->bhp", want_h.abs(),
                              args[5].float().abs()) + \
             (args[6][None, :, None] * args[1].float()).abs()
+        # the same bits on every run: two launches into fresh buffers
+        (h1, y1), r1 = launched_route(lambda: ssd_update(*args))
+        (h2, y2), r2 = launched_route(lambda: ssd_update(*args))
+        same = r1 == r2 and torch.equal(h1, h2) and torch.equal(y1, y2)
+        del h1, h2
         # in place on a copy (the unaligned state is its own copy)
         state = args[0].clone() if in_place and not misalign else args[0]
-        got_h, got_y = ssd_update(state, *args[1:],
-                                  out=state if in_place else None)
+        (got_h, got_y), took = launched_route(
+            lambda: ssd_update(state, *args[1:],
+                               out=state if in_place else None))
         assert (got_h is state) == in_place
+        routes_seen.add(took)
         eh = (got_h - want_h).abs().max().item()
         dy = (got_y.float() - want_y.float()).abs()
         lim = 1e-5 * scale
         if dt_x == bf16:
             lim = lim + 2.0 ** -7 * want_y.float().abs()
         ey = dy.max().item()
-        ok = eh <= 1e-5 and bool((dy <= lim).all())
+        ok = eh <= 1e-5 and bool((dy <= lim).all()) and same and \
+            torch.equal(got_y, y1)
         print(f"  ssd_update {name} ({b}, {h}, {p}, {n}) x "
-              f"{str(dt_x)[6:]}{' in place' if in_place else ''}: "
-              f"max_abs_err h' {eh:.3g} (tol 1e-5), y {ey:.3g} (tol "
-              f"{'1e-5 x sum|h c| + |d x|' + (' + 2^-7|y|' if dt_x == bf16 else '')}) "
+              f"{str(dt_x)[6:]}{' in place' if in_place else ''}, {took} "
+              f"route: max_abs_err h' {eh:.3g} (tol 1e-5), y {ey:.3g} (tol "
+              f"{'1e-5 x sum|h c| + |d x|' + (' + 2^-7|y|' if dt_x == bf16 else '')}); "
+              f"repeat bit-equal {same} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise AssertionError(f"ssd_update {name}: kernel disagrees with "
-                                 "its plain version")
+                                 "its plain version or with itself")
         return max(eh, ey)
 
     err_path = max(check_one("serve path", 4, 64, 64, 128, bf16),
                    check_one("serve path", 4, 64, 64, 128, f32))
     check_one("decode_32k batch", 128, 64, 64, 128, bf16)
     check_one("decode_32k batch", 128, 64, 64, 128, f32, in_place=False)
+    # ragged: N % 4 != 0 or N > 256 (scalar), and N = 36, 256, 8, 132
+    # with P off the unit's rows (tma: 9 chunks on 16 lanes, 2 chunks a
+    # lane, 2 lanes a row, 33 chunks on 32 lanes; P = 7 in bf16 is
+    # scalar: x's rows in 4-byte copies)
     for shape in ((3, 5, 7, 9), (2, 6, 33, 130), (2, 3, 40, 36),
-                  (1, 1, 1, 1), (2, 9, 100, 260)):
+                  (1, 1, 1, 1), (2, 9, 100, 260), (2, 4, 24, 256),
+                  (3, 5, 7, 8), (2, 3, 50, 132)):
         check_one("ragged", *shape, f32)
         check_one("ragged", *shape, bf16, in_place=False)
     check_one("unaligned state", 2, 4, 16, 128, f32, misalign=True)
@@ -1322,16 +1358,21 @@ def phase_check_ssd_update() -> dict:
     for b in (4, 128):
         check_one("zamba2", b, 80, 64, 64, bf16)
         check_one("zamba2", b, 80, 64, 64, f32)
+    assert routes_seen == set(su.ROUTES), routes_seen
 
     timings = {}
-    for b, h, p, n in ((4, 64, 64, 128), (128, 64, 64, 128),
-                       (4, 80, 64, 64), (128, 80, 64, 64)):
+    sms = su.sm_count(torch.cuda.current_device())
+    for b, h, p, n in SSD_TIMED:
         # the state read and written (fp32); x, b, c read and y written
         # (bf16); dt, a_log, d_skip read (fp32)
         nbytes = 8 * b * h * p * n + 2 * (2 * b * h * p + 2 * b * n) \
             + 4 * (b * h + 2 * h)
         sets = [ssd_inputs(b, h, p, n, bf16, gen)
                 for _ in range(copies_for(nbytes))]
+        a = sets[0]
+        plan = su.route(b, h, p, n, su.pointers(a[0], a[0], a[1], a[4], a[5]),
+                        (a[1].stride(0), a[4].stride(0), a[5].stride(0)), 2,
+                        sms)
         reps = max(200 if b == 4 else 40, len(sets))
         t = {"ms": time_ms([lambda a=a: ssd_update(*a, out=a[0])
                             for a in sets], reps),
@@ -1343,7 +1384,9 @@ def phase_check_ssd_update() -> dict:
         print(f"  ssd_update ({b}, {h}, {p}, {n}) x bf16: "
               f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
               f"library none, bound {t['bound_ms'] * 1e3:.2f} us "
-              f"({t['bound_by']})", flush=True)
+              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.0f} % of "
+              f"it); plan {plan.route}, {plan.unit_rows} rows a unit, "
+              f"{b * h * -(-p // plan.unit_rows)} blocks", flush=True)
         del sets
     return {"name": "ssd_update", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_update.cu",
@@ -1933,14 +1976,15 @@ def attention_us(prof, tile: tuple) -> float:
 
 
 def profiled(label: str, run, attention_tile: tuple | None = None,
-             top_ops: int = 0):
+             top_ops: int = 0, kernel: str | None = None):
     """``run()`` under torch.profiler: device time by kernel category,
     and the share of the run's wall time in which the card ran a kernel
     or a copy. With ``attention_tile`` (records shapes) the chunked
     attention's elementwise and softmax passes are split out of the
     non-GEMM time (``attention_us``). With ``top_ops`` (records shapes)
     the ``top_ops`` operators, by their input shapes, that took the most
-    device time are listed."""
+    device time are listed. With ``kernel``, the device time and count
+    of the kernels whose name holds it are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1976,6 +2020,11 @@ def profiled(label: str, run, attention_tile: tuple | None = None,
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
               f"{e.key[:90]}")
+    if kernel is not None:
+        mine = [e for e in dev if kernel in e.key]
+        print(f"  {kernel} kernels: "
+              f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} ms "
+              f"over {sum(e.count for e in mine)} launches")
     if not top_ops:
         return
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -4159,9 +4208,11 @@ def phase_other_lm_fl():
 
 def phase_other_profile():
     """zamba2-2.7b with Fed2 (groups 8), bf16, at full width under
-    torch.profiler: one decode step at full depth and batch 4 (after 8
-    warm-up steps), and one --mode lm step at PROFILE_LM_LAYERS layers
-    and batch 8 x 1024 (after a warm-up step)."""
+    torch.profiler: one decode step at full depth and batch 4, and one
+    at batch 128 (each over 128 slots, after 8 warm-up steps; with
+    ssd_update's device time), and one --mode lm step at
+    PROFILE_LM_LAYERS layers and batch 8 x 1024 (after a warm-up
+    step)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4180,7 +4231,16 @@ def phase_other_profile():
         for t in range(8):
             decode_step(params, cfg, cache, toks[:, t:t + 1], t)
         profiled("one zamba2-2.7b Fed2 decode step, batch 4",
-                 lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8))
+                 lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8),
+                 kernel="ssd_update")
+        del cache
+        cache = init_cache(cfg, 128, 128, device="cuda")
+        toks = torch.randint(0, cfg.vocab, (128, 9), device="cuda")
+        for t in range(8):
+            decode_step(params, cfg, cache, toks[:, t:t + 1], t)
+        profiled("one zamba2-2.7b Fed2 decode step, batch 128",
+                 lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8),
+                 kernel="ssd_update")
     del cache, params
     cfg = dataclasses.replace(cfg, n_layers=PROFILE_LM_LAYERS)
     params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -5065,7 +5125,8 @@ def surfaces_card_cell(smi) -> list:
     torch.cuda.synchronize()
     t_warm = time.time() - t0
     profiled(f"{arch} {name} serve step (batch {b}), warm",
-             lambda: serve(params, cache, tokens, int(pos)), top_ops=6)
+             lambda: serve(params, cache, tokens, int(pos)), top_ops=6,
+             kernel="ssd_update")
     plain = make_serve_step(cfg, use_kernel=False)
     with FlopCounterMode(display=False) as counter:
         plain(params, cache, tokens, int(pos))

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor loads and stores, wgmma and its shared-memory descriptors,
-// named barriers, and the host-side encoding of a TMA tensor map.
+// TMA tensor loads and stores, 1-D bulk loads, cp.async, wgmma and its
+// shared-memory descriptors, named barriers, and the host-side encoding
+// of a TMA tensor map.
 //
 // The tensor map is encoded by libcuda's cuTensorMapEncodeTiled, looked
 // up through the runtime (cudaGetDriverEntryPoint), so the libraries link
@@ -115,6 +116,34 @@ __device__ __forceinline__ void tma_store_commit() {
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// 1-D bulk copy (no tensor map) from global to shared memory, reporting
+// its bytes to `bar`: `bytes` a multiple of 16, both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A 4-byte copy from global to shared memory by this thread (cp.async),
+// and an arrival on `bar` once every earlier such copy of this thread has
+// landed (not counted in the barrier's pending count: its init count
+// includes the arriving threads).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // Orders this thread's generic shared-memory writes before later async
 // proxy (TMA) reads of them.
 __device__ __forceinline__ void fence_proxy_async() {

@@ -11,12 +11,16 @@ order); bf16 y within 1e-2 relative (one bf16 step), h' fp32 as above.
 ``grouped_matmul``: atol 1e-4·√K and rtol 1e-4 fp32, 0.3·√K and 0.3
 bf16, the reference's (tests/test_kernels.py).
 """
+import itertools
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch.kernels import build
 from repro_torch.kernels import grouped_matmul as gm
 from repro_torch.kernels import local_step as ls
 from repro_torch.kernels import paired_fusion as pf
@@ -251,6 +255,126 @@ def test_ssd_update_rejects_bad_inputs():
                       .transpose(1, 2), *t[2:])
     with pytest.raises(ValueError):                   # out of another shape
         su.ssd_update(*t, out=torch.zeros(2, 3, 4, 9))
+
+
+def _check_plan(plan, b, h, p, n, esize, sms=132):
+    """A plan the kernel takes (csrc/ssd_update.cu's checks), whose
+    dynamic shared memory fits a block (227 KB; 48 KB takes no opt-in)
+    and the blocks an SM runs at once. On the TMA route a unit is whole
+    passes of the block's rows, or all of P (or MAX_UNIT_ROWS, less than
+    a pass at N = 4)."""
+    if plan.route == "scalar":
+        assert n <= su.SCALAR_MAX_N and plan.unit_rows == p
+        smem = 2 * n * 4                          # b and c as fp32
+    else:
+        assert n % 4 == 0 and 4 <= n <= su.TMA_MAX_N
+        pass_rows = su.THREADS // su.lanes_per_row(n)
+        assert 1 <= plan.unit_rows <= min(p, su.MAX_PASSES * pass_rows,
+                                          su.MAX_UNIT_ROWS)
+        assert plan.unit_rows % pass_rows == 0 or \
+            plan.unit_rows in (p, su.MAX_UNIT_ROWS)
+        assert plan.unit_rows * esize % 4 == 0   # x's rows in 4-byte copies
+        assert plan.unit_rows * n * 4 <= su.UNIT_BYTES
+        # the unit's state, then its side data: at most 3 words a thread
+        assert 3 + (plan.unit_rows + 2 * n) * esize // 4 <= 3 * su.THREADS
+        smem = plan.unit_rows * n * 4 + 3 * su.THREADS * 4
+    assert smem <= 48 * 1024 <= 227 * 1024
+    # the SM's 228 KB hold the blocks it runs at once (the TMA route's
+    # MIN_BLOCKS, which its __launch_bounds__ asks for), 1 KB reserved
+    # for each
+    per_sm = 1 if plan.route == "scalar" else su.MIN_BLOCKS
+    assert per_sm * (smem + 1024) <= 233472
+
+
+def _decode_row(b, h, p, n, esize, base=1 << 20, offs=(0,) * 5, pad=0):
+    """route()'s pointers and strides for x, b and c as the decode cuts
+    them from one (B, H*P + 2N + pad) row, the state and h' apart."""
+    width = h * p + 2 * n + pad
+    ptrs = (base, base + 8 * b * h * p * n, 1 << 32,
+            (1 << 32) + h * p * esize, (1 << 32) + (h * p + n) * esize)
+    return tuple(q + o for q, o in zip(ptrs, offs)), (width,) * 3
+
+
+# the full-width layers (Mamba-2 1.3B, Zamba2-2.7B at batch 4 and 128,
+# bf16 x), then the shapes and addresses that take the scalar route,
+# then ragged ones the TMA route takes (N = 36: 9 chunks on 16 lanes;
+# N = 256: 2 chunks a lane; N = 8 and 4: 2 and 1 lanes a row)
+@pytest.mark.parametrize("b,h,p,n,esize,offs,pad,want", [
+    (4, 64, 64, 128, 2, (0,) * 5, 0, "tma"),
+    (128, 64, 64, 128, 2, (0,) * 5, 0, "tma"),
+    (4, 80, 64, 64, 2, (0,) * 5, 0, "tma"),
+    (128, 80, 64, 64, 2, (0,) * 5, 0, "tma"),
+    (4, 80, 64, 64, 4, (0,) * 5, 0, "tma"),            # fp32 x
+    (4, 64, 64, 128, 2, (4, 4, 0, 0, 0), 0, "scalar"),  # state off 16 B
+    (4, 80, 64, 64, 2, (0, 4, 0, 0, 0), 0, "scalar"),   # h' off 16 bytes
+    (4, 80, 64, 64, 2, (0, 0, 2, 2, 2), 0, "scalar"),   # x, b, c off 4 B
+    (4, 80, 64, 64, 2, (0,) * 5, 1, "scalar"),          # odd bf16 stride
+    (4, 80, 64, 64, 4, (0,) * 5, 1, "tma"),             # fp32: any stride
+    (3, 5, 7, 9, 4, (0,) * 5, 0, "scalar"),             # N % 4 != 0
+    (2, 6, 33, 130, 4, (0,) * 5, 0, "scalar"),
+    (1, 1, 1, 1, 4, (0,) * 5, 0, "scalar"),
+    (2, 9, 100, 260, 4, (0,) * 5, 0, "scalar"),         # N > 256
+    (2, 4, 8, 6144, 4, (0,) * 5, 0, "scalar"),          # the widest N
+    (3, 5, 7, 8, 2, (0,) * 5, 0, "scalar"),             # odd bf16 P
+    (2, 3, 40, 36, 2, (0,) * 5, 0, "tma"),
+    (2, 4, 24, 256, 4, (0,) * 5, 0, "tma"),
+    (3, 5, 7, 8, 4, (0,) * 5, 0, "tma"),
+    (1, 1, 1, 4, 4, (0,) * 5, 0, "tma"),
+])
+def test_ssd_update_route(b, h, p, n, esize, offs, pad, want):
+    """The wrapper's pure route function: every shape the models decode
+    takes the TMA route when the state and h' are 16-byte aligned and x,
+    b and c come in 4-byte copies; N % 4 != 0, N > 256 or an address or
+    stride the copies do not take goes to the scalar one."""
+    ptrs, strides = _decode_row(b, h, p, n, esize, offs=offs, pad=pad)
+    plan = su.route(b, h, p, n, ptrs, strides, esize)
+    assert plan.route == want
+    _check_plan(plan, b, h, p, n, esize)
+
+
+@pytest.mark.parametrize("b,h,p,n", [(4, 64, 64, 128), (128, 64, 64, 128),
+                                     (4, 80, 64, 64), (128, 80, 64, 64)])
+def test_ssd_update_full_width_plans_keep_every_lane_busy(b, h, p, n):
+    """At the models' widths a unit is whole passes of the block's rows
+    (16 rows a pass at N = 64, 8 at N = 128) and P is whole units, so no
+    lane idles. A unit has 16 KB of state; at batch 4 Zamba2's units are
+    halved to 8 KB, which still fit one wave of the card (132 SMs times
+    MIN_BLOCKS), so every byte of the state is in flight at once."""
+    plan = su.route(b, h, p, n, *_decode_row(b, h, p, n, 2), 2, sms=132)
+    pass_rows = su.THREADS // su.lanes_per_row(n)
+    assert pass_rows == {64: 16, 128: 8}[n]
+    assert plan.unit_rows % pass_rows == 0 and p % plan.unit_rows == 0
+    assert plan.unit_rows * n * 4 == (8192 if (b, n) == (4, 64) else 16384)
+    units = b * h * (p // plan.unit_rows)
+    assert (units <= 132 * su.MIN_BLOCKS) == (b == 4)
+
+
+@pytest.mark.parametrize("name,kernel_name", [
+    ("THREADS", "kThreads"), ("MIN_BLOCKS", "kMinBlocks"),
+    ("MAX_PASSES", "kMaxPasses"), ("MAX_UNIT_ROWS", "kMaxUnitRows"),
+    ("TMA_MAX_N", "kTmaMaxN"), ("SCALAR_MAX_N", "kMaxN")])
+def test_ssd_update_limits_are_the_kernels(name, kernel_name):
+    """The limits ``route`` sizes its plans by are the ones the kernel
+    checks: each constant equals its ``constexpr`` in the CUDA source."""
+    src = (build.CSRC / "ssd_update.cu").read_text()
+    found = re.findall(rf"constexpr int {kernel_name} = (\d+);", src)
+    assert found == [str(getattr(su, name))]
+
+
+# the widths 132, 140 and 148 give an odd 16 KB unit (31, 29, 27 rows)
+@pytest.mark.parametrize("n", [1, 3, 4, 8, 36, 64, 128, 130, 132, 140, 148,
+                               256, 260, 1000, 6144])
+@pytest.mark.parametrize("b,h,p", [(1, 1, 1), (2, 3, 40), (4, 64, 64),
+                                   (128, 80, 64), (1, 2, 1000), (2, 3, 50)])
+def test_ssd_update_plans_fit_the_card(b, h, p, n):
+    """Every route's plan, at any width the kernel takes, for fp32 and
+    bf16 x and on cards of other SM counts, is one the kernel accepts and
+    fits the shared memory of a block (227 KB) and of an SM."""
+    for sms, esize in itertools.product((1, 114, 132), (2, 4)):
+        for offs in ((0,) * 5, (4,) * 5):
+            ptrs, strides = _decode_row(b, h, p, n, esize, offs=offs)
+            _check_plan(su.route(b, h, p, n, ptrs, strides, esize, sms),
+                        b, h, p, n, esize, sms)
 
 
 # ---------------------------------------------------------------------------
