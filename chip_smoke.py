@@ -328,6 +328,23 @@ script exits non-zero:
             argument_bytes, one step launches ssd_update 48 times with
             finite logits, and a plain-route step's FlopCounterMode
             count on the card equals the meta pass's; one line per part
+50. fl_dryrun  the federated dry-run (launch/fl_dryrun.py): every case
+            of the reference's matrix on both meshes built without the
+            meta pass (60 ok, 2 skipped), each record's argument and
+            output bytes equal to the committed record's
+            (benchmarks/artifacts_perf/dryrun_fl_*.json); then the 16x16
+            fed2 case (full VGG9, 10 groups, 16 clients, 4 local steps
+            of batch 32) on the card's (1, 1) mesh: its record built on
+            meta, the same arguments allocated on the card (27,023,720
+            B = the record's argument_bytes), one run_round with both
+            kernels (local_step 4; paired_fusion 192 under its presence
+            rows, one a shared leaf and a (pre, group) block, and 1
+            with shared weights; the outputs' bytes equal to
+            output_bytes), within a one-ulp change of the init
+            of the plain routes (TF32 off, deterministic convs), and the
+            plain round's FlopCounterMode count equal to the meta
+            pass's; one fed2 async event at K = 8 (read arguments
+            14,792,032 B, paired_fusion 1)
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -5157,6 +5174,222 @@ def phase_surfaces():
           f"{SURFACES_BUDGET_S} s)", flush=True)
 
 
+# the federated dry-run: both meshes' records against the committed
+# ones, and the 16x16 fed2 case's round on the card's (1, 1) mesh:
+# vgg9.full(fed2_groups=10, decouple=6, norm="gn"), 16 clients, 4 local
+# steps of batch 32, both kernels; its allocated arguments (the
+# reference's global count at mesh=None) and the K = 8 async event's
+# read arguments (8 rows and w; the event never reads the global)
+FL_DRYRUN_BUDGET_S = 60
+FL_DRYRUN_OUT = ROOT / "chiprun_out" / "fl_dryrun"
+FL_DRYRUN_COMMITTED = ROOT / "benchmarks" / "artifacts_perf"
+FL_CARD_CASE = dict(clients=16, local_steps=4, batch=32)
+FL_CARD_ARGUMENT_BYTES = 27_023_720
+FL_CARD_EVENT_K = 8
+FL_CARD_EVENT_BYTES = 14_792_032
+
+
+def fl_dryrun_accounting(smi) -> list:
+    """The byte accounting of every case of the reference's matrix on
+    both meshes (16x16 at its defaults, 1x1 at make smoke's knobs), no
+    meta pass: 60 ok and 2 skipped, each ok record's argument and output
+    bytes equal to the committed record's."""
+    from repro_torch.launch import fl_dryrun
+    t0 = time.time()
+    recs = (fl_dryrun.run_matrix(mesh_kind="pod", verbose=False, meta=False,
+                                 outdir=str(FL_DRYRUN_OUT / "pod"))
+            + fl_dryrun.run_matrix(mesh_kind="host", clients=4,
+                                   local_steps=2, batch=8, seq=32,
+                                   verbose=False, meta=False,
+                                   outdir=str(FL_DRYRUN_OUT / "host")))
+    statuses = [r["status"] for r in recs]
+    assert statuses.count("ok") == 60 and statuses.count("skipped") == 2, \
+        [(r["kind"], r["method"], r.get("error")) for r in recs
+         if r["status"] == "error"]
+    held = 0
+    for out in (FL_DRYRUN_OUT / "pod", FL_DRYRUN_OUT / "host"):
+        for f in sorted(out.glob("dryrun_fl_*.json")):
+            rec = json.loads(f.read_text())
+            ref = json.loads((FL_DRYRUN_COMMITTED / f.name).read_text())
+            assert rec["status"] == ref["status"], f.name
+            if rec["status"] != "ok":
+                continue
+            for k in ("argument_bytes", "output_bytes"):
+                assert rec["memory"][k] == ref["memory"][k], \
+                    (f.name, k, rec["memory"][k], ref["memory"][k])
+            held += 1
+    assert held == 60, held
+    return [f"fl dry-run bytes: {len(recs)} records (16x16 and 1x1), 60 ok "
+            f"and 2 skipped, built in {time.time() - t0:.1f} s; argument "
+            f"and output bytes of all 60 equal to the committed records' "
+            f"({smi})"]
+
+
+def presence_fusion_launches(engine) -> int:
+    """paired_fusion launches of one presence-weighted fuse
+    (core/fusion._kernel_fuse with group weights): one per shared leaf
+    and one per (pre index, group) block of each grouped leaf."""
+    layout = engine.layout
+    return sum(1 if ga is None else math.prod(slot.shape[:ga.axis])
+               * ga.n_groups for slot, ga
+               in zip(layout.slots, layout.leaves(engine.ctx.group_axes)))
+
+
+def fl_dryrun_card(smi) -> list:
+    """The 16x16 fed2 case (FL_CARD_CASE) on the card's (1, 1) mesh: the
+    record built on meta (meta pass included); the same arguments
+    allocated on the card, their bytes equal to its argument_bytes; one
+    run_round with both kernels (local_step 4; paired_fusion once per
+    shared leaf and per (pre, group) block, the presence rows gw being
+    an argument: ``presence_fusion_launches``), its outputs' bytes equal
+    to output_bytes, and once more with shared weights (gw None, the
+    CLI's main path: paired_fusion 1); the plain routes from the same
+    inputs (TF32 off, deterministic convs), the kernel round within what
+    a one-ulp change of the init does to the plain one; the plain round
+    under FlopCounterMode, its count equal to the meta pass's; then one
+    fed2 async event at K = 8 over the trained rows: its read arguments'
+    bytes equal to the record's, paired_fusion 1, within 1e-5 of the
+    plain fuse."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.fl.async_engine import (lower_async_event,
+                                             make_async_engine)
+    from repro_torch.fl.engine import lower_round, make_round_engine
+    from repro_torch.fl.runtime import FLConfig
+    from repro_torch.launch import fl_dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import tree_bytes
+    from repro_torch.models.module import tree_map
+    mesh = make_host_mesh()
+    c, steps, b = (FL_CARD_CASE[k] for k in ("clients", "local_steps",
+                                             "batch"))
+    task, _ = fl_dryrun._cnn_case("fed2", "pod")
+    t0 = time.time()
+    step = lower_round(task, FLConfig(population=c, method="fed2"), mesh,
+                       fl_dryrun._batch_elems("cnn", b, 0),
+                       local_steps=steps, use_kernel=True)
+    flops, t_pass = fl_dryrun.meta_pass(step)
+    mem = fl_dryrun.memory(step, mesh)
+    t_meta = time.time() - t0
+    assert mem["argument_bytes"] == FL_CARD_ARGUMENT_BYTES, mem
+
+    init = task.init_fn(torch.Generator().manual_seed(0))
+    cuda = lambda t: t.to("cuda")                       # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, _, mbatch, mw, mgw, _, _ = step.args
+    batches = {"images": torch.randn(mbatch["images"].shape, generator=gen,
+                                     device="cuda"),
+               "labels": torch.randint(0, 10, mbatch["labels"].shape,
+                                       generator=gen, device="cuda",
+                                       dtype=mbatch["labels"].dtype)}
+    w = torch.rand(mw.shape, generator=gen, device="cuda") + 0.5
+    gw = torch.rand(mgw.shape, generator=gen, device="cuda") + 0.5
+    state = {"server": (), "clients": ()}
+
+    def engine(kernels, start=init):
+        eng = make_round_engine(task, step.cfg, start, device="cuda",
+                                use_kernel=kernels,
+                                use_local_kernel=kernels)
+        return eng, eng.layout.flatten(tree_map(cuda, start))
+
+    eng_k, gp = engine(True)
+    args = (state, gp, batches, w, gw)
+    held = sum(tree_bytes(a) for a, r in zip(args, step.reads) if r)
+    assert held == mem["argument_bytes"], \
+        f"allocated {held} B != the record's {mem['argument_bytes']} B"
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (new_state, out), counts = counted(
+        "fl dry-run 16x16 fed2 case, run_round on (1, 1)",
+        lambda: eng_k.run_round(*args),
+        {"paired_fusion": presence_fusion_launches(eng_k),
+         "local_step": steps})
+    torch.cuda.synchronize()
+    t_round = time.time() - t0
+    _, shared = counted(
+        "the same round with shared weights (gw None)",
+        lambda: eng_k.run_round(*args[:4]),
+        {"paired_fusion": 1, "local_step": steps})
+    out_bytes = tree_bytes((new_state, out)) + mem["output_table_bytes"]
+    assert out_bytes == mem["output_bytes"], (out_bytes, mem)
+    assert bool(torch.isfinite(out).all()), "non-finite global params"
+    ulp = tree_map(lambda t: torch.nextafter(t, torch.full_like(
+        t, math.inf)), init)
+    with tf32_off(), deterministic_convs():
+        kernel = eng_k.run_round(*args)[1].clone()
+        plain = {}
+        for label, start in (("plain", init), ("plain again", init),
+                             ("plain, init + 1 ulp", ulp)):
+            eng_p, gp_p = engine(False, start)
+            plain[label] = eng_p.run_round(state, gp_p, batches, w,
+                                           gw)[1].clone()
+    d_kernel = (kernel - plain["plain"]).abs().max().item()
+    d_again = (plain["plain again"] - plain["plain"]).abs().max().item()
+    d_ulp = (plain["plain, init + 1 ulp"] - plain["plain"]).abs().max().item()
+    assert d_kernel <= d_ulp, (
+        f"kernel round drifts from plain ({d_kernel}) beyond a one-ulp "
+        f"change of the init ({d_ulp})")
+    eng_p, gp_p = engine(False)
+    with FlopCounterMode(display=False) as counter:
+        eng_p.run_round(state, gp_p, batches, w, gw)
+    assert counter.get_total_flops() == flops, \
+        (counter.get_total_flops(), flops)
+
+    cfg = FLConfig(population=c, method="fed2", mode="async",
+                   buffer_k=FL_CARD_EVENT_K)
+    ev = lower_async_event(task, cfg, mesh, use_kernel=True)
+    ev_mem = fl_dryrun.memory(ev, mesh)
+    assert ev_mem["argument_bytes"] == FL_CARD_EVENT_BYTES, ev_mem
+    fused = {}
+    for kernels in (True, False):
+        eng_a = make_async_engine(task, cfg, init, device="cuda",
+                                  use_kernel=kernels)
+        rows = eng_a.buffer
+        rows.copy_(eng_k.cohort[:FL_CARD_EVENT_K])
+        w_ev = w[:FL_CARD_EVENT_K].clone()
+        ev_args = (eng_a.init_server_state(gp), gp, rows, w_ev)
+        if kernels:
+            ev_held = sum(tree_bytes(a) for a, r in zip(ev_args, ev.reads)
+                          if r)
+            assert ev_held == ev_mem["argument_bytes"], (ev_held, ev_mem)
+            (_, fused[kernels]), ev_counts = counted(
+                f"fl dry-run fed2 async event, K = {FL_CARD_EVENT_K}",
+                lambda: eng_a.event_fn(*ev_args), {"paired_fusion": 1})
+        else:
+            fused[kernels] = eng_a.event_fn(*ev_args)[1]
+    d_event = (fused[True] - fused[False]).abs().max().item()
+    assert d_event <= FUSION_PARITY_TOL, d_event
+    del eng_k, eng_p, eng_a, batches, kernel, plain
+    free_device_memory()
+    return [f"fl dry-run 16x16 fed2 case on (1, 1): record built and meta "
+            f"pass in {t_meta:.1f} s (pass {t_pass:.1f} s); allocated "
+            f"{held:,} B = the record's argument_bytes; run_round "
+            f"{t_round * 1e3:.1f} ms wall (first), paired_fusion "
+            f"{counts['paired_fusion']} (presence-weighted: one a shared "
+            f"leaf and a (pre, group) block; {shared['paired_fusion']} "
+            f"with shared weights), local_step {counts['local_step']}; "
+            f"outputs {out_bytes:,} B = output_bytes ({smi})",
+            f"kernel round vs plain max |d| {d_kernel:.3g} (plain again "
+            f"{d_again:.3g}, plain at init + 1 ulp {d_ulp:.3g}); plain-route "
+            f"FLOPs on the card {flops:.6g} = the meta pass's ({smi})",
+            f"fl dry-run fed2 async event K = {FL_CARD_EVENT_K} on (1, 1): "
+            f"read arguments {ev_held:,} B = the record's (the global "
+            f"params unread), paired_fusion {ev_counts['paired_fusion']}, "
+            f"kernel vs plain fuse max |d| {d_event:.3g} ({smi})"]
+
+
+def phase_fl_dryrun():
+    """The federated dry-run's byte accounting on both meshes and the
+    16x16 fed2 case on the card; one line per part."""
+    smi = nvidia_smi()
+    t0 = time.time()
+    lines = fl_dryrun_accounting(smi) + fl_dryrun_card(smi)
+    for line in lines:
+        print(f"  {line}", flush=True)
+    print(f"  fl_dryrun phase {time.time() - t0:.1f} s (budget "
+          f"{FL_DRYRUN_BUDGET_S} s)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -5312,6 +5545,9 @@ def main() -> int:
     free_device_memory()
     with phase("surfaces"):
         phase_surfaces()
+    free_device_memory()
+    with phase("fl_dryrun"):
+        phase_fl_dryrun()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

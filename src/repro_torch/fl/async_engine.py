@@ -267,6 +267,44 @@ def make_async_engine(task, cfg, params_like, *, device,
                            (k,), device=device, dtype=engine.cohort.dtype))
 
 
+def lower_async_event(task, cfg, mesh, *, use_kernel=None):
+    """One fusion event on ``meta``, the async mode's own program (its
+    local tiles are the sync engine's): the JAX package's
+    ``lower_async_event``. Its arguments: the server state, the flat
+    global params, the (K, M) event rows and the weights w (K,). The rows
+    lie on mesh axis "data" only when K divides it (the reference's
+    ``_shardable``), the rest replicated. Which arguments the event
+    reads comes from running it once on meta under
+    ``engine.traced_reads`` (it costs a fuse): fed2's and fedavg's
+    events never read the global params. Returns a LoweredStep."""
+    from repro_torch.fl.engine import (LoweredStep, client_sharded,
+                                       param_shapes, reference_leaves,
+                                       replicated, resolve_use_kernel,
+                                       traced_reads)
+
+    engine = make_async_engine(task, cfg, param_shapes(task),
+                               device="meta", use_kernel=False,
+                               use_local_kernel=False)
+    k, layout = engine.buffer_k, engine.layout
+    gp = layout.alloc(device="meta", dtype=engine.buffer.dtype)
+    server = engine.init_server_state(gp)
+    w = torch.empty((k,), dtype=torch.float32, device="meta")
+    rows = engine.buffer
+    shard = mesh is not None and k % mesh.shape["data"] == 0
+    args = (server, gp, rows, w)
+    _, reads = traced_reads(engine.event_fn, args)
+    outs = (server, gp)
+    return LoweredStep(
+        call=engine.event_fn, args=args,
+        specs=(replicated(server), replicated(gp),
+               client_sharded(rows) if shard else replicated(rows),
+               replicated(w)),
+        reads=reads, outs=outs, out_specs=(replicated(server), (None,)),
+        out_leaves=reference_leaves(outs, layout),
+        use_kernel=resolve_use_kernel(use_kernel, mesh), engine=engine,
+        cfg=cfg)
+
+
 # ---------------------------------------------------------------------------
 # The driver
 # ---------------------------------------------------------------------------

@@ -545,3 +545,45 @@ def run_tiered_round(tiered: TieredEngine, pop, method, server_state,
         g_masses.append(gw.sum(axis=0) if use_gw else None)
     fused = tiered.combine(global_params, means, w_masses, g_masses)
     return tiered.full.finish_round(server_state, global_params, fused)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run lowering of one tier tile (launch/fl_dryrun.py)
+# ---------------------------------------------------------------------------
+
+
+def lower_tier_tile(task, cfg, mesh, batch_elems: dict, *, width: float,
+                    local_steps: int, use_kernel=None):
+    """One tier's tile (local phase + within-tier fuse) on ``meta``: the
+    JAX package's ``lower_tier_tile``, the per-tier analog of
+    ``engine.lower_round``. Its arguments: the (empty) client and
+    server states, the tier's flat global params, the batches and the
+    weights w (C,), all read. Returns (LoweredStep, TierModel)."""
+    from repro_torch.fl.engine import (LoweredStep, client_sharded,
+                                       make_round_engine, meta_batches,
+                                       param_shapes, reference_leaves,
+                                       replicated, resolve_use_kernel)
+
+    cfg = dataclasses.replace(cfg, tiers=None, local_epochs=1,
+                              steps_per_epoch=local_steps)
+    model = task.tier_fn(width)
+    n = cfg.cohort_size
+    engine = make_round_engine(model.task, cfg, param_shapes(model.task),
+                               device="meta", use_kernel=False,
+                               use_local_kernel=False)
+    gp = engine.layout.alloc(device="meta", dtype=engine.cohort.dtype)
+    batches = meta_batches(batch_elems, n, local_steps)
+    w = torch.empty((n,), dtype=torch.float32, device="meta")
+
+    def call(clients, server, gp, batches, w):
+        return engine.run_tile(clients, server, gp, batches, weights=w)
+
+    outs = ((), gp)
+    return LoweredStep(
+        call=call, args=((), (), gp, batches, w),
+        specs=((), (), replicated(gp), client_sharded(batches),
+               replicated(w)),
+        reads=(True,) * 5, outs=outs, out_specs=((), (None,)),
+        out_leaves=reference_leaves(outs, engine.layout),
+        use_kernel=resolve_use_kernel(use_kernel, mesh), engine=engine,
+        cfg=cfg), model

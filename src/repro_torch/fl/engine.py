@@ -56,6 +56,12 @@ engine per tier through ``run_tile``; the buffered-async driver
 Client state comes in as host (numpy) rows or as device tensors and
 goes out on the device; the runtime decides where it lives between
 rounds (fl/runtime.py).
+
+``lower_round`` builds the round's device program (``device_round``:
+``run_round`` up to ``host_fuse``) and its arguments on ``meta``, each
+beside the JAX package's placement, for the dry-run
+(launch/fl_dryrun.py); ``traced_reads`` follows data through one run
+of such a program to find the arguments it reads.
 """
 from __future__ import annotations
 
@@ -72,7 +78,8 @@ from repro_torch.fl import compat as compat_lib
 from repro_torch.fl import methods as methods_lib
 from repro_torch.fl import robust as robust_lib
 from repro_torch.fl.methods import FedMethod, MethodContext
-from repro_torch.models.module import FlatLayout, tree_leaves, tree_map
+from repro_torch.models.module import (FlatLayout, drawing_on, tree_leaves,
+                                       tree_map)
 
 
 def resolve_compute_dtype(compute_dtype, method: FedMethod):
@@ -88,6 +95,17 @@ def resolve_compute_dtype(compute_dtype, method: FedMethod):
             "or 'bfloat16'")
     compat_lib.check_bf16_support(method)
     return torch.bfloat16
+
+
+def resolve_use_kernel(use_kernel: bool | None, mesh) -> bool:
+    """The fusion route a round takes: the caller's choice (None = the
+    port's default, the ``paired_fusion`` kernel), forced off on a mesh
+    of more than one device, where the JAX package fuses by the tree
+    reduction that lowers to one all-reduce (its rule; its own default
+    is off on the CPU). ``mesh`` is a ``launch.mesh.Mesh`` or None (one
+    device)."""
+    use = True if use_kernel is None else bool(use_kernel)
+    return use and (mesh is None or mesh.size == 1)
 
 
 def resolve_local_unroll(cfg, local_steps: int) -> int:
@@ -128,9 +146,12 @@ class RoundEngine:
     shadow: torch.Tensor | None = None  # bf16 (C, M) local-phase buffer
 
     def _w32(self, w):
-        return (None if w is None else
-                torch.as_tensor(np.asarray(w), dtype=torch.float32,
-                                device=self.device))
+        if w is None:
+            return None
+        if isinstance(w, torch.Tensor):
+            return w.to(device=self.device, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(w), dtype=torch.float32,
+                               device=self.device)
 
     def _to_device(self, tree):
         return tree_map(lambda a: torch.as_tensor(a, device=self.device),
@@ -200,14 +221,23 @@ class RoundEngine:
                   group_weights=None, malicious=None) -> tuple:
         """One whole round. For host-fusion methods the round ends in
         ``host_fuse`` with the participants' raw ``weights``."""
+        state, out = self.device_round(state, global_params, batches,
+                                       weights, group_weights, malicious)
+        if self.method.host_fusion:
+            out = self.host_fuse(out, weights)
+        return state, out
+
+    def device_round(self, state, global_params, batches, weights=None,
+                     group_weights=None, malicious=None) -> tuple:
+        """The round's device program: ``run_round`` up to ``host_fuse``
+        (a host-fusion method's ends at the stacked (C, M) params, as the
+        JAX package's jitted ``round_fn`` does)."""
         old_clients, new_clients, fused, ctx = self._local_and_fuse(
             state["clients"], state["server"], global_params, batches,
             weights, group_weights, malicious)
         new_server, out = self.method.server_update(
             state["server"], old_clients, new_clients, global_params,
             fused, ctx)
-        if self.method.host_fusion:
-            out = self.host_fuse(out, weights)
         return {"server": new_server, "clients": new_clients}, out
 
     def run_tile(self, client_states, server_state, global_params,
@@ -289,7 +319,7 @@ def make_round_engine(task, cfg, params_like, *, device,
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:
         ga = task.group_axes_fn(params_like)
-    use_kernel = use_kernel is None or bool(use_kernel)
+    use_kernel = resolve_use_kernel(use_kernel, None)
     attack = None
     if getattr(cfg, "attack", None):
         atk = attacks_lib.parse_attack(cfg.attack).build()
@@ -329,3 +359,222 @@ def make_round_engine(task, cfg, params_like, *, device,
         codec=codec, compute_dtype=cdtype,
         shadow=(None if cdtype is None
                 else layout.alloc((c,), device=device, dtype=cdtype)))
+
+
+# ---------------------------------------------------------------------------
+# Dry-run lowering: a device program and its arguments on meta
+# ---------------------------------------------------------------------------
+
+
+def replicated(tree):
+    """Placement specs of ``tree``: every dimension replicated."""
+    return tree_map(lambda t: (None,) * t.dim(), tree)
+
+
+def client_sharded(tree):
+    """Placement specs of ``tree``: the leading (client) axis on mesh
+    axis "data", everything else replicated (the JAX package's
+    ``_client_sharding``)."""
+    return tree_map(lambda t: ("data",) + (None,) * (t.dim() - 1), tree)
+
+
+def param_shapes(task):
+    """The task's parameter tree on ``meta``: shapes and dtypes, nothing
+    drawn (the JAX package's ``jax.eval_shape(task.init_fn, key)``)."""
+    with drawing_on("meta"):
+        tree = task.init_fn(torch.Generator())
+    return tree_map(lambda t: t.to("meta"), tree)
+
+
+def stacked_param_bytes(task, n_clients: int) -> int:
+    """Bytes of ``n_clients`` stacked copies of the task's parameters:
+    what a host-side fusion (fedma) gathers off the device every
+    round."""
+    return n_clients * sum(t.numel() * t.element_size()
+                           for t in tree_leaves(param_shapes(task)))
+
+
+@dataclasses.dataclass
+class LoweredStep:
+    """One device program of the engine and its arguments on ``meta``,
+    each argument beside its placement: what the JAX package hands
+    ``jax.jit(...).lower`` (its ``lower_round``, ``lower_tier_tile`` and
+    ``lower_async_event``). Nothing is allocated.
+
+    ``call(*args)`` runs the program (on meta, the plain routes: no
+    kernel accepts a meta tensor). ``specs`` place each argument on a
+    mesh (a spec per tensor, as ``launch/sharding.py`` writes them; None
+    for an argument the program does not take). ``reads[i]`` says
+    whether the program reads argument i: jit drops an argument its
+    program never reads, and XLA counts none of its bytes. ``outs`` and
+    ``out_specs`` are the outputs' shapes and placement, ``out_leaves``
+    the number of leaves of the JAX package's output tree (a flat (M,)
+    or (C, M) tensor stands for one leaf per layout slot). ``use_kernel``
+    is the fusion route the program takes on the card
+    (``resolve_use_kernel``, off under a reducing robust rule); ``engine``
+    and ``cfg`` are the meta engine and the config it was built from."""
+    call: Any
+    args: tuple
+    specs: tuple
+    reads: tuple
+    outs: tuple
+    out_specs: tuple
+    out_leaves: int
+    use_kernel: bool
+    engine: Any
+    cfg: Any
+
+
+def reference_leaves(tree, layout: FlatLayout) -> int:
+    """Leaves of the JAX package's tree that ``tree`` stands for: one
+    per layout slot for each flat parameter-shaped tensor (last
+    dimension M), one for any other tensor."""
+    return sum(len(layout.slots) if t.shape[-1:] == (layout.size,) else 1
+               for t in tree_leaves(tree))
+
+
+def meta_batches(batch_elems: dict, n: int, steps: int) -> dict:
+    """(n, steps, *shape) meta tensors of ``batch_elems``' {name: (shape,
+    dtype)} per-sample specs."""
+    return {name: torch.empty((n, steps) + tuple(shape), dtype=dtype,
+                              device="meta")
+            for name, (shape, dtype) in batch_elems.items()}
+
+
+def lower_round(task, cfg, mesh, batch_elems: dict, *, local_steps: int,
+                use_kernel: bool | None = None) -> LoweredStep:
+    """One whole round on ``meta``: the JAX package's ``lower_round``.
+
+    batch_elems: per-sample batch element specs without the leading
+    (cohort, steps) axes, e.g. ``{"images": ((B, 32, 32, 3),
+    torch.float32), "labels": ((B,), torch.int32)}``. cfg's step counts
+    are overridden (``local_epochs=1, steps_per_epoch=local_steps``) so
+    that the methods' step-dependent numerics (scaffold's K*lr,
+    fednova's tau) see the steps the round runs.
+
+    The arguments, in the reference's order: the state ({"server",
+    "clients"}), the flat global params (M,), the batches (C, steps,
+    ...), the weights w (C,), the presence rows gw (C, G) for
+    ``uses_groups`` methods (else None), and, when ``cfg.attack``
+    poisons the model, the malicious row (C,) of the first cohort's
+    attackers and the round key (host values the round reads on the
+    host; else None). The round reads every argument but w in a
+    host-fusion round (its device program ends at the stacked params)
+    and the key of an attack that draws no noise. ``mesh`` (a
+    ``launch.mesh.Mesh`` or None) sets only the recorded route."""
+    from repro_torch.fl import attacks as attacks_lib
+    cfg = dataclasses.replace(cfg, local_epochs=1,
+                              steps_per_epoch=local_steps)
+    n = cfg.cohort_size
+    engine = make_round_engine(task, cfg, param_shapes(task), device="meta",
+                               use_kernel=False, use_local_kernel=False)
+    meth, layout = engine.method, engine.layout
+    gp = layout.alloc(device="meta", dtype=engine.cohort.dtype)
+    one = meth.init_client_state(gp, engine.ctx)
+    state = {"server": meth.init_server_state(gp, engine.ctx),
+             "clients": tree_map(lambda t: t.new_empty((n,) + t.shape),
+                                 one)}
+    batches = meta_batches(batch_elems, n, local_steps)
+    w = torch.empty((n,), dtype=torch.float32, device="meta")
+    gw = row = key = None
+    if meth.uses_groups:
+        g = next(ga.n_groups for ga in layout.leaves(engine.ctx.group_axes)
+                 if ga is not None)
+        gw = torch.empty((n, g), dtype=torch.float32, device="meta")
+    if engine.attack is not None:
+        row = torch.as_tensor(attacks_lib.assign_attackers(
+            cfg.attack_fraction, n, seed=cfg.seed).astype(np.float32))
+        key = torch.tensor(attacks_lib.round_key(cfg.seed, 0),
+                           dtype=torch.int32)
+
+    def call(state, gp, batches, w, gw, row, key):
+        mal = None if row is None else (row, key)
+        return engine.device_round(state, gp, batches, w, gw, mal)
+
+    state_specs = {"server": replicated(state["server"]),
+                   "clients": client_sharded(state["clients"])}
+    args = (state, gp, batches, w, gw, row, key)
+    specs = (state_specs, replicated(gp), client_sharded(batches),
+             replicated(w), None if gw is None else replicated(gw),
+             None if row is None else replicated(row),
+             None if key is None else replicated(key))
+    reads = (True, True, True, not meth.host_fusion, True, True,
+             engine.attack is not None and engine.attack.needs_rng)
+    if meth.host_fusion:
+        out, out_spec = engine.cohort, ("data", None)
+    else:
+        out, out_spec = gp, (None,)
+    outs = (state, out)
+    return LoweredStep(
+        call=call, args=args, specs=specs, reads=reads, outs=outs,
+        out_specs=(state_specs, out_spec),
+        out_leaves=reference_leaves(outs, layout),
+        use_kernel=(resolve_use_kernel(use_kernel, mesh)
+                    and engine.robust is None),
+        engine=engine, cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# Which arguments a program reads: a data-flow trace
+# ---------------------------------------------------------------------------
+
+# ops whose outputs take only their inputs' shape, dtype and device
+_SHAPE_ONLY = frozenset({"empty_like", "zeros_like", "ones_like",
+                         "full_like", "new_empty", "new_zeros", "new_ones",
+                         "new_full", "empty_strided"})
+
+
+def traced_reads(call, args) -> tuple:
+    """``call(*args)`` once under a dispatch mode that follows data
+    through every operator (views and in-place writes included, by
+    storage): (outputs, reads), ``reads[i]`` True when an output
+    depends on a tensor of ``args[i]``. Host reads (``.numpy()``, a
+    Python branch on a value) are not operators and are not seen."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    def key(t):
+        return t.untyped_storage()._cdata
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.src = {}           # storage -> argument indices
+
+        def __torch_dispatch__(self, func, types, args_=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args_, **kwargs)
+            src = set()
+            if func.overloadpacket.__name__ not in _SHAPE_ONLY:
+                for t in tree_flatten((args_, kwargs))[0]:
+                    if isinstance(t, torch.Tensor):
+                        src |= self.src.get(key(t), set())
+            schema = func._schema
+            written = []
+            for i, a in enumerate(schema.arguments):
+                if a.alias_info is not None and a.alias_info.is_write:
+                    v = args_[i] if i < len(args_) else kwargs.get(a.name)
+                    written += [t for t in tree_flatten(v)[0]
+                                if isinstance(t, torch.Tensor)]
+            aliased = any(r.alias_info is not None for r in schema.returns)
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    k = key(t)
+                    self.src[k] = (self.src.get(k, set()) | src if aliased
+                                   else set(src))
+            for t in written:
+                self.src[key(t)] = self.src.get(key(t), set()) | src
+            return out
+
+    trace = Trace()
+    for i, a in enumerate(args):
+        for t in tree_leaves(a):
+            if isinstance(t, torch.Tensor):
+                trace.src.setdefault(key(t), set()).add(i)
+    with trace:
+        out = call(*args)
+    seen = set()
+    for t in tree_leaves(out):
+        if isinstance(t, torch.Tensor):
+            seen |= trace.src.get(key(t), set())
+    return out, tuple(i in seen for i in range(len(args)))

@@ -27,7 +27,9 @@ Dir(alpha) label split in place of N x C. The sync round's feature axes
 take the JAX CLI's flags: ``--attack``/``--attack-fraction``,
 ``--robust``, ``--codec``, ``--compute-dtype``, ``--local-unroll``,
 ``--alignment`` and ``--fed-mode sync|one_shot``;
-``--list-capabilities`` prints the method x feature table. Capacity
+``--list-capabilities`` prints the method x feature table, and
+``--dry-run`` records one round built on meta (launch/fl_dryrun.py's
+reduced VGG9 on the 1x1 host mesh; no card needed). Capacity
 tiers take ``--tiers`` (fl/capacity.py) and buffered-async federation
 ``--fed-mode async`` with ``--buffer-k``, ``--staleness`` and
 ``--latency`` (fl/async_engine.py). ``--store mmap`` keeps the
@@ -204,6 +206,16 @@ def run_fl(args):
         from repro_torch.fl import compat as compat_lib
         print(compat_lib.capability_table())
         return None
+    if args.dry_run and not args.scenario:
+        # build (don't run) one engine round on the 1x1 host mesh, on
+        # meta: fl_dryrun's reduced VGG9 case whatever --arch says; see
+        # repro_torch.launch.fl_dryrun for the production-mesh matrix
+        from repro_torch.launch.fl_dryrun import run_matrix
+        return run_matrix(mesh_kind="host", methods=(args.method,),
+                          families=("cnn",), clients=args.nodes,
+                          local_steps=args.local_epochs
+                          * args.steps_per_epoch,
+                          batch=args.batch)
     device = resolve_device(args.device)
     if args.scenario:
         # a registered scenario IS the full run config (fl/scenarios.py)
@@ -352,6 +364,11 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default="",
                     help="lm mode: save the final params here "
                          "(checkpoint/io.py's format)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="fl mode: build one engine round (reduced vgg9, "
+                         "the chosen --method) on meta for the 1x1 host "
+                         "mesh and record it (launch/fl_dryrun.py) "
+                         "instead of training; needs no card")
     args = ap.parse_args(argv)
     check_mode_flags(ap, args)
     return args
@@ -362,6 +379,8 @@ def check_mode_flags(ap, args) -> None:
     messages), and the arch each mode takes."""
     if args.list_capabilities:
         return
+    if args.dry_run and args.mode != "fl":
+        ap.error("--dry-run is only supported with --mode fl")
     if args.scenario and args.mode != "fl":
         ap.error("--scenario is only supported with --mode fl")
     if args.tiers and args.mode != "fl":
