@@ -3299,19 +3299,37 @@ class LmKernelTaps:
     (eps = 2^-23; each route rounds every operation once, the kernel's
     perhaps fused): for local_step |dv'| <= 2 eps (|mu v| + |g|) and
     |dp'| <= 2 eps (|p| + 2 lr (|mu v| + |g|)); for an N-row fusion
-    |d| <= N eps sum_n w_n |x_n|. The run calls the kernels as it would
-    untapped (the plain versions work on copies), so no round-off
-    carries from one call into the next comparison. ``fault`` plants a
-    defect in the kernel route, to show that the bound catches it.
+    |d| <= N eps sum_n w_n |x_n|, plus one ulp of the result when it is
+    written in a narrower dtype than fp32 (bf16: 2^-7 |result|; the two
+    fp32 sums may round to neighbouring values). local_step is held over
+    the layout's raveled buffer (one buffer of the whole tree: the cohort
+    itself for a tree of one dtype, the fp32 copy of a tree that mixes
+    dtypes), each paired_fusion call over the segment it fuses (one call
+    per dtype segment). Each leaf is compared in pieces of at most
+    ``CHUNK`` columns, so the check's temporaries stay small beside a
+    full-width round. The run calls the kernels as it would untapped
+    (the plain versions work on copies), so no round-off carries from
+    one call into the next comparison. ``fault`` plants a defect in the
+    kernel route, to show that the bound catches it.
     ``worst[(kernel, leaf)]``: the largest |kernel - plain| / bound."""
 
     FAULTS = ("local_step without momentum",
               "paired_fusion with weight 0 0.1 % high")
+    CHUNK = 1 << 24
 
     def __init__(self, layout, paths, fault=None):
-        self.slots = [(path, s.offset, s.offset + s.size)
-                      for path, s in zip(paths, layout.slots)]
-        self.m, self.fault, self.worst = layout.size, fault, {}
+        name = {s.path: p for s, p in zip(layout.slots, paths)}
+
+        def pieces(slots):
+            return [(name[s.path], lo, min(lo + self.CHUNK,
+                                           s.offset + s.size))
+                    for s in slots
+                    for lo in range(s.offset, s.offset + s.size,
+                                    self.CHUNK)]
+        self.raveled = pieces(layout.raveled.slots)
+        self.segments = {(seg.size, seg.dtype): pieces(seg.slots)
+                         for seg in layout.segments}
+        self.fault, self.worst = fault, {}
         self.calls = {"local_step": 0, "paired_fusion": 0}
 
     def __enter__(self):
@@ -3338,7 +3356,7 @@ class LmKernelTaps:
         local_step(p, v, g, lr=lr,
                    mu=0.0 if self.fault == self.FAULTS[0] else mu)
         eps = torch.finfo(torch.float32).eps
-        for path, lo, hi in self.slots:
+        for path, lo, hi in self.raveled:
             c = slice(lo, hi)
             wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
             mag = mu * v0[:, c].abs() + g[:, c].abs()
@@ -3347,24 +3365,36 @@ class LmKernelTaps:
             self._note("local_step", path, (p[:, c] - wp).abs(),
                        2 * eps * (p0[:, c].abs() + 2 * lr * mag))
             del wp, wv, mag
+        del p0, v0
+        # the clones' blocks back to the card: at a full-width round they
+        # are gigabytes, and left cached they strand the next step's
+        # gradient buffers in fragments
+        torch.cuda.empty_cache()
         self.calls["local_step"] += 1
         return p, v
 
     def paired_fusion(self, x, w, out=None):
         from repro_torch.kernels.paired_fusion import (paired_fusion,
                                                        paired_fusion_ref)
-        assert x.shape[1] == self.m, "the LM round fuses in one call"
+        pieces = self.segments.get((x.shape[1], x.dtype))
+        assert pieces is not None, \
+            "the LM round fuses each dtype segment in one call"
         wk = w
         if self.fault == self.FAULTS[1]:
             wk = w.clone()
             wk[0] *= 1.001
         res = paired_fusion(x, wk, out=out)
         eps = torch.finfo(torch.float32).eps
-        for path, lo, hi in self.slots:
+        for path, lo, hi in pieces:
             c = slice(lo, hi)
-            self._note("paired_fusion", path,
-                       (res[c] - paired_fusion_ref(x[:, c], w)).abs(),
-                       x.shape[0] * eps * (x[:, c].abs() * w[:, None]).sum(0))
+            ref = paired_fusion_ref(x[:, c], w).float()
+            tol = x.shape[0] * eps * (x[:, c].float().abs()
+                                      * w[:, None]).sum(0)
+            if res.dtype != torch.float32:
+                tol += torch.finfo(res.dtype).eps * ref.abs()
+            self._note("paired_fusion", path, (res[c].float() - ref).abs(),
+                       tol)
+            del ref, tol
         self.calls["paired_fusion"] += 1
         return res
 
@@ -3527,6 +3557,431 @@ def phase_lm_fl_parity(cfg, task, parts, get_batch, test, init, losses,
           f"{upd[j]:.3g}", flush=True)
     del base, moved, unit
     free_device_memory()
+
+
+# The mixed-dtype LM federation: the full bf16 Mamba-2 1.3B under
+# with_fed2(groups=4), whose a_log, dt_bias and d_skip stay fp32, under
+# LM_FL (4 clients, 2 rounds of 4 steps of batch 8 at seq 64), one cohort
+# buffer per dtype. Without remat under torch.func a client's
+# activations stay alive through its backward: on an H100 80GB one
+# vmapped call over the 4 clients ran out of memory in the 48-layer
+# backward (69-77 GiB allocated), so the gradients are taken one client
+# at a time (run_federated's grad_chunk: 64.6 GB at 48 layers, the four
+# bf16 rows, their velocity and gradients 11 GB each). The
+# local_step route ravels the tree into one fp32 (C, M) buffer as the
+# reference's ravel_pytree does: that buffer, its velocity and its
+# gradients are 12.0 GB each at 24 layers (21.9 GB at 48, over the card
+# with the bf16 cohort), so it runs at 24 of 48. Zamba2 at
+# HYBRID_FL_LAYERS, its fp32 cell's depth, in bf16: one fed2 round.
+LM_MIXED_LAYERS = 48
+LM_MIXED_KERNEL_LAYERS = 24
+LM_MIXED_PARAMS = {48: (1_369_536_512, 9_216), 24: (749_158_400, 4_608)}
+LM_MIXED_CHUNK = 1
+LM_MIXED_BUDGET_S = 120
+
+
+def mamba_mixed_config(layers):
+    """The full-width Mamba-2 in its own bf16 (fp32 a_log, dt_bias and
+    d_skip) under with_fed2(groups=4), cut to ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import mamba2_1_3b
+    from repro_torch.configs.common import with_fed2
+    return with_fed2(dataclasses.replace(mamba2_1_3b.full(),
+                                         n_layers=layers), groups=4)
+
+
+def mixed_header(cfg, init, depth) -> dict:
+    """Prints the tree's parameters by dtype; returns {dtype: count}."""
+    from repro_torch.models.module import tree_leaves
+    counts = {}
+    for t in tree_leaves(init):
+        counts[t.dtype] = counts.get(t.dtype, 0) + t.numel()
+    row = sum(n * d.itemsize for d, n in counts.items())
+    print(f"  {cfg.arch_id}, {cfg.n_layers} of {depth} layers, Fed2 over "
+          f"{cfg.fed2_groups} groups: " + ", ".join(
+              f"{n:,} {str(d)[6:]}" for d, n in counts.items())
+          + f" parameters, a row {row / 1e9:.2f} GB", flush=True)
+    return counts
+
+
+def mixed_leaf_checks(label, h, init, loss_of=None, l0=None):
+    """Every final leaf finite, on the card and in its init's dtype;
+    every fp32 leaf moved, and the fp32 a_log off the bf16 grid (a bf16
+    buffer would put it there). A bf16 leaf keeps its init where every
+    element's update stays under half its ulp (a norm scale of 1 moves
+    only by 2^-8 or more), as in the reference: those are printed, with
+    their largest |value|. Prints s/round and the held-out loss."""
+    from repro_torch.models.module import tree_leaves_with_path
+    finite_params(h)
+    leaves = tree_leaves_with_path(h["final_params"])
+    starts = [t for _, t in tree_leaves_with_path(init)]
+    assert [t.dtype for _, t in leaves] == [t.dtype for t in starts], \
+        f"{label}: a leaf changed its dtype"
+    moved = {p: (a.float() - b.float()).abs().max().item()
+             for (p, a), b in zip(leaves, starts)}
+    still = [(p, t.float().abs().max().item()) for p, t in leaves
+             if moved[p] == 0]
+    least = min((m, p) for (p, t), m in zip(leaves, moved.values())
+                if t.dtype == torch.float32)
+    a_log = h["final_params"]["blocks"]["mixer"]["a_log"]
+    off = (a_log - a_log.bfloat16().float()).abs().max().item()
+    w = h["wall"]
+    per = [w[0]] + [b - a for a, b in zip(w, w[1:])]
+    loss = "" if loss_of is None else (
+        f"; held-out loss {l0:.5f} -> {loss_of(h['final_params']):.5f}")
+    n_moved = len(leaves) - len(still)
+    print(f"  -> s/round {[round(x, 3) for x in per]}; {n_moved} of "
+          f"{len(leaves)} leaves moved (the least-moved fp32 leaf "
+          f"{least[0]:.3g}, {least[1]}); a_log {a_log.dtype}, {off:.3g} "
+          f"off the bf16 grid{loss}", flush=True)
+    if still:
+        print("     unmoved bf16 leaves (max |value|): " + ", ".join(
+            f"{p} {v:.3g}" for p, v in still), flush=True)
+    assert all(t.dtype == torch.bfloat16 for p, t in leaves
+               if moved[p] == 0), f"{label}: an fp32 leaf did not move"
+    assert n_moved > 0, f"{label}: no leaf moved"
+    assert a_log.dtype == torch.float32 and off > 1e-3, \
+        f"{label}: a_log went through bf16"
+
+
+@contextlib.contextmanager
+def local_step_buffers():
+    """Records (shape, dtypes of p, v and g) of every local_step call."""
+    from repro_torch.fl import methods
+    seen, real = [], methods.local_step
+
+    def tap(p, v, g, *, lr, mu):
+        seen.append((tuple(p.shape), (p.dtype, v.dtype, g.dtype)))
+        return real(p, v, g, lr=lr, mu=mu)
+    methods.local_step = tap
+    try:
+        yield seen
+    finally:
+        methods.local_step = real
+
+
+def plus_ulp_any(tree):
+    """Every element moved one ulp away from zero (bf16 through its bit
+    pattern, fp32 by nextafter toward +inf as ``phase_lm_fl_parity``)."""
+    from repro_torch.models.module import tree_map
+
+    def one(t):
+        if t.dtype == torch.bfloat16:
+            return (t.view(torch.int16) + 1).view(torch.bfloat16)
+        return torch.nextafter(t, torch.full_like(t, math.inf))
+    return tree_map(one, tree)
+
+
+def mixed_cohort_kernels(layout48, layout24):
+    """The kernels at this path's new shapes, each against its plain
+    version, with device times beside the bound and the library call:
+    paired_fusion on the full-depth cohort's two segments (bf16 (4,
+    1,369,536,512), 1e-2 as the check phase's bf16; fp32 (4, 9,216),
+    1e-5), local_step on the 24-layer raveled fp32 buffer (4,
+    749,163,008; 1e-6), grouped_matmul's wgmma route at the bf16 eval's
+    unembedding, M = 64 x 64 (0.3). The gigabyte calls are timed by CUDA
+    events around eager calls, the small ones by graph replay."""
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_ref)
+    from repro_torch.kernels.local_step import local_step, local_step_ref
+    from repro_torch.kernels.paired_fusion import (paired_fusion,
+                                                   paired_fusion_ref)
+    from repro_torch.models.module import flat_parts
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, lr, mu = LM_FL["population"], 0.01, 0.9
+
+    def record(name, t):
+        print(f"  {name}: {t['ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, library "
+              f"{t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})",
+              flush=True)
+
+    for seg, x in zip(layout48.segments,
+                      flat_parts(layout48.alloc((n,), device="cuda"))):
+        x.normal_(generator=gen)
+        m, esz = seg.size, seg.dtype.itemsize
+        w = torch.rand(n, generator=gen, device="cuda") + 0.1
+        w = w / w.sum()
+        name = f"paired_fusion {str(seg.dtype)[6:]} ({n}, {m:,})"
+        got = paired_fusion(x, w)
+        if seg.dtype == torch.float32:
+            check(name, got, paired_fusion_ref(x, w), 1e-5)
+        else:
+            fusion_within(name, x, w, got)
+        del got
+        if m * n * esz > L2_BYTES:
+            t = {"ms": event_ms(lambda: paired_fusion(x, w), 5),
+                 "plain_ms": event_ms(lambda: paired_fusion_ref(x, w), 3),
+                 "library_ms": event_ms(
+                     lambda: torch.mv(x.t(), w.to(x.dtype)), 5)}
+        else:
+            xs = [x] + [x.clone().normal_(generator=gen)
+                        for _ in range(copies_for(n * m * esz) - 1)]
+            reps = max(200, len(xs))
+            t = {"ms": time_ms([lambda a=a: paired_fusion(a, w)
+                                for a in xs], reps),
+                 "plain_ms": time_ms([lambda a=a: paired_fusion_ref(a, w)
+                                      for a in xs], reps),
+                 "library_ms": time_ms([lambda a=a: torch.mv(a.t(), w)
+                                        for a in xs], reps)}
+            del xs
+        t["bound_ms"], t["bound_by"] = bound(n * m * esz + m * esz + n * 4,
+                                             2 * n * m)
+        record(name, t)
+        del x
+    free_device_memory()
+
+    m = layout24.size
+    p, v, g = (flat_parts(layout24.raveled.alloc((n,), device="cuda"))[0]
+               .normal_(0.0, sc, generator=gen) for sc in (1.0, 0.1, 1.0))
+    assert p.is_contiguous(), "M is a multiple of 64: no row padding"
+    name = f"local_step fp32 ({n}, {m:,})"
+    p0, v0 = p.clone(), v.clone()
+    local_step(p, v, g, lr=lr, mu=mu)
+    err, chunk = 0.0, 1 << 26
+    for lo in range(0, m, chunk):
+        c = slice(lo, lo + chunk)
+        wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
+        err = max(err, (p[:, c] - wp).abs().max().item(),
+                  (v[:, c] - wv).abs().max().item())
+    print(f"  {name}: max_abs_err {err:.3g} (tol 1e-06) "
+          f"{'ok' if err <= 1e-6 else 'FAIL'}", flush=True)
+    assert err <= 1e-6, f"{name}: kernel disagrees with its plain version"
+    del p0, v0, wp, wv
+    free_device_memory()
+    t = {"ms": event_ms(lambda: local_step(p, v, g, lr=lr, mu=mu), 5),
+         "plain_ms": event_ms(lambda: local_step_ref(p, v, g, lr, mu), 3),
+         "library_ms": event_ms(lambda: torch._fused_sgd_(
+             [p], [g], [v], weight_decay=0.0, momentum=mu, lr=lr,
+             dampening=0.0, nesterov=False, maximize=False,
+             is_first_step=False), 5)}
+    t["bound_ms"], t["bound_by"] = bound(5 * n * m * 4, 4 * n * m)
+    record(name, t)
+    del p, v, g
+    free_device_memory()
+
+    bf16 = torch.bfloat16
+    mm, gg, k = 64 * 64, 4, 2048 // 4
+    nn = next(s.shape[2] for s in layout48.slots if s.path == ("unembed", "w"))
+    assert gm.route(mm, gg, k, nn, bf16, 0, 0) == "wgmma"
+    x, wt, _ = gmm_inputs((64, 64), gg, k, nn, bf16, gen)
+    before = dict(grouped_matmul.route_launches)
+    got = grouped_matmul(x, wt)
+    assert grouped_matmul.route_launches["wgmma"] == before["wgmma"] + 1
+    name = f"grouped_matmul wgmma bf16 ({gg}, {k}, {nn}) M = {mm}"
+    check(name, got, grouped_matmul_ref(x, wt), 0.3)
+    del x, wt, got
+    w_bytes = gg * k * nn * 2
+    sets = [gmm_inputs((mm,), gg, k, nn, bf16, gen)[:2]
+            for _ in range(copies_for(w_bytes))]
+    reps = max(10, len(sets))
+    t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets], reps),
+         "plain_ms": time_ms([lambda a=a: grouped_matmul_ref(*a)
+                              for a in sets], reps),
+         "library_ms": time_ms([lambda a=a: torch.bmm(
+             a[0].view(mm, gg, k).transpose(0, 1), a[1]) for a in sets],
+             reps)}
+    t["bound_ms"], t["bound_by"] = bound(
+        w_bytes + 2 * mm * gg * (k + nn), 2 * mm * gg * k * nn, BF16_FLOPS)
+    record(name, t)
+    del sets
+    free_device_memory()
+
+
+def fusion_within(name, x, w, got, chunk: int = 1 << 26):
+    """A bf16 fusion ``got`` against paired_fusion_ref element by
+    element, within one ulp of the result (2^-7 |ref|: the two fp32 sums
+    may round to neighbouring bf16 values, and at |result| >= 2 one ulp
+    passes the check phase's absolute 1e-2) plus the fp32 sums' own
+    round-off (N eps sum_n w_n |x_n|), in column chunks so the
+    comparison's temporaries stay small beside a 11 GB cohort."""
+    from repro_torch.kernels.paired_fusion import paired_fusion_ref
+    eps, n = torch.finfo(torch.float32).eps, x.shape[0]
+    err = worst = 0.0
+    for lo in range(0, x.shape[1], chunk):
+        c = slice(lo, lo + chunk)
+        ref = paired_fusion_ref(x[:, c], w).float()
+        d = (got[c].float() - ref).abs()
+        tol = (torch.finfo(x.dtype).eps * ref.abs()
+               + n * eps * (x[:, c].float().abs() * w[:, None]).sum(0))
+        err = max(err, d.max().item())
+        worst = max(worst, torch.where(d == 0, 0.0, d / tol).max().item())
+    print(f"  {name}: max_abs_err {err:.3g}, worst {worst:.3g} of one ulp "
+          f"of the result {'ok' if worst <= 1.0 else 'FAIL'}", flush=True)
+    assert worst <= 1.0, f"{name}: kernel disagrees with its plain version"
+
+
+def phase_lm_fl_mixed():
+    """run_federated(lm_task) on the full bf16 Mamba-2 (fp32 a_log,
+    dt_bias, d_skip), one cohort buffer per dtype:
+
+    - the plain local route at all 48 layers, fedavg and fed2, LM_FL's 2
+      rounds, counted: paired_fusion 2 a round (one a dtype segment),
+      grouped_matmul 1 a round on the wgmma route (the eval's bf16
+      unembedding at M = 64 x 64), local_step 0; peak memory and s/round;
+      every leaf kept its dtype, every fp32 leaf moved (bf16 leaves move
+      where an update passes half their ulp), a_log off the bf16 grid;
+    - the kernels at this path's new shapes (``mixed_cohort_kernels``);
+    - the local_step route at 24 layers, one round of fedavg and one of
+      fed2, counted: local_step once a step, each on one fp32 (4, M)
+      buffer of the whole tree; in the fed2 round every kernel call held
+      against its plain version (``LmKernelTaps``, per segment and on
+      the raveled buffer), both planted faults caught (two-step rounds),
+      and the round held against the plain route within the spread of a
+      second plain run and of a one-ulp change of the init (as
+      ``phase_lm_fl_parity``);
+    - zamba2-2.7b in bf16 at HYBRID_FL_LAYERS: one fed2 round, counted.
+    """
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
+    from repro_torch.models.module import (FlatLayout, tree_leaves,
+                                           tree_leaves_with_path)
+    t0 = time.time()
+    bf16, f32 = torch.bfloat16, torch.float32
+    rounds, steps = LM_FL["rounds"], LM_FL["steps_per_epoch"]
+
+    cfg, parts, get_batch, test, init = lm_fl_inputs(
+        mamba_mixed_config(LM_MIXED_LAYERS))
+    counts = mixed_header(cfg, init, SERVE_LAYERS)
+    assert (counts[bf16], counts[f32]) == LM_MIXED_PARAMS[LM_MIXED_LAYERS]
+    layout48 = FlatLayout(init)
+    task, loss_of = lm_task(cfg), lm_held_out_loss(cfg, test)
+    l0 = loss_of(init)
+    for method in ("fedavg", "fed2"):
+        fl = FLConfig(method=method, **LM_FL)
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"lm_task {method}, bf16, {LM_MIXED_LAYERS} layers"
+        h, _ = counted(
+            label,
+            lambda: run_federated(task, fl, parts, get_batch, test,
+                                  device="cuda", init_params=init,
+                                  grad_chunk=LM_MIXED_CHUNK),
+            {"paired_fusion": 2 * rounds, "grouped_matmul": rounds},
+            {"wgmma": rounds})
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              " GB", flush=True)
+        mixed_leaf_checks(label, h, init, loss_of, l0)
+        del h
+    del init, task, loss_of
+    free_device_memory()
+
+    cfg, parts, get_batch, test, init = lm_fl_inputs(
+        mamba_mixed_config(LM_MIXED_KERNEL_LAYERS))
+    counts = mixed_header(cfg, init, SERVE_LAYERS)
+    assert (counts[bf16], counts[f32]) == \
+        LM_MIXED_PARAMS[LM_MIXED_KERNEL_LAYERS]
+    layout = FlatLayout(init)
+    with tf32_off():
+        mixed_cohort_kernels(layout48, layout)
+    task, loss_of = lm_task(cfg), lm_held_out_loss(cfg, test)
+    l0 = loss_of(init)
+    one_buffer = [((LM_FL["population"], layout.size), (f32,) * 3)]
+    paths = [p for p, _ in tree_leaves_with_path(init)]
+    fl1 = {**LM_FL, "rounds": 1}
+
+    def one_round(start, kernels, **over):
+        h = run_federated(task, FLConfig(method="fed2", **{**fl1, **over}),
+                          parts, get_batch, test, use_kernel=kernels,
+                          use_local_kernel=kernels, device="cuda",
+                          init_params=start, grad_chunk=LM_MIXED_CHUNK)
+        return [t.clone() for t in tree_leaves(h["final_params"])]
+
+    out = {}
+    with tf32_off():
+        for method in ("fedavg", "fed2"):
+            # fed2's round runs under the taps: every kernel call held
+            # against its plain version on the call's own inputs
+            fl = FLConfig(method=method, **fl1)
+            free_device_memory()
+            torch.cuda.reset_peak_memory_stats()
+            label = (f"lm_task {method} --use-local-kernel, bf16, "
+                     f"{LM_MIXED_KERNEL_LAYERS} layers, 1 round")
+            tapped = LmKernelTaps(layout, paths) if method == "fed2" else None
+            with tapped or contextlib.nullcontext(), \
+                    local_step_buffers() as seen:
+                h, _ = counted(
+                    label,
+                    lambda: run_federated(task, fl, parts, get_batch, test,
+                                          use_local_kernel=True,
+                                          device="cuda", init_params=init,
+                                          grad_chunk=LM_MIXED_CHUNK),
+                    {"paired_fusion": 2, "grouped_matmul": 1,
+                     "local_step": steps}, {"wgmma": 1})
+            assert seen == one_buffer * steps, seen[:2]
+            print(f"  local_step on one {seen[0][0]} fp32 buffer of the "
+                  f"whole tree, {len(seen)} calls; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+                  flush=True)
+            mixed_leaf_checks(label, h, init, loss_of, l0)
+            if method == "fed2":
+                out["kernels"] = [t.clone()
+                                  for t in tree_leaves(h["final_params"])]
+            del h
+        worst = tapped.report("mixed LM round, kernels on the round's own "
+                              "inputs")
+        assert tapped.calls == {"local_step": steps, "paired_fusion": 2}, \
+            tapped.calls
+        assert max(worst.values()) <= 1.0, \
+            "a kernel call of the mixed LM round exceeds its round-off bound"
+        # each planted fault in a two-step round (the second step is the
+        # first with a velocity for the momentum fault to drop)
+        for fault, kernel in zip(LmKernelTaps.FAULTS,
+                                 ("local_step", "paired_fusion")):
+            with LmKernelTaps(layout, paths, fault) as taps:
+                one_round(init, True, steps_per_epoch=2)
+            r = taps.report(f"planted fault, {fault}", (kernel,))[kernel]
+            print(f"  planted fault: {fault}: "
+                  f"{'caught' if r > 1.0 else 'MISSED'}", flush=True)
+            assert r > 1.0, f"the taps miss a planted fault: {fault}"
+        free_device_memory()
+        out["plain"] = one_round(init, False)
+        out["plain again"] = one_round(init, False)
+        out["plain, init + 1 ulp"] = one_round(plus_ulp_any(init), False)
+    upd = [(a.float() - b.float()).abs().max().item()
+           for a, b in zip(out["plain"], tree_leaves(init))]
+    d = {label: [(a.float() - b.float()).abs().max().item()
+                 for a, b in zip(out[label], out["plain"])]
+         for label in ("kernels", "plain again", "plain, init + 1 ulp")}
+    print("  one fed2 round of the mixed LM, max |dparam| against the "
+          "plain route, per leaf (its update beside it):")
+    print(f"    {'leaf':<40s} {'dtype':>8s} {'update':>9s} {'kernels':>9s} "
+          f"{'again':>9s} {'1 ulp':>9s}")
+    for i, (path, t) in enumerate(zip(paths, out["plain"])):
+        print(f"    {path:<40s} {str(t.dtype)[6:]:>8s} {upd[i]:9.3g} "
+              f"{d['kernels'][i]:9.3g} {d['plain again'][i]:9.3g} "
+              f"{d['plain, init + 1 ulp'][i]:9.3g}")
+    lim = max(max(d["plain again"]), max(d["plain, init + 1 ulp"]))
+    ok = max(d["kernels"]) <= lim
+    print(f"  kernels {max(d['kernels']):.3g} (limit {lim:.3g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, "the mixed LM round's kernel routes drift from the plain " \
+        "routes beyond round-off in its inputs"
+    del out, init, task, loss_of
+    free_device_memory()
+
+    zcfg = dataclasses.replace(with_fed2(get_config("zamba2-2.7b"), groups=4),
+                               n_layers=HYBRID_FL_LAYERS)
+    zcfg, parts, get_batch, test, init = lm_fl_inputs(zcfg)
+    mixed_header(zcfg, init, 54)
+    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
+    label = f"zamba2 lm_task fed2, bf16, {HYBRID_FL_LAYERS} layers"
+    h, _ = counted(label, lambda: run_federated(
+        lm_task(zcfg), fl, parts, get_batch, test, device="cuda",
+        init_params=init), {"paired_fusion": 2, "grouped_matmul": 1},
+        {"wgmma": 1})
+    mixed_leaf_checks(label, h, init)
+    del h, init
+    free_device_memory()
+    took = time.time() - t0
+    print(f"  the phase took {took:.1f} s (budget {LM_MIXED_BUDGET_S} s)",
+          flush=True)
 
 
 def phase_lm_crosscheck():
@@ -5491,6 +5946,9 @@ def main() -> int:
         phase_lm_train()
     with phase("lm federation"):
         phase_lm_fl()
+    free_device_memory()
+    with phase("lm federation, mixed dtypes"):
+        phase_lm_fl_mixed()
     with phase("lm cross-check (TF32 off)"), tf32_off():
         phase_lm_crosscheck()
     with phase("lm profile"):

@@ -18,11 +18,14 @@ the port.
 
 Flat state (``flat_to_reference``, ``flat_from_reference``): the port
 keeps the global params, the method's server state and the client rows
-as flat vectors of a ``FlatLayout`` (``(M,)``, or ``(P, M)`` rows); the
+as flat values of a ``FlatLayout`` (``(M,)``, or ``(P, M)`` rows; one
+such tensor per dtype, ``Segments``, for a tree that mixes dtypes); the
 reference keeps each as a params tree. These two map a port state tree
 onto the reference's and back, leaf for leaf, so a checkpoint holds the
 reference's arrays under the reference's keys
-(``repro_torch.checkpoint.io``).
+(``repro_torch.checkpoint.io``). A bf16 leaf is written as its exact
+fp32 value (numpy has no bfloat16 of its own) and read back into bf16
+exactly.
 
 LMs (``lm_to_port``, ``lm_to_reference``): every leaf keeps its layout
 and its own dtype. An LM tree mixes dtypes (a full-width Mamba-2 keeps
@@ -37,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.module import tree_map
+from repro_torch.models.module import Segments, flat_parts, host, tree_map
 
 
 def to_port(tree, *, device=None, dtype=torch.float32):
@@ -70,14 +73,6 @@ def _conv_perm(lead: int, to_reference: bool) -> tuple:
     return tuple(range(lead)) + tail
 
 
-def _host(x) -> np.ndarray:
-    """A leaf as a numpy array (torch tensors copied off the device;
-    CPU tensors viewed)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def stacked_to_reference(tree):
     """Port client rows (torch or numpy, leaves (P, ...), convs
     (P, O, I, H, W)) -> the reference's stacked layout (numpy, convs
@@ -86,7 +81,7 @@ def stacked_to_reference(tree):
     perm = _conv_perm(1, True)
 
     def one(t):
-        a = _host(t)
+        a = host(t)
         return a.transpose(perm) if a.ndim == 5 else a
     return tree_map(one, tree)
 
@@ -112,21 +107,45 @@ def _is_flat(x, layout) -> bool:
             and np.shape(x)[-1] == layout.size)
 
 
+def _exact_fp32(t: torch.Tensor) -> torch.Tensor:
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _cnn(layout) -> bool:
+    """Whether ``layout`` is a CNN's (its convs under ``convs``, OIHW).
+    An LM's tree keeps the reference's layout leaf for leaf: its 4-D
+    depthwise conv weight ``(L, k, 1, C)`` is no OIHW conv."""
+    return any(s.path[:1] == ("convs",) for s in layout.slots)
+
+
+def _params_to_reference(params, layout, rows: bool):
+    if not _cnn(layout):
+        return tree_map(host, params)
+    return stacked_to_reference(params) if rows else to_reference(params)
+
+
+def _params_to_port(r, layout, rows: bool, dtype=torch.float32):
+    if not _cnn(layout):
+        return tree_map(lambda a: torch.tensor(np.asarray(a), dtype=dtype),
+                        r)
+    return (stacked_to_port if rows else to_port)(r, dtype=dtype)
+
+
 def flat_to_reference(tree, layout):
     """A port state tree -> the reference's layout, as numpy. A flat
-    leaf (``(M,)`` or ``(P, M)`` over ``layout``) becomes the params tree
-    it flattens, in the reference's layout (``to_reference``, or
-    ``stacked_to_reference`` for rows); any other leaf (fedadam's step
-    count) passes as numpy. ``layout`` None: every leaf as numpy."""
+    value (``(M,)`` or ``(P, M)`` over ``layout``, or ``Segments`` of
+    them) becomes the params tree it flattens, in the reference's layout
+    (a CNN's through ``to_reference``, or ``stacked_to_reference`` for
+    rows; an LM's as it is), bf16 leaves as their exact fp32 values; any
+    other leaf (fedadam's step count) passes as numpy. ``layout`` None:
+    every leaf as numpy."""
     def one(x):
-        if not _is_flat(x, layout):
-            return _host(x)
-        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-            np.asarray(x))
-        params = layout.unflatten(t)
-        return (to_reference(params) if t.dim() == 1
-                else stacked_to_reference(params))
-    return tree_map(one, tree)
+        if not isinstance(x, Segments) and not _is_flat(x, layout):
+            return host(x)
+        parts = [torch.as_tensor(p) for p in flat_parts(x)]
+        params = tree_map(_exact_fp32, layout.unflatten(layout.join(parts)))
+        return _params_to_reference(params, layout, parts[0].dim() > 1)
+    return tree_map(one, tree, is_leaf=lambda n: isinstance(n, Segments))
 
 
 def flat_from_reference(ref, like, layout):
@@ -137,21 +156,36 @@ def flat_from_reference(ref, like, layout):
     dtype (flat ones in a buffer of the layout's row stride), or
     numpy."""
     def one(x, r):
+        if isinstance(x, Segments):
+            return _segments_from_reference(r, x, layout)
         as_torch = isinstance(x, torch.Tensor)
         if not _is_flat(x, layout):
-            a = np.asarray(r, dtype=_host(x).dtype)
+            a = np.asarray(r, dtype=host(x).dtype)
             return torch.as_tensor(a).to(x.device) if as_torch else a
         lead = tuple(np.shape(x)[:-1])
         dtype = (x.dtype if as_torch
                  else torch.from_numpy(np.zeros(0, np.asarray(x).dtype)).dtype)
-        params = (to_port(r, dtype=dtype) if not lead
-                  else stacked_to_port(r, dtype=dtype))
+        params = _params_to_port(r, layout, bool(lead), dtype)
         if as_torch:
             return layout.flatten(params, out=layout.alloc(
                 lead, device=x.device, dtype=dtype))
         out = torch.empty(lead + (layout.size,), dtype=dtype)
         return layout.flatten(params, out=out).numpy()
-    return tree_map(one, like, ref)
+    return tree_map(one, like, ref,
+                    is_leaf=lambda n: isinstance(n, Segments))
+
+
+def _segments_from_reference(r, like: Segments, layout) -> Segments:
+    """A flat value of a tree that mixes dtypes, rebuilt from its params
+    subtree ``r`` in each leaf's dtype; each segment comes back as
+    ``like``'s does: a tensor on its device, or numpy."""
+    lead = tuple(np.shape(like[0])[:-1])
+    params = layout.cast(_params_to_port(r, layout, bool(lead)))
+    dev = next((p.device for p in like if isinstance(p, torch.Tensor)),
+               "cpu")
+    out = layout.flatten(params, out=layout.alloc(lead, device=dev))
+    return Segments(p if isinstance(lk, torch.Tensor) else p.cpu().numpy()
+                    for p, lk in zip(out, like))
 
 
 def _np_to_torch(a, device):

@@ -9,16 +9,21 @@
   weighted mean, which is the paper's efficiency claim.
 - ``fedprox_penalty``: the FedProx (Li et al., MLSys'20) proximal term.
 
-Every function takes the cohort as one (N, M) tensor whose rows are the
-clients' flat parameter vectors (``models/module.FlatLayout``); grouped
-leaves are described by ``GroupAxis`` per layout slot.
+Every function takes the cohort as a flat value of a
+``models/module.FlatLayout``: one (N, M_d) tensor per dtype segment
+(``Segments``; ONE (N, M) tensor for a tree of one dtype) whose rows are
+the clients' flat parameter vectors, and reduces each segment in its own
+dtype; grouped leaves are described by ``GroupAxis`` per layout slot.
 
 ``use_kernel=True`` routes the reduction through the fused
 ``kernels/paired_fusion.py`` kernel (``_kernel_fuse``): ONE launch over
-the whole (N, M) buffer when every leaf shares the sample weights, and
-otherwise one launch per shared leaf and per (pre index, group) block
-of each grouped leaf, each with its own presence column. Every parameter is read once
-either way. ``use_kernel=False`` is the per-leaf reference reduction.
+each segment's whole (N, M_d) buffer when every leaf shares the sample
+weights (one for a tree of one dtype, two for a bf16 Mamba-2 with its
+fp32 leaves), and otherwise one launch per shared leaf and per (pre
+index, group) block of each grouped leaf, each with its own presence
+column. The kernel accumulates in fp32 and writes each segment in its
+dtype. Every parameter is read once either way. ``use_kernel=False`` is
+the per-leaf reference reduction, in each leaf's dtype.
 
 ``robust=rule`` (a reducing rule of fl/robust.py) replaces the weighted
 mean with the rule's sort-based statistic. It has no kernel: the kernel
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.paired_fusion import paired_fusion
+from repro_torch.models.module import flat_parts, tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,18 +64,20 @@ def _weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x * wb).sum(0)
 
 
-def fedavg(stacked: torch.Tensor, weights=None, *,
-           use_kernel: bool = False, robust=None) -> torch.Tensor:
-    """Coordinate-based averaging (Eq. 1): (N, M) -> (M,). ``robust``: a
-    reducing rule replaces the weighted mean (use_kernel is ignored)."""
-    w = _norm_weights(weights, stacked.shape[0], stacked.device)
+def fedavg(stacked, weights=None, *, use_kernel: bool = False,
+           robust=None):
+    """Coordinate-based averaging (Eq. 1): (N, M_d) -> (M_d,) per
+    segment. ``robust``: a reducing rule replaces the weighted mean
+    (use_kernel is ignored)."""
+    first = tree_leaves(stacked)[0]
+    w = _norm_weights(weights, first.shape[0], first.device)
     if robust is not None:
         return robust.reduce(stacked, w)
     if use_kernel:
-        return paired_fusion(stacked, w)
+        return tree_map(lambda x: paired_fusion(x, w), stacked)
     if weights is None:
-        return stacked.mean(0)
-    return _weighted_mean(stacked, w)
+        return tree_map(lambda x: x.mean(0), stacked)
+    return tree_map(lambda x: _weighted_mean(x, w), stacked)
 
 
 def _blocks(slot, ga: GroupAxis):
@@ -86,24 +94,27 @@ def _blocks(slot, ga: GroupAxis):
 def _permute_groups(stacked, layout, group_axes, perms):
     """A copy of ``stacked`` whose grouped leaves have each client's group
     blocks reordered by its row of ``perms`` (N, G)."""
-    out = stacked.clone()
-    rows = torch.arange(stacked.shape[0], device=stacked.device)[:, None]
+    out = tree_map(torch.clone, stacked)
+    src, dst = flat_parts(stacked), flat_parts(out)
+    dev = src[0].device
+    rows = torch.arange(src[0].shape[0], device=dev)[:, None]
     for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
         if ga is None:
             continue
         pre, g, blk, post = _blocks(slot, ga)
         cols = slice(slot.offset, slot.offset + slot.size)
-        x = stacked[:, cols].reshape(-1, pre, g, blk * post)
-        p = torch.as_tensor(perms, device=stacked.device).long()
+        x = src[slot.segment][:, cols].reshape(-1, pre, g, blk * post)
+        p = torch.as_tensor(perms, device=dev).long()
         x = x.permute(0, 2, 1, 3)[rows, p].permute(0, 2, 1, 3)
-        out[:, cols] = x.reshape(x.shape[0], -1)
+        dst[slot.segment][:, cols] = x.reshape(x.shape[0], -1)
     return out
 
 
-def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
-                   weights=None, group_weights=None, *,
-                   use_kernel: bool = False, robust=None) -> torch.Tensor:
-    """Feature paired averaging (Eq. 19): (N, M) -> (M,).
+def paired_average(stacked, layout, group_axes, perms=None, weights=None,
+                   group_weights=None, *, use_kernel: bool = False,
+                   robust=None):
+    """Feature paired averaging (Eq. 19): (N, M_d) -> (M_d,) per
+    segment.
 
     layout: the ``FlatLayout`` of one client's parameters.
     group_axes: a tree of the layout's structure with a ``GroupAxis``
@@ -119,8 +130,8 @@ def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
     under presence weights reduce per group column with that column's
     weights, so the trimmed mass renormalizes within each group. No
     kernel route: use_kernel is ignored."""
-    dev = stacked.device
-    n = stacked.shape[0]
+    first = tree_leaves(stacked)[0]
+    dev, n = first.device, first.shape[0]
     if perms is not None:
         stacked = _permute_groups(stacked, layout, group_axes, perms)
     gw = None
@@ -134,9 +145,10 @@ def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
         return robust.reduce(stacked, w)   # coordinate-wise: every leaf
     if use_kernel and robust is None:
         return _kernel_fuse(stacked, layout, group_axes, w, gw)
-    out = torch.empty(stacked.shape[1], dtype=stacked.dtype, device=dev)
+    out = _empty_fused(stacked)
+    src, dst = flat_parts(stacked), flat_parts(out)
     for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
-        x = stacked[:, slot.offset:slot.offset + slot.size]
+        x = src[slot.segment][:, slot.offset:slot.offset + slot.size]
         if ga is not None and gw is not None:
             pre, g, blk, post = _blocks(slot, ga)
             xg = x.reshape(n, pre, g, blk * post)
@@ -152,33 +164,39 @@ def paired_average(stacked: torch.Tensor, layout, group_axes, perms=None,
             res = x.mean(0)
         else:
             res = _weighted_mean(x, w)
-        out[slot.offset:slot.offset + slot.size] = res
+        dst[slot.segment][slot.offset:slot.offset + slot.size] = res
     return out
 
 
-def _kernel_fuse(stacked: torch.Tensor, layout, group_axes,
-                 w_shared: torch.Tensor,
-                 gw_norm: torch.Tensor | None = None) -> torch.Tensor:
+def _empty_fused(stacked):
+    """An uninitialized (M_d,) result per segment of ``stacked``."""
+    return tree_map(lambda x: torch.empty(x.shape[1], dtype=x.dtype,
+                                          device=x.device), stacked)
+
+
+def _kernel_fuse(stacked, layout, group_axes, w_shared: torch.Tensor,
+                 gw_norm: torch.Tensor | None = None):
     """Streaming fusion through ``kernels/paired_fusion.py``.
 
-    Without presence weights every leaf shares ``w_shared``, so the
-    whole (N, M) buffer is ONE kernel launch. With ``gw_norm`` (N, G),
-    column-normalized, each shared leaf is one launch with the sample
-    weights, and a grouped leaf of (pre, G, blk, post) view dims is
-    ``pre * G`` launches, one per (pre index, group) block with column
-    g. Each such block is a contiguous column range of the leaf's slot
+    Without presence weights every leaf shares ``w_shared``, so each
+    segment's whole (N, M_d) buffer is ONE kernel launch. With
+    ``gw_norm`` (N, G), column-normalized, each shared leaf is one
+    launch with the sample weights, and a grouped leaf of (pre, G, blk,
+    post) view dims is ``pre * G`` launches, one per (pre index, group)
+    block with column g, on the segment that holds it. Each such block is a contiguous column range of the leaf's slot
     (``cnn_group_axes`` puts every group axis first, so pre = 1 there;
     ``lm``-style stacked (L, G, ...) leaves have pre = L). The kernel
     reads a block in place through the buffer's row stride and writes
     its slice of the result, so no temporary is made."""
     if gw_norm is None:
-        return paired_fusion(stacked, w_shared)
-    out = torch.empty(stacked.shape[1], dtype=stacked.dtype,
-                      device=stacked.device)
+        return tree_map(lambda x: paired_fusion(x, w_shared), stacked)
+    out = _empty_fused(stacked)
+    src, dst = flat_parts(stacked), flat_parts(out)
     for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
+        x, res = src[slot.segment], dst[slot.segment]
         lo, hi = slot.offset, slot.offset + slot.size
         if ga is None:
-            paired_fusion(stacked[:, lo:hi], w_shared, out=out[lo:hi])
+            paired_fusion(x[:, lo:hi], w_shared, out=res[lo:hi])
             continue
         pre, g, blk, post = _blocks(slot, ga)
         size = blk * post
@@ -186,16 +204,16 @@ def _kernel_fuse(stacked: torch.Tensor, layout, group_axes,
         for pi in range(pre):
             for gi in range(g):
                 a = lo + (pi * g + gi) * size
-                paired_fusion(stacked[:, a:a + size], cols[gi],
-                              out=out[a:a + size])
+                paired_fusion(x[:, a:a + size], cols[gi],
+                              out=res[a:a + size])
     return out
 
 
-def broadcast_global(global_params: torch.Tensor,
-                     out: torch.Tensor) -> torch.Tensor:
-    """Replicate the fused global (M,) into every row of ``out`` (N, M)
-    at round start."""
-    return out.copy_(global_params.expand_as(out))
+def broadcast_global(global_params, out):
+    """Replicate the fused global (M_d,) into every row of ``out``
+    (N, M_d), segment by segment, at round start."""
+    return tree_map(lambda g, o: o.copy_(g.expand_as(o)), global_params,
+                    out)
 
 
 def presence_group_weights(class_counts, spec) -> np.ndarray:
@@ -210,11 +228,13 @@ def presence_group_weights(class_counts, spec) -> np.ndarray:
     return gw
 
 
-def fedprox_penalty(params: torch.Tensor, global_params: torch.Tensor,
-                    mu: float) -> torch.Tensor:
-    """(mu/2) * ||w - w_global||^2 over flat vectors, in fp32."""
-    d = params.to(torch.float32) - global_params.to(torch.float32)
-    return 0.5 * mu * (d * d).sum()
+def fedprox_penalty(params, global_params, mu: float) -> torch.Tensor:
+    """(mu/2) * ||w - w_global||^2 over flat values, in fp32."""
+    sq = 0
+    for p, g in zip(flat_parts(params), flat_parts(global_params)):
+        d = p.to(torch.float32) - g.to(torch.float32)
+        sq = sq + (d * d).sum()
+    return 0.5 * mu * sq
 
 
 def cnn_group_axes(params, cfg):
@@ -251,7 +271,7 @@ def lm_group_axes(params, cfg):
     ``(L, G, i, o)``: axis 1), and for a MoE config (one with
     ``moe.n_experts``) the stacked expert weights ``(L, E, d, f)`` of the
     routed FFNs, whose experts are the structure groups (axis 1)."""
-    from repro_torch.models.module import tree_map, tree_map_with_path
+    from repro_torch.models.module import tree_map_with_path
     g = cfg.fed2_groups
 
     def shared(tree):

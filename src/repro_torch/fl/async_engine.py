@@ -249,7 +249,8 @@ class AsyncEngine:
 def make_async_engine(task, cfg, params_like, *, device,
                       use_kernel: bool | None = None,
                       use_local_kernel: bool = False,
-                      method: FedMethod | None = None) -> AsyncEngine:
+                      method: FedMethod | None = None,
+                      grad_chunk: int | None = None) -> AsyncEngine:
     """The async engine for (task, cfg, method): the sync engine at
     ``cfg.cohort_size`` and a ``buffer_k``-row event buffer."""
     from repro_torch.fl.engine import make_round_engine
@@ -259,7 +260,8 @@ def make_async_engine(task, cfg, params_like, *, device,
     engine = make_round_engine(task, cfg, params_like, device=device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,
-                               method=meth)
+                               method=meth, grad_chunk=grad_chunk)
+    engine.layout.require_one_dtype("mode='async'")
     k = cfg.buffer_k if cfg.buffer_k is not None else cfg.cohort_size
     return AsyncEngine(cohort_size=cfg.cohort_size, buffer_k=k,
                        method=meth, engine=engine,
@@ -480,7 +482,8 @@ def run_async_federated(task, cfg, parts, get_batch, test_batches, *,
                         latency: str = "zero", log=None, class_counts=None,
                         group_spec=None, use_kernel=None,
                         use_local_kernel: bool = False, device=None,
-                        init_params=None) -> dict:
+                        init_params=None,
+                        grad_chunk: int | None = None) -> dict:
     """Buffered-async counterpart of ``runtime.run_federated``: the same
     history contract with one row per FUSION EVENT, plus the per-event
     ``staleness`` lists and simulated ``sim_time`` under the latency
@@ -521,14 +524,14 @@ def run_async_federated(task, cfg, parts, get_batch, test_batches, *,
                           params, get_batch, test_batches, log=log,
                           use_kernel=use_kernel,
                           use_local_kernel=use_local_kernel, method=method,
-                          device=device)
+                          device=device, grad_chunk=grad_chunk)
     finally:
         pop.store.close()
 
 
 def _async_run(task, cfg, pop, sampler, trace, policy, rng, params,
                get_batch, test_batches, *, log, use_kernel,
-               use_local_kernel, method, device) -> dict:
+               use_local_kernel, method, device, grad_chunk) -> dict:
     """``run_async_federated`` once its population holds its store: the
     engine, the event loop and the history."""
     from repro_torch.fl.runtime import close_history
@@ -536,7 +539,7 @@ def _async_run(task, cfg, pop, sampler, trace, policy, rng, params,
     engine = make_async_engine(task, cfg, params, device=device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,
-                               method=method)
+                               method=method, grad_chunk=grad_chunk)
     global_params = engine.layout.flatten(params)
     server_state = engine.init_server_state(global_params)
     eval_engine = evaluation_lib.make_eval_engine(task.predict_fn,

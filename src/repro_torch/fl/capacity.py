@@ -472,7 +472,8 @@ def _tile_maps(full_layout: FlatLayout, tier_layout: FlatLayout, slices,
 
 def make_tiered_engine(task, cfg, params_like, plan: TierPlan, *, device,
                        use_kernel=None, use_local_kernel: bool = False,
-                       method=None, use_gw: bool = False) -> TieredEngine:
+                       method=None, use_gw: bool = False,
+                       grad_chunk: int | None = None) -> TieredEngine:
     """Per-tier engines and the overlap-aware combine. ``task`` must
     carry ``tier_fn`` (``cnn_task`` wires ``cnn_tier_model``)."""
     from repro_torch.fl import methods as methods_lib
@@ -480,13 +481,16 @@ def make_tiered_engine(task, cfg, params_like, plan: TierPlan, *, device,
 
     meth = method if method is not None else methods_lib.get(cfg.method)
     check_tier_support(meth)
+    if params_like is not None:
+        FlatLayout(params_like).require_one_dtype("capacity tiers")
     if task.tier_fn is None:
         raise ValueError(
             "this task has no tier_fn: capacity tiers are defined for "
             "model families with a sub-model builder (cnn_task)")
     base_cfg = dataclasses.replace(cfg, tiers=None)
     kw = dict(device=device, use_kernel=use_kernel,
-              use_local_kernel=use_local_kernel, method=meth)
+              use_local_kernel=use_local_kernel, method=meth,
+              grad_chunk=grad_chunk)
     full = make_round_engine(task, base_cfg, params_like, **kw)
     tiles = []
     for width, count in plan.mix:
@@ -571,7 +575,7 @@ def lower_tier_tile(task, cfg, mesh, batch_elems: dict, *, width: float,
     engine = make_round_engine(model.task, cfg, param_shapes(model.task),
                                device="meta", use_kernel=False,
                                use_local_kernel=False)
-    gp = engine.layout.alloc(device="meta", dtype=engine.cohort.dtype)
+    gp = engine.layout.alloc(device="meta")
     batches = meta_batches(batch_elems, n, local_steps)
     w = torch.empty((n,), dtype=torch.float32, device="meta")
 

@@ -9,14 +9,21 @@ One round over a fixed-width COHORT of client slots (width =
     sstate, global <- method.server_update(sstate, fused)
     global  <- method.host_fuse(stacked)       # host_fusion methods only
 
-The cohort lives in ONE flat (C, M) buffer (rows = clients, per-leaf
-views through ``FlatLayout``) of the params' dtype, allocated once and
-reused every round (a tree that mixes leaf dtypes is refused: one
-buffer would round its leaves to one dtype):
-broadcast is one copy into it, the local phase takes a vmapped gradient
-over its rows, the ``local_step`` kernel route updates it in place, and
-the fusion reads it in one ``paired_fusion`` launch when all leaves share
-the sample weights.
+The cohort lives in one flat (C, M_d) buffer per leaf dtype (rows =
+clients, per-leaf views through ``FlatLayout``: ONE (C, M) buffer for a
+tree of one dtype), each leaf kept in its own dtype as the JAX package
+keeps it, allocated once and reused every round: broadcast is one copy
+into each, the local phase takes a vmapped gradient over their rows and
+steps each in its dtype, and the fusion reads each in one
+``paired_fusion`` launch when all leaves share the sample weights. The
+``local_step`` kernel route steps ONE buffer of the whole tree, as the
+reference's ``ravel_pytree`` route does: the cohort buffer itself in
+place, or, for a tree that mixes dtypes (a bf16 Mamba-2 with its fp32
+``a_log``, ``dt_bias`` and ``d_skip``), an fp32 copy of every leaf
+allocated once with the engine (``MethodContext.ravel_buffer``) and
+copied back at the end of the local phase. The feature axes below, the
+async engine, the capacity tiers and the ``mmap`` client-state store
+refuse a tree that mixes dtypes (``FlatLayout.require_one_dtype``).
 
 The method comes from the fl/methods.py registry; the engine never
 branches on its name. Because cohorts are sampled each round, the
@@ -78,8 +85,8 @@ from repro_torch.fl import compat as compat_lib
 from repro_torch.fl import methods as methods_lib
 from repro_torch.fl import robust as robust_lib
 from repro_torch.fl.methods import FedMethod, MethodContext
-from repro_torch.models.module import (FlatLayout, drawing_on, tree_leaves,
-                                       tree_map)
+from repro_torch.models.module import (FlatLayout, drawing_on, host,
+                                       tree_leaves, tree_map)
 
 
 def resolve_compute_dtype(compute_dtype, method: FedMethod):
@@ -137,7 +144,7 @@ class RoundEngine:
     layout: FlatLayout
     device: torch.device
     ctx: MethodContext
-    cohort: torch.Tensor          # the reusable (C, M) buffer
+    cohort: Any                   # the reusable (C, M_d) buffer per dtype
     attack: Any = None            # model-poisoning Attack or None
     robust: Any = None            # reducing RobustRule or None
     pre_rule: Any = None          # pre-fuse RobustRule (norm_clip) or None
@@ -162,9 +169,8 @@ class RoundEngine:
 
     def init_client_row(self, global_params) -> Any:
         """ONE client's round-0 state as host (numpy) arrays."""
-        return tree_map(lambda t: t.cpu().numpy(),
-                        self.method.init_client_state(global_params,
-                                                      self.ctx))
+        return tree_map(host, self.method.init_client_state(global_params,
+                                                            self.ctx))
 
     def round_ctx(self, weights=None, group_weights=None) -> MethodContext:
         """The engine's context with one round's (or fusion event's)
@@ -264,29 +270,11 @@ class RoundEngine:
         return self.method.host_fuse(stacked, ctx)
 
 
-def params_dtype(params_like) -> torch.dtype:
-    """The one leaf dtype of a params tree, which the engine's flat
-    buffers take. A tree that mixes dtypes (a bf16 Mamba-2 keeps
-    ``a_log``, ``dt_bias`` and ``d_skip`` in fp32) is refused: the flat
-    (C, M) cohort has one dtype, and the JAX package keeps every leaf in
-    its own."""
-    dtypes = {t.dtype for t in tree_leaves(params_like) if t is not None}
-    if len(dtypes) != 1:
-        names = ", ".join(sorted(str(d).replace("torch.", "")
-                                 for d in dtypes))
-        raise ValueError(
-            f"the params tree has leaves of {len(dtypes)} dtypes "
-            f"({names}); the round engine keeps a cohort in one flat "
-            "buffer of one dtype and would round the others to it. Use a "
-            "config of one dtype, e.g. "
-            "mamba2_1_3b.full(dtype=torch.float32)")
-    return dtypes.pop()
-
-
 def make_round_engine(task, cfg, params_like, *, device,
                       use_kernel: bool | None = None,
                       use_local_kernel: bool = False,
-                      method: FedMethod | None = None) -> RoundEngine:
+                      method: FedMethod | None = None,
+                      grad_chunk: int | None = None) -> RoundEngine:
     """Build the engine for (task, cfg, method) at width cfg.cohort_size.
 
     params_like: a params tree (its structure and leaf shapes define the
@@ -297,6 +285,8 @@ def make_round_engine(task, cfg, params_like, *, device,
     use_local_kernel: run the local optimizer tail through the
     ``local_step`` kernel; a no-op for methods without
     ``fused_local_step``.
+    grad_chunk: clients per vmapped gradient call (None: the cohort;
+    ``run_federated``'s).
 
     cfg's feature knobs (each off by default) are resolved here, so
     every construction path hits the same refusals (``compat.validate``):
@@ -304,9 +294,17 @@ def make_round_engine(task, cfg, params_like, *, device,
     poisoning happens at batch packing), ``robust`` (identity-shortcut
     parameters drop the rule; a reducing rule turns the fusion kernel
     off, as the JAX package does), ``codec``, ``compute_dtype`` and
-    ``local_unroll``."""
+    ``local_unroll``. Of these, ``attack`` (model poisoning), ``robust``,
+    ``codec`` and a bf16 ``compute_dtype`` refuse a params tree that
+    mixes dtypes: each works on one flat buffer of one dtype."""
     meth = method if method is not None else methods_lib.get(cfg.method)
     compat_lib.validate(cfg, meth)
+    if grad_chunk is not None and (not isinstance(grad_chunk, int)
+                                   or isinstance(grad_chunk, bool)
+                                   or grad_chunk <= 0):
+        raise ValueError(f"grad_chunk must be None or a positive int "
+                         f"(clients per vmapped gradient call), got "
+                         f"{grad_chunk!r}")
     if meth.host_fusion and (
             type(meth).init_server_state is not FedMethod.init_server_state
             or type(meth).server_update is not FedMethod.server_update):
@@ -314,7 +312,6 @@ def make_round_engine(task, cfg, params_like, *, device,
             f"{meth.name}: host_fusion methods end the device round at the "
             "stacked params — server_update/init_server_state never run; "
             "fold server-side work into host_fuse instead")
-    dtype = params_dtype(params_like)
     layout = FlatLayout(params_like)
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:
@@ -324,18 +321,25 @@ def make_round_engine(task, cfg, params_like, *, device,
     if getattr(cfg, "attack", None):
         atk = attacks_lib.parse_attack(cfg.attack).build()
         if atk.model_poisoning:
+            layout.require_one_dtype(f"attack={cfg.attack!r}")
             attack = atk
     rule = None
     if getattr(cfg, "robust", None):
         rule = robust_lib.parse_robust(cfg.robust)
         if not rule.active:
             rule = None
-        elif rule.reduces:
+        else:
+            layout.require_one_dtype(f"robust={cfg.robust!r}")
+        if rule is not None and rule.reduces:
             use_kernel = False   # sort-based reductions have no kernel
     cdtype = resolve_compute_dtype(getattr(cfg, "compute_dtype", None),
                                    meth)
+    if cdtype is not None:
+        layout.require_one_dtype(f"compute_dtype={cfg.compute_dtype!r}")
     codec = (codec_lib.parse_codec(cfg.codec)
              if getattr(cfg, "codec", None) else None)
+    if codec is not None:
+        layout.require_one_dtype(f"codec={cfg.codec!r}")
     steps = cfg.local_epochs * cfg.steps_per_epoch
     ctx = MethodContext(
         task=task, cfg=cfg, population=cfg.population,
@@ -346,13 +350,17 @@ def make_round_engine(task, cfg, params_like, *, device,
         robust=rule if rule is not None and rule.reduces else None,
         local_unroll=resolve_local_unroll(cfg, steps),
         use_local_kernel=(bool(use_local_kernel)
-                          and compat_lib.supports(meth, "kernel")))
+                          and compat_lib.supports(meth, "kernel")),
+        grad_chunk=grad_chunk)
     meth.check(ctx)
     device = torch.device(device)
     c = cfg.cohort_size
+    if ctx.use_local_kernel and layout.raveled is not layout:
+        ctx = dataclasses.replace(ctx, ravel_buffer=layout.raveled.alloc(
+            (c,), device=device))
     return RoundEngine(
         cohort_size=c, method=meth, layout=layout, device=device, ctx=ctx,
-        cohort=layout.alloc((c,), device=device, dtype=dtype),
+        cohort=layout.alloc((c,), device=device),
         attack=attack,
         robust=ctx.robust,
         pre_rule=rule if rule is not None and rule.has_pre else None,
@@ -469,7 +477,7 @@ def lower_round(task, cfg, mesh, batch_elems: dict, *, local_steps: int,
     engine = make_round_engine(task, cfg, param_shapes(task), device="meta",
                                use_kernel=False, use_local_kernel=False)
     meth, layout = engine.method, engine.layout
-    gp = layout.alloc(device="meta", dtype=engine.cohort.dtype)
+    gp = layout.alloc(device="meta")
     one = meth.init_client_state(gp, engine.ctx)
     state = {"server": meth.init_server_state(gp, engine.ctx),
              "clients": tree_map(lambda t: t.new_empty((n,) + t.shape),

@@ -28,15 +28,20 @@ server control-variate state, ``fednova`` only ``fuse``, and
 ``available()`` and resolve instances with ``get(name)``: nothing
 branches on a method's name.
 
-Persistent state is flat like the params: a client's state row is an
-(M,) tensor (scaffold's control variate), stacked (C, M) over the
-cohort, and the server state a dict of (M,) tensors.
+Persistent state is flat like the params: a client's state row is a
+flat (M,) value (scaffold's control variate), stacked (C, M) over the
+cohort, and the server state a dict of such values.
 
-The cohort's parameters are one flat (C, M) tensor (rows = clients,
-``models/module.FlatLayout``); gradients come back flat from
-``torch.func.vmap(torch.func.grad(...))``, and with
+The cohort's parameters are one flat (C, M_d) tensor per leaf dtype
+(rows = clients, ``models/module.FlatLayout``: ONE (C, M) tensor for a
+tree of one dtype, ``Segments`` for a tree that mixes them), and every
+hook works on each dtype segment in its own dtype, as the reference's
+``tree_map`` works on each leaf in its own. Gradients come back flat
+from ``torch.func.vmap(torch.func.grad(...))``, one per segment. With
 ``ctx.use_local_kernel`` each step's momentum-SGD tail is one launch of
-``kernels/local_step.py`` over the whole buffer.
+``kernels/local_step.py`` over ONE buffer of the whole tree (the
+reference's ``ravel_pytree``): the cohort buffer itself for a tree of
+one dtype, an fp32 copy of every leaf for a tree that mixes dtypes.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch.core import fusion as fusion_lib
 from repro_torch.kernels.local_step import local_step
+from repro_torch.models.module import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +75,12 @@ class MethodContext:
     local_unroll: the validated ``FLConfig.local_unroll`` (eager torch
     has no scan to unroll: it changes neither result nor dispatch).
     use_local_kernel: run the optimizer tail through the local_step
-    kernel (``fused_local_step`` methods only)."""
+    kernel (``fused_local_step`` methods only).
+    ravel_buffer: that route's one fp32 (C, M) buffer of the whole tree
+    when the tree mixes dtypes (``FlatLayout.ravel``), allocated once
+    with the engine; None otherwise.
+    grad_chunk: the clients each vmapped gradient call takes at a time
+    (None: the whole cohort; ``run_federated(grad_chunk=...)``)."""
     task: Any
     cfg: Any
     population: int
@@ -85,6 +96,8 @@ class MethodContext:
     robust: Any = None
     local_unroll: int = 1
     use_local_kernel: bool = False
+    ravel_buffer: Any = None
+    grad_chunk: int | None = None
 
 
 class FedMethod:
@@ -177,11 +190,12 @@ class FedMethod:
 
     def client_update(self, stacked, batches, global_params, client_state,
                       server_state, ctx: MethodContext):
-        """The cohort's local phase. stacked: (C, M) flat params; batches:
-        dict of (C, steps, B, ...) tensors. Each step takes one gradient
-        per client, vmapped over the cohort, then one optimizer step over
-        the whole buffer. Velocity starts at zero. Returns
-        (new_stacked, new_client_state)."""
+        """The cohort's local phase. stacked: the (C, M_d) flat params per
+        segment; batches: dict of (C, steps, B, ...) tensors. Each step
+        takes one gradient per client, vmapped over the cohort, then one
+        optimizer step over each segment's whole buffer, in its dtype.
+        Velocity starts at zero. Returns (new_stacked,
+        new_client_state)."""
         layout = ctx.layout
 
         def loss(row, batch):
@@ -189,27 +203,41 @@ class FedMethod:
             term = self.local_loss_term(row, batch, global_params, ctx)
             return base if term is None else base + term
 
-        grad_fn = torch.func.vmap(torch.func.grad(loss))
-        n_steps = next(iter(batches.values())).shape[1]
-        kernel = ctx.use_local_kernel and self.fused_local_step
-        p = stacked
-        if kernel:
-            lr, mu = float(ctx.cfg.lr), float(ctx.cfg.momentum)
-            v = torch.zeros_like(p)
-        else:
-            s = ctx.opt.init(p)
-        for i in range(n_steps):
+        if ctx.use_local_kernel and self.fused_local_step:
+            return self._kernel_client_update(stacked, batches, loss,
+                                              client_state, ctx)
+        grad_fn = _cohort_grad(loss, ctx)
+        p, s = stacked, ctx.opt.init(stacked)
+        for i in range(_n_steps(batches)):
             g = grad_fn(p, {k: b[:, i] for k, b in batches.items()})
-            if kernel:
-                local_step(p, v, g, lr=lr, mu=mu)   # in place on p, v
-            else:
-                p, s = ctx.opt.update(g, s, p)
+            p, s = ctx.opt.update(g, s, p)
         return p, client_state
+
+    def _kernel_client_update(self, stacked, batches, loss, client_state,
+                              ctx: MethodContext):
+        """The ``local_step`` route, as the reference's: ravel the cohort
+        into ONE (C, M) buffer of the whole tree, step it with one
+        launch a step and an fp32 (or the tree's one dtype) velocity,
+        and unravel it back once at the end. For a tree of one dtype the
+        raveled buffer is the cohort buffer itself; for one that mixes
+        dtypes it is ``ctx.ravel_buffer`` in fp32 (``ravel_pytree``
+        promotes), the loss sees each leaf cast to its dtype, and each
+        bf16 leaf is rounded once, when the buffer is copied back."""
+        layout = ctx.layout
+        p = layout.ravel(stacked, out=ctx.ravel_buffer)
+        lr, mu = float(ctx.cfg.lr), float(ctx.cfg.momentum)
+        v = torch.zeros_like(p)
+        grad_fn = _cohort_grad(
+            lambda q, batch: loss(layout.unravel(q), batch), ctx)
+        for i in range(_n_steps(batches)):
+            g = grad_fn(p, {k: b[:, i] for k, b in batches.items()})
+            local_step(p, v, g, lr=lr, mu=mu)   # in place on p, v
+        return layout.unravel(p, out=stacked), client_state
 
     # -- aggregation --------------------------------------------------------
 
     def fuse(self, stacked, global_params, ctx: MethodContext):
-        """Aggregation of the cohort's (C, M) params into (M,)."""
+        """Aggregation of the cohort's (C, M_d) params into (M_d,)."""
         return fusion_lib.fedavg(stacked, ctx.weights,
                                  use_kernel=ctx.use_kernel,
                                  robust=ctx.robust)
@@ -225,6 +253,16 @@ class FedMethod:
                       global_params, fused, ctx: MethodContext):
         """(server_state, fused aggregate) -> (server_state, new_global)."""
         return server_state, fused
+
+
+def _n_steps(batches: dict) -> int:
+    return next(iter(batches.values())).shape[1]
+
+
+def _cohort_grad(loss, ctx: MethodContext):
+    """``(rows, batch) -> grads``: ``loss``'s gradient per client,
+    vmapped over the cohort, ``ctx.grad_chunk`` clients at a time."""
+    return torch.func.vmap(torch.func.grad(loss), chunk_size=ctx.grad_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -345,26 +383,27 @@ class Scaffold(FedMethod):
         return sgd(cfg.lr, 0.0)
 
     def init_server_state(self, params, ctx):
-        return {"c": torch.zeros_like(params)}
+        return {"c": tree_map(torch.zeros_like, params)}
 
     def init_client_state(self, params, ctx):
-        return torch.zeros_like(params)
+        return tree_map(torch.zeros_like, params)
 
     def client_update(self, stacked, batches, global_params, client_state,
                       server_state, ctx):
         layout, opt = ctx.layout, ctx.opt
         ci, c = client_state, server_state["c"]
-        grad_fn = torch.func.vmap(torch.func.grad(
+        grad_fn = _cohort_grad(
             lambda row, batch: ctx.task.loss_fn(layout.unflatten(row),
-                                                batch)))
-        n_steps = next(iter(batches.values())).shape[1]
+                                                batch), ctx)
         p, s = stacked, opt.init(stacked)
-        for i in range(n_steps):
+        for i in range(_n_steps(batches)):
             g = grad_fn(p, {k: b[:, i] for k, b in batches.items()})
-            p, s = opt.update(g - ci + c, s, p)
+            p, s = opt.update(tree_map(lambda gl, cil, cl: gl - cil + cl,
+                                       g, ci, c), s, p)
         # option-II control update: c_i+ = c_i - c + (x - y_i) / (K * lr)
         k_lr = ctx.local_steps * ctx.cfg.lr
-        return p, ci - c + (global_params - p) / k_lr
+        return p, tree_map(lambda cil, cl, x, y: cil - cl + (x - y) / k_lr,
+                           ci, c, global_params, p)
 
     def server_update(self, server_state, client_states, new_client_states,
                       global_params, fused, ctx):
@@ -372,9 +411,12 @@ class Scaffold(FedMethod):
         # N = population. Full participation (|S| == N) leaves the factor
         # out, as the reference does.
         scale = ctx.cohort_size / ctx.population
-        step = (new_client_states - client_states).mean(0)
-        c = server_state["c"]
-        return {"c": c + step if scale == 1.0 else c + scale * step}, fused
+
+        def upd(cl, old, new):
+            step = (new - old).mean(0)
+            return cl + step if scale == 1.0 else cl + scale * step
+        return {"c": tree_map(upd, server_state["c"], client_states,
+                              new_client_states)}, fused
 
 
 @register
@@ -388,12 +430,13 @@ class FedNova(FedMethod):
 
     def fuse(self, stacked, global_params, ctx):
         tau = float(ctx.local_steps)
-        deltas = (global_params[None] - stacked) / tau
+        deltas = tree_map(lambda y, x: (x[None] - y) / tau, stacked,
+                          global_params)
         d = fusion_lib.fedavg(deltas, ctx.weights,
                               use_kernel=ctx.use_kernel,
                               robust=ctx.robust)
         tau_eff = tau            # all clients run local_steps steps
-        return global_params - tau_eff * d
+        return tree_map(lambda x, dl: x - tau_eff * dl, global_params, d)
 
 
 @register
@@ -405,13 +448,15 @@ class FedAvgM(FedMethod):
     summary = "server heavy-ball momentum on round deltas"
 
     def init_server_state(self, params, ctx):
-        return {"v": torch.zeros_like(params)}
+        return {"v": tree_map(torch.zeros_like, params)}
 
     def server_update(self, server_state, client_states, new_client_states,
                       global_params, fused, ctx):
-        v = ctx.cfg.server_momentum * server_state["v"] + (global_params
-                                                            - fused)
-        return {"v": v}, global_params - ctx.cfg.server_lr * v
+        beta, lr = ctx.cfg.server_momentum, ctx.cfg.server_lr
+        v = tree_map(lambda vl, x, f: beta * vl + (x - f),
+                     server_state["v"], global_params, fused)
+        return {"v": v}, tree_map(lambda x, vl: x - lr * vl, global_params,
+                                  v)
 
 
 @register
@@ -439,19 +484,23 @@ class FedAdam(FedMethod):
         return False
 
     def init_server_state(self, params, ctx):
-        z = torch.zeros_like(params)
+        z = tree_map(torch.zeros_like, params)
         return {"m": z, "v": z,
                 "t": torch.zeros((), dtype=torch.float32,
-                                 device=params.device)}
+                                 device=tree_leaves(params)[0].device)}
 
     def server_update(self, server_state, client_states, new_client_states,
                       global_params, fused, ctx):
-        d = global_params - fused
+        b1, b2, lr = self.b1, self.b2, ctx.cfg.server_lr
         t = server_state["t"] + 1.0
-        m = self.b1 * server_state["m"] + (1 - self.b1) * d
-        v = self.b2 * server_state["v"] + (1 - self.b2) * torch.square(d)
-        mh = m / (1 - self.b1 ** t)
-        vh = v / (1 - self.b2 ** t)
-        new = global_params - ctx.cfg.server_lr * mh / (torch.sqrt(vh)
-                                                        + self.eps)
-        return {"m": m, "v": v, "t": t}, new
+        d = tree_map(lambda x, f: x - f, global_params, fused)
+        m = tree_map(lambda ml, dl: b1 * ml + (1 - b1) * dl,
+                     server_state["m"], d)
+        v = tree_map(lambda vl, dl: b2 * vl + (1 - b2) * torch.square(dl),
+                     server_state["v"], d)
+
+        def upd(x, ml, vl):
+            mh = ml / (1 - b1 ** t)
+            vh = vl / (1 - b2 ** t)
+            return x - lr * mh / (torch.sqrt(vh) + self.eps)
+        return {"m": m, "v": v, "t": t}, tree_map(upd, global_params, m, v)

@@ -478,14 +478,16 @@ def run_sampled_round(engine, pop: Population, method, server_state,
             stacked_tiles.append(fuse_out[:n_real].clone())
             continue
         s_t = float(w.sum())
-        acc = fuse_out * s_t if acc is None else acc + fuse_out * s_t
+        part = tree_map(lambda f: f * s_t, fuse_out)
+        acc = part if acc is None else tree_map(torch.add, acc, part)
         w_acc += s_t
     if method.host_fusion:
         w_all = (np.ones(len(ids)) if uniform_weights
                  else pop.weights[ids])
         return server_state, engine.host_fuse(torch.cat(stacked_tiles),
                                               w_all)
-    return engine.finish_round(server_state, global_params, acc / w_acc)
+    return engine.finish_round(server_state, global_params,
+                               tree_map(lambda a: a / w_acc, acc))
 
 
 def one_shot_config(cfg: FLConfig) -> FLConfig:
@@ -506,7 +508,8 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                   class_counts=None, group_spec=None, use_kernel=None,
                   use_local_kernel: bool = False, device=None,
                   init_params=None, checkpoint_dir=None,
-                  checkpoint_every: int = 1, resume: bool = False) -> dict:
+                  checkpoint_every: int = 1, resume: bool = False,
+                  grad_chunk: int | None = None) -> dict:
     """parts: cfg.population per-client index arrays (or a
     ``statestore.ShardIndices``); get_batch(sel) -> batch dict of numpy
     arrays; test_batches: list of such dicts for the global eval.
@@ -520,6 +523,10 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     groups' too).
     device: where the run computes; None = the CUDA card (raises when
     there is none).
+    grad_chunk: each local step's vmapped gradients taken this many
+    clients at a time (None: the whole cohort in one call; the same
+    numbers, less memory: a client's activations live through its
+    backward, as nothing is rematerialized under ``torch.func``).
     init_params: a params tree to start from (e.g. a reference init
     converted by ``repro_torch.convert``); None draws one from
     ``torch.Generator().manual_seed(cfg.seed)``.
@@ -566,7 +573,7 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             task, cfg, parts, get_batch, test_batches, latency=latency,
             log=log, class_counts=class_counts, group_spec=group_spec,
             use_kernel=use_kernel, use_local_kernel=use_local_kernel,
-            device=device, init_params=init_params)
+            device=device, init_params=init_params, grad_chunk=grad_chunk)
     if latency != "zero":
         from repro_torch.fl import async_engine as async_lib
         async_lib.parse_latency(latency)   # helpful error for typos
@@ -600,14 +607,15 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                             use_local_kernel=use_local_kernel,
                             device=device, checkpoint_dir=checkpoint_dir,
                             checkpoint_every=checkpoint_every,
-                            resume=resume)
+                            resume=resume, grad_chunk=grad_chunk)
     finally:
         pop.store.close()      # out-of-core stores drop their shards
 
 
 def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
                  test_batches, rng, *, log, use_kernel, use_local_kernel,
-                 device, checkpoint_dir, checkpoint_every, resume) -> dict:
+                 device, checkpoint_dir, checkpoint_every, resume,
+                 grad_chunk) -> dict:
     """``run_federated``'s sync run once its population holds its store:
     attackers, engines, state (restored from a checkpoint on resume),
     the round loop with its saves, and the history."""
@@ -637,14 +645,15 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
             tiered = capacity_lib.make_tiered_engine(
                 task, cfg, params, plan, device=device,
                 use_kernel=use_kernel, use_local_kernel=use_local_kernel,
-                method=method, use_gw=pop.group_weights is not None)
+                method=method, use_gw=pop.group_weights is not None,
+                grad_chunk=grad_chunk)
     if tiered is not None:
         engine = tiered.full
     else:
         engine = make_round_engine(task, cfg, params, device=device,
                                    use_kernel=use_kernel,
                                    use_local_kernel=use_local_kernel,
-                                   method=method)
+                                   method=method, grad_chunk=grad_chunk)
     layout = engine.layout
     global_params = layout.flatten(params)
     server_state = engine.init_server_state(global_params)

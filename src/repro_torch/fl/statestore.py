@@ -12,12 +12,15 @@ per-client state lives behind a store that moves exactly those rows
   federated methods: ``register`` / ``get`` / ``available()``;
   ``FLConfig.store`` is validated against the registry.
 - ``InMemoryStore`` (``"memory"``): one stacked ``(P, ...)`` host tree,
-  rows written in place. O(P) RAM, no I/O; the default.
+  rows written in place. O(P) RAM, no I/O; the default. bfloat16 rows
+  (a bf16 Mamba-2's, whose flat rows are one buffer per dtype) stay CPU
+  tensors: numpy has no bfloat16.
 - ``MmapShardStore`` (``"mmap"``): the rows live on disk as chunked
   ``.npy`` shards, memory-mapped: ``gather`` copies out the cohort's
   rows, ``scatter`` writes them back through the maps and records the
   dirty shards, which an incremental checkpoint flushes alone
-  (checkpoint/io.py). O(cohort) RAM.
+  (checkpoint/io.py). O(cohort) RAM. It refuses a params tree that
+  mixes dtypes: its shards hold one flat buffer per row.
 - ``ShardIndices``: the ragged per-client sample indices
   (``Population.parts``) as one flat array and offsets, which
   ``MmapShardStore.offload_aux`` maps from disk with the weights and
@@ -52,15 +55,18 @@ import torch
 
 from repro_torch import convert
 from repro_torch.checkpoint import io as ckpt_io
-from repro_torch.models.module import (tree_leaves, tree_leaves_with_path,
-                                       tree_map, tree_unflatten)
+from repro_torch.models.module import (host, tree_leaves,
+                                       tree_leaves_with_path, tree_map,
+                                       tree_unflatten)
 
 
-def _host(x) -> np.ndarray:
-    """A row leaf as host numpy (device tensors copied off the card)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+def _broadcast_rows(a, population: int):
+    """One row leaf broadcast to ``population`` C-ordered host rows:
+    numpy, or a CPU tensor for a dtype numpy lacks (bfloat16)."""
+    if isinstance(a, torch.Tensor):
+        return a[None].expand((population,) + tuple(a.shape)).contiguous()
+    return np.ascontiguousarray(np.broadcast_to(
+        np.asarray(a)[None], (population,) + np.shape(a)))
 
 
 # ---------------------------------------------------------------------------
@@ -230,10 +236,8 @@ class InMemoryStore(ClientStateStore):
         # would keep its population axis innermost, and a reduction over
         # that axis then sums in another order on the whole-population
         # path than on gathered rows
-        self._tree = tree_map(
-            lambda a: np.ascontiguousarray(np.broadcast_to(
-                np.asarray(a)[None], (population,) + np.shape(a))),
-            row_tree)
+        self._tree = tree_map(lambda a: _broadcast_rows(a, population),
+                              row_tree)
 
     def gather(self, ids):
         ids = np.asarray(ids)
@@ -244,8 +248,9 @@ class InMemoryStore(ClientStateStore):
 
         def put(a, new):
             if isinstance(a, torch.Tensor):   # a device tree: copy once
-                a = a.detach().cpu().numpy().copy()
-            a[ids] = _host(new)
+                a = (a.detach().cpu() if a.dtype == torch.bfloat16
+                     else a.detach().cpu().numpy().copy())
+            a[ids] = host(new)
             return a
 
         self._tree = tree_map(put, self._tree, rows)
@@ -334,6 +339,8 @@ class MmapShardStore(ClientStateStore):
                            for s, d in self._ref_meta]}
 
     def initialize(self, row_tree, population, layout=None):
+        if layout is not None:
+            layout.require_one_dtype("store='mmap'")
         rows = [np.asarray(leaf) for leaf in tree_leaves(row_tree)]
         self._row_like, self._flat = row_tree, layout
         self._leaf_meta = [(tuple(r.shape), r.dtype) for r in rows]
@@ -381,7 +388,7 @@ class MmapShardStore(ClientStateStore):
 
     def scatter(self, ids, rows_tree):
         ids = np.asarray(ids, np.int64)
-        flat = [_host(leaf) for leaf in tree_leaves(rows_tree)]
+        flat = [host(leaf) for leaf in tree_leaves(rows_tree)]
         for c, mask, rows in self._by_shard(ids):
             for j, leaf in enumerate(flat):
                 self._map(j, c)[rows] = leaf[mask]

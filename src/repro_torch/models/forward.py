@@ -59,7 +59,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import dense_apply, embed_apply
-from repro_torch.models.module import rematerialized, tree_leaves, tree_map
+from repro_torch.models.module import (rematerialized, tree_leaves, tree_map,
+                                       tree_unflatten)
 from repro_torch.models.transformer import (ModelConfig, _default_kind,
                                             _gelu_ffn_apply, _norm_apply,
                                             _zero_aux,
@@ -87,13 +88,24 @@ def refuse_frontend_families(cfg: ModelConfig, where: str):
             f"embeddings) that {where}'s token batch does not carry")
 
 
+def _layers(params_stack) -> list:
+    """The per-layer trees of a stacked (L, ...) params tree, through one
+    ``unbind`` per leaf: a gradient taken through them is stacked once
+    at the end, where indexing the stack layer by layer makes autograd
+    build a zeroed gradient of the whole stack for every layer (at a
+    cohort of full-depth Mamba-2 rows, 48 transients of up to 3.4 GB
+    each and a stack-sized accumulator from the first layer on)."""
+    leaves = tree_leaves(params_stack)
+    per_leaf = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(params_stack, [p[i] for p in per_leaf])
+            for i in range(leaves[0].shape[0])]
+
+
 def _scan_blocks(params_stack, x, apply_one, remat: bool):
     """``apply_one(layer params, x) -> (x, aux)`` over the stacked layer
     axis, in order. Returns (x, the sum of the layers' aux)."""
-    n = tree_leaves(params_stack)[0].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n):
-        lp = tree_map(lambda t: t[i], params_stack)
+    for lp in _layers(params_stack):
         x, a = (rematerialized(apply_one, lp, x) if remat
                 else apply_one(lp, x))
         aux = aux + a
@@ -116,9 +128,10 @@ def _forward_hybrid(params, cfg: ModelConfig, x, positions):
     def run(fn, p, h):
         return rematerialized(fn, p, h) if cfg.remat_blocks else fn(p, h)
 
+    layers = _layers(params["blocks"])
     for s in range(cfg.n_layers // k):
         for j in range(s * k, (s + 1) * k):
-            x = run(ssm_one, tree_map(lambda t: t[j], params["blocks"]), x)
+            x = run(ssm_one, layers[j], x)
         x = run(shared_one, shared, x)
     return x
 

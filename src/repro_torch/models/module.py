@@ -1,12 +1,14 @@
 """Parameter trees, their fan-in initializer, and the flat layout.
 
 Parameters are nested dicts (and lists) of tensors, as in ``repro``.
-``FlatLayout`` maps such a tree onto one flat vector and back: the round
-engine keeps a whole cohort as ONE (C, M) buffer whose rows are clients,
-so the local optimizer step and the fusion each run as one pass over it
-(the counterpart of ``jax.flatten_util.ravel_pytree`` in the reference's
-kernel route). Leaves sit in the order of ``tree_paths``: dict keys
-sorted, lists in index order, as jax flattens them.
+``FlatLayout`` maps such a tree onto flat vectors and back, one per leaf
+dtype: the round engine keeps a whole cohort as one (C, M_d) buffer per
+dtype whose rows are clients (ONE (C, M) buffer for a tree of one
+dtype), so the local optimizer step and the fusion each run as one pass
+over each buffer. ``FlatLayout.ravel`` is the counterpart of
+``jax.flatten_util.ravel_pytree`` in the reference's kernel route: one
+buffer of the whole tree. Leaves sit in the order of ``tree_paths``:
+dict keys sorted, lists in index order, as jax flattens them.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import dataclasses
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
+import torch.utils._pytree as torch_pytree
 
 Params = Any
 
@@ -112,15 +116,17 @@ def tree_unflatten(like, leaves) -> Any:
     return _rebuild(like, (), dict(zip(tree_paths(like), leaves)))
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` applied leafwise over trees of one structure."""
-    kids = _children(tree)
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None):
+    """``fn`` applied leafwise over trees of one structure; a node for
+    which ``is_leaf`` holds counts as a leaf."""
+    kids = None if is_leaf is not None and is_leaf(tree) else \
+        _children(tree)
     if kids is None:
         return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
-    out = [tree_map(fn, v, *(r[i] for r in rest))
+    out = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
            for i, v in enumerate(tree)]
     return type(tree)(out)
 
@@ -195,10 +201,13 @@ def param_count(params: Params) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Slot:
-    """One leaf's place in the flat vector."""
+    """One leaf's place in the flat vector: ``offset`` into the buffer of
+    its dtype's segment (``segment``)."""
     path: tuple
     shape: tuple
     offset: int
+    dtype: torch.dtype = torch.float32
+    segment: int = 0
 
     @property
     def size(self) -> int:
@@ -211,70 +220,239 @@ class Slot:
 _ROW_ALIGN = 64
 
 
+def _stride(size: int) -> int:
+    return -(-size // _ROW_ALIGN) * _ROW_ALIGN
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """The slots of one dtype, in tree order: a (*lead, size) buffer of
+    row stride ``stride``."""
+    dtype: torch.dtype
+    slots: tuple
+    size: int
+
+    @property
+    def stride(self) -> int:
+        return _stride(self.size)
+
+
+class Segments(tuple):
+    """A flat value of a tree that mixes dtypes: one tensor per dtype
+    segment of its ``FlatLayout``, in segment order. The port's tree
+    functions (``tree_map``, ``tree_leaves``) and ``torch.func``'s see
+    it as a node, so elementwise code runs segment by segment."""
+    __slots__ = ()
+
+
+torch_pytree.register_pytree_node(
+    Segments, lambda s: (list(s), None), lambda parts, _: Segments(parts))
+
+
+def flat_parts(flat) -> tuple:
+    """The per-segment arrays of a flat value: the parts of ``Segments``
+    (or of a tuple or list of them), else ``(flat,)``."""
+    return tuple(flat) if isinstance(flat, (tuple, list)) else (flat,)
+
+
+def host(x):
+    """A tensor as host numpy, or as a CPU tensor where numpy has no
+    such dtype (bfloat16); anything else as numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x if x.dtype == torch.bfloat16 else x.numpy()
+    return np.asarray(x)
+
+
+def dtype_names(dtypes) -> str:
+    return ", ".join(sorted(str(d).replace("torch.", "") for d in dtypes))
+
+
 class FlatLayout:
-    """Leaf slots of one parameter tree in a flat (M,) vector.
+    """Leaf slots of one parameter tree in flat vectors, one per dtype.
 
-    ``stride`` is M rounded up to ``_ROW_ALIGN`` elements: buffers made
-    by ``alloc`` have that row stride, so every row of a stacked (C, M)
-    buffer starts 16-byte aligned and the buffer is the (C, M) view of a
-    (C, stride) allocation."""
+    The slots are grouped into SEGMENTS, one per leaf dtype, ordered by
+    where each dtype's first leaf sits in tree order; within a segment
+    the slots keep tree order. A flat value of the layout is one tensor
+    (*lead, M_d) per segment: the tensor itself when the tree has one
+    dtype, else ``Segments``. Each segment's buffers made by ``alloc``
+    have row stride ``stride`` (M_d rounded up to ``_ROW_ALIGN``
+    elements), so every row of a stacked (C, M_d) buffer starts 16-byte
+    aligned and the buffer is the (C, M_d) view of a (C, stride)
+    allocation.
 
-    def __init__(self, tree: Params):
+    ``size`` and ``stride`` are those of the whole tree, all segments
+    together (one segment's when the tree has one dtype). ``ravel`` and
+    ``unravel`` map a flat value onto ONE buffer of every leaf in tree
+    order and back (``jax.flatten_util.ravel_pytree``: for a tree that
+    mixes dtypes its buffer takes the promoted dtype, fp32 for bf16 and
+    fp32 leaves). ``by_dtype=False`` builds that one-buffer layout."""
+
+    def __init__(self, tree: Params, *, by_dtype: bool = True):
         self._skeleton = tree_map(lambda _: None, tree)
-        slots, off = [], 0
-        for path in tree_paths(tree):
-            shape = tuple(tree_get(tree, path).shape)
-            slots.append(Slot(path, shape, off))
-            off += math.prod(shape)
+        leaves = [(path, tree_get(tree, path)) for path in tree_paths(tree)]
+        dtypes = list(dict.fromkeys(leaf.dtype for _, leaf in leaves))
+        if not by_dtype:
+            one = dtypes[0]
+            for d in dtypes[1:]:
+                one = torch.promote_types(one, d)
+            dtypes = [one]
+        slots, sizes = [], [0] * len(dtypes)
+        for path, leaf in leaves:
+            seg = dtypes.index(leaf.dtype) if by_dtype else 0
+            slots.append(Slot(path, tuple(leaf.shape), sizes[seg],
+                              leaf.dtype, seg))
+            sizes[seg] += math.prod(leaf.shape)
         self.slots = tuple(slots)
-        self.size = off
-        self.stride = -(-off // _ROW_ALIGN) * _ROW_ALIGN
+        self.segments = tuple(
+            Segment(d, tuple(s for s in slots if s.segment == i), sizes[i])
+            for i, d in enumerate(dtypes))
+        self.size = sum(sizes)
+        self.stride = _stride(self.size)
+        # the shapes and dtypes of a mixed tree, for its raveled layout
+        self._meta = (None if len(self.segments) == 1 else tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            tree))
+        self._raveled = self._run_list = None
 
-    def alloc(self, lead: tuple = (), *, device=None,
-              dtype=torch.float32) -> torch.Tensor:
-        """A zeroed (*lead, M) buffer of row stride ``self.stride``."""
-        buf = torch.zeros(tuple(lead) + (self.stride,), device=device,
-                          dtype=dtype)
-        return buf[..., :self.size]
+    @property
+    def dtypes(self) -> tuple:
+        return tuple(seg.dtype for seg in self.segments)
 
-    def flatten(self, tree: Params, out: torch.Tensor | None = None,
-                *, device=None) -> torch.Tensor:
-        """Copy a tree (leaves (*lead, *shape)) into a (*lead, M) buffer,
-        by default one of the first leaf's dtype. Every leaf must have
-        the buffer's dtype: a copy into another would round it (a bf16
-        buffer rounds an fp32 leaf) with no trace in the result."""
+    def require_one_dtype(self, what: str) -> None:
+        """Raise ValueError when the tree mixes dtypes: ``what`` (an axis
+        of the round) has no per-dtype form yet."""
+        if len(self.segments) > 1:
+            raise ValueError(
+                f"{what}: a params tree that mixes dtypes "
+                f"({dtype_names(self.dtypes)}) is not supported; this "
+                "works on one flat buffer of one dtype, and the round "
+                "keeps each dtype in a buffer of its own")
+
+    def join(self, parts):
+        """A flat value from its per-segment tensors."""
+        parts = tuple(parts)
+        return parts[0] if len(parts) == 1 else Segments(parts)
+
+    def alloc(self, lead: tuple = (), *, device=None, dtype=None):
+        """A zeroed (*lead, M_d) buffer per segment, of row stride
+        ``stride``, in the segment's dtype (or every one in ``dtype``)."""
+        return self.join(
+            torch.zeros(tuple(lead) + (seg.stride,), device=device,
+                        dtype=dtype or seg.dtype)[..., :seg.size]
+            for seg in self.segments)
+
+    def flatten(self, tree: Params, out=None, *, device=None):
+        """Copy a tree (leaves (*lead, *shape)) into a flat value
+        (*lead, M_d) per segment, by default of the segments' dtypes
+        (one dtype: the first leaf's). Every leaf must have its buffer's
+        dtype: a copy into another would round it (a bf16 buffer rounds
+        an fp32 leaf) with no trace in the result."""
         first = tree_get(tree, self.slots[0].path)
         lead = tuple(first.shape[:first.dim() - len(self.slots[0].shape)])
         if out is None:
             out = self.alloc(lead, device=device or first.device,
-                             dtype=first.dtype)
-        stray = sorted({str(leaf.dtype) for leaf in self.leaves(tree)}
-                       - {str(out.dtype)})
+                             dtype=(first.dtype if len(self.segments) == 1
+                                    else None))
+        parts = flat_parts(out)
+        stray = sorted({str(leaf.dtype) for s, leaf
+                        in zip(self.slots, self.leaves(tree))
+                        if leaf.dtype != parts[s.segment].dtype})
         if stray:
             raise ValueError(
                 f"FlatLayout.flatten: leaves of dtype {', '.join(stray)} "
-                f"into a {out.dtype} buffer; a flat buffer holds one "
-                "dtype, so give the tree one")
+                f"into a buffer of another dtype "
+                f"({dtype_names({p.dtype for p in parts})}); each buffer "
+                "holds its leaves' one dtype")
         for s in self.slots:
             leaf = tree_get(tree, s.path)
-            out[..., s.offset:s.offset + s.size].copy_(
+            parts[s.segment][..., s.offset:s.offset + s.size].copy_(
                 leaf.reshape(lead + (s.size,)))
         return out
 
-    def unflatten(self, flat: torch.Tensor) -> Params:
-        """The tree of views into ``flat`` (*lead, M) -> leaves
-        (*lead, *shape). One ``split`` makes every piece, so a gradient
-        taken through the views comes back as one flat (M,) vector."""
-        lead = tuple(flat.shape[:-1])
-        pieces = torch.split(flat, [s.size for s in self.slots], dim=-1)
-        by_path = {s.path: p.reshape(lead + s.shape)
-                   for s, p in zip(self.slots, pieces)}
+    def unflatten(self, flat) -> Params:
+        """The tree of views into a flat value (*lead, M_d) per segment ->
+        leaves (*lead, *shape). One ``split`` per segment makes every
+        piece, so a gradient taken through the views comes back as one
+        flat (M_d,) vector per segment."""
+        by_path = {}
+        for seg, part in zip(self.segments, flat_parts(flat)):
+            lead = tuple(part.shape[:-1])
+            pieces = torch.split(part, [s.size for s in seg.slots], dim=-1)
+            by_path.update((s.path, p.reshape(lead + s.shape))
+                           for s, p in zip(seg.slots, pieces))
         return _rebuild(self._skeleton, (), by_path)
 
     def leaves(self, tree: Params) -> list:
         """The values of a tree of this structure (e.g. a group-axis
         tree), one per slot."""
         return [tree_get(tree, s.path) for s in self.slots]
+
+    def cast(self, tree: Params) -> Params:
+        """A tree of this structure with every leaf in its slot's dtype."""
+        by_path = {s.path: tree_get(tree, s.path).to(s.dtype)
+                   for s in self.slots}
+        return _rebuild(self._skeleton, (), by_path)
+
+    # -- one buffer of the whole tree (ravel_pytree's) ----------------------
+
+    @property
+    def raveled(self) -> "FlatLayout":
+        """The layout of ONE buffer of every leaf in tree order, of the
+        promoted dtype: this layout itself when the tree has one dtype."""
+        if self._raveled is None:
+            self._raveled = (self if self._meta is None else
+                             FlatLayout(self._meta, by_dtype=False))
+        return self._raveled
+
+    def _runs(self) -> list:
+        """(segment, offset in it, offset in the raveled buffer, size) of
+        each run of consecutive slots of one segment, in tree order."""
+        if self._run_list is None:
+            runs = []
+            for s, r in zip(self.slots, self.raveled.slots):
+                if runs and runs[-1][0] == s.segment and \
+                        runs[-1][1] + runs[-1][3] == s.offset:
+                    runs[-1][3] += s.size
+                else:
+                    runs.append([s.segment, s.offset, r.offset, s.size])
+            self._run_list = [tuple(r) for r in runs]
+        return self._run_list
+
+    def ravel(self, flat, out=None):
+        """A flat value copied into one raveled buffer (*lead, M) (``out``,
+        else a new one), each leaf cast up exactly. One dtype: the value
+        itself, no copy."""
+        if self.raveled is self:
+            return flat
+        parts = flat_parts(flat)
+        if out is None:
+            out = self.raveled.alloc(tuple(parts[0].shape[:-1]),
+                                     device=parts[0].device)
+        for seg, a, b, n in self._runs():
+            out[..., b:b + n].copy_(parts[seg][..., a:a + n])
+        return out
+
+    def unravel(self, raveled, out=None):
+        """``ravel`` inverted: the flat value of a raveled buffer, each
+        leaf cast to its dtype (rounded once). Into ``out``'s buffers, or,
+        without ``out``, as new tensors through differentiable casts (the
+        cast of ``ravel_pytree``'s ``unravel``: a loss taken through them
+        gives an fp32 gradient of the raveled buffer). One dtype: the
+        buffer itself."""
+        if self.raveled is self:
+            return raveled
+        runs = self._runs()
+        if out is not None:
+            parts = flat_parts(out)
+            for seg, a, b, n in runs:
+                parts[seg][..., a:a + n].copy_(raveled[..., b:b + n])
+            return out
+        pieces = torch.split(raveled, [n for *_, n in runs], dim=-1)
+        return Segments(
+            torch.cat([p for r, p in zip(runs, pieces) if r[0] == i],
+                      dim=-1).to(seg.dtype)
+            for i, seg in enumerate(self.segments))
 
 
 def _rebuild(node, path, by_path):

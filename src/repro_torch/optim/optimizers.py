@@ -1,9 +1,10 @@
 """Optimizers as (init, update) pairs: the port of
 ``repro.optim.optimizers``.
 
-``sgd`` works on any tensor; the round engine applies it to the
-cohort's flat (C, M) parameter buffer, where it is the plain counterpart
-of the fused ``kernels/local_step.py`` route. ``adamw``,
+``sgd`` works on any tensor or tree of tensors, in place; the round
+engine applies it to the cohort's flat (C, M_d) parameter buffers, where
+it is the plain counterpart of the fused ``kernels/local_step.py``
+route. ``adamw``,
 ``cosine_schedule`` and ``clip_by_global_norm`` work on parameter trees
 (the LM's training step, ``launch/steps.py``), with the reference's
 arithmetic: fp32 bias correction at ``t = step + 1``, and for bf16
@@ -28,19 +29,31 @@ class Optimizer(NamedTuple):
 
 def sgd(lr: float, momentum: float = 0.0,
         weight_decay: float = 0.0) -> Optimizer:
-    """SGD with heavy-ball momentum (velocity starts at zero at every
-    ``init``) and weight decay added to the gradient."""
+    """SGD with heavy-ball momentum (velocity starts at zero, in each
+    leaf's dtype, at every ``init``) and weight decay added to the
+    gradient, leaf by leaf over a tensor or a tree (the round engine's
+    flat value: one tensor per dtype segment, each stepping in its own
+    dtype). ``update`` writes the new params and velocity over the old
+    ones and returns them: the same operations, each rounded once, as
+    ``p - lr * (mu * v + g)``, without the two extra copies of the
+    params (a full-depth bf16 Mamba-2 cohort is 11 GB)."""
 
-    def init(params: torch.Tensor):
-        return None if momentum == 0.0 else torch.zeros_like(params)
+    def init(params):
+        return None if momentum == 0.0 else tree_map(torch.zeros_like,
+                                                     params)
+
+    def step(p, g, v=None):
+        if weight_decay:
+            g = g + weight_decay * p
+        if v is not None:
+            g = v.mul_(momentum).add_(g)
+        p.sub_(lr * g)
+        return p
 
     def update(grads, state, params):
-        if weight_decay:
-            grads = grads + weight_decay * params
         if momentum == 0.0:
-            return params - lr * grads, None
-        vel = momentum * state + grads
-        return params - lr * vel, vel
+            return tree_map(step, params, grads), None
+        return tree_map(step, params, grads, state), state
 
     return Optimizer(init, update)
 

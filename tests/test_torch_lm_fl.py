@@ -36,8 +36,7 @@ from repro_torch.core import fusion
 from repro_torch.fl import capacity, evaluation, methods
 from repro_torch.fl import runtime as rt
 from repro_torch.fl.engine import make_round_engine
-from repro_torch.models.module import (FlatLayout, key_path, tree_leaves,
-                                       tree_paths)
+from repro_torch.models.module import key_path, tree_leaves, tree_paths
 
 ARCH = "mamba2-1.3b"
 SEQ, N_CLIENTS, STEPS, BATCH = 16, 4, 2, 4
@@ -250,29 +249,104 @@ def test_run_federated_dense_lm_task_matches_reference(method):
                                    atol=1e-5)
 
 
-def test_lm_task_refuses_a_mixed_dtype_tree():
-    """A bf16 Mamba-2 keeps a_log, dt_bias and d_skip in fp32: one flat
-    buffer would round them to bf16, so the engine refuses the tree,
-    naming both dtypes, before a round runs; FlatLayout.flatten refuses
-    it too. The fp32 config runs."""
-    tc = with_fed2(get_config(ARCH, reduced=True, dtype=torch.bfloat16), 4)
+# the axes that keep one flat buffer of one dtype, each with the word its
+# refusal names and the FLConfig fields that select it
+MIXED_REFUSED = {
+    "attack": ("attack", dict(attack="sign_flip(4)", attack_fraction=0.25)),
+    "robust": ("robust", dict(robust="coordinate_median")),
+    "codec": ("codec", dict(codec="int8")),
+    "compute_dtype": ("compute_dtype", dict(compute_dtype="bfloat16")),
+    "mmap": ("store='mmap'", dict(store="mmap", chunk_size=2)),
+    "async": ("mode='async'", dict(mode="async", buffer_k=2)),
+    "tiers": ("tiers", dict(tiers="1.0x2,0.5x2")),
+}
+
+
+def _mixed_config():
+    return with_fed2(get_config(ARCH, reduced=True, dtype=torch.bfloat16), 4)
+
+
+@pytest.mark.parametrize("axis", sorted(MIXED_REFUSED))
+def test_lm_task_refuses_a_mixed_dtype_tree(axis):
+    """A bf16 Mamba-2 keeps a_log, dt_bias and d_skip in fp32. The round
+    keeps each dtype in a buffer of its own; the axes that work on one
+    flat buffer of one dtype (model-poisoning attacks, robust rules,
+    codecs, the bf16 local phase, the mmap store, the async engine and
+    capacity tiers) refuse the tree before a round runs, naming the axis
+    and both dtypes."""
+    tc = _mixed_config()
     params = rt.lm_task(tc).init_fn(torch.Generator().manual_seed(0))
     assert {t.dtype for t in tree_leaves(params)} == {torch.bfloat16,
                                                       torch.float32}
+    word, over = MIXED_REFUSED[axis]
+    cfg = rt.FLConfig(**{**_fl("fedavg"), "rounds": 1, **over})
     with pytest.raises(ValueError, match="bfloat16, float32") as e:
-        rt.run_federated(rt.lm_task(tc), rt.FLConfig(**_fl("fed2")),
-                         _data()["parts"], _get_batch, _test_batches(),
-                         device="cpu", init_params=params)
-    assert "mamba2_1_3b.full(dtype=torch.float32)" in str(e.value)
-    with pytest.raises(ValueError, match="dtype"):
-        FlatLayout(params).flatten(params)
-    _, tc32 = _configs()
-    h = rt.run_federated(rt.lm_task(tc32),
-                         rt.FLConfig(**{**_fl("fed2"), "rounds": 1}),
-                         _data()["parts"], _get_batch, _test_batches(),
-                         device="cpu")
-    assert all(t.dtype == torch.float32
-               for t in tree_leaves(h["final_params"]))
+        rt.run_federated(rt.lm_task(tc), cfg, _data()["parts"], _get_batch,
+                         _test_batches(), device="cpu", init_params=params)
+    assert word in str(e.value) and "mixes dtypes" in str(e.value)
+
+
+@pytest.mark.parametrize("method,over", [
+    ("scaffold", dict(cohort_size=2, sampler="uniform")),
+    ("fedadam", dict(server_lr=1e-3))])
+def test_mixed_run_resumes_bit_exactly(tmp_path, method, over):
+    """A mixed run (scaffold's control variates one host row per dtype
+    in the memory store, sampled 2 of 4; fedadam's moments per dtype)
+    saved after round 1 and resumed to round 3 equals the straight
+    3-round run to the bit, every leaf in its dtype. The checkpoint
+    holds bf16 leaves as their exact fp32 values (numpy has no
+    bfloat16), so this round trip is the port's own."""
+    tc = _mixed_config()
+    params = rt.lm_task(tc).init_fn(torch.Generator().manual_seed(0))
+
+    def run(rounds, resume=False):
+        cfg = rt.FLConfig(**{**_fl(method), "rounds": rounds, **over})
+        return rt.run_federated(rt.lm_task(tc), cfg, _data()["parts"],
+                                _get_batch, _test_batches(), device="cpu",
+                                init_params=params,
+                                checkpoint_dir=str(tmp_path / "ck"),
+                                resume=resume)
+
+    straight = rt.run_federated(
+        rt.lm_task(tc), rt.FLConfig(**{**_fl(method), "rounds": 3, **over}),
+        _data()["parts"], _get_batch, _test_batches(), device="cpu",
+        init_params=params)
+    run(1)
+    resumed = run(3, resume=True)
+    assert resumed["round"] == [1, 2]
+    for a, b, c in zip(tree_leaves(resumed["final_params"]),
+                       tree_leaves(straight["final_params"]),
+                       tree_leaves(params)):
+        assert a.dtype == b.dtype == c.dtype
+        assert torch.equal(a, b)
+
+
+def test_lm_checkpoint_keeps_the_reference_layout(tmp_path):
+    """An LM run's FL checkpoint holds every global leaf under the
+    reference's key and in the reference's shape: the depthwise conv
+    weight (L, k, 1, C) as it is (a CNN's 4-D leaves are OIHW convs and
+    go HWIO; an LM's are not convs), the mixed tree's bf16 leaves as
+    fp32."""
+    import glob
+    tc = _mixed_config()
+    jc = jax_with_fed2(jax_get_config(ARCH, reduced=True,
+                                      dtype=jnp.bfloat16), groups=4)
+    params = rt.lm_task(tc).init_fn(torch.Generator().manual_seed(0))
+    rt.run_federated(rt.lm_task(tc),
+                     rt.FLConfig(**{**_fl("fedavg"), "rounds": 1}),
+                     _data()["parts"], _get_batch, _test_batches(),
+                     device="cpu", init_params=params,
+                     checkpoint_dir=str(tmp_path))
+    [path] = glob.glob(str(tmp_path / "params-*.npz"))
+    saved = np.load(path)
+    shapes = jax.eval_shape(lambda k: jtfm.init_params(k, jc),
+                            jax.random.PRNGKey(0))
+    flat, _ = jax.tree_util.tree_flatten_with_path(shapes)
+    for p, sd in flat:
+        key = "/".join(["['global']"] + [str(k) for k in p])
+        assert saved[key].shape == sd.shape, key
+        assert saved[key].dtype == np.float32, key
+    assert saved["['global']/['blocks']/['mixer']/['conv']/['w']"].ndim == 4
 
 
 def test_lm_task_runs_a_bf16_dense_model_in_bf16():
