@@ -165,7 +165,7 @@ script exits non-zero:
             final cache within the stated limits
 26. lm train  Mamba-2 1.3B training at full width and depth through the
             CLI (--mode lm --fed2 --fed2-groups 8, batch 8 x 1024
-            tokens, bf16, AdamW with fp32 state, 6 steps), with and
+            tokens, bf16, AdamW with fp32 state, 3 steps), with and
             without --microbatches 2, counted: no kernel launches (the
             training routes take the einsum unembedding); losses finite
             and falling, step time, tokens/s, peak device memory. Then
@@ -192,7 +192,15 @@ script exits non-zero:
             second plain run does, per leaf; the loss's sharpest
             direction (Hessian power iteration: its curvature and its
             leaves), and the one-ulp readings again with the embedding
-            table at unit RMS
+            table at unit RMS. Then the bf16 Mamba-2 with its fp32
+            a_log, dt_bias and d_skip (``phase_lm_fl_mixed``), and the
+            round's axes on that tree at 12 layers
+            (``phase_lm_fl_mixed_axes``): two rounds each of model
+            poisoning, the robust rules, the int8 codec, the bf16 local
+            phase on both routes, async and the mmap store, counted;
+            the kernels at those shapes; a tapped bf16-shadow round and
+            a planted fault; a 48-layer coordinate_median round and its
+            peak memory
 28. lm cross-check  the full config with Fed2 (groups 8) in fp32 (TF32
             off): the chunked forward over 300 tokens against 300
             decode steps through ssd_update: logits at every position
@@ -246,7 +254,7 @@ script exits non-zero:
             layers, its 4096 window kept, 4,400 tokens decoded into its
             ring buffer against the chunked forward
 37. other dense and hybrid lm train  --mode lm --fed2 --fed2-groups 8
-            (bf16, batch 8 x 1024, 6 steps) for danube and zamba2 at
+            (bf16, batch 8 x 1024, 3 steps) for danube and zamba2 at
             full depth through the CLI, and stablelm cut to 8 layers
             (its 6 decoupled blocks kept) through the CLI's step; no
             launch
@@ -302,7 +310,7 @@ script exits non-zero:
             eval loss over 256 patches + 768 tokens through
             grouped_matmul (simt) and through the einsum
 47. encdec and vlm lm train  make_train_step at full width and depth
-            (bf16, Fed2 8, AdamW, 6 steps; the CLI refuses these
+            (bf16, Fed2 8, AdamW, 3 steps; the CLI refuses these
             families): Whisper 8 x 448 tokens over 8 x 1500 frames,
             InternVL 8 x (256 patches + 768 tokens); no launch; losses
             falling; then the eval step on the trained params
@@ -503,13 +511,13 @@ STORE_RUNG_ROUNDS = 4
 LM_TRAIN = ("--mode", "lm", "--arch", "mamba2-1.3b", "--fed2",
             "--fed2-groups", "8", "--batch", "8", "--seq", "1024", "--lr",
             "1e-3")
-LM_TRAIN_STEPS = 6
+LM_TRAIN_STEPS = 3
 # the profiled --mode lm steps of Mamba-2 and Zamba2 run at full width
-# and this depth (Zamba2: 2 super-blocks): the profiler's cost grows with
+# and this depth (Zamba2: 1 super-block): the profiler's cost grows with
 # the device ops it records (~2 ms a op on the card's host: 145k ops
 # made the lm profile phase 264 s), while a layer's ops and their shares
 # are the same at any depth. The lm train phases time the full depth.
-PROFILE_LM_LAYERS = 12
+PROFILE_LM_LAYERS = 6
 # the eval step's loss through grouped_matmul vs through the einsum, one
 # bf16 batch: both round the logits to bf16 (2^-8 relative) from fp32
 # sums in other orders; the mean CE over 8,192 tokens averages that.
@@ -2591,18 +2599,18 @@ def phase_tier_async_scenarios():
 
 
 def phase_tier_async_profile():
-    """Path A (--use-local-kernel, 3 rounds) and path C (fed2,
-    --use-local-kernel, 6 events) under torch.profiler."""
+    """Path A (--use-local-kernel, 1 round) and path C (fed2,
+    --use-local-kernel, 2 events) under torch.profiler (the profiler's
+    cost on the host grows with the ops it records)."""
     from repro_torch.fl.runtime import run_federated
     from repro_torch.launch import train
-    a = train.parse_args(list(TIER_PATHS["A"][0]) + ["--rounds", "3"])
+    a = train.parse_args(list(TIER_PATHS["A"][0]) + ["--rounds", "1"])
     inputs = train.fl_inputs(a)
-    profiled("path A, 3 rounds", lambda: run_federated(
+    profiled("path A, 1 round", lambda: run_federated(
         *inputs, use_local_kernel=True, device="cuda"))
-    c = train.parse_args(["--method", "fed2", *ASYNC_PATH, "--rounds",
-                          str(ASYNC_EVENTS)])
+    c = train.parse_args(["--method", "fed2", *ASYNC_PATH, "--rounds", "2"])
     inputs = train.fl_inputs(c)
-    profiled(f"path C (fed2), {ASYNC_EVENTS} events", lambda: run_federated(
+    profiled("path C (fed2), 2 events", lambda: run_federated(
         *inputs, latency=c.latency, use_local_kernel=True, device="cuda"))
 
 
@@ -3299,13 +3307,14 @@ class LmKernelTaps:
     (eps = 2^-23; each route rounds every operation once, the kernel's
     perhaps fused): for local_step |dv'| <= 2 eps (|mu v| + |g|) and
     |dp'| <= 2 eps (|p| + 2 lr (|mu v| + |g|)); for an N-row fusion
-    |d| <= N eps sum_n w_n |x_n|, plus one ulp of the result when it is
-    written in a narrower dtype than fp32 (bf16: 2^-7 |result|; the two
-    fp32 sums may round to neighbouring values). local_step is held over
-    the layout's raveled buffer (one buffer of the whole tree: the cohort
-    itself for a tree of one dtype, the fp32 copy of a tree that mixes
-    dtypes), each paired_fusion call over the segment it fuses (one call
-    per dtype segment). Each leaf is compared in pieces of at most
+    |d| <= N eps sum_n w_n |x_n|; each plus one ulp of the result when
+    it is written in a narrower dtype than fp32 (bf16: 2^-7 |result|;
+    the two fp32 results may round to neighbouring values). local_step
+    is held over the layout's raveled buffer (one buffer of the whole
+    tree: the cohort itself for a tree of one dtype, the fp32 copy of a
+    tree that mixes dtypes, or the bf16 local phase's shadow), each
+    paired_fusion call over the segment it fuses (one call per dtype
+    segment). Each leaf is compared in pieces of at most
     ``CHUNK`` columns, so the check's temporaries stay small beside a
     full-width round. The run calls the kernels as it would untapped
     (the plain versions work on copies), so no round-off carries from
@@ -3356,14 +3365,16 @@ class LmKernelTaps:
         local_step(p, v, g, lr=lr,
                    mu=0.0 if self.fault == self.FAULTS[0] else mu)
         eps = torch.finfo(torch.float32).eps
+        ulp = 0.0 if p.dtype == torch.float32 else torch.finfo(p.dtype).eps
         for path, lo, hi in self.raveled:
             c = slice(lo, hi)
             wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
-            mag = mu * v0[:, c].abs() + g[:, c].abs()
-            self._note("local_step", path, (v[:, c] - wv).abs(),
-                       2 * eps * mag)
-            self._note("local_step", path, (p[:, c] - wp).abs(),
-                       2 * eps * (p0[:, c].abs() + 2 * lr * mag))
+            mag = mu * v0[:, c].float().abs() + g[:, c].float().abs()
+            self._note("local_step", path, (v[:, c] - wv).float().abs(),
+                       2 * eps * mag + ulp * wv.float().abs())
+            self._note("local_step", path, (p[:, c] - wp).float().abs(),
+                       2 * eps * (p0[:, c].float().abs() + 2 * lr * mag)
+                       + ulp * wp.float().abs())
             del wp, wv, mag
         del p0, v0
         # the clones' blocks back to the card: at a full-width round they
@@ -3575,9 +3586,31 @@ def phase_lm_fl_parity(cfg, task, parts, get_batch, test, init, losses,
 # HYBRID_FL_LAYERS, its fp32 cell's depth, in bf16: one fed2 round.
 LM_MIXED_LAYERS = 48
 LM_MIXED_KERNEL_LAYERS = 24
-LM_MIXED_PARAMS = {48: (1_369_536_512, 9_216), 24: (749_158_400, 4_608)}
+LM_MIXED_PARAMS = {48: (1_369_536_512, 9_216), 24: (749_158_400, 4_608),
+                   12: (438_969_344, 2_304)}
 LM_MIXED_CHUNK = 1
 LM_MIXED_BUDGET_S = 120
+# the round's axes on the mixed tree: the bf16 Mamba-2 at 12 of its 48
+# layers (a cohort buffer of 3.5 GB, gradients of the whole cohort in
+# one call), two rounds of each axis (label, method, FLConfig knobs,
+# run_federated keywords), then one coordinate_median round at all 48
+LM_AXES_LAYERS = 12
+LM_AXES = (
+    ("sign_flip(4)", "fedavg",
+     dict(attack="sign_flip(4)", attack_fraction=0.25), {}),
+    ("gauss_noise(0.01)", "fedavg",
+     dict(attack="gauss_noise(0.01)", attack_fraction=0.25), {}),
+    ("coordinate_median", "fed2", dict(robust="coordinate_median"), {}),
+    ("trimmed_mean(0.25)", "fed2", dict(robust="trimmed_mean(0.25)"), {}),
+    ("norm_clip(1.0)", "fed2", dict(robust="norm_clip(1.0)"), {}),
+    ("codec int8", "fedavg", dict(codec="int8"), {}),
+    ("bf16 local phase", "fed2", dict(compute_dtype="bfloat16"), {}),
+    ("bf16 local phase --use-local-kernel", "fed2",
+     dict(compute_dtype="bfloat16"), dict(use_local_kernel=True)),
+    ("async buffer_k 2", "fedavg", dict(mode="async", buffer_k=2), {}),
+    ("store mmap", "fedavg", dict(store="mmap", chunk_size=2), {}),
+)
+LM_AXES_BUDGET_S = 120
 
 
 def mamba_mixed_config(layers):
@@ -3605,13 +3638,19 @@ def mixed_header(cfg, init, depth) -> dict:
     return counts
 
 
-def mixed_leaf_checks(label, h, init, loss_of=None, l0=None):
+def mixed_leaf_checks(label, h, init, loss_of=None, l0=None,
+                      through_bf16=False):
     """Every final leaf finite, on the card and in its init's dtype;
     every fp32 leaf moved, and the fp32 a_log off the bf16 grid (a bf16
     buffer would put it there). A bf16 leaf keeps its init where every
     element's update stays under half its ulp (a norm scale of 1 moves
     only by 2^-8 or more), as in the reference: those are printed, with
-    their largest |value|. Prints s/round and the held-out loss."""
+    their largest |value|. ``through_bf16``: the local phase ran in bf16
+    (``compute_dtype``), which casts every leaf to bf16 as the reference
+    does, so an fp32 leaf whose init is a bf16 value (d_skip's ones) may
+    keep it like a bf16 leaf, and a_log is rounded to the bf16 grid in
+    every client's row (their fp32 mean need not lie on it); a_log must
+    still move. Prints s/round and the held-out loss."""
     from repro_torch.models.module import tree_leaves_with_path
     finite_params(h)
     leaves = tree_leaves_with_path(h["final_params"])
@@ -3636,13 +3675,34 @@ def mixed_leaf_checks(label, h, init, loss_of=None, l0=None):
           f"{least[0]:.3g}, {least[1]}); a_log {a_log.dtype}, {off:.3g} "
           f"off the bf16 grid{loss}", flush=True)
     if still:
-        print("     unmoved bf16 leaves (max |value|): " + ", ".join(
+        print("     unmoved leaves (max |value|): " + ", ".join(
             f"{p} {v:.3g}" for p, v in still), flush=True)
+    assert n_moved > 0, f"{label}: no leaf moved"
+    assert a_log.dtype == torch.float32 and \
+        moved["['blocks']/['mixer']/['a_log']"] > 0, \
+        f"{label}: a_log did not move"
+    if through_bf16:
+        return
     assert all(t.dtype == torch.bfloat16 for p, t in leaves
                if moved[p] == 0), f"{label}: an fp32 leaf did not move"
-    assert n_moved > 0, f"{label}: no leaf moved"
-    assert a_log.dtype == torch.float32 and off > 1e-3, \
-        f"{label}: a_log went through bf16"
+    assert off > 1e-3, f"{label}: a_log went through bf16"
+
+
+@contextlib.contextmanager
+def shadow_buffers():
+    """Records (shape, dtype) of the shadow each bf16 local phase copies
+    back into the cohort's buffers (``RoundEngine._from_shadow``)."""
+    from repro_torch.fl.engine import RoundEngine
+    seen, real = [], RoundEngine._from_shadow
+
+    def tap(self, work):
+        seen.append((tuple(work.shape), work.dtype))
+        return real(self, work)
+    RoundEngine._from_shadow = tap
+    try:
+        yield seen
+    finally:
+        RoundEngine._from_shadow = real
 
 
 @contextlib.contextmanager
@@ -3686,21 +3746,90 @@ def mixed_cohort_kernels(layout48, layout24):
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                     grouped_matmul_ref)
     from repro_torch.kernels.local_step import local_step, local_step_ref
-    from repro_torch.kernels.paired_fusion import (paired_fusion,
-                                                   paired_fusion_ref)
     from repro_torch.models.module import flat_parts
     gen = torch.Generator(device="cuda").manual_seed(11)
     n, lr, mu = LM_FL["population"], 0.01, 0.9
+    segment_fusion_times(layout48, gen)
 
-    def record(name, t):
-        print(f"  {name}: {t['ms'] * 1e3:.2f} us, plain "
-              f"{t['plain_ms'] * 1e3:.2f} us, library "
-              f"{t['library_ms'] * 1e3:.2f} us, bound "
-              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})",
-              flush=True)
+    m = layout24.size
+    p, v, g = (flat_parts(layout24.raveled.alloc((n,), device="cuda"))[0]
+               .normal_(0.0, sc, generator=gen) for sc in (1.0, 0.1, 1.0))
+    assert p.is_contiguous(), "M is a multiple of 64: no row padding"
+    name = f"local_step fp32 ({n}, {m:,})"
+    p0, v0 = p.clone(), v.clone()
+    local_step(p, v, g, lr=lr, mu=mu)
+    err, chunk = 0.0, 1 << 26
+    for lo in range(0, m, chunk):
+        c = slice(lo, lo + chunk)
+        wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
+        err = max(err, (p[:, c] - wp).abs().max().item(),
+                  (v[:, c] - wv).abs().max().item())
+    print(f"  {name}: max_abs_err {err:.3g} (tol 1e-06) "
+          f"{'ok' if err <= 1e-6 else 'FAIL'}", flush=True)
+    assert err <= 1e-6, f"{name}: kernel disagrees with its plain version"
+    del p0, v0, wp, wv
+    free_device_memory()
+    t = {"ms": event_ms(lambda: local_step(p, v, g, lr=lr, mu=mu), 5),
+         "plain_ms": event_ms(lambda: local_step_ref(p, v, g, lr, mu), 3),
+         "library_ms": event_ms(lambda: torch._fused_sgd_(
+             [p], [g], [v], weight_decay=0.0, momentum=mu, lr=lr,
+             dampening=0.0, nesterov=False, maximize=False,
+             is_first_step=False), 5)}
+    t["bound_ms"], t["bound_by"] = bound(5 * n * m * 4, 4 * n * m)
+    kernel_line(name, t)
+    del p, v, g
+    free_device_memory()
 
-    for seg, x in zip(layout48.segments,
-                      flat_parts(layout48.alloc((n,), device="cuda"))):
+    bf16 = torch.bfloat16
+    mm, gg, k = 64 * 64, 4, 2048 // 4
+    nn = next(s.shape[2] for s in layout48.slots if s.path == ("unembed", "w"))
+    assert gm.route(mm, gg, k, nn, bf16, 0, 0) == "wgmma"
+    x, wt, _ = gmm_inputs((64, 64), gg, k, nn, bf16, gen)
+    before = dict(grouped_matmul.route_launches)
+    got = grouped_matmul(x, wt)
+    assert grouped_matmul.route_launches["wgmma"] == before["wgmma"] + 1
+    name = f"grouped_matmul wgmma bf16 ({gg}, {k}, {nn}) M = {mm}"
+    check(name, got, grouped_matmul_ref(x, wt), 0.3)
+    del x, wt, got
+    w_bytes = gg * k * nn * 2
+    sets = [gmm_inputs((mm,), gg, k, nn, bf16, gen)[:2]
+            for _ in range(copies_for(w_bytes))]
+    reps = max(10, len(sets))
+    t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets], reps),
+         "plain_ms": time_ms([lambda a=a: grouped_matmul_ref(*a)
+                              for a in sets], reps),
+         "library_ms": time_ms([lambda a=a: torch.bmm(
+             a[0].view(mm, gg, k).transpose(0, 1), a[1]) for a in sets],
+             reps)}
+    t["bound_ms"], t["bound_by"] = bound(
+        w_bytes + 2 * mm * gg * (k + nn), 2 * mm * gg * k * nn, BF16_FLOPS)
+    kernel_line(name, t)
+    del sets
+    free_device_memory()
+
+
+def kernel_line(name, t):
+    """Prints a kernel's device time beside its plain version's, the
+    library call's and its bound."""
+    print(f"  {name}: {t['ms'] * 1e3:.2f} us, plain "
+          f"{t['plain_ms'] * 1e3:.2f} us, library "
+          f"{t['library_ms'] * 1e3:.2f} us, bound "
+          f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
+
+
+def segment_fusion_times(layout, gen):
+    """paired_fusion on a 4-client cohort's buffer of each dtype segment
+    of ``layout`` (the engine's row stride), each against its plain
+    version (fp32 1e-5; bf16 within one ulp of the result,
+    ``fusion_within``), timed beside the plain version, ``torch.mv`` and
+    the bound: by CUDA events around eager calls past L2, else by graph
+    replay."""
+    from repro_torch.kernels.paired_fusion import (paired_fusion,
+                                                   paired_fusion_ref)
+    from repro_torch.models.module import flat_parts
+    n = LM_FL["population"]
+    for seg, x in zip(layout.segments,
+                      flat_parts(layout.alloc((n,), device="cuda"))):
         x.normal_(generator=gen)
         m, esz = seg.size, seg.dtype.itemsize
         w = torch.rand(n, generator=gen, device="cuda") + 0.1
@@ -3730,64 +3859,8 @@ def mixed_cohort_kernels(layout48, layout24):
             del xs
         t["bound_ms"], t["bound_by"] = bound(n * m * esz + m * esz + n * 4,
                                              2 * n * m)
-        record(name, t)
+        kernel_line(name, t)
         del x
-    free_device_memory()
-
-    m = layout24.size
-    p, v, g = (flat_parts(layout24.raveled.alloc((n,), device="cuda"))[0]
-               .normal_(0.0, sc, generator=gen) for sc in (1.0, 0.1, 1.0))
-    assert p.is_contiguous(), "M is a multiple of 64: no row padding"
-    name = f"local_step fp32 ({n}, {m:,})"
-    p0, v0 = p.clone(), v.clone()
-    local_step(p, v, g, lr=lr, mu=mu)
-    err, chunk = 0.0, 1 << 26
-    for lo in range(0, m, chunk):
-        c = slice(lo, lo + chunk)
-        wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
-        err = max(err, (p[:, c] - wp).abs().max().item(),
-                  (v[:, c] - wv).abs().max().item())
-    print(f"  {name}: max_abs_err {err:.3g} (tol 1e-06) "
-          f"{'ok' if err <= 1e-6 else 'FAIL'}", flush=True)
-    assert err <= 1e-6, f"{name}: kernel disagrees with its plain version"
-    del p0, v0, wp, wv
-    free_device_memory()
-    t = {"ms": event_ms(lambda: local_step(p, v, g, lr=lr, mu=mu), 5),
-         "plain_ms": event_ms(lambda: local_step_ref(p, v, g, lr, mu), 3),
-         "library_ms": event_ms(lambda: torch._fused_sgd_(
-             [p], [g], [v], weight_decay=0.0, momentum=mu, lr=lr,
-             dampening=0.0, nesterov=False, maximize=False,
-             is_first_step=False), 5)}
-    t["bound_ms"], t["bound_by"] = bound(5 * n * m * 4, 4 * n * m)
-    record(name, t)
-    del p, v, g
-    free_device_memory()
-
-    bf16 = torch.bfloat16
-    mm, gg, k = 64 * 64, 4, 2048 // 4
-    nn = next(s.shape[2] for s in layout48.slots if s.path == ("unembed", "w"))
-    assert gm.route(mm, gg, k, nn, bf16, 0, 0) == "wgmma"
-    x, wt, _ = gmm_inputs((64, 64), gg, k, nn, bf16, gen)
-    before = dict(grouped_matmul.route_launches)
-    got = grouped_matmul(x, wt)
-    assert grouped_matmul.route_launches["wgmma"] == before["wgmma"] + 1
-    name = f"grouped_matmul wgmma bf16 ({gg}, {k}, {nn}) M = {mm}"
-    check(name, got, grouped_matmul_ref(x, wt), 0.3)
-    del x, wt, got
-    w_bytes = gg * k * nn * 2
-    sets = [gmm_inputs((mm,), gg, k, nn, bf16, gen)[:2]
-            for _ in range(copies_for(w_bytes))]
-    reps = max(10, len(sets))
-    t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets], reps),
-         "plain_ms": time_ms([lambda a=a: grouped_matmul_ref(*a)
-                              for a in sets], reps),
-         "library_ms": time_ms([lambda a=a: torch.bmm(
-             a[0].view(mm, gg, k).transpose(0, 1), a[1]) for a in sets],
-             reps)}
-    t["bound_ms"], t["bound_by"] = bound(
-        w_bytes + 2 * mm * gg * (k + nn), 2 * mm * gg * k * nn, BF16_FLOPS)
-    record(name, t)
-    del sets
     free_device_memory()
 
 
@@ -3818,8 +3891,9 @@ def phase_lm_fl_mixed():
     """run_federated(lm_task) on the full bf16 Mamba-2 (fp32 a_log,
     dt_bias, d_skip), one cohort buffer per dtype:
 
-    - the plain local route at all 48 layers, fedavg and fed2, LM_FL's 2
-      rounds, counted: paired_fusion 2 a round (one a dtype segment),
+    - the plain local route at all 48 layers, fedavg and fed2, one
+      round of LM_FL's each, counted: paired_fusion 2 a round (one a
+      dtype segment),
       grouped_matmul 1 a round on the wgmma route (the eval's bf16
       unembedding at M = 64 x 64), local_step 0; peak memory and s/round;
       every leaf kept its dtype, every fp32 leaf moved (bf16 leaves move
@@ -3844,7 +3918,7 @@ def phase_lm_fl_mixed():
                                            tree_leaves_with_path)
     t0 = time.time()
     bf16, f32 = torch.bfloat16, torch.float32
-    rounds, steps = LM_FL["rounds"], LM_FL["steps_per_epoch"]
+    steps = LM_FL["steps_per_epoch"]
 
     cfg, parts, get_batch, test, init = lm_fl_inputs(
         mamba_mixed_config(LM_MIXED_LAYERS))
@@ -3854,7 +3928,7 @@ def phase_lm_fl_mixed():
     task, loss_of = lm_task(cfg), lm_held_out_loss(cfg, test)
     l0 = loss_of(init)
     for method in ("fedavg", "fed2"):
-        fl = FLConfig(method=method, **LM_FL)
+        fl = FLConfig(method=method, **{**LM_FL, "rounds": 1})
         free_device_memory()
         torch.cuda.reset_peak_memory_stats()
         label = f"lm_task {method}, bf16, {LM_MIXED_LAYERS} layers"
@@ -3863,8 +3937,7 @@ def phase_lm_fl_mixed():
             lambda: run_federated(task, fl, parts, get_batch, test,
                                   device="cuda", init_params=init,
                                   grad_chunk=LM_MIXED_CHUNK),
-            {"paired_fusion": 2 * rounds, "grouped_matmul": rounds},
-            {"wgmma": rounds})
+            {"paired_fusion": 2, "grouped_matmul": 1}, {"wgmma": 1})
         print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
               " GB", flush=True)
         mixed_leaf_checks(label, h, init, loss_of, l0)
@@ -3981,6 +4054,176 @@ def phase_lm_fl_mixed():
     free_device_memory()
     took = time.time() - t0
     print(f"  the phase took {took:.1f} s (budget {LM_MIXED_BUDGET_S} s)",
+          flush=True)
+
+
+def axes_cohort_kernels(layout):
+    """The kernels at the axes' new shapes (the 12-layer mixed tree),
+    each against its plain version, with device times beside the bound
+    and the library call: paired_fusion on each dtype segment's (4, M_d)
+    cohort buffer (``segment_fusion_times``), and local_step on the bf16
+    local phase's shadow, ONE bf16 (4, M) buffer of the whole tree,
+    against local_step_ref within one bf16 ulp of its result plus the
+    fp32 bound of ``LmKernelTaps`` (timed by CUDA events around eager
+    calls; the library call ``torch._fused_sgd_`` on the same bf16
+    buffers)."""
+    from repro_torch.kernels.local_step import local_step, local_step_ref
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n, lr, mu, bf16 = LM_FL["population"], 0.01, 0.9, torch.bfloat16
+    segment_fusion_times(layout, gen)
+    m = layout.size
+    p, v, g = (layout.raveled.alloc((n,), device="cuda", dtype=bf16)
+               .normal_(0.0, sc, generator=gen) for sc in (1.0, 0.1, 1.0))
+    name = f"local_step bf16 ({n}, {m:,})"
+    p0, v0 = p.clone(), v.clone()
+    local_step(p, v, g, lr=lr, mu=mu)
+    eps, ulp, worst = (torch.finfo(torch.float32).eps,
+                       torch.finfo(bf16).eps, 0.0)
+    err, chunk = 0.0, 1 << 26
+    for lo in range(0, m, chunk):
+        c = slice(lo, lo + chunk)
+        wp, wv = local_step_ref(p0[:, c], v0[:, c], g[:, c], lr, mu)
+        mag = mu * v0[:, c].float().abs() + g[:, c].float().abs()
+        for got, want, tol in (
+                (v[:, c], wv, 2 * eps * mag + ulp * wv.float().abs()),
+                (p[:, c], wp, 2 * eps * (p0[:, c].float().abs()
+                                         + 2 * lr * mag)
+                 + ulp * wp.float().abs())):
+            d = (got.float() - want.float()).abs()
+            err = max(err, d.max().item())
+            worst = max(worst,
+                        torch.where(d == 0, 0.0, d / tol).max().item())
+        del wp, wv, mag
+    print(f"  {name}: max_abs_err {err:.3g}, worst {worst:.3g} of one bf16 "
+          f"ulp of the result {'ok' if worst <= 1.0 else 'FAIL'}",
+          flush=True)
+    assert worst <= 1.0, f"{name}: kernel disagrees with its plain version"
+    del p0, v0
+    free_device_memory()
+    t = {"ms": event_ms(lambda: local_step(p, v, g, lr=lr, mu=mu), 5),
+         "plain_ms": event_ms(lambda: local_step_ref(p, v, g, lr, mu), 3),
+         "library_ms": event_ms(lambda: torch._fused_sgd_(
+             [p], [g], [v], weight_decay=0.0, momentum=mu, lr=lr,
+             dampening=0.0, nesterov=False, maximize=False,
+             is_first_step=False), 5)}
+    t["bound_ms"], t["bound_by"] = bound(5 * n * m * 2, 4 * n * m)
+    kernel_line(name, t)
+    del p, v, g
+    free_device_memory()
+
+
+def phase_lm_fl_mixed_axes():
+    """run_federated(lm_task) on the bf16 Mamba-2 (fp32 a_log, dt_bias,
+    d_skip) at full width and LM_AXES_LAYERS of its 48 layers, 4 clients,
+    LM_FL's 2 rounds under each of the round's axes (``LM_AXES``), each
+    counted: paired_fusion 2 a round or event (one a dtype segment; none
+    under a reducing rule, which has no kernel), grouped_matmul 1 a round
+    or event on wgmma (the eval), local_step once a step on ONE bf16 (4,
+    M) buffer under the bf16 local phase with the flag; every leaf kept
+    its dtype, every fp32 leaf finite and moved (``mixed_leaf_checks``).
+    Then: the kernels at these shapes (``axes_cohort_kernels``); one
+    bf16-shadow local_step round under ``LmKernelTaps``, every call held
+    against its plain version, and a planted fault (local_step without
+    momentum) caught; one coordinate_median round at all 48 layers
+    (gradients one client a call), its peak memory printed beside the
+    whole-buffer sort it replaces."""
+    from repro_torch.fl.robust import SORT_CHUNK
+    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
+    from repro_torch.models.module import FlatLayout, tree_leaves_with_path
+    t0 = time.time()
+    bf16, f32 = torch.bfloat16, torch.float32
+    rounds, steps = LM_FL["rounds"], LM_FL["steps_per_epoch"]
+    cfg, parts, get_batch, test, init = lm_fl_inputs(
+        mamba_mixed_config(LM_AXES_LAYERS))
+    counts = mixed_header(cfg, init, SERVE_LAYERS)
+    assert (counts[bf16], counts[f32]) == LM_MIXED_PARAMS[LM_AXES_LAYERS]
+    layout = FlatLayout(init)
+    task, loss_of = lm_task(cfg), lm_held_out_loss(cfg, test)
+    l0 = loss_of(init)
+    shadow = [((LM_FL["population"], layout.size), (bf16,) * 3)]
+    for label, method, knobs, kw in LM_AXES:
+        fl = FLConfig(method=method, **LM_FL, **knobs)
+        reduces = "robust" in knobs and "norm_clip" not in knobs["robust"]
+        expect = {"paired_fusion": 0 if reduces else 2 * rounds,
+                  "grouped_matmul": rounds,
+                  "local_step": steps * rounds if kw else 0}
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"lm_task {method} {label}, {LM_AXES_LAYERS} layers"
+        with local_step_buffers() as seen, shadow_buffers() as shadows:
+            h, _ = counted(
+                label,
+                lambda: run_federated(task, fl, parts, get_batch, test,
+                                      device="cuda", init_params=init,
+                                      **kw),
+                expect, {"wgmma": rounds})
+        if kw:
+            assert seen == shadow * steps * rounds, seen[:2]
+            print(f"  local_step on one {seen[0][0]} bf16 buffer of the "
+                  f"whole tree, {len(seen)} calls", flush=True)
+        if "compute_dtype" in knobs:
+            assert shadows == [(shadow[0][0], bf16)] * rounds, shadows
+            print(f"  the local phase in one {shadows[0][0]} bf16 shadow "
+                  f"of the whole tree, {len(shadows)} rounds", flush=True)
+        else:
+            assert not shadows, shadows
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+              " GB", flush=True)
+        mixed_leaf_checks(label, h, init, loss_of, l0,
+                          through_bf16="compute_dtype" in knobs)
+        del h
+    free_device_memory()
+    with tf32_off():
+        axes_cohort_kernels(layout)
+        paths = [p for p, _ in tree_leaves_with_path(init)]
+        fl = FLConfig(method="fed2", compute_dtype="bfloat16",
+                      **{**LM_FL, "rounds": 1})
+
+        def tapped_round(fault=None):
+            with LmKernelTaps(layout, paths, fault) as taps:
+                run_federated(task, fl, parts, get_batch, test,
+                              device="cuda", init_params=init,
+                              use_local_kernel=True)
+            return taps
+        taps = tapped_round()
+        worst = taps.report("bf16 local phase round, kernels on the "
+                            "round's own inputs")
+        assert taps.calls == {"local_step": steps, "paired_fusion": 2}, \
+            taps.calls
+        assert max(worst.values()) <= 1.0, \
+            "a kernel call of the bf16 local phase exceeds its bound"
+        fault = LmKernelTaps.FAULTS[0]
+        r = tapped_round(fault).report(f"planted fault, {fault}",
+                                       ("local_step",))["local_step"]
+        print(f"  planted fault: {fault}: "
+              f"{'caught' if r > 1.0 else 'MISSED'}", flush=True)
+        assert r > 1.0, f"the taps miss a planted fault: {fault}"
+    del init, task, loss_of
+    free_device_memory()
+
+    cfg, parts, get_batch, test, init = lm_fl_inputs(
+        mamba_mixed_config(LM_MIXED_LAYERS))
+    counts = mixed_header(cfg, init, SERVE_LAYERS)
+    n, m = LM_FL["population"], counts[bf16]
+    fl = FLConfig(method="fed2", robust="coordinate_median",
+                  **{**LM_FL, "rounds": 1})
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    label = f"lm_task fed2 coordinate_median, {LM_MIXED_LAYERS} layers"
+    h, _ = counted(label, lambda: run_federated(
+        lm_task(cfg), fl, parts, get_batch, test, device="cuda",
+        init_params=init, grad_chunk=LM_MIXED_CHUNK),
+        {"grouped_matmul": 1}, {"wgmma": 1})
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"(the sort in chunks of {SORT_CHUNK:,} columns; one "
+          f"whole-buffer sort of the ({n}, {m:,}) bf16 segment would hold "
+          f"{n * m * 4 / 1e9:.2f} GB of fp32 values and "
+          f"{n * m * 8 / 1e9:.2f} GB of int64 order besides)", flush=True)
+    mixed_leaf_checks(label, h, init)
+    del h, init
+    free_device_memory()
+    took = time.time() - t0
+    print(f"  the phase took {took:.1f} s (budget {LM_AXES_BUDGET_S} s)",
           flush=True)
 
 
@@ -5949,6 +6192,9 @@ def main() -> int:
     free_device_memory()
     with phase("lm federation, mixed dtypes"):
         phase_lm_fl_mixed()
+    free_device_memory()
+    with phase("lm federation, mixed dtypes, axes"):
+        phase_lm_fl_mixed_axes()
     with phase("lm cross-check (TF32 off)"), tf32_off():
         phase_lm_crosscheck()
     with phase("lm profile"):

@@ -28,9 +28,9 @@ the per-leaf reference reduction, in each leaf's dtype.
 ``robust=rule`` (a reducing rule of fl/robust.py) replaces the weighted
 mean with the rule's sort-based statistic. It has no kernel: the kernel
 route is skipped, as the JAX package skips it. Without presence weights
-a coordinate rule is one reduction over the whole (N, M) buffer; with
-them, each grouped leaf reduces per group column with that column's
-weights.
+a coordinate rule is one reduction over each segment's whole (N, M_d)
+buffer, its result in the segment's dtype; with them, each grouped leaf
+reduces per group column with that column's weights.
 """
 from __future__ import annotations
 
@@ -72,7 +72,7 @@ def fedavg(stacked, weights=None, *, use_kernel: bool = False,
     first = tree_leaves(stacked)[0]
     w = _norm_weights(weights, first.shape[0], first.device)
     if robust is not None:
-        return robust.reduce(stacked, w)
+        return tree_map(lambda x: robust.reduce(x, w), stacked)
     if use_kernel:
         return tree_map(lambda x: paired_fusion(x, w), stacked)
     if weights is None:
@@ -142,7 +142,8 @@ def paired_average(stacked, layout, group_axes, perms=None, weights=None,
         gw = gw / gw.sum(0, keepdim=True)  # (N, G)
     w = _norm_weights(weights, n, dev)
     if robust is not None and gw is None:
-        return robust.reduce(stacked, w)   # coordinate-wise: every leaf
+        # coordinate-wise: every leaf of a segment in one reduction
+        return tree_map(lambda x: robust.reduce(x, w), stacked)
     if use_kernel and robust is None:
         return _kernel_fuse(stacked, layout, group_axes, w, gw)
     out = _empty_fused(stacked)

@@ -20,10 +20,12 @@ split at the fusion boundary, built from the same ``RoundEngine``:
 
 A dispatch group (the clients dispatched from the same global version)
 runs as ONE padded cohort tile (``runtime.pad_tile_inputs``). The
-tile's rows live in the engine's (C, M) cohort buffer, which the next
-tile overwrites, so every arrival keeps a copy of its row; an event
-copies its ``buffer_k`` rows into a (K, M) buffer of the cohort's row
-stride and fuses it in one ``paired_fusion`` launch. A global version
+tile's rows live in the engine's (C, M_d) cohort buffers (one per leaf
+dtype), which the next tile overwrites, so every arrival keeps a copy
+of its row; an event copies its ``buffer_k`` rows into a (K, M_d)
+buffer per dtype segment, of the cohort's row stride, and fuses each in
+one ``paired_fusion`` launch (two for a bf16 Mamba-2 with its fp32
+leaves). A global version
 that a pending dispatch still needs is kept by reference: globals are
 fresh tensors, never written in place.
 
@@ -34,8 +36,9 @@ run equals ``mode="sync"`` bit for bit for every async-eligible method.
 
 Eligibility (``compat.check_async_support``): affine-fuse,
 client-stateless, device-fused methods; scaffold, fedma and
-presence-weighted fed2 refuse. The population is the in-memory one (the
-reference's ``store='mmap'`` is not ported yet).
+presence-weighted fed2 refuse. The clients are stateless, so the
+population's store holds only the side arrays (``store='mmap'`` maps
+them from disk).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.fl import population as population_lib
 from repro_torch.fl.compat import check_async_support
 from repro_torch.fl.methods import FedMethod
 from repro_torch.fl.population import Population
+from repro_torch.models.module import tree_map
 
 # the trace rng stream id: like TierPlan's (seed + 7331), the latency
 # draws use their own substream, so the run's sampler/batch rng
@@ -209,13 +213,14 @@ class LatencyTrace:
 @dataclasses.dataclass
 class AsyncEngine:
     """The sync ``RoundEngine`` split at the fusion boundary, plus the
-    (K, M) event buffer (the cohort's row stride, which the
-    ``paired_fusion`` kernel's vector loads need)."""
+    event buffer: a (K, M_d) buffer per dtype segment, of the cohort's
+    row stride (which the ``paired_fusion`` kernel's vector loads
+    need)."""
     cohort_size: int
     buffer_k: int
     method: FedMethod
     engine: Any               # the RoundEngine at cohort_size
-    buffer: torch.Tensor      # (K, M) event rows
+    buffer: Any               # (K, M_d) event rows per dtype segment
 
     @property
     def layout(self):
@@ -261,12 +266,10 @@ def make_async_engine(task, cfg, params_like, *, device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,
                                method=meth, grad_chunk=grad_chunk)
-    engine.layout.require_one_dtype("mode='async'")
     k = cfg.buffer_k if cfg.buffer_k is not None else cfg.cohort_size
     return AsyncEngine(cohort_size=cfg.cohort_size, buffer_k=k,
                        method=meth, engine=engine,
-                       buffer=engine.layout.alloc(
-                           (k,), device=device, dtype=engine.cohort.dtype))
+                       buffer=engine.layout.alloc((k,), device=device))
 
 
 def lower_async_event(task, cfg, mesh, *, use_kernel=None):
@@ -288,7 +291,7 @@ def lower_async_event(task, cfg, mesh, *, use_kernel=None):
                                device="meta", use_kernel=False,
                                use_local_kernel=False)
     k, layout = engine.buffer_k, engine.layout
-    gp = layout.alloc(device="meta", dtype=engine.buffer.dtype)
+    gp = layout.alloc(device="meta")
     server = engine.init_server_state(gp)
     w = torch.empty((k,), dtype=torch.float32, device="meta")
     rows = engine.buffer
@@ -414,7 +417,7 @@ class AsyncFederation:
                 gp_v, device_batches(batches, self.engine.device))
             self.local_tiles += 1
             for i, d in enumerate(group):
-                d.update = stacked[i].clone()
+                d.update = tree_map(lambda x, i=i: x[i].clone(), stacked)
                 d.weight = float(w[i])
             self.old_globals.pop(v, None)
 
@@ -424,7 +427,7 @@ class AsyncFederation:
                                   staleness, self.policy)
         rows = self.engine.buffer
         for i, d in enumerate(self.buffer):
-            rows[i].copy_(d.update)
+            tree_map(lambda r, u, i=i: r[i].copy_(u), rows, d.update)
         server_state, new_global = self.engine.event_fn(
             server_state, global_params, rows, w_eff)
         self.fused_seqs.append([d.seq for d in self.buffer])

@@ -8,11 +8,16 @@ chosen by the attack's capability flags:
   client's BATCHES on the host, in ``runtime._pack_client_batches``
   after the rng draw, so the device round is the honest program.
 - ``model_poisoning`` (sign_flip / scaled_update / gauss_noise): the
-  attack transforms the malicious rows of the cohort's trained (C, M)
-  params after the local phase, in the local phase's dtype and before
-  the cast back to fp32, selected by the cohort's malicious row:
-  ``where(mal > 0, poisoned, honest)``, so a cohort that samples no
-  attacker computes the honest round bit for bit.
+  attack transforms the malicious rows of the cohort's trained params
+  after the local phase, in the local phase's dtype and before the cast
+  back to the storage dtypes, selected by the cohort's malicious row
+  (``mal > 0``): the honest rows are left as they are, so a cohort that
+  samples no attacker computes the honest round bit for bit. A row is
+  poisoned piece by piece (``FlatLayout.pieces``): each dtype segment of
+  the cohort, or each run of one segment's leaves in the bf16 local
+  phase's one shadow buffer of a tree that mixes dtypes, against the
+  global's elements in their own dtype, as the JAX package poisons
+  each leaf.
 
 Attacker ASSIGNMENT is population metadata: ``assign_attackers`` flags a
 seed-deterministic subset of logical client ids on
@@ -23,9 +28,10 @@ Noise (gauss_noise): the JAX package folds a jax key per (round, slot,
 leaf), which torch cannot reproduce. The port draws each malicious
 slot's noise for leaf ``i`` from a ``torch.Generator`` on the cohort's
 device seeded with ``noise_seed(seed, round, slot, i)`` (the rule is
-that function's). Its noise is therefore another draw of the same
-distribution; the parity test injects the JAX package's noise through
-``poison_update(..., noise=...)``.
+that function's; ``i`` counts the layout's slots in tree order, whatever
+segment holds them). Its noise is therefore another draw of the same
+distribution; the parity tests inject the JAX package's noise through
+``poison_update(..., noise=...)`` or ``GaussNoise.leaf_noise``.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ import re
 
 import numpy as np
 import torch
+
+from repro_torch.models.module import flat_parts, tree_map
 
 # dedicated rng stream offsets, as the JAX package's: attacker assignment
 # and noise draws never collide with data partitioning (seed) or tier
@@ -78,25 +86,54 @@ class Attack:
         """Corrupt one host-side step batch (data_poisoning only)."""
         raise NotImplementedError
 
-    def poisoned(self, stacked, global_params, mal, key, layout, noise):
-        """The poisoned (C, M) cohort, every row (model_poisoning)."""
+    def poisoned(self, y, g, row: int, leaves, key, noise):
+        """One malicious row's poisoned values over one piece
+        (model_poisoning): ``y`` (n,) its trained values in the local
+        phase's dtype, ``g`` (n,) the round's global over the same
+        elements in their storage dtype, ``leaves`` the (layout slot
+        index, offset in the piece, size) of each leaf in it, ``noise``
+        an injected (n,) draw or None. The result is rounded to ``y``'s
+        dtype when written."""
         raise NotImplementedError
 
-    def poison_update(self, stacked: torch.Tensor,
-                      global_params: torch.Tensor, mal, key=None,
-                      layout=None, noise=None) -> torch.Tensor:
-        """The cohort's trained (C, M) params (in the local phase's
-        dtype) -> poisoned where the host row ``mal`` (C,) is > 0, the
-        honest rows bit for bit. ``global_params`` is the round's fp32
-        global; ``key`` = ``round_key(seed, round)``; ``layout`` the
-        rows' ``FlatLayout``; ``noise`` an optional (C, M) draw that
-        replaces the port's own (gauss_noise)."""
-        mal = np.asarray(mal, np.float32)
-        if not (mal > 0).any():
+    def poison_update(self, stacked, global_params, mal, key=None,
+                      layout=None, noise=None, out=None):
+        """The cohort's trained params -> poisoned where the host row
+        ``mal`` (C,) is > 0, the honest rows bit for bit.
+
+        ``stacked``: a flat value of ``layout`` (a (C, M_d) tensor per
+        dtype segment) in the local phase's dtype, or, for a tree that
+        mixes dtypes, ONE raveled (C, M) buffer (the bf16 local phase's
+        shadow); ``global_params`` the round's global, a flat value of
+        ``layout`` in its storage dtypes; ``key`` = ``round_key(seed,
+        round)``; ``noise`` an optional draw of ``stacked``'s form that
+        replaces the port's own (gauss_noise). Only the malicious rows
+        are computed, piece by piece (``FlatLayout.pieces``); they are
+        written into ``out`` (which may be ``stacked`` itself), else
+        into a copy of ``stacked``."""
+        rows = np.flatnonzero(np.asarray(mal, np.float32) > 0)
+        if not len(rows):
             return stacked
-        out = self.poisoned(stacked, global_params, mal, key, layout, noise)
-        sel = torch.as_tensor(mal > 0, device=stacked.device)[:, None]
-        return torch.where(sel, out.to(stacked.dtype), stacked)
+        if out is None:
+            out = tree_map(torch.clone, stacked)
+
+        def pieces(x):
+            if layout is None:
+                return [(p, i, 0) for i, p in enumerate(flat_parts(x))]
+            return layout.pieces(x)
+        parts = pieces(out)
+        drawn = [None] * len(parts) if noise is None else \
+            [v for v, _, _ in pieces(noise)]
+        gparts = flat_parts(global_params)
+        for (view, seg, a), eps in zip(parts, drawn):
+            n = view.shape[-1]
+            g = gparts[seg][a:a + n]
+            leaves = None if layout is None else layout.slots_in(seg, a, n)
+            for r in rows:
+                view[r] = self.poisoned(
+                    view[r], g, int(r), leaves, key,
+                    None if eps is None else eps[r])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +276,9 @@ class SignFlip(Attack):
     model_poisoning = True
     default_param = 1.0
 
-    def poisoned(self, stacked, global_params, mal, key, layout, noise):
-        dt = stacked.dtype
-        s = torch.tensor(self.param, dtype=torch.float32).to(dt)
-        return global_params[None] - s * (stacked - global_params[None]
-                                          .to(dt))
+    def poisoned(self, y, g, row, leaves, key, noise):
+        s = torch.tensor(self.param, dtype=torch.float32).to(y.dtype)
+        return g - s * (y - g.to(y.dtype))
 
 
 @register
@@ -255,11 +290,10 @@ class ScaledUpdate(Attack):
     model_poisoning = True
     default_param = 10.0
 
-    def poisoned(self, stacked, global_params, mal, key, layout, noise):
-        dt = stacked.dtype
-        s = torch.tensor(self.param, dtype=torch.float32).to(dt)
-        g = global_params[None].to(dt)
-        return g + s * (stacked - g)
+    def poisoned(self, y, g, row, leaves, key, noise):
+        s = torch.tensor(self.param, dtype=torch.float32).to(y.dtype)
+        g = g.to(y.dtype)
+        return g + s * (y - g)
 
 
 @register
@@ -272,22 +306,22 @@ class GaussNoise(Attack):
     needs_rng = True
     default_param = 1.0
 
-    def draw(self, shape, mal, key, layout, device) -> torch.Tensor:
-        """The port's noise for the malicious rows of a (C, M) cohort
-        (zero elsewhere: those rows are not poisoned)."""
-        eps = torch.zeros(shape, dtype=torch.float32, device=device)
+    def leaf_noise(self, key, slot: int, leaf: int, size: int,
+                   device) -> torch.Tensor:
+        """The port's fp32 noise for layout slot ``leaf`` of cohort slot
+        ``slot`` in the round of ``key``: (size,) standard normals from
+        a generator on ``device`` seeded with ``noise_seed``."""
         gen = torch.Generator(device=device)
-        for slot in np.flatnonzero(np.asarray(mal) > 0):
-            for i, s in enumerate(layout.slots):
-                gen.manual_seed(noise_seed(key, int(slot), i))
-                eps[slot, s.offset:s.offset + s.size] = torch.randn(
-                    s.size, generator=gen, device=device)
-        return eps
+        gen.manual_seed(noise_seed(key, slot, leaf))
+        return torch.randn(size, generator=gen, device=device)
 
-    def poisoned(self, stacked, global_params, mal, key, layout, noise):
-        dt = stacked.dtype
+    def poisoned(self, y, g, row, leaves, key, noise):
+        dt = y.dtype
         if noise is None:
-            noise = self.draw(stacked.shape, mal, key, layout,
-                              stacked.device)
+            noise = torch.empty(y.shape, dtype=torch.float32,
+                                device=y.device)
+            for i, off, n in leaves:
+                noise[off:off + n] = self.leaf_noise(key, row, i, n,
+                                                     y.device)
         sigma = torch.tensor(self.param, dtype=torch.float32).to(dt)
-        return stacked + sigma * noise.to(dt)
+        return y + sigma * noise.to(dt)

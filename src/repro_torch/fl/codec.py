@@ -23,10 +23,19 @@ Registered codecs (spec grammar ``name`` or ``name(param)``):
                 indices); decode scatters into zeros.
 
 Both lossy codecs work per leaf and per client. The port holds the
-cohort as one flat (C, M) buffer, so a leaf is a column range of it
-(a ``FlatLayout`` slot). A leaf's max|d| and the set of its k largest
-|d| do not depend on the order of its coordinates, so the port's OIHW
-conv weights give the JAX package's HWIO result.
+cohort as one flat (C, M_d) buffer per dtype segment, so a leaf is a
+column range of its segment's buffer (a ``FlatLayout`` slot). A leaf's
+max|d| and the set of its k largest |d| do not depend on the order of
+its coordinates, so the port's OIHW conv weights give the JAX package's
+HWIO result.
+
+Dtypes: a delta is taken in its leaf's dtype and decoded in fp32, as in
+the JAX package. Its ``roundtrip`` then returns global + decoded delta
+in fp32 for every leaf, so a bf16 leaf comes back fp32 and the next
+round's forward refuses the tree. The port computes the same values and
+rounds each leaf back into its own dtype (a no-op for fp32 leaves), so
+a tree that mixes dtypes keeps its dtypes and runs any number of
+rounds.
 
 Ties in ``topk``: the port takes the k largest |d| of a leaf by a
 stable descending sort of its coordinates in the port's flat order, so
@@ -49,13 +58,14 @@ import re
 
 import torch
 
-from repro_torch.models.module import tree_leaves
+from repro_torch.models.module import flat_parts, tree_leaves, tree_map
 
 
 class UplinkCodec:
-    """One uplink compression scheme over the flat (C, M) cohort.
-    ``roundtrip`` is what the engine runs; ``encode``/``decode`` are the
-    transport-shaped halves (one entry per layout slot)."""
+    """One uplink compression scheme over the flat cohort (a (C, M_d)
+    buffer per dtype segment). ``roundtrip`` is what the engine runs;
+    ``encode``/``decode`` are the transport-shaped halves (one entry per
+    layout slot)."""
 
     name: str = ""
     summary: str = ""          # one line for a codec table
@@ -64,21 +74,24 @@ class UplinkCodec:
     def describe(self) -> str:
         return self.name
 
-    def encode(self, deltas: torch.Tensor, layout) -> list:
-        """(C, M) client deltas -> one encoded entry per layout slot."""
+    def encode(self, deltas, layout) -> list:
+        """Client deltas (a flat value of ``layout``) -> one encoded
+        entry per layout slot."""
         raise NotImplementedError
 
-    def decode(self, encoded: list, layout) -> torch.Tensor:
-        """Encoded entries -> the (C, M) delta reconstruction."""
+    def decode(self, encoded: list, layout):
+        """Encoded entries -> the delta reconstruction, a flat value of
+        ``layout`` in fp32 (one (C, M_d) tensor per segment)."""
         raise NotImplementedError
 
-    def roundtrip(self, stacked: torch.Tensor, global_params: torch.Tensor,
-                  layout) -> torch.Tensor:
-        """What the server holds after decode: global + decoded
-        deltas."""
-        deltas = stacked - global_params[None].to(stacked.dtype)
+    def roundtrip(self, stacked, global_params, layout):
+        """What the server holds after decode: global + decoded deltas,
+        computed in fp32 and rounded into each segment's dtype."""
+        deltas = tree_map(lambda y, g: y - g[None].to(y.dtype), stacked,
+                          global_params)
         dec = self.decode(self.encode(deltas, layout), layout)
-        return global_params[None].to(dec.dtype) + dec
+        return tree_map(lambda d, g, y: (g[None].to(d.dtype) + d).to(
+            y.dtype), dec, global_params, stacked)
 
     def bytes_per_client(self, param_tree) -> int:
         """Uplink bytes ONE client ships per round under this codec."""
@@ -90,9 +103,21 @@ def _leaf_sizes(param_tree):
         yield int(math.prod(leaf.shape)), leaf.element_size()
 
 
-def _segments(layout):
-    for s in layout.slots:
-        yield s.offset, s.offset + s.size
+def _columns(deltas, layout):
+    """Each layout slot's (C, size) columns of a flat value, in slot
+    order."""
+    parts = flat_parts(deltas)
+    return [parts[s.segment][:, s.offset:s.offset + s.size]
+            for s in layout.slots]
+
+
+def _decoded(layout, like: torch.Tensor, fill):
+    """A flat fp32 value of ``layout`` with ``like``'s rows and device,
+    each segment's tensor made by ``fill`` (``torch.empty`` or
+    ``torch.zeros``), and each slot's (C, size) columns of it."""
+    out = layout.join(fill((like.shape[0], seg.size), dtype=torch.float32,
+                           device=like.device) for seg in layout.segments)
+    return out, _columns(out, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +179,13 @@ class IdentityCodec(UplinkCodec):
     exact = True
 
     def encode(self, deltas, layout):
-        return [deltas[:, lo:hi] for lo, hi in _segments(layout)]
+        return _columns(deltas, layout)
 
     def decode(self, encoded, layout):
-        return torch.cat(encoded, dim=1)
+        return layout.join(
+            torch.cat([e for s, e in zip(layout.slots, encoded)
+                       if s.segment == i], dim=1)
+            for i in range(len(layout.segments)))
 
     def roundtrip(self, stacked, global_params, layout):
         return stacked
@@ -177,8 +205,8 @@ class Int8Codec(UplinkCodec):
 
     def encode(self, deltas, layout):
         out = []
-        for lo, hi in _segments(layout):
-            d = deltas[:, lo:hi].to(torch.float32)
+        for cols in _columns(deltas, layout):
+            d = cols.to(torch.float32)
             amax = d.abs().amax(dim=1, keepdim=True)
             scale = torch.where(amax > 0, amax / 127.0,
                                 torch.ones_like(amax))
@@ -188,11 +216,9 @@ class Int8Codec(UplinkCodec):
         return out
 
     def decode(self, encoded, layout):
-        c = encoded[0]["q"].shape[0]
-        out = torch.empty((c, layout.size), dtype=torch.float32,
-                          device=encoded[0]["q"].device)
-        for (lo, hi), e in zip(_segments(layout), encoded):
-            out[:, lo:hi] = e["q"].to(torch.float32) * e["scale"]
+        out, cols = _decoded(layout, encoded[0]["q"], torch.empty)
+        for col, e in zip(cols, encoded):
+            col[:] = e["q"].to(torch.float32) * e["scale"]
         return out
 
     def bytes_per_client(self, param_tree) -> int:
@@ -223,9 +249,9 @@ class TopKCodec(UplinkCodec):
 
     def encode(self, deltas, layout):
         out = []
-        for lo, hi in _segments(layout):
-            d = deltas[:, lo:hi].to(torch.float32)
-            k = self._k(hi - lo)
+        for cols in _columns(deltas, layout):
+            d = cols.to(torch.float32)
+            k = self._k(d.shape[1])
             idx = torch.sort(d.abs(), dim=1, descending=True,
                              stable=True).indices[:, :k]
             out.append({"vals": torch.gather(d, 1, idx),
@@ -233,11 +259,9 @@ class TopKCodec(UplinkCodec):
         return out
 
     def decode(self, encoded, layout):
-        c = encoded[0]["vals"].shape[0]
-        out = torch.zeros((c, layout.size), dtype=torch.float32,
-                          device=encoded[0]["vals"].device)
-        for (lo, hi), e in zip(_segments(layout), encoded):
-            out[:, lo:hi].scatter_(1, e["idx"].long(), e["vals"])
+        out, cols = _decoded(layout, encoded[0]["vals"], torch.zeros)
+        for col, e in zip(cols, encoded):
+            col.scatter_(1, e["idx"].long(), e["vals"])
         return out
 
     def bytes_per_client(self, param_tree) -> int:

@@ -21,9 +21,15 @@ reference's ``ravel_pytree`` route does: the cohort buffer itself in
 place, or, for a tree that mixes dtypes (a bf16 Mamba-2 with its fp32
 ``a_log``, ``dt_bias`` and ``d_skip``), an fp32 copy of every leaf
 allocated once with the engine (``MethodContext.ravel_buffer``) and
-copied back at the end of the local phase. The feature axes below, the
-async engine, the capacity tiers and the ``mmap`` client-state store
-refuse a tree that mixes dtypes (``FlatLayout.require_one_dtype``).
+copied back at the end of the local phase.
+
+On a tree that mixes dtypes every axis of the round works segment by
+segment, each leaf in its own dtype: model poisoning, the robust rules,
+the codecs, the bf16 local phase (below), the async engine's events and
+the ``mmap`` store of a client-stateless method. Two refuse it, as the
+JAX package cannot run them either: the capacity tiers (no task with a
+sub-model builder has such a tree) and the ``mmap`` store of a method
+with client rows (scaffold: numpy has no bfloat16 to map).
 
 The method comes from the fl/methods.py registry; the engine never
 branches on its name. Because cohorts are sampled each round, the
@@ -38,17 +44,22 @@ JAX package's order (``local_and_fuse``, its fl/engine.py):
     work    <- method.client_update(work, batches cast down, ...)
     work    <- attack.poison_update(work, global)  # malicious rows, in
     #                                                the compute dtype
-    stacked <- work cast back to fp32
+    stacked <- work cast back to the storage dtypes
     stacked <- codec.roundtrip(stacked, global)   # decode-then-fuse
     stacked <- robust.pre(stacked, global)        # norm_clip
     fused   <- method.fuse(stacked)               # robust.reduce inside
 
-With ``compute_dtype="bfloat16"`` the local phase runs in a bf16 (C, M)
-shadow of the cohort buffer, allocated once: broadcast writes the
-global into it (the cast down), the ``local_step`` kernel route updates
-it in place with a bf16 velocity, the batches' float leaves are cast to
+With ``compute_dtype="bfloat16"`` the local phase runs in ONE bf16 (C,
+M) shadow of the whole tree (``layout.raveled``'s slots, in tree
+order), allocated once: the JAX package casts every float leaf to bf16
+(fp32 ``a_log``, ``dt_bias`` and ``d_skip`` of a bf16 Mamba-2
+included), so its local phase sees a tree of one dtype. Broadcast
+writes the global into every row (the cast down), the methods see the
+one-buffer layout, the ``local_step`` kernel route updates the shadow
+in place with a bf16 velocity, the batches' float leaves are cast to
 bf16 (integer leaves are not), and the trained rows are copied back
-into the fp32 buffer, which the fusion reads.
+into the cohort's buffers, each leaf rounded into its storage dtype,
+which the fusion reads.
 
 For rounds whose participant set exceeds one cohort (cohort tiling),
 ``run_tile`` executes local phase + fuse for one tile, and
@@ -151,6 +162,7 @@ class RoundEngine:
     codec: Any = None             # UplinkCodec or None
     compute_dtype: Any = None     # torch.bfloat16 or None (fp32)
     shadow: torch.Tensor | None = None  # bf16 (C, M) local-phase buffer
+    #                                     of the whole tree
 
     def _w32(self, w):
         if w is None:
@@ -186,29 +198,52 @@ class RoundEngine:
         (stacked, new client states): ``stacked`` is the engine's (C, M)
         cohort buffer (or a tensor made from it), which the next tile
         overwrites."""
-        stacked = fusion_lib.broadcast_global(global_params, self.cohort)
-        work, gp_local = stacked, global_params
-        if self.compute_dtype is not None:
-            work = fusion_lib.broadcast_global(global_params, self.shadow)
+        if self.compute_dtype is None:
+            stacked = work = fusion_lib.broadcast_global(global_params,
+                                                         self.cohort)
+            gp_local = global_params
+        else:
+            work, gp_local = self._to_shadow(global_params)
             batches = {k: v.to(self.compute_dtype)
                        if v.is_floating_point() else v
                        for k, v in batches.items()}
-            gp_local = global_params.to(self.compute_dtype)
+            ctx = dataclasses.replace(ctx, layout=self.layout.raveled)
         work, new_clients = self.method.client_update(
             work, batches, gp_local, clients_state, server_state, ctx)
         if self.attack is not None and malicious is not None:
             row, key = malicious
             work = self.attack.poison_update(work, global_params, row, key,
-                                             self.layout)
-        if self.compute_dtype is not None:
-            work = stacked.copy_(work)          # back to the fp32 buffer
-        stacked = work
+                                             self.layout, out=work)
+        if self.compute_dtype is None:
+            stacked = work
+        else:                     # each leaf rounded into its own dtype
+            stacked = self._from_shadow(work)
         if self.codec is not None:
             stacked = self.codec.roundtrip(stacked, global_params,
                                            self.layout)
         if self.pre_rule is not None:
             stacked = self.pre_rule.pre(stacked, global_params)
         return stacked, new_clients
+
+    def _to_shadow(self, global_params) -> tuple:
+        """The global written into every row of the compute-dtype shadow
+        (one (C, M) buffer of the whole tree in tree order, the layout
+        ``layout.raveled``), and the global itself on that layout in the
+        compute dtype: the JAX package's cast of every float leaf."""
+        if self.layout.raveled is self.layout:
+            return (fusion_lib.broadcast_global(global_params, self.shadow),
+                    global_params.to(self.compute_dtype))
+        return (self.layout.ravel(global_params, out=self.shadow),
+                self.layout.ravel(global_params,
+                                  out=self.shadow.new_empty(
+                                      self.layout.size)))
+
+    def _from_shadow(self, work):
+        """The trained shadow rows copied into the cohort buffers, each
+        leaf rounded once into its storage dtype."""
+        if self.layout.raveled is self.layout:
+            return self.cohort.copy_(work)
+        return self.layout.unravel(work, out=self.cohort)
 
     def _local_and_fuse(self, clients_state, server_state, global_params,
                         batches, weights, group_weights, malicious=None):
@@ -294,9 +329,9 @@ def make_round_engine(task, cfg, params_like, *, device,
     poisoning happens at batch packing), ``robust`` (identity-shortcut
     parameters drop the rule; a reducing rule turns the fusion kernel
     off, as the JAX package does), ``codec``, ``compute_dtype`` and
-    ``local_unroll``. Of these, ``attack`` (model poisoning), ``robust``,
-    ``codec`` and a bf16 ``compute_dtype`` refuse a params tree that
-    mixes dtypes: each works on one flat buffer of one dtype."""
+    ``local_unroll``. Each of them runs on a params tree that mixes
+    dtypes, segment by segment and each leaf in its dtype (a bf16
+    ``compute_dtype`` through one bf16 shadow of the whole tree)."""
     meth = method if method is not None else methods_lib.get(cfg.method)
     compat_lib.validate(cfg, meth)
     if grad_chunk is not None and (not isinstance(grad_chunk, int)
@@ -321,25 +356,18 @@ def make_round_engine(task, cfg, params_like, *, device,
     if getattr(cfg, "attack", None):
         atk = attacks_lib.parse_attack(cfg.attack).build()
         if atk.model_poisoning:
-            layout.require_one_dtype(f"attack={cfg.attack!r}")
             attack = atk
     rule = None
     if getattr(cfg, "robust", None):
         rule = robust_lib.parse_robust(cfg.robust)
         if not rule.active:
             rule = None
-        else:
-            layout.require_one_dtype(f"robust={cfg.robust!r}")
         if rule is not None and rule.reduces:
             use_kernel = False   # sort-based reductions have no kernel
     cdtype = resolve_compute_dtype(getattr(cfg, "compute_dtype", None),
                                    meth)
-    if cdtype is not None:
-        layout.require_one_dtype(f"compute_dtype={cfg.compute_dtype!r}")
     codec = (codec_lib.parse_codec(cfg.codec)
              if getattr(cfg, "codec", None) else None)
-    if codec is not None:
-        layout.require_one_dtype(f"codec={cfg.codec!r}")
     steps = cfg.local_epochs * cfg.steps_per_epoch
     ctx = MethodContext(
         task=task, cfg=cfg, population=cfg.population,
@@ -355,7 +383,8 @@ def make_round_engine(task, cfg, params_like, *, device,
     meth.check(ctx)
     device = torch.device(device)
     c = cfg.cohort_size
-    if ctx.use_local_kernel and layout.raveled is not layout:
+    if ctx.use_local_kernel and cdtype is None and \
+            layout.raveled is not layout:
         ctx = dataclasses.replace(ctx, ravel_buffer=layout.raveled.alloc(
             (c,), device=device))
     return RoundEngine(
@@ -365,8 +394,8 @@ def make_round_engine(task, cfg, params_like, *, device,
         robust=ctx.robust,
         pre_rule=rule if rule is not None and rule.has_pre else None,
         codec=codec, compute_dtype=cdtype,
-        shadow=(None if cdtype is None
-                else layout.alloc((c,), device=device, dtype=cdtype)))
+        shadow=(None if cdtype is None else layout.raveled.alloc(
+            (c,), device=device, dtype=cdtype)))
 
 
 # ---------------------------------------------------------------------------

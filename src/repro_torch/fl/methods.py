@@ -42,6 +42,9 @@ from ``torch.func.vmap(torch.func.grad(...))``, one per segment. With
 ``kernels/local_step.py`` over ONE buffer of the whole tree (the
 reference's ``ravel_pytree``): the cohort buffer itself for a tree of
 one dtype, an fp32 copy of every leaf for a tree that mixes dtypes.
+Under a bf16 ``compute_dtype`` the engine hands the local phase one
+bf16 shadow of the whole tree with ``ctx.layout`` its one-buffer
+layout, so the hooks see a tree of one dtype there.
 """
 from __future__ import annotations
 

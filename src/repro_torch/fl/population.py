@@ -104,10 +104,11 @@ class Population:
         self.store = store
         store.offload_aux(self)
 
-    def initialize(self, row, layout=None) -> None:
+    def initialize(self, row, layout=None, method=None) -> None:
         """Broadcast ONE client's round-0 state row to all P clients
-        (``layout``: the engine's FlatLayout of flat rows)."""
-        self.store.initialize(row, self.size, layout)
+        (``layout``: the engine's FlatLayout of flat rows; ``method``:
+        the method's name, for the store's refusals)."""
+        self.store.initialize(row, self.size, layout, method)
 
     def gather(self, ids):
         """Sampled clients' state rows -> cohort-slot stacked arrays."""

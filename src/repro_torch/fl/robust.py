@@ -7,16 +7,23 @@ the rule's capability flags:
 
 - ``reduces`` (coordinate_median, trimmed_mean(beta>0)): the rule
   REPLACES the weighted mean over the cohort axis with a weighted
-  quantile statistic per coordinate. On the port's flat (C, M) cohort
-  buffer a coordinate rule needs no per-leaf split: one reduction over
-  the whole buffer is the per-leaf reduction of the JAX package. For
+  quantile statistic per coordinate. On the port's flat (C, M_d) cohort
+  buffer of each dtype segment a coordinate rule needs no per-leaf
+  split: one reduction over the segment's buffer, its result in the
+  segment's dtype, is the per-leaf reduction of the JAX package. For
   fed2's presence-weighted grouped leaves the reduction runs per group
-  column with that column's weights (core/fusion.py).
+  column with that column's weights (core/fusion.py). The sort runs in
+  column chunks of at most ``SORT_CHUNK`` coordinates: each coordinate
+  sorts alone, so the chunks give the bits of one whole sort, and the
+  fp32 copy and int64 order of a full-width cohort (4 x 439 M columns:
+  7.0 and 14.0 GB) never exist at once.
 - ``has_pre`` (norm_clip(tau)): the rule transforms the stacked cohort
   BEFORE the plain fuse: each client's whole-model update delta is
-  L2-clipped to ``tau`` (one norm over the whole row), then the method's
-  own fusion runs unchanged, so cohort tiling stays exact. Reducing rules
-  are not affine and refuse tiled rounds (fl/runtime.py).
+  L2-clipped to ``tau`` (one norm over the whole row: the fp32 sums of
+  squares of every segment added, each segment then scaled in its
+  dtype), then the method's own fusion runs unchanged, so cohort tiling
+  stays exact. Reducing rules are not affine and refuse tiled rounds
+  (fl/runtime.py).
 
 Degenerate parameters are identity shortcuts, resolved on the host:
 ``trimmed_mean(0)`` and ``norm_clip(inf)`` are dropped by the engine,
@@ -36,6 +43,12 @@ import math
 import re
 
 import torch
+
+from repro_torch.models.module import flat_parts, tree_map
+
+# columns a reducing rule sorts at a time: 2^26 coordinates of a
+# 4-client cohort are 1 GB of fp32 values and 2 GB of int64 order
+SORT_CHUNK = 1 << 26
 
 
 class RobustRule:
@@ -62,8 +75,8 @@ class RobustRule:
         raise NotImplementedError
 
     def pre(self, stacked, global_params):
-        """Transform the stacked (N, M) cohort before the plain fuse (pre
-        rules only)."""
+        """Transform the stacked cohort (a (N, M_d) tensor per dtype
+        segment) before the plain fuse (pre rules only)."""
         return stacked
 
 
@@ -120,27 +133,44 @@ def parse_robust(spec: str) -> RobustRule:
 
 
 def _sorted_cumweights(x: torch.Tensor, w):
-    """Per-coordinate stable sort of the client axis: (N, m) values +
-    (N,) weights -> (sorted values, per-coordinate sorted weights, their
-    cumulative sum). Weights are normalized to sum 1 first."""
-    w = torch.as_tensor(w, dtype=torch.float32, device=x.device)
-    w = w / w.sum()
+    """Per-coordinate stable sort of the client axis: (N, m) fp32 values
+    + (N,) weights normalized to sum 1 -> (sorted values, per-coordinate
+    sorted weights, their cumulative sum)."""
     xs, order = torch.sort(x, dim=0, stable=True)
     ws = w[order]
     return xs, ws, torch.cumsum(ws, dim=0)
+
+
+def _by_columns(stat, x: torch.Tensor, w):
+    """``stat(values, weights)`` of each coordinate of ``x`` (N, ...)
+    over axis 0, on an fp32 copy of at most ``SORT_CHUNK`` columns at a
+    time, the result in ``x``'s dtype. Each coordinate's statistic reads
+    only its own column, so the chunks compute the bits of one pass over
+    every column."""
+    n = x.shape[0]
+    flat = x.reshape(n, -1)
+    w = torch.as_tensor(w, dtype=torch.float32, device=x.device)
+    w = w / w.sum()
+    m = flat.shape[1]
+    out = torch.empty(m, dtype=x.dtype, device=x.device)
+    for lo in range(0, m, SORT_CHUNK):
+        c = slice(lo, lo + SORT_CHUNK)
+        out[c] = stat(flat[:, c].to(torch.float32), w)
+    return out.reshape(x.shape[1:])
+
+
+def _median(flat, w):
+    xs, _, cw = _sorted_cumweights(flat, w)
+    reached = (cw >= 0.5 * cw[-1:]).to(torch.uint8)
+    idx = torch.argmax(reached, dim=0)       # the first coordinate reached
+    return torch.gather(xs, 0, idx[None])[0]
 
 
 def weighted_median(x: torch.Tensor, w) -> torch.Tensor:
     """Lower weighted median over axis 0, per coordinate: the smallest
     value whose cumulative weight reaches half the total. Always an
     input value."""
-    n = x.shape[0]
-    flat = x.reshape(n, -1).to(torch.float32)
-    xs, _, cw = _sorted_cumweights(flat, w)
-    reached = (cw >= 0.5 * cw[-1:]).to(torch.uint8)
-    idx = torch.argmax(reached, dim=0)       # the first coordinate reached
-    out = torch.gather(xs, 0, idx[None])[0]
-    return out.reshape(x.shape[1:]).to(x.dtype)
+    return _by_columns(_median, x, w)
 
 
 def trimmed_mean(x: torch.Tensor, w, beta: float) -> torch.Tensor:
@@ -149,28 +179,40 @@ def trimmed_mean(x: torch.Tensor, w, beta: float) -> torch.Tensor:
     1 - 2*beta. Each client's effective weight is the overlap of its
     cumulative interval with [beta, 1-beta]; beta=0 is the weighted
     mean."""
-    n = x.shape[0]
-    flat = x.reshape(n, -1).to(torch.float32)
-    xs, ws, cw = _sorted_cumweights(flat, w)
     lo, hi = float(beta), 1.0 - float(beta)
-    eff = (cw.clamp(max=hi) - (cw - ws).clamp(min=lo)).clamp(min=0.0)
-    out = (xs * eff).sum(0) / (hi - lo)
-    return out.reshape(x.shape[1:]).to(x.dtype)
+
+    def stat(flat, w):
+        xs, ws, cw = _sorted_cumweights(flat, w)
+        eff = (cw.clamp(max=hi) - (cw - ws).clamp(min=lo)).clamp(min=0.0)
+        # the clients' terms added in sorted order, one row at a time: a
+        # library sum may order them by the chunk's width
+        out = xs[0] * eff[0]
+        for i in range(1, xs.shape[0]):
+            out = out + xs[i] * eff[i]
+        return out / (hi - lo)
+    return _by_columns(stat, x, w)
 
 
-def clip_deltas(stacked: torch.Tensor, global_params: torch.Tensor,
-                tau: float) -> torch.Tensor:
+def clip_deltas(stacked, global_params, tau: float):
     """Per-client whole-model L2 clip of the update delta: row i's delta
     y_i - g is scaled by min(1, tau/||y_i - g||_2), the norm taken over
-    the whole flat row (every leaf jointly, as the JAX package's
-    per-leaf sum of squares does)."""
-    deltas = stacked - global_params[None].to(stacked.dtype)
-    sq = torch.square(deltas.to(torch.float32)).reshape(
-        deltas.shape[0], -1).sum(1)
+    the whole row (every leaf jointly, as the JAX package's per-leaf sum
+    of squares does). ``stacked`` and ``global_params`` are flat values
+    (one tensor per dtype segment): the norm adds each segment's fp32
+    sum of squares, and each segment's delta is scaled in its dtype."""
+    deltas = tree_map(lambda y, g: y - g[None].to(y.dtype), stacked,
+                      global_params)
+    sq = 0
+    for d in flat_parts(deltas):
+        sq = sq + torch.square(d.to(torch.float32)).reshape(
+            d.shape[0], -1).sum(1)
     norm = torch.sqrt(sq)
     scale = torch.clamp(tau / torch.clamp(norm, min=1e-12), max=1.0)
-    s = scale.reshape((-1,) + (1,) * (deltas.dim() - 1)).to(deltas.dtype)
-    return global_params[None].to(deltas.dtype) + deltas * s
+
+    def unclip(d, g):
+        s = scale.reshape((-1,) + (1,) * (d.dim() - 1)).to(d.dtype)
+        return g[None].to(d.dtype) + d * s
+    return tree_map(unclip, deltas, global_params)
 
 
 # ---------------------------------------------------------------------------

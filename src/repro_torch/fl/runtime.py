@@ -657,7 +657,8 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
     layout = engine.layout
     global_params = layout.flatten(params)
     server_state = engine.init_server_state(global_params)
-    pop.initialize(engine.init_client_row(global_params), layout)
+    pop.initialize(engine.init_client_row(global_params), layout,
+                   method.name)
 
     eval_engine = evaluation_lib.make_eval_engine(task.predict_fn,
                                                   task.n_classes)

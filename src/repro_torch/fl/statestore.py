@@ -19,8 +19,11 @@ per-client state lives behind a store that moves exactly those rows
   ``.npy`` shards, memory-mapped: ``gather`` copies out the cohort's
   rows, ``scatter`` writes them back through the maps and records the
   dirty shards, which an incremental checkpoint flushes alone
-  (checkpoint/io.py). O(cohort) RAM. It refuses a params tree that
-  mixes dtypes: its shards hold one flat buffer per row.
+  (checkpoint/io.py). O(cohort) RAM. On a params tree that mixes
+  dtypes it serves the client-stateless methods (their rows are empty;
+  only the side arrays go to disk) and refuses a method with client
+  rows (scaffold's control variates hold bfloat16 leaves, which numpy
+  cannot map; the JAX package fails writing them too).
 - ``ShardIndices``: the ragged per-client sample indices
   (``Population.parts``) as one flat array and offsets, which
   ``MmapShardStore.offload_aux`` maps from disk with the weights and
@@ -55,7 +58,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.checkpoint import io as ckpt_io
-from repro_torch.models.module import (host, tree_leaves,
+from repro_torch.models.module import (dtype_names, host, tree_leaves,
                                        tree_leaves_with_path, tree_map,
                                        tree_unflatten)
 
@@ -145,11 +148,13 @@ class ClientStateStore:
     in_memory: bool = True
     incremental: bool = False
 
-    def initialize(self, row_tree, population: int, layout=None) -> None:
+    def initialize(self, row_tree, population: int, layout=None,
+                   method: str | None = None) -> None:
         """Broadcast ONE client's round-0 row tree (host numpy,
         ``RoundEngine.init_client_row``) to population width. ``layout``
         is the engine's ``FlatLayout``: a row leaf of its M is a flat
-        params vector (None: every leaf is its own array)."""
+        params vector (None: every leaf is its own array). ``method``
+        names whose rows these are, for a refusal."""
         raise NotImplementedError
 
     def gather(self, ids) -> Any:
@@ -231,7 +236,7 @@ class InMemoryStore(ClientStateStore):
         # out-of-core store (FLConfig passes both); neither applies here
         self._tree: Any = ()
 
-    def initialize(self, row_tree, population, layout=None):
+    def initialize(self, row_tree, population, layout=None, method=None):
         # C order, as a gather's rows are: np.array of the broadcast
         # would keep its population axis innermost, and a reduction over
         # that axis then sums in another order on the whole-population
@@ -338,9 +343,18 @@ class MmapShardStore(ClientStateStore):
                 "leaves": [{"shape": list(s), "dtype": str(d)}
                            for s, d in self._ref_meta]}
 
-    def initialize(self, row_tree, population, layout=None):
-        if layout is not None:
-            layout.require_one_dtype("store='mmap'")
+    def initialize(self, row_tree, population, layout=None, method=None):
+        if any(getattr(leaf, "dtype", None) == torch.bfloat16
+               for leaf in tree_leaves(row_tree)):
+            dtypes = dtype_names(layout.dtypes if layout is not None
+                                 else {torch.bfloat16})
+            raise ValueError(
+                f"store='mmap': the client rows of method "
+                f"{method or '?'} on a params tree that mixes dtypes "
+                f"({dtypes}) hold bfloat16 leaves, and numpy has no "
+                "bfloat16 to map (the JAX package fails writing them: no "
+                "cast into a bfloat16 memmap); run store='memory' or a "
+                "client-stateless method")
         rows = [np.asarray(leaf) for leaf in tree_leaves(row_tree)]
         self._row_like, self._flat = row_tree, layout
         self._leaf_meta = [(tuple(r.shape), r.dtype) for r in rows]

@@ -419,6 +419,25 @@ class FlatLayout:
             self._run_list = [tuple(r) for r in runs]
         return self._run_list
 
+    def pieces(self, x) -> list:
+        """How ``x`` lies over the segments: (view, segment, offset) for
+        each stretch of it whose leaves are consecutive in one segment,
+        ``view`` (*lead, n) holding that segment's elements [offset,
+        offset + n). A flat value gives one piece per segment; a raveled
+        buffer of a tree that mixes dtypes (one tensor of ``raveled``'s
+        size, e.g. the bf16 local phase's shadow) one per run of slots
+        (``ravel``'s order)."""
+        if self.raveled is self or not isinstance(x, torch.Tensor):
+            return [(p, i, 0) for i, p in enumerate(flat_parts(x))]
+        return [(x[..., b:b + n], seg, a) for seg, a, b, n in self._runs()]
+
+    def slots_in(self, segment: int, offset: int, n: int) -> list:
+        """(index in ``slots``, offset from ``offset``, size) of each slot
+        of ``segment`` inside its elements [offset, offset + n)."""
+        return [(i, s.offset - offset, s.size)
+                for i, s in enumerate(self.slots)
+                if s.segment == segment and offset <= s.offset < offset + n]
+
     def ravel(self, flat, out=None):
         """A flat value copied into one raveled buffer (*lead, M) (``out``,
         else a new one), each leaf cast up exactly. One dtype: the value
