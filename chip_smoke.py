@@ -27,7 +27,11 @@ script exits non-zero:
             decoupled GELU FFN up (8, 64, 256) and down (8, 256, 64)
             with biases and InternVL's unembedding (8, 256, 11584) at M
             = 4 and 128 (bf16) and 4 (fp32), InternVL's eval chunks,
-            and its refusal under autograd; ssd_update
+            the fp32 LM rounds' evals (M = 4096: Mamba-2, Llama,
+            danube/zamba2, mixtral, deepseek; InternVL's M = 1024 chunk)
+            on the sgemm route, every sgemm case held to the simt
+            route's bits and those six timed beside it, and its refusal
+            under autograd; ssd_update
             also at zamba2's (4 | 128, 80, 64, 64), on both of its
             routes (tma, scalar), each shape launched twice more for
             bit-equal repeats, with the timed shapes' plans);
@@ -178,7 +182,7 @@ script exits non-zero:
             rounds, fedavg and fed2, with and without
             --use-local-kernel, counted: paired_fusion once a round,
             local_step once a local step with the flag, grouped_matmul
-            once a round (the eval's unembedding, simt); s/round and
+            once a round (the eval's unembedding, sgemm); s/round and
             next-token accuracy per round; every leaf moved, and the
             held-out loss (make_eval_step, same-language held-out set)
             below the init's, falling round by round for fed2. TF32
@@ -308,7 +312,7 @@ script exits non-zero:
             forward(embeds=frames)'s tied logits within 5e-3 of max
             |logit|, and apart from the zeroed-cache decode; InternVL's
             eval loss over 256 patches + 768 tokens through
-            grouped_matmul (simt) and through the einsum
+            grouped_matmul (sgemm) and through the einsum
 47. encdec and vlm lm train  make_train_step at full width and depth
             (bf16, Fed2 8, AdamW, 3 steps; the CLI refuses these
             families): Whisper 8 x 448 tokens over 8 x 1500 frames,
@@ -325,7 +329,7 @@ script exits non-zero:
             --methods all), counted against the launches the code
             gives: quickstart none, fed2_cifar_fl paired_fusion once a
             round for every method but fedma, llm_federated_finetune
-            paired_fusion and grouped_matmul (simt) once a round each
+            paired_fusion and grouped_matmul (sgemm) once a round each
             over 4 rounds of fedavg and fed2, serve_decode ssd_update 2
             a step (the reduced Mamba-2) over 25 steps; then the
             dry-run's byte accounting for all 10 archs x 4 shapes x both
@@ -724,7 +728,7 @@ FRONTEND_GMM_SHAPES = (("whisper-base", 64, 256, True),
 # row moves them O(1). The limit is set before the run
 WHISPER_DECODE_LEN = 16
 WHISPER_PREFILL_LOGIT_RTOL = 5e-3       # of max |logit|
-# InternVL's eval loss in fp32 through grouped_matmul (simt) and through
+# InternVL's eval loss in fp32 through grouped_matmul (sgemm) and through
 # the einsum, on a batch of 2 x (256 patches + 768 tokens): fp32 logits
 # differ by ~1e-6 relative (256-term sums in other orders); the mean CE
 # over ~1,200 masked tokens a few 1e-6
@@ -895,7 +899,7 @@ def phase_build():
                 print(f"  ptxas ({name}, {demangled(entry)}):", line.strip())
     from repro_torch.kernels import grouped_matmul as gm
     for r, dt in (("stream", torch.bfloat16), ("stream", torch.float32),
-                  ("wgmma", torch.bfloat16)):
+                  ("wgmma", torch.bfloat16), ("sgemm", torch.float32)):
         print(f"  grouped_matmul {r} route, {str(dt)[6:]}: "
               f"{gm.dynamic_smem(r, dt)} bytes of dynamic shared memory "
               f"per block")
@@ -1433,11 +1437,14 @@ def phase_check_grouped_matmul() -> dict:
     shapes (x (M, 8*256), w (8, 256, 6288), M = 4 and 128, bf16 as at
     full width, and fp32), at each route's edges (M = 1, 8 | 9 ... 256)
     and on ragged ones (M, K and N off the tiles and stages, K longer
-    than the ring, K or N off 16 bytes, an unaligned w, G = 1, a leading
-    batch dimension, a bias); each case must launch through the route it
-    names. Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the reference's
-    (tests/test_kernels.py). The stream and wgmma routes must repeat to
-    the bit. Times at M = 4 (stream) and 128 (wgmma)."""
+    than the ring, K or N off 16 bytes, an unaligned x or w, G = 1, a
+    leading batch dimension, a bias); each case must launch through the
+    route it names. Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the
+    reference's (tests/test_kernels.py). The stream, wgmma and sgemm
+    routes must repeat to the bit, and every sgemm case must give the
+    simt route's bits on the same inputs. Times at M = 4 (stream) and
+    128 (wgmma), and at the fp32 LM rounds' evals (sgemm, beside the
+    simt route on the same inputs)."""
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
                                                     grouped_matmul_ref)
@@ -1445,15 +1452,24 @@ def phase_check_grouped_matmul() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     g0, k0, n0 = 8, 256, 6288
 
+    def off_by_one(t):
+        """A copy of ``t`` one element past an aligned allocation."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
     def check_one(name, route, lead, g, k, n, dt, bias=False,
-                  misalign=False):
-        """One case, which must launch through ``route``."""
+                  misalign=None):
+        """One case, which must launch through ``route``; ``misalign``
+        ("x" or "w") puts that input one element off its alignment. An
+        sgemm case must repeat to the bit and give the simt route's bits
+        on the same inputs."""
         x, w, b = gmm_inputs(lead, g, k, n, dt, gen, bias)
-        if misalign:
-            buf = torch.empty(w.numel() + 1, dtype=dt, device="cuda")
-            w2 = buf[1:].view(w.shape)
-            w2.copy_(w)
-            w = w2
+        if misalign == "w":
+            w = off_by_one(w)
+        elif misalign == "x":
+            x = off_by_one(x)
         tol = 1e-4 * math.sqrt(k) if dt == f32 else 0.3
         before = dict(grouped_matmul.route_launches)
         got = grouped_matmul(x, w, b)
@@ -1461,14 +1477,23 @@ def phase_check_grouped_matmul() -> dict:
                if c != before[r]]
         assert ran == [route], f"grouped_matmul {name}: ran {ran}, " \
             f"expected the {route} route"
-        return check(f"grouped_matmul {name} [{route}] x {tuple(x.shape)} "
-                     f"w {tuple(w.shape)}{' + bias' if bias else ''} "
-                     f"{str(dt)[6:]}", got, grouped_matmul_ref(x, w, b), tol)
+        label = (f"grouped_matmul {name} [{route}] x {tuple(x.shape)} "
+                 f"w {tuple(w.shape)}{' + bias' if bias else ''} "
+                 f"{str(dt)[6:]}")
+        if route == "sgemm":
+            xm = x.reshape(-1, g * k)
+            plain = gm.launch(xm, w, "sgemm")
+            assert torch.equal(plain, gm.launch(xm, w, "sgemm")), \
+                f"{label}: two launches on the same inputs differ"
+            assert torch.equal(plain, gm.launch(xm, w, "simt")), \
+                f"{label}: not the simt route's bits"
+        return check(label + (", = simt's bits" if route == "sgemm" else ""),
+                     got, grouped_matmul_ref(x, w, b), tol)
 
     err_path = max(check_one("serve path", "stream", (4,), g0, k0, n0, bf16),
                    check_one("serve path", "stream", (4,), g0, k0, n0, f32))
     check_one("decode_32k batch", "wgmma", (128,), g0, k0, n0, bf16)
-    check_one("decode_32k batch", "simt", (128,), g0, k0, n0, f32)
+    check_one("decode_32k batch", "sgemm", (128,), g0, k0, n0, f32)
     # each route's edges at the serve shape: M = 1 and 8 (stream), 9 to
     # 256 (wgmma: one ragged row tile, two, three)
     for m in (1, 8, 9, 64, 65, 129, 256):
@@ -1496,7 +1521,17 @@ def phase_check_grouped_matmul() -> dict:
     check_one("G = 1", "wgmma", (128,), 1, k0, n0, bf16)
     check_one("leading batch dim", "wgmma", (2, 64), g0, k0, n0, bf16,
               bias=True)
-    # the simt route: what TMA does not take, and fp32 at M > 8
+    # the sgemm route: M > 8 fp32, K and N multiples of 16 bytes; M, K
+    # and N off the 128 x 128 tile and the 16-deep stage, K past the
+    # 4-stage ring, K = 4, G = 1
+    check_one("ragged", "sgemm", (9,), 3, 100, 68, f32, bias=True)
+    check_one("ragged", "sgemm", (200,), 5, 36, 260, f32)
+    check_one("K past the ring", "sgemm", (130,), 2, 600, 132, f32)
+    check_one("K = 4", "sgemm", (129,), 2, 4, 4, f32)
+    check_one("G = 1", "sgemm", (300,), 1, k0, n0, f32)
+    check_one("leading batch dim", "sgemm", (3, 77), 4, 64, 136, f32,
+              bias=True)
+    # the simt route: what TMA does not take
     check_one("ragged", "simt", (8,), 2, 33, 260, bf16)
     check_one("long K", "simt", (4,), 2, 600, 132, bf16)
     check_one("ragged", "simt", (5,), 3, 100, 70, f32, bias=True)
@@ -1506,9 +1541,13 @@ def phase_check_grouped_matmul() -> dict:
     check_one("K off 16 bytes", "simt", (4,), 2, 100, 264, bf16)
     check_one("K off 16 bytes", "simt", (64,), 2, 100, 264, bf16)
     check_one("N off the vector width", "simt", (4,), 2, 64, 6289, bf16)
-    check_one("unaligned w", "simt", (4,), 2, 64, 512, f32, misalign=True)
-    check_one("unaligned w", "simt", (4,), 2, 64, 512, bf16, misalign=True)
-    # the stream and wgmma routes repeat to the bit
+    check_one("N off the vector width", "simt", (64,), 2, 64, 6289, f32)
+    check_one("K off 16 bytes", "simt", (64,), 2, 102, 264, f32)
+    check_one("unaligned w", "simt", (4,), 2, 64, 512, f32, misalign="w")
+    check_one("unaligned w", "simt", (4,), 2, 64, 512, bf16, misalign="w")
+    check_one("unaligned w", "simt", (64,), 2, 64, 512, f32, misalign="w")
+    check_one("unaligned x", "simt", (64,), 2, 64, 512, f32, misalign="x")
+    # the stream and wgmma routes repeat to the bit (sgemm: check_one)
     for m in (4, 128):
         x, w, _ = gmm_inputs((m,), g0, k0, n0, bf16, gen)
         assert torch.equal(grouped_matmul(x, w), grouped_matmul(x, w)), \
@@ -1519,7 +1558,7 @@ def phase_check_grouped_matmul() -> dict:
     # (two chunks of 512: M = 4096, bf16, G = 8) and lm_task's eval (64
     # sequences of 64 tokens: M = 4096, fp32, G = 4, K = 512, N = 12576)
     check_one("lm eval chunk", "wgmma", (8, 512), g0, k0, n0, bf16)
-    check_one("lm_task eval", "simt", (64, 64), 4, 512, 12576, f32)
+    check_one("lm_task eval", "sgemm", (64, 64), 4, 512, 12576, f32)
     # the dense family's decode (llama3.2-1b, 8 groups): the decoupled
     # FFN's gate/up (8, 256, 1024) and down (8, 1024, 256) products and
     # the unembedding (8, 256, 16032), on x (B, 1, G*K); bf16 serve at
@@ -1529,7 +1568,7 @@ def phase_check_grouped_matmul() -> dict:
         check_one("dense decode", "stream", (4, 1), g0, k, n, bf16)
         check_one("dense decode", "wgmma", (128, 1), g0, k, n, bf16)
         check_one("dense decode", "stream", (4, 1), g0, k, n, f32)
-    check_one("dense lm_task eval", "simt", (64, 64), 4, 512, 32064, f32)
+    check_one("dense lm_task eval", "sgemm", (64, 64), 4, 512, 32064, f32)
     # the other dense configs' and zamba2's Fed2 decode (8 groups, bf16):
     # each unembedding and decoupled FFN product at batch 4 (stream) and
     # at the large-batch serve's batch (wgmma), fp32 at batch 4 where the
@@ -1541,8 +1580,8 @@ def phase_check_grouped_matmul() -> dict:
                   k, n, bf16)
         if arch in ("qwen2-7b", "zamba2-2.7b"):
             check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, f32)
-    check_one("danube/zamba2 lm_task eval", "simt", (64, 64), 4, 640, 8000,
-              f32)
+    check_one("danube/zamba2 lm_task eval", "sgemm", (64, 64), 4, 640,
+              8000, f32)
     # the MoE configs' Fed2 unembedding: decode at batch 4 (stream, bf16
     # and the fp32 parity's) and 128 (wgmma), an eval chunk (M = 4096,
     # wgmma); their lm_task eval (fp32, 4 groups, MOE_FL's widths)
@@ -1552,7 +1591,7 @@ def phase_check_grouped_matmul() -> dict:
         check_one(f"{arch} decode", "stream", (4, 1), g0, k, n, f32)
         check_one(f"{arch} eval chunk", "wgmma", (8, 512), g0, k, n, bf16)
     for arch, w in MOE_FL.items():
-        check_one(f"{arch} lm_task eval", "simt", (64, 64), 4,
+        check_one(f"{arch} lm_task eval", "sgemm", (64, 64), 4,
                   w["d_model"] // 4, w["vocab"] // 4, f32)
     # the encdec and vlm families' Fed2 decode (8 groups): Whisper's
     # decoupled GELU FFN, up (8, 64, 256) and down (8, 256, 64) with
@@ -1561,7 +1600,7 @@ def phase_check_grouped_matmul() -> dict:
     # InternVL's unembedding (8, 256, 11584); bf16 at batch 4 (stream)
     # and 128 (wgmma), fp32 at batch 4 (the decode parity and Whisper's
     # prefilled decode); InternVL's eval chunks, bf16 (wgmma, after
-    # training) and fp32 (simt, the parity phase's 2 x 768 tokens)
+    # training) and fp32 (sgemm, the parity phase's 2 x 768 tokens)
     for arch, k, n, bias in FRONTEND_GMM_SHAPES:
         for route, m, dt in (("stream", 4, bf16), ("wgmma", 128, bf16),
                              ("stream", 4, f32)):
@@ -1569,8 +1608,8 @@ def phase_check_grouped_matmul() -> dict:
                       bias=bias)
     check_one("internvl2-2b eval chunk", "wgmma", (8, 512), g0, 256, 11584,
               bf16)
-    check_one("internvl2-2b eval chunk", "simt", (2, 512), g0, 256, 11584,
-              f32)
+    check_one("internvl2-2b eval chunk", "sgemm", (2, 512), g0, 256,
+              11584, f32)
     # autograd: the kernel has no backward, so the wrapper refuses
     x, w, _ = gmm_inputs((4,), g0, k0, n0, bf16, gen)
     before = grouped_matmul.launches
@@ -1595,6 +1634,10 @@ def phase_check_grouped_matmul() -> dict:
             ("gffn gate/up M=128", 128, g0, 256, 1024, bf16),
             ("gffn down M=128", 128, g0, 1024, 256, bf16),
             ("dense lm_task eval M=4096", 4096, 4, 512, 32064, f32),
+            ("danube/zamba2 lm_task eval M=4096", 4096, 4, 640, 8000, f32),
+            *((f"{arch} lm_task eval M=4096", 4096, 4, w["d_model"] // 4,
+               w["vocab"] // 4, f32) for arch, w in MOE_FL.items()),
+            ("internvl2-2b eval chunk M=1024", 1024, g0, 256, 11584, f32),
             *((f"{arch} ({k}, {n}) M={m}", m, g0, k, n, bf16)
               for arch, k, n in OTHER_GMM_SHAPES
               for m in (4, OTHER_BIG_BATCH[arch])),
@@ -1608,7 +1651,7 @@ def phase_check_grouped_matmul() -> dict:
         sets = [gmm_inputs((m,), g, k, n, dt, gen)[:2]
                 for _ in range(copies_for(w_bytes))]
         # each replayed call writes its own (M, G*N) output: at M = 4096
-        # that is 0.4-0.8 GB, so fewer calls a graph
+        # that is 0.1-2.1 GB, so fewer calls a graph
         reps = max(200 if m <= 128 else 10, len(sets))
         t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets],
                            reps),
@@ -1620,12 +1663,19 @@ def phase_check_grouped_matmul() -> dict:
         t["bound_ms"], t["bound_by"] = bound(
             nbytes, 2 * m * g * k * n, BF16_FLOPS if dt == bf16 else
             FP32_FLOPS)
+        r = gm.route(m, g, k, n, dt, 0, 0)
+        simt = ""
+        if r == "sgemm":       # the route it replaced, on the same inputs
+            t["simt_ms"] = time_ms([lambda a=a: gm.launch(*a, "simt")
+                                    for a in sets], reps)
+            simt = f", simt {t['simt_ms'] * 1e3:.2f} us"
         timings[label] = t
         print(f"  grouped_matmul {label} ({g}, {k}, {n}) {str(dt)[6:]} "
-              f"[{gm.route(m, g, k, n, dt, 0, 0)}]: "
-              f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
-              f"torch.bmm {t['library_ms'] * 1e3:.2f} us, bound "
-              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})", flush=True)
+              f"[{r}]: {t['ms'] * 1e3:.2f} us{simt}, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, torch.bmm "
+              f"{t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of it)", flush=True)
         del sets
         free_device_memory()
     return {"name": "grouped_matmul", "route": "cuda",
@@ -3262,7 +3312,7 @@ def lm_fl_runs(task, parts, get_batch, test, init, loss_of) -> dict:
     """run_federated(lm_task) for LM_FL's 2 rounds, fedavg and fed2,
     with and without --use-local-kernel, counted: paired_fusion once a
     round, local_step once a local step with the flag, grouped_matmul
-    once a round (the eval's Fed2 unembedding, simt: fp32 at M = 64 x
+    once a round (the eval's Fed2 unembedding, sgemm: fp32 at M = 64 x
     64). Each run must move every leaf and bring the held-out loss below
     the init's. Returns the held-out losses by run ("init" too)."""
     from repro_torch.fl.runtime import FLConfig, run_federated
@@ -3281,7 +3331,7 @@ def lm_fl_runs(task, parts, get_batch, test, init, loss_of) -> dict:
                                       init_params=init),
                 {"paired_fusion": rounds, "grouped_matmul": rounds,
                  "local_step": rounds * steps if flag else 0},
-                {"simt": rounds})
+                {"sgemm": rounds})
             finite_params(h)
             w = h["wall"]
             per = [w[0]] + [b - a for a, b in zip(w, w[1:])]
@@ -4906,7 +4956,7 @@ def other_fl_config(arch, layers):
 def phase_other_lm_fl():
     """run_federated(lm_task), fp32, LM_FL's 2 rounds (``lm_fl_runs``:
     fedavg and fed2, with and without --use-local-kernel, counted:
-    paired_fusion 1, grouped_matmul 1 (simt) and with the flag
+    paired_fusion 1, grouped_matmul 1 (sgemm) and with the flag
     local_step 4 a round), on zamba2 cut to HYBRID_FL_LAYERS layers and
     danube cut to DANUBE_FL_LAYERS (its 6 decoupled blocks kept)."""
     from repro_torch.fl.runtime import lm_task
@@ -5124,7 +5174,7 @@ def phase_moe_lm_fl():
     every routing parameter kept: the kernels on its (4, M) cohort buffer
     (``lm_cohort_kernels``), LM_FL's 2 rounds (``lm_fl_runs``: fedavg and
     fed2, with and without --use-local-kernel, counted: paired_fusion 1,
-    grouped_matmul 1 (simt) and with the flag local_step 4 a round), and
+    grouped_matmul 1 (sgemm) and with the flag local_step 4 a round), and
     one tapped fed2 round (``lm_tapped_round``)."""
     from repro_torch.fl.runtime import lm_task
     for arch, cut in MOE_FL.items():
@@ -5351,7 +5401,7 @@ def whisper_prefilled_decode():
 
 def internvl_eval_routes():
     """InternVL (Fed2 8, fp32) eval loss on 2 x (256 patches + 768 text
-    tokens): make_eval_step (grouped_matmul once a loss chunk, simt)
+    tokens): make_eval_step (grouped_matmul once a loss chunk, sgemm)
     against lm_loss's einsum route, within FRONTEND_EVAL_FP32_TOL."""
     from repro_torch.data.synthetic import (lm_batch_from_tokens,
                                             make_token_dataset)
@@ -5370,7 +5420,7 @@ def internvl_eval_routes():
     chunks = -(-FRONTEND_EVAL_TEXT // cfg.loss_chunk)
     kern, _ = counted("internvl2-2b eval step, fp32",
                       lambda: make_eval_step(cfg)(params, batch).item(),
-                      {"grouped_matmul": chunks}, {"simt": chunks})
+                      {"grouped_matmul": chunks}, {"sgemm": chunks})
     with torch.no_grad():
         plain, _ = counted("internvl2-2b lm_loss, einsum route",
                            lambda: lm_loss(params, cfg, batch).item(), {})
@@ -5534,7 +5584,7 @@ def surfaces_examples(smi) -> list:
     quickstart none (Eq. 9 and the fusion on their plain routes, the
     reference's use_kernel=False); fed2_cifar_fl one paired_fusion a
     round for every method but fedma (host fusion); the LM example one
-    paired_fusion and one grouped_matmul (simt: the eval's 64 x 64 fp32
+    paired_fusion and one grouped_matmul (sgemm: the eval's 64 x 64 fp32
     rows through the block-diagonal unembedding) a round, 4 rounds of
     fedavg and fed2; serve_decode one ssd_update per reduced Mamba-2
     layer per step (1 + 24 steps), nothing for the other four archs.
@@ -5596,7 +5646,7 @@ def surfaces_examples(smi) -> list:
             "examples.llm_federated_finetune", lambda: lm_run(log=print),
             {"paired_fusion": lm_rounds * len(lm_methods),
              "grouped_matmul": lm_rounds * len(lm_methods)},
-            {"simt": lm_rounds * len(lm_methods)})
+            {"sgemm": lm_rounds * len(lm_methods)})
         assert tuple(res) == lm_methods, list(res)
         for m, h in res.items():
             finite_params(h)
@@ -5628,7 +5678,7 @@ def surfaces_examples(smi) -> list:
               for m in CROSS_METHODS}
     lines.append(f"llm_federated_finetune {t_card:.1f} s, "
                  f"paired_fusion {counts['paired_fusion']}, grouped_matmul "
-                 f"{counts['grouped_matmul']} (simt), every leaf moved; "
+                 f"{counts['grouped_matmul']} (sgemm), every leaf moved; "
                  "fed2 held-out loss by round " + ", ".join(
                      f"{x:.5f}" for x in losses))
     lines.append(f"llm_federated_finetune on the CPU, same init "

@@ -13,20 +13,24 @@
 // bf16): bytes. At the decode batch M = 4 the 25.8 MB of w, read once,
 // take 7.8 us at 3.35 TB/s against 0.1 GFLOP; at decode_32k's batch
 // M = 128 w, x and the 12.9 MB of y take 11.7 us against 3.3 GFLOP,
-// 3.3 us on the bf16 tensor cores (49 us in fp32 FMAs).
+// 3.3 us on the bf16 tensor cores (49 us in fp32 FMAs). The fp32 LM
+// round's eval (M = 4096 rows: 64 sequences of 64 tokens) is bound by
+// operations: at Llama's (G, K, N) = (4, 512, 32064) its 538 GFLOP take
+// 8.03 ms at 67 TFLOP/s against 0.72 ms for its 2.4 GB (y is 2.1 GB of
+// it), at Mamba-2's (4, 512, 12576) 3.15 ms.
 //
 // The TPU kernel walks a (G, M/bm, N/bn, K/bk) grid on 128-padded tiles
-// with a VMEM accumulator. Here the wrapper picks one of three routes (its
+// with a VMEM accumulator. Here the wrapper picks one of four routes (its
 // `route` function, from M, the dtype, the strides and the alignment);
 // this file checks the route's preconditions and returns
 // cudaErrorInvalidValue when they fail. It never changes route itself.
 //
-// Both TMA routes read x through a 3-D tensor map over (M, G, K) and w
-// through one over (G, K, N), which zero-fill every box past the tensor's
-// M, K or N, so nothing is padded in memory. A box starts on a 16-byte
-// boundary (a map over (M, G*K) whose boxes started at g*K faulted when
-// K*2 was not a multiple of 16), so both need K and N to be multiples of
-// 16 bytes and 16-byte aligned bases.
+// The TMA routes read w through a 3-D tensor map over (G, K, N) and (but
+// sgemm) x through one over (M, G, K), which zero-fill every box past the
+// tensor's M, K or N, so nothing is padded in memory. A box starts on a
+// 16-byte boundary (a map over (M, G*K) whose boxes started at g*K faulted
+// when K*2 was not a multiple of 16), so all three need K and N to be
+// multiples of 16 bytes and 16-byte aligned bases.
 //
 // - "stream" (M <= 8): the decode GEMV, bound by the bytes of w. Registers
 //   cannot hold the ~20 KB per SM that Little's law asks of 3.35 TB/s (the
@@ -64,11 +68,34 @@
 //   whole lines and clips at the M and N edges (bf16 pairs stored straight
 //   from the registers write 16 bytes of each 32-byte sector at a time:
 //   24 us instead of 15 on the H100).
-// - "simt" (everything else: fp32 at M > 8, or strides and pointers TMA
-//   does not take): tiles. A block computes one 64 x 128 tile of one
-//   group's output, reading the group's x panel and w[g] in 16-deep slices
-//   through shared memory, every load bounds-checked, 16-byte loads of w
-//   where N and w allow, fp32 FMAs: exact in fp32.
+// - "sgemm" (M > 8, fp32): a SIMT GEMM per group. The H100 issues one
+//   warp instruction a clock on each of an SM's four schedulers and runs
+//   an fp32 FMA warp-wide in one, so every instruction that is not an FMA
+//   takes an FMA's place, and a shared-memory read feeds as many FMAs as
+//   a thread holds outputs. One block of 256 threads an SM computes a
+//   128 x 256 tile, 8 x 16 outputs a thread in 4 x 4 quads: a k step
+//   reads x^T and w from shared memory with six 16-byte loads (a warp
+//   reads one contiguous run with each) for 128 FMAs (simt: 12 scalar
+//   loads for 32). K goes in 16-deep stages through a ring of 4 (97 KB):
+//   w's stage by TMA (box 16 x 256), x's by 4-byte cp.async copies
+//   straight into x^T[k][m] (rows padded to 132 floats), both on the
+//   stage's mbarrier; the next stages' copies run under the current
+//   stage's FMAs. Timed beside it on the H100 while it was designed, these
+//   were slower: x through registers, 8 x 8 outputs at 2 blocks an SM,
+//   128-thread blocks, 8- or 32-deep stages, 3, 5 or 6 stages, persistent
+//   blocks, a partly unrolled k loop, and mbarriers in place of the block
+//   barrier. Tiles run M fastest in bands of row tiles whose x fits
+//   a third of L2 (at the eval shapes all of M), so the blocks in flight
+//   share a few w tiles and each w tile comes from HBM about once. Each
+//   output is one fmaf chain over k = 0 ... K-1 in order, padded past K
+//   with 0 * 0 to a multiple of 16 as simt pads it: the same bits as the
+//   simt route, every run.
+// - "simt" (strides and pointers TMA does not take: K or N not a multiple
+//   of 16 bytes, an x or w base off 16 bytes): tiles. A block computes one
+//   64 x 128 tile of one group's output, reading the group's x panel and
+//   w[g] in 16-deep slices through shared memory, every load
+//   bounds-checked, 16-byte loads of w where N and w allow, fp32 FMAs:
+//   exact in fp32.
 //
 // C interface (bound with ctypes):
 //   int grouped_matmul_launch(const void* x, const void* w, void* y,
@@ -76,7 +103,8 @@
 //                             long long n, int dtype, int route,
 //                             void* stream);
 //   int grouped_matmul_dynamic_smem(int route, int dtype);
-// dtype 0 = fp32, 1 = bf16; route 0 = stream, 1 = wgmma, 2 = simt. The
+// dtype 0 = fp32, 1 = bf16; route 0 = stream, 1 = wgmma, 2 = simt,
+// 3 = sgemm. The
 // launch returns cudaGetLastError() after the launch, or the error of a
 // refused tensor map or shared-memory attribute, or cudaErrorInvalidValue
 // for arguments the route does not take.
@@ -122,6 +150,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 constexpr int64_t kMaxCoord = 0x7fffffff;   // TMA coordinates are int32
+constexpr int kStreamMaxM = 8;              // rows of the stream route
 
 // Strides and pointers TMA takes for maps over (M, G, K) and (G, K, N):
 // 16-byte aligned bases, K and N multiples of 16 bytes (a box starts on a
@@ -299,10 +328,222 @@ int launch_simt(const T* x, const T* w, T* y, int64_t m, int64_t g,
 }
 
 // ---------------------------------------------------------------------------
-// route "stream", bf16: M <= 8 on the tensor cores, the operands swapped
+// route "sgemm": M > 8, fp32, a SIMT GEMM for Hopper
 // ---------------------------------------------------------------------------
 
-constexpr int kStreamMaxM = 8;
+namespace sg {
+constexpr int BM = 128;                    // rows of a tile
+constexpr int BN = 256;                    // columns of a tile
+constexpr int BK = 16;                     // K of a stage
+constexpr int kStages = 4;
+constexpr int kThreads = 256;              // 16 x 16 threads
+constexpr int TM = 8, TN = 16;             // outputs of a thread
+constexpr int kXPitch = BM + 4;            // floats a row of x^T in shared memory
+constexpr int kWBytes = BK * BN * 4;       // 16 KB: w's box of a stage
+constexpr int kXBytes = BK * kXPitch * 4;  // 8,448 B: x^T of a stage
+constexpr int kSmem = 1024 + kStages * (kWBytes + kXBytes) + kStages * 8;
+// x rows a band of row tiles may hold in L2 (a third of its 50 MB)
+constexpr int64_t kBandBytes = 16 << 20;
+}  // namespace sg
+
+// wmap: (G, K, N) with box (1, 16, 256), no swizzle; full[s] counts the
+// 256 threads' copies and thread 0's TMA bytes. Tiles run in bands of
+// `band` row tiles (M fastest inside a band, then N, then the group), so
+// the blocks in flight share a few w tiles and one panel of x in L2.
+// Thread (ty, tx) owns rows 4ty + i and 64 + 4ty + i (i < 4) and columns
+// 4tx + 64h + j (h, j < 4) of the tile: six 16-byte shared-memory reads a
+// k step (two of x^T, four of w) feed 128 FMAs, and a warp's 4 ty and 8 tx
+// make each read one contiguous 64- or 128-byte run.
+__global__ void __launch_bounds__(sg::kThreads, 1)
+    grouped_matmul_sgemm_kernel(const __grid_constant__ CUtensorMap wmap,
+                                const float* __restrict__ x,
+                                float* __restrict__ y, int m, int groups,
+                                int k, int n, int m_tiles, int n_tiles,
+                                int band) {
+  using namespace sg;
+  extern __shared__ uint8_t smem_raw[];
+  // aligned by an offset from the array, so that the compiler keeps these
+  // pointers in the shared window: LDS/STS with 32-bit addresses (through
+  // align1024's integer cast they became generic loads and stores on
+  // 64-bit addresses, which cost registers and time)
+  uint8_t* base =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* ws = reinterpret_cast<float*>(base);                  // [S][BK][BN]
+  float* xs = reinterpret_cast<float*>(base + kStages * kWBytes);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + kStages * (kWBytes + kXBytes));
+
+  const int per_group = m_tiles * n_tiles;
+  const int g = blockIdx.x / per_group;
+  int t = blockIdx.x % per_group;
+  const int first = t / (band * n_tiles) * band;
+  const int rows = min(m_tiles - first, band);
+  t %= band * n_tiles;
+  const int m0 = (first + t % rows) * BM;
+  const int n0 = t / rows * BN;
+  const int nk = (k + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  // x's stage by 4-byte cp.async copies straight into x^T[k][row] (no
+  // registers between): element e of this thread is column lane % 16 of
+  // row 16*warp + 2e + lane/16, so a warp reads two rows of 64 contiguous
+  // bytes a copy. Rows past M copy the last row (their outputs are not
+  // stored); columns past K are zeros. Each thread's copies arrive on the
+  // stage's barrier, beside w's TMA bytes.
+  constexpr int XE = BM * BK / kThreads;    // x elements a thread copies
+  const int xk = lane % BK;
+  const float* xrow[XE];
+  int xdst[XE];
+#pragma unroll
+  for (int e = 0; e < XE; ++e) {
+    const int row = 16 * warp + 2 * e + lane / BK;
+    xrow[e] = x + static_cast<int64_t>(min(m0 + row, m - 1)) * groups * k +
+              static_cast<int64_t>(g) * k + xk;
+    xdst[e] = xk * kXPitch + row;
+  }
+  // stage it into its slot: w by TMA (zero-filled past K and N), x by the
+  // copies above
+  auto load = [&](int it) {
+    const int s = it % kStages;
+    if (tid == 0) {
+      hopper::mbar_arrive_expect_tx(&full[s], kWBytes);
+      hopper::tma_load_3d(ws + s * (BK * BN), &wmap, &full[s], n0, it * BK,
+                          g);
+    }
+    float* d = xs + s * (BK * kXPitch);
+    const bool ok = it * BK + xk < k;
+#pragma unroll
+    for (int e = 0; e < XE; ++e) {
+      hopper::cp_async_4_or_zero(d + xdst[e], xrow[e] + (ok ? it * BK : 0),
+                                 ok);
+    }
+    hopper::cp_async_arrive(&full[s]);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(&full[s], kThreads + 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  for (int it = 0; it < kStages - 1 && it < nk; ++it) load(it);
+
+  const int ty = 4 * (warp / 2) + lane / 8;
+  const int tx = 8 * (warp % 2) + lane % 8;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStages;
+    // every thread is done with stage it - 1: its slot takes stage
+    // it + kStages - 1, whose copies run under this stage's FMAs
+    __syncthreads();
+    if (it + kStages - 1 < nk) load(it + kStages - 1);
+    hopper::mbar_wait(&full[s], (it / kStages) & 1);
+    const float* xa = xs + s * (BK * kXPitch) + 4 * ty;
+    const float* wb = ws + s * (BK * BN) + 4 * tx;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(xa + kk * kXPitch + 64 * q);
+        a[4 * q] = v.x;
+        a[4 * q + 1] = v.y;
+        a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(wb + kk * BN + 64 * q);
+        b[4 * q] = v.x;
+        b[4 * q + 1] = v.y;
+        b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
+      }
+      // column by column (b[j] over the 8 rows): ptxas schedules this
+      // order faster on the H100 than row by row; either gives each output
+      // the same fmaf chain
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+  }
+
+  // 16-byte stores straight from the registers (N % 4 == 0: a chunk is
+  // all inside N or all outside)
+  const int64_t y_row = static_cast<int64_t>(groups) * n;
+  float* yg = y + static_cast<int64_t>(g) * n + n0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + 4 * ty + i % 4 + 64 * (i / 4);
+    if (r >= m) break;
+    float* yr = yg + r * y_row;
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int c = 64 * h + 4 * tx;
+      if (n0 + c < n) {
+        *reinterpret_cast<float4*>(yr + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      }
+    }
+  }
+}
+
+bool sgemm_fits(const void* x, const void* w, const void* y, int64_t m,
+                int64_t g, int64_t k, int64_t n) {
+  using namespace sg;
+  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  return m > kStreamMaxM && tma_fits<float>(x, w, g, k, n) &&
+         reinterpret_cast<uintptr_t>(y) % 16 == 0 && m <= kMaxCoord &&
+         tiles <= kMaxCoord;
+}
+
+int launch_sgemm(const float* x, const float* w, float* y, int64_t m,
+                 int64_t g, int64_t k, int64_t n, cudaStream_t st) {
+  using namespace sg;
+  if (!sgemm_fits(x, w, y, m, g, k, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr =
+      allow_smem(grouped_matmul_sgemm_kernel, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap wmap;
+  const uint64_t wdims[3] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(g)};
+  const uint64_t wstrides[2] = {n * 4ull, k * n * 4ull};
+  const uint32_t wbox[3] = {BN, BK, 1};
+  if (!hopper::encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w,
+                          wdims, wstrides, wbox,
+                          CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t m_tiles = (m + BM - 1) / BM;
+  const int64_t n_tiles = (n + BN - 1) / BN;
+  int64_t band = kBandBytes / (BM * k * 4);
+  band = band < 1 ? 1 : (band > m_tiles ? m_tiles : band);
+  grouped_matmul_sgemm_kernel<<<static_cast<unsigned>(g * m_tiles * n_tiles),
+                                kThreads, kSmem, st>>>(
+      wmap, x, y, static_cast<int>(m), static_cast<int>(g),
+      static_cast<int>(k), static_cast<int>(n), static_cast<int>(m_tiles),
+      static_cast<int>(n_tiles), static_cast<int>(band));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// route "stream", bf16: M <= 8 on the tensor cores, the operands swapped
+// ---------------------------------------------------------------------------
 
 // y^T = w^T x^T: the unit's columns of w^T (64 at a time) as an MN-major A
 // operand, x^T (K x M, M padded to 8 by the x map) as a K-major B, wgmma
@@ -904,7 +1145,7 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-enum Route { kStream = 0, kWgmma = 1, kSimt = 2 };
+enum Route { kStream = 0, kWgmma = 1, kSimt = 2, kSgemm = 3 };
 
 template <typename T>
 int launch(const void* x, const void* w, void* y, int64_t m, int64_t g,
@@ -918,6 +1159,8 @@ int launch(const void* x, const void* w, void* y, int64_t m, int64_t g,
   if (route == kSimt) return launch_simt<T>(xp, wp, yp, m, g, k, n, stream);
   if constexpr (sizeof(T) == 2) {
     if (route == kWgmma) return launch_wgmma(xp, wp, yp, m, g, k, n, stream);
+  } else {
+    if (route == kSgemm) return launch_sgemm(xp, wp, yp, m, g, k, n, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -944,5 +1187,6 @@ extern "C" int grouped_matmul_dynamic_smem(int route, int dtype) {
   if (route == kStream && dtype == 1) return gemv::kSmem;
   if (route == kWgmma && dtype == 1) return mma::kSmem;
   if (route == kSimt && (dtype == 0 || dtype == 1)) return 0;
+  if (route == kSgemm && dtype == 0) return sg::kSmem;
   return -1;
 }

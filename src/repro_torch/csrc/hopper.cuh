@@ -138,6 +138,15 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                "l"(reinterpret_cast<uint64_t>(src))
                : "memory");
 }
+// The same copy where `ok`, else 4 zero bytes (a source size of 0: nothing
+// is read from `src`, which must still be a global address).
+__device__ __forceinline__ void cp_async_4_or_zero(void* dst, const void* src,
+                                                   bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(ok ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_u32(bar))

@@ -13,7 +13,7 @@ Bound on the H100: bytes at the serving shapes (the Fed2 unembedding
 of Mamba-2 1.3B: M = batch, G = 8, K = 256, N = 6288, bf16; 25.8 MB of
 weights, 7.8 us at 3.35 TB/s at M = 4; with x and y 11.7 us at M =
 128). The TPU kernel needs M, K and N padded to 128 (its wrapper pads);
-the CUDA kernel pads nothing. ``route`` picks one of its three designs
+the CUDA kernel pads nothing. ``route`` picks one of its four designs
 from the shapes, the dtype and the pointers' alignment:
 
 - ``"stream"`` (M <= 8): the decode GEMV; w streams through a ring of
@@ -22,9 +22,13 @@ from the shapes, the dtype and the pointers' alignment:
   sum in a fixed order;
 - ``"wgmma"`` (M > 8, bf16): a GEMM per group on the tensor cores, TMA
   tiles in a ring, persistent blocks;
-- ``"simt"`` (fp32 at M > 8, or strides and pointers TMA does not
-  take: K or N not a multiple of 16 bytes, an x or w off 16 bytes):
-  shared-memory tiles and fp32 FMAs.
+- ``"sgemm"`` (M > 8, fp32): a SIMT GEMM per group, 128 x 256 tiles,
+  8 x 16 outputs a thread fed by 16-byte shared-memory reads, w by TMA
+  and x by cp.async copies in a ring of stages, M fastest so w comes
+  from HBM about once; the same bits as ``"simt"``;
+- ``"simt"`` (strides and pointers TMA does not take: K or N not a
+  multiple of 16 bytes, an x or w off 16 bytes): shared-memory tiles
+  and fp32 FMAs.
 
 The kernel checks the route's preconditions and refuses (the wrapper
 raises) when they fail; nothing switches route or falls back.
@@ -32,7 +36,9 @@ raises) when they fail; nothing switches route or falls back.
 ``grouped_matmul`` is the wrapper: on CPU tensors it computes
 ``grouped_matmul_ref``; on CUDA tensors it launches the kernel or
 raises. The bias is added outside the kernel, as the reference's
-wrapper adds it. ``grouped_matmul.launches`` counts kernel launches
+wrapper adds it. ``launch`` runs one named route on checked inputs
+(``chip_smoke.py`` holds the sgemm route to the simt route's bits
+through it). ``grouped_matmul.launches`` counts kernel launches
 (one per call) and ``grouped_matmul.route_launches`` the launches of
 each route. The kernel has no backward: it serves no-grad passes only
 (``models.layers.grouped_dense_apply(use_kernel=True)``: decode, the
@@ -51,32 +57,37 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("stream", "wgmma", "simt")     # csrc/grouped_matmul.cu's codes
+# csrc/grouped_matmul.cu's codes (its enum Route)
+ROUTES = ("stream", "wgmma", "simt", "sgemm")
 # csrc/grouped_matmul.cu's limits: rows of the stream route; groups (a
 # grid dimension of the stream and simt routes) and simt row tiles (of
-# _SIMT_TILE_M); TMA coordinates
+# _SIMT_TILE_M); the sgemm route's tiles, whose count is its grid; TMA
+# coordinates
 _STREAM_MAX_M = 8
 _MAX_GRID_YZ = 65535
 _SIMT_TILE_M = 64
+_SGEMM_TILE = (128, 256)
 _MAX_COORD = 2 ** 31 - 1
 
 
 def route(m: int, g: int, k: int, n: int, dtype: torch.dtype,
           x_ptr: int, w_ptr: int) -> str:
     """Which design of the kernel takes x (m, g*k) and w (g, k, n) of
-    ``dtype`` at these addresses: ``"stream"``, ``"wgmma"`` or
-    ``"simt"``. Both TMA routes read x as (m, g, k) and w as (g, k, n)
-    through tensor maps, which need 16-byte aligned bases, k and n
-    multiples of 16 bytes (a box starts on a 16-byte boundary) and
-    int32 coordinates."""
+    ``dtype`` at these addresses: ``"stream"``, ``"wgmma"``,
+    ``"sgemm"`` or ``"simt"``. The TMA routes read w as (g, k, n) (and
+    stream and wgmma x as (m, g, k)) through tensor maps, which need
+    16-byte aligned bases, k and n multiples of 16 bytes (a box starts
+    on a 16-byte boundary) and int32 coordinates; sgemm, which copies x
+    4 bytes at a time, is held to the same conditions, and simt takes
+    the rest."""
     esize = dtype.itemsize
     tma = (n * esize % 16 == 0 and k * esize % 16 == 0
            and x_ptr % 16 == 0 and w_ptr % 16 == 0
            and g * k <= _MAX_COORD and n <= _MAX_COORD)
     if tma and m <= _STREAM_MAX_M:
         return "stream"
-    if tma and dtype == torch.bfloat16:
-        return "wgmma"
+    if tma:
+        return "wgmma" if dtype == torch.bfloat16 else "sgemm"
     return "simt"
 
 
@@ -159,30 +170,51 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"grouped_matmul: unsupported device {x.device}")
     check_no_autograd(x, w, b)
+    g, k, n = w.shape
+    y = launch(x, w, route(x.numel() // (g * k), g, k, n, x.dtype,
+                           x.data_ptr(), w.data_ptr()))
+    if b is not None:
+        y = (y.view(-1, g, n) + b).view(-1, g * n)
+    return y.reshape(x.shape[:-1] + (g * n,))
+
+
+def _grid_fits(r: str, m: int, g: int, n: int) -> bool:
+    """Whether route ``r``'s grid holds the call: stream and simt put G
+    on a 65,535-wide grid dimension (simt its row tiles too); sgemm
+    launches one block a tile, at most 2^31 - 1."""
+    if r == "sgemm":
+        bm, bn = _SGEMM_TILE
+        return g * -(-m // bm) * -(-n // bn) <= _MAX_COORD
+    return r == "wgmma" or g <= _MAX_GRID_YZ and (
+        r != "simt" or -(-m // _SIMT_TILE_M) <= _MAX_GRID_YZ)
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, r: str) -> torch.Tensor:
+    """Route ``r``'s kernel on checked CUDA inputs, x (..., G*K) and w
+    (G, K, N): y (M, G*N) for the M rows of x, counted in
+    ``grouped_matmul.launches`` and ``route_launches[r]``. Builds the
+    kernel first; raises where the kernel refuses the route (its
+    preconditions, checked on the C side) or its grid cannot hold the
+    call; nothing switches route."""
     lib = _library()
     g, k, n = w.shape
-    lead = x.shape[:-1]
-    xm = x.reshape(-1, g * k)
-    m = xm.shape[0]
-    r = route(m, g, k, n, x.dtype, xm.data_ptr(), w.data_ptr())
-    if r != "wgmma" and (g > _MAX_GRID_YZ or (
-            r == "simt" and -(-m // _SIMT_TILE_M) > _MAX_GRID_YZ)):
+    m = x.numel() // (g * k)
+    if not _grid_fits(r, m, g, n):
         raise ValueError(f"grouped_matmul: M = {m} or G = {g} exceeds the "
                          f"kernel's grid ({r} route)")
-    y = torch.empty((m, g * n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    xm = x.reshape(m, g * k)
+    y = torch.empty((m, g * n), dtype=xm.dtype, device=xm.device)
+    with torch.cuda.device(xm.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grouped_matmul_launch(
             xm.data_ptr(), w.data_ptr(), y.data_ptr(), m, g, k, n,
-            _DTYPE_CODES[x.dtype], ROUTES.index(r), stream)
+            _DTYPE_CODES[xm.dtype], ROUTES.index(r), stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed ({r} "
                            f"route): CUDA error {err}")
     grouped_matmul.launches += 1
     grouped_matmul.route_launches[r] += 1
-    if b is not None:
-        y = (y.view(m, g, n) + b).view(m, g * n)
-    return y.reshape(lead + (g * n,))
+    return y
 
 
 grouped_matmul.launches = 0

@@ -219,7 +219,7 @@ _GMM_FULL = (8, 256, 6288)
     (4, *_GMM_FULL, torch.float32, 0, 0, "stream"),
     (9, *_GMM_FULL, torch.bfloat16, 0, 0, "wgmma"),
     (128, *_GMM_FULL, torch.bfloat16, 0, 0, "wgmma"),
-    (128, *_GMM_FULL, torch.float32, 0, 0, "simt"),
+    (128, *_GMM_FULL, torch.float32, 0, 0, "sgemm"),
     (4, 8, 256, 6289, torch.bfloat16, 0, 0, "simt"),    # N off 16 bytes
     (128, 8, 256, 6289, torch.bfloat16, 0, 0, "simt"),
     (4, 8, 256, 6292, torch.float32, 0, 0, "stream"),   # fp32: 16 bytes
@@ -233,11 +233,23 @@ _GMM_FULL = (8, 256, 6288)
     (4, *_GMM_FULL, torch.float32, 0, 4, "simt"),
     (4, *_GMM_FULL, torch.bfloat16, 2, 0, "simt"),      # x one element off
     (128, *_GMM_FULL, torch.bfloat16, 16, 16, "wgmma"),
+    # the fp32 LM rounds' evals (Mamba-2's and Llama's unembedding at 4
+    # groups): M = 9 (the first row past the stream route), 128, and the
+    # eval's 64 x 64 tokens
+    *((m, 4, 512, n, torch.float32, 0, 0, "sgemm")
+      for n in (12576, 32064) for m in (9, 128, 4096)),
+    (8, 4, 512, 12576, torch.float32, 0, 0, "stream"),
+    (128, 2, 100, 264, torch.float32, 0, 0, "sgemm"),   # fp32: 400 bytes
+    (128, 2, 102, 264, torch.float32, 0, 0, "simt"),    # K off 16 bytes
+    (128, 8, 256, 6289, torch.float32, 0, 0, "simt"),   # N off 16 bytes
+    (128, *_GMM_FULL, torch.float32, 0, 4, "simt"),     # w one element off
+    (128, *_GMM_FULL, torch.float32, 4, 0, "simt"),     # x one element off
+    (4096, 4, 512, 32064, torch.float32, 16, 32, "sgemm"),
 ])
 def test_grouped_matmul_route(m, g, k, n, dtype, x_off, w_off, want):
-    """The wrapper's pure route function: M <= 8 streams, M > 8 bf16 runs
-    wgmma, and whatever TMA does not take (K or N off 16 bytes, a base
-    off 16 bytes), or fp32 at M > 8, takes the simt tiles."""
+    """The wrapper's pure route function: M <= 8 streams, M > 8 runs
+    wgmma in bf16 and sgemm in fp32, and whatever TMA does not take (K
+    or N off 16 bytes, a base off 16 bytes) takes the simt tiles."""
     from repro_torch.kernels import grouped_matmul as gm
     base = 1 << 20
     assert gm.route(m, g, k, n, dtype, base + x_off, base + w_off) == want
@@ -245,7 +257,8 @@ def test_grouped_matmul_route(m, g, k, n, dtype, x_off, w_off, want):
 
 @pytest.mark.parametrize("m,n,dtype,route", [
     (4, 6288, torch.bfloat16, "stream"), (128, 6288, torch.bfloat16, "wgmma"),
-    (128, 6288, torch.float32, "simt"), (4, 6289, torch.bfloat16, "simt")])
+    (128, 6288, torch.float32, "sgemm"), (4, 6289, torch.bfloat16, "simt"),
+    (128, 6289, torch.float32, "simt")])
 def test_grouped_matmul_raises_on_every_route_when_the_build_fails(
         monkeypatch, m, n, dtype, route):
     """No route falls back: with the build failing, a CUDA call of each
@@ -263,6 +276,48 @@ def test_grouped_matmul_raises_on_every_route_when_the_build_fails(
     assert (gm.grouped_matmul.launches,
             gm.grouped_matmul.route_launches) == before
     assert set(gm.grouped_matmul.route_launches) == set(gm.ROUTES)
+
+
+def test_grouped_matmul_limits_are_the_kernels():
+    """The wrapper's route codes and limits are csrc/grouped_matmul.cu's:
+    ``ROUTES`` in the order of its ``enum Route``, the stream route's
+    rows, the simt and sgemm tiles."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import grouped_matmul as gm
+    src = (build.CSRC / "grouped_matmul.cu").read_text()
+    enum = re.search(r"enum Route \{([^}]*)\}", src).group(1)
+    codes = dict(re.findall(r"k(\w+) = (\d+)", enum))
+    assert [codes[r.capitalize()] for r in gm.ROUTES] == \
+        [str(i) for i in range(len(gm.ROUTES))]
+    assert re.search(rf"constexpr int kStreamMaxM = {gm._STREAM_MAX_M};",
+                     src)
+    assert re.search(rf"using LargeM = Tile<{gm._SIMT_TILE_M}, ", src)
+    sg = src[src.index("namespace sg {"):]
+    for name, size in zip(("BM", "BN"), gm._SGEMM_TILE):
+        assert re.search(rf"constexpr int {name} = {size};", sg)
+
+
+@pytest.mark.parametrize("m,g,n,route", [
+    (4, 65_536, 16, "stream"), (64, 65_536, 16, "simt"),
+    (64 * 65_535 + 1, 2, 16, "simt"), (128 * (2 ** 31 - 1) + 1, 1, 256,
+                                        "sgemm")])
+def test_grouped_matmul_refuses_a_grid_it_cannot_launch(monkeypatch, m, g,
+                                                        n, route):
+    """One past a route's grid (G over 65,535 on stream and simt, simt's
+    row tiles over 65,535, sgemm's 128 x 256 tiles over 2^31 - 1) the
+    call raises before any launch, counted nowhere; one row or group
+    fewer fits."""
+    from repro_torch.kernels import grouped_matmul as gm
+    monkeypatch.setattr(gm, "_library", lambda: None)
+    before = (gm.grouped_matmul.launches,
+              dict(gm.grouped_matmul.route_launches))
+    with pytest.raises(ValueError, match=rf"kernel's grid \({route} route"):
+        gm.launch(FakeCuda(m, g * 4, ptr=1 << 20),
+                  FakeCuda(g, 4, n, ptr=1 << 21), route)
+    assert (gm.grouped_matmul.launches,
+            gm.grouped_matmul.route_launches) == before
+    assert gm._grid_fits(route, m, g - 1, n) if g > 2 else \
+        gm._grid_fits(route, m - 1, g, n)
 
 
 def test_grouped_matmul_refuses_autograd_on_the_card(monkeypatch):
