@@ -717,6 +717,20 @@ FRONTEND_GMM_PER_STEP = {"whisper-base": 2, "internvl2-2b": 19}
 FRONTEND_GMM_SHAPES = (("whisper-base", 64, 256, True),
                        ("whisper-base", 256, 64, True),
                        ("internvl2-2b", 256, 11584, False))
+# the decoupled FFN products (K, N) whose 192-column units and tiles fill
+# 8-104 of the card's 132 SMs, with the large-batch serve's M: the plan
+# gives them narrower units and tiles, and qwen2's down product at M = 128
+# a split of K over a thread-block cluster
+GMM_FFN_PRODUCTS = (("llama3.2-1b down", 1024, 256, 128),
+                    ("qwen2-7b down", 2368, 448, 128),
+                    ("h2o-danube-1.8b down", 864, 320, 128),
+                    ("whisper-base down", 256, 64, 128),
+                    ("stablelm-12b down", 1728, 640, 64),
+                    ("whisper-base up", 64, 256, 128),
+                    ("llama3.2-1b gate/up", 256, 1024, 128),
+                    ("h2o-danube-1.8b gate/up", 320, 864, 128),
+                    ("stablelm-12b gate/up", 640, 1728, 64),
+                    ("qwen2-7b gate/up", 448, 2368, 128))
 # Whisper's serving path at full width in fp32 (TF32 off): frames (B,
 # 1500, 512) from a numpy seed, encdec_prefill_cache, then
 # WHISPER_DECODE_LEN decode steps (the Fed2 block's FFN on the kernel)
@@ -898,11 +912,18 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas ({name}, {demangled(entry)}):", line.strip())
     from repro_torch.kernels import grouped_matmul as gm
-    for r, dt in (("stream", torch.bfloat16), ("stream", torch.float32),
-                  ("wgmma", torch.bfloat16), ("sgemm", torch.float32)):
-        print(f"  grouped_matmul {r} route, {str(dt)[6:]}: "
-              f"{gm.dynamic_smem(r, dt)} bytes of dynamic shared memory "
-              f"per block")
+    widths = [(1, c) for c in gm._PLAN_COLS]
+    for r, dt, plans in (("stream", torch.bfloat16, widths),
+                         ("stream", torch.float32, [gm.DEFAULT_PLAN]),
+                         ("wgmma", torch.bfloat16,
+                          widths + [(2, c) for c in gm._SPLIT_COLS]),
+                         ("sgemm", torch.float32, [gm.DEFAULT_PLAN])):
+        for p in plans:
+            kind = (f", {'split' if p[0] > 1 else 'unsplit'}, {p[1]} "
+                    f"columns" if dt == torch.bfloat16 else "")
+            print(f"  grouped_matmul {r} route, {str(dt)[6:]}{kind}: "
+                  f"{gm.dynamic_smem(r, dt, p)} bytes of dynamic shared "
+                  f"memory per block")
 
 
 def demangled(symbol: str) -> str:
@@ -1439,11 +1460,18 @@ def phase_check_grouped_matmul() -> dict:
     and on ragged ones (M, K and N off the tiles and stages, K longer
     than the ring, K or N off 16 bytes, an unaligned x or w, G = 1, a
     leading batch dimension, a bias); each case must launch through the
-    route it names. Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the
-    reference's (tests/test_kernels.py). The stream, wgmma and sgemm
+    route it names; on the bf16 stream and wgmma routes the plan the
+    wrapper takes is printed, a split one (S > 1, wgmma: long K, and
+    forced plans at the split kernel's edges) must repeat to the bit, an
+    unsplit one give DEFAULT_PLAN's bits, and a plan the kernel was not
+    built for (a split on the stream route among them) must raise.
+    Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the reference's
+    (tests/test_kernels.py). The stream, wgmma and sgemm
     routes must repeat to the bit, and every sgemm case must give the
     simt route's bits on the same inputs. Times at M = 4 (stream) and
-    128 (wgmma), and at the fp32 LM rounds' evals (sgemm, beside the
+    128 (wgmma) with each shape's plan, the decoupled FFN products also
+    under DEFAULT_PLAN (the parent design) and a split plan also unsplit
+    at its width, and at the fp32 LM rounds' evals (sgemm, beside the
     simt route on the same inputs)."""
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
@@ -1459,12 +1487,17 @@ def phase_check_grouped_matmul() -> dict:
         out.copy_(t)
         return out
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
     def check_one(name, route, lead, g, k, n, dt, bias=False,
-                  misalign=None):
+                  misalign=None, splits=None):
         """One case, which must launch through ``route``; ``misalign``
-        ("x" or "w") puts that input one element off its alignment. An
-        sgemm case must repeat to the bit and give the simt route's bits
-        on the same inputs."""
+        ("x" or "w") puts that input one element off its alignment;
+        ``splits``, where given, is the S its plan must take. An sgemm
+        case must repeat to the bit and give the simt route's bits on
+        the same inputs; a split case (S > 1) must repeat to the bit,
+        and an unsplit case of a planned route must give the bits of
+        the forced ``DEFAULT_PLAN`` on the same inputs."""
         x, w, b = gmm_inputs(lead, g, k, n, dt, gen, bias)
         if misalign == "w":
             w = off_by_one(w)
@@ -1477,18 +1510,32 @@ def phase_check_grouped_matmul() -> dict:
                if c != before[r]]
         assert ran == [route], f"grouped_matmul {name}: ran {ran}, " \
             f"expected the {route} route"
-        label = (f"grouped_matmul {name} [{route}] x {tuple(x.shape)} "
-                 f"w {tuple(w.shape)}{' + bias' if bias else ''} "
-                 f"{str(dt)[6:]}")
+        xm = x.reshape(-1, g * k)
+        p = gm.plan(route, xm.shape[0], g, k, n, sms, dt)
+        assert splits is None or p[0] == splits, \
+            f"grouped_matmul {name}: plan {p}, expected {splits} splits"
+        label = (f"grouped_matmul {name} [{route}, plan {p}] x "
+                 f"{tuple(x.shape)} w {tuple(w.shape)}"
+                 f"{' + bias' if bias else ''} {str(dt)[6:]}")
+        same = ""
         if route == "sgemm":
-            xm = x.reshape(-1, g * k)
             plain = gm.launch(xm, w, "sgemm")
             assert torch.equal(plain, gm.launch(xm, w, "sgemm")), \
                 f"{label}: two launches on the same inputs differ"
             assert torch.equal(plain, gm.launch(xm, w, "simt")), \
                 f"{label}: not the simt route's bits"
-        return check(label + (", = simt's bits" if route == "sgemm" else ""),
-                     got, grouped_matmul_ref(x, w, b), tol)
+            same = ", = simt's bits"
+        elif p[0] > 1:
+            assert torch.equal(gm.launch(xm, w, route),
+                               gm.launch(xm, w, route)), \
+                f"{label}: two launches on the same inputs differ"
+            same = ", repeats to the bit"
+        elif p != gm.DEFAULT_PLAN:
+            assert torch.equal(gm.launch(xm, w, route),
+                               gm.launch(xm, w, route, gm.DEFAULT_PLAN)), \
+                f"{label}: not the bits of plan {gm.DEFAULT_PLAN}"
+            same = f", = plan {gm.DEFAULT_PLAN}'s bits"
+        return check(label + same, got, grouped_matmul_ref(x, w, b), tol)
 
     err_path = max(check_one("serve path", "stream", (4,), g0, k0, n0, bf16),
                    check_one("serve path", "stream", (4,), g0, k0, n0, f32))
@@ -1547,6 +1594,75 @@ def phase_check_grouped_matmul() -> dict:
     check_one("unaligned w", "simt", (4,), 2, 64, 512, bf16, misalign="w")
     check_one("unaligned w", "simt", (64,), 2, 64, 512, f32, misalign="w")
     check_one("unaligned x", "simt", (64,), 2, 64, 512, f32, misalign="x")
+    # the plans through the wrapper at long K (a wgmma split keeps 16
+    # stages at least; the stream route takes 64-column units unsplit):
+    # K off the stages, N off the columns, G = 1, ragged and several row
+    # tiles, a leading batch dimension and a bias; and K of one stage
+    # (S = 1, 64 columns)
+    for route, m in (("stream", 4), ("wgmma", 128)):
+        s = 2 if route == "wgmma" else 1
+        check_one("long K, K off the stages", route, (m,), g0, 5000, 256,
+                  bf16, splits=s)
+        for n in (40, 104, 184):
+            check_one("long K, N off the columns", route,
+                      (m if route == "stream" else 100,), g0, 5000, n, bf16,
+                      splits=s)
+        check_one("long K, G = 1", route, (m,), 1, 4096, 256, bf16,
+                  splits=s)
+        check_one("long K, leading batch dim", route,
+                  (2, 3) if route == "stream" else (2, 64), g0, 4096, 256,
+                  bf16, bias=True, splits=s)
+        check_one("one stage of K", route, (m,), g0, 64, 256, bf16,
+                  splits=1)
+    check_one("long K, row tiles", "wgmma", (200,), g0, 4096, 256, bf16,
+              splits=2)
+
+    def check_plan(name, route, lead, g, k, n, p):
+        """A split plan ``p`` forced on one case: within 0.3 of the plain
+        version and equal to itself on a relaunch."""
+        x, w, _ = gmm_inputs(lead, g, k, n, bf16, gen)
+        got = gm.launch(x, w, route, p)
+        assert torch.equal(got, gm.launch(x, w, route, p)), \
+            f"grouped_matmul {name} [{route}, plan {p}]: two launches differ"
+        check(f"grouped_matmul {name} [{route}, forced plan {p}] x "
+              f"{tuple(x.shape)} w {tuple(w.shape)}, repeats to the bit", got,
+              grouped_matmul_ref(x, w), 0.3)
+
+    # the split kernel's edges under forced plans: K of exactly S stages,
+    # one stage a split with K off a stage, N off each column width, G =
+    # 1, ragged and several row tiles, stablelm's M = 64, more clusters
+    # than the card holds at once
+    check_plan("K of S stages", "wgmma", (100,), g0, 128, 64, (2, 64))
+    check_plan("a stage a split, K off a stage", "wgmma", (100,), g0, 1000,
+               256, (8, 128))
+    for n, cols in ((40, 64), (104, 128), (184, 128)):
+        check_plan("N off the columns", "wgmma", (100,), g0, 1024, n,
+                   (2, cols))
+    check_plan("G = 1", "wgmma", (100,), 1, 1024, 256, (8, 128))
+    check_plan("row tiles", "wgmma", (200,), g0, 1024, 256, (4, 128))
+    check_plan("stablelm down, M = 64", "wgmma", (64,), g0, 1728, 640,
+               (2, 128))
+    check_plan("more clusters than the card holds", "wgmma", (128,), g0,
+               k0, n0, (2, 64))
+    # plans the kernel was not built for raise, counted nowhere
+    x, w, _ = gmm_inputs((4,), g0, 1024, 256, bf16, gen)
+    for route, p in (("stream", (2, 64)), ("wgmma", (2, 192)),
+                     ("wgmma", (3, 64)), ("stream", (16, 64)),
+                     ("stream", (1, 96)), ("wgmma", (16, 64))):
+        xr = x if route == "stream" else x.repeat(32, 1)
+        before = (grouped_matmul.launches,
+                  dict(grouped_matmul.route_launches))
+        try:
+            gm.launch(xr, w, route, p)
+        except RuntimeError as e:
+            assert "CUDA error 1" in str(e), e
+        else:
+            raise AssertionError(f"grouped_matmul {route} plan {p} ran")
+        assert (grouped_matmul.launches,
+                grouped_matmul.route_launches) == before
+    print("  grouped_matmul plans stream (2, 64), (16, 64), (1, 96), "
+          "wgmma (2, 192), (3, 64), (16, 64): refused by the kernel "
+          "(cudaErrorInvalidValue), no launch counted ok")
     # the stream and wgmma routes repeat to the bit (sgemm: check_one)
     for m in (4, 128):
         x, w, _ = gmm_inputs((m,), g0, k0, n0, bf16, gen)
@@ -1624,6 +1740,7 @@ def phase_check_grouped_matmul() -> dict:
     assert grouped_matmul.launches == before
 
     timings = {}
+    ffn = {(k, n) for _, k, n, _ in GMM_FFN_PRODUCTS}
     for label, m, g, k, n, dt in (
             ("serve M=4", 4, g0, k0, n0, bf16),
             ("serve M=128", 128, g0, k0, n0, bf16),
@@ -1664,14 +1781,26 @@ def phase_check_grouped_matmul() -> dict:
             nbytes, 2 * m * g * k * n, BF16_FLOPS if dt == bf16 else
             FP32_FLOPS)
         r = gm.route(m, g, k, n, dt, 0, 0)
+        p = gm.plan(r, m, g, k, n, sms, dt)
         simt = ""
         if r == "sgemm":       # the route it replaced, on the same inputs
             t["simt_ms"] = time_ms([lambda a=a: gm.launch(*a, "simt")
                                     for a in sets], reps)
             simt = f", simt {t['simt_ms'] * 1e3:.2f} us"
+        elif (k, n) in ffn and dt == bf16:   # the parent design, the same
+            t["default_ms"] = time_ms(
+                [lambda a=a: gm.launch(*a, r, gm.DEFAULT_PLAN)
+                 for a in sets], reps)
+            simt = (f", plan {gm.DEFAULT_PLAN} "
+                    f"{t['default_ms'] * 1e3:.2f} us")
+            if p[0] > 1:                     # and the split's width unsplit
+                t["unsplit_ms"] = time_ms(
+                    [lambda a=a: gm.launch(*a, r, (1, p[1])) for a in sets],
+                    reps)
+                simt += f", plan {(1, p[1])} {t['unsplit_ms'] * 1e3:.2f} us"
         timings[label] = t
         print(f"  grouped_matmul {label} ({g}, {k}, {n}) {str(dt)[6:]} "
-              f"[{r}]: {t['ms'] * 1e3:.2f} us{simt}, plain "
+              f"[{r}, plan {p}]: {t['ms'] * 1e3:.2f} us{simt}, plain "
               f"{t['plain_ms'] * 1e3:.2f} us, torch.bmm "
               f"{t['library_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "

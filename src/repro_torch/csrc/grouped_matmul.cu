@@ -20,10 +20,32 @@
 // it), at Mamba-2's (4, 512, 12576) 3.15 ms.
 //
 // The TPU kernel walks a (G, M/bm, N/bn, K/bk) grid on 128-padded tiles
-// with a VMEM accumulator. Here the wrapper picks one of four routes (its
-// `route` function, from M, the dtype, the strides and the alignment);
-// this file checks the route's preconditions and returns
-// cudaErrorInvalidValue when they fail. It never changes route itself.
+// with a VMEM accumulator, K the last, sequential axis. Here the wrapper
+// picks one of four routes (its `route` function, from M, the dtype, the
+// strides and the alignment) and, on the bf16 stream and wgmma routes, a
+// plan (its `plan` function): the columns of a unit or tile (64, 128 or
+// 192: one to three 64-column TMA boxes) and, on the wgmma route, a split
+// S of K over a thread-block cluster (1, 2, 4 or 8; 64 or 128 columns when
+// split).
+// This file checks the route's and the plan's preconditions and returns
+// cudaErrorInvalidValue when they fail. It never changes route or plan.
+//
+// Why the plan: on one TPU core a sequential K axis costs nothing; on 132
+// SMs a block that walks all of K alone leaves the card idle when the
+// output is small. Fed2's decoupled FFN products (8 groups of K x N from
+// 64 x 256 to 2368 x 448) fill 8-104 SMs in 192-column units or 128 x 192
+// tiles: Llama's down product (8, 1024, 256) ran 16 blocks, each
+// streaming 262 KB, a third of their columns zero-filled. Measured on the
+// H100 (tools/gmm_plans.py), narrower units fix most of it: at M = 4,
+// 64-column units put every down product at or below torch.bmm. A split
+// adds ~1-2 us (the partials through shared memory, one bulk copy per
+// owner into its cluster peer, the cluster barriers, a second pass and
+// store), so it pays only past ~16 stages a split: a split in two needs
+// 2,048 rows of K on wgmma (qwen2's down product at M = 128, K = 2368)
+// and 4,096 on the stream route, which no product on a path has (at most
+// 2,368), so the stream route does not split. Where 192-column units or tiles fill the card (every
+// unembedding, eval chunk and M = 4096 shape) the plan is (1, 192): the
+// unsplit design, its bits and its times.
 //
 // The TMA routes read w through a 3-D tensor map over (G, K, N) and (but
 // sgemm) x through one over (M, G, K), which zero-fill every box past the
@@ -50,7 +72,10 @@
 //   sums over the k16 steps. A unit is one group's 192 columns over all of
 //   K (33 x 8 = 264 units at full width: 2 resident blocks on each of the
 //   132 SMs, one whole wave), through 2 stages of 128 rows (51 KB each), so
-//   at K = 256 a block has its whole unit in flight: 200 KB per SM. fp32
+//   at K = 256 a block has its whole unit in flight: 200 KB per SM; units
+//   of 128 or 64 columns take 3 or 6 stages, ~100-110 KB in flight. At
+//   the FFN shapes it is bound by latency more than bytes: a one-stage
+//   product takes ~2.5 us, and a block streams ~80-100 GB/s. fp32
 //   (the full-width fp32 decode) keeps FMAs: 96-column units, 4 stages of
 //   32 rows, a 16-byte chunk and a slice of the rows per thread, x
 //   broadcast from shared memory, the row slices' partial sums added in
@@ -67,7 +92,11 @@
 //   through a swizzled shared-memory buffer and a TMA store, which writes
 //   whole lines and clips at the M and N edges (bf16 pairs stored straight
 //   from the registers write 16 bytes of each 32-byte sector at a time:
-//   24 us instead of 15 on the H100).
+//   24 us instead of 15 on the H100). Tiles of 128 or 64 columns run
+//   m64n128k16 or m64n64k16 through 5 or 7 stages. At the FFN shapes a
+//   one-stage tile takes ~3.5 us (torch.bmm ~2.7-3.0) and x is read again
+//   for every column tile; the split kernel takes one tile a cluster of 2,
+//   as the plan never asks for more tiles than SMs.
 // - "sgemm" (M > 8, fp32): a SIMT GEMM per group. The H100 issues one
 //   warp instruction a clock on each of an SM's four schedulers and runs
 //   an fp32 FMA warp-wide in one, so every instruction that is not an FMA
@@ -101,17 +130,22 @@
 //   int grouped_matmul_launch(const void* x, const void* w, void* y,
 //                             long long m, long long g, long long k,
 //                             long long n, int dtype, int route,
-//                             void* stream);
-//   int grouped_matmul_dynamic_smem(int route, int dtype);
+//                             int splits, int cols, void* stream);
+//   int grouped_matmul_dynamic_smem(int route, int dtype, int splits,
+//                                   int cols);
 // dtype 0 = fp32, 1 = bf16; route 0 = stream, 1 = wgmma, 2 = simt,
-// 3 = sgemm. The
-// launch returns cudaGetLastError() after the launch, or the error of a
-// refused tensor map or shared-memory attribute, or cudaErrorInvalidValue
-// for arguments the route does not take.
+// 3 = sgemm; (splits, cols) the plan: (1, 64), (1, 128) or (1, 192) on
+// the bf16 stream route, any plan plan_fits takes on wgmma, (1, 192) on
+// the others. The launch returns cudaGetLastError() after the
+// launch, or the error of a refused tensor map or shared-memory
+// attribute, cudaErrorInvalidClusterSize where the card cannot hold one
+// cluster of the split, or cudaErrorInvalidValue for arguments the route
+// or the plan does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -132,6 +166,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Two floats rounded to a bf16 pair, as the 32 bits that hold it.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
@@ -150,7 +192,19 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 constexpr int64_t kMaxCoord = 0x7fffffff;   // TMA coordinates are int32
+constexpr int64_t kMaxGridX = 0x7fffffff;   // blocks along a grid's x
 constexpr int kStreamMaxM = 8;              // rows of the stream route
+// The plan of the bf16 stream and wgmma routes: units or tiles of one of
+// these column widths (one to three 64-column TMA boxes), and on the wgmma
+// route K split over a cluster of 1 ... kMaxSplits blocks (8, the portable
+// cluster size). Every other route takes the default plan
+// (1, kDefaultCols) only.
+constexpr int kMaxSplits = 8;
+constexpr int kDefaultCols = 192;
+constexpr bool plan_cols(int c) { return c == 64 || c == 128 || c == 192; }
+// the widths a split plan takes: a 128 x 192 fp32 partial would not fit
+// the split wgmma kernel's drained ring
+constexpr bool split_cols(int c) { return c == 64 || c == 128; }
 
 // Strides and pointers TMA takes for maps over (M, G, K) and (G, K, N):
 // 16-byte aligned bases, K and N multiples of 16 bytes (a box starts on a
@@ -548,17 +602,29 @@ int launch_sgemm(const float* x, const float* w, float* y, int64_t m,
 // y^T = w^T x^T: the unit's columns of w^T (64 at a time) as an MN-major A
 // operand, x^T (K x M, M padded to 8 by the x map) as a K-major B, wgmma
 // m64n8k16 into fp32.
+//
+// A unit is C = 64, 128 or 192 columns of one group (the plan's width)
+// over all of K; a stage stays 128 rows, so narrower units get more
+// stages (6, 3, 2: about 100 KB of the ring in flight, 2 blocks an SM).
+// The route does not split K: every product on a path has at most 19
+// stages of K (qwen2's down product), and measured on the H100 a split in
+// two pays only from 32 stages (the plan above).
 namespace gemv {
-constexpr int kCols = 192;            // columns of a unit: three m64 blocks
 constexpr int KR = 128;               // rows of K a stage holds
-constexpr int kStages = 2;
 constexpr int kChains = 2;            // independent sums over k16 steps
 constexpr int kThreads = 128 + 32;    // one warpgroup + the producer warp
 constexpr int kWBox = KR * 128;       // 16 KB: 64 columns of w
 constexpr int kXBox = 8 * 128;        // 1 KB: 8 rows x 64 of K
-constexpr int kStageBytes = (kCols / 64) * kWBox + (KR / 64) * kXBox;
-constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 }  // namespace gemv
+
+template <int C>
+struct Unit {
+  static constexpr int kStages = 2 * 192 / C;
+  static constexpr int kStageBytes = (C / 64) * gemv::kWBox +
+                                     (gemv::KR / 64) * gemv::kXBox;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(C % 64 == 0 && C <= 192, "one to three w boxes");
+};
 
 // d (64 x 8) += A (64 x 16, MN-major) * B (16 x 8, K-major)
 __device__ __forceinline__ void wgmma_m64n8k16_ta(float (&d)[4],
@@ -576,19 +642,24 @@ __device__ __forceinline__ void wgmma_m64n8k16_ta(float (&d)[4],
 }
 
 // wmap: (G, K, N) with box (1, 128, 64); xmap: (M, G, K) with box
-// (8, 1, 64); both with 128-byte swizzle.
+// (8, 1, 64); both with 128-byte swizzle. A block is one unit (blockIdx.x)
+// of group blockIdx.y over all of K.
+template <int C>
 __global__ void __launch_bounds__(gemv::kThreads, 2)
     grouped_matmul_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
                                const __grid_constant__ CUtensorMap xmap,
                                __nv_bfloat16* __restrict__ y, int m,
                                int groups, int k, int n) {
   using namespace gemv;
+  using U = Unit<C>;
+  constexpr int kStages = U::kStages;
+  constexpr int kStageBytes = U::kStageBytes;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = align1024(smem_raw);  // [S][w 3 x 16 KB | x 2 x 1 KB]
+  uint8_t* base = align1024(smem_raw);  // [S][w C/64 x 16 KB | x 2 x 1 KB]
   uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
   const int g = blockIdx.y;
-  const int n0 = blockIdx.x * kCols;
+  const int n0 = blockIdx.x * C;
   const int nk = (k + KR - 1) / KR;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -612,13 +683,13 @@ __global__ void __launch_bounds__(gemv::kThreads, 2)
         uint8_t* st = base + s * kStageBytes;
         hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
 #pragma unroll
-        for (int j = 0; j < kCols / 64; ++j) {
+        for (int j = 0; j < C / 64; ++j) {
           hopper::tma_load_3d(st + j * kWBox, &wmap, &full[s], n0 + 64 * j,
                               it * KR, g);
         }
 #pragma unroll
         for (int q = 0; q < KR / 64; ++q) {
-          hopper::tma_load_3d(st + (kCols / 64) * kWBox + q * kXBox, &xmap,
+          hopper::tma_load_3d(st + (C / 64) * kWBox + q * kXBox, &xmap,
                               &full[s], it * KR + 64 * q, g, 0);
         }
       }
@@ -626,11 +697,11 @@ __global__ void __launch_bounds__(gemv::kThreads, 2)
     return;
   }
 
-  float acc[kChains][kCols / 64][4];
+  float acc[kChains][C / 64][4];
 #pragma unroll
   for (int c = 0; c < kChains; ++c) {
 #pragma unroll
-    for (int j = 0; j < kCols / 64; ++j) {
+    for (int j = 0; j < C / 64; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
     }
@@ -645,10 +716,10 @@ __global__ void __launch_bounds__(gemv::kThreads, 2)
       // x^T: 8 rows of 128 bytes, k16 = 32 bytes along the row; w^T: one
       // 64-column block, 8-row groups of K 1 KB apart, k16 = 2 KB
       const uint64_t db = hopper::desc_sw128(
-          st + (kCols / 64) * kWBox + (kk / 4) * kXBox + (kk % 4) * 32, 16,
+          st + (C / 64) * kWBox + (kk / 4) * kXBox + (kk % 4) * 32, 16,
           1024);
 #pragma unroll
-      for (int j = 0; j < kCols / 64; ++j) {
+      for (int j = 0; j < C / 64; ++j) {
         wgmma_m64n8k16_ta(acc[kk % kChains][j],
                           hopper::desc_sw128(st + j * kWBox + kk * 2048,
                                              kWBox, 1024),
@@ -665,7 +736,7 @@ __global__ void __launch_bounds__(gemv::kThreads, 2)
   const int64_t y_row = static_cast<int64_t>(groups) * n;
   __nv_bfloat16* yg = y + static_cast<int64_t>(g) * n + n0;
 #pragma unroll
-  for (int j = 0; j < kCols / 64; ++j) {
+  for (int j = 0; j < C / 64; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float sum = acc[0][j][e];
@@ -680,12 +751,16 @@ __global__ void __launch_bounds__(gemv::kThreads, 2)
   }
 }
 
+template <int C>
 int launch_gemv(const __nv_bfloat16* x, const __nv_bfloat16* w,
                 __nv_bfloat16* y, int64_t m, int64_t g, int64_t k, int64_t n,
                 cudaStream_t st) {
   using namespace gemv;
-  static const cudaError_t attr =
-      allow_smem(grouped_matmul_gemv_kernel, kSmem);
+  using U = Unit<C>;
+  const int64_t units = (n + C - 1) / C;
+  if (units > kMaxGridX) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = grouped_matmul_gemv_kernel<C>;
+  static const cudaError_t attr = allow_smem(kernel, U::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap wmap, xmap;
   const uint64_t wdims[3] = {static_cast<uint64_t>(n),
@@ -706,9 +781,8 @@ int launch_gemv(const __nv_bfloat16* x, const __nv_bfloat16* w,
                           CU_TENSOR_MAP_SWIZZLE_128B)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>((n + kCols - 1) / kCols),
-                  static_cast<unsigned>(g));
-  grouped_matmul_gemv_kernel<<<grid, kThreads, kSmem, st>>>(
+  const dim3 grid(static_cast<unsigned>(units), static_cast<unsigned>(g));
+  kernel<<<grid, kThreads, U::kSmem, st>>>(
       wmap, xmap, y, static_cast<int>(m), static_cast<int>(g),
       static_cast<int>(k), static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
@@ -883,13 +957,22 @@ bool stream_fits(const void* x, const void* w, int64_t m, int64_t g,
 
 template <typename T>
 int launch_stream(const T* x, const T* w, T* y, int64_t m, int64_t g,
-                  int64_t k, int64_t n, cudaStream_t st) {
+                  int64_t k, int64_t n, int splits, int cols,
+                  cudaStream_t st) {
   if (!stream_fits<T>(x, w, m, g, k, n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if constexpr (sizeof(T) == 2) {
-    return launch_gemv(x, w, y, m, g, k, n, st);
+    if (splits != 1 || !plan_cols(cols)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (cols == 64) return launch_gemv<64>(x, w, y, m, g, k, n, st);
+    if (cols == 128) return launch_gemv<128>(x, w, y, m, g, k, n, st);
+    return launch_gemv<192>(x, w, y, m, g, k, n, st);
   } else {
+    if (splits != 1 || cols != kDefaultCols) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (m <= 4) return launch_fgemv<4, 4>(x, w, y, m, g, k, n, st);
     return launch_fgemv<8, 2>(x, w, y, m, g, k, n, st);
   }
@@ -901,19 +984,13 @@ int launch_stream(const T* x, const T* w, T* y, int64_t m, int64_t g,
 
 namespace mma {
 constexpr int BM = 128;        // rows of a tile: two warpgroups of 64
-constexpr int BN = 192;        // columns of a tile: one m64n192k16 wide
 constexpr int BK = 64;         // K of a stage: one 128-byte swizzle row
-constexpr int kStages = 4;
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
 constexpr int kABytes = BM * BK * 2;                 // 16 KB
 constexpr int kBBox = BK * 64 * 2;                   // 8 KB: 64 columns
-constexpr int kStageBytes = kABytes + (BN / 64) * kBBox;   // 40 KB
 constexpr int kYBox = BM * 64 * 2;                   // 16 KB: 64 columns
-constexpr int kYBytes = (BN / 64) * kYBox;           // the tile's y, 48 KB
 constexpr int kConsumers = 32 * kConsumerWarps;
-constexpr int kSmem =
-    1024 + kStages * kStageBytes + kYBytes + 2 * kStages * 8;
 }  // namespace mma
 
 // d (64 x 192 fp32, in the wgmma register layout) += A (64 x 16, K-major)
@@ -964,19 +1041,195 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// The same for a 64 x 128 and a 64 x 64 B (register layouts as above,
+// 64 and 32 values a thread).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
+                                           uint64_t b) {
+  if constexpr (N == 192) {
+    wgmma_m64n192k16(d, a, b);
+  } else if constexpr (N == 128) {
+    wgmma_m64n128k16(d, a, b);
+  } else {
+    static_assert(N == 64, "tile widths 64, 128, 192");
+    wgmma_m64n64k16(d, a, b);
+  }
+}
+
+// A tile of BN_ columns. Narrower tiles get more stages (4, 5, 7: 160-168
+// KB of the ring). The split kernel (64 and 128 columns) keeps, past the
+// ring and y, the partials its block receives: S slots of 128/S rows x
+// BN fp32, one tile's worth, so its ring is shallower (4 stages at 128
+// columns); its own partial goes into the drained ring.
+template <int BN_>
+struct MmaTile {
+  static constexpr int BN = BN_;
+  static constexpr int kStages = BN == 192 ? 4 : (BN == 128 ? 5 : 7);
+  static constexpr int kSplitStages = BN == 128 ? 4 : 7;
+  static constexpr int kStageBytes = mma::kABytes + (BN / 64) * mma::kBBox;
+  static constexpr int kYBytes = (BN / 64) * mma::kYBox;
+  static constexpr int kSmem =
+      1024 + kStages * kStageBytes + kYBytes + 2 * kStages * 8;
+  static constexpr int kRecvBytes = mma::BM * BN * 4;
+  static constexpr int kSplitSmem = 1024 + kSplitStages * kStageBytes +
+                                    kYBytes + kRecvBytes +
+                                    2 * kSplitStages * 8 + 8;
+  static_assert(!split_cols(BN) || (kSplitSmem <= 232448 &&
+                                    kRecvBytes <= kSplitStages * kStageBytes),
+                "a split block's shared memory; its partial in the ring");
+};
+
+// The contiguous range [begin, end) of `nk` stages that split `rank` of
+// `splits` takes: the first nk % splits splits take one stage more.
+struct StageRange {
+  int begin, end;
+};
+__device__ __forceinline__ StageRange stage_range(int nk, int rank,
+                                                  int splits) {
+  const int base = nk / splits;
+  const int extra = nk % splits;
+  const int begin = rank * base + min(rank, extra);
+  return {begin, begin + base + (rank < extra ? 1 : 0)};
+}
+
+// The producer thread: stages [ks.begin, ks.end) of tile (g, mt, nt)
+// into the ring of kStages slots, from slot count `it` on.
+template <int BN, int kStages>
+__device__ __forceinline__ void wgmma_produce(const CUtensorMap& xmap,
+                                              const CUtensorMap& wmap,
+                                              uint8_t* base, uint64_t* full,
+                                              uint64_t* empty, int g, int mt,
+                                              int nt, StageRange ks,
+                                              int& it) {
+  using namespace mma;
+  constexpr int kStageBytes = MmaTile<BN>::kStageBytes;
+  for (int kb = ks.begin; kb < ks.end; ++kb, ++it) {
+    const int s = it % kStages;
+    if (it >= kStages) {
+      hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+    }
+    uint8_t* st = base + s * kStageBytes;
+    hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+    hopper::tma_load_3d(st, &xmap, &full[s], kb * BK, g, mt * BM);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j) {
+      hopper::tma_load_3d(st + kABytes + j * kBBox, &wmap, &full[s],
+                          nt * BN + j * 64, kb * BK, g);
+    }
+  }
+}
+
+// Consumer warpgroup wg: its 64 rows of the tile over `nk` stages, from
+// slot count `it` on. The accumulator layout: value 4c + 2h + e of a
+// thread sits at row 16*(warp % 4) + lane/4 + 8h and column 8c +
+// 2*(lane % 4) + e of the warpgroup's 64 x BN.
+template <int BN, int kStages>
+__device__ __forceinline__ void wgmma_consume(float (&acc)[BN / 2],
+                                              const uint8_t* base,
+                                              uint64_t* full, uint64_t* empty,
+                                              int wg, int lane, int nk,
+                                              int& it) {
+  using namespace mma;
+  constexpr int kStageBytes = MmaTile<BN>::kStageBytes;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int ks = 0; ks < nk; ++ks, ++it) {
+    const int s = it % kStages;
+    hopper::mbar_wait(&full[s], (it / kStages) & 1);
+    const uint8_t* a = base + s * kStageBytes + wg * (kABytes / 2);
+    const uint8_t* b = base + s * kStageBytes + kABytes;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: rows of 128 bytes, 8-row groups 1 KB apart, k16 = 32 bytes
+      // along the row; B: 64-column blocks 8 KB apart, 8-row groups of
+      // K 1 KB apart, k16 = 16 rows = 2 KB
+      wgmma_bf16<BN>(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                     hopper::desc_sw128(b + kk * 2048, kBBox, 1024));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+}
+
 // xmap: (M, G, K) with box (128, 1, 64); wmap: (G, K, N) with box
 // (1, 64, 64); ymap: (M, G, N) with box (128, 1, 64); all with 128-byte
-// swizzle.
+// swizzle. Block b walks tiles b, b + grid, ... over all of K.
+template <int BN>
 __global__ void __launch_bounds__(mma::kThreads, 1)
     grouped_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                                 const __grid_constant__ CUtensorMap wmap,
                                 const __grid_constant__ CUtensorMap ymap,
                                 int m, int groups, int k, int n) {
   using namespace mma;
+  using T = MmaTile<BN>;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = align1024(smem_raw);     // [S][A 16 KB | B 3 x 8 KB]
-  uint8_t* ys = base + kStages * kStageBytes;   // [3][128 rows][128 B]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ys + kYBytes);
+  uint8_t* base = align1024(smem_raw);     // [S][A 16 KB | B BN/64 x 8 KB]
+  uint8_t* ys = base + kStages * T::kStageBytes;   // [BN/64][128][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ys + T::kYBytes);
   uint64_t* empty = full + kStages;
 
   const int tiles_n = (n + BN - 1) / BN;
@@ -999,23 +1252,10 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
     if (lane == 0) {
       int it = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int g = t / (tiles_m * tiles_n);
-        const int mt = t / tiles_n % tiles_m;
-        const int nt = t % tiles_n;
-        for (int ks = 0; ks < nk; ++ks, ++it) {
-          const int s = it % kStages;
-          if (it >= kStages) {
-            hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
-          }
-          uint8_t* st = base + s * kStageBytes;
-          hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
-          hopper::tma_load_3d(st, &xmap, &full[s], ks * BK, g, mt * BM);
-#pragma unroll
-          for (int j = 0; j < BN / 64; ++j) {
-            hopper::tma_load_3d(st + kABytes + j * kBBox, &wmap, &full[s],
-                                nt * BN + j * 64, ks * BK, g);
-          }
-        }
+        wgmma_produce<BN, kStages>(xmap, wmap, base, full, empty,
+                                   t / (tiles_m * tiles_n),
+                                   t / tiles_n % tiles_m, t % tiles_n,
+                                   {0, nk}, it);
       }
     }
     return;
@@ -1028,34 +1268,12 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
     const int g = t / (tiles_m * tiles_n);
     const int mt = t / tiles_n % tiles_m;
     const int nt = t % tiles_n;
-    float acc[96];
-#pragma unroll
-    for (int i = 0; i < 96; ++i) acc[i] = 0.f;
-    for (int ks = 0; ks < nk; ++ks, ++it) {
-      const int s = it % kStages;
-      hopper::mbar_wait(&full[s], (it / kStages) & 1);
-      const uint8_t* a = base + s * kStageBytes + wg * (kABytes / 2);
-      const uint8_t* b = base + s * kStageBytes + kABytes;
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        // A: rows of 128 bytes, 8-row groups 1 KB apart, k16 = 32 bytes
-        // along the row; B: 64-column blocks 8 KB apart, 8-row groups of
-        // K 1 KB apart, k16 = 16 rows = 2 KB
-        wgmma_m64n192k16(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
-                         hopper::desc_sw128(b + kk * 2048, kBBox, 1024));
-      }
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
-      __syncwarp();
-      if (lane == 0) hopper::mbar_arrive(&empty[s]);
-    }
-    // the accumulator layout: value 4c + 2h + e of a thread sits at row
-    // 16*(warp % 4) + lane/4 + 8h and column 8c + 2*(lane % 4) + e of the
-    // warpgroup's 64 x 192. It goes to the y buffer as bf16 pairs, in the
-    // 128-byte swizzle of the y map (16-byte chunk q of row r at q ^ r%8:
-    // a warp's 8 rows x 16 bytes hit 32 distinct banks), then out by TMA,
-    // which writes whole lines and clips at the M and N edges.
+    float acc[BN / 2];
+    wgmma_consume<BN, kStages>(acc, base, full, empty, wg, lane, nk, it);
+    // The tile goes to the y buffer as bf16 pairs, in the 128-byte
+    // swizzle of the y map (16-byte chunk q of row r at q ^ r%8: a warp's
+    // 8 rows x 16 bytes hit 32 distinct banks), then out by TMA, which
+    // writes whole lines and clips at the M and N edges.
     if (threadIdx.x == 0) hopper::tma_store_wait_read();   // last tile's
     hopper::named_sync(1, kConsumers);
     const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
@@ -1084,31 +1302,223 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
   if (threadIdx.x == 0) hopper::tma_store_wait_read();
 }
 
-bool wgmma_fits(const void* x, const void* w, const void* y, int64_t m,
-                int64_t g, int64_t k, int64_t n) {
+// How many clusters of `splits` blocks of `kernel` (threads, smem each)
+// the card holds at once (cudaOccupancyMaxActiveClusters, kept in
+// `cache`, one slot a cluster size, -1 until asked); 0 where it holds
+// none or the query fails (its error in *err).
+template <typename Kernel>
+int active_clusters(Kernel kernel, int threads, int smem, int splits,
+                    int* cache, cudaError_t* err) {
+  *err = cudaSuccess;
+  if (cache[splits] >= 0) return cache[splits];
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(splits));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  *err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (*err != cudaSuccess) {
+    cudaGetLastError();   // cleared: the next launch must not read it
+    return 0;
+  }
+  cache[splits] = clusters;
+  return clusters;
+}
+
+// Launches `kernel` on `grid` in clusters of (splits, 1, 1), after
+// checking that the card holds one such cluster (`cache` as in
+// active_clusters); returns the launch's error, else cudaGetLastError().
+template <typename Kernel, typename... Args>
+int launch_clusters(Kernel kernel, dim3 grid, int threads, int smem,
+                    int splits, int* cache, cudaStream_t st, Args... args) {
+  cudaError_t e;
+  if (active_clusters(kernel, threads, smem, splits, cache, &e) == 0) {
+    return static_cast<int>(e != cudaSuccess ? e
+                                             : cudaErrorInvalidClusterSize);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// Split: one tile a cluster of S (splits, a power of two) blocks along x,
+// blockIdx.x = S * tile + rank; rank r streams its range of K and owns
+// rows [r 128/S, (r + 1) 128/S) of the tile. Each block writes its fp32
+// partial into its drained ring ([128][BN]) and copies each owner's rows
+// into slot `rank` of that owner's receive buffer (one bulk copy an
+// owner); the owner adds the S slots in rank order once its mbarrier has
+// counted all their bytes, rounds to bf16 and stores its rows by TMA
+// (ymap box (128/S, 1, BN), no swizzle). A last cluster barrier keeps
+// every block, and the partial its copies read, until all have landed.
+template <int BN>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+    grouped_matmul_wgmma_split_kernel(
+        const __grid_constant__ CUtensorMap xmap,
+        const __grid_constant__ CUtensorMap wmap,
+        const __grid_constant__ CUtensorMap ymap, int m, int groups, int k,
+        int n, int splits) {
   using namespace mma;
-  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  using T = MmaTile<BN>;
+  constexpr int kStages = T::kSplitStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* ys = base + kStages * T::kStageBytes;   // [128/S][BN] bf16
+  float* recv = reinterpret_cast<float*>(ys + T::kYBytes);  // [S][128/S][BN]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ys + T::kYBytes + T::kRecvBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* recv_bar = empty + kStages;
+
+  const int tiles_n = (n + BN - 1) / BN;
+  const int tiles_m = (m + BM - 1) / BM;
+  const int t = blockIdx.x / splits;
+  const int g = t / (tiles_m * tiles_n);
+  const int mt = t / tiles_n % tiles_m;
+  const int nt = t % tiles_n;
+  const int rank = static_cast<int>(hopper::cluster_rank());
+  const int rows = BM / splits;            // rows a rank owns
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumerWarps);
+    }
+    hopper::mbar_init(recv_bar, 1);
+    hopper::mbar_fence_init();
+    hopper::mbar_arrive_expect_tx(recv_bar, T::kRecvBytes);
+  }
+  __syncthreads();
+  hopper::cluster_arrive_relaxed();     // every block's barriers are set
+  const StageRange kr = stage_range((k + BK - 1) / BK, rank, splits);
+  int it = 0;
+
+  if (warp == kConsumerWarps) {            // the producer
+    if (lane == 0) {
+      wgmma_produce<BN, kStages>(xmap, wmap, base, full, empty, g, mt, nt,
+                                 kr, it);
+    }
+    hopper::cluster_wait();
+    hopper::cluster_arrive_relaxed();
+    hopper::cluster_wait();
+    return;
+  }
+  const int wg = warp / 4;
+  float acc[BN / 2];
+  wgmma_consume<BN, kStages>(acc, base, full, empty, wg, lane,
+                             kr.end - kr.begin, it);
+  hopper::named_sync(1, kConsumers);       // the ring is drained
+  float* part = reinterpret_cast<float*>(base);             // [128][BN]
+  const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(
+          &part[(row0 + 8 * h) * BN + 8 * c + 2 * (lane % 4)]) =
+          make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+    }
+  }
+  hopper::fence_proxy_async();              // the bulk copies read it
+  hopper::named_sync(1, kConsumers);
+  hopper::cluster_wait();
+  if (threadIdx.x == 0) {
+    for (int o = 0; o < splits; ++o) {
+      hopper::bulk_copy_cluster(
+          hopper::cluster_map(recv + rank * rows * BN, o),
+          part + o * rows * BN, rows * BN * 4,
+          hopper::cluster_map(recv_bar, o));
+    }
+  }
+  hopper::mbar_wait(recv_bar, 0);
+  // this rank's rows, 8 columns (16 bytes of bf16) a thread at a time
+  for (int q = threadIdx.x; q < rows * BN / 8; q += kConsumers) {
+    const float* p = recv + q * 8;
+    float4 lo = *reinterpret_cast<const float4*>(p);
+    float4 hi = *reinterpret_cast<const float4*>(p + 4);
+    for (int s = 1; s < splits; ++s) {
+      const float4 a = *reinterpret_cast<const float4*>(p + s * rows * BN);
+      const float4 b =
+          *reinterpret_cast<const float4*>(p + s * rows * BN + 4);
+      lo.x += a.x;
+      lo.y += a.y;
+      lo.z += a.z;
+      lo.w += a.w;
+      hi.x += b.x;
+      hi.y += b.y;
+      hi.z += b.z;
+      hi.w += b.w;
+    }
+    *reinterpret_cast<uint4*>(ys + q * 16) =
+        make_uint4(bf16x2(lo.x, lo.y), bf16x2(lo.z, lo.w),
+                   bf16x2(hi.x, hi.y), bf16x2(hi.z, hi.w));
+  }
+  hopper::fence_proxy_async();
+  hopper::named_sync(1, kConsumers);
+  if (threadIdx.x == 0 && mt * BM + rank * rows < m) {
+    hopper::tma_store_3d(&ymap, ys, nt * BN, g, mt * BM + rank * rows);
+    hopper::tma_store_commit();
+    hopper::tma_store_wait_read();
+  }
+  hopper::cluster_arrive_relaxed();     // this block's slots have landed
+  hopper::cluster_wait();
+}
+
+// Whether (splits, cols) is a plan the wgmma kernels were built for:
+// splits a power of two up to kMaxSplits (it divides the 128 rows of a
+// tile), split_cols for a split, every split at least one stage of K.
+bool plan_fits(int64_t k, int splits, int cols) {
+  return splits >= 1 && splits <= kMaxSplits &&
+         (splits & (splits - 1)) == 0 &&
+         (splits == 1 ? plan_cols(cols) : split_cols(cols)) &&
+         splits <= (k + mma::BK - 1) / mma::BK;
+}
+
+bool wgmma_fits(const void* x, const void* w, const void* y, int64_t m,
+                int64_t g, int64_t k, int64_t n, int cols) {
+  using namespace mma;
+  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + cols - 1) / cols);
   return m > kStreamMaxM && tma_fits<__nv_bfloat16>(x, w, g, k, n) &&
          reinterpret_cast<uintptr_t>(y) % 16 == 0 && m <= kMaxCoord &&
          tiles <= kMaxCoord;
 }
 
+template <int BN>
 int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
                  __nv_bfloat16* y, int64_t m, int64_t g, int64_t k,
-                 int64_t n, cudaStream_t st) {
+                 int64_t n, int splits, cudaStream_t st) {
   using namespace mma;
-  if (!wgmma_fits(x, w, y, m, g, k, n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static const cudaError_t attr =
-      allow_smem(grouped_matmul_wgmma_kernel, kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  using T = MmaTile<BN>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
+  if (tiles * splits > kMaxGridX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   CUtensorMap xmap, wmap, ymap;
   const uint64_t xdims[3] = {static_cast<uint64_t>(k),
                              static_cast<uint64_t>(g),
@@ -1124,7 +1534,8 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
                              static_cast<uint64_t>(g),
                              static_cast<uint64_t>(m)};
   const uint64_t ystrides[2] = {n * 2ull, g * n * 2ull};
-  const uint32_t ybox[3] = {64, 1, BM};
+  const uint32_t ybox[3] = {splits == 1 ? 64u : static_cast<uint32_t>(BN), 1,
+                            static_cast<uint32_t>(BM / splits)};
   if (!hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
                           xdims, xstrides, xbox,
                           CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -1133,33 +1544,71 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
                           CU_TENSOR_MAP_SWIZZLE_128B) ||
       !hopper::encode_map(&ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y,
                           ydims, ystrides, ybox,
-                          CU_TENSOR_MAP_SWIZZLE_128B)) {
+                          splits == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_NONE)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t tiles = g * ((m + BM - 1) / BM) * ((n + BN - 1) / BN);
-  const unsigned blocks =
-      static_cast<unsigned>(tiles < sms ? tiles : sms);
-  grouped_matmul_wgmma_kernel<<<blocks, kThreads, kSmem, st>>>(
+  if (splits > 1) {
+    if constexpr (split_cols(BN)) {
+      const auto split_kernel = grouped_matmul_wgmma_split_kernel<BN>;
+      static const cudaError_t attr =
+          allow_smem(split_kernel, T::kSplitSmem);
+      if (attr != cudaSuccess) return static_cast<int>(attr);
+      static int cache[kMaxSplits + 1] = {-1, -1, -1, -1, -1,
+                                          -1, -1, -1, -1};
+      return launch_clusters(split_kernel,
+                             dim3(static_cast<unsigned>(tiles * splits)),
+                             kThreads, T::kSplitSmem, splits, cache, st,
+                             xmap, wmap, ymap, static_cast<int>(m),
+                             static_cast<int>(g), static_cast<int>(k),
+                             static_cast<int>(n), splits);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = grouped_matmul_wgmma_kernel<BN>;
+  static const cudaError_t attr = allow_smem(kernel, T::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  kernel<<<blocks, kThreads, T::kSmem, st>>>(
       xmap, wmap, ymap, static_cast<int>(m), static_cast<int>(g),
       static_cast<int>(k), static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgmma_plan(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                      __nv_bfloat16* y, int64_t m, int64_t g, int64_t k,
+                      int64_t n, int splits, int cols, cudaStream_t st) {
+  if (!plan_fits(k, splits, cols) ||
+      !wgmma_fits(x, w, y, m, g, k, n, cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cols == 64) return launch_wgmma<64>(x, w, y, m, g, k, n, splits, st);
+  if (cols == 128) return launch_wgmma<128>(x, w, y, m, g, k, n, splits, st);
+  return launch_wgmma<192>(x, w, y, m, g, k, n, splits, st);
 }
 
 enum Route { kStream = 0, kWgmma = 1, kSimt = 2, kSgemm = 3 };
 
 template <typename T>
 int launch(const void* x, const void* w, void* y, int64_t m, int64_t g,
-           int64_t k, int64_t n, int route, cudaStream_t stream) {
+           int64_t k, int64_t n, int route, int splits, int cols,
+           cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* yp = static_cast<T*>(y);
   if (route == kStream) {
-    return launch_stream<T>(xp, wp, yp, m, g, k, n, stream);
+    return launch_stream<T>(xp, wp, yp, m, g, k, n, splits, cols, stream);
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (route == kWgmma) {
+      return launch_wgmma_plan(xp, wp, yp, m, g, k, n, splits, cols, stream);
+    }
+  }
+  if (splits != 1 || cols != kDefaultCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route == kSimt) return launch_simt<T>(xp, wp, yp, m, g, k, n, stream);
-  if constexpr (sizeof(T) == 2) {
-    if (route == kWgmma) return launch_wgmma(xp, wp, yp, m, g, k, n, stream);
-  } else {
+  if constexpr (sizeof(T) == 4) {
     if (route == kSgemm) return launch_sgemm(xp, wp, yp, m, g, k, n, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1170,22 +1619,42 @@ int launch(const void* x, const void* w, void* y, int64_t m, int64_t g,
 extern "C" int grouped_matmul_launch(const void* x, const void* w, void* y,
                                      long long m, long long g, long long k,
                                      long long n, int dtype, int route,
-                                     void* stream) {
+                                     int splits, int cols, void* stream) {
   if (m <= 0 || g <= 0 || k <= 0 || n <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, y, m, g, k, n, route, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, m, g, k, n, route, s);
+  if (dtype == 0) {
+    return launch<float>(x, w, y, m, g, k, n, route, splits, cols, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(x, w, y, m, g, k, n, route, splits, cols,
+                                 s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory (bytes) of a block of `route` (for reports), -1
-// for a route the dtype does not take.
-extern "C" int grouped_matmul_dynamic_smem(int route, int dtype) {
+// Dynamic shared memory (bytes) of a block of `route` under plan
+// (splits, cols) (for reports), -1 for a route, dtype or plan the kernels
+// do not take.
+extern "C" int grouped_matmul_dynamic_smem(int route, int dtype, int splits,
+                                           int cols) {
+  if (dtype == 1 && route == kWgmma && splits > 1) {
+    if (splits > kMaxSplits || (splits & (splits - 1)) != 0) return -1;
+    if (cols == 64) return MmaTile<64>::kSplitSmem;
+    if (cols == 128) return MmaTile<128>::kSplitSmem;
+    return -1;
+  }
+  if (splits != 1) return -1;
+  if (dtype == 1 && (route == kStream || route == kWgmma)) {
+    const bool stream = route == kStream;
+    if (cols == 64) return stream ? Unit<64>::kSmem : MmaTile<64>::kSmem;
+    if (cols == 128) return stream ? Unit<128>::kSmem : MmaTile<128>::kSmem;
+    if (cols == 192) return stream ? Unit<192>::kSmem : MmaTile<192>::kSmem;
+    return -1;
+  }
+  if (cols != kDefaultCols) return -1;
   if (route == kStream && dtype == 0) return fgemv::kSmem;
-  if (route == kStream && dtype == 1) return gemv::kSmem;
-  if (route == kWgmma && dtype == 1) return mma::kSmem;
   if (route == kSimt && (dtype == 0 || dtype == 1)) return 0;
   if (route == kSgemm && dtype == 0) return sg::kSmem;
   return -1;

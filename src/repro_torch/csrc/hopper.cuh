@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor loads and stores, 1-D bulk loads, cp.async, wgmma and its
-// shared-memory descriptors, named barriers, and the host-side encoding
-// of a TMA tensor map.
+// shared-memory descriptors, named barriers, the cluster barrier and
+// bulk copies into another block's shared memory, and the host-side
+// encoding of a TMA tensor map.
 //
 // The tensor map is encoded by libcuda's cuTensorMapEncodeTiled, looked
 // up through the runtime (cudaGetDriverEntryPoint), so the libraries link
@@ -163,6 +164,59 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// --- thread-block clusters -------------------------------------------------
+// A cluster's blocks run at once on neighbouring SMs and copy into each
+// other's shared memory (distributed shared memory) through
+// shared::cluster addresses.
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in two halves: every thread of the cluster arrives
+// (relaxed: it orders none of the thread's memory operations; mbarriers
+// initialised before it are published by mbar_fence_init) and later
+// waits for all the others; a thread waits before it arrives again.
+// Arriving right after the set-up and waiting just before the first copy
+// into another block keeps the barrier off the critical path.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The shared::cluster address of the variable at `p` (in this block's
+// shared memory) in the block of rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p,
+                                                uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from this block's shared memory into the shared memory of a
+// block of the cluster at shared::cluster address `dst`, counted as
+// transaction bytes on that block's mbarrier at shared::cluster address
+// `bar`. Only the receiver learns when it has landed: the source stays
+// untouched until then.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst,
+                                                  const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
+      "::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // --- wgmma ------------------------------------------------------------------

@@ -22,6 +22,13 @@ from the shapes, the dtype and the pointers' alignment:
   sum in a fixed order;
 - ``"wgmma"`` (M > 8, bf16): a GEMM per group on the tensor cores, TMA
   tiles in a ring, persistent blocks;
+
+  on both bf16 routes ``plan`` sizes the work: where 192-column units
+  or tiles fill the card it keeps the unsplit design, (1, 192); else it
+  takes the narrowest column width (64, 128 or 192) whose units still
+  fit one wave, and on the wgmma route, past 16 stages of K a split, it
+  splits K over a thread-block cluster of S blocks, whose partials meet
+  in distributed shared memory, summed in rank order;
 - ``"sgemm"`` (M > 8, fp32): a SIMT GEMM per group, 128 x 256 tiles,
   8 x 16 outputs a thread fed by 16-byte shared-memory reads, w by TMA
   and x by cp.async copies in a ring of stages, M fastest so w comes
@@ -30,19 +37,22 @@ from the shapes, the dtype and the pointers' alignment:
   multiple of 16 bytes, an x or w off 16 bytes): shared-memory tiles
   and fp32 FMAs.
 
-The kernel checks the route's preconditions and refuses (the wrapper
-raises) when they fail; nothing switches route or falls back.
+The kernel checks the route's and the plan's preconditions and refuses
+(the wrapper raises) when they fail; nothing switches route or plan or
+falls back.
 
 ``grouped_matmul`` is the wrapper: on CPU tensors it computes
 ``grouped_matmul_ref``; on CUDA tensors it launches the kernel or
 raises. The bias is added outside the kernel, as the reference's
-wrapper adds it. ``launch`` runs one named route on checked inputs
-(``chip_smoke.py`` holds the sgemm route to the simt route's bits
-through it). ``grouped_matmul.launches`` counts kernel launches
-(one per call) and ``grouped_matmul.route_launches`` the launches of
-each route. The kernel has no backward: it serves no-grad passes only
-(``models.layers.grouped_dense_apply(use_kernel=True)``: decode, the
-LM eval and prefill losses, the federated LM eval). Its output, written
+wrapper adds it. ``launch`` runs one named route, under ``plan``'s
+plan or a given one, on checked inputs (``chip_smoke.py`` holds the
+sgemm route to the simt route's bits, and every unsplit plan to
+``DEFAULT_PLAN``'s, through it). ``grouped_matmul.launches`` counts
+kernel launches (one per call) and ``grouped_matmul.route_launches``
+the launches of each route. The kernel has no backward: it serves
+no-grad passes only (``models.layers.grouped_dense_apply(use_kernel=
+True)``: decode, the LM eval and prefill losses, the federated LM
+eval). Its output, written
 through a raw pointer, carries no ``grad_fn``, so on CUDA tensors the
 wrapper raises when autograd is recording and an input requires grad
 (``check_no_autograd``), rather than return a result that would cut
@@ -68,6 +78,21 @@ _MAX_GRID_YZ = 65535
 _SIMT_TILE_M = 64
 _SGEMM_TILE = (128, 256)
 _MAX_COORD = 2 ** 31 - 1
+# the plans of the bf16 stream and wgmma routes: units or tiles of one
+# of _PLAN_COLS columns; on the wgmma route K split over a cluster of at
+# most _MAX_SPLITS blocks (a power of two) in tiles of _SPLIT_COLS
+# columns. K goes in stages of _STAGE_K[route] rows; the wgmma route's
+# tiles have _WGMMA_TILE_M rows; ``plan`` keeps at least
+# _SPLIT_MIN_STAGES stages a split and splits into _WGMMA_MAX_SPLITS at
+# most (measured, see ``plan``). Every other route takes DEFAULT_PLAN.
+_MAX_SPLITS = 8
+_PLAN_COLS = (64, 128, 192)
+_SPLIT_COLS = (64, 128)
+_STAGE_K = {"stream": 128, "wgmma": 64}
+_WGMMA_TILE_M = 128
+_SPLIT_MIN_STAGES = 16
+_WGMMA_MAX_SPLITS = 2
+DEFAULT_PLAN = (1, 192)
 
 
 def route(m: int, g: int, k: int, n: int, dtype: torch.dtype,
@@ -91,6 +116,49 @@ def route(m: int, g: int, k: int, n: int, dtype: torch.dtype,
     return "simt"
 
 
+def _planned(r: str, dtype: torch.dtype) -> bool:
+    """Whether route ``r`` in ``dtype`` takes plans other than
+    ``DEFAULT_PLAN``: the bf16 stream and wgmma routes."""
+    return dtype == torch.bfloat16 and r in _STAGE_K
+
+
+def plan(r: str, m: int, g: int, k: int, n: int, sms: int,
+         dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+    """(splits, columns) for route ``r`` on x (m, g*k), w (g, k, n) on a
+    card of ``sms`` SMs. Where the route's 192-column units (stream) or
+    128 x 192 tiles (wgmma) number at least ``sms``, ``DEFAULT_PLAN``
+    (1, 192): the unsplit design. Else the narrowest of 64, 128 and 192
+    columns whose units or tiles still fit one wave of ``sms`` blocks
+    (more blocks, each with fewer bytes). On the wgmma route K is split
+    over a cluster of S = 2 where that leaves every split at least
+    _SPLIT_MIN_STAGES stages of K and tiles x S within the wave: on the
+    H100 the split's reduction costs about what 16 stages take, so
+    shorter K stays whole, and clusters of 4 or 8 one-SM blocks do not
+    all fit the card's GPCs at once. The stream route does not split:
+    two splits of 16 of its 128-row stages need 4,096 rows of K a group,
+    which no product on a path has (at most 2,368). fp32
+    and the sgemm and simt routes take ``DEFAULT_PLAN``."""
+    if not _planned(r, dtype):
+        return DEFAULT_PLAN
+    rows = 1 if r == "stream" else -(-m // _WGMMA_TILE_M)
+
+    def units(cols):
+        return g * rows * -(-n // cols)
+
+    if units(DEFAULT_PLAN[1]) >= sms:
+        return DEFAULT_PLAN
+    cols = next(c for c in _PLAN_COLS if units(c) <= sms or c == 192)
+    if r == "stream":
+        return 1, cols
+    stages = -(-k // _STAGE_K[r])
+    splits = 1
+    while (cols in _SPLIT_COLS and 2 * splits <= _WGMMA_MAX_SPLITS and
+           stages >= 2 * splits * _SPLIT_MIN_STAGES and
+           2 * splits * units(cols) <= sms):
+        splits *= 2
+    return splits, cols
+
+
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,
                        b: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version: x (..., G*K), w (G, K, N), b (G, N) ->
@@ -109,18 +177,31 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.grouped_matmul_dynamic_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.grouped_matmul_dynamic_smem.argtypes = [ctypes.c_int] * 4
     lib.grouped_matmul_dynamic_smem.restype = ctypes.c_int
     return lib
 
 
-def dynamic_smem(route_name: str, dtype: torch.dtype) -> int:
+def dynamic_smem(route_name: str, dtype: torch.dtype,
+                 p: tuple[int, int] = DEFAULT_PLAN) -> int:
     """Bytes of dynamic shared memory a block of ``route_name`` takes
-    (builds the kernel)."""
+    under plan ``p`` (builds the kernel)."""
     return _library().grouped_matmul_dynamic_smem(
-        ROUTES.index(route_name), _DTYPE_CODES[dtype])
+        ROUTES.index(route_name), _DTYPE_CODES[dtype], *p)
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _check(x, w, b):
@@ -178,40 +259,54 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     return y.reshape(x.shape[:-1] + (g * n,))
 
 
-def _grid_fits(r: str, m: int, g: int, n: int) -> bool:
-    """Whether route ``r``'s grid holds the call: stream and simt put G
-    on a 65,535-wide grid dimension (simt its row tiles too); sgemm
-    launches one block a tile, at most 2^31 - 1."""
+def _grid_fits(r: str, m: int, g: int, n: int,
+               p: tuple[int, int] = DEFAULT_PLAN) -> bool:
+    """Whether route ``r``'s grid holds the call under plan ``p``:
+    stream and simt put G on a 65,535-wide grid dimension (simt its row
+    tiles too), and stream its units on one of 2^31 - 1; sgemm launches
+    one block a tile, at most 2^31 - 1, and a split wgmma plan S blocks
+    a tile, at most 2^31 - 1 (unsplit, its blocks are persistent)."""
+    splits, cols = p
     if r == "sgemm":
         bm, bn = _SGEMM_TILE
         return g * -(-m // bm) * -(-n // bn) <= _MAX_COORD
-    return r == "wgmma" or g <= _MAX_GRID_YZ and (
-        r != "simt" or -(-m // _SIMT_TILE_M) <= _MAX_GRID_YZ)
+    if r == "stream":
+        return g <= _MAX_GRID_YZ and -(-n // cols) <= _MAX_COORD
+    if r == "wgmma":
+        return g * -(-m // _WGMMA_TILE_M) * -(-n // cols) * splits \
+            <= _MAX_COORD
+    return g <= _MAX_GRID_YZ and -(-m // _SIMT_TILE_M) <= _MAX_GRID_YZ
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, r: str) -> torch.Tensor:
+def launch(x: torch.Tensor, w: torch.Tensor, r: str,
+           p: tuple[int, int] | None = None) -> torch.Tensor:
     """Route ``r``'s kernel on checked CUDA inputs, x (..., G*K) and w
-    (G, K, N): y (M, G*N) for the M rows of x, counted in
+    (G, K, N), under plan ``p`` (splits, columns; ``plan``'s when None):
+    y (M, G*N) for the M rows of x, counted in
     ``grouped_matmul.launches`` and ``route_launches[r]``. Builds the
-    kernel first; raises where the kernel refuses the route (its
-    preconditions, checked on the C side) or its grid cannot hold the
-    call; nothing switches route."""
+    kernel first; raises where the kernel refuses the route or the plan
+    (their preconditions, checked on the C side), the card cannot hold
+    the plan's cluster, or the grid cannot hold the call; nothing
+    switches route or plan."""
     lib = _library()
     g, k, n = w.shape
     m = x.numel() // (g * k)
-    if not _grid_fits(r, m, g, n):
+    if p is None:
+        p = plan(r, m, g, k, n, _sms(x.device), x.dtype) \
+            if _planned(r, x.dtype) else DEFAULT_PLAN
+    if not _grid_fits(r, m, g, n, p):
         raise ValueError(f"grouped_matmul: M = {m} or G = {g} exceeds the "
-                         f"kernel's grid ({r} route)")
+                         f"kernel's grid ({r} route, plan {p})")
     xm = x.reshape(m, g * k)
     y = torch.empty((m, g * n), dtype=xm.dtype, device=xm.device)
     with torch.cuda.device(xm.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grouped_matmul_launch(
             xm.data_ptr(), w.data_ptr(), y.data_ptr(), m, g, k, n,
-            _DTYPE_CODES[xm.dtype], ROUTES.index(r), stream)
+            _DTYPE_CODES[xm.dtype], ROUTES.index(r), p[0], p[1], stream)
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed ({r} "
-                           f"route): CUDA error {err}")
+                           f"route, plan {p}): CUDA error {err}")
     grouped_matmul.launches += 1
     grouped_matmul.route_launches[r] += 1
     return y

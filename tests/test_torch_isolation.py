@@ -255,19 +255,28 @@ def test_grouped_matmul_route(m, g, k, n, dtype, x_off, w_off, want):
     assert gm.route(m, g, k, n, dtype, base + x_off, base + w_off) == want
 
 
-@pytest.mark.parametrize("m,n,dtype,route", [
-    (4, 6288, torch.bfloat16, "stream"), (128, 6288, torch.bfloat16, "wgmma"),
-    (128, 6288, torch.float32, "sgemm"), (4, 6289, torch.bfloat16, "simt"),
-    (128, 6289, torch.float32, "simt")])
+@pytest.mark.parametrize("m,k,n,dtype,route", [
+    (4, 256, 6288, torch.bfloat16, "stream"),
+    (128, 256, 6288, torch.bfloat16, "wgmma"),
+    (128, 256, 6288, torch.float32, "sgemm"),
+    (4, 256, 6289, torch.bfloat16, "simt"),
+    (128, 256, 6289, torch.float32, "simt"),
+    # a long-K product: 64-column units on the stream route, K split over
+    # a cluster on the wgmma route
+    (4, 4096, 256, torch.bfloat16, "stream"),
+    (128, 4096, 256, torch.bfloat16, "wgmma")])
 def test_grouped_matmul_raises_on_every_route_when_the_build_fails(
-        monkeypatch, m, n, dtype, route):
-    """No route falls back: with the build failing, a CUDA call of each
-    route's shape raises and counts no launch, in total or by route."""
+        monkeypatch, m, k, n, dtype, route):
+    """No route or plan falls back: with the build failing, a CUDA call
+    of each route's shape (and of a split plan's) raises and counts no
+    launch, in total or by route."""
     from repro_torch.kernels import build
     from repro_torch.kernels import grouped_matmul as gm
-    x = FakeCuda(m, 8 * 256, dtype=dtype, ptr=1 << 20)
-    w = FakeCuda(8, 256, n, dtype=dtype, ptr=1 << 21)
-    assert gm.route(m, 8, 256, n, dtype, x.data_ptr(), w.data_ptr()) == route
+    x = FakeCuda(m, 8 * k, dtype=dtype, ptr=1 << 20)
+    w = FakeCuda(8, k, n, dtype=dtype, ptr=1 << 21)
+    assert gm.route(m, 8, k, n, dtype, x.data_ptr(), w.data_ptr()) == route
+    assert gm.plan(route, m, 8, k, n, 132, dtype)[0] == (
+        2 if k > 256 and route == "wgmma" else 1)
     monkeypatch.setattr(build, "load", _no_nvcc)
     before = (gm.grouped_matmul.launches,
               dict(gm.grouped_matmul.route_launches))
@@ -295,29 +304,123 @@ def test_grouped_matmul_limits_are_the_kernels():
     sg = src[src.index("namespace sg {"):]
     for name, size in zip(("BM", "BN"), gm._SGEMM_TILE):
         assert re.search(rf"constexpr int {name} = {size};", sg)
+    # the plans: the largest split, the column widths the kernels were
+    # built for (the default one among them), each route's stage of K
+    # and the wgmma tile's rows
+    assert re.search(rf"constexpr int kMaxSplits = {gm._MAX_SPLITS};", src)
+    widths = re.search(r"constexpr bool plan_cols\(int c\) \{ return ([^;]*);",
+                       src).group(1)
+    assert tuple(int(c) for c in re.findall(r"c == (\d+)", widths)) == \
+        gm._PLAN_COLS
+    assert re.search(rf"constexpr int kDefaultCols = {gm.DEFAULT_PLAN[1]};",
+                     src) and gm.DEFAULT_PLAN[0] == 1
+    split = re.search(r"constexpr bool split_cols\(int c\) \{ return ([^;]*);",
+                      src).group(1)
+    assert tuple(int(c) for c in re.findall(r"c == (\d+)", split)) == \
+        gm._SPLIT_COLS
+    gemv = src[src.index("namespace gemv {"):]
+    assert re.search(rf"constexpr int KR = {gm._STAGE_K['stream']};", gemv)
+    mma = src[src.index("namespace mma {"):]
+    assert re.search(rf"constexpr int BK = {gm._STAGE_K['wgmma']};", mma)
+    assert re.search(rf"constexpr int BM = {gm._WGMMA_TILE_M};", mma)
 
 
-@pytest.mark.parametrize("m,g,n,route", [
-    (4, 65_536, 16, "stream"), (64, 65_536, 16, "simt"),
-    (64 * 65_535 + 1, 2, 16, "simt"), (128 * (2 ** 31 - 1) + 1, 1, 256,
-                                        "sgemm")])
+# (K, N) of a group for every product the Fed2 decode and eval paths run
+# through grouped_matmul (8 groups): the other dense configs' and
+# zamba2's (chip_smoke.OTHER_GMM_SHAPES), Whisper's FFN and InternVL's
+# unembedding (FRONTEND_GMM_SHAPES), Llama's FFN, the Mamba-2 and MoE
+# unembeddings; and two long-K products past the split threshold
+_GMM_PLAN_SHAPES = (
+    (448, 19008), (448, 2368), (2368, 448), (640, 12544), (640, 1728),
+    (1728, 640), (320, 4000), (320, 864), (864, 320),
+    (64, 256), (256, 64), (256, 11584),
+    (256, 1024), (1024, 256),
+    (256, 6288), (768, 4096), (640, 12800))
+# the plans measured best on the H100 (tools/gmm_plans.py sweep) for the
+# decoupled FFN products, at M = 4 and at the large-batch serve's M
+# (stablelm 64); qwen2's down product is the one past 16 stages of K a
+# split on the wgmma route
+_GMM_FFN_PLANS = {
+    (1024, 256): ((1, 64), (1, 64)), (2368, 448): ((1, 64), (2, 64)),
+    (864, 320): ((1, 64), (1, 64)), (256, 64): ((1, 64), (1, 64)),
+    (1728, 640): ((1, 64), (1, 64)), (64, 256): ((1, 64), (1, 64)),
+    (256, 1024): ((1, 64), (1, 64)), (320, 864): ((1, 64), (1, 64)),
+    (640, 1728): ((1, 128), (1, 128)), (448, 2368): ((1, 192), (1, 192))}
+
+
+@pytest.mark.parametrize("m", [4, 64, 128, 4096])
+@pytest.mark.parametrize("k,n", [*_GMM_PLAN_SHAPES, (4096, 256),
+                                 (8192, 256)])
+def test_grouped_matmul_plan(k, n, m):
+    """The wrapper's pure plan function on a 132-SM card: the unsplit
+    design (1, 192) wherever 192-column units (stream, M <= 8) or
+    128 x 192 tiles (wgmma) fill the card, which covers every
+    unembedding and every M = 4096 shape; elsewhere the narrowest width
+    whose units fit one wave, split only on the wgmma route, in at most
+    2 that keep 16 stages of K a split and the blocks within the wave;
+    the FFN products take the plans measured best."""
+    from repro_torch.kernels import grouped_matmul as gm
+    g, sms = 8, 132
+    r = gm.route(m, g, k, n, torch.bfloat16, 0, 0)
+    assert r == ("stream" if m <= 8 else "wgmma")
+    splits, cols = p = gm.plan(r, m, g, k, n, sms)
+    rows = 1 if r == "stream" else -(-m // 128)
+
+    def units(c):
+        return g * rows * -(-n // c)
+
+    stages = -(-k // gm._STAGE_K[r])
+    if units(192) >= sms:
+        assert p == gm.DEFAULT_PLAN
+    else:
+        assert units(cols) <= sms or cols == 192
+        assert all(units(c) > sms for c in gm._PLAN_COLS if c < cols)
+    assert splits & (splits - 1) == 0 and 1 <= splits <= gm._MAX_SPLITS
+    if splits > 1:
+        assert cols in gm._SPLIT_COLS and splits * units(cols) <= sms
+        assert stages >= splits * gm._SPLIT_MIN_STAGES
+        assert r == "wgmma" and splits <= gm._WGMMA_MAX_SPLITS
+    if (k, n) in _GMM_FFN_PLANS and m in (4, 64 if (k, n) in (
+            (640, 1728), (1728, 640)) else 128):
+        assert p == _GMM_FFN_PLANS[k, n][m > 8]
+    if k >= 4096 and 8 < m <= 128:
+        assert splits >= 2 and stages // splits >= gm._SPLIT_MIN_STAGES
+    # fp32 and the routes without plans take the default
+    assert gm.plan(r, m, g, k, n, sms, torch.float32) == gm.DEFAULT_PLAN
+    assert gm.plan("sgemm", m, g, k, n, sms) == gm.DEFAULT_PLAN
+    assert gm.plan("simt", m, g, k, n, sms) == gm.DEFAULT_PLAN
+
+
+@pytest.mark.parametrize("m,g,n,route,plan", [
+    (4, 65_536, 16, "stream", None), (64, 65_536, 16, "simt", None),
+    (64 * 65_535 + 1, 2, 16, "simt", None),
+    (128 * (2 ** 31 - 1) + 1, 1, 256, "sgemm", None),
+    # other plans: G over 65,535 in 64-column units, and a split wgmma
+    # plan's tiles x S over 2^31 - 1
+    (4, 65_536, 16, "stream", (1, 64)),
+    (128, 2, 64 * (2 ** 29 - 1) + 1, "wgmma", (2, 64))])
 def test_grouped_matmul_refuses_a_grid_it_cannot_launch(monkeypatch, m, g,
-                                                        n, route):
+                                                        n, route, plan):
     """One past a route's grid (G over 65,535 on stream and simt, simt's
-    row tiles over 65,535, sgemm's 128 x 256 tiles over 2^31 - 1) the
-    call raises before any launch, counted nowhere; one row or group
+    row tiles over 65,535, sgemm's 128 x 256 tiles over 2^31 - 1, a
+    split wgmma plan's tiles times its splits over 2^31 - 1) the call
+    raises before any launch, counted nowhere; one row, group or column
     fewer fits."""
     from repro_torch.kernels import grouped_matmul as gm
     monkeypatch.setattr(gm, "_library", lambda: None)
     before = (gm.grouped_matmul.launches,
               dict(gm.grouped_matmul.route_launches))
+    p = plan or gm.DEFAULT_PLAN
     with pytest.raises(ValueError, match=rf"kernel's grid \({route} route"):
         gm.launch(FakeCuda(m, g * 4, ptr=1 << 20),
-                  FakeCuda(g, 4, n, ptr=1 << 21), route)
+                  FakeCuda(g, 4, n, ptr=1 << 21), route, plan)
     assert (gm.grouped_matmul.launches,
             gm.grouped_matmul.route_launches) == before
-    assert gm._grid_fits(route, m, g - 1, n) if g > 2 else \
-        gm._grid_fits(route, m - 1, g, n)
+    if n > 2 ** 31:
+        assert gm._grid_fits(route, m, g, n - 1, p)
+    else:
+        assert gm._grid_fits(route, m, g - 1, n, p) if g > 2 else \
+            gm._grid_fits(route, m - 1, g, n, p)
 
 
 def test_grouped_matmul_refuses_autograd_on_the_card(monkeypatch):
