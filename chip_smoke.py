@@ -80,8 +80,7 @@ script exits non-zero:
             agree; and each route's wall time, median of 5; and Eq. 9
             on the warm model cast to bf16, kernel route (one launch)
             against plain
-10. profile the main path again under torch.profiler: device busy
-            share and device time by kernel category
+10. (moved to tools/profile_phases.py: main)
 11. parity  one fed2 round from one init and one batch stream with the
             kernels on and off (TF32 off, deterministic convolutions):
             the fusion kernel alone agrees to round-off, both kernels
@@ -136,7 +135,7 @@ script exits non-zero:
 20. tier and async scenarios  the 5 tier and 2 async specs at their
             registered settings, counted, beside the JAX package's
             records; the async specs' sim_time equal to the records'
-21. tier and async profile  paths A and C under torch.profiler
+21. (moved to tools/profile_phases.py: tiers_async)
 22. store   the client-state stores and checkpoints (TF32 off,
             deterministic convs), counted: (a) the CLI's main path with
             --store mmap --chunk-size 4, with and without
@@ -162,8 +161,7 @@ script exits non-zero:
             counted, grouped_matmul by route too, with prefill/decode
             time, tok/s, peak device memory and the parameter count,
             which must equal the reference's
-24. serve profile  a short Fed2 serve under torch.profiler: device
-            busy share and device time by kernel category
+24. (moved to tools/profile_phases.py: serve)
 25. decode parity  the full config in fp32 (TF32 off), 8 tokens, with
             the kernels and with the plain versions: logits and the
             final cache within the stated limits
@@ -209,9 +207,7 @@ script exits non-zero:
             off): the chunked forward over 300 tokens against 300
             decode steps through ssd_update: logits at every position
             and every layer's final SSM state within the stated limits
-29. lm profile  one --mode lm step at PROFILE_LM_LAYERS of 48 layers
-            (full width), with and without --microbatches 2, and one
-            fed2 LM round under torch.profiler
+29. (moved to tools/profile_phases.py: lm)
 30. dense serve  Llama-3.2-1B at full width through the serving CLI's
             default arch (batch 4, 32 + 16 tokens): --full and --full
             --fed2-groups 8 (grouped_matmul 13 a step: the unembedding
@@ -237,9 +233,7 @@ script exits non-zero:
             every local_step and paired_fusion call held against its
             plain version (LmKernelTaps), and the held-out loss per
             round
-34. dense lm profile  one llama --mode lm step (the attention's
-            elementwise and softmax passes split out) and one fed2 dense
-            LM round under torch.profiler
+34. (moved to tools/profile_phases.py: dense_lm)
 35. other dense and hybrid serve  qwen2-7b, h2o-danube-1.8b,
             stablelm-12b and zamba2-2.7b at full width through the
             serving CLI (batch 4, 32 + 16 tokens), without and with
@@ -266,10 +260,7 @@ script exits non-zero:
             fed2, with and without --use-local-kernel, counted) on
             zamba2 cut to 6 layers and danube cut to 8 (its 6 decoupled
             blocks kept)
-39. hybrid profile  one zamba2 Fed2 decode step at batch 4, one at
-            batch 128 (with ssd_update's device time) and one zamba2
-            --mode lm step at PROFILE_LM_LAYERS of 54 layers (full
-            width) under torch.profiler
+39. (moved to tools/profile_phases.py: hybrid)
 40. moe serve  mixtral-8x22b and deepseek-v2-236b: the full configs'
             parameter counts ± Fed2 8 (initialized on meta)
             equal to the reference's; then each cut to
@@ -291,9 +282,7 @@ script exits non-zero:
             without --use-local-kernel, counted) on each arch with
             every routing parameter and MLA's dims kept, d_model, d_ff,
             vocab and depth cut to a 1.6-1.8 GB fp32 row
-44. moe profile  under torch.profiler: one deepseek Fed2 decode step at
-            8 layers and batch 128 over 2048 slots, one mixtral step at
-            batch 4, and one deepseek --mode lm step at 42's cut
+44. (moved to tools/profile_phases.py: moe)
 45. encdec and vlm serve  whisper-base and internvl2-2b at full width
             and depth through the serving CLI (batch 4, 32 + 16 tokens),
             without and with --fed2-groups 8, then Fed2 at batch 128
@@ -320,10 +309,7 @@ script exits non-zero:
             falling; then the eval step on the trained params
             (InternVL: grouped_matmul 2, wgmma) against the einsum
             route
-48. encdec and vlm profile  under torch.profiler, bf16, Fed2 8: one
-            decode step of each arch at batch 4, Whisper's at batch 128
-            over 2048 slots, and one Whisper --mode lm step at 47's
-            batch
+48. (moved to tools/profile_phases.py: frontend)
 49. surfaces  the four examples (python -m repro_torch.examples.*) at
             the reference's defaults (fed2_cifar_fl at --rounds 3
             --methods all), counted against the launches the code
@@ -357,6 +343,26 @@ script exits non-zero:
             plain round's FlopCounterMode count equal to the meta
             pass's; one fed2 async event at K = 8 (read arguments
             14,792,032 B, paired_fusion 1)
+51. ranks   multi-rank execution over torch.distributed, the ranks
+            sharing card 0 over gloo (launch/mesh.spawn; budget 90 s;
+            alone: python3 -c 'import chip_smoke as c; c.phase_build();
+            c.phase_ranks()'): (a) the CLI's main path (fed2, fed2
+            --use-local-kernel, fedavg; 10 clients, 8 steps of batch 32,
+            2 rounds) on 2 "data" ranks of 5 clients each against the
+            same run in one process (TF32 off, deterministic convs):
+            the largest |d| of each leaf over its largest magnitude, and
+            of the whole global over its largest, within 1e-5 or within
+            what a one-ulp change of the init does, whichever is larger;
+            local_step 16 on each rank with the flag; one fusion and one
+            eval all-reduce a round; the collectives' bytes and staged
+            bytes, s/round beside one process's; (b) one full-width MoE
+            layer of mixtral-8x22b and of deepseek-v2-236b (bf16, tokens
+            (4, 512, d), each rank drawing only its experts) on a (2, 4)
+            mesh of 8 ranks, each rank's output equal to
+            moe_apply_ep_plain's on the card to the bit; the all-to-all
+            bytes and the wall time; (c) fed2_cifar_fl --mesh host
+            --rounds 1, counted (paired_fusion 2: fedavg and fed2). A
+            rank that fails fails the run
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -516,12 +522,6 @@ LM_TRAIN = ("--mode", "lm", "--arch", "mamba2-1.3b", "--fed2",
             "--fed2-groups", "8", "--batch", "8", "--seq", "1024", "--lr",
             "1e-3")
 LM_TRAIN_STEPS = 3
-# the profiled --mode lm steps of Mamba-2 and Zamba2 run at full width
-# and this depth (Zamba2: 1 super-block): the profiler's cost grows with
-# the device ops it records (~2 ms a op on the card's host: 145k ops
-# made the lm profile phase 264 s), while a layer's ops and their shares
-# are the same at any depth. The lm train phases time the full depth.
-PROFILE_LM_LAYERS = 6
 # the eval step's loss through grouped_matmul vs through the einsum, one
 # bf16 batch: both round the logits to bf16 (2^-8 relative) from fp32
 # sums in other orders; the mean CE over 8,192 tokens averages that.
@@ -2238,16 +2238,6 @@ def profiled(label: str, run, attention_tile: tuple | None = None,
               f"x{e.count:<4d} {e.key} {e.input_shapes}")
 
 
-def phase_profile():
-    """The main path (fed2, --use-local-kernel, 3 rounds) under
-    torch.profiler."""
-    from repro_torch.fl.runtime import run_federated
-    from repro_torch.launch import train
-    inputs = train.fl_inputs(train.parse_args(["--rounds", "3"]))
-    profiled("3 rounds", lambda: run_federated(
-        *inputs, use_local_kernel=True, device="cuda"))
-
-
 def phase_parity():
     """One fed2 round from one init and one batch stream, with TF32 off
     and deterministic convolutions, so that runs of one route agree bit
@@ -2777,22 +2767,6 @@ def phase_tier_async_scenarios():
             assert same, f"{name}: sim_time differs from the record"
 
 
-def phase_tier_async_profile():
-    """Path A (--use-local-kernel, 1 round) and path C (fed2,
-    --use-local-kernel, 2 events) under torch.profiler (the profiler's
-    cost on the host grows with the ops it records)."""
-    from repro_torch.fl.runtime import run_federated
-    from repro_torch.launch import train
-    a = train.parse_args(list(TIER_PATHS["A"][0]) + ["--rounds", "1"])
-    inputs = train.fl_inputs(a)
-    profiled("path A, 1 round", lambda: run_federated(
-        *inputs, use_local_kernel=True, device="cuda"))
-    c = train.parse_args(["--method", "fed2", *ASYNC_PATH, "--rounds", "2"])
-    inputs = train.fl_inputs(c)
-    profiled("path C (fed2), 2 events", lambda: run_federated(
-        *inputs, latency=c.latency, use_local_kernel=True, device="cuda"))
-
-
 def same_run(a, b) -> bool:
     """Two histories with the same rounds, accuracies, per-class rows,
     confusion counts and sampled ids, and the same final params, bit
@@ -3125,52 +3099,6 @@ def phase_serve() -> dict:
           f"{peak / 1e9:.1f} GB", flush=True)
     assert peak > state, "the batch-128 run did not hold its SSM state"
     return counts
-
-
-def phase_serve_profile():
-    """A Fed2 serve at full width (batch 4, 8 prompt + 8 decoded tokens)
-    under torch.profiler: device busy share of the wall time and device
-    time by kernel category."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.common import with_fed2
-    from repro_torch.launch.serve import run_serve
-    from repro_torch.models import transformer as tfm
-    cfg = with_fed2(get_config("mamba2-1.3b"), groups=8)
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    kw = dict(batch=4, prompt_len=8, gen=8, device="cuda",
-              init_params=params)
-    run_serve(cfg, **kw)                                    # warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        out = run_serve(cfg, **kw)
-        wall = time.time() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    total_us = sum(e.self_device_time_total for e in dev)
-    steps = kw["prompt_len"] + kw["gen"]
-    print(f"  {steps} serve steps: wall {wall * 1e3:.1f} ms "
-          f"({wall * 1e3 / steps:.2f} ms/step; decode {out['tok_s']:.1f} "
-          f"tok/s), device busy {total_us / 1e3:.1f} ms "
-          f"({100 * total_us / 1e3 / wall / 1e3:.1f} %), "
-          f"{sum(e.count for e in dev)} device ops")
-    if not dev:
-        print("  device time: not measured (the profiler saw no device "
-              "events)")
-        return
-    by_cat = {}
-    for e in dev:
-        c = _category(e.key)
-        by_cat[c] = by_cat.get(c, 0.0) + e.self_device_time_total
-    for c, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {c:<48s} {us / 1e3:8.2f} ms  {100 * us / total_us:5.1f} %")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
-              f"{e.key[:90]}")
 
 
 def phase_decode_parity():
@@ -4477,54 +4405,6 @@ def phase_lm_crosscheck():
     free_device_memory()
 
 
-def phase_lm_profile():
-    """One --mode lm step at full width and PROFILE_LM_LAYERS layers
-    (LM_TRAIN's shapes, after a warm-up step), the same with
-    --microbatches 2, and one fed2 LM round (LM_FL, with
-    --use-local-kernel, after a warm-up run) under torch.profiler."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.common import with_fed2
-    from repro_torch.data.synthetic import (lm_batch_from_tokens,
-                                            make_token_dataset)
-    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer as tfm
-    cfg = with_fed2(dataclasses.replace(get_config("mamba2-1.3b"),
-                                        n_layers=PROFILE_LM_LAYERS),
-                    groups=8)
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    step_fn, opt = make_train_step(cfg, lr=1e-3)
-    state = opt.init(params)
-    toks, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
-    b0, b1 = (lm_batch_from_tokens(toks[i:i + 8], device="cuda")
-              for i in (0, 8))
-    params, state, _ = step_fn(params, state, 0, b0)
-    profiled(f"one --mode lm step ({PROFILE_LM_LAYERS} layers), batch 8 "
-             "x 1024", lambda: step_fn(params, state, 1, b1))
-    step_mb2, _ = make_train_step(cfg, lr=1e-3, microbatches=2)
-    params, state, _ = step_mb2(params, state, 1, b1)
-    profiled(f"one --mode lm --microbatches 2 step ({PROFILE_LM_LAYERS} "
-             "layers), batch 8 x 1024", lambda: step_mb2(params, state, 2,
-                                                         b0))
-    del params, state
-    free_device_memory()
-    cfg, parts, get_batch, test, init = lm_fl_inputs(mamba_fl_config())
-    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
-
-    def one_round():
-        run_federated(lm_task(cfg), fl, parts, get_batch, test,
-                      use_local_kernel=True, device="cuda",
-                      init_params=init)
-
-    one_round()
-    profiled("one fed2 LM round (4 clients x 4 steps, eval)", one_round)
-    del init
-    free_device_memory()
-
-
 # ---------------------------------------------------------------------------
 # the dense family (Llama-3.2-1B)
 # ---------------------------------------------------------------------------
@@ -4733,53 +4613,6 @@ def lm_tapped_round(label, task, parts, get_batch, test, init, loss_of,
           f"{l1:.5f}, round 2 {l2:.5f}", flush=True)
     assert l0 > l1 > l2, "the held-out loss does not fall round by round"
     del h
-    free_device_memory()
-
-
-def phase_dense_lm_profile():
-    """One --mode lm step of the dense LM (DENSE_LM_TRAIN's shapes, after
-    a warm-up step; the attention passes split out) and one fed2 round
-    of its federation (LM_FL on dense_fl_config, with
-    --use-local-kernel, after a warm-up run) under torch.profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.common import with_fed2
-    from repro_torch.data.synthetic import (lm_batch_from_tokens,
-                                            make_token_dataset)
-    from repro_torch.fl.runtime import FLConfig, lm_task, run_federated
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer as tfm
-    cfg = with_fed2(get_config("llama3.2-1b"), groups=8)
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    step_fn, opt = make_train_step(cfg, lr=1e-3)
-    state = opt.init(params)
-    toks, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
-    b0, b1 = (lm_batch_from_tokens(toks[i:i + 8], device="cuda")
-              for i in (0, 8))
-    params, state, _ = step_fn(params, state, 0, b0)
-    profiled("one --mode lm --arch llama3.2-1b step, batch 8 x 1024",
-             lambda: step_fn(params, state, 1, b1),
-             (cfg.attn_q_chunk, cfg.attn_kv_chunk))
-    del params, state
-    free_device_memory()
-    cfg, parts, get_batch, test, init = lm_fl_inputs(dense_fl_config())
-    fl = FLConfig(method="fed2", **{**LM_FL, "rounds": 1})
-
-    def one_round():
-        run_federated(lm_task(cfg), fl, parts, get_batch, test,
-                      use_local_kernel=True, device="cuda",
-                      init_params=init)
-
-    one_round()
-    # the warm-up run's engine holds reference cycles (its buffers,
-    # ~20 GB at this width) until a collection
-    free_device_memory()
-    # no attention split here: with record_shapes the profiled vmapped
-    # round kept its memory until it ran out of the card's 80 GB (from
-    # 2.1 GiB allocated at its start); its score tiles are 64 x 64
-    profiled("one fed2 dense LM round (4 clients x 4 steps, eval)",
-             one_round)
-    del init
     free_device_memory()
 
 
@@ -5100,58 +4933,6 @@ def phase_other_lm_fl():
         free_device_memory()
 
 
-def phase_other_profile():
-    """zamba2-2.7b with Fed2 (groups 8), bf16, at full width under
-    torch.profiler: one decode step at full depth and batch 4, and one
-    at batch 128 (each over 128 slots, after 8 warm-up steps; with
-    ssd_update's device time), and one --mode lm step at
-    PROFILE_LM_LAYERS layers and batch 8 x 1024 (after a warm-up
-    step)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.common import with_fed2
-    from repro_torch.data.synthetic import (lm_batch_from_tokens,
-                                            make_token_dataset)
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.forward import decode_step, init_cache
-    cfg = with_fed2(get_config("zamba2-2.7b"), groups=8)
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    cache = init_cache(cfg, 4, 128, device="cuda")
-    toks = torch.randint(0, cfg.vocab, (4, 9), device="cuda")
-    with torch.no_grad():
-        for t in range(8):
-            decode_step(params, cfg, cache, toks[:, t:t + 1], t)
-        profiled("one zamba2-2.7b Fed2 decode step, batch 4",
-                 lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8),
-                 kernel="ssd_update")
-        del cache
-        cache = init_cache(cfg, 128, 128, device="cuda")
-        toks = torch.randint(0, cfg.vocab, (128, 9), device="cuda")
-        for t in range(8):
-            decode_step(params, cfg, cache, toks[:, t:t + 1], t)
-        profiled("one zamba2-2.7b Fed2 decode step, batch 128",
-                 lambda: decode_step(params, cfg, cache, toks[:, 8:9], 8),
-                 kernel="ssd_update")
-    del cache, params
-    cfg = dataclasses.replace(cfg, n_layers=PROFILE_LM_LAYERS)
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    step_fn, opt = make_train_step(cfg, lr=1e-3)
-    state = opt.init(params)
-    data, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
-    b0, b1 = (lm_batch_from_tokens(data[i:i + 8], device="cuda")
-              for i in (0, 8))
-    params, state, _ = step_fn(params, state, 0, b0)
-    profiled(f"one --mode lm --arch zamba2-2.7b step ({PROFILE_LM_LAYERS} "
-             "layers), batch 8 x 1024", lambda: step_fn(params, state, 1,
-                                                        b1))
-    del params, state
-    free_device_memory()
-
-
 def decode_cache_bytes(cfg, batch: int, max_len: int) -> int:
     """Bytes of ``init_cache(cfg, batch, max_len)`` (built on the meta
     device: no memory)."""
@@ -5320,105 +5101,6 @@ def phase_moe_lm_fl():
                         init, loss_of, losses)
         del init
         free_device_memory()
-
-
-def moe_decode_parts(cfg, params, cache, pos):
-    """CUDA-event times of a Fed2 decode step's parts at ``cache``'s
-    batch, on ``blocks``' layer 0 at ``pos`` (its cache slot rewritten
-    with the same values): the pre-norm and attention, the pre-norm and
-    experts (drop-free: every expert over n·k rows), the whole block;
-    with the expert products' bound (the experts' bf16 weights read
-    once, or their FLOPs at the bf16 tensor-core peak)."""
-    from repro_torch.models import attention as attn
-    from repro_torch.models import moe as moe_lib
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.module import tree_leaves, tree_map
-    p = tree_map(lambda t: t[0], params["blocks"])
-    c = tree_map(lambda t: t[0], cache["blocks"])
-    n = tree_leaves(cache)[0].shape[1]
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn(n, 1, cfg.d_model, generator=gen, device="cuda",
-                    dtype=cfg.dtype)
-
-    def attention():
-        h = tfm._norm_apply(cfg, p["ln1"], x)
-        if cfg.mla_cfg:
-            return attn.mla_decode(p["attn"], h, c, cfg.mla_cfg, pos=pos)
-        return attn.gqa_decode(p["attn"], h, c, cfg.attn_cfg, pos=pos)
-
-    def experts():
-        return moe_lib.moe_apply(p["ffn"], tfm._norm_apply(cfg, p["ln2"], x),
-                                 cfg.moe)
-
-    t = {"attention": event_ms(attention, 5),
-         "experts": event_ms(experts, 5),
-         "block": event_ms(lambda: tfm.block_decode(p, x, c, cfg, pos=pos),
-                           5)}
-    m = cfg.moe
-    wbytes = 3 * m.n_experts * m.d_model * m.d_ff_expert * 2
-    flops = 6 * m.n_experts * n * m.top_k * m.d_model * m.d_ff_expert
-    b, by = bound(wbytes, flops, BF16_FLOPS)
-    print(f"  its layer 0 at batch {n} (CUDA events): attention "
-          f"{t['attention']:.3f} ms, experts {t['experts']:.3f} ms (their "
-          f"products' bound {b:.3f} ms, {by}: {wbytes / 1e9:.2f} GB, "
-          f"{flops / 1e12:.2f} TFLOP over (E, n·k) = ({m.n_experts}, "
-          f"{n * m.top_k}) rows), the block {t['block']:.3f} ms; x "
-          f"{cfg.n_layers} layers {cfg.n_layers * t['block']:.1f} ms",
-          flush=True)
-
-
-def phase_moe_profile():
-    """Under torch.profiler, after warm-up steps: one Fed2 decode step
-    of each MoE arch at MOE_SERVE_LAYERS layers, batch 128 over 2048
-    slots (the drop-free (E, n·k, d) dispatch buffers: (160, 768, 5120)
-    and (8, 256, 6144)) and mixtral's at batch 4, each at batch 128 with
-    its layer-0 parts timed (``moe_decode_parts``); and one --mode lm
-    step of deepseek at MOE_TRAIN's cut (the MLA attention's passes
-    split out)."""
-    import dataclasses
-
-    from repro_torch.data.synthetic import (lm_batch_from_tokens,
-                                            make_token_dataset)
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.forward import decode_step, init_cache
-    for arch, shapes in (("deepseek-v2-236b", ((128, 2048),)),
-                         ("mixtral-8x22b", ((4, 128), (128, 2048)))):
-        cfg = dataclasses.replace(moe_config(arch, 8),
-                                  n_layers=MOE_SERVE_LAYERS)
-        params = tfm.init_params(
-            torch.Generator(device="cuda").manual_seed(0), cfg)
-        for bs, max_len in shapes:
-            cache = init_cache(cfg, bs, max_len, device="cuda")
-            toks = torch.randint(0, cfg.vocab, (bs, 4), device="cuda")
-            with torch.no_grad():
-                for t in range(3):
-                    decode_step(params, cfg, cache, toks[:, t:t + 1], t)
-                profiled(f"one {arch} Fed2 decode step ({MOE_SERVE_LAYERS} "
-                         f"layers), batch {bs} over {max_len} slots",
-                         lambda: decode_step(params, cfg, cache,
-                                             toks[:, 3:4], 3))
-                if bs == 128:
-                    moe_decode_parts(cfg, params, cache, 3)
-            del cache
-            free_device_memory()
-        del params
-        free_device_memory()
-    arch = "deepseek-v2-236b"
-    cfg = moe_config(arch, 8, **MOE_TRAIN[arch])
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    step_fn, opt = make_train_step(cfg, lr=1e-3)
-    state = opt.init(params)
-    data, _ = make_token_dataset(16, 1025, cfg.vocab, seed=0)
-    b0, b1 = (lm_batch_from_tokens(data[i:i + 8], device="cuda")
-              for i in (0, 8))
-    params, state, _ = step_fn(params, state, 0, b0)
-    profiled(f"one --mode lm step, {arch} at {MOE_TRAIN[arch]}, batch 8 x "
-             "1024", lambda: step_fn(params, state, 1, b1),
-             attention_tile=(cfg.attn_q_chunk, cfg.attn_kv_chunk))
-    del params, state
-    free_device_memory()
 
 
 def frontend_config(arch, groups=8, dtype=None):
@@ -5611,71 +5293,6 @@ def phase_frontend_lm_train():
         assert err <= LM_EVAL_ROUTES_TOL, f"{arch}: the eval step drifts"
         del kept
         free_device_memory()
-
-
-def phase_frontend_profile():
-    """Under torch.profiler, bf16 with Fed2 8 at full width and depth,
-    after warm-up steps: one decode step of each arch at batch 4 over
-    128 slots and Whisper's at batch 128 over 2048 slots (its cross
-    cache (128, 1500, 8, 64)), and one Whisper --mode lm step at
-    FRONTEND_TRAIN's batch (the chunked attention's passes split
-    out); the decode steps list their costliest operators by input
-    shapes."""
-    from repro_torch.data.synthetic import (lm_batch_from_tokens,
-                                            make_token_dataset)
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.forward import decode_step, init_cache
-    for arch, shapes in (("whisper-base", ((4, 128), (128, 2048))),
-                         ("internvl2-2b", ((4, 128),))):
-        cfg = frontend_config(arch)
-        params = tfm.init_params(
-            torch.Generator(device="cuda").manual_seed(0), cfg)
-        for bs, max_len in shapes:
-            cache = init_cache(cfg, bs, max_len, device="cuda")
-            toks = torch.randint(0, cfg.vocab, (bs, 4), device="cuda")
-            with torch.no_grad():
-                for t in range(4):
-                    torch.cuda.synchronize()
-                    t0 = time.time()
-                    decode_step(params, cfg, cache, toks[:, t:t + 1], t)
-                    torch.cuda.synchronize()
-                print(f"  one {arch} Fed2 decode step unprofiled, batch {bs}"
-                      f": {(time.time() - t0) * 1e3:.1f} ms")
-                profiled(f"the same step, batch {bs} over {max_len} slots",
-                         lambda: decode_step(params, cfg, cache,
-                                             toks[:, 3:4], 3), top_ops=8)
-            del cache
-            free_device_memory()
-        del params
-        free_device_memory()
-    arch = "whisper-base"
-    cfg, kw = frontend_config(arch), FRONTEND_TRAIN[arch]
-    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                             cfg)
-    step_fn, opt = make_train_step(cfg, lr=1e-3)
-    state = opt.init(params)
-    data, _ = make_token_dataset(3 * kw["batch"], kw["seq"] + 1, cfg.vocab,
-                                 seed=0)
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    batches = [lm_batch_from_tokens(data[i:i + kw["batch"]], device="cuda")
-               for i in range(0, 3 * kw["batch"], kw["batch"])]
-    for b in batches:
-        b["embeds"] = torch.randn((kw["batch"], kw["embeds"], cfg.d_model),
-                                  generator=gen, device="cuda",
-                                  dtype=cfg.dtype)
-    for i in range(2):
-        params, state, _ = step_fn(params, state, i, batches[i])
-    t0 = time.time()
-    step_fn(params, state, 2, batches[2])
-    torch.cuda.synchronize()
-    print(f"  the same step unprofiled: {time.time() - t0:.3f} s")
-    profiled(f"one --mode lm step, {arch}, batch {kw['batch']} x "
-             f"{kw['seq']} tokens over {kw['embeds']} frames",
-             lambda: step_fn(params, state, 2, batches[2]),
-             attention_tile=(cfg.attn_q_chunk, cfg.attn_kv_chunk))
-    del params, state
-    free_device_memory()
 
 
 # ---------------------------------------------------------------------------
@@ -6267,6 +5884,273 @@ def phase_fl_dryrun():
           f"{FL_DRYRUN_BUDGET_S} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# ranks: multi-rank execution over torch.distributed, ranks sharing card 0
+# ---------------------------------------------------------------------------
+
+# the phase's budget (printed beside its time)
+RANKS_BUDGET_S = 90
+# (a) the CLI's main path on 2 "data" ranks (5 of the 10 clients each), 2
+# rounds, against the same run in one process on the card
+RANKS_FL_RUNS = (("fed2", ("--method", "fed2")),
+                 ("fed2 --use-local-kernel",
+                  ("--method", "fed2", "--use-local-kernel")),
+                 ("fedavg", ("--method", "fedavg")))
+RANKS_FL_ROUNDS = 2
+# the ranks' global against the one-process run's: the largest |d| of
+# each leaf over that leaf's largest magnitude, and of the whole global
+# over its largest, each within RANKS_FL_RTOL or within what a one-ulp
+# change of the init does to the one-process run, whichever is larger
+# (TF32 off, deterministic convs in every process): the ranks sum the
+# fusion's rows in another order and take each gradient over 5 clients,
+# not 10, and 16 steps of the full VGG9 carry that round-off as they
+# carry the init's ulp. tests/test_torch_ranks_round.py holds 1e-5 a
+# leaf on the CPU (measured there: 1.2e-7 to 3.6e-7 after 2 rounds)
+RANKS_FL_RTOL = 1e-5
+# (b) one full-width MoE layer of each arch on a (2, 4) mesh of 8 ranks,
+# bf16, tokens (4, 512, d): each rank draws only its experts (expert e
+# from EP_SEED + 1 + 3e, its three matrices apart); the ranks' outputs
+# must equal moe_apply_ep_plain's on the card to the bit
+EP_ARCHS = ("mixtral-8x22b", "deepseek-v2-236b")
+EP_MESH = (2, 4)
+EP_TOKENS = (4, 512)
+EP_SEED = 7
+
+
+def ranks_fl(mesh, runs):
+    """Each CLI argv of ``runs`` on this rank, TF32 off, deterministic
+    convs: its final params (on the host), accuracies, round walls, the
+    local_step launches of its rows and its collectives."""
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.kernels.local_step import local_step
+    from repro_torch.launch import train
+    from repro_torch.models.module import tree_map
+    out = []
+    with tf32_off(), deterministic_convs():
+        for argv in runs:
+            args = train.parse_args(argv)
+            mesh.counts.reset()
+            local_step.launches = 0
+            h = run_federated(*train.fl_inputs(args), mesh=mesh,
+                              use_local_kernel=args.use_local_kernel)
+            finite_params(h)
+            out.append({"final": tree_map(lambda t: t.cpu(),
+                                          h["final_params"]),
+                        "acc": h["acc"], "wall": h["wall"],
+                        "local_step": local_step.launches,
+                        "collectives": mesh.counts.as_dict()})
+    return out
+
+
+def leaf_rel_diff(a, b) -> tuple:
+    """Two params trees' distance: (max over leaves of max |a - b| / max
+    |b|, max |a - b| / max |b| over the whole tree)."""
+    from repro_torch.models.module import tree_leaves
+    pairs = [(x.cpu(), y.cpu())
+             for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True)]
+    d = [(x - y).abs().max().item() for x, y in pairs]
+    m = [y.abs().max().item() for _, y in pairs]
+    return (max(di / max(mi, 1e-30) for di, mi in zip(d, m)),
+            max(d) / max(m))
+
+
+def later_round_s(wall) -> float:
+    return (wall[-1] - wall[0]) / max(len(wall) - 1, 1)
+
+
+def ranks_main_path(smi):
+    """(a): RANKS_FL_RUNS on 2 ranks over gloo, against one process."""
+    from repro_torch.fl.runtime import run_federated
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.module import tree_map
+    argvs = [["--mode", "fl", "--rounds", str(RANKS_FL_ROUNDS), *extra]
+             for _, extra in RANKS_FL_RUNS]
+    t0 = time.time()
+    per_rank = spawn(ranks_fl, (2, 1), backend="gloo", device="cuda",
+                     args=(argvs,))
+    print(f"  2 ranks (gloo, both on cuda:0), {len(argvs)} runs of "
+          f"{RANKS_FL_ROUNDS} rounds: {time.time() - t0:.1f} s with start-up",
+          flush=True)
+    steps = train.parse_args([]).steps_per_epoch
+    for (label, _), argv, ranks in zip(RANKS_FL_RUNS, argvs,
+                                       zip(*per_rank)):
+        args = train.parse_args(argv)
+        task, fl, parts, get_batch, test = train.fl_inputs(args)
+        init = task.init_fn(torch.Generator().manual_seed(args.seed))
+        one = {}
+        with tf32_off(), deterministic_convs():
+            for key, start in (("one", init), ("ulp", tree_map(
+                    lambda t: torch.nextafter(t, torch.full_like(
+                        t, math.inf)), init))):
+                one[key] = run_federated(
+                    task, fl, parts, get_batch, test, device="cuda",
+                    use_local_kernel=args.use_local_kernel,
+                    init_params=start)
+        d = [leaf_rel_diff(r["final"], one["one"]["final_params"])
+             for r in ranks]
+        d_ulp = leaf_rel_diff(one["ulp"]["final_params"],
+                              one["one"]["final_params"])
+        c = ranks[0]["collectives"]
+        limit = [max(RANKS_FL_RTOL, u) for u in d_ulp]
+        print(f"  {label}: ranks vs one process, max |d| / max |leaf| "
+              f"over leaves and over the global: {d[0][0]:.3g}, "
+              f"{d[0][1]:.3g} (rank 1: {d[1][0]:.3g}, {d[1][1]:.3g}; the "
+              f"one-process run from init + 1 ulp: {d_ulp[0]:.3g}, "
+              f"{d_ulp[1]:.3g}; limits {limit[0]:.3g}, {limit[1]:.3g}); "
+              f"acc ranks "
+              f"{ranks[0]['acc'][-1]:.4f}, one process "
+              f"{one['one']['acc'][-1]:.4f}; local_step launches per rank "
+              f"{[r['local_step'] for r in ranks]}; collectives per rank: "
+              f"calls {c['calls']}, bytes {c['bytes']}, staged "
+              f"{c['staged']}; s/round (round 2) ranks "
+              f"{later_round_s(ranks[0]['wall']):.3f}, one process "
+              f"{later_round_s(one['one']['wall']):.3f} ({smi})",
+              flush=True)
+        assert all(x <= lim for di in d for x, lim in zip(di, limit)), \
+            (label, d, d_ulp)
+        assert leaf_rel_diff(ranks[0]["final"], ranks[1]["final"]) == (0, 0)
+        expect = steps * RANKS_FL_ROUNDS if args.use_local_kernel else 0
+        assert [r["local_step"] for r in ranks] == [expect] * 2, label
+        # a fusion and an eval all-reduce a round, one dtype segment
+        assert c["calls"] == {"all_reduce": 2 * RANKS_FL_ROUNDS,
+                              "all_to_all": 0, "all_gather": 0}, c
+
+
+def ep_weights(cfg, experts, dtype=torch.bfloat16):
+    """A full-width MoE FFN's weights for ``experts`` (a range of expert
+    ids) drawn on the card, expert by expert from its own seed: a rank
+    draws only the experts it owns, equal to the same experts drawn with
+    all of them. The router and the shared expert are replicated."""
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    gen = torch.Generator(device="cuda")
+
+    def draw(shape, fan_in, seed, out=None):
+        gen.manual_seed(seed)
+        w = torch.randn(shape, generator=gen, device="cuda") * fan_in ** -.5
+        return w.to(dtype) if out is None else out.copy_(w)
+
+    p = {"router": {"w": draw((d, e), d, EP_SEED)}}
+    for i, (name, shape, fan) in enumerate((("w_gate", (d, f), d),
+                                            ("w_up", (d, f), d),
+                                            ("w_down", (f, d), f))):
+        p[name] = torch.empty((len(experts),) + shape, dtype=dtype,
+                              device="cuda")
+        for j, x in enumerate(experts):
+            draw(shape, fan, EP_SEED + 1 + 3 * x + i, out=p[name][j])
+    if cfg.n_shared:
+        fs = cfg.d_ff_shared or cfg.n_shared * f
+        p["shared"] = {"w_gate": {"w": draw((d, fs), d, EP_SEED - 1)},
+                       "w_up": {"w": draw((d, fs), d, EP_SEED - 2)},
+                       "w_down": {"w": draw((fs, d), fs, EP_SEED - 3)}}
+    return p
+
+
+def ep_tokens(cfg):
+    gen = torch.Generator(device="cuda").manual_seed(EP_SEED)
+    return torch.randn(EP_TOKENS + (cfg.d_model,), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def ranks_moe(mesh):
+    """(b) on this rank: each EP_ARCHS layer over its data shard of the
+    tokens and its experts, once to warm up and once timed (after a
+    barrier): its output and aux on the host, the timed call's seconds,
+    all-to-alls and peak memory."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe_ep import moe_apply_ep
+    out = {}
+    nsh, j = mesh.shape["model"], mesh.coord("model")
+    for arch in EP_ARCHS:
+        cfg = get_config(arch).moe
+        e_loc = cfg.n_experts // nsh
+        p = ep_weights(cfg, range(j * e_loc, (j + 1) * e_loc))
+        x = ep_tokens(cfg)
+        bl = x.shape[0] // mesh.shape["data"]
+        x = x[mesh.coord("data") * bl:(mesh.coord("data") + 1) * bl]
+        torch.cuda.reset_peak_memory_stats()
+        moe_apply_ep(p, x, cfg, mesh=mesh)
+        mesh.counts.reset()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y, aux = moe_apply_ep(p, x, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        out[arch] = {"y": y.cpu(), "aux": float(aux),
+                     "s": time.time() - t0,
+                     "collectives": mesh.counts.as_dict(),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del p, x, y
+        free_device_memory()
+    return out
+
+
+def ranks_moe_layers(smi):
+    """(b): EP_ARCHS on an EP_MESH of 8 ranks over gloo, against
+    moe_apply_ep_plain on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.moe_ep import moe_apply_ep_plain
+    t0 = time.time()
+    per_rank = spawn(ranks_moe, EP_MESH, backend="gloo", device="cuda")
+    print(f"  {EP_MESH} mesh of {len(per_rank)} ranks (gloo, all on "
+          f"cuda:0): {time.time() - t0:.1f} s with start-up", flush=True)
+    data, model = EP_MESH
+    for arch in EP_ARCHS:
+        cfg = get_config(arch).moe
+        p, x = ep_weights(cfg, range(cfg.n_experts)), ep_tokens(cfg)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        y, aux = moe_apply_ep_plain(p, x, cfg, data=data, model=model)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t1
+        bl = x.shape[0] // data
+        diffs = []
+        for r, res in enumerate(per_rank):
+            mine = res[arch]
+            di = r // model
+            want = y[di * bl:(di + 1) * bl].cpu()
+            assert torch.isfinite(mine["y"].float()).all(), (arch, r)
+            diffs.append((mine["y"].float() - want.float()).abs().max()
+                         .item())
+        c = per_rank[0][arch]["collectives"]
+        print(f"  {arch} (E {cfg.n_experts}, top-{cfg.top_k}, d "
+              f"{cfg.d_model}, d_ff {cfg.d_ff_expert}), tokens "
+              f"{EP_TOKENS + (cfg.d_model,)} bf16: per rank max |y - "
+              f"plain| {diffs}; aux rank 0 {per_rank[0][arch]['aux']:.6g}, "
+              f"plain {float(aux):.6g}; all-to-alls per rank "
+              f"{c['calls']['all_to_all']}, {c['bytes']['all_to_all']:,} B "
+              f"({c['staged']['all_to_all']:,} B staged through the host); "
+              f"wall of the timed call, slowest rank "
+              f"{max(r[arch]['s'] for r in per_rank):.3f} s, plain in one "
+              f"process {plain_s:.3f} s; peak per rank "
+              f"{max(r[arch]['peak_gb'] for r in per_rank):.2f} GB ({smi})",
+              flush=True)
+        assert max(diffs) == 0, (arch, diffs)
+        assert per_rank[0][arch]["aux"] == float(aux)
+        del p, x, y
+        free_device_memory()
+
+
+def phase_ranks():
+    """(a) the main path on 2 data ranks, (b) the MoE layers on 8 ranks,
+    (c) fed2_cifar_fl --mesh host; the kernels were built by phase_build
+    (ranks load them)."""
+    smi = nvidia_smi()
+    t0 = time.time()
+    free_device_memory()
+    ranks_main_path(smi)
+    ranks_moe_layers(smi)
+    from repro_torch.examples import fed2_cifar_fl
+    counted("fed2_cifar_fl --mesh host --rounds 1",
+            lambda: fed2_cifar_fl.main(["--mesh", "host", "--rounds", "1"]),
+            {"paired_fusion": 2})
+    print(f"  ranks phase {time.time() - t0:.1f} s (budget "
+          f"{RANKS_BUDGET_S} s)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6320,8 +6204,6 @@ def main() -> int:
         phase_samplers()
     with phase("auto_depth"):
         counts["feature_stats"] = phase_auto_depth()
-    with phase("profile"):
-        phase_profile()
     with phase("parity (TF32 off, deterministic convs)"), tf32_off(), \
             deterministic_convs():
         phase_parity()
@@ -6347,8 +6229,6 @@ def main() -> int:
         phase_async_parity()
     with phase("tier and async scenarios"):
         phase_tier_async_scenarios()
-    with phase("tier and async profile"):
-        phase_tier_async_profile()
     free_device_memory()
     with phase("store (TF32 off, deterministic convs)"), tf32_off(), \
             deterministic_convs():
@@ -6358,8 +6238,6 @@ def main() -> int:
         serve_counts = phase_serve()
     counts["grouped_matmul"] = serve_counts["grouped_matmul"]
     counts["ssd_update"] = serve_counts["ssd_update"]
-    with phase("serve profile"):
-        phase_serve_profile()
     free_device_memory()
     with phase("decode parity (TF32 off)"), tf32_off():
         phase_decode_parity()
@@ -6376,8 +6254,6 @@ def main() -> int:
         phase_lm_fl_mixed_axes()
     with phase("lm cross-check (TF32 off)"), tf32_off():
         phase_lm_crosscheck()
-    with phase("lm profile"):
-        phase_lm_profile()
     free_device_memory()
     with phase("dense serve"):
         phase_dense_serve()
@@ -6390,8 +6266,6 @@ def main() -> int:
     free_device_memory()
     with phase("dense lm federation"):
         phase_dense_lm_fl()
-    with phase("dense lm profile"):
-        phase_dense_lm_profile()
     free_device_memory()
     with phase("other dense and hybrid serve"):
         phase_other_serve()
@@ -6403,8 +6277,6 @@ def main() -> int:
         phase_other_lm_train()
     with phase("other dense and hybrid lm federation"):
         phase_other_lm_fl()
-    with phase("hybrid profile"):
-        phase_other_profile()
     free_device_memory()
     with phase("moe serve"):
         phase_moe_serve()
@@ -6414,8 +6286,6 @@ def main() -> int:
         phase_moe_lm_train()
     with phase("moe lm federation"):
         phase_moe_lm_fl()
-    with phase("moe profile"):
-        phase_moe_profile()
     free_device_memory()
     with phase("encdec and vlm serve"):
         phase_frontend_serve()
@@ -6423,14 +6293,15 @@ def main() -> int:
         phase_frontend_decode_parity()
     with phase("encdec and vlm lm train"):
         phase_frontend_lm_train()
-    with phase("encdec and vlm profile"):
-        phase_frontend_profile()
     free_device_memory()
     with phase("surfaces"):
         phase_surfaces()
     free_device_memory()
     with phase("fl_dryrun"):
         phase_fl_dryrun()
+    free_device_memory()
+    with phase("ranks"):
+        phase_ranks()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

@@ -34,6 +34,10 @@ and its stacked depthwise conv weight ``(L, k, 1, C)`` is 4-D without
 being a 2-D conv, so the CNN converters, which cast every leaf to one
 dtype and transpose every 4-D leaf, do not apply. bf16 leaves cross as
 numpy's ``bfloat16`` (``ml_dtypes``, as jax hands them over).
+
+Expert shards (``expert_shard``): the experts one rank of an
+expert-parallel MoE owns, sliced from the replicated weights as the
+reference's ``moe_ep._local_moe`` slices them.
 """
 from __future__ import annotations
 
@@ -212,3 +216,23 @@ def lm_to_reference(tree):
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy()
     return tree_map(one, tree)
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def expert_shard(p, index: int, n_shards: int):
+    """The experts rank ``index`` of ``n_shards`` expert shards owns, from
+    an MoE FFN's replicated weights (``models/moe.moe_init``'s tree, the
+    reference's layout, numpy or torch): the stacked (E, ...) ``w_gate``,
+    ``w_up`` and ``w_down`` cut to experts ``[index * E/n, (index + 1) *
+    E/n)``, the slice the reference's ``_local_moe`` takes with
+    ``dynamic_slice_in_dim(w, index * e_loc, e_loc, 0)``; the router and
+    the shared expert are kept as they are (replicated)."""
+    e = p["w_gate"].shape[0]
+    if e % n_shards or not 0 <= index < n_shards:
+        raise ValueError(f"expert shard {index} of {n_shards} over {e} "
+                         "experts")
+    e_loc = e // n_shards
+    return {k: (v[index * e_loc:(index + 1) * e_loc]
+                if k in EXPERT_LEAVES else v) for k, v in p.items()}

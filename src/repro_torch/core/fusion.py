@@ -31,16 +31,39 @@ route is skipped, as the JAX package skips it. Without presence weights
 a coordinate rule is one reduction over each segment's whole (N, M_d)
 buffer, its result in the segment's dtype; with them, each grouped leaf
 reduces per group column with that column's weights.
+
+``shard=RowShard(...)`` fuses a cohort whose rows are split over the
+"data" ranks of a mesh (fl/engine.py): each rank holds its block of
+rows and the whole cohort's weights, normalizes them globally as the
+one-process route does, sums its rows' weighted parameters (per group
+column under Eq. 19's presence weights) in fp32, and ONE all-reduce per
+dtype segment adds the ranks' partial sums; each segment's result is
+cast to its dtype. This is the reference's mean over a sharded cohort
+axis, which lowers to one all-reduce: paired averaging costs exactly
+FedAvg's collective. No kernel: the reference keeps the fusion kernel
+off on a mesh of more than one device.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.paired_fusion import paired_fusion
 from repro_torch.models.module import flat_parts, tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's block ``[lo, hi)`` of a cohort of ``total`` rows, and
+    ``reduce``, the in-place sum of a tensor over the ranks that hold
+    the other blocks (``launch/collectives.all_reduce`` over "data")."""
+    lo: int
+    hi: int
+    total: int
+    reduce: Callable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,11 +88,15 @@ def _weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def fedavg(stacked, weights=None, *, use_kernel: bool = False,
-           robust=None):
+           robust=None, shard: RowShard | None = None):
     """Coordinate-based averaging (Eq. 1): (N, M_d) -> (M_d,) per
     segment. ``robust``: a reducing rule replaces the weighted mean
-    (use_kernel is ignored)."""
+    (use_kernel is ignored). ``shard``: ``stacked`` holds this rank's
+    rows of the cohort, ``weights`` the whole cohort's."""
     first = tree_leaves(stacked)[0]
+    if shard is not None:
+        w = _norm_weights(weights, shard.total, first.device)
+        return _sharded_mean(stacked, None, None, w, None, shard)
     w = _norm_weights(weights, first.shape[0], first.device)
     if robust is not None:
         return tree_map(lambda x: robust.reduce(x, w), stacked)
@@ -112,7 +139,7 @@ def _permute_groups(stacked, layout, group_axes, perms):
 
 def paired_average(stacked, layout, group_axes, perms=None, weights=None,
                    group_weights=None, *, use_kernel: bool = False,
-                   robust=None):
+                   robust=None, shard: RowShard | None = None):
     """Feature paired averaging (Eq. 19): (N, M_d) -> (M_d,) per
     segment.
 
@@ -129,9 +156,13 @@ def paired_average(stacked, layout, group_axes, perms=None, weights=None,
     robust: a reducing rule replaces every reduction; grouped leaves
     under presence weights reduce per group column with that column's
     weights, so the trimmed mass renormalizes within each group. No
-    kernel route: use_kernel is ignored."""
+    kernel route: use_kernel is ignored.
+    shard: ``stacked`` holds this rank's rows of the cohort (and
+    ``perms`` their rows); ``weights`` and ``group_weights`` cover the
+    whole cohort."""
     first = tree_leaves(stacked)[0]
-    dev, n = first.device, first.shape[0]
+    dev = first.device
+    n = first.shape[0] if shard is None else shard.total
     if perms is not None:
         stacked = _permute_groups(stacked, layout, group_axes, perms)
     gw = None
@@ -141,6 +172,8 @@ def paired_average(stacked, layout, group_axes, perms=None, weights=None,
         gw = torch.where(col > 0, gw, torch.ones_like(gw))
         gw = gw / gw.sum(0, keepdim=True)  # (N, G)
     w = _norm_weights(weights, n, dev)
+    if shard is not None:
+        return _sharded_mean(stacked, layout, group_axes, w, gw, shard)
     if robust is not None and gw is None:
         # coordinate-wise: every leaf of a segment in one reduction
         return tree_map(lambda x: robust.reduce(x, w), stacked)
@@ -167,6 +200,37 @@ def paired_average(stacked, layout, group_axes, perms=None, weights=None,
             res = _weighted_mean(x, w)
         dst[slot.segment][slot.offset:slot.offset + slot.size] = res
     return out
+
+
+def _sharded_mean(stacked, layout, group_axes, w, gw, shard: RowShard):
+    """The weighted mean of a cohort split over ranks: this rank's rows
+    ``stacked`` weighted by their slice of the normalized ``w`` (N,) or,
+    on grouped leaves, of ``gw`` (N, G), summed in fp32, then one
+    ``shard.reduce`` per dtype segment; each segment cast to its
+    dtype."""
+    rows = slice(shard.lo, shard.hi)
+    wl = w[rows]
+    acc = tree_map(lambda x: torch.zeros(x.shape[1], dtype=torch.float32,
+                                         device=x.device), stacked)
+    src, dst = flat_parts(stacked), flat_parts(acc)
+    if gw is None:
+        for x, a in zip(src, dst):
+            a.copy_(wl @ x.to(torch.float32))
+    else:
+        gwl = gw[rows]
+        for slot, ga in zip(layout.slots, layout.leaves(group_axes)):
+            lo, hi = slot.offset, slot.offset + slot.size
+            x = src[slot.segment][:, lo:hi].to(torch.float32)
+            if ga is None:
+                dst[slot.segment][lo:hi] = wl @ x
+                continue
+            pre, g, blk, post = _blocks(slot, ga)
+            xg = x.reshape(x.shape[0], pre, g, blk * post)
+            dst[slot.segment][lo:hi] = (
+                xg * gwl.reshape(-1, 1, g, 1)).sum(0).reshape(-1)
+    for a in dst:
+        shard.reduce(a)
+    return tree_map(lambda a, x: a.to(x.dtype), acc, stacked)
 
 
 def _empty_fused(stacked):

@@ -12,9 +12,9 @@ reference's ``examples/fed2_cifar_fl.py``, with its flags and defaults.
 
 Every method fuses on the card through ``run_federated``'s round engine,
 whose kernel route is ``paired_fusion`` (one launch a round; fedma fuses
-on the host). ``--mesh host`` (the reference's cohort axis sharded over
-a one-device mesh) raises: the port's multi-GPU placement waits for
-``torch.distributed`` on more than one card.
+on the host). ``--mesh host`` runs the rounds on the reference's (1, 1)
+host mesh (``launch.mesh.make_host_mesh``): one device, so the same run
+as ``--mesh none``, the fusion kernel kept.
 """
 from __future__ import annotations
 
@@ -53,11 +53,8 @@ def run_fed2_cifar_fl(*, rounds: int = 10, population: int = 6,
     from repro_torch.fl import methods as methods_lib
     from repro_torch.fl.runtime import (FLConfig, cnn_task, resolve_device,
                                         run_federated)
-    if mesh == "host":
-        raise ValueError(
-            "--mesh host: the port places a cohort on one card; the "
-            "cohort axis sharded over a device mesh (multi-GPU placement "
-            "over torch.distributed) is not ported yet")
+    from repro_torch.launch.mesh import make_host_mesh
+    placement = make_host_mesh() if mesh == "host" else None
     device = resolve_device(device)
     ds = make_image_dataset(3000, n_classes=N_CLASSES, seed=0, noise=noise)
     parts = nxc_partition(ds.labels, population, classes_per_node,
@@ -81,7 +78,7 @@ def run_fed2_cifar_fl(*, rounds: int = 10, population: int = 6,
                 f"{fl.cohort_size}, sampler {fl.sampler}) ===")
         results[method] = run_federated(
             cnn_task(cfg), fl, parts, get_batch, test_batches, log=log,
-            device=device,
+            device=device, mesh=placement,
             init_params=None if init_params is None else init_params(cfg))
     return results
 
@@ -110,8 +107,8 @@ def main(argv=None):
     ap.add_argument("--sampler", default="full",
                     choices=list(population_lib.available()))
     ap.add_argument("--mesh", default="none", choices=["none", "host"],
-                    help="host: shard the cohort axis over a device mesh "
-                         "(not ported: raises)")
+                    help="host: the cohort axis placed on the (1, 1) "
+                         "host mesh")
     ap.add_argument("--classes-per-node", type=int, default=5)
     ap.add_argument("--noise", type=float, default=1.6)
     ap.add_argument("--methods", default="fedavg,fed2",

@@ -1,4 +1,4 @@
-"""Federated round engine on one device.
+"""Federated round engine on one device, or on a mesh of ranks.
 
 One round over a fixed-width COHORT of client slots (width =
 ``cfg.cohort_size``; the engine never sees the logical population):
@@ -75,6 +75,22 @@ Client state comes in as host (numpy) rows or as device tensors and
 goes out on the device; the runtime decides where it lives between
 rounds (fl/runtime.py).
 
+``make_round_engine(..., mesh=)`` places the round as the JAX package's
+``mesh=`` does. ``None`` or a one-device mesh (``make_host_mesh``) is
+the one-process engine. On a ``launch/mesh.RankMesh`` of more than one
+rank the cohort axis is split over "data": each rank holds its
+contiguous block of cohort rows (``launch/mesh.data_block``,
+``np.array_split``'s blocks, so any cohort of at least the "data"
+size), runs the local phase on them (one ``local_step`` launch a step
+under ``use_local_kernel``), and fuses through ``core/fusion``'s
+sharded weighted mean: one all-reduce per dtype segment a round,
+Fed2's paired averaging at exactly FedAvg's collective. The server step runs
+replicated, so every rank ends the round with the same global. The
+fusion kernel is off there (``resolve_use_kernel``). The methods that
+declare ``sharded_cohort`` (fed2, fedavg, fedavgm, fedadam) run on
+ranks; other methods and the feature axes refuse up front
+(``refuse_on_ranks``).
+
 ``lower_round`` builds the round's device program (``device_round``:
 ``run_round`` up to ``host_fuse``) and its arguments on ``meta``, each
 beside the JAX package's placement, for the dry-run
@@ -126,6 +142,40 @@ def resolve_use_kernel(use_kernel: bool | None, mesh) -> bool:
     return use and (mesh is None or mesh.size == 1)
 
 
+RANKS_ITEM = "ROADMAP Queue 1 item 2"
+
+
+def refuse_on_ranks(mesh, what: str) -> None:
+    """Raise for ``what`` on a mesh of more than one rank, which runs only
+    the sync rounds of the ``sharded_cohort`` methods without feature
+    axes; nothing falls back to one process."""
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {mesh.size} ranks is not ported yet "
+            f"({RANKS_ITEM}); ranks run the sync fed2, fedavg, fedavgm and "
+            "fedadam rounds without feature axes")
+
+
+def _row_shard(cfg, meth: FedMethod, mesh):
+    """The fusion's ``RowShard`` of this rank on ``mesh`` (None on one
+    process), after the up-front refusals of what ranks do not run."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if not meth.sharded_cohort:
+        refuse_on_ranks(mesh, f"method {meth.name!r}")
+    for knob in ("attack", "robust", "codec"):
+        if getattr(cfg, knob, None):
+            refuse_on_ranks(mesh, f"the {knob} axis ({knob}="
+                                  f"{getattr(cfg, knob)!r})")
+    if getattr(cfg, "compute_dtype", None) not in (None, "", "float32"):
+        refuse_on_ranks(mesh, f"compute_dtype={cfg.compute_dtype!r}")
+    from repro_torch.launch.collectives import all_reduce
+    from repro_torch.launch.mesh import data_block
+    lo, hi = data_block(cfg.cohort_size, mesh)
+    return fusion_lib.RowShard(lo, hi, cfg.cohort_size,
+                               lambda t: all_reduce(t, mesh, "data"))
+
+
 def resolve_local_unroll(cfg, local_steps: int) -> int:
     """``cfg.local_unroll`` clamped to the step count, as the JAX
     package resolves it. There it unrolls the local phase's
@@ -149,7 +199,11 @@ class RoundEngine:
     ``weights``/``group_weights`` are per round: the sampled cohort's
     sample weights (and fed2 presence rows) in slot order.
     ``malicious`` is the tile's (host attacker row, round key) pair when
-    a model-poisoning attack is configured, else None."""
+    a model-poisoning attack is configured, else None.
+
+    On a mesh of ranks the engine holds cohort rows ``rows`` only:
+    ``batches`` are those rows' (the runtime cuts them), while
+    ``weights``/``group_weights`` cover the whole cohort."""
     cohort_size: int
     method: FedMethod
     layout: FlatLayout
@@ -163,6 +217,9 @@ class RoundEngine:
     compute_dtype: Any = None     # torch.bfloat16 or None (fp32)
     shadow: torch.Tensor | None = None  # bf16 (C, M) local-phase buffer
     #                                     of the whole tree
+    rows: slice = slice(None)     # this rank's cohort rows (all: one
+    #                               process)
+    mesh: Any = None              # the placement make_round_engine got
 
     def _w32(self, w):
         if w is None:
@@ -309,7 +366,8 @@ def make_round_engine(task, cfg, params_like, *, device,
                       use_kernel: bool | None = None,
                       use_local_kernel: bool = False,
                       method: FedMethod | None = None,
-                      grad_chunk: int | None = None) -> RoundEngine:
+                      grad_chunk: int | None = None,
+                      mesh=None) -> RoundEngine:
     """Build the engine for (task, cfg, method) at width cfg.cohort_size.
 
     params_like: a params tree (its structure and leaf shapes define the
@@ -322,6 +380,8 @@ def make_round_engine(task, cfg, params_like, *, device,
     ``fused_local_step``.
     grad_chunk: clients per vmapped gradient call (None: the cohort;
     ``run_federated``'s).
+    mesh: None, a one-device mesh, or this rank's ``launch/mesh.RankMesh``
+    (the cohort split over its "data" ranks; see the module docstring).
 
     cfg's feature knobs (each off by default) are resolved here, so
     every construction path hits the same refusals (``compat.validate``):
@@ -347,11 +407,12 @@ def make_round_engine(task, cfg, params_like, *, device,
             f"{meth.name}: host_fusion methods end the device round at the "
             "stacked params — server_update/init_server_state never run; "
             "fold server-side work into host_fuse instead")
+    shard = _row_shard(cfg, meth, mesh)
     layout = FlatLayout(params_like)
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:
         ga = task.group_axes_fn(params_like)
-    use_kernel = resolve_use_kernel(use_kernel, None)
+    use_kernel = resolve_use_kernel(use_kernel, mesh)
     attack = None
     if getattr(cfg, "attack", None):
         atk = attacks_lib.parse_attack(cfg.attack).build()
@@ -379,16 +440,18 @@ def make_round_engine(task, cfg, params_like, *, device,
         local_unroll=resolve_local_unroll(cfg, steps),
         use_local_kernel=(bool(use_local_kernel)
                           and compat_lib.supports(meth, "kernel")),
-        grad_chunk=grad_chunk)
+        grad_chunk=grad_chunk, shard=shard)
     meth.check(ctx)
     device = torch.device(device)
-    c = cfg.cohort_size
+    lo, hi = (0, cfg.cohort_size) if shard is None else (shard.lo, shard.hi)
+    c = hi - lo                   # the rows this process holds
     if ctx.use_local_kernel and cdtype is None and \
             layout.raveled is not layout:
         ctx = dataclasses.replace(ctx, ravel_buffer=layout.raveled.alloc(
             (c,), device=device))
     return RoundEngine(
-        cohort_size=c, method=meth, layout=layout, device=device, ctx=ctx,
+        cohort_size=cfg.cohort_size, method=meth, layout=layout,
+        device=device, ctx=ctx, rows=slice(lo, hi), mesh=mesh,
         cohort=layout.alloc((c,), device=device),
         attack=attack,
         robust=ctx.robust,

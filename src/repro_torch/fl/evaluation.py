@@ -7,8 +7,13 @@
 
 ``stage`` concatenates the eval batches host-side, pads the tail tile
 by repeating sample 0 at mask 0 so every tile has the same width, and
-moves the tiles to the device once. The engine computes
-example-weighted counts, never per-batch means:
+moves the tiles to the device once. Under a mesh of ranks
+(``launch/mesh.RankMesh``) the tile count is padded to a multiple of
+the "data" size, as the JAX package pads it, each rank moves only its
+contiguous block of tiles (the reference's placement of the tile axis
+on "data"), and the engine adds the ranks' counts with one all-reduce
+over "data": every rank ends with the whole set's counts. The engine
+computes example-weighted counts, never per-batch means:
 
 - ``n_classes`` given: a (C, C) confusion-count matrix (rows = gold,
   cols = predicted); accuracy = trace / total, and per-class and
@@ -27,29 +32,45 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import data_block
+
 
 @dataclasses.dataclass(frozen=True)
 class EvalTiles:
     """The staged eval set: every batch leaf as (T, B, ...) on the
-    device, the (T, B) padding mask, and the true sample count."""
+    device, the (T, B) padding mask, and the true sample count. On a
+    mesh of ranks T is this rank's block of tiles, and ``reduce`` sums
+    the counts over the ranks (in place)."""
     batches: dict
     mask: torch.Tensor
     n_real: int
+    reduce: Callable | None = None
 
     @property
     def n_tiles(self) -> int:
         return int(self.mask.shape[0])
 
 
-def stage(batches: list, *, tile: int, device) -> EvalTiles:
+def stage(batches: list, *, tile: int, device, mesh=None) -> EvalTiles:
     """Stack a list of batch dicts (numpy arrays, leading axis =
-    example) into fixed-width tiles of ``tile`` examples on ``device``."""
+    example) into fixed-width tiles of ``tile`` examples on ``device``.
+    ``mesh``: None, a one-device mesh, or this rank's ``RankMesh`` (the
+    tile count padded to a multiple of its "data" size; this rank's
+    block of tiles staged)."""
     if not batches:
         raise ValueError("stage() needs at least one eval batch")
     cat = {k: np.concatenate([np.asarray(b[k]) for b in batches])
            for k in batches[0]}
     n_real = len(next(iter(cat.values())))
     n_tiles = -(-n_real // tile)
+    reduce = None
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.launch.collectives import all_reduce
+        n_tiles = -(-n_tiles // mesh.shape["data"]) * mesh.shape["data"]
+
+        def reduce(t):
+            return all_reduce(t, mesh, "data")
+    lo, hi = data_block(n_tiles, mesh)
     total = n_tiles * tile
     mask = np.zeros((total,), np.float32)
     mask[:n_real] = 1.0
@@ -59,20 +80,20 @@ def stage(batches: list, *, tile: int, device) -> EvalTiles:
         if pad:
             x = np.concatenate([x, np.broadcast_to(x[:1],
                                                    (pad,) + x.shape[1:])])
-        return torch.as_tensor(x.reshape((n_tiles, tile) + x.shape[1:]),
-                               device=device)
+        x = x.reshape((n_tiles, tile) + x.shape[1:])[lo:hi]
+        return torch.as_tensor(x, device=device)
 
     return EvalTiles(batches={k: to_tiles(v) for k, v in cat.items()},
-                     mask=torch.as_tensor(mask.reshape(n_tiles, tile),
-                                          device=device),
-                     n_real=n_real)
+                     mask=torch.as_tensor(
+                         mask.reshape(n_tiles, tile)[lo:hi], device=device),
+                     n_real=n_real, reduce=reduce)
 
 
 @dataclasses.dataclass(frozen=True)
 class EvalEngine:
     """``run(params, tiles)`` -> device tensor: (C, C) float32 confusion
     counts, or (correct, total) float32 sums when ``n_classes`` is
-    None."""
+    None; on a mesh of ranks, the whole set's."""
     run: Callable
     n_classes: int | None
 
@@ -103,6 +124,8 @@ def make_eval_engine(predict_fn: Callable,
             batch = {k: v[t] for k, v in tiles.batches.items()}
             c = one_tile(params, batch, tiles.mask[t])
             acc = c if acc is None else acc + c
+        if tiles.reduce is not None:
+            tiles.reduce(acc)
         return acc
 
     return EvalEngine(run=run, n_classes=n_classes)

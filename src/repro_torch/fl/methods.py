@@ -83,7 +83,9 @@ class MethodContext:
     when the tree mixes dtypes (``FlatLayout.ravel``), allocated once
     with the engine; None otherwise.
     grad_chunk: the clients each vmapped gradient call takes at a time
-    (None: the whole cohort; ``run_federated(grad_chunk=...)``)."""
+    (None: the whole cohort; ``run_federated(grad_chunk=...)``).
+    shard: the ``core/fusion.RowShard`` of this rank's cohort rows on a
+    mesh of ranks (fl/engine.py), or None (the whole cohort here)."""
     task: Any
     cfg: Any
     population: int
@@ -101,6 +103,7 @@ class MethodContext:
     use_local_kernel: bool = False
     ravel_buffer: Any = None
     grad_chunk: int | None = None
+    shard: Any = None
 
 
 class FedMethod:
@@ -116,6 +119,11 @@ class FedMethod:
     #                            when server_update reads per-client state
     #                            (scaffold), which caps participants per
     #                            round at cohort_size
+    sharded_cohort = False     # the cohort may split over the "data"
+    #                            ranks of a mesh (fl/engine.py): the
+    #                            default local phase, the fusion's
+    #                            weighted mean as the only cross-cohort
+    #                            op, and a server step on its result
 
     @property
     def tier_fusion(self) -> bool:
@@ -243,7 +251,7 @@ class FedMethod:
         """Aggregation of the cohort's (C, M_d) params into (M_d,)."""
         return fusion_lib.fedavg(stacked, ctx.weights,
                                  use_kernel=ctx.use_kernel,
-                                 robust=ctx.robust)
+                                 robust=ctx.robust, shard=ctx.shard)
 
     def host_fuse(self, stacked, ctx: MethodContext):
         """Completion of the round from the stacked params (only when
@@ -303,6 +311,7 @@ class FedAvg(FedMethod):
     """Coordinate-based averaging (Eq. 1/18): the all-defaults method."""
     name = "fedavg"
     summary = "coordinate-based (sample-weighted) mean, Eq. 1/18"
+    sharded_cohort = True
 
 
 @register
@@ -322,6 +331,7 @@ class Fed2(FedMethod):
     name = "fed2"
     summary = "feature paired averaging over structure groups, Eq. 19"
     uses_groups = True
+    sharded_cohort = True
 
     def fuse(self, stacked, global_params, ctx):
         return fusion_lib.paired_average(stacked, ctx.layout,
@@ -329,7 +339,7 @@ class Fed2(FedMethod):
                                          weights=ctx.weights,
                                          group_weights=ctx.group_weights,
                                          use_kernel=ctx.use_kernel,
-                                         robust=ctx.robust)
+                                         robust=ctx.robust, shard=ctx.shard)
 
 
 @register
@@ -449,6 +459,7 @@ class FedAvgM(FedMethod):
     momentum (cfg.server_momentum, cfg.server_lr) over rounds."""
     name = "fedavgm"
     summary = "server heavy-ball momentum on round deltas"
+    sharded_cohort = True
 
     def init_server_state(self, params, ctx):
         return {"v": tree_map(torch.zeros_like, params)}
@@ -470,6 +481,7 @@ class FedAdam(FedMethod):
     name = "fedadam"
     summary = "server Adam over round pseudo-gradients (FedOpt)"
     b1, b2, eps = 0.9, 0.99, 1e-3
+    sharded_cohort = True
 
     @property
     def mixed_precision(self) -> bool:

@@ -49,6 +49,18 @@ package's checkpoint format (checkpoint/io.py), converted from the flat
 state to the reference's params trees; ``resume=True`` continues a run
 from it to the bit, and either package resumes the other's checkpoint.
 
+``run_federated(mesh=...)`` places the rounds as the JAX package's
+``mesh=`` does: a one-device mesh (``launch.mesh.make_host_mesh``) is
+the one-process run. On this rank's ``launch.mesh.RankMesh`` of more
+than one rank the cohort is split over "data" (fl/engine.py) and the
+eval tiles too (fl/evaluation.py): every rank replays the same host rng
+(sampler, padding, batch packing), so the cohort trains on the batches
+the one-process run packs, and moves only its own rows to its device;
+every rank ends each round with the same global and the same history,
+and rank 0 logs. Ranks run the sync rounds of fed2, fedavg, fedavgm and
+fedadam; tiers, async, the mmap store, checkpoints, cohort tiling and
+the feature axes refuse up front there.
+
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device named, ``run_federated``
 raises rather than falling back.
@@ -68,7 +80,7 @@ from repro_torch.core import fusion as fusion_lib
 from repro_torch.fl import evaluation as evaluation_lib
 from repro_torch.fl import methods as methods_lib
 from repro_torch.fl import population as population_lib
-from repro_torch.fl.engine import make_round_engine
+from repro_torch.fl.engine import make_round_engine, refuse_on_ranks
 from repro_torch.fl.population import Population
 from repro_torch.models.module import tree_map
 
@@ -364,10 +376,12 @@ def pad_tile_inputs(pop: Population, tids, width: int, get_batch, n_steps,
     return padded, w, gw, batches
 
 
-def device_batches(batches: dict, device) -> dict:
-    """A tile's packed numpy batches as tensors on ``device``, one copy
-    per leaf."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
+def device_batches(batches: dict, device, rows: slice = slice(None)) -> dict:
+    """A tile's packed numpy batches (their cohort ``rows``: a rank's
+    block on a mesh of ranks) as tensors on ``device``, one copy per
+    leaf."""
+    return {k: torch.as_tensor(v[rows], device=device)
+            for k, v in batches.items()}
 
 
 def _malicious_inputs(engine, pop: Population, padded, n_real, cfg,
@@ -414,7 +428,8 @@ def run_sampled_round(engine, pop: Population, method, server_state,
         padded, w, gw, batches = pad_tile_inputs(
             pop, tids, C, get_batch, n_steps, cfg.batch_size, rng,
             uniform_weights=uniform_weights)
-        return padded, w, gw, device_batches(batches, engine.device)
+        return padded, w, gw, device_batches(batches, engine.device,
+                                             engine.rows)
 
     if len(ids) == C:
         _, w, gw, batches = tile_inputs(ids)
@@ -436,6 +451,8 @@ def run_sampled_round(engine, pop: Population, method, server_state,
             pop.scatter(ids, state["clients"])
         return state["server"], new_global
 
+    refuse_on_ranks(engine.mesh, f"cohort tiling ({len(ids)} "
+                                 f"participants for cohort_size={C})")
     if not method.cohort_tiling and not method.host_fusion:
         raise ValueError(
             f"{method.name}: server step reads the participating cohort "
@@ -509,7 +526,7 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                   use_local_kernel: bool = False, device=None,
                   init_params=None, checkpoint_dir=None,
                   checkpoint_every: int = 1, resume: bool = False,
-                  grad_chunk: int | None = None) -> dict:
+                  grad_chunk: int | None = None, mesh=None) -> dict:
     """parts: cfg.population per-client index arrays (or a
     ``statestore.ShardIndices``); get_batch(sel) -> batch dict of numpy
     arrays; test_batches: list of such dicts for the global eval.
@@ -522,7 +539,10 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     the local_step kernel (the tier tiles' and the async dispatch
     groups' too).
     device: where the run computes; None = the CUDA card (raises when
-    there is none).
+    there is none), or the rank's device on a mesh of ranks.
+    mesh: None (one process), a one-device mesh (the same run), or this
+    rank's ``launch.mesh.RankMesh``: the cohort and the eval split over
+    its "data" ranks (the module docstring says what ranks run).
     grad_chunk: each local step's vmapped gradients taken this many
     clients at a time (None: the whole cohort in one call; the same
     numbers, less memory: a client's activations live through its
@@ -555,12 +575,21 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
     ``n_classes`` only). ``acc`` is the pooled accuracy over the eval set
     (an LM's next-token accuracy over every masked position); ``wall``
     holds host timestamps after each round's eval was queued."""
-    device = resolve_device(device)
+    device = resolve_device(device if device is not None
+                            else getattr(mesh, "device", None))
     if len(parts) != cfg.population:
         raise ValueError(
             f"run_federated got {len(parts)} client shards for "
             f"FLConfig.population={cfg.population}")
     cfg = one_shot_config(cfg)
+    for what, on in ((f"mode={cfg.mode!r}", cfg.mode == "async"),
+                     ("capacity tiers", cfg.tiers not in (None, "", ())),
+                     (f"store={cfg.store!r}", cfg.store != "memory"),
+                     ("FL checkpoints", bool(checkpoint_dir or resume))):
+        if on:
+            refuse_on_ranks(mesh, what)
+    if getattr(mesh, "rank", 0) != 0:
+        log = None                 # rank 0 logs
     if cfg.mode == "async":
         from repro_torch.fl import async_engine as async_lib
         if checkpoint_dir or resume:
@@ -607,7 +636,8 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                             use_local_kernel=use_local_kernel,
                             device=device, checkpoint_dir=checkpoint_dir,
                             checkpoint_every=checkpoint_every,
-                            resume=resume, grad_chunk=grad_chunk)
+                            resume=resume, grad_chunk=grad_chunk,
+                            mesh=mesh)
     finally:
         pop.store.close()      # out-of-core stores drop their shards
 
@@ -615,7 +645,7 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
 def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
                  test_batches, rng, *, log, use_kernel, use_local_kernel,
                  device, checkpoint_dir, checkpoint_every, resume,
-                 grad_chunk) -> dict:
+                 grad_chunk, mesh) -> dict:
     """``run_federated``'s sync run once its population holds its store:
     attackers, engines, state (restored from a checkpoint on resume),
     the round loop with its saves, and the history."""
@@ -653,7 +683,8 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
         engine = make_round_engine(task, cfg, params, device=device,
                                    use_kernel=use_kernel,
                                    use_local_kernel=use_local_kernel,
-                                   method=method, grad_chunk=grad_chunk)
+                                   method=method, grad_chunk=grad_chunk,
+                                   mesh=mesh)
     layout = engine.layout
     global_params = layout.flatten(params)
     server_state = engine.init_server_state(global_params)
@@ -663,7 +694,7 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
     eval_engine = evaluation_lib.make_eval_engine(task.predict_fn,
                                                   task.n_classes)
     eval_tiles = evaluation_lib.stage(test_batches, tile=cfg.eval_batch,
-                                      device=device)
+                                      device=device, mesh=mesh)
 
     start_round = 0
     if checkpoint_dir and resume and ckpt_io.checkpoint_exists(

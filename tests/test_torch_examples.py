@@ -164,11 +164,6 @@ def test_fed2_cifar_fl_matches_reference(method):
         (groups, want_groups)
 
 
-def test_fed2_cifar_fl_refuses_the_host_mesh():
-    with pytest.raises(ValueError, match="multi-GPU placement"):
-        fed2_cifar_fl.main(["--mesh", "host", "--device", "cpu"])
-
-
 # ---------------------------------------------------------------------------
 # llm_federated_finetune
 # ---------------------------------------------------------------------------

@@ -312,14 +312,6 @@ def test_moe_apply_ep_matches_reference_at_one_shard(arch, cf):
         _close(ty[1], _np(shared))
 
 
-def test_moe_apply_ep_refuses_more_than_one_shard():
-    _, tc = _cfgs("mixtral-8x22b")
-    _, tp = _params("mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match="more than one GPU"):
-        moe_ep.moe_apply_ep(tp, torch.as_tensor(_x(2, 4, seed=0)), tc,
-                            n_shards=2)
-
-
 # ---------------------------------------------------------------------------
 # MLA
 # ---------------------------------------------------------------------------
