@@ -363,6 +363,24 @@ script exits non-zero:
             bytes and the wall time; (c) fed2_cifar_fl --mesh host
             --rounds 1, counted (paired_fusion 2: fedavg and fed2). A
             rank that fails fails the run
+52. ranks matrix  the whole sync round on 2 "data" ranks sharing card 0
+            over gloo (budget 150 s; alone: python3 -c 'import
+            chip_smoke as c; c.phase_build(); c.phase_ranks_matrix()'):
+            fedprox, fednova and fedma with --use-local-kernel, scaffold,
+            fed2 + sign_flip(4) + trimmed_mean(0.25), fedavg +
+            label_flip, fed2 + int8 and fed2 + bfloat16 at the CLI's
+            full widths (10 clients, 8 steps of batch 32, 2 rounds), and
+            run_scenario(nxc2_fed2_signflip20_trim, mesh=) at 2 rounds,
+            each against one process taking its gradients 5 clients a
+            call (TF32 off, deterministic convs): the ranks equal to
+            each other to the bit, within 1e-5 or twice what one ulp of
+            the init does, the runs that sort or match the gathered rows
+            equal to one process to the bit; local_step 16 a rank with
+            the flag; the collectives a round by kind, their bytes and
+            staged bytes, s/round beside one process's; trimmed_mean and
+            coordinate_median of one (10, 521,616) cohort through fedavg
+            and paired averaging, sharded, equal to one process to the
+            bit
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -6151,6 +6169,292 @@ def phase_ranks():
           f"{RANKS_BUDGET_S} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# ranks matrix: the whole sync round on data ranks, ranks sharing card 0
+# ---------------------------------------------------------------------------
+
+# the phase's budget (printed beside its time)
+RANKS_MATRIX_BUDGET_S = 150
+# the CLI's full-width runs (vgg9.full(fed2_groups=8) for fed2,
+# vgg9.baseline() for the rest; 10 clients, 8 steps of batch 32) on 2
+# "data" ranks, 2 rounds, against one process: (label, flags, all-reduces
+# and all-gathers a round). A round's eval all-reduces once; the fusion
+# all-reduces once, or a reducing rule gathers the rows instead;
+# scaffold gathers its new c_i rows, fedma its trained rows
+RANKS_MATRIX_RUNS = (
+    ("fedprox --use-local-kernel",
+     ("--method", "fedprox", "--use-local-kernel"), (2, 0)),
+    ("fednova --use-local-kernel",
+     ("--method", "fednova", "--use-local-kernel"), (2, 0)),
+    ("fedma --use-local-kernel",
+     ("--method", "fedma", "--use-local-kernel"), (1, 1)),
+    ("scaffold", ("--method", "scaffold"), (2, 1)),
+    ("fed2 sign_flip(4) trimmed_mean(0.25)",
+     ("--method", "fed2", "--attack", "sign_flip(4)", "--attack-fraction",
+      "0.2", "--robust", "trimmed_mean(0.25)"), (1, 1)),
+    ("fedavg label_flip", ("--method", "fedavg", "--attack", "label_flip",
+                           "--attack-fraction", "0.2"), (2, 0)),
+    ("fed2 int8", ("--method", "fed2", "--codec", "int8"), (2, 0)),
+    ("fed2 bfloat16", ("--method", "fed2", "--compute-dtype", "bfloat16"),
+     (2, 0)),
+)
+RANKS_MATRIX_ROUNDS = 2
+# the one-process runs take each vmapped gradient over RANKS_MATRIX_CHUNK
+# clients (run_federated's grad_chunk), the rows a rank holds: cuDNN
+# picks its convolution algorithms by batch size, so a gradient over 10
+# clients and one over 5 differ in round-off, which a trimmed mean turns
+# into another choice of trimmed clients
+RANKS_MATRIX_CHUNK = 5
+# the ranks' global against one process's: each of leaf_rel_diff's two
+# distances within RANKS_FL_RTOL or within RANKS_MATRIX_SPREAD times what
+# a one-ulp change of the init does to the one-process run, whichever is
+# larger. The ranks sum the fused rows in another order, a perturbation
+# of the round-1 global of the ulp's size that 16 local steps carry as
+# far; the CPU tests hold twice the spread too
+# (tests/ranks_parity.within_spread)
+RANKS_MATRIX_SPREAD = 2
+# runs whose fusion sorts or matches the gathered rows instead of
+# summing them: on the same rows every rank runs the one-process
+# reduction, so they must equal the one-process run to the bit
+RANKS_MATRIX_EXACT = ("fedma --use-local-kernel",
+                      "fed2 sign_flip(4) trimmed_mean(0.25)")
+# run_scenario(mesh=) of this registered spec (its reduced VGG9 and 10
+# clients, 2 attackers), cut to 2 rounds
+RANKS_MATRIX_SCENARIO = "nxc2_fed2_signflip20_trim"
+# the sharded reducing rules against one process on one (10, M) cohort
+# of the main path's model, through fedavg and through paired averaging
+# under presence rows
+RANKS_MATRIX_RULES = ("trimmed_mean(0.25)", "coordinate_median")
+RANKS_MATRIX_SEED = 11
+
+
+@contextlib.contextmanager
+def gradients_in_chunks(n: int):
+    """Within the block, ``run_federated`` takes its vmapped gradients
+    ``n`` clients at a time (``grad_chunk``), whoever calls it
+    (``run_scenario`` among them)."""
+    from repro_torch.fl import runtime
+    run = runtime.run_federated
+
+    def chunked(*args, **kw):
+        return run(*args, **{**kw, "grad_chunk": n})
+    runtime.run_federated = chunked
+    try:
+        yield
+    finally:
+        runtime.run_federated = run
+
+
+@contextlib.contextmanager
+def last_global():
+    """Within the block, each sync round of ``run_federated`` leaves its
+    new global (a params tree on the host) in the yielded dict."""
+    from repro_torch.fl import runtime
+    seen = {}
+    run_round = runtime.run_sampled_round
+
+    def spy(engine, *args, **kw):
+        server, glob = run_round(engine, *args, **kw)
+        seen["global"] = engine.layout.unflatten(glob)
+        return server, glob
+    runtime.run_sampled_round = spy
+    try:
+        yield seen
+    finally:
+        runtime.run_sampled_round = run_round
+
+
+def matrix_fuse(rule, grouped, shard=None):
+    """One reducing-rule fusion of the (10, M) cohort of the main path's
+    model drawn on the card from RANKS_MATRIX_SEED (and (10, 8) presence
+    rows): through ``paired_average`` under the presence rows
+    (``grouped``) or ``fedavg``; the whole cohort, or ``shard``'s block."""
+    from repro_torch.configs import vgg9
+    from repro_torch.core import fusion
+    from repro_torch.fl import robust
+    from repro_torch.models.cnn import init_cnn
+    cfg = vgg9.full(fed2_groups=8)
+    layout = main_layout()
+    gen = torch.Generator(device="cuda").manual_seed(RANKS_MATRIX_SEED)
+    x = cohort(layout, 10, torch.float32, gen, 0.05)
+    w = torch.rand(10, generator=gen, device="cuda") + 0.5
+    gw = torch.rand(10, 8, generator=gen, device="cuda")
+    if shard is not None:
+        x = x[shard.lo:shard.hi]
+    r = robust.parse_robust(rule)
+    if not grouped:
+        return fusion.fedavg(x, w, robust=r, shard=shard)
+    axes = fusion.cnn_group_axes(
+        init_cnn(torch.Generator().manual_seed(0), cfg), cfg)
+    return fusion.paired_average(x, layout, axes, weights=w,
+                                 group_weights=gw, robust=r, shard=shard)
+
+
+def ranks_matrix_rank(mesh, argvs, spec):
+    """This rank's part of the phase: ``ranks_fl``'s runs, then
+    ``run_scenario(spec, mesh=)`` and the sharded reducing rules, TF32
+    off and deterministic convs."""
+    import types
+
+    from repro_torch.fl import engine as engine_lib
+    from repro_torch.fl.scenarios import run_scenario
+    out = {"runs": ranks_fl(mesh, argvs)}
+    with tf32_off(), deterministic_convs(), last_global() as seen:
+        mesh.counts.reset()
+        t0 = time.time()
+        rec = run_scenario(spec, mesh=mesh)
+        out["scenario"] = {"acc": rec.acc, "s": time.time() - t0,
+                           "global": _host(seen["global"]),
+                           "collectives": mesh.counts.as_dict()}
+    fused = []
+    for rule in RANKS_MATRIX_RULES:
+        for grouped in (False, True):
+            mesh.counts.reset()
+            shard = engine_lib._row_shard(
+                types.SimpleNamespace(cohort_size=10), mesh)
+            fused.append((matrix_fuse(rule, grouped, shard).cpu(),
+                          mesh.counts.as_dict()))
+    out["fused"] = fused
+    return out
+
+
+def _host(tree):
+    from repro_torch.models.module import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def ulp_up(tree, bf16: bool):
+    """``tree`` moved up by one ulp of each weight: of fp32, or for a
+    bf16 local phase about one bf16 ulp (2^-8 of each weight's
+    magnitude), which the round's cast down keeps."""
+    from repro_torch.models.module import tree_map
+    if bf16:
+        return tree_map(lambda t: t + t.abs() * 2.0 ** -8, tree)
+    return tree_map(lambda t: torch.nextafter(
+        t, torch.full_like(t, math.inf)), tree)
+
+
+def one_process_pair(run):
+    """``run(up)`` from the init and from ``ulp_up`` of it, in one
+    process on the card, TF32 off, deterministic convs, gradients over
+    RANKS_MATRIX_CHUNK clients at a time."""
+    with tf32_off(), deterministic_convs(), \
+            gradients_in_chunks(RANKS_MATRIX_CHUNK):
+        return run(False), run(True)
+
+
+def phase_ranks_matrix():
+    """Every method and axis of the sync round on 2 data ranks against one
+    process on the card (RANKS_MATRIX_RUNS, RANKS_MATRIX_SCENARIO), and
+    the sharded reducing rules against one process to the bit."""
+    from repro_torch.fl import runtime, scenarios
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import spawn
+    smi = nvidia_smi()
+    t0 = time.time()
+    free_device_memory()
+    argvs = [["--mode", "fl", "--rounds", str(RANKS_MATRIX_ROUNDS), *flags]
+             for _, flags, _ in RANKS_MATRIX_RUNS]
+    spec = scenarios.get(RANKS_MATRIX_SCENARIO).override(
+        rounds=RANKS_MATRIX_ROUNDS)
+    per_rank = spawn(ranks_matrix_rank, (2, 1), backend="gloo",
+                     device="cuda", args=(argvs, spec))
+    print(f"  2 ranks (gloo, both on cuda:0), {len(argvs)} runs of "
+          f"{RANKS_MATRIX_ROUNDS} rounds, a scenario and "
+          f"{2 * len(RANKS_MATRIX_RULES)} fusions: {time.time() - t0:.1f} s "
+          f"with start-up", flush=True)
+    steps = train.parse_args([]).steps_per_epoch
+    for (label, _, (reduces, gathers)), argv, ranks in zip(
+            RANKS_MATRIX_RUNS, argvs, zip(*[r["runs"] for r in per_rank])):
+        args = train.parse_args(argv)
+        task, fl, parts, get_batch, test = train.fl_inputs(args)
+        init = task.init_fn(torch.Generator().manual_seed(args.seed))
+        bf16 = args.compute_dtype == "bfloat16"
+        one, ulp = one_process_pair(lambda up: runtime.run_federated(
+            task, fl, parts, get_batch, test, device="cuda",
+            use_local_kernel=args.use_local_kernel,
+            init_params=ulp_up(init, bf16) if up else init))
+        for h in (one, ulp):
+            finite_params(h)
+        d = [leaf_rel_diff(r["final"], one["final_params"]) for r in ranks]
+        d_ulp = leaf_rel_diff(ulp["final_params"], one["final_params"])
+        limit = [max(RANKS_FL_RTOL, RANKS_MATRIX_SPREAD * u) for u in d_ulp]
+        c = ranks[0]["collectives"]
+        print(f"  {label}: ranks vs one process (gradients over "
+              f"{RANKS_MATRIX_CHUNK} clients a call), max |d| / max |leaf| "
+              f"over leaves and over the global: {d[0][0]:.3g}, "
+              f"{d[0][1]:.3g} "
+              f"(rank 1: {d[1][0]:.3g}, {d[1][1]:.3g}; one process from "
+              f"{'init + 2^-8 |init|' if bf16 else 'init + 1 ulp'}: "
+              f"{d_ulp[0]:.3g}, {d_ulp[1]:.3g}; limits {limit[0]:.3g}, "
+              f"{limit[1]:.3g}); acc ranks "
+              f"{ranks[0]['acc'][-1]:.4f}, one process "
+              f"{one['acc'][-1]:.4f}; local_step launches per rank "
+              f"{[r['local_step'] for r in ranks]}; collectives per rank: "
+              f"calls {c['calls']}, bytes {c['bytes']}, staged "
+              f"{c['staged']}; s/round (round 2) ranks "
+              f"{later_round_s(ranks[0]['wall']):.3f}, one process "
+              f"{later_round_s(one['wall']):.3f} ({smi})", flush=True)
+        assert all(x <= lim for di in d for x, lim in zip(di, limit)), \
+            (label, d, d_ulp)
+        assert leaf_rel_diff(ranks[0]["final"], ranks[1]["final"]) == (0, 0)
+        if label in RANKS_MATRIX_EXACT:
+            assert d[0] == (0, 0), (label, d)
+        expect = steps * RANKS_MATRIX_ROUNDS if args.use_local_kernel else 0
+        assert [r["local_step"] for r in ranks] == [expect] * 2, label
+        assert c["calls"] == {"all_reduce": reduces * RANKS_MATRIX_ROUNDS,
+                              "all_to_all": 0,
+                              "all_gather": gathers * RANKS_MATRIX_ROUNDS}, c
+    # run_scenario(mesh=) against mesh=None: a trimmed mean, so the bits
+    task = runtime.cnn_task(spec.model_config())
+    init = task.init_fn(torch.Generator().manual_seed(spec.seed))
+    got = [r["scenario"] for r in per_rank]
+
+    def scenario(up):
+        with last_global() as seen:
+            t1 = time.time()
+            rec = scenarios.run_scenario(
+                spec, device="cuda",
+                init_params=ulp_up(init, False) if up else init)
+            return {"acc": rec.acc, "s": time.time() - t1,
+                    "global": _host(seen["global"])}
+    one, ulp = one_process_pair(scenario)
+    d = leaf_rel_diff(got[0]["global"], one["global"])
+    d_ulp = leaf_rel_diff(ulp["global"], one["global"])
+    c = got[0]["collectives"]
+    print(f"  run_scenario({RANKS_MATRIX_SCENARIO}, mesh=), "
+          f"{RANKS_MATRIX_ROUNDS} rounds: ranks vs mesh=None {d[0]:.3g}, "
+          f"{d[1]:.3g} (init + 1 ulp {d_ulp[0]:.3g}, {d_ulp[1]:.3g}); acc "
+          f"ranks {got[0]['acc']}, one process {one['acc']}; collectives "
+          f"per rank: calls {c['calls']}, bytes {c['bytes']}, staged "
+          f"{c['staged']}; wall ranks {got[0]['s']:.2f} s, one process "
+          f"{one['s']:.2f} s ({smi})", flush=True)
+    assert leaf_rel_diff(got[0]["global"], got[1]["global"]) == (0, 0)
+    assert got[0]["acc"] == got[1]["acc"] == one["acc"]
+    assert d == (0, 0), (d, d_ulp)
+    # the sharded reducing rules: one all-gather, the one-process bits
+    i = 0
+    for rule in RANKS_MATRIX_RULES:
+        for grouped in (False, True):
+            want = matrix_fuse(rule, grouped).cpu()
+            for r in per_rank:
+                fused, counts = r["fused"][i]
+                assert torch.equal(fused, want), (rule, grouped)
+                assert counts["calls"]["all_gather"] == 1, counts
+                assert counts["calls"]["all_reduce"] == 0, counts
+            how = "paired_average, presence rows" if grouped else "fedavg"
+            print(f"  {rule} {how} on a (10, {want.numel():,}) cohort "
+                  f"split 5 + 5: both "
+                  f"ranks equal to one process to the bit; all-gather "
+                  f"{counts['bytes']['all_gather']:,} B a rank "
+                  f"({counts['staged']['all_gather']:,} B staged)",
+                  flush=True)
+            i += 1
+    took = time.time() - t0
+    print(f"  ranks matrix phase {took:.1f} s (budget "
+          f"{RANKS_MATRIX_BUDGET_S} s)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -6302,6 +6606,9 @@ def main() -> int:
     free_device_memory()
     with phase("ranks"):
         phase_ranks()
+    free_device_memory()
+    with phase("ranks matrix (TF32 off, deterministic convs)"):
+        phase_ranks_matrix()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",

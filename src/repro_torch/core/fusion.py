@@ -41,7 +41,11 @@ dtype segment adds the ranks' partial sums; each segment's result is
 cast to its dtype. This is the reference's mean over a sharded cohort
 axis, which lowers to one all-reduce: paired averaging costs exactly
 FedAvg's collective. No kernel: the reference keeps the fusion kernel
-off on a mesh of more than one device.
+off on a mesh of more than one device. A reducing robust rule sorts
+every row of a coordinate, so under ``shard`` each segment's rows are
+all-gathered instead (``RowShard.gather``: one all-gather per dtype
+segment, in slot order) and every rank runs the one-process reduction
+on the whole cohort: the one-process bits on the same rows.
 """
 from __future__ import annotations
 
@@ -57,13 +61,18 @@ from repro_torch.models.module import flat_parts, tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class RowShard:
-    """This rank's block ``[lo, hi)`` of a cohort of ``total`` rows, and
+    """This rank's block ``[lo, hi)`` of a cohort of ``total`` rows;
     ``reduce``, the in-place sum of a tensor over the ranks that hold
-    the other blocks (``launch/collectives.all_reduce`` over "data")."""
+    the other blocks (``launch/collectives.all_reduce`` over "data"),
+    and ``gather``, this block of rows (hi - lo, ...) -> the whole
+    cohort's (total, ...) in slot order
+    (``launch/collectives.all_gather_rows``; None where only the mean
+    runs)."""
     lo: int
     hi: int
     total: int
     reduce: Callable
+    gather: Callable | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +101,11 @@ def fedavg(stacked, weights=None, *, use_kernel: bool = False,
     """Coordinate-based averaging (Eq. 1): (N, M_d) -> (M_d,) per
     segment. ``robust``: a reducing rule replaces the weighted mean
     (use_kernel is ignored). ``shard``: ``stacked`` holds this rank's
-    rows of the cohort, ``weights`` the whole cohort's."""
+    rows of the cohort, ``weights`` the whole cohort's (under a robust
+    rule the rows are gathered and the rule reduces them all)."""
+    if shard is not None and robust is not None:
+        stacked = tree_map(shard.gather, stacked)
+        shard = None
     first = tree_leaves(stacked)[0]
     if shard is not None:
         w = _norm_weights(weights, shard.total, first.device)
@@ -156,15 +169,19 @@ def paired_average(stacked, layout, group_axes, perms=None, weights=None,
     robust: a reducing rule replaces every reduction; grouped leaves
     under presence weights reduce per group column with that column's
     weights, so the trimmed mass renormalizes within each group. No
-    kernel route: use_kernel is ignored.
+    kernel route: use_kernel is ignored. Under ``shard`` the rows are
+    gathered first and the rule reduces the whole cohort.
     shard: ``stacked`` holds this rank's rows of the cohort (and
     ``perms`` their rows); ``weights`` and ``group_weights`` cover the
     whole cohort."""
+    if perms is not None:
+        stacked = _permute_groups(stacked, layout, group_axes, perms)
+    if shard is not None and robust is not None:
+        stacked = tree_map(shard.gather, stacked)
+        shard = None
     first = tree_leaves(stacked)[0]
     dev = first.device
     n = first.shape[0] if shard is None else shard.total
-    if perms is not None:
-        stacked = _permute_groups(stacked, layout, group_axes, perms)
     gw = None
     if group_weights is not None:
         gw = torch.as_tensor(group_weights, dtype=torch.float32, device=dev)

@@ -97,7 +97,7 @@ class Attack:
         raise NotImplementedError
 
     def poison_update(self, stacked, global_params, mal, key=None,
-                      layout=None, noise=None, out=None):
+                      layout=None, noise=None, out=None, first: int = 0):
         """The cohort's trained params -> poisoned where the host row
         ``mal`` (C,) is > 0, the honest rows bit for bit.
 
@@ -110,7 +110,10 @@ class Attack:
         replaces the port's own (gauss_noise). Only the malicious rows
         are computed, piece by piece (``FlatLayout.pieces``); they are
         written into ``out`` (which may be ``stacked`` itself), else
-        into a copy of ``stacked``."""
+        into a copy of ``stacked``. ``first``: the cohort slot of
+        ``stacked``'s row 0 (a rank's block of rows on a mesh, with
+        ``mal`` its slice of the cohort's row): a row's noise is drawn
+        for its cohort slot, the one-process draw."""
         rows = np.flatnonzero(np.asarray(mal, np.float32) > 0)
         if not len(rows):
             return stacked
@@ -131,7 +134,7 @@ class Attack:
             leaves = None if layout is None else layout.slots_in(seg, a, n)
             for r in rows:
                 view[r] = self.poisoned(
-                    view[r], g, int(r), leaves, key,
+                    view[r], g, first + int(r), leaves, key,
                     None if eps is None else eps[r])
         return out
 

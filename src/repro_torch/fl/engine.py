@@ -81,15 +81,24 @@ the one-process engine. On a ``launch/mesh.RankMesh`` of more than one
 rank the cohort axis is split over "data": each rank holds its
 contiguous block of cohort rows (``launch/mesh.data_block``,
 ``np.array_split``'s blocks, so any cohort of at least the "data"
-size), runs the local phase on them (one ``local_step`` launch a step
-under ``use_local_kernel``), and fuses through ``core/fusion``'s
-sharded weighted mean: one all-reduce per dtype segment a round,
-Fed2's paired averaging at exactly FedAvg's collective. The server step runs
-replicated, so every rank ends the round with the same global. The
-fusion kernel is off there (``resolve_use_kernel``). The methods that
-declare ``sharded_cohort`` (fed2, fedavg, fedavgm, fedadam) run on
-ranks; other methods and the feature axes refuse up front
-(``refuse_on_ranks``).
+size) and runs the uplink half on them: the local phase (one
+``local_step`` launch a step under ``use_local_kernel``, the bf16
+shadow of its rows), model poisoning of its rows (the malicious row's
+slice, each row's noise drawn for its cohort slot), the codec and
+``norm_clip``, each per row. The fusion goes through ``core/fusion``'s
+``RowShard``: the weighted mean as one all-reduce per dtype segment a
+round (Fed2's paired averaging at exactly FedAvg's collective), a
+reducing robust rule as one all-gather per segment and the
+one-process reduction on every rank. A client-stateful method's state
+rows come in and go out as the whole cohort's: the local phase takes
+this rank's rows, and the new rows are all-gathered (one all-gather
+per segment), so ``server_update`` (scaffold's control variate) runs
+the one-process step on the whole cohort. FedMA's fuse gathers the
+trained rows and every rank runs the host matching. So every rank ends
+the round with the same global. The fusion kernel is off there
+(``resolve_use_kernel``). Every method and every axis of the sync
+round runs on ranks; what does not (async, tiers, the mmap store,
+checkpoints) refuses up front in fl/runtime.py (``refuse_on_ranks``).
 
 ``lower_round`` builds the round's device program (``device_round``:
 ``run_round`` up to ``host_fuse``) and its arguments on ``meta``, each
@@ -146,34 +155,27 @@ RANKS_ITEM = "ROADMAP Queue 1 item 2"
 
 
 def refuse_on_ranks(mesh, what: str) -> None:
-    """Raise for ``what`` on a mesh of more than one rank, which runs only
-    the sync rounds of the ``sharded_cohort`` methods without feature
-    axes; nothing falls back to one process."""
+    """Raise for ``what`` on a mesh of more than one rank, which runs
+    the sync round only; nothing falls back to one process."""
     if mesh is not None and mesh.size > 1:
         raise NotImplementedError(
             f"{what} on a mesh of {mesh.size} ranks is not ported yet "
-            f"({RANKS_ITEM}); ranks run the sync fed2, fedavg, fedavgm and "
-            "fedadam rounds without feature axes")
+            f"({RANKS_ITEM}); ranks refuse async rounds, capacity tiers, "
+            "the mmap store and FL checkpoints")
 
 
-def _row_shard(cfg, meth: FedMethod, mesh):
+def _row_shard(cfg, mesh):
     """The fusion's ``RowShard`` of this rank on ``mesh`` (None on one
-    process), after the up-front refusals of what ranks do not run."""
+    process)."""
     if mesh is None or mesh.size == 1:
         return None
-    if not meth.sharded_cohort:
-        refuse_on_ranks(mesh, f"method {meth.name!r}")
-    for knob in ("attack", "robust", "codec"):
-        if getattr(cfg, knob, None):
-            refuse_on_ranks(mesh, f"the {knob} axis ({knob}="
-                                  f"{getattr(cfg, knob)!r})")
-    if getattr(cfg, "compute_dtype", None) not in (None, "", "float32"):
-        refuse_on_ranks(mesh, f"compute_dtype={cfg.compute_dtype!r}")
-    from repro_torch.launch.collectives import all_reduce
+    from repro_torch.launch.collectives import all_gather_rows, all_reduce
     from repro_torch.launch.mesh import data_block
-    lo, hi = data_block(cfg.cohort_size, mesh)
-    return fusion_lib.RowShard(lo, hi, cfg.cohort_size,
-                               lambda t: all_reduce(t, mesh, "data"))
+    n = cfg.cohort_size
+    lo, hi = data_block(n, mesh)
+    return fusion_lib.RowShard(
+        lo, hi, n, lambda t: all_reduce(t, mesh, "data"),
+        lambda t: all_gather_rows(t, mesh, "data", n))
 
 
 def resolve_local_unroll(cfg, local_steps: int) -> int:
@@ -203,7 +205,8 @@ class RoundEngine:
 
     On a mesh of ranks the engine holds cohort rows ``rows`` only:
     ``batches`` are those rows' (the runtime cuts them), while
-    ``weights``/``group_weights`` cover the whole cohort."""
+    ``weights``/``group_weights``, the malicious row and the client
+    state rows (in and out) cover the whole cohort."""
     cohort_size: int
     method: FedMethod
     layout: FlatLayout
@@ -269,8 +272,9 @@ class RoundEngine:
             work, batches, gp_local, clients_state, server_state, ctx)
         if self.attack is not None and malicious is not None:
             row, key = malicious
-            work = self.attack.poison_update(work, global_params, row, key,
-                                             self.layout, out=work)
+            work = self.attack.poison_update(
+                work, global_params, row[self.rows], key, self.layout,
+                out=work, first=self.rows.start or 0)
         if self.compute_dtype is None:
             stacked = work
         else:                     # each leaf rounded into its own dtype
@@ -306,12 +310,18 @@ class RoundEngine:
                         batches, weights, group_weights, malicious=None):
         """The shared cohort-tile body: ``local_phase``, then the fuse.
         Returns (clients_state on the device, new client states, fuse
-        output, the round's context)."""
+        output, the round's context). On a mesh of ranks the local
+        phase takes this rank's client rows, and the new rows are
+        gathered into the whole cohort's."""
         ctx = self.round_ctx(weights, group_weights)
         clients_state = self._to_device(clients_state)
+        shard = self.ctx.shard
+        mine = (clients_state if shard is None else
+                tree_map(lambda a: a[self.rows], clients_state))
         stacked, new_clients = self.local_phase(
-            clients_state, server_state, global_params, batches, ctx,
-            malicious)
+            mine, server_state, global_params, batches, ctx, malicious)
+        if shard is not None:
+            new_clients = tree_map(shard.gather, new_clients)
         fused = self.method.fuse(stacked, global_params, ctx)
         return clients_state, new_clients, fused, ctx
 
@@ -407,7 +417,7 @@ def make_round_engine(task, cfg, params_like, *, device,
             f"{meth.name}: host_fusion methods end the device round at the "
             "stacked params — server_update/init_server_state never run; "
             "fold server-side work into host_fuse instead")
-    shard = _row_shard(cfg, meth, mesh)
+    shard = _row_shard(cfg, mesh)
     layout = FlatLayout(params_like)
     ga = None
     if meth.uses_groups and task.group_axes_fn is not None:

@@ -85,7 +85,10 @@ class MethodContext:
     grad_chunk: the clients each vmapped gradient call takes at a time
     (None: the whole cohort; ``run_federated(grad_chunk=...)``).
     shard: the ``core/fusion.RowShard`` of this rank's cohort rows on a
-    mesh of ranks (fl/engine.py), or None (the whole cohort here)."""
+    mesh of ranks (fl/engine.py), or None (the whole cohort here). The
+    local phase sees this rank's rows only (params, batches, client
+    state); ``fuse`` combines the ranks' rows through it, and every
+    later hook sees the whole cohort, as in one process."""
     task: Any
     cfg: Any
     population: int
@@ -119,11 +122,6 @@ class FedMethod:
     #                            when server_update reads per-client state
     #                            (scaffold), which caps participants per
     #                            round at cohort_size
-    sharded_cohort = False     # the cohort may split over the "data"
-    #                            ranks of a mesh (fl/engine.py): the
-    #                            default local phase, the fusion's
-    #                            weighted mean as the only cross-cohort
-    #                            op, and a server step on its result
 
     @property
     def tier_fusion(self) -> bool:
@@ -311,7 +309,6 @@ class FedAvg(FedMethod):
     """Coordinate-based averaging (Eq. 1/18): the all-defaults method."""
     name = "fedavg"
     summary = "coordinate-based (sample-weighted) mean, Eq. 1/18"
-    sharded_cohort = True
 
 
 @register
@@ -331,7 +328,6 @@ class Fed2(FedMethod):
     name = "fed2"
     summary = "feature paired averaging over structure groups, Eq. 19"
     uses_groups = True
-    sharded_cohort = True
 
     def fuse(self, stacked, global_params, ctx):
         return fusion_lib.paired_average(stacked, ctx.layout,
@@ -357,7 +353,12 @@ class FedMA(FedMethod):
                              "(defined for non-grouped CNNs)")
 
     def fuse(self, stacked, global_params, ctx):
-        return stacked          # fused by host_fuse
+        """The stacked params, fused by ``host_fuse``; on a mesh of
+        ranks the whole cohort's, gathered in slot order, so every rank
+        matches the same rows."""
+        if ctx.shard is None:
+            return stacked
+        return tree_map(ctx.shard.gather, stacked)
 
     def host_fuse(self, stacked, ctx):
         """(C, M) stacked params -> the matched average, flat (M,)."""
@@ -383,7 +384,10 @@ class Scaffold(FedMethod):
 
     Participation: c_i lives in the population state (a client that
     sits a round out keeps its variate); the server update scales by
-    |S|/N (cohort/population). ``cohort_tiling = False``: the server
+    |S|/N (cohort/population). On a mesh of ranks the engine hands
+    ``client_update`` this rank's c_i rows and ``server_update`` the
+    whole cohort's, gathered (fl/engine.py), so every rank takes the
+    one-process server step. ``cohort_tiling = False``: the server
     update reads the participating clients' state deltas, so one round
     must fit one cohort."""
     name = "scaffold"
@@ -447,7 +451,7 @@ class FedNova(FedMethod):
                           global_params)
         d = fusion_lib.fedavg(deltas, ctx.weights,
                               use_kernel=ctx.use_kernel,
-                              robust=ctx.robust)
+                              robust=ctx.robust, shard=ctx.shard)
         tau_eff = tau            # all clients run local_steps steps
         return tree_map(lambda x, dl: x - tau_eff * dl, global_params, d)
 
@@ -459,7 +463,6 @@ class FedAvgM(FedMethod):
     momentum (cfg.server_momentum, cfg.server_lr) over rounds."""
     name = "fedavgm"
     summary = "server heavy-ball momentum on round deltas"
-    sharded_cohort = True
 
     def init_server_state(self, params, ctx):
         return {"v": tree_map(torch.zeros_like, params)}
@@ -481,7 +484,6 @@ class FedAdam(FedMethod):
     name = "fedadam"
     summary = "server Adam over round pseudo-gradients (FedOpt)"
     b1, b2, eps = 0.9, 0.99, 1e-3
-    sharded_cohort = True
 
     @property
     def mixed_precision(self) -> bool:

@@ -57,9 +57,11 @@ eval tiles too (fl/evaluation.py): every rank replays the same host rng
 (sampler, padding, batch packing), so the cohort trains on the batches
 the one-process run packs, and moves only its own rows to its device;
 every rank ends each round with the same global and the same history,
-and rank 0 logs. Ranks run the sync rounds of fed2, fedavg, fedavgm and
-fedadam; tiers, async, the mmap store, checkpoints, cohort tiling and
-the feature axes refuse up front there.
+and rank 0 logs. Ranks run the whole sync round: every method, every
+feature axis (data poisoning packs the poisoned batches on every rank),
+one-shot fusion and cohort tiling (each tile's rows split over "data"
+as one cohort's are). Async rounds, capacity tiers, the mmap store and
+FL checkpoints refuse up front there.
 
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device named, ``run_federated``
@@ -451,8 +453,6 @@ def run_sampled_round(engine, pop: Population, method, server_state,
             pop.scatter(ids, state["clients"])
         return state["server"], new_global
 
-    refuse_on_ranks(engine.mesh, f"cohort tiling ({len(ids)} "
-                                 f"participants for cohort_size={C})")
     if not method.cohort_tiling and not method.host_fusion:
         raise ValueError(
             f"{method.name}: server step reads the participating cohort "

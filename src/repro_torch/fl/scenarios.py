@@ -282,19 +282,23 @@ class ConvergenceRecord:
         return path
 
 
-def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
+def run_scenario(spec: ScenarioSpec, *, mesh=None, use_kernel=None,
                  use_local_kernel: bool = False, device=None,
                  init_params=None, outdir: str | None = None,
                  log=None) -> ConvergenceRecord:
     """Execute one scenario end to end (partition -> run_federated ->
     per-class/per-group accuracy rows) on ``device`` (None = the CUDA
-    card), and write the record to ``<outdir>/scenario_<name>.json``
-    when ``outdir`` is given."""
+    card, or the rank's device on a mesh of ranks), and write the record
+    to ``<outdir>/scenario_<name>.json`` when ``outdir`` is given.
+    ``mesh``: None (one process), a one-device mesh (the same run) or
+    this rank's ``launch.mesh.RankMesh`` (``run_federated``'s); every
+    rank returns the same record and rank 0 writes it."""
     from repro_torch.fl import evaluation as evaluation_lib
     from repro_torch.fl.runtime import cnn_task, resolve_device, \
         run_federated
 
-    device = resolve_device(device)
+    device = resolve_device(device if device is not None
+                            else getattr(mesh, "device", None))
     ds, test = spec.datasets()
     parts = spec.partition(ds.labels)
 
@@ -304,7 +308,7 @@ def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
     test_batches = [{"images": test.images, "labels": test.labels}]
     h = run_federated(cnn_task(spec.model_config()), spec.fl_config(),
                       parts, get_batch, test_batches, latency=spec.latency,
-                      log=log,
+                      log=log, mesh=mesh,
                       use_kernel=use_kernel,
                       use_local_kernel=use_local_kernel, device=device,
                       init_params=init_params)
@@ -330,7 +334,7 @@ def run_scenario(spec: ScenarioSpec, *, use_kernel=None,
         attack=spec.attack,
         attack_fraction=spec.attack_fraction, robust=spec.robust,
         alignment=spec.alignment)
-    if outdir is not None:
+    if outdir is not None and getattr(mesh, "rank", 0) == 0:
         rec.save(outdir)
     return rec
 

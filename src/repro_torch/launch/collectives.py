@@ -13,7 +13,10 @@ is the identity and runs nothing.
   tiled=False)``: the leading dimension (the axis's size) split in
   chunks, chunk j sent to the rank at coordinate j; chunk i of the
   result came from the rank at coordinate i;
-- ``all_gather``: every rank's tensor, stacked in coordinate order.
+- ``all_gather``: every rank's tensor, stacked in coordinate order;
+- ``all_gather_rows``: the blocks of rows of one tensor split over the
+  axis as ``launch/mesh.data_block`` splits them (unequal blocks
+  travel padded to the longest), joined in coordinate order.
 
 The backend decides how a tensor travels, never a failure: with
 ``nccl`` tensors go as they are; with ``gloo`` a CUDA tensor goes
@@ -134,3 +137,21 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     mesh.counts.add("all_gather", _nbytes(t),
                     _nbytes(t) + _nbytes(out) if staged else 0)
     return out
+
+
+def all_gather_rows(t: torch.Tensor, mesh, axis: str, n: int) -> torch.Tensor:
+    """The ``n`` rows of a tensor split over ``axis`` in
+    ``np.array_split``'s blocks (``launch/mesh.data_block``), this rank
+    holding its block ``t``: the whole (n, ...) tensor, the blocks in
+    coordinate order. One ``all_gather`` of ``ceil(n / size)`` rows a
+    rank, a shorter block padded with zeros that are then dropped."""
+    if mesh.group(axis) is None:
+        return t
+    base, extra = divmod(n, mesh.shape[axis])
+    longest = base + (extra > 0)
+    if t.shape[0] < longest:
+        t = torch.cat([t, t.new_zeros((longest - t.shape[0],)
+                                      + t.shape[1:])])
+    g = all_gather(t, mesh, axis)
+    return torch.cat([g[i, :base + (i < extra)]
+                      for i in range(mesh.shape[axis])])

@@ -10,7 +10,7 @@ never written.
   PYTHONPATH=src python -m repro_torch.launch.scenarios --list
   PYTHONPATH=src python -m repro_torch.launch.scenarios --scenarios all
   PYTHONPATH=src python -m repro_torch.launch.scenarios \\
-      --scenarios nxc2_fed2,nxc2_fedma
+      --scenarios nxc2_fed2,nxc2_fedma --mesh host
   # a registered scenario at reduced extent, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.scenarios \\
       --scenarios nxc2_fed2 --rounds 2 --train-size 600 --device cpu
@@ -26,14 +26,22 @@ DEFAULT_OUT = os.path.normpath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "runs_torch"))
 
 
-def run_many(names, *, outdir: str = DEFAULT_OUT, rounds: int | None = None,
-             train_size: int | None = None, device=None,
-             verbose: bool = True) -> list:
+def run_many(names, *, mesh_kind: str = "none", outdir: str = DEFAULT_OUT,
+             rounds: int | None = None, train_size: int | None = None,
+             device=None, verbose: bool = True) -> list:
     """Run the named scenarios (optionally at overridden extent) on
     ``device`` (None = the CUDA card) and return their
-    ConvergenceRecords; each is written to ``outdir``."""
+    ConvergenceRecords; each is written to ``outdir``. ``mesh_kind``
+    "host" runs them on the (1, 1) host mesh (``make_host_mesh``), the
+    same run as "none"."""
     from repro_torch.fl.runtime import resolve_device
     device = resolve_device(device)
+    mesh = None
+    if mesh_kind == "host":
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh()
+    elif mesh_kind != "none":
+        raise ValueError(f"mesh_kind {mesh_kind!r}: 'none' or 'host'")
     overrides = {}
     if rounds is not None:
         overrides["rounds"] = rounds
@@ -45,7 +53,8 @@ def run_many(names, *, outdir: str = DEFAULT_OUT, rounds: int | None = None,
         spec = scenarios_lib.get(name)
         if overrides:
             spec = spec.override(**overrides)
-        rec = scenarios_lib.run_scenario(spec, device=device, outdir=outdir)
+        rec = scenarios_lib.run_scenario(spec, mesh=mesh, device=device,
+                                         outdir=outdir)
         recs.append(rec)
         if verbose:
             print(f"[ok] {name:14s} {spec.protocol_label():14s} "
@@ -59,6 +68,9 @@ def main(argv=None):
     ap.add_argument("--scenarios", default="all",
                     help="comma list from "
                          f"{','.join(scenarios_lib.available())} or 'all'")
+    ap.add_argument("--mesh", default="none", choices=["none", "host"],
+                    help="host: run rounds + eval tiles on the (1, 1) "
+                         "host mesh (the same run as none)")
     ap.add_argument("--rounds", type=int, default=None,
                     help="override every chosen spec's round count "
                          "(smoke runs)")
@@ -84,7 +96,8 @@ def main(argv=None):
     if bad:
         raise SystemExit(f"unknown scenarios {bad}; available: "
                          f"{', '.join(scenarios_lib.available())}")
-    return run_many(names, outdir=args.out, rounds=args.rounds,
+    return run_many(names, mesh_kind=args.mesh, outdir=args.out,
+                    rounds=args.rounds,
                     train_size=args.train_size, device=args.device)
 
 

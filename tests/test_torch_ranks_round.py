@@ -236,30 +236,11 @@ def test_fusion_reduces_once_per_dtype_segment(grouped):
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"method": "scaffold"}, "method 'scaffold'"),
-    ({"method": "fedma"}, "method 'fedma'"),
-    ({"attack": "sign_flip(4)", "attack_fraction": 0.4}, "attack axis"),
-    ({"robust": "coordinate_median"}, "robust axis"),
-    ({"codec": "int8"}, "codec axis"),
-    ({"compute_dtype": "bfloat16"}, "compute_dtype"),
-], ids=["scaffold", "fedma", "attack", "robust", "codec", "bf16"])
-def test_ranks_refuse_what_they_do_not_run(kw, what):
-    from repro_torch.configs import vgg9
-    cfg = vgg9.reduced()
-    task = cnn_task(cfg)
-    params = task.init_fn(torch.Generator().manual_seed(0))
-    fl = FLConfig(population=4, **kw)
-    with pytest.raises(NotImplementedError, match=what):
-        make_round_engine(task, fl, params, device="cpu", mesh=_mesh(2, 0))
-
-
-@pytest.mark.parametrize("kw,what", [
     ({"mode": "async"}, "mode='async'"),
     ({"tiers": "1.0x2,0.5x2"}, "capacity tiers"),
     ({"store": "mmap"}, "store='mmap'"),
-    ({"cohort_size": 2}, "cohort tiling"),
     ({}, "FL checkpoints"),
-], ids=["async", "tiers", "mmap", "tiling", "checkpoints"])
+], ids=["async", "tiers", "mmap", "checkpoints"])
 def test_run_federated_on_ranks_refuses_up_front(kw, what, tmp_path):
     task, fl, parts, get_batch, test, _ = torch_ranks.fl_inputs(
         _argv("fedavg"), EVAL_BATCH)

@@ -6,18 +6,47 @@ the test files, so that a rank imports torch and the port only, never
 jax (whose import would double a rank's start-up). Every rank runs on
 one intra-op thread: the suite's xdist workers share the cores.
 """
+import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch.core import fusion
+from repro_torch.fl import engine, robust, runtime, scenarios
 from repro_torch.fl.runtime import run_federated
 from repro_torch.kernels.local_step import local_step
 from repro_torch.launch import collectives, train
 from repro_torch.launch.mesh import make_rank_mesh
 from repro_torch.models import moe, moe_ep
-from repro_torch.models.module import tree_map
+from repro_torch.models.module import FlatLayout, Segments, tree_map
+
+
+def _cpu(tree):
+    return tree_map(lambda t: torch.as_tensor(t).detach().cpu().clone(),
+                    tree)
+
+
+@contextlib.contextmanager
+def rounds_traced():
+    """Within the block, every sync round of ``run_federated`` records
+    its new global (a params tree), and the last round its server state
+    and the population's client rows (CPU tensors; flat)."""
+    seen = {"globals": [], "server": None, "clients": None}
+    run_round = runtime.run_sampled_round
+
+    def spy(eng, pop, *args, **kw):
+        server, glob = run_round(eng, pop, *args, **kw)
+        seen["globals"].append(_cpu(eng.layout.unflatten(glob)))
+        seen["server"], seen["clients"] = _cpu(server), _cpu(pop.clients)
+        return server, glob
+    runtime.run_sampled_round = spy
+    try:
+        yield seen
+    finally:
+        runtime.run_sampled_round = run_round
 
 
 def fl_inputs(argv, eval_batch):
@@ -32,18 +61,22 @@ def fl_inputs(argv, eval_batch):
 def run_fl(argv, eval_batch, init, mesh=None) -> dict:
     """One run of ``argv`` from the reference's ``init`` (numpy), on
     ``mesh`` (None: one process on the CPU): its final params (a CPU
-    tree), accuracies, confusion counts, and this process's local_step
-    launches and collectives."""
+    tree), accuracies, confusion counts, each round's global, the last
+    round's server state and client rows (``rounds_traced``), and this
+    process's local_step launches and collectives."""
     task, fl, parts, get_batch, test, local = fl_inputs(argv, eval_batch)
     if mesh is not None:
         mesh.counts.reset()
     before = local_step.launches
-    h = run_federated(task, fl, parts, get_batch, test, device="cpu",
-                      mesh=mesh, use_local_kernel=local,
-                      init_params=convert.to_port(init))
+    with rounds_traced() as seen:
+        h = run_federated(task, fl, parts, get_batch, test, device="cpu",
+                          mesh=mesh, use_local_kernel=local,
+                          init_params=convert.to_port(init))
     return {"final": tree_map(lambda t: t.detach().cpu(),
                               h["final_params"]),
             "acc": h["acc"], "confusion": h["confusion"],
+            "globals": seen["globals"], "server": seen["server"],
+            "clients": seen["clients"],
             "local_step": local_step.launches - before,
             "collectives": None if mesh is None else mesh.counts.as_dict()}
 
@@ -53,6 +86,73 @@ def fl_rank(mesh, runs) -> list:
     torch.set_num_threads(1)
     return [run_fl(argv, eval_batch, init, mesh)
             for argv, eval_batch, init in runs]
+
+
+def run_spec(spec, mesh=None, outdir=None) -> dict:
+    """``run_scenario(spec)`` from the port's seeded init on the CPU, on
+    ``mesh``: the record (a dict, walls dropped), each round's global,
+    and the collectives."""
+    if mesh is not None:
+        mesh.counts.reset()
+    with rounds_traced() as seen:
+        rec = scenarios.run_scenario(spec, mesh=mesh, device="cpu",
+                                     outdir=outdir)
+    rec = {k: v for k, v in rec.to_dict().items()
+           if k not in ("wall", "wall_total")}
+    return {"record": rec, "globals": seen["globals"],
+            "collectives": None if mesh is None else mesh.counts.as_dict()}
+
+
+def spec_rank(mesh, specs, outdir) -> list:
+    """Each spec of ``specs`` on this rank, its record written under
+    ``outdir``/rank<r> (rank 0 only writes)."""
+    torch.set_num_threads(1)
+    return [run_spec(spec, mesh, f"{outdir}/rank{mesh.rank}")
+            for spec in specs]
+
+
+def robust_fuse(case, shard=None):
+    """One reducing-rule fusion ``case`` = (rule spec, grouped, fp32 rows
+    (N, 12), bf16-valued rows (N, 4), weights (N,), presence rows (N, 2)
+    or None) of a two-segment (fp32 + bf16) cohort through
+    ``paired_average`` (grouped) or ``fedavg``: on the whole cohort, or
+    on ``shard``'s block of rows."""
+    spec, grouped, a, b, w, gw = case
+    rows = slice(None) if shard is None else slice(shard.lo, shard.hi)
+    stacked = Segments([torch.as_tensor(a)[rows],
+                        torch.as_tensor(b).to(torch.bfloat16)[rows]])
+    rule = robust.parse_robust(spec)
+    if not grouped:
+        return fusion.fedavg(stacked, torch.as_tensor(w), robust=rule,
+                             shard=shard)
+    layout = FlatLayout({"a": torch.zeros(2, 6),
+                         "b": torch.zeros(4, dtype=torch.bfloat16)})
+    axes = {"a": fusion.GroupAxis(0, 2), "b": None}
+    return fusion.paired_average(stacked, layout, axes,
+                                 weights=torch.as_tensor(w),
+                                 group_weights=gw, robust=rule, shard=shard)
+
+
+def robust_fuse_rank(mesh, cases) -> list:
+    """Each ``robust_fuse`` case on this rank's block of the cohort
+    (the engine's ``RowShard``), with the collectives it ran."""
+    torch.set_num_threads(1)
+    out = []
+    for case in cases:
+        mesh.counts.reset()
+        shard = engine._row_shard(
+            types.SimpleNamespace(cohort_size=len(case[4])), mesh)
+        got = robust_fuse(case, shard)
+        out.append((list(got), mesh.counts.as_dict()))
+    return out
+
+
+def axes_rank(mesh, runs, specs, fuse_cases, outdir) -> dict:
+    """The axes file's whole spawn: ``fl_rank``'s runs, ``spec_rank``'s
+    scenario runs and ``robust_fuse_rank``'s fusion cases."""
+    return {"fl": fl_rank(mesh, runs),
+            "spec": spec_rank(mesh, specs, outdir),
+            "fuse": robust_fuse_rank(mesh, fuse_cases)}
 
 
 def moe_rank(mesh, cases, also) -> dict:
