@@ -363,9 +363,10 @@ script exits non-zero:
             bytes and the wall time; (c) fed2_cifar_fl --mesh host
             --rounds 1, counted (paired_fusion 2: fedavg and fed2). A
             rank that fails fails the run
-52. ranks matrix  the whole sync round on 2 "data" ranks sharing card 0
-            over gloo (budget 150 s; alone: python3 -c 'import
-            chip_smoke as c; c.phase_build(); c.phase_ranks_matrix()'):
+52. ranks matrix  the whole federation on 2 "data" ranks sharing card 0
+            over gloo, in one spawn (budget 210 s; alone: python3 -c
+            'import chip_smoke as c; c.phase_build();
+            c.phase_ranks_matrix()'):
             fedprox, fednova and fedma with --use-local-kernel, scaffold,
             fed2 + sign_flip(4) + trimmed_mean(0.25), fedavg +
             label_flip, fed2 + int8 and fed2 + bfloat16 at the CLI's
@@ -380,7 +381,24 @@ script exits non-zero:
             staged bytes, s/round beside one process's; trimmed_mean and
             coordinate_median of one (10, 521,616) cohort through fedavg
             and paired averaging, sharded, equal to one process to the
-            bit
+            bit; then the rest of the federation on the same ranks:
+            buffered async (fed2 --use-local-kernel, cohort 4, buffer_k
+            2, polynomial(0.5), pareto(1.5), 4 events) against one
+            process taking its gradients 2 clients a call, its dispatch
+            schedule and staleness lists equal; async at buffer_k =
+            cohort and zero latency equal to the sync rounds on the same
+            ranks to the bit; capacity tiers (fed2 --fed2-groups 5
+            --tiers 1.0x2,0.6x2,0.2x2, fedavg --tiers 1.0x2,0.5x2,0.25x2,
+            fedavg --tiers 1.0x2,0.5x2,0.25x1 whose 1-client tile runs
+            whole on both ranks; --use-local-kernel, 2 rounds) against
+            one process taking its gradients a client a call; scaffold
+            --store mmap equal to the memory-store run above to the bit;
+            fed2 --use-local-kernel saved after round 1 (rank 0 writes,
+            every rank waits at a barrier) and resumed to round 2, equal
+            to the uninterrupted run to the bit; each with its
+            collectives by kind, local_step launches a rank (8 a tile a
+            rank with the flag, the replicated tile's too) and s/round
+            or s/event beside one process's
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
@@ -5935,29 +5953,37 @@ EP_TOKENS = (4, 512)
 EP_SEED = 7
 
 
-def ranks_fl(mesh, runs):
-    """Each CLI argv of ``runs`` on this rank, TF32 off, deterministic
-    convs: its final params (on the host), accuracies, round walls, the
-    local_step launches of its rows and its collectives."""
+def ranks_run(mesh, argv, **kw):
+    """The CLI run of ``argv`` on this rank (``kw`` passed on to
+    ``run_federated``: a checkpoint directory, ``resume``): its final
+    params (on the host), accuracies, round or event walls, an async
+    run's events and local tiles, the local_step launches of its rows
+    and its collectives."""
     from repro_torch.fl.runtime import run_federated
     from repro_torch.kernels.local_step import local_step
     from repro_torch.launch import train
     from repro_torch.models.module import tree_map
-    out = []
+    args = train.parse_args(argv)
+    mesh.counts.reset()
+    local_step.launches = 0
+    h = run_federated(*train.fl_inputs(args), mesh=mesh,
+                      latency=args.latency,
+                      use_local_kernel=args.use_local_kernel, **kw)
+    finite_params(h)
+    return {"final": tree_map(lambda t: t.cpu(), h["final_params"]),
+            "acc": h["acc"], "wall": h["wall"],
+            "events": {k: h[k] for k in ("participants", "staleness",
+                                         "sim_time", "local_tiles")
+                       if k in h},
+            "local_step": local_step.launches,
+            "collectives": mesh.counts.as_dict()}
+
+
+def ranks_fl(mesh, runs):
+    """Each CLI argv of ``runs`` on this rank (``ranks_run``), TF32 off,
+    deterministic convs."""
     with tf32_off(), deterministic_convs():
-        for argv in runs:
-            args = train.parse_args(argv)
-            mesh.counts.reset()
-            local_step.launches = 0
-            h = run_federated(*train.fl_inputs(args), mesh=mesh,
-                              use_local_kernel=args.use_local_kernel)
-            finite_params(h)
-            out.append({"final": tree_map(lambda t: t.cpu(),
-                                          h["final_params"]),
-                        "acc": h["acc"], "wall": h["wall"],
-                        "local_step": local_step.launches,
-                        "collectives": mesh.counts.as_dict()})
-    return out
+        return [ranks_run(mesh, argv) for argv in runs]
 
 
 def leaf_rel_diff(a, b) -> tuple:
@@ -6174,7 +6200,7 @@ def phase_ranks():
 # ---------------------------------------------------------------------------
 
 # the phase's budget (printed beside its time)
-RANKS_MATRIX_BUDGET_S = 150
+RANKS_MATRIX_BUDGET_S = 210
 # the CLI's full-width runs (vgg9.full(fed2_groups=8) for fed2,
 # vgg9.baseline() for the rest; 10 clients, 8 steps of batch 32) on 2
 # "data" ranks, 2 rounds, against one process: (label, flags, all-reduces
@@ -6226,6 +6252,46 @@ RANKS_MATRIX_SCENARIO = "nxc2_fed2_signflip20_trim"
 # under presence rows
 RANKS_MATRIX_RULES = ("trimmed_mean(0.25)", "coordinate_median")
 RANKS_MATRIX_SEED = 11
+# the rest of the federation on the same 2 ranks, in the same spawn:
+# (label, flags, the clients a gradient call of the one-process run it is
+# held against (the rows a rank holds of a tile: cuDNN picks its
+# algorithms by batch size); None where it is held against other runs on
+# the ranks instead, all-reduces a round or event: one a tile that
+# splits over the ranks or an event's fusion, one an eval). fed2's tiers
+# run at --fed2-groups 5: the 0.6 and 0.2 tiers keep whole groups only
+# where w * G is an integer, so the CLI's G = 8 refuses them
+RANKS_REST_COHORT = ("--cohort-size", "4", "--sampler", "uniform")
+RANKS_REST_ASYNC = (*RANKS_REST_COHORT, "--fed-mode", "async")
+RANKS_REST_EVENTS = 4
+RANKS_REST_RUNS = (
+    ("async fed2 --use-local-kernel, buffer_k 2",
+     ("--method", "fed2", "--use-local-kernel", *RANKS_REST_ASYNC,
+      "--buffer-k", "2", "--staleness", "polynomial(0.5)", "--latency",
+      "pareto(1.5)", "--rounds", str(RANKS_REST_EVENTS)), 2, 2),
+    ("async fed2 --use-local-kernel, buffer_k = cohort, zero latency",
+     ("--method", "fed2", "--use-local-kernel", *RANKS_REST_ASYNC), None,
+     2),
+    ("sync fed2 --use-local-kernel, cohort 4",
+     ("--method", "fed2", "--use-local-kernel", *RANKS_REST_COHORT), None,
+     2),
+    ("tiers fed2 --fed2-groups 5 1.0x2,0.6x2,0.2x2 --use-local-kernel",
+     ("--method", "fed2", "--fed2-groups", "5", "--nodes", "6", "--tiers",
+      "1.0x2,0.6x2,0.2x2", "--use-local-kernel"), 1, 4),
+    ("tiers fedavg 1.0x2,0.5x2,0.25x2 --use-local-kernel",
+     ("--method", "fedavg", "--nodes", "6", "--tiers",
+      "1.0x2,0.5x2,0.25x2", "--use-local-kernel"), 1, 4),
+    ("tiers fedavg 1.0x2,0.5x2,0.25x1 --use-local-kernel (a 1-client "
+     "tier, replicated)",
+     ("--method", "fedavg", "--nodes", "5", "--tiers",
+      "1.0x2,0.5x2,0.25x1", "--use-local-kernel"), 1, 3),
+    ("scaffold --store mmap", ("--method", "scaffold", "--store", "mmap",
+                               "--chunk-size", "4"), None, 2),
+)
+# held against the matrix's memory-store run of this label to the bit
+RANKS_REST_MMAP_OF = "scaffold"
+# checkpoints: this run saved after round 1, then resumed to round 2,
+# against the same run straight through 2 rounds (its own checkpoint)
+RANKS_REST_CKPT = ("--method", "fed2", "--use-local-kernel")
 
 
 @contextlib.contextmanager
@@ -6290,10 +6356,34 @@ def matrix_fuse(rule, grouped, shard=None):
                                  group_weights=gw, robust=r, shard=shard)
 
 
-def ranks_matrix_rank(mesh, argvs, spec):
+def rest_argv(flags, rounds=RANKS_MATRIX_ROUNDS):
+    return ["--mode", "fl", "--rounds", str(rounds), *flags]
+
+
+def ranks_rest_rank(mesh, ckdir):
+    """This rank's part of the rest of the federation: RANKS_REST_RUNS,
+    then the checkpointed runs (RANKS_REST_CKPT; checkpoints under
+    ``ckdir``, written by rank 0), TF32 off and deterministic convs."""
+    out = {}
+    ck = os.path.join(ckdir, "resumable")
+    with tf32_off(), deterministic_convs():
+        out["runs"] = [ranks_run(mesh, rest_argv(flags))
+                       for _, flags, _, _ in RANKS_REST_RUNS]
+        out["first"] = ranks_run(mesh, rest_argv(RANKS_REST_CKPT, 1),
+                                 checkpoint_dir=ck)
+        out["listing"] = sorted(os.listdir(ck))
+        out["resumed"] = ranks_run(mesh, rest_argv(RANKS_REST_CKPT),
+                                   checkpoint_dir=ck, resume=True)
+        out["straight"] = ranks_run(mesh, rest_argv(RANKS_REST_CKPT),
+                                    checkpoint_dir=os.path.join(
+                                        ckdir, "straight"))
+    return out
+
+
+def ranks_matrix_rank(mesh, argvs, spec, ckdir):
     """This rank's part of the phase: ``ranks_fl``'s runs, then
     ``run_scenario(spec, mesh=)`` and the sharded reducing rules, TF32
-    off and deterministic convs."""
+    off and deterministic convs, then ``ranks_rest_rank``'s."""
     import types
 
     from repro_torch.fl import engine as engine_lib
@@ -6315,6 +6405,7 @@ def ranks_matrix_rank(mesh, argvs, spec):
             fused.append((matrix_fuse(rule, grouped, shard).cpu(),
                           mesh.counts.as_dict()))
     out["fused"] = fused
+    out["rest"] = ranks_rest_rank(mesh, ckdir)
     return out
 
 
@@ -6343,10 +6434,152 @@ def one_process_pair(run):
         return run(False), run(True)
 
 
+def one_process_run(argv, chunk, up=False, **kw):
+    """The CLI run of ``argv`` in one process on the card, from the
+    seeded init (``up``: ``ulp_up`` of it), TF32 off, deterministic
+    convs, gradients over ``chunk`` clients a call; ``kw`` passed on to
+    ``run_federated``."""
+    from repro_torch.fl import runtime
+    from repro_torch.launch import train
+    args = train.parse_args(argv)
+    task, fl, parts, get_batch, test = train.fl_inputs(args)
+    init = task.init_fn(torch.Generator().manual_seed(args.seed))
+    with tf32_off(), deterministic_convs(), gradients_in_chunks(chunk):
+        h = runtime.run_federated(
+            task, fl, parts, get_batch, test, device="cuda",
+            latency=args.latency, use_local_kernel=args.use_local_kernel,
+            init_params=ulp_up(init, False) if up else init, **kw)
+    finite_params(h)
+    return h
+
+
+def rest_line(label, ranks, one, d, d_ulp, smi):
+    """One printed line of a run of the rest of the federation: the
+    distances, the collectives over its rounds or events, local_step a
+    rank and s/round beside one process's."""
+    c, n = ranks[0]["collectives"], len(ranks[0]["wall"])
+    unit = "event" if "staleness" in ranks[0]["events"] else "round"
+    dist = ("" if d is None else
+            f"ranks vs one process {d[0]:.3g}, {d[1]:.3g}"
+            + ("" if d_ulp is None else
+               f" (init + 1 ulp {d_ulp[0]:.3g}, {d_ulp[1]:.3g})") + "; ")
+    print(f"  {label}: {dist}acc ranks {ranks[0]['acc'][-1]:.4f}"
+          + ("" if one is None else f", one process {one['acc'][-1]:.4f}")
+          + f"; collectives per rank over {n} {unit}s: calls "
+          f"{c['calls']}, bytes {c['bytes']}, staged {c['staged']}; "
+          f"local_step launches per rank "
+          f"{[r['local_step'] for r in ranks]}; s/{unit} ranks "
+          + (f"{later_round_s(ranks[0]['wall']):.3f}" if n > 1 else
+             f"{ranks[0]['wall'][0]:.3f} (its only {unit}, the first)")
+          + ("" if one is None else
+             f", one process {later_round_s(one['wall']):.3f}")
+          + f" ({smi})", flush=True)
+
+
+def schedule(history) -> dict:
+    """An async run's dispatch schedule as its history records it (all
+    None for a sync run): staleness lists, simulated times, tiles."""
+    return {k: history.get(k) for k in ("staleness", "sim_time",
+                                        "local_tiles")}
+
+
+def ranks_rest(per_rank, memory_ranks, smi):
+    """RANKS_REST_RUNS and the checkpoints on the ranks against one
+    process (twice the one-ulp spread), against each other and against
+    the matrix's memory-store run (``memory_ranks``) to the bit."""
+    from repro_torch.launch import train
+    steps = train.parse_args([]).steps_per_epoch
+    rest = [r["rest"] for r in per_rank]
+    got = {}
+    for i, (label, flags, chunk, reduces) in enumerate(RANKS_REST_RUNS):
+        ranks = got[label] = [r["runs"][i] for r in rest]
+        assert leaf_rel_diff(ranks[0]["final"], ranks[1]["final"]) == \
+            (0, 0), label
+        assert ranks[0]["acc"] == ranks[1]["acc"], label
+        argv = rest_argv(flags)
+        one = d = d_ulp = None
+        if chunk is not None:
+            one = one_process_run(argv, chunk)
+            ulp = one_process_run(argv, chunk, up=True)
+            d = [leaf_rel_diff(r["final"], one["final_params"])
+                 for r in ranks]
+            d_ulp = leaf_rel_diff(ulp["final_params"], one["final_params"])
+            limit = [max(RANKS_FL_RTOL, RANKS_MATRIX_SPREAD * u)
+                     for u in d_ulp]
+            assert all(x <= lim for di in d for x, lim in zip(di, limit)), \
+                (label, d, d_ulp)
+            d = d[0]
+        elif "mmap" in flags:
+            one = one_process_run(argv, RANKS_MATRIX_CHUNK)
+            d = leaf_rel_diff(ranks[0]["final"], one["final_params"])
+        rest_line(label, ranks, one, d, d_ulp, smi)
+        n = len(ranks[0]["wall"])
+        ev = ranks[0]["events"]
+        assert schedule(ranks[1]["events"]) == schedule(ev), label
+        if one is not None:       # an async run's: the one-process one
+            assert schedule(one) == schedule(ev), label
+        stateful = "scaffold" in flags
+        assert ranks[0]["collectives"]["calls"] == {
+            "all_reduce": reduces * n, "all_to_all": 0,
+            "all_gather": n if stateful else 0}, (label, ranks[0])
+        tiles = (ev["local_tiles"] if "local_tiles" in ev else
+                 n * (3 if "--tiers" in flags else 1))
+        expect = tiles * steps if "--use-local-kernel" in flags else 0
+        assert [r["local_step"] for r in ranks] == [expect] * 2, label
+    kc, sync = (got[label] for label, *_ in RANKS_REST_RUNS[1:3])
+    for a, b in zip(kc, sync):
+        assert leaf_rel_diff(a["final"], b["final"]) == (0, 0)
+        assert a["acc"] == b["acc"]
+        assert a["collectives"] == b["collectives"]
+    print("  async at buffer_k = cohort, zero latency: equal to the sync "
+          "rounds on the same ranks to the bit", flush=True)
+    mmap = got[RANKS_REST_RUNS[-1][0]]
+    for a, b in zip(mmap, memory_ranks):
+        assert leaf_rel_diff(a["final"], b["final"]) == (0, 0)
+        assert a["acc"] == b["acc"]
+    print(f"  scaffold --store mmap on the ranks: equal to the memory "
+          f"store's run ({RANKS_REST_MMAP_OF!r}) to the bit", flush=True)
+    # checkpoints: round 1 saved, resumed to round 2 = straight 2 rounds
+    argv = rest_argv(RANKS_REST_CKPT)
+    one = one_process_run(argv, RANKS_MATRIX_CHUNK)
+    ulp = one_process_run(argv, RANKS_MATRIX_CHUNK, up=True)
+    parts = {k: [r[k] for r in rest] for k in ("first", "resumed",
+                                               "straight")}
+    for k, ranks in parts.items():
+        assert leaf_rel_diff(ranks[0]["final"], ranks[1]["final"]) == \
+            (0, 0), k
+    straight, resumed = parts["straight"][0], parts["resumed"][0]
+    assert leaf_rel_diff(resumed["final"], straight["final"]) == (0, 0)
+    assert resumed["acc"] == straight["acc"][1:]
+    d = leaf_rel_diff(straight["final"], one["final_params"])
+    d_ulp = leaf_rel_diff(ulp["final_params"], one["final_params"])
+    assert all(x <= max(RANKS_FL_RTOL, RANKS_MATRIX_SPREAD * u)
+               for x, u in zip(d, d_ulp)), (d, d_ulp)
+    assert rest[0]["listing"] == rest[1]["listing"] == [
+        "manifest.json", "params-1.npz"], rest[0]["listing"]
+    for k, saves, rounds in (("first", 1, 1), ("resumed", 1, 1),
+                             ("straight", 2, 2)):
+        for r in parts[k]:
+            c = r["collectives"]["calls"]
+            assert c["barrier"] == 1 + saves, (k, c)
+            assert c["all_reduce"] == 2 * rounds, (k, c)
+            assert r["local_step"] == steps * rounds, k
+        rest_line(f"fed2 --use-local-kernel, checkpoints: {k}",
+                  parts[k], one if k == "straight" else None,
+                  d if k == "straight" else None,
+                  d_ulp if k == "straight" else None, smi)
+    print("  the run resumed after round 1 equals the uninterrupted run to "
+          "the bit; rank 0 wrote the checkpoint "
+          f"({rest[0]['listing']}), both ranks read it", flush=True)
+
+
 def phase_ranks_matrix():
     """Every method and axis of the sync round on 2 data ranks against one
-    process on the card (RANKS_MATRIX_RUNS, RANKS_MATRIX_SCENARIO), and
-    the sharded reducing rules against one process to the bit."""
+    process on the card (RANKS_MATRIX_RUNS, RANKS_MATRIX_SCENARIO), the
+    sharded reducing rules against one process to the bit, and the rest
+    of the federation on the same ranks (``ranks_rest``)."""
+    import tempfile
+
     from repro_torch.fl import runtime, scenarios
     from repro_torch.launch import train
     from repro_torch.launch.mesh import spawn
@@ -6357,15 +6590,20 @@ def phase_ranks_matrix():
              for _, flags, _ in RANKS_MATRIX_RUNS]
     spec = scenarios.get(RANKS_MATRIX_SCENARIO).override(
         rounds=RANKS_MATRIX_ROUNDS)
-    per_rank = spawn(ranks_matrix_rank, (2, 1), backend="gloo",
-                     device="cuda", args=(argvs, spec))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as ckdir:
+        per_rank = spawn(ranks_matrix_rank, (2, 1), backend="gloo",
+                         device="cuda", args=(argvs, spec, ckdir))
     print(f"  2 ranks (gloo, both on cuda:0), {len(argvs)} runs of "
-          f"{RANKS_MATRIX_ROUNDS} rounds, a scenario and "
-          f"{2 * len(RANKS_MATRIX_RULES)} fusions: {time.time() - t0:.1f} s "
-          f"with start-up", flush=True)
+          f"{RANKS_MATRIX_ROUNDS} rounds, a scenario, "
+          f"{2 * len(RANKS_MATRIX_RULES)} fusions, "
+          f"{len(RANKS_REST_RUNS)} async, tier and store runs and 3 "
+          f"checkpointed runs: {time.time() - t0:.1f} s with start-up",
+          flush=True)
     steps = train.parse_args([]).steps_per_epoch
+    by_label = {}
     for (label, _, (reduces, gathers)), argv, ranks in zip(
             RANKS_MATRIX_RUNS, argvs, zip(*[r["runs"] for r in per_rank])):
+        by_label[label] = ranks
         args = train.parse_args(argv)
         task, fl, parts, get_batch, test = train.fl_inputs(args)
         init = task.init_fn(torch.Generator().manual_seed(args.seed))
@@ -6450,6 +6688,7 @@ def phase_ranks_matrix():
                   f"({counts['staged']['all_gather']:,} B staged)",
                   flush=True)
             i += 1
+    ranks_rest(per_rank, by_label[RANKS_REST_MMAP_OF], smi)
     took = time.time() - t0
     print(f"  ranks matrix phase {took:.1f} s (budget "
           f"{RANKS_MATRIX_BUDGET_S} s)", flush=True)

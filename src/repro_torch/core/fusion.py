@@ -33,19 +33,22 @@ buffer, its result in the segment's dtype; with them, each grouped leaf
 reduces per group column with that column's weights.
 
 ``shard=RowShard(...)`` fuses a cohort whose rows are split over the
-"data" ranks of a mesh (fl/engine.py): each rank holds its block of
-rows and the whole cohort's weights, normalizes them globally as the
-one-process route does, sums its rows' weighted parameters (per group
-column under Eq. 19's presence weights) in fp32, and ONE all-reduce per
-dtype segment adds the ranks' partial sums; each segment's result is
-cast to its dtype. This is the reference's mean over a sharded cohort
-axis, which lowers to one all-reduce: paired averaging costs exactly
-FedAvg's collective. No kernel: the reference keeps the fusion kernel
-off on a mesh of more than one device. A reducing robust rule sorts
-every row of a coordinate, so under ``shard`` each segment's rows are
-all-gathered instead (``RowShard.gather``: one all-gather per dtype
-segment, in slot order) and every rank runs the one-process reduction
-on the whole cohort: the one-process bits on the same rows.
+"data" ranks of a mesh (fl/engine.py): each rank holds its rows (the
+sync round's contiguous block of the cohort, or, for an async event,
+the slots of the K-row buffer whose updates it computed, which need not
+be contiguous) and the whole cohort's weights, normalizes them globally
+as the one-process route does, sums its rows' weighted parameters (per
+group column under Eq. 19's presence weights) in fp32, and ONE
+all-reduce per dtype segment adds the ranks' partial sums; each
+segment's result is cast to its dtype. This is the reference's mean
+over a sharded cohort axis, which lowers to one all-reduce: paired
+averaging costs exactly FedAvg's collective. No kernel: the reference
+keeps the fusion kernel off on a mesh of more than one device. A
+reducing robust rule sorts every row of a coordinate, so under
+``shard`` each segment's rows are all-gathered instead
+(``RowShard.gather``: one all-gather per dtype segment, in slot order)
+and every rank runs the one-process reduction on the whole cohort: the
+one-process bits on the same rows.
 """
 from __future__ import annotations
 
@@ -61,11 +64,12 @@ from repro_torch.models.module import flat_parts, tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class RowShard:
-    """This rank's block ``[lo, hi)`` of a cohort of ``total`` rows;
-    ``reduce``, the in-place sum of a tensor over the ranks that hold
-    the other blocks (``launch/collectives.all_reduce`` over "data"),
-    and ``gather``, this block of rows (hi - lo, ...) -> the whole
-    cohort's (total, ...) in slot order
+    """The rows this rank holds of a cohort of ``total`` rows: the block
+    ``[lo, hi)``, or, where ``index`` is given, the slots it lists in
+    ascending order (``lo``, ``hi`` then bound them); ``reduce``, the
+    in-place sum of a tensor over the ranks that hold the other rows
+    (``launch/collectives.all_reduce`` over "data"), and ``gather``,
+    this rank's rows -> the whole cohort's (total, ...) in slot order
     (``launch/collectives.all_gather_rows``; None where only the mean
     runs)."""
     lo: int
@@ -73,6 +77,14 @@ class RowShard:
     total: int
     reduce: Callable
     gather: Callable | None = None
+    index: tuple | None = None
+
+    @property
+    def rows(self):
+        """This rank's slots: a slice of the block, or the index."""
+        if self.index is None:
+            return slice(self.lo, self.hi)
+        return list(self.index)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,7 +237,7 @@ def _sharded_mean(stacked, layout, group_axes, w, gw, shard: RowShard):
     on grouped leaves, of ``gw`` (N, G), summed in fp32, then one
     ``shard.reduce`` per dtype segment; each segment cast to its
     dtype."""
-    rows = slice(shard.lo, shard.hi)
+    rows = shard.rows
     wl = w[rows]
     acc = tree_map(lambda x: torch.zeros(x.shape[1], dtype=torch.float32,
                                          device=x.device), stacked)

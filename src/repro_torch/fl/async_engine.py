@@ -39,6 +39,21 @@ client-stateless, device-fused methods; scaffold, fedma and
 presence-weighted fed2 refuse. The clients are stateless, so the
 population's store holds only the side arrays (``store='mmap'`` maps
 them from disk).
+
+On a mesh of ranks (``mesh=``, a ``launch.mesh.RankMesh``) every rank
+runs the same event loop: the same sampler and batch draws, the same
+latency trace, so the same dispatches, arrivals and staleness. A
+dispatch group's padded tile is split over "data" as a sync cohort is
+(``engine.local_phase`` on this rank's block of rows), and each
+dispatch's row stays on the rank that computed it; every rank records
+which rank holds each row (``_Dispatch.holder``). An event fuses each
+rank's weighted partial sum over the rows it holds (their slots of the
+K-row buffer: ``engine.slot_shard``) with ONE all-reduce per dtype
+segment, and every rank takes the server step, so every rank ends each
+event with the same global. No client state moves: the methods are
+client-stateless. With ``buffer_k == cohort_size``, zero latency and
+the constant discount an event's rows are a sync cohort's blocks, and
+the run equals the sync run on the same ranks to the bit.
 """
 from __future__ import annotations
 
@@ -223,6 +238,18 @@ class AsyncEngine:
     buffer: Any               # (K, M_d) event rows per dtype segment
 
     @property
+    def mesh(self):
+        """This rank's ``RankMesh`` (the engine's), or None."""
+        return self.engine.mesh
+
+    @property
+    def slot_owner(self) -> np.ndarray:
+        """(cohort_size,) the "data" coordinate computing each slot of a
+        dispatch group's tile (all 0 in one process)."""
+        from repro_torch.launch.mesh import data_owner
+        return data_owner(self.cohort_size, self.mesh)
+
+    @property
     def layout(self):
         return self.engine.layout
 
@@ -235,17 +262,21 @@ class AsyncEngine:
 
     def local_fn(self, global_params, batches) -> torch.Tensor:
         """One dispatch group's padded cohort tile: broadcast + the local
-        phase. Returns the engine's (C, M) cohort buffer, which the next
-        tile overwrites."""
+        phase, over this rank's rows ``engine.rows`` (all of them in one
+        process; ``batches`` are those rows'). Returns the engine's
+        cohort buffer, which the next tile overwrites."""
         stacked, _ = self.engine.local_phase((), (), global_params,
                                              batches, self.engine.ctx)
         return stacked
 
-    def event_fn(self, server_state, global_params, rows, weights):
+    def event_fn(self, server_state, global_params, rows, weights,
+                 shard=None):
         """Fuse one event's (K, M) ``rows`` under the raw effective
         ``weights`` (K,) and apply the server step: (server_state, new
-        global)."""
-        ctx = self.engine.round_ctx(weights)
+        global). ``shard``: on a mesh of ranks, the ``RowShard`` of the
+        event's slots this rank holds, ``rows`` those slots' rows."""
+        ctx = dataclasses.replace(self.engine.round_ctx(weights),
+                                  shard=shard)
         fused = self.method.fuse(rows, global_params, ctx)
         return self.method.server_update(server_state, (), (),
                                          global_params, fused, ctx)
@@ -255,9 +286,13 @@ def make_async_engine(task, cfg, params_like, *, device,
                       use_kernel: bool | None = None,
                       use_local_kernel: bool = False,
                       method: FedMethod | None = None,
-                      grad_chunk: int | None = None) -> AsyncEngine:
+                      grad_chunk: int | None = None,
+                      mesh=None) -> AsyncEngine:
     """The async engine for (task, cfg, method): the sync engine at
-    ``cfg.cohort_size`` and a ``buffer_k``-row event buffer."""
+    ``cfg.cohort_size`` and a ``buffer_k``-row event buffer. ``mesh``:
+    None, a one-device mesh, or this rank's ``RankMesh`` (the tiles'
+    rows split over "data", each event fused over the ranks; a rank's
+    rows of an event fill the front of its buffer)."""
     from repro_torch.fl.engine import make_round_engine
 
     meth = method if method is not None else methods_lib.get(cfg.method)
@@ -265,7 +300,8 @@ def make_async_engine(task, cfg, params_like, *, device,
     engine = make_round_engine(task, cfg, params_like, device=device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,
-                               method=meth, grad_chunk=grad_chunk)
+                               method=meth, grad_chunk=grad_chunk,
+                               mesh=mesh)
     k = cfg.buffer_k if cfg.buffer_k is not None else cfg.cohort_size
     return AsyncEngine(cohort_size=cfg.cohort_size, buffer_k=k,
                        method=meth, engine=engine,
@@ -326,8 +362,10 @@ class _Dispatch:
     version: int
     t_start: float
     t_finish: float
-    update: torch.Tensor | None = None
+    update: torch.Tensor | None = None   # on the rank that holds it
     weight: float = 0.0
+    holder: int | None = None   # "data" coordinate of the rank holding
+    #                             the row; None until computed
 
 
 class AsyncFederation:
@@ -397,14 +435,17 @@ class AsyncFederation:
         """Run the padded cohort tile of every global version the
         arrivals still need, together with the other pending dispatches
         of that version, so a version's dispatch group costs ONE tile.
-        Each dispatch keeps a copy of its row: the next tile overwrites
-        the cohort buffer."""
+        Each dispatch keeps a copy of its row (the next tile overwrites
+        the cohort buffer) on the rank that computed it, and every rank
+        records that rank."""
         from repro_torch.fl.runtime import device_batches, pad_tile_inputs
 
-        for v in sorted({d.version for d in arrivals if d.update is None}):
+        rows = self.engine.engine.rows
+        owner = self.engine.slot_owner
+        for v in sorted({d.version for d in arrivals if d.holder is None}):
             group = sorted(
                 [d for d in list(arrivals) + self.pending
-                 if d.version == v and d.update is None],
+                 if d.version == v and d.holder is None],
                 key=lambda d: d.seq)
             _, w, _, batches = pad_tile_inputs(
                 self.pop, [d.client for d in group],
@@ -414,22 +455,35 @@ class AsyncFederation:
             gp_v = (global_params if v == self.version
                     else self.old_globals[v])
             stacked = self.engine.local_fn(
-                gp_v, device_batches(batches, self.engine.device))
+                gp_v, device_batches(batches, self.engine.device, rows))
             self.local_tiles += 1
             for i, d in enumerate(group):
-                d.update = tree_map(lambda x, i=i: x[i].clone(), stacked)
+                d.holder = int(owner[i])
                 d.weight = float(w[i])
+                if rows.start <= i < rows.stop:
+                    d.update = tree_map(
+                        lambda x, i=i - rows.start: x[i].clone(), stacked)
             self.old_globals.pop(v, None)
 
     def _fuse(self, server_state, global_params):
+        from repro_torch.fl.engine import slot_shard
+
         staleness = [self.version - d.version for d in self.buffer]
         w_eff = effective_weights([d.weight for d in self.buffer],
                                   staleness, self.policy)
+        shard = slot_shard([d.holder for d in self.buffer],
+                           self.engine.mesh)
+        mine = [d for d in self.buffer if d.update is not None]
         rows = self.engine.buffer
-        for i, d in enumerate(self.buffer):
+        if shard is not None:         # this rank's rows, in slot order
+            rows = tree_map(lambda b: b[:len(mine)], rows)
+        for i, d in enumerate(mine):
             tree_map(lambda r, u, i=i: r[i].copy_(u), rows, d.update)
-        server_state, new_global = self.engine.event_fn(
-            server_state, global_params, rows, w_eff)
+        args = (server_state, global_params, rows, w_eff)
+        # one process calls the event program with its four arguments
+        server_state, new_global = (
+            self.engine.event_fn(*args) if shard is None
+            else self.engine.event_fn(*args, shard=shard))
         self.fused_seqs.append([d.seq for d in self.buffer])
         self.events.append({
             "version": self.version,
@@ -440,7 +494,7 @@ class AsyncFederation:
         })
         # the outgoing global stays live only while a pending dispatch
         # still needs it for its (lazy) local tile
-        if any(d.version == self.version and d.update is None
+        if any(d.version == self.version and d.holder is None
                for d in self.pending):
             self.old_globals[self.version] = global_params
         self.buffer = []
@@ -486,18 +540,20 @@ def run_async_federated(task, cfg, parts, get_batch, test_batches, *,
                         group_spec=None, use_kernel=None,
                         use_local_kernel: bool = False, device=None,
                         init_params=None,
-                        grad_chunk: int | None = None) -> dict:
+                        grad_chunk: int | None = None, mesh=None) -> dict:
     """Buffered-async counterpart of ``runtime.run_federated``: the same
     history contract with one row per FUSION EVENT, plus the per-event
     ``staleness`` lists and simulated ``sim_time`` under the latency
     trace. ``cfg.rounds`` counts fusion events, ``cfg.cohort_size`` is
     the in-flight concurrency, ``cfg.buffer_k`` updates fuse per event
     under the ``cfg.staleness`` discount. Presence-weighted group fusion
-    refuses (``check_async_support``)."""
-    from repro_torch.fl.runtime import close_history, initial_params, \
-        resolve_device
+    refuses (``check_async_support``). ``mesh``: None, a one-device mesh,
+    or this rank's ``RankMesh`` (the module docstring says how the
+    ranks split the run; every rank returns the same history)."""
+    from repro_torch.fl.runtime import initial_params, resolve_device
 
-    device = resolve_device(device)
+    device = resolve_device(device if device is not None
+                            else getattr(mesh, "device", None))
     if len(parts) != cfg.population:
         raise ValueError(
             f"run_async_federated got {len(parts)} client shards for "
@@ -521,20 +577,22 @@ def run_async_federated(task, cfg, parts, get_batch, test_batches, *,
     # store="mmap" parts and weights come off read-only memory maps and
     # a dispatch reads just its clients' rows
     from repro_torch.fl import statestore as statestore_lib
-    pop.use_store(statestore_lib.get(cfg.store, chunk_size=cfg.chunk_size))
+    from repro_torch.fl.runtime import store_rank
+    pop.use_store(statestore_lib.get(cfg.store, chunk_size=cfg.chunk_size,
+                                     rank=store_rank(mesh)))
     try:
         return _async_run(task, cfg, pop, sampler, trace, policy, rng,
                           params, get_batch, test_batches, log=log,
                           use_kernel=use_kernel,
                           use_local_kernel=use_local_kernel, method=method,
-                          device=device, grad_chunk=grad_chunk)
+                          device=device, grad_chunk=grad_chunk, mesh=mesh)
     finally:
         pop.store.close()
 
 
 def _async_run(task, cfg, pop, sampler, trace, policy, rng, params,
                get_batch, test_batches, *, log, use_kernel,
-               use_local_kernel, method, device, grad_chunk) -> dict:
+               use_local_kernel, method, device, grad_chunk, mesh) -> dict:
     """``run_async_federated`` once its population holds its store: the
     engine, the event loop and the history."""
     from repro_torch.fl.runtime import close_history
@@ -542,13 +600,14 @@ def _async_run(task, cfg, pop, sampler, trace, policy, rng, params,
     engine = make_async_engine(task, cfg, params, device=device,
                                use_kernel=use_kernel,
                                use_local_kernel=use_local_kernel,
-                               method=method, grad_chunk=grad_chunk)
+                               method=method, grad_chunk=grad_chunk,
+                               mesh=mesh)
     global_params = engine.layout.flatten(params)
     server_state = engine.init_server_state(global_params)
     eval_engine = evaluation_lib.make_eval_engine(task.predict_fn,
                                                   task.n_classes)
     eval_tiles = evaluation_lib.stage(test_batches, tile=cfg.eval_batch,
-                                      device=device)
+                                      device=device, mesh=mesh)
 
     driver = AsyncFederation(engine, pop, sampler, cfg, get_batch,
                              cfg.local_epochs * cfg.steps_per_epoch, rng,

@@ -33,6 +33,15 @@ full index at most once (checked when it is built), so the adds are
 deterministic on the card. The combine is plain torch, as the JAX
 package computes it with ``jnp`` ops outside any Pallas kernel.
 
+On a mesh of ranks (``mesh=``) every tier's engine splits its tile's
+rows over "data" as a sync cohort splits (fl/engine.py), so each
+tier's within-tier mean comes back the same on every rank (one
+all-reduce a tier) and the combine and the server step run unchanged
+on every rank. A tier whose tile has fewer rows than the "data" axis
+runs its tile whole on every rank, replicated, with no collective (the
+JAX package keeps such an axis replicated too: its async buffer,
+``_shardable``), on the fusion route of the mesh (no kernel).
+
 Only methods whose fuse is affine in the weighted client mean support
 tiers (``compat.check_tier_support``): fedavg, fedprox, fed2, fednova,
 fedavgm, fedadam; scaffold and fedma refuse. A single width-1.0 tier is
@@ -473,11 +482,14 @@ def _tile_maps(full_layout: FlatLayout, tier_layout: FlatLayout, slices,
 def make_tiered_engine(task, cfg, params_like, plan: TierPlan, *, device,
                        use_kernel=None, use_local_kernel: bool = False,
                        method=None, use_gw: bool = False,
-                       grad_chunk: int | None = None) -> TieredEngine:
+                       grad_chunk: int | None = None,
+                       mesh=None) -> TieredEngine:
     """Per-tier engines and the overlap-aware combine. ``task`` must
-    carry ``tier_fn`` (``cnn_task`` wires ``cnn_tier_model``)."""
+    carry ``tier_fn`` (``cnn_task`` wires ``cnn_tier_model``). ``mesh``:
+    None, a one-device mesh, or this rank's ``RankMesh`` (the module
+    docstring says how the tiles split)."""
     from repro_torch.fl import methods as methods_lib
-    from repro_torch.fl.engine import make_round_engine
+    from repro_torch.fl.engine import make_round_engine, resolve_use_kernel
 
     meth = method if method is not None else methods_lib.get(cfg.method)
     check_tier_support(meth)
@@ -488,10 +500,11 @@ def make_tiered_engine(task, cfg, params_like, plan: TierPlan, *, device,
             "this task has no tier_fn: capacity tiers are defined for "
             "model families with a sub-model builder (cnn_task)")
     base_cfg = dataclasses.replace(cfg, tiers=None)
-    kw = dict(device=device, use_kernel=use_kernel,
+    kw = dict(device=device, use_kernel=resolve_use_kernel(use_kernel, mesh),
               use_local_kernel=use_local_kernel, method=meth,
               grad_chunk=grad_chunk)
-    full = make_round_engine(task, base_cfg, params_like, **kw)
+    full = make_round_engine(task, base_cfg, params_like, mesh=mesh, **kw)
+    data = 1 if mesh is None or mesh.size == 1 else mesh.shape["data"]
     tiles = []
     for width, count in plan.mix:
         model = task.tier_fn(width)
@@ -500,7 +513,10 @@ def make_tiered_engine(task, cfg, params_like, plan: TierPlan, *, device,
         # cohort-sized samplers fewer (padded at zero weight)
         tier_cfg = dataclasses.replace(base_cfg, cohort_size=count)
         tparams = model.task.init_fn(torch.Generator().manual_seed(0))
-        engine = make_round_engine(model.task, tier_cfg, tparams, **kw)
+        # a tile narrower than "data" runs whole on every rank
+        engine = make_round_engine(model.task, tier_cfg, tparams,
+                                   mesh=mesh if count >= data else None,
+                                   **kw)
         kept = model.model_cfg.fed2_groups or 1
         index, column = _tile_maps(full.layout, engine.layout, model.slices,
                                    use_gw, kept)
@@ -542,8 +558,8 @@ def run_tiered_round(tiered: TieredEngine, pop, method, server_state,
         use_gw = tiered.use_gw and gw is not None
         _, fuse_out = tile.engine.run_tile(
             (), server_state, tile.extract(global_params),
-            device_batches(batches, tile.engine.device), weights=w,
-            group_weights=gw if use_gw else None)
+            device_batches(batches, tile.engine.device, tile.engine.rows),
+            weights=w, group_weights=gw if use_gw else None)
         means.append(fuse_out)
         w_masses.append(float(w.sum()))
         g_masses.append(gw.sum(axis=0) if use_gw else None)

@@ -97,8 +97,10 @@ the one-process step on the whole cohort. FedMA's fuse gathers the
 trained rows and every rank runs the host matching. So every rank ends
 the round with the same global. The fusion kernel is off there
 (``resolve_use_kernel``). Every method and every axis of the sync
-round runs on ranks; what does not (async, tiers, the mmap store,
-checkpoints) refuses up front in fl/runtime.py (``refuse_on_ranks``).
+round runs on ranks, and so do the engines built on this one: the
+capacity tiers' tiles (fl/capacity.py) and the async engine's dispatch
+groups and events (fl/async_engine.py, whose event rows lie where they
+were computed: ``slot_shard``).
 
 ``lower_round`` builds the round's device program (``device_round``:
 ``run_round`` up to ``host_fuse``) and its arguments on ``meta``, each
@@ -151,22 +153,9 @@ def resolve_use_kernel(use_kernel: bool | None, mesh) -> bool:
     return use and (mesh is None or mesh.size == 1)
 
 
-RANKS_ITEM = "ROADMAP Queue 1 item 2"
-
-
-def refuse_on_ranks(mesh, what: str) -> None:
-    """Raise for ``what`` on a mesh of more than one rank, which runs
-    the sync round only; nothing falls back to one process."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.size} ranks is not ported yet "
-            f"({RANKS_ITEM}); ranks refuse async rounds, capacity tiers, "
-            "the mmap store and FL checkpoints")
-
-
 def _row_shard(cfg, mesh):
-    """The fusion's ``RowShard`` of this rank on ``mesh`` (None on one
-    process)."""
+    """The fusion's ``RowShard`` of this rank on ``mesh``: its block of
+    the cohort's rows (None on one process)."""
     if mesh is None or mesh.size == 1:
         return None
     from repro_torch.launch.collectives import all_gather_rows, all_reduce
@@ -176,6 +165,23 @@ def _row_shard(cfg, mesh):
     return fusion_lib.RowShard(
         lo, hi, n, lambda t: all_reduce(t, mesh, "data"),
         lambda t: all_gather_rows(t, mesh, "data", n))
+
+
+def slot_shard(owner, mesh):
+    """The ``RowShard`` of the slots this rank holds when ``owner`` (n,)
+    names each slot's "data" coordinate (an async event's rows, which
+    lie on the rank that computed them); None on one process."""
+    if mesh is None or mesh.size == 1:
+        return None
+    from repro_torch.launch.collectives import all_gather_rows, all_reduce
+    owner = np.asarray(owner, np.int64)
+    n = len(owner)
+    mine = tuple(int(i) for i in np.flatnonzero(
+        owner == mesh.coord("data")))
+    return fusion_lib.RowShard(
+        mine[0] if mine else 0, mine[-1] + 1 if mine else 0, n,
+        lambda t: all_reduce(t, mesh, "data"),
+        lambda t: all_gather_rows(t, mesh, "data", n, owner), index=mine)
 
 
 def resolve_local_unroll(cfg, local_steps: int) -> int:

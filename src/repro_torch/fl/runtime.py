@@ -60,8 +60,14 @@ every rank ends each round with the same global and the same history,
 and rank 0 logs. Ranks run the whole sync round: every method, every
 feature axis (data poisoning packs the poisoned batches on every rank),
 one-shot fusion and cohort tiling (each tile's rows split over "data"
-as one cohort's are). Async rounds, capacity tiers, the mmap store and
-FL checkpoints refuse up front there.
+as one cohort's are); and the rest of the federation: capacity tiers
+(each tier's tile split over "data", fl/capacity.py), buffered-async
+events (fl/async_engine.py), the ``mmap`` store (every rank keeps a
+whole replica of the population's rows, as the memory store does, in
+shards of its own: fl/statestore.py) and FL checkpoints: rank 0 writes
+each one (an mmap store's shards included) and every rank waits at a
+barrier until it is published; on resume every rank reads it whole,
+and one process resumes it too.
 
 Everything runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no device named, ``run_federated``
@@ -82,8 +88,9 @@ from repro_torch.core import fusion as fusion_lib
 from repro_torch.fl import evaluation as evaluation_lib
 from repro_torch.fl import methods as methods_lib
 from repro_torch.fl import population as population_lib
-from repro_torch.fl.engine import make_round_engine, refuse_on_ranks
+from repro_torch.fl.engine import make_round_engine
 from repro_torch.fl.population import Population
+from repro_torch.launch.collectives import barrier
 from repro_torch.models.module import tree_map
 
 
@@ -562,7 +569,8 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
 
     checkpoint_dir: save the resumable run state (global params, server
     state, the population's client state, the host rng) after every
-    ``checkpoint_every``-th round and after the last; with
+    ``checkpoint_every``-th round and after the last (on ranks: rank 0
+    writes, the others wait for it); with
     ``resume=True`` an existing checkpoint restores it and the loop
     continues from the saved round, equal to the uninterrupted run to
     the bit (the history then covers only the resumed rounds; resuming
@@ -582,12 +590,6 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             f"run_federated got {len(parts)} client shards for "
             f"FLConfig.population={cfg.population}")
     cfg = one_shot_config(cfg)
-    for what, on in ((f"mode={cfg.mode!r}", cfg.mode == "async"),
-                     ("capacity tiers", cfg.tiers not in (None, "", ())),
-                     (f"store={cfg.store!r}", cfg.store != "memory"),
-                     ("FL checkpoints", bool(checkpoint_dir or resume))):
-        if on:
-            refuse_on_ranks(mesh, what)
     if getattr(mesh, "rank", 0) != 0:
         log = None                 # rank 0 logs
     if cfg.mode == "async":
@@ -602,7 +604,8 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             task, cfg, parts, get_batch, test_batches, latency=latency,
             log=log, class_counts=class_counts, group_spec=group_spec,
             use_kernel=use_kernel, use_local_kernel=use_local_kernel,
-            device=device, init_params=init_params, grad_chunk=grad_chunk)
+            device=device, init_params=init_params, grad_chunk=grad_chunk,
+            mesh=mesh)
     if latency != "zero":
         from repro_torch.fl import async_engine as async_lib
         async_lib.parse_latency(latency)   # helpful error for typos
@@ -628,7 +631,8 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
             and group_spec is not None:
         gw = fusion_lib.presence_group_weights(class_counts, group_spec)
     pop = Population.from_parts(parts, group_weights=gw)
-    pop.use_store(statestore_lib.get(cfg.store, chunk_size=cfg.chunk_size))
+    pop.use_store(statestore_lib.get(cfg.store, chunk_size=cfg.chunk_size,
+                                     rank=store_rank(mesh)))
     try:
         return _sync_rounds(task, cfg, pop, method, sampler, params,
                             get_batch, test_batches, rng, log=log,
@@ -640,6 +644,13 @@ def run_federated(task: FLTask, cfg: FLConfig, parts, get_batch,
                             mesh=mesh)
     finally:
         pop.store.close()      # out-of-core stores drop their shards
+
+
+def store_rank(mesh):
+    """The rank a client-state store is built for: this rank's number on
+    a mesh of more than one rank (each keeps its own replica), else
+    None."""
+    return None if mesh is None or mesh.size == 1 else mesh.rank
 
 
 def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
@@ -676,7 +687,7 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
                 task, cfg, params, plan, device=device,
                 use_kernel=use_kernel, use_local_kernel=use_local_kernel,
                 method=method, use_gw=pop.group_weights is not None,
-                grad_chunk=grad_chunk)
+                grad_chunk=grad_chunk, mesh=mesh)
     if tiered is not None:
         engine = tiered.full
     else:
@@ -701,6 +712,8 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
             checkpoint_dir):
         start_round, global_params, server_state = restore_run(
             checkpoint_dir, layout, global_params, server_state, pop, rng)
+    if checkpoint_dir:             # every rank has read before rank 0
+        barrier(mesh)              # writes
     already_complete = start_round >= cfg.rounds
 
     history = {"round": [], "acc": [], "wall": [], "participants": []}
@@ -734,8 +747,10 @@ def _sync_rounds(task, cfg, pop, method, sampler, params, get_batch,
                 round_idx=r)
         if checkpoint_dir and ((r + 1) % checkpoint_every == 0
                                or r == cfg.rounds - 1):
-            save_run(checkpoint_dir, r + 1, layout, global_params,
-                     server_state, pop, rng)
+            if getattr(mesh, "rank", 0) == 0:
+                save_run(checkpoint_dir, r + 1, layout, global_params,
+                         server_state, pop, rng)
+            barrier(mesh)          # published before any rank goes on
         c = eval_and_record(r, np.asarray(ids))
         if log:                    # logging opts into a per-round sync
             log(f"round {r:3d} acc "
@@ -755,7 +770,8 @@ def save_run(path, round_idx, layout, global_params, server_state, pop,
     reference's params trees, the client state as the store's shards
     (incremental stores) or as one stacked tree. A device-resident
     client stack (the whole-population fast path) is copied to the host
-    for the save and stays where it is."""
+    for the save and stays where it is. On a mesh of ranks rank 0 alone
+    calls it (every rank holds the same state)."""
     ckpt_io.save_fl_checkpoint(
         path, round_idx=round_idx,
         global_params=convert.flat_to_reference(global_params, layout),

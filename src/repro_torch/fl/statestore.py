@@ -24,6 +24,11 @@ per-client state lives behind a store that moves exactly those rows
   only the side arrays go to disk) and refuses a method with client
   rows (scaffold's control variates hold bfloat16 leaves, which numpy
   cannot map; the JAX package fails writing them too).
+- On a mesh of ranks every rank keeps a whole replica of the
+  population's rows (the sync round hands every rank the whole cohort's
+  new rows) in a store of its own: an ``mmap`` store built with
+  ``rank=r`` maps ``<dir>/rank<r>`` (or a temporary directory of its
+  own), so two ranks never write one shard file.
 - ``ShardIndices``: the ragged per-client sample indices
   (``Population.parts``) as one flat array and offsets, which
   ``MmapShardStore.offload_aux`` maps from disk with the weights and
@@ -231,9 +236,10 @@ class InMemoryStore(ClientStateStore):
     in_memory = True
     incremental = False
 
-    def __init__(self, chunk_size: int | None = None, dir: str | None = None):
-        # chunk_size/dir accepted for constructor parity with the
-        # out-of-core store (FLConfig passes both); neither applies here
+    def __init__(self, chunk_size: int | None = None, dir: str | None = None,
+                 rank: int | None = None):
+        # chunk_size/dir/rank accepted for constructor parity with the
+        # out-of-core store; none applies here
         self._tree: Any = ()
 
     def initialize(self, row_tree, population, layout=None, method=None):
@@ -290,7 +296,10 @@ class MmapShardStore(ClientStateStore):
     files are the reference's: one per reference leaf and shard, conv
     leaves HWIO, under the reference's names and ``layout()``. Resident
     memory is O(cohort) plus page cache the OS may reclaim; the full
-    population never materializes on the host."""
+    population never materializes on the host.
+
+    ``rank``: on a mesh of ranks, this rank's number: its shards live in
+    ``<dir>/rank<rank>``, or in a temporary directory of its own."""
 
     name = "mmap"
     summary = ("chunked mmap npy shards on disk, streaming gather/"
@@ -298,7 +307,8 @@ class MmapShardStore(ClientStateStore):
     in_memory = False
     incremental = True
 
-    def __init__(self, chunk_size: int = 1024, dir: str | None = None):
+    def __init__(self, chunk_size: int = 1024, dir: str | None = None,
+                 rank: int | None = None):
         if (not isinstance(chunk_size, int) or isinstance(chunk_size, bool)
                 or chunk_size <= 0):
             raise ValueError(
@@ -306,7 +316,9 @@ class MmapShardStore(ClientStateStore):
                 f"per shard), got {chunk_size!r}")
         self.chunk_size = chunk_size
         self._owns_dir = dir is None
-        self._dir = dir
+        self.rank = rank
+        self._dir = (os.path.join(dir, f"rank{rank}")
+                     if dir is not None and rank is not None else dir)
         self.population = 0
         self.n_shards = 0
         self._row_like: Any = ()     # one row's tree: the structure
@@ -324,7 +336,9 @@ class MmapShardStore(ClientStateStore):
     @property
     def dir(self) -> str:
         if self._dir is None:
-            self._dir = tempfile.mkdtemp(prefix="repro-torch-statestore-")
+            tag = "" if self.rank is None else f"rank{self.rank}-"
+            self._dir = tempfile.mkdtemp(
+                prefix=f"repro-torch-statestore-{tag}")
         return self._dir
 
     def _shard_path(self, j: int, c: int) -> str:

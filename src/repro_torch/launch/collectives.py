@@ -14,20 +14,28 @@ is the identity and runs nothing.
   chunks, chunk j sent to the rank at coordinate j; chunk i of the
   result came from the rank at coordinate i;
 - ``all_gather``: every rank's tensor, stacked in coordinate order;
-- ``all_gather_rows``: the blocks of rows of one tensor split over the
-  axis as ``launch/mesh.data_block`` splits them (unequal blocks
-  travel padded to the longest), joined in coordinate order.
+- ``all_gather_rows``: the rows of one tensor split over the axis,
+  joined in slot order: as ``launch/mesh.data_block`` splits them
+  (contiguous blocks in coordinate order), or as an ``owner`` vector
+  says (each slot's coordinate, as an async event's rows lie: a rank
+  holds the slots it owns, in ascending order); unequal shares travel
+  padded to the longest;
+- ``barrier``: every rank of the mesh waits for the others (an FL
+  checkpoint is published before any rank goes on).
 
 The backend decides how a tensor travels, never a failure: with
 ``nccl`` tensors go as they are; with ``gloo`` a CUDA tensor goes
 through a host copy and back. Every call is counted on the mesh
 (``mesh.counts``) by kind: calls, the bytes of this rank's tensor, and
-the bytes staged through the host (copied down plus copied back).
+the bytes staged through the host (copied down plus copied back). The
+three exchanges are always listed; a barrier (no bytes) only once one
+has run since the last reset.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 KINDS = ("all_reduce", "all_to_all", "all_gather")
@@ -45,14 +53,14 @@ class Counts:
         default_factory=lambda: dict.fromkeys(KINDS, 0))
 
     def add(self, kind: str, nbytes: int, staged: int) -> None:
-        self.calls[kind] += 1
-        self.bytes[kind] += nbytes
-        self.staged[kind] += staged
+        for d, n in ((self.calls, 1), (self.bytes, nbytes),
+                     (self.staged, staged)):
+            d[kind] = d.get(kind, 0) + n
 
     def reset(self) -> None:
         for d in (self.calls, self.bytes, self.staged):
-            for k in d:
-                d[k] = 0
+            d.clear()
+            d.update(dict.fromkeys(KINDS, 0))
 
     def as_dict(self) -> dict:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
@@ -139,19 +147,47 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out
 
 
-def all_gather_rows(t: torch.Tensor, mesh, axis: str, n: int) -> torch.Tensor:
-    """The ``n`` rows of a tensor split over ``axis`` in
-    ``np.array_split``'s blocks (``launch/mesh.data_block``), this rank
-    holding its block ``t``: the whole (n, ...) tensor, the blocks in
-    coordinate order. One ``all_gather`` of ``ceil(n / size)`` rows a
-    rank, a shorter block padded with zeros that are then dropped."""
+def all_gather_rows(t: torch.Tensor, mesh, axis: str, n: int,
+                    owner=None) -> torch.Tensor:
+    """The ``n`` rows of a tensor split over ``axis``, this rank holding
+    its share ``t``: the whole (n, ...) tensor in slot order. The shares
+    are ``np.array_split``'s blocks (``launch/mesh.data_block``), or,
+    with ``owner`` (n,), the coordinate that holds each slot: a rank's
+    share is the slots it owns, in ascending order. One ``all_gather``
+    of the longest share's rows a rank, a shorter share padded with
+    zeros that are then dropped."""
     if mesh.group(axis) is None:
         return t
-    base, extra = divmod(n, mesh.shape[axis])
-    longest = base + (extra > 0)
+    size = mesh.shape[axis]
+    if owner is None:             # np.array_split's blocks
+        base, extra = divmod(n, size)
+        owner = np.repeat(np.arange(size), [base + (i < extra)
+                                            for i in range(size)])
+    owner = np.asarray(owner)
+    if owner.shape != (n,):
+        raise ValueError(f"owner {owner.shape} for {n} rows")
+    held = np.bincount(owner, minlength=size)
+    if t.shape[0] != held[mesh.coord(axis)]:
+        raise ValueError(f"this rank holds {held[mesh.coord(axis)]} of the "
+                         f"{n} rows, got {t.shape[0]}")
+    longest = int(held.max())
     if t.shape[0] < longest:
         t = torch.cat([t, t.new_zeros((longest - t.shape[0],)
                                       + t.shape[1:])])
     g = all_gather(t, mesh, axis)
-    return torch.cat([g[i, :base + (i < extra)]
-                      for i in range(mesh.shape[axis])])
+    # slot s is row (its rank's slots before s) of its rank's share
+    pos = np.zeros(n, np.int64)
+    for i in range(size):
+        pos[owner == i] = np.arange(held[i])
+    return g[torch.as_tensor(owner, device=g.device),
+             torch.as_tensor(pos, device=g.device)]
+
+
+def barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits until all have arrived (the default
+    process group's ``barrier``); nothing on a mesh of one rank."""
+    import torch.distributed as dist
+    if mesh is None or mesh.size == 1:
+        return
+    dist.barrier()
+    mesh.counts.add("barrier", 0, 0)

@@ -30,6 +30,7 @@ import tempfile
 import time
 import traceback
 
+import numpy as np
 import torch
 
 from repro_torch.launch.collectives import Counts
@@ -117,6 +118,17 @@ def data_block(n: int, mesh) -> tuple:
     base, extra = divmod(n, parts)
     lo = i * base + min(i, extra)
     return lo, lo + base + (i < extra)
+
+
+def data_owner(n: int, mesh) -> np.ndarray:
+    """(n,) int64: the "data" coordinate whose ``data_block`` holds each
+    of ``n`` items (all 0 without a mesh of more than one rank)."""
+    if mesh is None or mesh.size == 1:
+        return np.zeros(n, np.int64)
+    parts = mesh.shape["data"]
+    base, extra = divmod(n, parts)
+    return np.repeat(np.arange(parts, dtype=np.int64),
+                     [base + (i < extra) for i in range(parts)])
 
 
 def make_rank_mesh(shape: tuple, *, device) -> RankMesh:

@@ -45,7 +45,7 @@ import ranks_parity as rp
 import torch_ranks
 from repro_torch.configs import vgg9
 from repro_torch.fl import attacks, scenarios
-from repro_torch.fl.engine import make_round_engine, refuse_on_ranks
+from repro_torch.fl.engine import make_round_engine
 from repro_torch.fl.runtime import FLConfig, cnn_task
 from repro_torch.launch import scenarios as launch_scenarios
 from repro_torch.launch.mesh import RankMesh, data_block
@@ -281,15 +281,3 @@ def test_every_axis_builds_on_ranks(kw):
     assert engine.rows == slice(3, 5) and engine.cohort.shape[0] == 2
     if engine.shadow is not None:
         assert engine.shadow.shape == (2, engine.layout.size)
-
-
-def test_refusals_name_what_stays_refused():
-    with pytest.raises(NotImplementedError) as e:
-        refuse_on_ranks(_mesh(2, 0), "mode='async'")
-    msg = str(e.value)
-    assert "ROADMAP Queue 1 item 2" in msg
-    for what in ("async", "capacity tiers", "mmap", "checkpoints"):
-        assert what in msg
-    for gone in ("fed2", "fedavg", "attack", "robust", "codec", "tiling"):
-        assert gone not in msg
-    refuse_on_ranks(_mesh(1, 0), "anything")      # one rank runs it all

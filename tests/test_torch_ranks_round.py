@@ -36,7 +36,7 @@ from repro_torch import convert
 from repro_torch.core import fusion
 from repro_torch.fl import evaluation
 from repro_torch.fl.engine import make_round_engine
-from repro_torch.fl.runtime import FLConfig, cnn_task, run_federated
+from repro_torch.fl.runtime import FLConfig, cnn_task
 from repro_torch.launch.mesh import RankMesh, data_block, spawn
 from repro_torch.models.module import Segments, tree_leaves
 
@@ -233,23 +233,6 @@ def test_fusion_reduces_once_per_dtype_segment(grouped):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
     torch.testing.assert_close(got[1], want[1].to(torch.bfloat16), rtol=0,
                                atol=2 ** -7)
-
-
-@pytest.mark.parametrize("kw,what", [
-    ({"mode": "async"}, "mode='async'"),
-    ({"tiers": "1.0x2,0.5x2"}, "capacity tiers"),
-    ({"store": "mmap"}, "store='mmap'"),
-    ({}, "FL checkpoints"),
-], ids=["async", "tiers", "mmap", "checkpoints"])
-def test_run_federated_on_ranks_refuses_up_front(kw, what, tmp_path):
-    task, fl, parts, get_batch, test, _ = torch_ranks.fl_inputs(
-        _argv("fedavg"), EVAL_BATCH)
-    fl = dataclasses.replace(fl, population=4, **{"cohort_size": None,
-                                                  **kw})
-    with pytest.raises(NotImplementedError, match=what):
-        run_federated(task, fl, parts[:4], get_batch, test, device="cpu",
-                      mesh=_mesh(2, 0),
-                      checkpoint_dir=None if kw else str(tmp_path))
 
 
 def test_host_mesh_equals_no_mesh():

@@ -8,6 +8,9 @@ one intra-op thread: the suite's xdist workers share the cores.
 """
 import contextlib
 import dataclasses
+import json
+import os
+import shutil
 import types
 
 import numpy as np
@@ -15,7 +18,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import fusion
-from repro_torch.fl import engine, robust, runtime, scenarios
+from repro_torch.fl import capacity, engine, robust, runtime, scenarios
 from repro_torch.fl.runtime import run_federated
 from repro_torch.kernels.local_step import local_step
 from repro_torch.launch import collectives, train
@@ -31,22 +34,32 @@ def _cpu(tree):
 
 @contextlib.contextmanager
 def rounds_traced():
-    """Within the block, every sync round of ``run_federated`` records
-    its new global (a params tree), and the last round its server state
-    and the population's client rows (CPU tensors; flat)."""
+    """Within the block, every sync round of ``run_federated`` (a tiered
+    one too) records its new global (a params tree), and the last round
+    its server state and the population's client rows (CPU tensors;
+    flat; an out-of-core store's gathered)."""
     seen = {"globals": [], "server": None, "clients": None}
     run_round = runtime.run_sampled_round
+    run_tiered = capacity.run_tiered_round
 
-    def spy(eng, pop, *args, **kw):
-        server, glob = run_round(eng, pop, *args, **kw)
-        seen["globals"].append(_cpu(eng.layout.unflatten(glob)))
-        seen["server"], seen["clients"] = _cpu(server), _cpu(pop.clients)
-        return server, glob
-    runtime.run_sampled_round = spy
+    def spying(fn):
+        def spy(eng, pop, *args, **kw):
+            server, glob = fn(eng, pop, *args, **kw)
+            layout = getattr(eng, "full", eng).layout
+            seen["globals"].append(_cpu(layout.unflatten(glob)))
+            seen["server"] = _cpu(server)
+            seen["clients"] = _cpu(
+                pop.clients if pop.store.in_memory
+                else pop.gather(np.arange(pop.size)))
+            return server, glob
+        return spy
+    runtime.run_sampled_round = spying(run_round)
+    capacity.run_tiered_round = spying(run_tiered)
     try:
         yield seen
     finally:
         runtime.run_sampled_round = run_round
+        capacity.run_tiered_round = run_tiered
 
 
 def fl_inputs(argv, eval_batch):
@@ -58,12 +71,15 @@ def fl_inputs(argv, eval_batch):
     return task, fl, parts, get_batch, test, args.use_local_kernel
 
 
-def run_fl(argv, eval_batch, init, mesh=None) -> dict:
+def run_fl(argv, eval_batch, init, mesh=None, **kw) -> dict:
     """One run of ``argv`` from the reference's ``init`` (numpy), on
-    ``mesh`` (None: one process on the CPU): its final params (a CPU
-    tree), accuracies, confusion counts, each round's global, the last
-    round's server state and client rows (``rounds_traced``), and this
-    process's local_step launches and collectives."""
+    ``mesh`` (None: one process on the CPU), ``kw`` passed on to
+    ``run_federated`` (``latency``, ``checkpoint_dir``, ``resume``): its
+    final params (a CPU tree), accuracies, confusion counts, each
+    round's global, the last round's server state and client rows
+    (``rounds_traced``), an async run's events (participants, staleness,
+    simulated times), and this process's local_step launches and
+    collectives."""
     task, fl, parts, get_batch, test, local = fl_inputs(argv, eval_batch)
     if mesh is not None:
         mesh.counts.reset()
@@ -71,14 +87,47 @@ def run_fl(argv, eval_batch, init, mesh=None) -> dict:
     with rounds_traced() as seen:
         h = run_federated(task, fl, parts, get_batch, test, device="cpu",
                           mesh=mesh, use_local_kernel=local,
-                          init_params=convert.to_port(init))
+                          init_params=convert.to_port(init), **kw)
     return {"final": tree_map(lambda t: t.detach().cpu(),
                               h["final_params"]),
             "acc": h["acc"], "confusion": h["confusion"],
             "globals": seen["globals"], "server": seen["server"],
             "clients": seen["clients"],
+            "events": {k: h[k] for k in ("participants", "staleness",
+                                         "sim_time", "local_tiles")
+                       if k in h},
             "local_step": local_step.launches - before,
             "collectives": None if mesh is None else mesh.counts.as_dict()}
+
+
+def checkpoint_listing(path) -> dict:
+    """A checkpoint directory's files (the clients' shard files under
+    ``clients/``) and its manifest."""
+    files = sorted(os.path.relpath(os.path.join(d, f), path)
+                   for d, _, fs in os.walk(path) for f in fs)
+    with open(os.path.join(path, "manifest.json")) as f:
+        return {"files": files, "manifest": json.load(f)}
+
+
+def case_rank(mesh, cases) -> list:
+    """Each case of ``cases`` on this rank: a dict with ``argv``,
+    ``eval_batch``, ``init`` and ``kw`` (``run_fl``'s), and optionally
+    ``snapshot``, a path where rank 0 copies the run's checkpoint
+    directory once the run is over. Each result carries the listing of
+    the run's checkpoint directory (``checkpoint_listing``), if any."""
+    torch.set_num_threads(1)
+    out = []
+    for case in cases:
+        kw = case.get("kw", {})
+        res = run_fl(case["argv"], case["eval_batch"], case["init"], mesh,
+                     **kw)
+        ck = kw.get("checkpoint_dir")
+        if ck is not None:
+            res["checkpoint"] = checkpoint_listing(ck)
+            if case.get("snapshot") and mesh.rank == 0:
+                shutil.copytree(ck, case["snapshot"])
+        out.append(res)
+    return out
 
 
 def fl_rank(mesh, runs) -> list:
@@ -186,3 +235,26 @@ def failing_rank(mesh) -> int:
     t = torch.zeros(1)
     collectives.all_reduce(t, mesh, "data")
     return int(np.asarray(t)[0])
+
+
+def gather_by_owner(mesh, owners) -> list:
+    """For each ``owner`` vector (n,), this rank's slots' rows (row s
+    filled with s) gathered over "data" by ``all_gather_rows(owner=)``,
+    with the collectives it ran."""
+    out = []
+    for owner in owners:
+        mesh.counts.reset()
+        mine = [s for s, o in enumerate(owner) if o == mesh.coord("data")]
+        t = torch.tensor(mine, dtype=torch.float32)[:, None].repeat(1, 3)
+        got = collectives.all_gather_rows(t, mesh, "data", len(owner),
+                                          owner)
+        out.append((got, mesh.counts.as_dict()))
+    return out
+
+
+def cases_specs_rank(mesh, cases, specs, outdir, owners=()) -> dict:
+    """A file's whole spawn: ``case_rank``'s runs, ``spec_rank``'s
+    scenario runs and the gathers by owner."""
+    return {"runs": case_rank(mesh, cases),
+            "spec": spec_rank(mesh, specs, outdir),
+            "gather": gather_by_owner(mesh, owners)}
