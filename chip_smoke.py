@@ -767,6 +767,19 @@ GMM_FFN_PRODUCTS = (("llama3.2-1b down", 1024, 256, 128),
                     ("h2o-danube-1.8b gate/up", 320, 864, 128),
                     ("stablelm-12b gate/up", 640, 1728, 64),
                     ("qwen2-7b gate/up", 448, 2368, 128))
+# the bf16 eval/prefill loss chunks of every LM's --mode lm step
+# (make_eval_step, make_prefill_loss_step: batch 8 x a 512-token loss
+# chunk, M = 4096 rows, twice a step) through its Fed2 unembedding, (d/8,
+# V/8) a group of 8; and the bf16 lm_task eval (64 x 64 tokens through
+# Mamba-2's unembedding in 4 groups), (G, K, N)
+GMM_EVAL_CHUNKS = (("mamba2-1.3b", 256, 6288), ("llama3.2-1b", 256, 16032),
+                   ("qwen2-7b", 448, 19008), ("stablelm-12b", 640, 12544),
+                   ("h2o-danube-1.8b/zamba2-2.7b", 320, 4000),
+                   ("mixtral-8x22b", 768, 4096),
+                   ("deepseek-v2-236b", 640, 12800),
+                   ("internvl2-2b", 256, 11584))
+GMM_EVAL_M = 4096
+GMM_LM_TASK_BF16 = (4, 512, 12576)
 # Whisper's serving path at full width in fp32 (TF32 off): frames (B,
 # 1500, 512) from a numpy seed, encdec_prefill_cache, then
 # WHISPER_DECODE_LEN decode steps (the Fed2 block's FFN on the kernel)
@@ -948,11 +961,12 @@ def phase_build():
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas ({name}, {demangled(entry)}):", line.strip())
     from repro_torch.kernels import grouped_matmul as gm
-    widths = [(1, c) for c in gm._PLAN_COLS]
-    for r, dt, plans in (("stream", torch.bfloat16, widths),
+    for r, dt, plans in (("stream", torch.bfloat16,
+                          [(1, c) for c in gm._PLAN_COLS]),
                          ("stream", torch.float32, [gm.DEFAULT_PLAN]),
                          ("wgmma", torch.bfloat16,
-                          widths + [(2, c) for c in gm._SPLIT_COLS]),
+                          [(1, c) for c in gm._WGMMA_COLS]
+                          + [(2, c) for c in gm._SPLIT_COLS]),
                          ("sgemm", torch.float32, [gm.DEFAULT_PLAN])):
         for p in plans:
             kind = (f", {'split' if p[0] > 1 else 'unsplit'}, {p[1]} "
@@ -960,6 +974,9 @@ def phase_build():
             print(f"  grouped_matmul {r} route, {str(dt)[6:]}{kind}: "
                   f"{gm.dynamic_smem(r, dt, p)} bytes of dynamic shared "
                   f"memory per block")
+    print("  grouped_matmul wgmma route, unsplit, row-tile pairs the card "
+          "holds at once: " + ", ".join(
+              f"{gm.wgmma_pairs(c)} at {c} columns" for c in gm._WGMMA_COLS))
 
 
 def demangled(symbol: str) -> str:
@@ -1499,15 +1516,17 @@ def phase_check_grouped_matmul() -> dict:
     route it names; on the bf16 stream and wgmma routes the plan the
     wrapper takes is printed, a split one (S > 1, wgmma: long K, and
     forced plans at the split kernel's edges) must repeat to the bit, an
-    unsplit one give DEFAULT_PLAN's bits, and a plan the kernel was not
-    built for (a split on the stream route among them) must raise.
-    Limits: 1e-4 sqrt(K) fp32 and 0.3 bf16, the reference's
-    (tests/test_kernels.py). The stream, wgmma and sgemm
-    routes must repeat to the bit, and every sgemm case must give the
-    simt route's bits on the same inputs. Times at M = 4 (stream) and
-    128 (wgmma) with each shape's plan, the decoupled FFN products also
-    under DEFAULT_PLAN (the parent design) and a split plan also unsplit
-    at its width, and at the fp32 LM rounds' evals (sgemm, beside the
+    unsplit one give DEFAULT_PLAN's bits (so must every unsplit width,
+    256 columns and the row-tile pairs among them, forced at the wgmma
+    kernel's edges), and a plan the kernel was not built for (a split on
+    the stream route among them) must raise. Limits: 1e-4 sqrt(K) fp32
+    and 0.3 bf16, the reference's (tests/test_kernels.py). The stream,
+    wgmma and sgemm routes must repeat to the bit, and every sgemm case
+    must give the simt route's bits on the same inputs. Times at M = 4
+    (stream) and 128 (wgmma) with each shape's plan, the decoupled FFN
+    products also under DEFAULT_PLAN and a split plan also unsplit at
+    its width, at every LM's bf16 eval chunk (M = 4096) and the bf16
+    lm_task eval, and at the fp32 LM rounds' evals (sgemm, beside the
     simt route on the same inputs)."""
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels.grouped_matmul import (grouped_matmul,
@@ -1526,10 +1545,11 @@ def phase_check_grouped_matmul() -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def check_one(name, route, lead, g, k, n, dt, bias=False,
-                  misalign=None, splits=None):
+                  misalign=None, splits=None, cols=None):
         """One case, which must launch through ``route``; ``misalign``
         ("x" or "w") puts that input one element off its alignment;
-        ``splits``, where given, is the S its plan must take. An sgemm
+        ``splits`` and ``cols``, where given, are the S and the width its
+        plan must take. An sgemm
         case must repeat to the bit and give the simt route's bits on
         the same inputs; a split case (S > 1) must repeat to the bit,
         and an unsplit case of a planned route must give the bits of
@@ -1550,6 +1570,8 @@ def phase_check_grouped_matmul() -> dict:
         p = gm.plan(route, xm.shape[0], g, k, n, sms, dt)
         assert splits is None or p[0] == splits, \
             f"grouped_matmul {name}: plan {p}, expected {splits} splits"
+        assert cols is None or p[1] == cols, \
+            f"grouped_matmul {name}: plan {p}, expected {cols} columns"
         label = (f"grouped_matmul {name} [{route}, plan {p}] x "
                  f"{tuple(x.shape)} w {tuple(w.shape)}"
                  f"{' + bias' if bias else ''} {str(dt)[6:]}")
@@ -1604,6 +1626,46 @@ def phase_check_grouped_matmul() -> dict:
     check_one("G = 1", "wgmma", (128,), 1, k0, n0, bf16)
     check_one("leading batch dim", "wgmma", (2, 64), g0, k0, n0, bf16,
               bias=True)
+    # the unsplit kernel's 256-column tiles and its cluster pairs (M past
+    # one row tile: two row tiles share w's boxes) through the plan: M off
+    # the row tile (4097: an odd count of row tiles, the last pair's second
+    # tile past M), N off the 256 columns, K off a stage and past the
+    # 4-stage ring, G = 1, a leading batch dimension with a bias
+    check_one("M off the row tile", "wgmma", (4097,), g0, k0, n0, bf16,
+              cols=256)
+    check_one("N off the columns, K past the ring", "wgmma", (4096,), g0,
+              600, 1000, bf16, cols=256)
+    check_one("K off a stage", "wgmma", (4096,), g0, 104, n0, bf16, cols=256)
+    check_one("G = 1", "wgmma", (4096,), 1, k0, 16032, bf16, cols=256)
+    check_one("leading batch dim", "wgmma", (8, 512), g0, k0, n0, bf16,
+              bias=True, cols=256)
+
+    def check_widths(name, lead, g, k, n):
+        """Every unsplit width forced on one case: within 0.3 of the plain
+        version, equal to itself on a relaunch and to DEFAULT_PLAN's
+        bits."""
+        x, w, _ = gmm_inputs(lead, g, k, n, bf16, gen)
+        want = grouped_matmul_ref(x, w)
+        base = gm.launch(x, w, "wgmma", gm.DEFAULT_PLAN)
+        for c in gm._WGMMA_COLS:
+            got = gm.launch(x, w, "wgmma", (1, c))
+            assert torch.equal(got, gm.launch(x, w, "wgmma", (1, c))), \
+                f"grouped_matmul {name} [wgmma, plan (1, {c})]: relaunch"
+            assert torch.equal(got, base), \
+                f"grouped_matmul {name} [wgmma, plan (1, {c})]: not the " \
+                f"bits of plan {gm.DEFAULT_PLAN}"
+            check(f"grouped_matmul {name} [wgmma, forced plan (1, {c})] x "
+                  f"{tuple(x.shape)} w {tuple(w.shape)}, repeats to the bit, "
+                  f"= plan {gm.DEFAULT_PLAN}'s bits", got, want, 0.3)
+
+    # each width alone and in pairs of row tiles: M = 100 (one row tile),
+    # 129 and 200 (two, the second ragged), 600 (five: the last pair's
+    # second tile past M); N off every width, K off a stage and past every
+    # width's ring (4-8 stages), G = 1
+    check_widths("widths, one row tile", (100,), 2, 600, 520)
+    check_widths("widths, a pair", (129,), 3, 104, 264)
+    check_widths("widths, a pair", (200,), 1, 600, 1000)
+    check_widths("widths, pairs", (600,), 2, 576, 600)
     # the sgemm route: M > 8 fp32, K and N multiples of 16 bytes; M, K
     # and N off the 128 x 128 tile and the 16-deep stage, K past the
     # 4-stage ring, K = 4, G = 1
@@ -1684,7 +1746,9 @@ def phase_check_grouped_matmul() -> dict:
     x, w, _ = gmm_inputs((4,), g0, 1024, 256, bf16, gen)
     for route, p in (("stream", (2, 64)), ("wgmma", (2, 192)),
                      ("wgmma", (3, 64)), ("stream", (16, 64)),
-                     ("stream", (1, 96)), ("wgmma", (16, 64))):
+                     ("stream", (1, 96)), ("wgmma", (16, 64)),
+                     ("stream", (1, 256)), ("wgmma", (2, 256)),
+                     ("wgmma", (1, 320))):
         xr = x if route == "stream" else x.repeat(32, 1)
         before = (grouped_matmul.launches,
                   dict(grouped_matmul.route_launches))
@@ -1697,8 +1761,9 @@ def phase_check_grouped_matmul() -> dict:
         assert (grouped_matmul.launches,
                 grouped_matmul.route_launches) == before
     print("  grouped_matmul plans stream (2, 64), (16, 64), (1, 96), "
-          "wgmma (2, 192), (3, 64), (16, 64): refused by the kernel "
-          "(cudaErrorInvalidValue), no launch counted ok")
+          "(1, 256), wgmma (2, 192), (3, 64), (16, 64), (2, 256), (1, 320): "
+          "refused by the kernel (cudaErrorInvalidValue), no launch counted "
+          "ok")
     # the stream and wgmma routes repeat to the bit (sgemm: check_one)
     for m in (4, 128):
         x, w, _ = gmm_inputs((m,), g0, k0, n0, bf16, gen)
@@ -1780,7 +1845,10 @@ def phase_check_grouped_matmul() -> dict:
     for label, m, g, k, n, dt in (
             ("serve M=4", 4, g0, k0, n0, bf16),
             ("serve M=128", 128, g0, k0, n0, bf16),
-            ("lm eval chunk M=4096", 4096, g0, k0, n0, bf16),
+            *((f"{arch} eval chunk M={GMM_EVAL_M}", GMM_EVAL_M, g0, k, n,
+               bf16) for arch, k, n in GMM_EVAL_CHUNKS),
+            (f"bf16 lm_task eval M={GMM_EVAL_M}", GMM_EVAL_M,
+             *GMM_LM_TASK_BF16, bf16),
             ("lm_task eval M=4096", 4096, 4, 512, 12576, f32),
             ("gffn gate/up M=4", 4, g0, 256, 1024, bf16),
             ("gffn down M=4", 4, g0, 1024, 256, bf16),

@@ -23,10 +23,10 @@
 // with a VMEM accumulator, K the last, sequential axis. Here the wrapper
 // picks one of four routes (its `route` function, from M, the dtype, the
 // strides and the alignment) and, on the bf16 stream and wgmma routes, a
-// plan (its `plan` function): the columns of a unit or tile (64, 128 or
-// 192: one to three 64-column TMA boxes) and, on the wgmma route, a split
-// S of K over a thread-block cluster (1, 2, 4 or 8; 64 or 128 columns when
-// split).
+// plan (its `plan` function): the columns of a unit (64, 128 or 192: one
+// to three 64-column TMA boxes) or a tile (those or 256: four boxes) and,
+// on the wgmma route, a split S of K over a thread-block cluster (1, 2, 4
+// or 8; 64 or 128 columns when split).
 // This file checks the route's and the plan's preconditions and returns
 // cudaErrorInvalidValue when they fail. It never changes route or plan.
 //
@@ -43,9 +43,13 @@
 // store), so it pays only past ~16 stages a split: a split in two needs
 // 2,048 rows of K on wgmma (qwen2's down product at M = 128, K = 2368)
 // and 4,096 on the stream route, which no product on a path has (at most
-// 2,368), so the stream route does not split. Where 192-column units or tiles fill the card (every
-// unembedding, eval chunk and M = 4096 shape) the plan is (1, 192): the
-// unsplit design, its bits and its times.
+// 2,368), so the stream route does not split. Where 192-column units fill
+// the card the stream plan is (1, 192). The wgmma plan takes the width of
+// the least waves of tiles times a tile's modelled time (its products or
+// its operand bytes into shared memory, the longer) plus the last wave's
+// stores: 256 columns at every eval chunk (M = 4096), 64-256 at the
+// unembeddings (M = 64-128). Every unsplit plan gives the same bits: each
+// output is one fp32 sum over K in 64-deep stages, in order.
 //
 // The TMA routes read w through a 3-D tensor map over (G, K, N) and (but
 // sgemm) x through one over (M, G, K), which zero-fill every box past the
@@ -82,21 +86,43 @@
 //   shared memory. Every sum runs in a fixed order, with no atomics: a run
 //   repeats to the bit.
 // - "wgmma" (M > 8, bf16): a GEMM per group on the tensor cores. Tiles of
-//   128 x 192 (33 column tiles x 8 groups = 264 = 2 x 132 at M <= 128),
-//   K in 64-deep stages through a ring of 4 stages (40 KB each), walked by
-//   one persistent block per SM, so the loads of a block's next tile run
-//   under the current tile's products and stores. One producer warp loads
-//   the x tile and three 64-column boxes of w with 128-byte swizzle; two
-//   consumer warpgroups each run wgmma m64n192k16 on 64 rows, w as an
-//   MN-major B operand, accumulating in fp32 registers. The tile leaves
-//   through a swizzled shared-memory buffer and a TMA store, which writes
-//   whole lines and clips at the M and N edges (bf16 pairs stored straight
-//   from the registers write 16 bytes of each 32-byte sector at a time:
-//   24 us instead of 15 on the H100). Tiles of 128 or 64 columns run
-//   m64n128k16 or m64n64k16 through 5 or 7 stages. At the FFN shapes a
-//   one-stage tile takes ~3.5 us (torch.bmm ~2.7-3.0) and x is read again
-//   for every column tile; the split kernel takes one tile a cluster of 2,
-//   as the plan never asks for more tiles than SMs.
+//   128 rows and 64, 128, 192 or 256 columns, K in 64-deep stages through
+//   a ring of 8, 6, 4 or 4 stages (24-48 KB each), walked by persistent
+//   blocks, so the loads of a block's next tile run under the current
+//   tile's products and stores. One producer warp loads each stage's x box
+//   and the tile's 64-column boxes of w with 128-byte swizzle; two
+//   consumer warpgroups each run wgmma m64nBNk16 on 64 rows (w an MN-major
+//   B operand; at 256 columns 128 fp32 sums a thread, 168 registers of
+//   the 224 that one 288-thread block an SM allows), one group of
+//   products in flight across stages (the slot before is freed then).
+//   Each consumer warp rounds its 16 rows to bf16 into 16 x 64 swizzled
+//   shared-memory chunks, two buffers a warp, and stores each by TMA while
+//   it writes the next, with no barrier but its own: TMA writes whole
+//   lines and clips at the M and N edges (bf16 pairs stored straight from
+//   the registers write 16 bytes of each 32-byte sector at a time: 24 us
+//   instead of 15 on the H100).
+//   What bounds it, measured on the H100 at the M = 4096 eval chunks
+//   (tools/gmm_plans.py breakdown: parts of the kernel taken out): the
+//   operand bytes that fill shared memory from L2 together with the
+//   stores of y, and the products with their per-tile epilogue, each
+//   near the kernel's time alone. The design before (128 x 192 tiles,
+//   one block a tile, N fastest) read x's box again for every column tile
+//   and w's for every row tile: 1.38 GB at Mamba-2's chunk (8, 256, 6288),
+//   162.5 us of loads alone and 251 us with the stores, its products
+//   hidden under them. So past one row tile blocks run in clusters of 2
+//   on neighbouring row tiles, each loading half of a stage's w boxes
+//   multicast to both (w read from L2 once for two row tiles); tiles are
+//   256 columns wide (x read once for 256 columns): 0.82 GB; and tiles
+//   run row tiles fastest, then columns, then groups, so the clusters in
+//   flight share a few w tiles and one group's x, which stay in L2
+//   (Llama's w is 66 MB, more than L2, and N fastest re-read it from
+//   device memory). At M = 64-128 one row tile is all of M: no pairs; the
+//   kernel is bound by w's bytes from device memory, and the last wave's
+//   stores overlap no load (so danube's unembedding runs two waves of 128
+//   columns rather than one of 256). At the FFN shapes a one-stage tile
+//   takes ~3.5 us (torch.bmm ~2.7-3.0) and x is read again for every
+//   column tile; the split kernel takes one 128 x 64 or 128 x 128 tile a
+//   cluster of 2, as the plan never asks for more tiles than SMs.
 // - "sgemm" (M > 8, fp32): a SIMT GEMM per group. The H100 issues one
 //   warp instruction a clock on each of an SM's four schedulers and runs
 //   an fp32 FMA warp-wide in one, so every instruction that is not an FMA
@@ -133,14 +159,17 @@
 //                             int splits, int cols, void* stream);
 //   int grouped_matmul_dynamic_smem(int route, int dtype, int splits,
 //                                   int cols);
+//   int grouped_matmul_wgmma_pairs(int cols);
 // dtype 0 = fp32, 1 = bf16; route 0 = stream, 1 = wgmma, 2 = simt,
 // 3 = sgemm; (splits, cols) the plan: (1, 64), (1, 128) or (1, 192) on
 // the bf16 stream route, any plan plan_fits takes on wgmma, (1, 192) on
 // the others. The launch returns cudaGetLastError() after the
 // launch, or the error of a refused tensor map or shared-memory
 // attribute, cudaErrorInvalidClusterSize where the card cannot hold one
-// cluster of the split, or cudaErrorInvalidValue for arguments the route
-// or the plan does not take.
+// cluster (of the split, or of a pair of row tiles), or
+// cudaErrorInvalidValue for arguments the route or the plan does not
+// take. grouped_matmul_wgmma_pairs reports the clusters of row-tile pairs
+// the card holds at once (66 on the H100: every SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -200,8 +229,11 @@ constexpr int kStreamMaxM = 8;              // rows of the stream route
 // cluster size). Every other route takes the default plan
 // (1, kDefaultCols) only.
 constexpr int kMaxSplits = 8;
+constexpr int kMaxSmem = 232448;            // dynamic shared memory a block
 constexpr int kDefaultCols = 192;
 constexpr bool plan_cols(int c) { return c == 64 || c == 128 || c == 192; }
+// the unsplit wgmma kernel's widths: those and four boxes (m64n256k16)
+constexpr bool wgmma_cols(int c) { return plan_cols(c) || c == 256; }
 // the widths a split plan takes: a 128 x 192 fp32 partial would not fit
 // the split wgmma kernel's drained ring
 constexpr bool split_cols(int c) { return c == 64 || c == 128; }
@@ -990,6 +1022,8 @@ constexpr int kThreads = 32 * kConsumerWarps + 32;   // + the producer warp
 constexpr int kABytes = BM * BK * 2;                 // 16 KB
 constexpr int kBBox = BK * 64 * 2;                   // 8 KB: 64 columns
 constexpr int kYBox = BM * 64 * 2;                   // 16 KB: 64 columns
+constexpr int kOutChunk = 16 * 64 * 2;     // 2 KB: a warp's 16 x 64 of y
+constexpr int kMaxRing = 8;       // stages of the unsplit kernel's ring
 constexpr int kConsumers = 32 * kConsumerWarps;
 }  // namespace mma
 
@@ -1103,40 +1137,113 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// The same for B of 256 columns (d: 64 x 256 fp32).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
                                            uint64_t b) {
-  if constexpr (N == 192) {
+  if constexpr (N == 256) {
+    wgmma_m64n256k16(d, a, b);
+  } else if constexpr (N == 192) {
     wgmma_m64n192k16(d, a, b);
   } else if constexpr (N == 128) {
     wgmma_m64n128k16(d, a, b);
   } else {
-    static_assert(N == 64, "tile widths 64, 128, 192");
+    static_assert(N == 64, "tile widths 64, 128, 192, 256");
     wgmma_m64n64k16(d, a, b);
   }
 }
 
-// A tile of BN_ columns. Narrower tiles get more stages (4, 5, 7: 160-168
-// KB of the ring). The split kernel (64 and 128 columns) keeps, past the
-// ring and y, the partials its block receives: S slots of 128/S rows x
-// BN fp32, one tile's worth, so its ring is shallower (4 stages at 128
-// columns); its own partial goes into the drained ring.
+// A tile of BN_ columns in the split kernel (64 and 128 columns): it
+// keeps, past its ring and a 128-row y tile, the partials its block
+// receives: S slots of 128/S rows x BN fp32, one tile's worth, so its
+// ring is shallower (4 stages at 128 columns); its own partial goes into
+// the drained ring.
 template <int BN_>
 struct MmaTile {
   static constexpr int BN = BN_;
-  static constexpr int kStages = BN == 192 ? 4 : (BN == 128 ? 5 : 7);
-  static constexpr int kSplitStages = BN == 128 ? 4 : 7;
   static constexpr int kStageBytes = mma::kABytes + (BN / 64) * mma::kBBox;
+  static constexpr int kSplitStages = BN == 128 ? 4 : 7;
   static constexpr int kYBytes = (BN / 64) * mma::kYBox;
-  static constexpr int kSmem =
-      1024 + kStages * kStageBytes + kYBytes + 2 * kStages * 8;
   static constexpr int kRecvBytes = mma::BM * BN * 4;
   static constexpr int kSplitSmem = 1024 + kSplitStages * kStageBytes +
                                     kYBytes + kRecvBytes +
                                     2 * kSplitStages * 8 + 8;
-  static_assert(!split_cols(BN) || (kSplitSmem <= 232448 &&
+  static_assert(!split_cols(BN) || (kSplitSmem <= kMaxSmem &&
                                     kRecvBytes <= kSplitStages * kStageBytes),
                 "a split block's shared memory; its partial in the ring");
+};
+
+// The unsplit kernel's shared memory at BN columns, 1024-aligned: a ring
+// of kStages stages, each x's box and the tile's BN/64 w boxes; the y
+// chunks its consumer warps store (two 16 x 64 bf16 buffers each, 32
+// KB); a full and an empty mbarrier a stage. The ring takes as many
+// stages as fit, at most kMaxRing: 8, 6, 4 and 4 at 64, 128, 192 and 256
+// columns (192-197 KB).
+template <int BN>
+struct UnsplitLayout {
+  static constexpr int kStageBytes = mma::kABytes + (BN / 64) * mma::kBBox;
+  static constexpr int kOutBytes = 2 * mma::kConsumerWarps * mma::kOutChunk;
+  static constexpr int kFit =
+      (kMaxSmem - 1024 - kOutBytes) / (kStageBytes + 16);
+  static constexpr int kStages = kFit < mma::kMaxRing ? kFit : mma::kMaxRing;
+  static constexpr int kSmem = 1024 + kStages * (kStageBytes + 16) + kOutBytes;
+  static_assert(kStages >= 4 && kSmem <= kMaxSmem, "an unsplit block");
 };
 
 // The contiguous range [begin, end) of `nk` stages that split `rank` of
@@ -1214,92 +1321,185 @@ __device__ __forceinline__ void wgmma_consume(float (&acc)[BN / 2],
   }
 }
 
-// xmap: (M, G, K) with box (128, 1, 64); wmap: (G, K, N) with box
-// (1, 64, 64); ymap: (M, G, N) with box (128, 1, 64); all with 128-byte
-// swizzle. Block b walks tiles b, b + grid, ... over all of K.
-template <int BN>
+// Releases ring slot s once this warp's products on it are done: lane 0
+// arrives on the slot's empty barrier in each of the CM blocks of the
+// cluster, whose producers may all write into it (w's boxes multicast).
+template <int CM>
+__device__ __forceinline__ void release_slot(uint64_t* empty, int s,
+                                             int lane) {
+  __syncwarp();
+  if (lane != 0) return;
+  if constexpr (CM == 1) {
+    hopper::mbar_arrive(&empty[s]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < CM; ++r) {
+      hopper::mbar_arrive_cluster(hopper::cluster_map(&empty[s], r));
+    }
+  }
+}
+
+// Tile t of the unsplit kernel's order: groups slowest, then column
+// tiles, then row tiles (of CM) fastest, so that the clusters in flight
+// share a few of w's tiles and one group's x, which stay in L2.
+struct TilePos {
+  int g, mt, nt;
+};
+__device__ __forceinline__ TilePos tile_at(int t, int tiles_m,
+                                           int tiles_n) {
+  return {t / (tiles_m * tiles_n), t % tiles_m, t / tiles_m % tiles_n};
+}
+
+// Unsplit kernel. xmap: (M, G, K) with box (128, 1, 64); wmap: (G, K, N)
+// with box (1, 64, 64); ymap: (M, G, N) with box (16, 1, 64); all with
+// 128-byte swizzle. A cluster of CM blocks (1, or 2 along M) takes CM
+// row tiles of one group's BN columns at once: block rank r the row tile
+// CM * mt + r; each block loads its own x box and the w boxes j with
+// j % CM == r, multicast to every block of the cluster, so w is read from
+// L2 once for CM row tiles. Cluster c walks the cluster tiles c, c +
+// clusters, ... (``tile_at``'s order) over all of K.
+//
+// Consumer warpgroup wg owns rows wg*64 ... wg*64 + 63 of a tile. It keeps
+// one group of products in flight across stages (wgmma_wait<1>, the slot
+// before freed). Then each of its warps rounds its 16 rows to bf16 into
+// 16 x 64 chunks, two buffers a warp, each stored by TMA while the next
+// is written: no barrier but the warp's own.
+template <int BN, int CM>
 __global__ void __launch_bounds__(mma::kThreads, 1)
     grouped_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                                 const __grid_constant__ CUtensorMap wmap,
                                 const __grid_constant__ CUtensorMap ymap,
                                 int m, int groups, int k, int n) {
   using namespace mma;
-  using T = MmaTile<BN>;
-  constexpr int kStages = T::kStages;
+  using L = UnsplitLayout<BN>;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = align1024(smem_raw);     // [S][A 16 KB | B BN/64 x 8 KB]
-  uint8_t* ys = base + kStages * T::kStageBytes;   // [BN/64][128][128 B]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ys + T::kYBytes);
+  uint8_t* ring = align1024(smem_raw);     // [S][A 16 KB | B BN/64 x 8 KB]
+  uint8_t* out = ring + kStages * L::kStageBytes;  // [2 wg][2][64][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + L::kOutBytes);
   uint64_t* empty = full + kStages;
 
   const int tiles_n = (n + BN - 1) / BN;
-  const int tiles_m = (m + BM - 1) / BM;
+  const int tiles_m = (m + CM * BM - 1) / (CM * BM);   // of CM row tiles
   const int tiles = groups * tiles_m * tiles_n;
   const int nk = (k + BK - 1) / BK;
+  const int rank = CM == 1 ? 0 : static_cast<int>(hopper::cluster_rank());
+  const int cluster = static_cast<int>(blockIdx.x) / CM;
+  const int clusters = static_cast<int>(gridDim.x) / CM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], kConsumerWarps);
+      hopper::mbar_init(&empty[s], kConsumerWarps * CM);
     }
     hopper::mbar_fence_init();
   }
   __syncthreads();
+  if constexpr (CM > 1) {                  // every block's barriers are set
+    hopper::cluster_arrive_relaxed();
+    hopper::cluster_wait();
+  }
 
   if (warp == kConsumerWarps) {            // the producer
     if (lane == 0) {
       int it = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        wgmma_produce<BN, kStages>(xmap, wmap, base, full, empty,
-                                   t / (tiles_m * tiles_n),
-                                   t / tiles_n % tiles_m, t % tiles_n,
-                                   {0, nk}, it);
+      for (int t = cluster; t < tiles; t += clusters) {
+        const TilePos tl = tile_at(t, tiles_m, tiles_n);
+        const int mt = tl.mt * CM + rank;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) {
+            hopper::mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          }
+          uint8_t* st = ring + s * L::kStageBytes;
+          hopper::mbar_arrive_expect_tx(&full[s], L::kStageBytes);
+          hopper::tma_load_3d(st, &xmap, &full[s], kb * BK, tl.g, mt * BM);
+#pragma unroll
+          for (int j = rank; j < BN / 64; j += CM) {
+            if constexpr (CM == 1) {
+              hopper::tma_load_3d(st + kABytes + j * kBBox, &wmap, &full[s],
+                                  tl.nt * BN + j * 64, kb * BK, tl.g);
+            } else {
+              hopper::tma_load_3d_multicast(
+                  st + kABytes + j * kBBox, &wmap, &full[s],
+                  tl.nt * BN + j * 64, kb * BK, tl.g, (1u << CM) - 1);
+            }
+          }
+        }
       }
     }
-    return;
-  }
+  } else {
+    const int wg = warp / 4;
+    uint8_t* bufs = out + warp * 2 * kOutChunk;
+    int it = 0, chunks = 0;
+    for (int t = cluster; t < tiles; t += clusters) {
+      const TilePos tl = tile_at(t, tiles_m, tiles_n);
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&full[s], (it / kStages) & 1);
+        const uint8_t* a = ring + s * L::kStageBytes + wg * (kABytes / 2);
+        const uint8_t* b = ring + s * L::kStageBytes + kABytes;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // A: rows of 128 bytes, 8-row groups 1 KB apart, k16 = 32 bytes
+          // along the row; B: 64-column blocks 8 KB apart, 8-row groups of
+          // K 1 KB apart, k16 = 16 rows = 2 KB
+          wgmma_bf16<BN>(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                         hopper::desc_sw128(b + kk * 2048, kBBox, 1024));
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        if (ks > 0) release_slot<CM>(empty, (it - 1) % kStages, lane);
+      }
+      hopper::wgmma_wait<0>();
+      release_slot<CM>(empty, (it - 1) % kStages, lane);
 
-  // consumers: warpgroup wg owns rows wg*64 .. wg*64 + 63 of a tile
-  const int wg = warp / 4;
-  int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int g = t / (tiles_m * tiles_n);
-    const int mt = t / tiles_n % tiles_m;
-    const int nt = t % tiles_n;
-    float acc[BN / 2];
-    wgmma_consume<BN, kStages>(acc, base, full, empty, wg, lane, nk, it);
-    // The tile goes to the y buffer as bf16 pairs, in the 128-byte
-    // swizzle of the y map (16-byte chunk q of row r at q ^ r%8: a warp's
-    // 8 rows x 16 bytes hit 32 distinct banks), then out by TMA, which
-    // writes whole lines and clips at the M and N edges.
-    if (threadIdx.x == 0) hopper::tma_store_wait_read();   // last tile's
-    hopper::named_sync(1, kConsumers);
-    const int row0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+      const int y_row = (tl.mt * CM + rank) * BM + warp * 16;
+      // each 64-column chunk of the warp's rows goes to a buffer in the
+      // 128-byte swizzle of the y map (16-byte chunk q of row r at q ^ r%8:
+      // the warp's 8 rows x 16 bytes hit 32 distinct banks), then out by
+      // TMA, which writes whole lines and clips at the M and N edges (a
+      // chunk wholly past them is not stored); a buffer is written again
+      // once the store two chunks back has read it
 #pragma unroll
-    for (int c = 0; c < BN / 8; ++c) {
+      for (int j = 0; j < BN / 64; ++j, ++chunks) {
+        uint8_t* buf = bufs + (chunks & 1) * kOutChunk;
+        if (lane == 0) hopper::tma_store_wait_read<1>();
+        __syncwarp();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 8 * h;
-        uint8_t* dst = ys + (c / 8) * kYBox + r * 128 +
-                       ((c % 8) ^ (r % 8)) * 16 + 4 * (lane % 4);
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-            acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = lane / 4 + 8 * h;
+            const int v = 4 * (8 * j + c) + 2 * h;
+            *reinterpret_cast<uint32_t*>(buf + r * 128 + ((c ^ (r % 8)) * 16) +
+                                         4 * (lane % 4)) =
+                bf16x2(acc[v], acc[v + 1]);
+          }
+        }
+        hopper::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          const int col = tl.nt * BN + j * 64;
+          if (y_row < m && col < n) {
+            hopper::tma_store_3d(&ymap, buf, col, tl.g, y_row);
+          }
+          hopper::tma_store_commit();
+        }
       }
     }
-    hopper::fence_proxy_async();
-    hopper::named_sync(1, kConsumers);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int j = 0; j < BN / 64; ++j) {
-        hopper::tma_store_3d(&ymap, ys + j * kYBox, nt * BN + j * 64, g,
-                             mt * BM);
-      }
-      hopper::tma_store_commit();
-    }
+    if (lane == 0) hopper::tma_store_wait_read();
   }
-  if (threadIdx.x == 0) hopper::tma_store_wait_read();
+  if constexpr (CM > 1) {   // no block leaves while the other may write to it
+    hopper::cluster_arrive();
+    hopper::cluster_wait();
+  }
 }
 
 // How many clusters of `splits` blocks of `kernel` (threads, smem each)
@@ -1486,11 +1686,12 @@ __global__ void __launch_bounds__(mma::kThreads, 1)
 
 // Whether (splits, cols) is a plan the wgmma kernels were built for:
 // splits a power of two up to kMaxSplits (it divides the 128 rows of a
-// tile), split_cols for a split, every split at least one stage of K.
+// tile), wgmma_cols unsplit and split_cols split, every split at least
+// one stage of K.
 bool plan_fits(int64_t k, int splits, int cols) {
   return splits >= 1 && splits <= kMaxSplits &&
          (splits & (splits - 1)) == 0 &&
-         (splits == 1 ? plan_cols(cols) : split_cols(cols)) &&
+         (splits == 1 ? wgmma_cols(cols) : split_cols(cols)) &&
          splits <= (k + mma::BK - 1) / mma::BK;
 }
 
@@ -1501,6 +1702,53 @@ bool wgmma_fits(const void* x, const void* w, const void* y, int64_t m,
   return m > kStreamMaxM && tma_fits<__nv_bfloat16>(x, w, g, k, n) &&
          reinterpret_cast<uintptr_t>(y) % 16 == 0 && m <= kMaxCoord &&
          tiles <= kMaxCoord;
+}
+
+// The unsplit kernel in clusters of CM blocks along M, persistent: one
+// block an SM (CM = 1), or as many clusters as the card holds at once.
+template <int BN, int CM>
+int launch_unsplit(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                   const CUtensorMap& ymap, int64_t m, int64_t g, int64_t k,
+                   int64_t n, int sms, cudaStream_t st) {
+  using namespace mma;
+  using L = UnsplitLayout<BN>;
+  const auto kernel = grouped_matmul_wgmma_kernel<BN, CM>;
+  static const cudaError_t attr = allow_smem(kernel, L::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int64_t tiles =
+      g * ((m + CM * BM - 1) / (CM * BM)) * ((n + BN - 1) / BN);
+  const int mi = static_cast<int>(m), gi = static_cast<int>(g);
+  const int ki = static_cast<int>(k), ni = static_cast<int>(n);
+  if constexpr (CM == 1) {
+    const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
+    kernel<<<blocks, kThreads, L::kSmem, st>>>(xmap, wmap, ymap, mi, gi, ki,
+                                                ni);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    static int cache[kMaxSplits + 1] = {-1, -1, -1, -1, -1,
+                                        -1, -1, -1, -1};
+    cudaError_t e;
+    const int64_t active =
+        active_clusters(kernel, kThreads, L::kSmem, CM, cache, &e);
+    if (active == 0) {
+      return static_cast<int>(e != cudaSuccess ? e
+                                               : cudaErrorInvalidClusterSize);
+    }
+    const int64_t clusters = tiles < active ? tiles : active;
+    return launch_clusters(kernel, dim3(static_cast<unsigned>(clusters * CM)),
+                           kThreads, L::kSmem, CM, cache, st, xmap, wmap,
+                           ymap, mi, gi, ki, ni);
+  }
+}
+
+// Clusters of the unsplit kernel's pairs (BN columns) the card holds.
+template <int BN>
+int pairs_held(int* cache, cudaError_t* err) {
+  using L = UnsplitLayout<BN>;
+  const auto kernel = grouped_matmul_wgmma_kernel<BN, 2>;
+  *err = allow_smem(kernel, L::kSmem);
+  if (*err != cudaSuccess) return -1;
+  return active_clusters(kernel, mma::kThreads, L::kSmem, 2, cache, err);
 }
 
 template <int BN>
@@ -1535,7 +1783,8 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
                              static_cast<uint64_t>(m)};
   const uint64_t ystrides[2] = {n * 2ull, g * n * 2ull};
   const uint32_t ybox[3] = {splits == 1 ? 64u : static_cast<uint32_t>(BN), 1,
-                            static_cast<uint32_t>(BM / splits)};
+                            splits == 1 ? 16u
+                                        : static_cast<uint32_t>(BM / splits)};
   if (!hopper::encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, x,
                           xdims, xstrides, xbox,
                           CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -1565,14 +1814,10 @@ int launch_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
     }
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = grouped_matmul_wgmma_kernel<BN>;
-  static const cudaError_t attr = allow_smem(kernel, T::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned blocks = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  kernel<<<blocks, kThreads, T::kSmem, st>>>(
-      xmap, wmap, ymap, static_cast<int>(m), static_cast<int>(g),
-      static_cast<int>(k), static_cast<int>(n));
-  return static_cast<int>(cudaGetLastError());
+  // past one row tile, pairs of row tiles share w's boxes (a cluster of 2)
+  const bool pairs = m > BM;
+  return pairs ? launch_unsplit<BN, 2>(xmap, wmap, ymap, m, g, k, n, sms, st)
+               : launch_unsplit<BN, 1>(xmap, wmap, ymap, m, g, k, n, sms, st);
 }
 
 int launch_wgmma_plan(const __nv_bfloat16* x, const __nv_bfloat16* w,
@@ -1584,7 +1829,8 @@ int launch_wgmma_plan(const __nv_bfloat16* x, const __nv_bfloat16* w,
   }
   if (cols == 64) return launch_wgmma<64>(x, w, y, m, g, k, n, splits, st);
   if (cols == 128) return launch_wgmma<128>(x, w, y, m, g, k, n, splits, st);
-  return launch_wgmma<192>(x, w, y, m, g, k, n, splits, st);
+  if (cols == 192) return launch_wgmma<192>(x, w, y, m, g, k, n, splits, st);
+  return launch_wgmma<256>(x, w, y, m, g, k, n, splits, st);
 }
 
 enum Route { kStream = 0, kWgmma = 1, kSimt = 2, kSgemm = 3 };
@@ -1648,9 +1894,16 @@ extern "C" int grouped_matmul_dynamic_smem(int route, int dtype, int splits,
   if (splits != 1) return -1;
   if (dtype == 1 && (route == kStream || route == kWgmma)) {
     const bool stream = route == kStream;
-    if (cols == 64) return stream ? Unit<64>::kSmem : MmaTile<64>::kSmem;
-    if (cols == 128) return stream ? Unit<128>::kSmem : MmaTile<128>::kSmem;
-    if (cols == 192) return stream ? Unit<192>::kSmem : MmaTile<192>::kSmem;
+    if (stream) {
+      if (cols == 64) return Unit<64>::kSmem;
+      if (cols == 128) return Unit<128>::kSmem;
+      if (cols == 192) return Unit<192>::kSmem;
+      return -1;
+    }
+    if (cols == 64) return UnsplitLayout<64>::kSmem;
+    if (cols == 128) return UnsplitLayout<128>::kSmem;
+    if (cols == 192) return UnsplitLayout<192>::kSmem;
+    if (cols == 256) return UnsplitLayout<256>::kSmem;
     return -1;
   }
   if (cols != kDefaultCols) return -1;
@@ -1658,4 +1911,23 @@ extern "C" int grouped_matmul_dynamic_smem(int route, int dtype, int splits,
   if (route == kSimt && (dtype == 0 || dtype == 1)) return 0;
   if (route == kSgemm && dtype == 0) return sg::kSmem;
   return -1;
+}
+
+// Clusters of the unsplit wgmma kernel's row-tile pairs at `cols` columns
+// that the card holds at once (for reports), -1 for a width it was not
+// built for or when the query fails.
+extern "C" int grouped_matmul_wgmma_pairs(int cols) {
+  int cache[kMaxSplits + 1] = {-1, -1, -1, -1, -1, -1, -1, -1, -1};
+  cudaError_t e = cudaSuccess;
+  int n = -1;
+  if (cols == 64) {
+    n = pairs_held<64>(cache, &e);
+  } else if (cols == 128) {
+    n = pairs_held<128>(cache, &e);
+  } else if (cols == 192) {
+    n = pairs_held<192>(cache, &e);
+  } else if (cols == 256) {
+    n = pairs_held<256>(cache, &e);
+  }
+  return e == cudaSuccess ? n : -1;
 }

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor loads and stores, 1-D bulk loads, cp.async, wgmma and its
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers
+// (arrivals on another block's too), TMA tensor loads (multicast to a
+// cluster too) and stores, 1-D bulk loads, cp.async, wgmma and its
 // shared-memory descriptors, named barriers, the cluster barrier and
 // bulk copies into another block's shared memory, and the host-side
 // encoding of a TMA tensor map.
@@ -98,6 +99,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same box loaded once and written into the shared memory of every
+// block of the cluster in `mask` (bit r: rank r), at dst's offset in
+// each; each such block's mbarrier at bar's offset counts the box's bytes.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
 // Stores a box from shared memory into the tensor (elements outside it are
 // not written), as one bulk group of this thread.
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -112,10 +130,12 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// Waits until this thread's committed stores have read their shared
-// memory (the buffer may be written again).
+// Waits until all but the newest `N` of this thread's committed store
+// groups have read their shared memory (their buffers may be written
+// again).
+template <int N = 0>
 __device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // 1-D bulk copy (no tensor map) from global to shared memory, reporting
 // its bytes to `bar`: `bytes` a multiple of 16, both addresses 16-byte
@@ -190,6 +210,12 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
+// An arrival that orders this thread's earlier memory operations (its
+// arrivals on other blocks' mbarriers among them) before the others'
+// cluster_wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
 
 // The shared::cluster address of the variable at `p` (in this block's
 // shared memory) in the block of rank `rank`.
@@ -200,6 +226,13 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p,
                : "=r"(a)
                : "r"(smem_u32(p)), "r"(rank));
   return a;
+}
+
+// One arrival on the mbarrier at shared::cluster address `bar` (this or
+// another block's, from cluster_map).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
 // A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte

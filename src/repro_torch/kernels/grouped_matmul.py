@@ -21,14 +21,24 @@ from the shapes, the dtype and the pointers' alignment:
   operands swapped (wgmma m64n8k16 on w^T x^T), fp32 runs FMAs; every
   sum in a fixed order;
 - ``"wgmma"`` (M > 8, bf16): a GEMM per group on the tensor cores, TMA
-  tiles in a ring, persistent blocks;
+  tiles of 128 rows in a ring, persistent blocks; past one row tile the
+  blocks run in clusters of 2 on neighbouring row tiles that share w's
+  boxes (TMA multicast), tiles go row tiles fastest so that the blocks
+  in flight share w's tiles in L2, and each consumer warp stores its
+  rows through its own shared-memory chunks. At the M = 4096 eval
+  chunks it is bound by the operand bytes that fill shared memory with
+  the stores of y, and by the products with their epilogues, each near
+  the whole time (PERF.md §6, tools/gmm_plans.py breakdown); 256-column
+  tiles and the pairs cut the bytes from L2 by 40 % at Mamba-2's chunk;
 
-  on both bf16 routes ``plan`` sizes the work: where 192-column units
-  or tiles fill the card it keeps the unsplit design, (1, 192); else it
-  takes the narrowest column width (64, 128 or 192) whose units still
-  fit one wave, and on the wgmma route, past 16 stages of K a split, it
-  splits K over a thread-block cluster of S blocks, whose partials meet
-  in distributed shared memory, summed in rank order;
+  on both bf16 routes ``plan`` sizes the work: the stream route keeps
+  (1, 192) where 192-column units fill the card, else the narrowest
+  width whose units fit one wave; the wgmma route takes the width (64,
+  128, 192 or 256) of the least waves times a tile's modelled time plus
+  the last wave's stores (256 at every eval chunk), and past 16 stages
+  of K a split, it splits K over a thread-block cluster of S blocks,
+  whose partials meet in distributed shared memory, summed in rank
+  order;
 - ``"sgemm"`` (M > 8, fp32): a SIMT GEMM per group, 128 x 256 tiles,
   8 x 16 outputs a thread fed by 16-byte shared-memory reads, w by TMA
   and x by cp.async copies in a ring of stages, M fastest so w comes
@@ -78,18 +88,35 @@ _MAX_GRID_YZ = 65535
 _SIMT_TILE_M = 64
 _SGEMM_TILE = (128, 256)
 _MAX_COORD = 2 ** 31 - 1
-# the plans of the bf16 stream and wgmma routes: units or tiles of one
-# of _PLAN_COLS columns; on the wgmma route K split over a cluster of at
-# most _MAX_SPLITS blocks (a power of two) in tiles of _SPLIT_COLS
-# columns. K goes in stages of _STAGE_K[route] rows; the wgmma route's
-# tiles have _WGMMA_TILE_M rows; ``plan`` keeps at least
-# _SPLIT_MIN_STAGES stages a split and splits into _WGMMA_MAX_SPLITS at
-# most (measured, see ``plan``). Every other route takes DEFAULT_PLAN.
+# the plans of the bf16 stream and wgmma routes: units of one of
+# _PLAN_COLS columns (stream) or tiles of one of _WGMMA_COLS (wgmma); on
+# the wgmma route K split over a cluster of at most _MAX_SPLITS blocks (a
+# power of two) in tiles of _SPLIT_COLS columns. K goes in stages of
+# _STAGE_K[route] rows; the wgmma route's tiles have _WGMMA_TILE_M rows,
+# and past one row tile its unsplit kernel runs in clusters of
+# _WGMMA_PAIR blocks along M that share w's boxes; ``plan`` keeps at
+# least _SPLIT_MIN_STAGES stages a split and splits into
+# _WGMMA_MAX_SPLITS at most (measured, see ``plan``). Every other route
+# takes DEFAULT_PLAN.
 _MAX_SPLITS = 8
 _PLAN_COLS = (64, 128, 192)
+_WGMMA_COLS = (64, 128, 192, 256)
 _SPLIT_COLS = (64, 128)
 _STAGE_K = {"stream": 128, "wgmma": 64}
 _WGMMA_TILE_M = 128
+_WGMMA_PAIR = 2
+# ``plan``'s model of the unsplit wgmma kernel: an SM's share of the
+# H100's rates, the bf16 peak, the 8.5 TB/s at which it filled shared
+# memory from L2 (1.38 GB in 162.5 us with the products and stores taken
+# out, tools/gmm_plans.py breakdown, H100 80GB HBM3 at 700 W) and device
+# memory's 3.35 TB/s; and a tile's fixed cost (its first stage's wait
+# and its epilogue), 1 us, with which the model takes the fastest width
+# that tools/gmm_plans.py widths measured, or one within 1.5 % of it, at
+# every unsplit wgmma row of the check phase
+_WGMMA_TILE_S = 1e-6
+_SM_FLOPS = 989e12 / 132
+_SM_FILL_BYTES = 8.5e12 / 132
+_SM_HBM_BYTES = 3.35e12 / 132
 _SPLIT_MIN_STAGES = 16
 _WGMMA_MAX_SPLITS = 2
 DEFAULT_PLAN = (1, 192)
@@ -122,22 +149,62 @@ def _planned(r: str, dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16 and r in _STAGE_K
 
 
+def wgmma_tile_s(m: int, k: int, cols: int) -> float:
+    """The modelled time (s) of one unsplit wgmma tile of ``cols``
+    columns over K = ``k`` on one SM: a fixed _WGMMA_TILE_S, then the
+    longest of its products at the SM's share of the bf16 peak, its
+    operand bytes (x's 128 x K box, and its share of w's K x cols boxes:
+    half where a cluster pair shares them, past one row tile) at the SM's
+    share of the measured fill rate from L2, and its w bytes from device
+    memory (shared by the tile's ceil(m / 128) row tiles) at the SM's
+    share of 3.35 TB/s."""
+    tm = _WGMMA_TILE_M
+    pair = _WGMMA_PAIR if m > tm else 1
+    flops = 2 * tm * cols * k
+    nbytes = 2 * k * (tm + cols / pair)
+    w_bytes = 2 * k * cols / -(-m // tm)
+    return _WGMMA_TILE_S + max(flops / _SM_FLOPS, nbytes / _SM_FILL_BYTES,
+                               w_bytes / _SM_HBM_BYTES)
+
+
+def wgmma_plan_s(m: int, g: int, k: int, n: int, cols: int,
+                 sms: int) -> float:
+    """The modelled time (s) of the unsplit wgmma kernel at ``cols``
+    columns on ``sms`` SMs: ceil(tiles / sms) waves of ``wgmma_tile_s``,
+    and the last wave's stores, which no load overlaps (its 128 x cols
+    bf16 tile at the SM's share of device memory)."""
+    tiles = g * -(-m // _WGMMA_TILE_M) * -(-n // cols)
+    tail = _WGMMA_TILE_M * cols * 2 / _SM_HBM_BYTES
+    return -(-tiles // sms) * wgmma_tile_s(m, k, cols) + tail
+
+
 def plan(r: str, m: int, g: int, k: int, n: int, sms: int,
          dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
     """(splits, columns) for route ``r`` on x (m, g*k), w (g, k, n) on a
-    card of ``sms`` SMs. Where the route's 192-column units (stream) or
-    128 x 192 tiles (wgmma) number at least ``sms``, ``DEFAULT_PLAN``
-    (1, 192): the unsplit design. Else the narrowest of 64, 128 and 192
-    columns whose units or tiles still fit one wave of ``sms`` blocks
-    (more blocks, each with fewer bytes). On the wgmma route K is split
-    over a cluster of S = 2 where that leaves every split at least
+    card of ``sms`` SMs.
+
+    Stream: where 192-column units number at least ``sms``,
+    ``DEFAULT_PLAN`` (1, 192); else the narrowest of 64, 128 and 192
+    columns whose units still fit one wave of ``sms`` blocks (more
+    blocks, each with fewer bytes). The stream route does not split: two
+    splits of 16 of its 128-row stages need 4,096 rows of K a group,
+    which no product on a path has (at most 2,368).
+
+    wgmma: by waves. For each of _WGMMA_COLS it reckons ceil(tiles / sms)
+    times a tile's modelled time (``wgmma_tile_s``) plus the last wave's
+    stores (``wgmma_plan_s``) and takes the least, the widest on a tie:
+    the M = 4096 eval chunks, bound by the operand bytes that fill shared
+    memory, take 256 columns; an unembedding at M = 64-128, bound by w's
+    bytes from device memory, the width whose waves and last stores cost
+    least (danube's and mixtral's two waves of 128 columns, whose first
+    stores run under the second wave's loads, rather than one of 256);
+    the decoupled FFN products, under one wave, the narrowest. Then K is
+    split over a cluster of S = 2 where that leaves every split at least
     _SPLIT_MIN_STAGES stages of K and tiles x S within the wave: on the
     H100 the split's reduction costs about what 16 stages take, so
     shorter K stays whole, and clusters of 4 or 8 one-SM blocks do not
-    all fit the card's GPCs at once. The stream route does not split:
-    two splits of 16 of its 128-row stages need 4,096 rows of K a group,
-    which no product on a path has (at most 2,368). fp32
-    and the sgemm and simt routes take ``DEFAULT_PLAN``."""
+    all fit the card's GPCs at once. fp32 and the sgemm and simt routes
+    take ``DEFAULT_PLAN``."""
     if not _planned(r, dtype):
         return DEFAULT_PLAN
     rows = 1 if r == "stream" else -(-m // _WGMMA_TILE_M)
@@ -145,11 +212,12 @@ def plan(r: str, m: int, g: int, k: int, n: int, sms: int,
     def units(cols):
         return g * rows * -(-n // cols)
 
-    if units(DEFAULT_PLAN[1]) >= sms:
-        return DEFAULT_PLAN
-    cols = next(c for c in _PLAN_COLS if units(c) <= sms or c == 192)
     if r == "stream":
-        return 1, cols
+        if units(DEFAULT_PLAN[1]) >= sms:
+            return DEFAULT_PLAN
+        return 1, next(c for c in _PLAN_COLS if units(c) <= sms or c == 192)
+    cols = min(_WGMMA_COLS,
+               key=lambda c: (wgmma_plan_s(m, g, k, n, c, sms), -c))
     stages = -(-k // _STAGE_K[r])
     splits = 1
     while (cols in _SPLIT_COLS and 2 * splits <= _WGMMA_MAX_SPLITS and
@@ -181,6 +249,8 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.grouped_matmul_dynamic_smem.argtypes = [ctypes.c_int] * 4
     lib.grouped_matmul_dynamic_smem.restype = ctypes.c_int
+    lib.grouped_matmul_wgmma_pairs.argtypes = [ctypes.c_int]
+    lib.grouped_matmul_wgmma_pairs.restype = ctypes.c_int
     return lib
 
 
@@ -190,6 +260,12 @@ def dynamic_smem(route_name: str, dtype: torch.dtype,
     under plan ``p`` (builds the kernel)."""
     return _library().grouped_matmul_dynamic_smem(
         ROUTES.index(route_name), _DTYPE_CODES[dtype], *p)
+
+
+def wgmma_pairs(cols: int) -> int:
+    """Clusters of the unsplit wgmma kernel's row-tile pairs at ``cols``
+    columns that the current card holds at once (builds the kernel)."""
+    return _library().grouped_matmul_wgmma_pairs(cols)
 
 
 _SMS: dict[int, int] = {}

@@ -323,6 +323,50 @@ def test_grouped_matmul_limits_are_the_kernels():
     mma = src[src.index("namespace mma {"):]
     assert re.search(rf"constexpr int BK = {gm._STAGE_K['wgmma']};", mma)
     assert re.search(rf"constexpr int BM = {gm._WGMMA_TILE_M};", mma)
+    # the unsplit wgmma kernel: its widths (256 among them), the pairs of
+    # row tiles past one row tile, and its ring beside the y buffers,
+    # reckoned from the same constants, within the block's shared memory
+    wide = re.search(r"constexpr bool wgmma_cols\(int c\) \{ return ([^;]*);",
+                     src).group(1)
+    assert wide.startswith("plan_cols(c)") and tuple(
+        int(c) for c in re.findall(r"c == (\d+)", wide)) == \
+        gm._WGMMA_COLS[len(gm._PLAN_COLS):]
+    assert gm._WGMMA_COLS[:len(gm._PLAN_COLS)] == gm._PLAN_COLS
+    assert "const bool pairs = m > BM;" in src and re.search(
+        rf"pairs \? launch_unsplit<BN, {gm._WGMMA_PAIR}>", src)
+    # the unsplit kernel's shared memory, reckoned from the .cu's own
+    # constants as its UnsplitLayout reckons it: each width's ring (x's
+    # 128 x 64 box and the tile's 64 x 64 w boxes a stage, two 8-byte
+    # mbarriers each) beside two 16 x 64 bf16 y chunks a consumer warp,
+    # within 232,448 bytes, at least 4 stages, and no stage more would fit
+    # below the cap
+    def const(name, text=mma):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("kMaxSmem", src) == 232_448
+    assert const("kConsumerWarps") == 8
+    assert re.search(r"constexpr int kOutChunk = 16 \* 64 \* 2;", mma)
+    lay = src[src.index("struct UnsplitLayout {"):]
+    assert re.search(r"kStageBytes = mma::kABytes \+ \(BN / 64\) \* "
+                     r"mma::kBBox;", lay)
+    assert re.search(r"kOutBytes = 2 \* mma::kConsumerWarps \* "
+                     r"mma::kOutChunk;", lay)
+    assert re.search(r"kFit =\s+\(kMaxSmem - 1024 - kOutBytes\) / "
+                     r"\(kStageBytes \+ 16\);", lay)
+    assert re.search(r"kStages = kFit < mma::kMaxRing \? kFit : "
+                     r"mma::kMaxRing;", lay)
+    assert re.search(r"kSmem = 1024 \+ kStages \* \(kStageBytes \+ 16\) \+ "
+                     r"kOutBytes;", lay)
+    out, cap = 2 * 8 * 16 * 64 * 2, const("kMaxRing")
+    stages = []
+    for c in gm._WGMMA_COLS:
+        stage = 128 * 64 * 2 + (c // 64) * 64 * 64 * 2 + 16
+        n = min(cap, (232_448 - 1024 - out) // stage)
+        smem = 1024 + n * stage + out
+        assert n >= 4 and smem <= 232_448 and (
+            n == cap or smem + stage > 232_448)
+        stages.append(n)
+    assert stages == [8, 6, 4, 4]
 
 
 # (K, N) of a group for every product the Fed2 decode and eval paths run
@@ -335,7 +379,7 @@ _GMM_PLAN_SHAPES = (
     (1728, 640), (320, 4000), (320, 864), (864, 320),
     (64, 256), (256, 64), (256, 11584),
     (256, 1024), (1024, 256),
-    (256, 6288), (768, 4096), (640, 12800))
+    (256, 6288), (768, 4096), (640, 12800), (256, 16032))
 # the plans measured best on the H100 (tools/gmm_plans.py sweep) for the
 # decoupled FFN products, at M = 4 and at the large-batch serve's M
 # (stablelm 64); qwen2's down product is the one past 16 stages of K a
@@ -348,17 +392,28 @@ _GMM_FFN_PLANS = {
     (640, 1728): ((1, 128), (1, 128)), (448, 2368): ((1, 192), (1, 192))}
 
 
+def _waves(m, g, k, n, cols, sms=132):
+    """ceil(tiles / sms) x the modelled tile time of an unsplit wgmma
+    plan of ``cols`` columns, plus its last wave's stores."""
+    from repro_torch.kernels import grouped_matmul as gm
+    tiles = g * -(-m // 128) * -(-n // cols)
+    t = -(-tiles // sms) * gm.wgmma_tile_s(m, k, cols) + \
+        128 * cols * 2 / (3.35e12 / 132)
+    assert t == gm.wgmma_plan_s(m, g, k, n, cols, sms)
+    return t
+
+
 @pytest.mark.parametrize("m", [4, 64, 128, 4096])
 @pytest.mark.parametrize("k,n", [*_GMM_PLAN_SHAPES, (4096, 256),
                                  (8192, 256)])
 def test_grouped_matmul_plan(k, n, m):
-    """The wrapper's pure plan function on a 132-SM card: the unsplit
-    design (1, 192) wherever 192-column units (stream, M <= 8) or
-    128 x 192 tiles (wgmma) fill the card, which covers every
-    unembedding and every M = 4096 shape; elsewhere the narrowest width
-    whose units fit one wave, split only on the wgmma route, in at most
-    2 that keep 16 stages of K a split and the blocks within the wave;
-    the FFN products take the plans measured best."""
+    """The wrapper's pure plan function on a 132-SM card. The stream
+    route (M <= 8): the unsplit design (1, 192) wherever 192-column units
+    fill the card, which covers every unembedding; elsewhere the
+    narrowest width whose units fit one wave. The wgmma route: the width
+    of the least waves x tile time (the widest on a tie), then a split in
+    at most 2 that keeps 16 stages of K a split and the blocks within the
+    wave; the FFN products take the plans measured best."""
     from repro_torch.kernels import grouped_matmul as gm
     g, sms = 8, 132
     r = gm.route(m, g, k, n, torch.bfloat16, 0, 0)
@@ -370,11 +425,17 @@ def test_grouped_matmul_plan(k, n, m):
         return g * rows * -(-n // c)
 
     stages = -(-k // gm._STAGE_K[r])
-    if units(192) >= sms:
-        assert p == gm.DEFAULT_PLAN
+    if r == "stream":
+        if units(192) >= sms:
+            assert p == gm.DEFAULT_PLAN
+        else:
+            assert units(cols) <= sms or cols == 192
+            assert all(units(c) > sms for c in gm._PLAN_COLS if c < cols)
     else:
-        assert units(cols) <= sms or cols == 192
-        assert all(units(c) > sms for c in gm._PLAN_COLS if c < cols)
+        assert cols in gm._WGMMA_COLS
+        assert all(_waves(m, g, k, n, cols) < _waves(m, g, k, n, c)
+                   or (_waves(m, g, k, n, cols) == _waves(m, g, k, n, c)
+                       and cols >= c) for c in gm._WGMMA_COLS)
     assert splits & (splits - 1) == 0 and 1 <= splits <= gm._MAX_SPLITS
     if splits > 1:
         assert cols in gm._SPLIT_COLS and splits * units(cols) <= sms
@@ -389,6 +450,35 @@ def test_grouped_matmul_plan(k, n, m):
     assert gm.plan(r, m, g, k, n, sms, torch.float32) == gm.DEFAULT_PLAN
     assert gm.plan("sgemm", m, g, k, n, sms) == gm.DEFAULT_PLAN
     assert gm.plan("simt", m, g, k, n, sms) == gm.DEFAULT_PLAN
+
+
+# the wgmma route's targeted rows, (M, G, K, N) and the width the wave
+# rule gives them on a 132-SM card: every LM's bf16 eval chunk (M =
+# 4096, chip_smoke.GMM_EVAL_CHUNKS), the bf16 lm_task eval, and the
+# large-batch serve's unembeddings at M = 64-128
+_GMM_TARGET_PLANS = (
+    ((4096, 8, 256, 6288), 256), ((4096, 8, 256, 16032), 256),
+    ((4096, 8, 448, 19008), 256), ((4096, 8, 640, 12544), 256),
+    ((4096, 8, 320, 4000), 256), ((4096, 8, 768, 4096), 256),
+    ((4096, 8, 640, 12800), 256), ((4096, 8, 256, 11584), 256),
+    ((4096, 4, 512, 12576), 256),
+    ((128, 8, 256, 6288), 192), ((128, 8, 320, 4000), 128),
+    ((128, 8, 768, 4096), 128), ((64, 8, 640, 12544), 256))
+
+
+@pytest.mark.parametrize("shape,cols", _GMM_TARGET_PLANS)
+def test_grouped_matmul_plan_of_the_targeted_rows(shape, cols):
+    """The eval chunks and unembeddings run unsplit at the width the
+    wave rule gives; danube's and mixtral's unembeddings at M = 128 in
+    two waves of 128 columns (one wave of 256 stores all its tiles at
+    the end, under no load)."""
+    from repro_torch.kernels import grouped_matmul as gm
+    m, g, k, n = shape
+    assert gm.route(m, g, k, n, torch.bfloat16, 0, 0) == "wgmma"
+    assert gm.plan("wgmma", m, g, k, n, 132) == (1, cols)
+    if m == 128 and (k, n) in ((320, 4000), (768, 4096)):
+        assert -(-g * -(-n // cols) // 132) == 2
+        assert -(-g * -(-n // 256) // 132) == 1
 
 
 @pytest.mark.parametrize("m,g,n,route,plan", [
