@@ -5777,8 +5777,10 @@ def phase_surfaces():
 # vgg9.full(fed2_groups=10, decouple=6, norm="gn"), 16 clients, 4 local
 # steps of batch 32, both kernels; its allocated arguments (the
 # reference's global count at mesh=None) and the K = 8 async event's
-# read arguments (8 rows and w; the event never reads the global)
-FL_DRYRUN_BUDGET_S = 60
+# read arguments (8 rows and w; the event never reads the global); then
+# rank 0's program of the same case on a dry (16, 16) mesh on real
+# memory, its counts against the record's collectives
+FL_DRYRUN_BUDGET_S = 70
 FL_DRYRUN_OUT = ROOT / "chiprun_out" / "fl_dryrun"
 FL_DRYRUN_COMMITTED = ROOT / "benchmarks" / "artifacts_perf"
 FL_CARD_CASE = dict(clients=16, local_steps=4, batch=32)
@@ -5957,7 +5959,10 @@ def fl_dryrun_card(smi) -> list:
             fused[kernels] = eng_a.event_fn(*ev_args)[1]
     d_event = (fused[True] - fused[False]).abs().max().item()
     assert d_event <= FUSION_PARITY_TOL, d_event
-    del eng_k, eng_p, eng_a, batches, kernel, plain
+    del eng_k, eng_p, eng_a, kernel, plain
+    free_device_memory()
+    rank_line = fl_dryrun_rank0(task, step.cfg, init, batches, w, gw, smi)
+    del batches
     free_device_memory()
     return [f"fl dry-run 16x16 fed2 case on (1, 1): record built and meta "
             f"pass in {t_meta:.1f} s (pass {t_pass:.1f} s); allocated "
@@ -5973,7 +5978,54 @@ def fl_dryrun_card(smi) -> list:
             f"fl dry-run fed2 async event K = {FL_CARD_EVENT_K} on (1, 1): "
             f"read arguments {ev_held:,} B = the record's (the global "
             f"params unread), paired_fusion {ev_counts['paired_fusion']}, "
-            f"kernel vs plain fuse max |d| {d_event:.3g} ({smi})"]
+            f"kernel vs plain fuse max |d| {d_event:.3g} ({smi})",
+            rank_line]
+
+
+def fl_dryrun_rank0(task, cfg, init, batches, w, gw, smi) -> str:
+    """Rank 0's program of the 16x16 fed2 round on real memory at full
+    width: the engine on rank 0 of a dry (16, 16) mesh (its 1 of the 16
+    cohort rows; nothing moves) with the local_step kernel, from the
+    (1, 1) round's init, rank 0's rows of its batches and the whole
+    cohort's weights and presence rows. local_step launches the round's
+    steps, paired_fusion none (off on ranks); the mesh's counts equal
+    the meta record's collectives; the global is finite."""
+    from repro_torch.fl.engine import make_round_engine
+    from repro_torch.launch import fl_dryrun
+    from repro_torch.launch.mesh import make_dry_rank_mesh
+    from repro_torch.models.module import tree_map
+    rec = json.loads((FL_DRYRUN_OUT / "pod" /
+                      "dryrun_fl_round_fed2_cnn_16x16.json").read_text())
+    mesh = make_dry_rank_mesh((16, 16), 0, device="cuda")
+    steps = FL_CARD_CASE["local_steps"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = make_round_engine(task, cfg, init, device="cuda",
+                            use_local_kernel=True, mesh=mesh)
+    gp = eng.layout.flatten(tree_map(lambda t: t.to("cuda"), init))
+    mine = {k: b[eng.rows] for k, b in batches.items()}
+    mesh.counts.reset()
+    (_, out), counts = counted(
+        "fl dry-run 16x16 fed2, rank 0 of a dry (16, 16) mesh",
+        lambda: eng.run_round({"server": (), "clients": ()}, gp, mine, w,
+                              gw),
+        {"local_step": steps, "paired_fusion": 0})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got, _ = fl_dryrun.collectives(mesh.counts)
+    assert got == rec["collectives"], (got, rec["collectives"])
+    assert bool(torch.isfinite(out).all()), "non-finite global params"
+    rows = eng.rows.stop - eng.rows.start
+    del eng, gp, out
+    return (f"fl dry-run 16x16 fed2, rank 0 of a dry (16, 16) mesh on the "
+            f"card: {rows} of {cfg.cohort_size} cohort rows, local_step "
+            f"{counts['local_step']}, paired_fusion "
+            f"{counts['paired_fusion']}; collectives "
+            f"{ {k: v for k, v in got.items() if v['count']} } = the "
+            f"record's; global finite; {wall:.2f} s wall with the build "
+            f"(first run), peak {peak / 1e9:.3f} GB ({smi})")
 
 
 def phase_fl_dryrun():
@@ -5993,7 +6045,7 @@ def phase_fl_dryrun():
 # ---------------------------------------------------------------------------
 
 # the phase's budget (printed beside its time)
-RANKS_BUDGET_S = 90
+RANKS_BUDGET_S = 100
 # (a) the CLI's main path on 2 "data" ranks (5 of the 10 clients each), 2
 # rounds, against the same run in one process on the card
 RANKS_FL_RUNS = (("fed2", ("--method", "fed2")),
@@ -6015,6 +6067,10 @@ RANKS_FL_RTOL = 1e-5
 # bf16, tokens (4, 512, d): each rank draws only its experts (expert e
 # from EP_SEED + 1 + 3e, its three matrices apart); the ranks' outputs
 # must equal moe_apply_ep_plain's on the card to the bit
+# the main path's eval all-reduce a round: the (10, 10) float32
+# confusion counts (no part of a round record, taken off the measured
+# counts before they are held against the dry-run's prediction)
+RANKS_EVAL_BYTES = 10 * 10 * 4
 EP_ARCHS = ("mixtral-8x22b", "deepseek-v2-236b")
 EP_MESH = (2, 4)
 EP_TOKENS = (4, 512)
@@ -6066,12 +6122,50 @@ def leaf_rel_diff(a, b) -> tuple:
             max(d) / max(m))
 
 
+def ranks_dry_prediction(task, fl, steps) -> tuple:
+    """The dry-run's prediction of one round on each rank of a (2, 1)
+    mesh: rank 0's program of the round on meta (``lower_round``'s
+    ``rank``), as a record's ``collectives`` and
+    ``collectives_staged``."""
+    from repro_torch.fl.engine import lower_round
+    from repro_torch.launch import fl_dryrun
+    from repro_torch.launch.mesh import AXES, Mesh
+    step = lower_round(task, fl, Mesh(AXES, (2, 1)),
+                       fl_dryrun._batch_elems("cnn", fl.batch_size, 0),
+                       local_steps=steps)
+    return fl_dryrun.collectives(fl_dryrun.rank_counts(step))
+
+
+def ranks_measured_round(c) -> tuple:
+    """A rank's measured counts (``Counts.as_dict()``) of
+    RANKS_FL_ROUNDS rounds as one round's, the eval's all-reduce taken
+    off, by the record's kinds: (collectives, the staged bytes it
+    measured)."""
+    from repro_torch.launch import fl_dryrun
+    from repro_torch.launch.collectives import Counts
+    assert all(n % RANKS_FL_ROUNDS == 0 for d in c.values()
+               for n in d.values()), c
+    counts = Counts(**{k: {kind: n // RANKS_FL_ROUNDS
+                           for kind, n in d.items()}
+                       for k, d in c.items()})
+    counts.calls["all_reduce"] -= 1
+    for d, n in ((counts.bytes, RANKS_EVAL_BYTES),
+                 (counts.result, RANKS_EVAL_BYTES),
+                 (counts.staged, 2 * RANKS_EVAL_BYTES)):
+        d["all_reduce"] -= n
+    coll, _ = fl_dryrun.collectives(counts)
+    return coll, {x: counts.staged[k] if k else 0
+                  for x, k in fl_dryrun.XLA_KINDS}
+
+
 def later_round_s(wall) -> float:
     return (wall[-1] - wall[0]) / max(len(wall) - 1, 1)
 
 
 def ranks_main_path(smi):
-    """(a): RANKS_FL_RUNS on 2 ranks over gloo, against one process."""
+    """(a): RANKS_FL_RUNS on 2 ranks over gloo, against one process;
+    each rank's counts a round (the eval's all-reduce off) equal to the
+    dry-run's (2, 1) prediction of the same round."""
     from repro_torch.fl.runtime import run_federated
     from repro_torch.launch import train
     from repro_torch.launch.mesh import spawn
@@ -6127,6 +6221,20 @@ def ranks_main_path(smi):
         # a fusion and an eval all-reduce a round, one dtype segment
         assert c["calls"] == {"all_reduce": 2 * RANKS_FL_ROUNDS,
                               "all_to_all": 0, "all_gather": 0}, c
+        t1 = time.time()
+        pred = ranks_dry_prediction(task, fl, steps)
+        t_pred = time.time() - t1
+        measured = [ranks_measured_round(r["collectives"]) for r in ranks]
+        shown = [{k: v for k, v in coll.items() if v["count"]}
+                 for coll, _ in [pred] + measured]
+        print(f"  {label}: a round per rank, the eval's all-reduce off: "
+              f"dry-run (2, 1) prediction {shown[0]}, staged "
+              f"{ {k: v for k, v in pred[1].items() if v} } (rank 0 on "
+              f"meta, {t_pred:.1f} s); measured rank 0 {shown[1]}, rank 1 "
+              f"{shown[2]}, staged "
+              f"{[{k: v for k, v in m[1].items() if v} for m in measured]}"
+              f" ({smi})", flush=True)
+        assert all(m == pred for m in measured), (label, pred, measured)
 
 
 def ep_weights(cfg, experts, dtype=torch.bfloat16):

@@ -58,6 +58,7 @@ the run equals the sync run on the same ranks to the bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import time
 from typing import Any, Callable
@@ -317,11 +318,16 @@ def lower_async_event(task, cfg, mesh, *, use_kernel=None):
     ``_shardable``), the rest replicated. Which arguments the event
     reads comes from running it once on meta under
     ``engine.traced_reads`` (it costs a fuse): fed2's and fedavg's
-    events never read the global params. Returns a LoweredStep."""
-    from repro_torch.fl.engine import (LoweredStep, client_sharded,
+    events never read the global params. Returns a LoweredStep; on a
+    mesh of more than one device its ``rank`` is rank 0's event: the
+    event's K slots are the first K of a dispatch group's tile, each row
+    on the rank that computed it (``slot_shard`` of ``slot_owner``), the
+    event fused over the ranks."""
+    from repro_torch.fl.engine import (LoweredStep, RankStep,
+                                       client_sharded, dry_rank0,
                                        param_shapes, reference_leaves,
                                        replicated, resolve_use_kernel,
-                                       traced_reads)
+                                       slot_shard, traced_reads)
 
     engine = make_async_engine(task, cfg, param_shapes(task),
                                device="meta", use_kernel=False,
@@ -334,6 +340,15 @@ def lower_async_event(task, cfg, mesh, *, use_kernel=None):
     shard = mesh is not None and k % mesh.shape["data"] == 0
     args = (server, gp, rows, w)
     _, reads = traced_reads(engine.event_fn, args)
+    rank, dry = None, dry_rank0(mesh)
+    if dry is not None:
+        r_engine = make_async_engine(task, cfg, param_shapes(task),
+                                     device="meta", use_kernel=False,
+                                     use_local_kernel=False, mesh=dry)
+        slots = slot_shard(r_engine.slot_owner[:k], dry)
+        mine = tree_map(lambda b: b[:len(slots.index)], r_engine.buffer)
+        rank = RankStep(functools.partial(r_engine.event_fn, shard=slots),
+                        (server, gp, mine, w), dry)
     outs = (server, gp)
     return LoweredStep(
         call=engine.event_fn, args=args,
@@ -343,7 +358,7 @@ def lower_async_event(task, cfg, mesh, *, use_kernel=None):
         reads=reads, outs=outs, out_specs=(replicated(server), (None,)),
         out_leaves=reference_leaves(outs, layout),
         use_kernel=resolve_use_kernel(use_kernel, mesh), engine=engine,
-        cfg=cfg)
+        cfg=cfg, rank=rank)
 
 
 # ---------------------------------------------------------------------------

@@ -578,32 +578,53 @@ def lower_tier_tile(task, cfg, mesh, batch_elems: dict, *, width: float,
     JAX package's ``lower_tier_tile``, the per-tier analog of
     ``engine.lower_round``. Its arguments: the (empty) client and
     server states, the tier's flat global params, the batches and the
-    weights w (C,), all read. Returns (LoweredStep, TierModel)."""
-    from repro_torch.fl.engine import (LoweredStep, client_sharded,
-                                       make_round_engine, meta_batches,
-                                       param_shapes, reference_leaves,
-                                       replicated, resolve_use_kernel)
+    weights w (C,), all read. Returns (LoweredStep, TierModel). On a
+    mesh of more than one device its ``rank`` is rank 0's tile, split
+    over "data" as ``make_tiered_engine`` splits it (a tile narrower than
+    "data" whole, replicated)."""
+    from repro_torch.fl.engine import (LoweredStep, RankStep,
+                                       client_sharded, dry_rank0,
+                                       reference_leaves, replicated,
+                                       resolve_use_kernel)
 
     cfg = dataclasses.replace(cfg, tiers=None, local_epochs=1,
                               steps_per_epoch=local_steps)
     model = task.tier_fn(width)
-    n = cfg.cohort_size
-    engine = make_round_engine(model.task, cfg, param_shapes(model.task),
-                               device="meta", use_kernel=False,
-                               use_local_kernel=False)
-    gp = engine.layout.alloc(device="meta")
-    batches = meta_batches(batch_elems, n, local_steps)
-    w = torch.empty((n,), dtype=torch.float32, device="meta")
-
-    def call(clients, server, gp, batches, w):
-        return engine.run_tile(clients, server, gp, batches, weights=w)
-
+    engine, call, args = _tile_program(model, cfg, batch_elems,
+                                       local_steps)
+    rank, dry = None, dry_rank0(mesh)
+    if dry is not None:
+        wide = cfg.cohort_size >= dry.shape["data"]
+        rank = RankStep(*_tile_program(model, cfg, batch_elems, local_steps,
+                                       dry if wide else None)[1:], dry)
+    _, _, gp, batches, w = args
     outs = ((), gp)
     return LoweredStep(
-        call=call, args=((), (), gp, batches, w),
+        call=call, args=args,
         specs=((), (), replicated(gp), client_sharded(batches),
                replicated(w)),
         reads=(True,) * 5, outs=outs, out_specs=((), (None,)),
         out_leaves=reference_leaves(outs, engine.layout),
         use_kernel=resolve_use_kernel(use_kernel, mesh), engine=engine,
-        cfg=cfg), model
+        cfg=cfg, rank=rank), model
+
+
+def _tile_program(model, cfg, batch_elems, local_steps, mesh=None):
+    """``lower_tier_tile``'s engine on ``meta`` (on ``mesh``: None or a
+    dry rank mesh), its tile program and arguments (the batches of the
+    engine's rows). (engine, call, args)."""
+    from repro_torch.fl.engine import (make_round_engine, meta_batches,
+                                       param_shapes)
+    n = cfg.cohort_size
+    engine = make_round_engine(model.task, cfg, param_shapes(model.task),
+                               device="meta", use_kernel=False,
+                               use_local_kernel=False, mesh=mesh)
+    gp = engine.layout.alloc(device="meta")
+    batches = meta_batches(batch_elems, engine.rows.stop - engine.rows.start,
+                           local_steps)
+    w = torch.empty((n,), dtype=torch.float32, device="meta")
+
+    def call(clients, server, gp, batches, w):
+        return engine.run_tile(clients, server, gp, batches, weights=w)
+
+    return engine, call, ((), (), gp, batches, w)

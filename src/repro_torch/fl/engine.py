@@ -105,7 +105,10 @@ were computed: ``slot_shard``).
 ``lower_round`` builds the round's device program (``device_round``:
 ``run_round`` up to ``host_fuse``) and its arguments on ``meta``, each
 beside the JAX package's placement, for the dry-run
-(launch/fl_dryrun.py); ``traced_reads`` follows data through one run
+(launch/fl_dryrun.py), and on a mesh of more than one device a second
+build of the same case: rank 0's program on a dry mesh
+(``launch/mesh.make_dry_rank_mesh``, ``RankStep``), whose run counts the
+collectives a rank issues; ``traced_reads`` follows data through one run
 of such a program to find the arguments it reads.
 """
 from __future__ import annotations
@@ -528,7 +531,9 @@ class LoweredStep:
     or (C, M) tensor stands for one leaf per layout slot). ``use_kernel``
     is the fusion route the program takes on the card
     (``resolve_use_kernel``, off under a reducing robust rule); ``engine``
-    and ``cfg`` are the meta engine and the config it was built from."""
+    and ``cfg`` are the meta engine and the config it was built from;
+    ``rank`` rank 0's program of the same case on a mesh of more than
+    one device (None on one device)."""
     call: Any
     args: tuple
     specs: tuple
@@ -539,6 +544,37 @@ class LoweredStep:
     use_kernel: bool
     engine: Any
     cfg: Any
+    rank: "RankStep | None" = None
+
+
+@dataclasses.dataclass
+class RankStep:
+    """What rank 0 of a mesh runs of a lowered step, on ``meta``:
+    ``call(*args)``, the program of an engine built on ``mesh``, a dry
+    mesh (``launch/mesh.make_dry_rank_mesh``), so that it takes its rank
+    routes (its block of the cohort's rows, the row shard's all-reduce
+    and all-gathers), on rank 0's arguments (its block of the batches;
+    the weights, presence rows and client rows of the whole cohort, as a
+    rank gets them)."""
+    call: Any
+    args: tuple
+    mesh: Any
+
+    def counts(self):
+        """The program once: the collectives it issued
+        (``launch/collectives.Counts``)."""
+        self.mesh.counts.reset()
+        self.call(*self.args)
+        return self.mesh.counts
+
+
+def dry_rank0(mesh):
+    """Rank 0 of ``mesh`` (a ``launch.mesh.Mesh``) as a dry mesh on
+    ``meta``, or None for None or one device."""
+    if mesh is None or mesh.size == 1:
+        return None
+    from repro_torch.launch.mesh import make_dry_rank_mesh
+    return make_dry_rank_mesh(mesh.sizes, 0, device="meta")
 
 
 def reference_leaves(tree, layout: FlatLayout) -> int:
@@ -577,39 +613,19 @@ def lower_round(task, cfg, mesh, batch_elems: dict, *, local_steps: int,
     host; else None). The round reads every argument but w in a
     host-fusion round (its device program ends at the stacked params)
     and the key of an attack that draws no noise. ``mesh`` (a
-    ``launch.mesh.Mesh`` or None) sets only the recorded route."""
-    from repro_torch.fl import attacks as attacks_lib
+    ``launch.mesh.Mesh`` or None) sets the recorded route and, on more
+    than one device, adds ``rank``: the same round as rank 0 runs it."""
     cfg = dataclasses.replace(cfg, local_epochs=1,
                               steps_per_epoch=local_steps)
-    n = cfg.cohort_size
-    engine = make_round_engine(task, cfg, param_shapes(task), device="meta",
-                               use_kernel=False, use_local_kernel=False)
+    engine, call, args = _round_program(task, cfg, batch_elems, local_steps)
+    rank, dry = None, dry_rank0(mesh)
+    if dry is not None:
+        rank = RankStep(*_round_program(task, cfg, batch_elems,
+                                        local_steps, dry)[1:], dry)
     meth, layout = engine.method, engine.layout
-    gp = layout.alloc(device="meta")
-    one = meth.init_client_state(gp, engine.ctx)
-    state = {"server": meth.init_server_state(gp, engine.ctx),
-             "clients": tree_map(lambda t: t.new_empty((n,) + t.shape),
-                                 one)}
-    batches = meta_batches(batch_elems, n, local_steps)
-    w = torch.empty((n,), dtype=torch.float32, device="meta")
-    gw = row = key = None
-    if meth.uses_groups:
-        g = next(ga.n_groups for ga in layout.leaves(engine.ctx.group_axes)
-                 if ga is not None)
-        gw = torch.empty((n, g), dtype=torch.float32, device="meta")
-    if engine.attack is not None:
-        row = torch.as_tensor(attacks_lib.assign_attackers(
-            cfg.attack_fraction, n, seed=cfg.seed).astype(np.float32))
-        key = torch.tensor(attacks_lib.round_key(cfg.seed, 0),
-                           dtype=torch.int32)
-
-    def call(state, gp, batches, w, gw, row, key):
-        mal = None if row is None else (row, key)
-        return engine.device_round(state, gp, batches, w, gw, mal)
-
+    state, gp, batches, w, gw, row, key = args
     state_specs = {"server": replicated(state["server"]),
                    "clients": client_sharded(state["clients"])}
-    args = (state, gp, batches, w, gw, row, key)
     specs = (state_specs, replicated(gp), client_sharded(batches),
              replicated(w), None if gw is None else replicated(gw),
              None if row is None else replicated(row),
@@ -627,7 +643,44 @@ def lower_round(task, cfg, mesh, batch_elems: dict, *, local_steps: int,
         out_leaves=reference_leaves(outs, layout),
         use_kernel=(resolve_use_kernel(use_kernel, mesh)
                     and engine.robust is None),
-        engine=engine, cfg=cfg)
+        engine=engine, cfg=cfg, rank=rank)
+
+
+def _round_program(task, cfg, batch_elems: dict, local_steps: int,
+                   mesh=None) -> tuple:
+    """``lower_round``'s engine on ``meta`` (on ``mesh``: None, or a dry
+    rank mesh), its device program and the program's arguments: the
+    batches of the engine's rows, everything else the whole cohort's.
+    (engine, call, args)."""
+    n = cfg.cohort_size
+    engine = make_round_engine(task, cfg, param_shapes(task), device="meta",
+                               use_kernel=False, use_local_kernel=False,
+                               mesh=mesh)
+    meth, layout = engine.method, engine.layout
+    gp = layout.alloc(device="meta")
+    one = meth.init_client_state(gp, engine.ctx)
+    state = {"server": meth.init_server_state(gp, engine.ctx),
+             "clients": tree_map(lambda t: t.new_empty((n,) + t.shape),
+                                 one)}
+    batches = meta_batches(batch_elems, engine.rows.stop - engine.rows.start,
+                           local_steps)
+    w = torch.empty((n,), dtype=torch.float32, device="meta")
+    gw = row = key = None
+    if meth.uses_groups:
+        g = next(ga.n_groups for ga in layout.leaves(engine.ctx.group_axes)
+                 if ga is not None)
+        gw = torch.empty((n, g), dtype=torch.float32, device="meta")
+    if engine.attack is not None:
+        row = torch.as_tensor(attacks_lib.assign_attackers(
+            cfg.attack_fraction, n, seed=cfg.seed).astype(np.float32))
+        key = torch.tensor(attacks_lib.round_key(cfg.seed, 0),
+                           dtype=torch.int32)
+
+    def call(state, gp, batches, w, gw, row, key):
+        mal = None if row is None else (row, key)
+        return engine.device_round(state, gp, batches, w, gw, mal)
+
+    return engine, call, (state, gp, batches, w, gw, row, key)
 
 
 # ---------------------------------------------------------------------------

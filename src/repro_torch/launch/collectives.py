@@ -25,11 +25,17 @@ is the identity and runs nothing.
 
 The backend decides how a tensor travels, never a failure: with
 ``nccl`` tensors go as they are; with ``gloo`` a CUDA tensor goes
-through a host copy and back. Every call is counted on the mesh
-(``mesh.counts``) by kind: calls, the bytes of this rank's tensor, and
-the bytes staged through the host (copied down plus copied back). The
-three exchanges are always listed; a barrier (no bytes) only once one
-has run since the last reset.
+through a host copy and back. A dry mesh (``launch/mesh.
+make_dry_rank_mesh``: no process group) takes the no-wire branch: each
+call touches nothing of ``torch.distributed`` and returns a tensor of
+the result's shape and dtype on the input's device (the input itself
+for the all-reduce, ``empty_like`` for the all-to-all, this rank's
+tensor repeated for the all-gather). Every call is counted on the mesh
+(``mesh.counts``) by kind, on either branch alike: calls, the bytes of
+this rank's tensor, the bytes of the result buffer, and the bytes
+staged through the host (copied down plus copied back: ``staged_bytes``
+when the tensor is staged). The three exchanges are always listed; a
+barrier (no bytes) only once one has run since the last reset.
 """
 from __future__ import annotations
 
@@ -41,30 +47,43 @@ import torch
 KINDS = ("all_reduce", "all_to_all", "all_gather")
 
 
+def _zeros() -> dict:
+    return dict.fromkeys(KINDS, 0)
+
+
 @dataclasses.dataclass
 class Counts:
     """Collectives run by one rank, by kind: ``calls``, ``bytes`` (this
-    rank's tensor) and ``staged`` (bytes through the host)."""
-    calls: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(KINDS, 0))
-    bytes: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(KINDS, 0))
-    staged: dict = dataclasses.field(
-        default_factory=lambda: dict.fromkeys(KINDS, 0))
+    rank's tensor), ``result`` (the result buffer's bytes: the tensor's
+    for an all-reduce or an all-to-all, the axis size times it for an
+    all-gather; what XLA's dry-run sums) and ``staged`` (bytes through
+    the host)."""
+    calls: dict = dataclasses.field(default_factory=_zeros)
+    bytes: dict = dataclasses.field(default_factory=_zeros)
+    staged: dict = dataclasses.field(default_factory=_zeros)
+    result: dict = dataclasses.field(default_factory=_zeros)
 
-    def add(self, kind: str, nbytes: int, staged: int) -> None:
+    def add(self, kind: str, nbytes: int, staged: int,
+            result: int) -> None:
         for d, n in ((self.calls, 1), (self.bytes, nbytes),
-                     (self.staged, staged)):
+                     (self.staged, staged), (self.result, result)):
             d[kind] = d.get(kind, 0) + n
 
     def reset(self) -> None:
-        for d in (self.calls, self.bytes, self.staged):
+        for d in (self.calls, self.bytes, self.staged, self.result):
             d.clear()
-            d.update(dict.fromkeys(KINDS, 0))
+            d.update(_zeros())
 
     def as_dict(self) -> dict:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
-                "staged": dict(self.staged)}
+                "staged": dict(self.staged), "result": dict(self.result)}
+
+
+def staged_bytes(nbytes: int, result: int) -> int:
+    """What ``gloo`` stages through the host for a CUDA tensor of
+    ``nbytes`` whose result buffer holds ``result``: the tensor copied
+    down, the result copied back."""
+    return nbytes + result
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -89,12 +108,16 @@ def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     group = mesh.group(axis)
     if group is None:
         return t
+    nbytes = result = _nbytes(t)
+    if mesh.dry:
+        mesh.counts.add("all_reduce", nbytes, 0, result)
+        return t
     buf = t.cpu() if _staged(mesh, t) else t
     dist.all_reduce(buf, group=group)
     if buf is not t:
         t.copy_(buf)
-    mesh.counts.add("all_reduce", _nbytes(t),
-                    2 * _nbytes(t) if buf is not t else 0)
+    mesh.counts.add("all_reduce", nbytes, staged_bytes(nbytes, result)
+                    if buf is not t else 0, result)
     return t
 
 
@@ -110,6 +133,10 @@ def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         raise ValueError(f"all_to_all over {axis!r} of size "
                          f"{mesh.shape[axis]}: leading dimension "
                          f"{t.shape[0]}")
+    nbytes = result = _nbytes(t)
+    if mesh.dry:
+        mesh.counts.add("all_to_all", nbytes, 0, result)
+        return torch.empty_like(t)
     src = t.contiguous()
     staged = _staged(mesh, src)
     if staged:
@@ -120,8 +147,8 @@ def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = out.view(src.dtype)
     if staged:
         out = out.to(t.device)
-    mesh.counts.add("all_to_all", _nbytes(t),
-                    2 * _nbytes(t) if staged else 0)
+    mesh.counts.add("all_to_all", nbytes,
+                    staged_bytes(nbytes, result) if staged else 0, result)
     return out
 
 
@@ -132,18 +159,24 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     group = mesh.group(axis)
     if group is None:
         return t[None]
+    size = mesh.shape[axis]
+    nbytes = _nbytes(t)
+    result = size * nbytes
+    if mesh.dry:
+        mesh.counts.add("all_gather", nbytes, 0, result)
+        return t[None].repeat((size,) + (1,) * t.dim())
     src = t.contiguous()
     staged = _staged(mesh, src)
     if staged:
         src = src.cpu()
     wire = _bytes(src)
-    parts = [torch.empty_like(wire) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty_like(wire) for _ in range(size)]
     dist.all_gather(parts, wire, group=group)
     out = torch.stack(parts).view(src.dtype)
     if staged:
         out = out.to(t.device)
-    mesh.counts.add("all_gather", _nbytes(t),
-                    _nbytes(t) + _nbytes(out) if staged else 0)
+    mesh.counts.add("all_gather", nbytes,
+                    staged_bytes(nbytes, result) if staged else 0, result)
     return out
 
 
@@ -185,9 +218,11 @@ def all_gather_rows(t: torch.Tensor, mesh, axis: str, n: int,
 
 def barrier(mesh) -> None:
     """Every rank of ``mesh`` waits until all have arrived (the default
-    process group's ``barrier``); nothing on a mesh of one rank."""
+    process group's ``barrier``); nothing on a mesh of one rank, and on
+    a dry mesh only the count."""
     import torch.distributed as dist
     if mesh is None or mesh.size == 1:
         return
-    dist.barrier()
-    mesh.counts.add("barrier", 0, 0)
+    if not mesh.dry:
+        dist.barrier()
+    mesh.counts.add("barrier", 0, 0, 0)

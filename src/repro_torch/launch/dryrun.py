@@ -66,8 +66,10 @@ NOTES = {
               "logits by batch only (XLA chooses its own output "
               "placement). temp_bytes and code_bytes: null, XLA's buffer "
               "assignment and code have no meta counterpart.",
-    "collectives": "null: nothing is partitioned; collectives wait for "
-                   "torch.distributed on more than one GPU.",
+    "collectives": "null: the port builds no sharded LM step (the "
+                   "reference's GSPMD program over launch/sharding.py's "
+                   "placement), so there is no rank program to count; "
+                   "the placement here only sizes each device's share.",
 }
 
 

@@ -21,7 +21,12 @@ questions without devices:
   kernel accepts a meta tensor), with a data-flow trace that checks
   which arguments it reads;
 - **fits**: each device's bytes of the arguments the program reads and
-  of its outputs, exactly.
+  of its outputs, exactly;
+- **moves** (``collectives``): what one rank issues of the port's own
+  rank program, by XLA's kinds: the same case built a second time on
+  rank 0 of a dry mesh (``fl/engine.RankStep``), run once on meta, its
+  collectives counted and moved nowhere (``launch/collectives.py``'s
+  no-wire branch).
 
 Every method of the fl/methods.py registry x both families (the
 VGG9 CNN and the reduced llama3.2-1b), plus the capacity-tier tiles
@@ -58,6 +63,7 @@ from repro_torch.fl.engine import (lower_round, param_shapes,
                                    stacked_param_bytes, traced_reads)
 from repro_torch.fl.runtime import FLConfig, cnn_task, lm_task
 from repro_torch.launch import sharding as shd
+from repro_torch.launch.collectives import Counts, staged_bytes
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.module import tree_leaves
 
@@ -107,9 +113,35 @@ NOTES = {
                   "robust rule (fl/engine.resolve_use_kernel). The "
                   "reference's default is off on the CPU, so its 1x1 "
                   "records say false.",
-    "collectives": "null: nothing is partitioned; collectives wait for "
-                   "torch.distributed on more than one GPU.",
+    "collectives": "what one rank issues in the port's rank program "
+                   "(launch/collectives.py), by XLA's kinds: bytes = its "
+                   "result buffers' bytes summed, count = its calls. Rank "
+                   "0's program of the same case (the engine built on rank "
+                   "0 of a dry mesh: its block of the cohort, the row "
+                   "shard's all-reduce a dtype segment and all-gathers) "
+                   "run once on meta. Rank 0 stands for every rank: each "
+                   "issues the same calls, and where the cohort does not "
+                   "divide 'data' the all-gather moves every rank's rows "
+                   "padded to the longest block, so the bytes are equal "
+                   "on every rank too. The port issues no reduce-scatter "
+                   "and no collective-permute (0). Its barrier (after an "
+                   "FL checkpoint; no bytes) is no XLA kind and is left "
+                   "out. A one-device mesh issues none. The reference's "
+                   "numbers are XLA's for its partitioned program, "
+                   "another program: compare them, do not equate them.",
+    "collectives_staged": "by the same kinds, the bytes gloo stages "
+                          "through the host when the rank's tensors are "
+                          "CUDA tensors (each tensor copied down, each "
+                          "result copied back: "
+                          "launch/collectives.staged_bytes): what ranks "
+                          "sharing one card over gloo move through the "
+                          "host; 0 over nccl.",
 }
+# XLA's collective kinds as the reference's records name them, each
+# beside the port's kind (None: the port never issues it)
+XLA_KINDS = (("all-reduce", "all_reduce"), ("all-gather", "all_gather"),
+             ("reduce-scatter", None), ("all-to-all", "all_to_all"),
+             ("collective-permute", None))
 
 
 def _cnn_case(method: str, mesh_kind: str):
@@ -180,6 +212,24 @@ def memory(step, mesh) -> dict:
             "output_bytes": outs + table, "output_table_bytes": table}
 
 
+def rank_counts(step) -> Counts:
+    """The collectives rank 0 issues in ``step``: its ``rank`` program
+    run once on meta (none on one device)."""
+    return Counts() if step.rank is None else step.rank.counts()
+
+
+def collectives(counts: Counts) -> tuple:
+    """A record's ``collectives`` and ``collectives_staged`` of one
+    rank's ``counts``, by XLA's kinds (``NOTES``)."""
+    coll, staged = {}, {}
+    for xla, kind in XLA_KINDS:
+        coll[xla] = {"bytes": counts.result[kind] if kind else 0,
+                     "count": counts.calls[kind] if kind else 0}
+        staged[xla] = (staged_bytes(counts.bytes[kind], counts.result[kind])
+                       if kind else 0)
+    return coll, staged
+
+
 class Skipped(Exception):
     """A case the matrix lists but the method cannot run (the reason)."""
 
@@ -205,18 +255,23 @@ def _run_case(rec: dict, mesh, outdir: str, build, *, meta: bool,
             return rec
         t_lower = time.time() - t0
         flops, t_pass = meta_pass(step) if meta else (None, 0.0)
+        coll, staged = collectives(rank_counts(step))
         rec.update(status="ok", **head, lower_s=round(t_lower, 2),
                    compile_s=round(t_pass, 2) if meta else None,
                    flops=None if flops is None else float(flops),
                    use_kernel=step.use_kernel, memory=memory(step, mesh),
-                   collectives=None, route=ROUTE, notes=NOTES, **tail)
+                   collectives=coll, collectives_staged=staged,
+                   route=ROUTE, notes=NOTES, **tail)
         _stamp_wall(rec, t_lower, t_pass)
         if verbose:
             mem = rec["memory"]
+            moved = ", ".join(f"{k} {v['count']} x {v['bytes']:,} B"
+                              for k, v in coll.items() if v["count"])
             print(f"[ok]   {tag}: build {t_lower:.1f}s meta pass "
                   f"{t_pass:.1f}s flops {rec['flops']} args "
                   f"{mem['argument_bytes']:,} B outputs "
-                  f"{mem['output_bytes']:,} B per device")
+                  f"{mem['output_bytes']:,} B per device; collectives "
+                  f"a rank: {moved or 'none'}")
     except Exception as e:  # noqa: BLE001 — record, keep the matrix going
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    trace=traceback.format_exc()[-2000:])
@@ -583,8 +638,10 @@ def run_matrix(*, mesh_kind: str = "pod", methods=None,
 def compare(recs: list, ref_dir: str) -> list:
     """Each ``ok`` record beside the reference's record of its tag in
     ``ref_dir`` (the committed ``benchmarks/artifacts_perf``): whether
-    the per-device argument and output bytes are equal, and torch's
-    FLOPs over XLA's. Lines to print."""
+    the per-device argument and output bytes are equal, torch's FLOPs
+    over XLA's, and each collective kind's count and bytes, the port's
+    rank program's beside XLA's (two programs: shown, not held equal).
+    Lines to print."""
     lines = []
     for rec in recs:
         if rec["status"] != "ok":
@@ -602,6 +659,15 @@ def compare(recs: list, ref_dir: str) -> list:
                  else f"{rec['flops'] / ref['flops']:.3f}")
         lines.append(f"[vs]   {tag}: bytes equal {same}; flops torch "
                      f"{rec['flops']} / XLA {ref.get('flops')} = {ratio}")
+        theirs = ref.get("collectives") or {}
+        kinds = []
+        for xla, _ in XLA_KINDS:
+            a = rec["collectives"][xla]
+            b = theirs.get(xla, {"count": 0, "bytes": 0})
+            kinds.append(f"{xla} {a['count']} x {a['bytes']:,} B / "
+                         f"{b['count']} x {b['bytes']:,} B")
+        lines.append(f"[vs]   {tag}: collectives port / XLA (calls x "
+                     f"result bytes): {'; '.join(kinds)}")
     return lines
 
 
@@ -658,7 +724,8 @@ def main(argv=None):
     ap.add_argument("--against", default=None,
                     help="a directory of the reference's records (e.g. "
                          "benchmarks/artifacts_perf): print each record's "
-                         "bytes beside them and torch's FLOPs over XLA's")
+                         "bytes beside them, torch's FLOPs over XLA's and "
+                         "each collective kind, the port's beside XLA's")
     args = ap.parse_args(argv)
 
     methods = methods_lib.available() if args.methods == "all" \

@@ -17,6 +17,12 @@ rank's device. Its collectives are ``launch/collectives.py``'s, counted
 on the mesh. ``spawn`` starts one process per rank (the ``spawn`` start
 method, a ``file://`` store in a temporary directory) and returns each
 rank's result: several ranks may share one card over ``gloo``.
+
+``make_dry_rank_mesh`` gives one rank's view of such a mesh with no
+process group at all (``dry``): its collectives take the no-wire
+branch, which only counts, so the dry-run (launch/fl_dryrun.py) runs
+rank 0's program of a round on ``meta`` and reads what it would move,
+without touching ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -65,13 +71,15 @@ class RankMesh(Mesh):
     """This rank's view of a mesh of ``torch.distributed`` ranks:
     ``coords`` its coordinate on each axis and ``groups`` its line's
     process group along each axis (None for an axis of size 1), in axis
-    order; ``counts`` the collectives it ran (``launch/collectives.py``)."""
+    order; ``counts`` the collectives it ran (``launch/collectives.py``);
+    ``dry`` a mesh with no process group (``make_dry_rank_mesh``)."""
     rank: int = 0
     coords: tuple = ()
     groups: tuple = ()
     backend: str = "gloo"
     device: torch.device = torch.device("cpu")
     counts: Counts = dataclasses.field(default_factory=Counts)
+    dry: bool = False
 
     def coord(self, axis: str) -> int:
         return self.coords[self.axis_names.index(axis)]
@@ -164,6 +172,36 @@ def make_rank_mesh(shape: tuple, *, device) -> RankMesh:
     return RankMesh(AXES, shape, rank=rank, coords=divmod(rank, n_model),
                     groups=tuple(groups), backend=dist.get_backend(),
                     device=torch.device(device))
+
+
+class _DryGroup:
+    """The group of an axis line on a dry mesh: it names no ranks, and
+    nothing of ``torch.distributed`` ever receives it."""
+
+    def __repr__(self) -> str:
+        return "DRY_GROUP"
+
+
+DRY_GROUP = _DryGroup()
+
+
+def make_dry_rank_mesh(shape: tuple, rank: int, *, device) -> RankMesh:
+    """Rank ``rank``'s view of the ("data", "model") mesh of ``shape``
+    with no process group: its coordinates, axes and sizes are those
+    ``make_rank_mesh`` gives it, every axis of size > 1 holds the
+    sentinel ``DRY_GROUP``, and the mesh is ``dry``, so its collectives
+    count and move nothing. It needs no ``torch.distributed`` state and
+    leaves none behind. ``device``: where its program runs (``meta``
+    for the dry-run)."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(AXES):
+        raise ValueError(f"mesh shape {shape} for axes {AXES}")
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} of a {shape} mesh")
+    return RankMesh(AXES, shape, rank=rank, coords=divmod(rank, shape[1]),
+                    groups=tuple(DRY_GROUP if s > 1 else None
+                                 for s in shape),
+                    backend="dry", device=torch.device(device), dry=True)
 
 
 def rank_device(device, rank: int) -> torch.device:

@@ -6,6 +6,12 @@ production mesh, and its own machinery.
   when K divides 16): every record of the pod matrix, built without the
   meta pass, holds the per-device bytes of the reference's committed
   records, quoted below (not read).
+- The collectives of the port's rank program (rank 0's program of each
+  case on a dry mesh, on meta): the three records predicted in PERF.md
+  before the matrix first ran, fedma's all-gather equal to its
+  host_gather_bytes, every kind 0 at 1x1; the no-wire branch counts
+  and never reaches torch.distributed, a real mesh never takes it, and
+  the dry-run leaves no process group behind.
 - The meta pass's FLOP count equals FlopCounterMode's count of the same
   round run on real CPU tensors (one cnn and one lm case: both are
   integer sums over the same products).
@@ -29,8 +35,10 @@ from repro_torch.fl.async_engine import lower_async_event
 from repro_torch.fl.engine import (lower_round, make_round_engine,
                                    resolve_use_kernel)
 from repro_torch.fl.runtime import FLConfig
-from repro_torch.launch import fl_dryrun, train
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch import collectives, fl_dryrun, train
+from repro_torch.launch.mesh import (AXES, DRY_GROUP, Mesh, RankMesh,
+                                     make_dry_rank_mesh, make_host_mesh,
+                                     make_production_mesh)
 
 # memory.argument_bytes, memory.output_bytes of the committed record
 # benchmarks/artifacts_perf/dryrun_<tag>.json, by tag (quoted, not read);
@@ -81,6 +89,19 @@ POD_EXTRA = {
     "fl_fast_fedavg_int8_16x16": {"uplink_bytes": 3_491_602,
                                   "full_params_bytes": 13_966_120},
 }
+# one rank's collectives in three 16x16 records as PERF.md predicted
+# them before the matrix first ran: (count, result bytes) of each kind
+# issued (every other kind 0), then the bytes gloo would stage
+PREDICTED = {
+    "fl_round_fed2_cnn_16x16": ({"all-reduce": (1, 1_849_000)},
+                                {"all-reduce": 3_698_000}),
+    "fl_round_fedavg_cnn_16x16": ({"all-reduce": (1, 13_966_120)},
+                                  {"all-reduce": 27_932_240}),
+    "fl_robust_fedavg_coordinate_median_16x16": (
+        {"all-gather": (1, 223_457_920)}, {"all-gather": 237_424_040}),
+}
+XLA_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute")
 SMOKE = dict(clients=4, local_steps=2, batch=8, seq=32)
 N_CLASSES = 10          # the VGG9 cases'
 LM_VOCAB = 512          # the reduced llama3.2-1b's
@@ -123,7 +144,177 @@ def test_pod_bytes_equal_the_committed_records(pod, tag):
     for k, v in POD_EXTRA.get(tag, {}).items():
         assert rec[k] == v, (k, rec[k], v)
     assert rec["use_kernel"] is False      # 256 devices: no kernel route
-    assert rec["collectives"] is None and "notes" in rec
+    assert "notes" in rec
+    coll, staged = rec["collectives"], rec["collectives_staged"]
+    assert list(coll) == list(staged) == list(XLA_KINDS)
+    assert all(sorted(v) == ["bytes", "count"] for v in coll.values())
+    for kind in ("reduce-scatter", "collective-permute", "all-to-all"):
+        assert coll[kind] == {"bytes": 0, "count": 0} and staged[kind] == 0
+    # one fusion collective a round: the all-reduce of the mean, or the
+    # all-gather of a host-fusion method's or a robust rule's rows
+    # (scaffold: both, its new c_i rows gathered)
+    issued = sum(v["count"] for v in coll.values())
+    assert issued == (2 if "scaffold" in tag else 1)
+
+
+@pytest.mark.parametrize("tag", sorted(PREDICTED))
+def test_pod_collectives_equal_the_predictions(pod, tag):
+    calls, staged = PREDICTED[tag]
+    rec = pod[tag]
+    assert rec["collectives"] == {
+        k: dict(zip(("count", "bytes"), calls.get(k, (0, 0))))
+        for k in XLA_KINDS}
+    assert rec["collectives_staged"] == {k: staged.get(k, 0)
+                                         for k in XLA_KINDS}
+
+
+def test_fedma_gathers_its_host_gather_bytes(pod):
+    """fedma's device program ends at the stacked params: one all-gather
+    of the trained rows (one a rank), its result the whole cohort the
+    host matching reads; the matching itself does not run."""
+    rec = pod["fl_round_fedma_cnn_16x16"]
+    assert rec["collectives"]["all-gather"] == {
+        "bytes": rec["host_gather_bytes"], "count": 1}
+    assert rec["host_gather_bytes"] == 223_457_920
+    assert rec["collectives"]["all-reduce"]["count"] == 0
+
+
+def test_dry_run_leaves_no_process_group(pod):
+    assert torch.distributed.is_available()
+    assert not torch.distributed.is_initialized()
+
+
+def test_host_records_issue_no_collectives(tmp_path):
+    recs = fl_dryrun.run_matrix(mesh_kind="host", outdir=str(tmp_path),
+                                verbose=False, meta=False, **SMOKE)
+    ok = [r for r in recs if r["status"] == "ok"]
+    assert len(ok) == 30 and len(recs) == 31
+    for r in ok:
+        assert r["collectives"] == {k: {"bytes": 0, "count": 0}
+                                    for k in XLA_KINDS}, fl_dryrun._tag(r)
+        assert r["collectives_staged"] == dict.fromkeys(XLA_KINDS, 0)
+    assert not torch.distributed.is_initialized()
+
+
+def test_make_dry_rank_mesh():
+    for rank in range(8):
+        mesh = make_dry_rank_mesh((2, 4), rank, device="meta")
+        assert (mesh.axis_names, mesh.sizes) == (AXES, (2, 4))
+        assert mesh.coords == divmod(rank, 4) and mesh.rank == rank
+        assert mesh.groups == (DRY_GROUP, DRY_GROUP)
+        assert mesh.dry and mesh.backend == "dry"
+        assert mesh.device == torch.device("meta")
+    assert make_dry_rank_mesh((4, 1), 3, device="cpu").groups == (
+        DRY_GROUP, None)
+    assert not RankMesh(AXES, (2, 1)).dry
+    with pytest.raises(ValueError, match="rank 8"):
+        make_dry_rank_mesh((2, 4), 8, device="meta")
+    with pytest.raises(ValueError, match="for axes"):
+        make_dry_rank_mesh((2, 2, 2), 0, device="meta")
+
+
+@pytest.fixture
+def no_wire(monkeypatch):
+    """torch.distributed's exchanges, each raising if called."""
+    def wire(*a, **k):
+        raise RuntimeError("reached torch.distributed")
+    for name in ("all_reduce", "all_to_all_single", "all_gather",
+                 "barrier"):
+        monkeypatch.setattr(torch.distributed, name, wire)
+
+
+def test_no_wire_branch_counts_and_moves_nothing(no_wire):
+    """On a dry mesh each collective reaches nothing of torch.distributed
+    and returns a tensor of the result's shape and dtype on the input's
+    device; it counts calls, this rank's bytes and the result buffer's
+    bytes as the wire branch does (staged 0: not gloo)."""
+    mesh = make_dry_rank_mesh((4, 2), 5, device="cpu")     # coords (2, 1)
+    x = torch.arange(15, dtype=torch.float32).reshape(3, 5)
+    assert collectives.all_reduce(x, mesh, "data") is x
+    a2a = collectives.all_to_all(torch.ones(4, 3, dtype=torch.bfloat16),
+                                 mesh, "data")
+    assert (a2a.shape, a2a.dtype, a2a.device) == ((4, 3), torch.bfloat16,
+                                                  x.device)
+    y = torch.arange(6, dtype=torch.int32).reshape(2, 3)
+    g = collectives.all_gather(y, mesh, "model")
+    assert g.shape == (2, 2, 3) and torch.equal(g, torch.stack([y, y]))
+    # 10 rows over 4 ranks: blocks 3, 3, 2, 2; coordinate 2 holds 2,
+    # sent padded to 3, so the result holds 4 x 3 rows
+    rows = collectives.all_gather_rows(torch.ones(2, 7), mesh, "data", 10)
+    assert rows.shape == (10, 7) and bool(torch.isfinite(rows).all())
+    collectives.barrier(mesh)
+    c = mesh.counts.as_dict()
+    assert c["calls"] == {"all_reduce": 1, "all_to_all": 1,
+                          "all_gather": 2, "barrier": 1}
+    assert c["bytes"] == {"all_reduce": 60, "all_to_all": 24,
+                          "all_gather": 24 + 3 * 7 * 4, "barrier": 0}
+    assert c["result"] == {"all_reduce": 60, "all_to_all": 24,
+                           "all_gather": 2 * 24 + 4 * 3 * 7 * 4,
+                           "barrier": 0}
+    assert c["staged"] == dict.fromkeys(c["calls"], 0)
+    # an axis of size 1 runs and counts nothing
+    one = make_dry_rank_mesh((4, 1), 0, device="cpu")
+    assert collectives.all_reduce(x, one, "model") is x
+    assert one.counts.calls["all_reduce"] == 0
+
+
+def test_a_real_mesh_never_takes_the_no_wire_branch(no_wire):
+    mesh = RankMesh(AXES, (2, 1), groups=(object(), None))
+    with pytest.raises(RuntimeError, match="reached torch.distributed"):
+        collectives.all_reduce(torch.ones(3), mesh, "data")
+    with pytest.raises(RuntimeError, match="reached torch.distributed"):
+        collectives.barrier(mesh)
+    assert mesh.counts.calls["all_reduce"] == 0
+
+
+@pytest.mark.parametrize("method", ["fed2", "fedma"])
+def test_rank0_on_real_memory_counts_as_on_meta(method):
+    """Rank 0's program of a round built on a dry (4, 1) mesh with CPU
+    tensors (its 2 of 6 cohort rows, the local_step route) issues what
+    the dry-run's meta build of the same round counts, and its output
+    is finite: the whole cohort's gathered rows for fedma, whose host
+    matching the dry-run leaves out."""
+    task, _ = fl_dryrun._cnn_case(method, "host")
+    fl = FLConfig(population=6, method=method)
+    elems = fl_dryrun._batch_elems("cnn", 4, 0)
+    step = lower_round(task, fl, Mesh(AXES, (4, 1)), elems, local_steps=2)
+    want = fl_dryrun.rank_counts(step).as_dict()
+    mesh = make_dry_rank_mesh((4, 1), 0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    init = task.init_fn(gen)
+    eng = make_round_engine(task, step.cfg, init, device="cpu",
+                            use_local_kernel=True, mesh=mesh)
+    rows = eng.rows.stop - eng.rows.start
+    assert rows == 2 and not eng.ctx.use_kernel
+    batches = {"images": torch.randn((rows, 2, 4, 32, 32, 3), generator=gen),
+               "labels": torch.randint(0, N_CLASSES, (rows, 2, 4),
+                                       generator=gen, dtype=torch.int32)}
+    w = torch.rand(6, generator=gen) + 0.5
+    gw = (torch.rand(6, 5, generator=gen) + 0.5 if method == "fed2"
+          else None)
+    _, out = eng.device_round({"server": (), "clients": ()},
+                              eng.layout.flatten(init), batches, w, gw)
+    assert mesh.counts.as_dict() == want
+    assert want["calls"]["all_reduce" if method == "fed2"
+                         else "all_gather"] == 1
+    assert out.shape[0] == (6 if method == "fedma" else eng.layout.size)
+    assert bool(torch.isfinite(out).all())
+
+
+def test_staged_bytes_are_the_tensor_down_and_the_result_back():
+    """What gloo stages for a CUDA tensor (collectives_staged): 2x the
+    tensor for an all-reduce or an all-to-all, the tensor and the
+    gathered result for an all-gather."""
+    assert collectives.staged_bytes(60, 60) == 120
+    assert collectives.staged_bytes(24, 2 * 24) == 72
+    c = collectives.Counts()
+    c.add("all_gather", 24, 0, 48)
+    c.add("all_reduce", 60, 0, 60)
+    coll, staged = fl_dryrun.collectives(c)
+    assert coll["all-gather"] == {"bytes": 48, "count": 1}
+    assert staged == {"all-reduce": 120, "all-gather": 72,
+                      "reduce-scatter": 0, "all-to-all": 0,
+                      "collective-permute": 0}
 
 
 def _real_args(step, task, gen):
@@ -307,11 +498,18 @@ def test_default_out_is_not_under_benchmarks():
 
 
 def test_compare_against_reference_records(tmp_path):
+    c = collectives.Counts()
+    c.add("all_reduce", 1000, 0, 1000)
     rec = {"kind": "fl_round", "method": "fed2", "family": "cnn",
            "mesh": "1x1", "status": "ok", "flops": 640.0,
-           "memory": {"argument_bytes": 8, "output_bytes": 4}}
+           "memory": {"argument_bytes": 8, "output_bytes": 4},
+           "collectives": fl_dryrun.collectives(c)[0]}
+    xla = {k: {"bytes": 0, "count": 0} for k in XLA_KINDS}
+    xla["all-reduce"] = {"bytes": 1040, "count": 31}
+    xla["all-gather"] = {"bytes": 2048, "count": 2}
     (tmp_path / "dryrun_fl_round_fed2_cnn_1x1.json").write_text(json.dumps(
-        {"flops": 10.0, "memory": {"argument_bytes": 8, "output_bytes": 5}}))
+        {"flops": 10.0, "memory": {"argument_bytes": 8, "output_bytes": 5},
+         "collectives": xla}))
     lost = dict(rec, method="fedavg")
     lines = fl_dryrun.compare([rec, lost, dict(rec, status="error")],
                               str(tmp_path))
@@ -319,4 +517,9 @@ def test_compare_against_reference_records(tmp_path):
         "[vs]   fl_round_fed2_cnn_1x1: bytes equal {'argument_bytes': "
         "True, 'output_bytes': False}; flops torch 640.0 / XLA 10.0 = "
         "64.000",
+        "[vs]   fl_round_fed2_cnn_1x1: collectives port / XLA (calls x "
+        "result bytes): all-reduce 1 x 1,000 B / 31 x 1,040 B; all-gather "
+        "0 x 0 B / 2 x 2,048 B; reduce-scatter 0 x 0 B / 0 x 0 B; "
+        "all-to-all 0 x 0 B / 0 x 0 B; collective-permute 0 x 0 B / 0 x "
+        "0 B",
         "[vs]   fl_round_fedavg_cnn_1x1: no reference record"]

@@ -117,6 +117,26 @@ def test_collectives_per_round(ranks, name):
                                "all_gather": 0}      # CPU tensors
 
 
+# the eval's all-reduce a round: the (10, 10) float32 confusion counts
+EVAL_BYTES = 10 * 10 * 4
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_dry_prediction_equals_the_ranks_counts(ranks, name):
+    """The dry-run's (2, 1) prediction of one round (rank 0's program on
+    meta, times the round's tiles) equals what each gloo rank counted a
+    round, the eval's all-reduce taken off: calls, bytes, result bytes
+    (an all-gather's: 2 x the padded block) and staged bytes by kind."""
+    method, flags, _ = CASES[name]
+    want = torch_ranks.dry_round_counts(rp.argv(method, flags))
+    for r in ranks[name]:
+        assert torch_ranks.measured_round_counts(
+            r["collectives"], rp.ROUNDS, EVAL_BYTES) == want
+    gathers = want["calls"]["all_gather"]
+    assert want["result"]["all_gather"] == 2 * want["bytes"]["all_gather"]
+    assert gathers == (CALLS[name] if name in CALLS else CALLS[method])[1]
+
+
 def test_scaffold_state_is_one_replica(ranks):
     """Scaffold's server control variate and the population's client
     rows: equal to the bit across ranks (each rank runs the one-process

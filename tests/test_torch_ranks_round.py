@@ -158,6 +158,26 @@ def test_collectives_per_round(ranks):
             assert c["staged"]["all_reduce"] == 0   # CPU tensors
 
 
+# the eval's all-reduce a round: the (10, 10) float32 confusion counts
+EVAL_BYTES = 10 * 10 * 4
+
+
+@pytest.mark.parametrize("key", [(name, ROUNDS) for name in CASES]
+                         + [("fed2", 1), ("fedavg", 1)],
+                         ids=lambda k: f"{k[0]}-{k[1]}")
+def test_dry_prediction_equals_the_ranks_counts(ranks, key):
+    """The dry-run's (2, 1) prediction of one round (rank 0's program on
+    meta, nothing moved) equals what each gloo rank counted a round,
+    the eval's all-reduce taken off: calls, bytes, result bytes and
+    staged bytes by kind."""
+    name, rounds = key
+    want = torch_ranks.dry_round_counts(_argv(*CASES[name], rounds=rounds))
+    assert want["calls"]["all_reduce"] == 1
+    for r in ranks[key]:
+        assert torch_ranks.measured_round_counts(
+            r["collectives"], rounds, EVAL_BYTES) == want
+
+
 def test_eval_counts_match_the_one_process_counts(ranks):
     """The eval's 3 tiles padded to 4 over 2 ranks: every round's
     confusion counts cover the 50 examples once, as the one-process

@@ -100,6 +100,42 @@ def run_fl(argv, eval_batch, init, mesh=None, **kw) -> dict:
             "collectives": None if mesh is None else mesh.counts.as_dict()}
 
 
+def dry_round_counts(argv) -> dict:
+    """The dry-run's prediction of what each rank of a (2, 1) mesh
+    issues in one round of the CLI run ``argv``: rank 0's program of the
+    round (``fl/engine.lower_round``'s ``rank``, run once on meta), times
+    the round's cohort tiles. ``Counts.as_dict()``'s keys."""
+    import math
+
+    from repro_torch.launch import fl_dryrun
+    from repro_torch.launch.mesh import AXES, Mesh
+    task, fl, *_ = fl_inputs(argv, 1)
+    step = engine.lower_round(task, fl, Mesh(AXES, (2, 1)),
+                              fl_dryrun._batch_elems("cnn", fl.batch_size,
+                                                     0),
+                              local_steps=fl.steps_per_epoch)
+    tiles = math.ceil(fl.population / fl.cohort_size)
+    c = fl_dryrun.rank_counts(step).as_dict()
+    return {k: {kind: tiles * n for kind, n in d.items()}
+            for k, d in c.items()}
+
+
+def measured_round_counts(counts, rounds, eval_bytes) -> dict:
+    """A rank's measured ``counts`` (``Counts.as_dict()``) of ``rounds``
+    rounds as one round's, less the eval's one all-reduce of
+    ``eval_bytes`` a round (not part of a round record)."""
+    out = {}
+    for k, d in counts.items():
+        out[k] = {}
+        for kind, n in d.items():
+            assert n % rounds == 0, (k, kind, n, rounds)
+            out[k][kind] = n // rounds
+    out["calls"]["all_reduce"] -= 1
+    for k in ("bytes", "result"):
+        out[k]["all_reduce"] -= eval_bytes
+    return out
+
+
 def checkpoint_listing(path) -> dict:
     """A checkpoint directory's files (the clients' shard files under
     ``clients/``) and its manifest."""
