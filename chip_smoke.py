@@ -399,12 +399,45 @@ script exits non-zero:
             collectives by kind, local_step launches a rank (8 a tile a
             rank with the flag, the replicated tile's too) and s/round
             or s/event beside one process's
+53. ranks serve  the sharded prefill and decode on model ranks sharing
+            card 0 over gloo (budget 120 s; alone: python3 -c 'import
+            chip_smoke as c; c.phase_build(); c.phase_ranks_serve()'):
+            the full-width, full-depth bf16 llama3.2-1b and mamba2-1.3b,
+            each with and without Fed2 8, on a (1, 2) mesh, and the
+            Fed2 llama on a (2, 2) mesh (a spawn each; the four (1, 2)
+            spawns at once beside the one-process runs, then the (2, 2)
+            one beside the dry mesh's predictions): each rank
+            draws the tree from the serving seed and keeps its shares
+            (exactly its per_device_bytes); run_serve(mesh=) at the
+            serve CLI's defaults (batch 4, prompt 32, gen 16), counted:
+            on every rank grouped_matmul 13 a Fed2 llama step and 1 a
+            Fed2 mamba2 step, ssd_update 48 a mamba2 step, and the
+            collectives a step (calls, bytes, result and staged bytes)
+            equal to rank 0's program on a dry mesh of the same shape;
+            an 8-token prompt alone (teacher-forced) and one prefill-loss step
+            of (2, 2048) (grouped_matmul 4 with Fed2; collectives = the
+            dry mesh's) held against one process: the gathered logits,
+            the cache joined from the ranks' shares and the loss within
+            max(2^-7, 2 r) of each one's largest magnitude, r the
+            one-process bf16 run's distance from the same run in fp32;
+            mamba2 with and without Fed2 on (1, 2) ranks again in fp32
+            (weights upcast, TF32 off, both kernels in fp32; spawns
+            beside the (2, 2) one), the 8-token prompt's logits and
+            cache within 1e-4 of one fp32 process's largest magnitude;
+            then every new shard shape of the two kernels (the
+            unembeddings at (G, 256, V/(G·|model|)), the decoupled FFN
+            products at f/(G·|model|), ssd_update at H/|model| heads, on
+            this phase's path and the 16x16 dry-run's) against its
+            plain version, timed beside its bound and torch.bmm, with
+            its launches measured on the ranks by shape (every shape a
+            rank launches must be among them)
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Nothing here imports jax or ``repro``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -1350,14 +1383,18 @@ def phase_check_feature_stats() -> dict:
             "max_abs_err": err_path, **t}
 
 
-def ssd_inputs(b, h, p, n, dt_x, gen, state=None):
+def ssd_inputs(b, h, p, n, dt_x, gen, state=None, row_heads=None,
+               head0=0):
     """Inputs of one ssd_update call as the decode makes them: x, b and c
     views into one (B, H*P + 2N) row of dtype ``dt_x``, dt > 0 after a
-    softplus, a_log as the model inits it."""
-    row = torch.randn(b, h * p + 2 * n, generator=gen, device="cuda")
+    softplus, a_log as the model inits it. ``row_heads``: a row of that
+    many heads, x the ``h`` heads from ``head0`` (a model rank's heads
+    in its all-gathered conv channels)."""
+    hr = h if row_heads is None else row_heads
+    row = torch.randn(b, hr * p + 2 * n, generator=gen, device="cuda")
     row = row.to(dt_x)
-    x = row[:, :h * p].reshape(b, h, p)
-    bm, cm = row[:, h * p:h * p + n], row[:, h * p + n:]
+    x = row[:, head0 * p:(head0 + h) * p].reshape(b, h, p)
+    bm, cm = row[:, hr * p:hr * p + n], row[:, hr * p + n:]
     if state is None:
         state = torch.randn(b, h, p, n, generator=gen, device="cuda")
     dt = torch.nn.functional.softplus(
@@ -6870,6 +6907,621 @@ def phase_ranks_matrix():
           f"{RANKS_MATRIX_BUDGET_S} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# ranks serve: the sharded prefill and decode on model ranks sharing card 0
+# ---------------------------------------------------------------------------
+
+# the phase's budget (printed beside its time)
+RANKS_SERVE_BUDGET_S = 120
+# the full-width, full-depth bf16 models served on ranks: (arch, Fed2
+# groups); every one on a (1, 2) mesh, the Fed2 llama also on (2, 2)
+# (its GQA exchanges, 13 grouped_matmul a step, 82 collectives a step
+# against Mamba-2's 146)
+RANKS_SERVE_MODELS = (("llama3.2-1b", 0), ("llama3.2-1b", 8),
+                      ("mamba2-1.3b", 0), ("mamba2-1.3b", 8))
+# the models also run on their ranks in fp32 (the bf16 weights upcast,
+# TF32 off, both kernels in fp32), on the check's prompt, held to one
+# process's fp32 run within RANKS_SERVE_FP32_TOL of each quantity's
+# largest magnitude: Mamba-2's, where the bf16 rule below is loose (its
+# bf16 run drifts 0.32-0.35 of the logits' scale from fp32 in 8 steps)
+RANKS_SERVE_FP32 = (("mamba2-1.3b", 0), ("mamba2-1.3b", 8))
+# The ranks' fp32 round-off (2^-24: the row-parallel sums, the split
+# norm and GEMMs of other widths, in another order) grows through 48
+# random-init layers and 8 steps, as bf16's does to 0.3: on an H100 the
+# ranks came 3.1e-5 (logits) and 7.1e-5 (worst cache leaf) of the scale
+# from one process, more than the ~5e-6 that a growth of r / 2^-8 ~ 80
+# predicts (bf16's distance saturates, so it understates the growth). A
+# wrong head, channel, state slot or stride is O(1) of the scale
+RANKS_SERVE_FP32_TOL = 1e-4
+# the spawns, in waves: each (mesh shape, model, rank body) its own
+# spawn, a wave's spawns all at once. A rank's decode step waits on gloo
+# far more than it computes (tools/rank_serve_costs.py: a Fed2 llama
+# step 204 ms on 2 ranks, 49-54 ms on a dry mesh, 34.6 ms in one
+# process; a gloo exchange 0.5-1.1 ms), so meshes on one card overlap.
+# The one-process references run beside the first wave; the second
+# wave's 8 ranks come after it (device memory), with the dry mesh's
+# predictions beside them. Bodies: "serve" (ranks_serve_rank) and
+# "fp32" (ranks_fp32_rank)
+RANKS_SERVE_WAVES = (
+    tuple(((1, 2), m, "serve") for m in RANKS_SERVE_MODELS),
+    (((2, 2), ("llama3.2-1b", 8), "serve"),)
+    + tuple(((1, 2), m, "fp32") for m in RANKS_SERVE_FP32))
+# run_serve at the serve CLI's defaults (the path, counted)
+RANKS_SERVE = dict(batch=4, prompt_len=32, gen=16, max_len=128, seed=0)
+# the check held against one process: run_serve of a prompt of this many
+# tokens and no decoded one (every step teacher-forced: the same tokens
+# on the ranks and in one process, whatever a near-tie would decode)
+RANKS_SERVE_CHECK = 8
+# one prefill-loss step of (batch, seq) on seeded tokens
+RANKS_PREFILL = (2, 2048)
+# the kernels' launches a decode step on every rank (grouped_matmul,
+# ssd_update): a Fed2 Llama's unembedding and 4 decoupled blocks x 3
+# products, a Fed2 Mamba-2's unembedding (decouple 0), 48 SSM layers;
+# a prefill step: one grouped_matmul a loss chunk (Fed2)
+RANKS_SERVE_LAUNCHES = {("llama3.2-1b", 0): (0, 0),
+                        ("llama3.2-1b", 8): (1 + 4 * 3, 0),
+                        ("mamba2-1.3b", 0): (0, 48),
+                        ("mamba2-1.3b", 8): (1, 48)}
+# the ranks against one process in bf16, on the check's prompt: the
+# logits, each cache leaf and the prefill loss within max(2^-7, 2 r) of
+# the quantity's largest magnitude, r the distance of the one-process
+# bf16 run from the same run in fp32 (weights upcast, TF32 off) over the
+# same magnitude. The ranks add a few bf16 roundings to a computation
+# that rounds every op to bf16: each row-parallel partial, and its sum,
+# round once more (partials travel in bf16); the fp32 partial scores
+# are rounded to bf16 after their sum, as one process rounds its
+# product. The floor, one bf16 ulp (2^-7 of the largest magnitude),
+# covers a leaf whose one-process rounding is exact where the ranks
+# flip an ulp (a layer-0 projection through a GEMM of another width).
+# For Mamba-2, 2 r is ~0.7 of the scale: there the fp32 check above is
+# the one that can fail
+RANKS_SERVE_ULP = 2.0 ** -7
+
+
+def ranks_serve_config(arch, groups, dtype=torch.bfloat16):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import with_fed2
+    cfg = get_config(arch, reduced=False, dtype=dtype)
+    return with_fed2(cfg, groups=groups) if groups else cfg
+
+
+def ranks_prefill_batch(vocab):
+    b, s = RANKS_PREFILL
+    rng = np.random.default_rng(RANKS_SERVE["seed"])
+    toks = rng.integers(0, vocab, size=(b, s + 1))
+    return {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32),
+            "mask": torch.ones((b, s))}
+
+
+def ranks_serve_rank(mesh, models):
+    """Each model of ``models`` on this rank: the full tree drawn from
+    the serving seed on the card (as one process draws it), then
+    run_serve(mesh=) at the CLI's defaults (counted: collectives and
+    both kernels' launches), the check's prompt alone (its logits and
+    cache share back on the host) and one prefill-loss step of
+    RANKS_PREFILL (counted); each kernel's launches of each shape over
+    those three runs (``shapes``)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.ssd_update import ssd_update
+    from repro_torch.launch import serve, sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import tree_map
+    out = {}
+    for arch, groups in models:
+        cfg = ranks_serve_config(arch, groups)
+        full = tfm.init_params(torch.Generator(device="cuda").manual_seed(
+            RANKS_SERVE["seed"]), cfg)
+        tallies = (grouped_matmul.shape_launches.copy(),
+                   ssd_update.shape_launches.copy())
+
+        def counted_run(fn):
+            gm, su = grouped_matmul.launches, ssd_update.launches
+            mesh.counts.reset()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, {"s": time.time() - t0,
+                         "collectives": mesh.counts.as_dict(),
+                         "grouped_matmul": grouped_matmul.launches - gm,
+                         "ssd_update": ssd_update.launches - su}
+
+        torch.cuda.reset_peak_memory_stats()
+        path, path_c = counted_run(lambda: serve.run_serve(
+            cfg, device="cuda", init_params=full, mesh=mesh, **RANKS_SERVE))
+        assert torch.isfinite(path["logits"].float()).all(), (arch, groups)
+        prompt = serve.run_serve(cfg, device="cuda", init_params=full,
+                                 mesh=mesh, **ranks_serve_check())
+        specs = sharding.param_shardings(full, cfg, mesh)
+        shares = sharding.cut(full, specs, mesh)
+        per_device = sharding.per_device_bytes(full, specs, mesh)
+        del full
+        batch = ranks_prefill_batch(cfg.vocab)
+        lo, hi = sharding.batch_rows(mesh, RANKS_PREFILL[0])
+        step = steps.make_prefill_loss_step(cfg, mesh=mesh)
+        loss, pre_c = counted_run(lambda: step(shares, {
+            k: v[lo:hi].cuda() for k, v in batch.items()}))
+        held = sharding.tree_bytes(shares)
+        shapes = {(name, *key): n
+                  for name, now, before in (
+                      ("grouped_matmul", grouped_matmul.shape_launches,
+                       tallies[0]),
+                      ("ssd_update", ssd_update.shape_launches, tallies[1]))
+                  for key, n in (now - before).items()}
+        del shares
+        free_device_memory()
+        out[arch, groups] = {
+            "tokens": path["tokens"], "rows": path["rows"],
+            "decode_s": path["decode_s"], "prefill_s": path["prefill_s"],
+            "path": path_c, "prefill": pre_c, "loss": float(loss),
+            "logits": prompt["logits"].cpu(),
+            "cache": tree_map(lambda t: t.cpu(), prompt["cache"]),
+            "held": held, "per_device": per_device, "shapes": shapes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del path, prompt
+        free_device_memory()
+    return out
+
+
+def ranks_fp32_rank(mesh, models):
+    """``ranks_serve_fp32`` of each model of ``models`` on this rank."""
+    return {label: ranks_serve_fp32(mesh, *label) for label in models}
+
+
+def ranks_fp32_tree(arch, groups):
+    """The serving seed's bf16 tree on the card, its bf16 leaves upcast
+    to fp32 (the fp32 runs' weights, on ranks and in one process)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import tree_map
+    full = tfm.init_params(torch.Generator(device="cuda").manual_seed(
+        RANKS_SERVE["seed"]), ranks_serve_config(arch, groups))
+    return tree_map(lambda t: t.float() if t.dtype == torch.bfloat16
+                    else t, full)
+
+
+def ranks_serve_fp32(mesh, arch, groups):
+    """The check's prompt on this rank in fp32, TF32 off (both kernels
+    on fp32 inputs): its logits and cache share on the host, and the
+    kernels' launches (not part of the path's counts)."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul
+    from repro_torch.kernels.ssd_update import ssd_update
+    from repro_torch.launch import serve
+    from repro_torch.models.module import tree_map
+    gm, su = grouped_matmul.launches, ssd_update.launches
+    with tf32_off():
+        prompt = serve.run_serve(
+            ranks_serve_config(arch, groups, torch.float32), device="cuda",
+            init_params=ranks_fp32_tree(arch, groups), mesh=mesh,
+            **ranks_serve_check())
+    res = {"logits": prompt["logits"].cpu(), "rows": prompt["rows"],
+           "cache": tree_map(lambda t: t.cpu(), prompt["cache"]),
+           "grouped_matmul": grouped_matmul.launches - gm,
+           "ssd_update": ssd_update.launches - su}
+    del prompt
+    free_device_memory()
+    return res
+
+
+def ranks_serve_check() -> dict:
+    return {**RANKS_SERVE, "prompt_len": RANKS_SERVE_CHECK, "gen": 0}
+
+
+def ranks_serve_one(arch, groups):
+    """One process on the card: the check's prompt alone and the
+    prefill loss in bf16, and the same in fp32 (the bf16 weights upcast,
+    TF32 off): the logits, cache and loss of each."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.module import tree_map
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = ranks_serve_config(arch, groups, dtype)
+        full = tfm.init_params(torch.Generator(device="cuda").manual_seed(
+            RANKS_SERVE["seed"]), cfg) if dtype == torch.bfloat16 \
+            else ranks_fp32_tree(arch, groups)
+        with tf32_off():
+            prompt = serve.run_serve(cfg, device="cuda", init_params=full,
+                                     **ranks_serve_check())
+            batch = ranks_prefill_batch(cfg.vocab)
+            loss = steps.make_prefill_loss_step(cfg)(
+                full, {k: v.cuda() for k, v in batch.items()})
+        out[dtype] = {"logits": prompt["logits"].cpu(),
+                      "cache": tree_map(lambda t: t.cpu(), prompt["cache"]),
+                      "loss": float(loss)}
+        del full, prompt
+        free_device_memory()
+    return out
+
+
+def ranks_serve_prediction(cfg, shape, mesh_shape, mode) -> dict:
+    """The dry mesh's prediction of one step on rank 0 of a
+    ``mesh_shape`` mesh (launch/dryrun.rank_program on meta), each
+    exchange staged through the host as gloo stages a CUDA tensor:
+    ``Counts.as_dict()``'s keys."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.collectives import staged_bytes
+    from repro_torch.launch.mesh import AXES, Mesh
+    rmesh, _ = dryrun.rank_program(cfg, InputShape(mode, shape[1], shape[0],
+                                                   mode),
+                                   Mesh(AXES, mesh_shape))
+    c = rmesh.counts.as_dict()
+    c["staged"] = {k: staged_bytes(c["bytes"][k], c["result"][k])
+                   for k in c["bytes"]}
+    return c
+
+
+def per_step(c: dict, n: int) -> dict:
+    assert all(v % n == 0 for d in c.values() for v in d.values()), (c, n)
+    return {k: {kind: v // n for kind, v in d.items()} for k, d in c.items()}
+
+
+def within_bf16(label, got, one_bf16, one_fp32) -> tuple:
+    """``got`` against the one-process bf16 value within RANKS_SERVE_ULP's
+    rule (max(2^-7, 2 r) of its largest magnitude): (the distance, the
+    tolerance, r), each over that magnitude; raises outside."""
+    got, want, ref = (torch.as_tensor(t).double() for t in
+                      (got, one_bf16, one_fp32))
+    scale = max(want.abs().max().item(), 1e-30)
+    r = (want - ref).abs().max().item() / scale
+    d = (got - want).abs().max().item() / scale
+    tol = max(RANKS_SERVE_ULP, 2 * r)
+    assert d <= tol, f"{label}: ranks {d:.3g} of the scale from one " \
+        f"process, tolerance {tol:.3g} (bf16 vs fp32 {r:.3g})"
+    return d, tol, r
+
+
+def held_line(t) -> str:
+    return f"{t[0]:.2e} (tol {t[1]:.2e}; bf16 vs fp32 {t[2]:.2e})"
+
+
+def within_fp32(label, got, want) -> float:
+    """``got`` against ``want`` within RANKS_SERVE_FP32_TOL of ``want``'s
+    largest magnitude: the distance over that magnitude; raises
+    outside."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    scale = max(want.abs().max().item(), 1e-30)
+    d = (got - want).abs().max().item() / scale
+    assert d <= RANKS_SERVE_FP32_TOL, f"{label}: fp32 ranks {d:.3g} of " \
+        f"the scale from one process (tolerance {RANKS_SERVE_FP32_TOL:g})"
+    return d
+
+
+def joined_cache(per_rank, mesh_shape, cfg):
+    """The caches of ``per_rank`` (each rank's share) joined whole."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_dry_rank_mesh
+    from repro_torch.models.forward import init_cache
+    meshes = [make_dry_rank_mesh(mesh_shape, r, device="cpu")
+              for r in range(len(per_rank))]
+    like = init_cache(cfg, RANKS_SERVE["batch"], RANKS_SERVE["max_len"],
+                      device="meta")
+    return sharding.join(per_rank, meshes, sharding.cache_shardings(
+        like, RANKS_SERVE["batch"], meshes[0]), like)
+
+
+def ranks_fp32_hold(label, mesh_shape, per_rank, one_fp32) -> None:
+    """The ranks' fp32 run of the check's prompt (``ranks_serve_fp32``)
+    against one process's fp32 run (``within_fp32``): logits and every
+    cache leaf."""
+    from repro_torch.models.module import tree_leaves, tree_paths
+    logit = max(within_fp32(f"{label} fp32 logits rows {r['rows']}",
+                            r["logits"],
+                            one_fp32["logits"][r["rows"][0]:r["rows"][1]])
+                for r in per_rank)
+    joined = joined_cache([r["cache"] for r in per_rank], mesh_shape,
+                          ranks_serve_config(*label, torch.float32))
+    worst = 0.0
+    for path, got, want in zip(tree_paths(joined), tree_leaves(joined),
+                               tree_leaves(one_fp32["cache"]), strict=True):
+        if want.dtype == torch.int32:
+            assert torch.equal(got, want), (label, "fp32", path)
+            continue
+        worst = max(worst, within_fp32(f"{label} fp32 cache {path}", got,
+                                       want))
+    launches = {(r["grouped_matmul"], r["ssd_update"]) for r in per_rank}
+    print(f"  {label[0]}{' fed2 ' + str(label[1]) if label[1] else ''} on "
+          f"{mesh_shape} in fp32, the check's prompt, against one process "
+          f"in fp32 (tol {RANKS_SERVE_FP32_TOL:g} of the scale): logits "
+          f"{logit:.2e}, worst cache leaf {worst:.2e}; launches a rank "
+          f"(grouped_matmul, ssd_update) {sorted(launches)}", flush=True)
+
+
+def ranks_serve_predictions(jobs) -> dict:
+    """``ranks_serve_prediction`` of a decode and a prefill step for
+    each (mesh shape, model) of ``jobs``."""
+    out = {}
+    for mesh_shape, label in jobs:
+        cfg = ranks_serve_config(*label)
+        out[mesh_shape, label] = (
+            ranks_serve_prediction(cfg, (RANKS_SERVE["batch"],
+                                         RANKS_SERVE["max_len"]),
+                                   mesh_shape, "decode"),
+            ranks_serve_prediction(cfg, RANKS_PREFILL, mesh_shape,
+                                   "prefill"))
+    return out
+
+
+def ranks_serve_hold(label, mesh_shape, per_rank, one, cfg, preds):
+    """The ranks' gathered logits, joined cache and prefill loss against
+    one process (``within_bf16``); their launches and collectives a step
+    against RANKS_SERVE_LAUNCHES and the dry mesh's prediction
+    ``preds`` (decode, prefill). Returns the kernels' launches of each
+    shape on a rank (every rank's the same)."""
+    from repro_torch.models.module import tree_leaves, tree_paths
+    bf, fp = one[torch.bfloat16], one[torch.float32]
+    steps_n = RANKS_SERVE["prompt_len"] + RANKS_SERVE["gen"]
+    logit = max(within_bf16(f"{label} logits rows {r['rows']}",
+                            r["logits"].float(),
+                            bf["logits"][r["rows"][0]:r["rows"][1]].float(),
+                            fp["logits"][r["rows"][0]:r["rows"][1]])
+                for r in per_rank)
+    joined = joined_cache([r["cache"] for r in per_rank], mesh_shape, cfg)
+    worst = (0.0, 0.0, 0.0)
+    for path, got, want, ref in zip(tree_paths(joined), tree_leaves(joined),
+                                    tree_leaves(bf["cache"]),
+                                    tree_leaves(fp["cache"]), strict=True):
+        if want.dtype == torch.int32:
+            assert torch.equal(got, want), (label, path)
+            continue
+        worst = max(worst, within_bf16(f"{label} cache {path}", got.float(),
+                                       want.float(), ref))
+    loss = within_bf16(f"{label} prefill loss",
+                       torch.tensor([r["loss"] for r in per_rank]),
+                       torch.full((len(per_rank),), bf["loss"]),
+                       torch.full((len(per_rank),), fp["loss"]))
+    gm_step, su_step = RANKS_SERVE_LAUNCHES[label]
+    chunks = -(-RANKS_PREFILL[1] // cfg.loss_chunk)
+    decode_pred, prefill_pred = preds
+    for rank, r in enumerate(per_rank):
+        assert r["held"] == r["per_device"], (label, rank, r["held"],
+                                              r["per_device"])
+        assert r["shapes"] == per_rank[0]["shapes"], \
+            f"{label}: rank {rank} launched {r['shapes']}, rank 0 " \
+            f"{per_rank[0]['shapes']}"
+        got = (r["path"]["grouped_matmul"], r["path"]["ssd_update"],
+               r["prefill"]["grouped_matmul"], r["prefill"]["ssd_update"])
+        want = (gm_step * steps_n, su_step * steps_n,
+                chunks if cfg.fed2_groups else 0, 0)
+        assert got == want, f"{label} rank {rank}: launches {got}, " \
+            f"expected {want}"
+        assert per_step(r["path"]["collectives"], steps_n) == decode_pred, \
+            (label, rank, per_step(r["path"]["collectives"], steps_n),
+             decode_pred)
+        assert r["prefill"]["collectives"] == prefill_pred, \
+            (label, rank, r["prefill"]["collectives"], prefill_pred)
+    c = decode_pred
+    kinds = ", ".join(f"{k} {c['calls'][k]} x {c['result'][k]:,} B"
+                      for k in c["calls"] if c["calls"][k])
+    pk = ", ".join(f"{k} {prefill_pred['calls'][k]} x "
+                   f"{prefill_pred['result'][k]:,} B"
+                   for k in prefill_pred["calls"] if prefill_pred["calls"][k])
+    slow = max(per_rank, key=lambda r: r["decode_s"])
+    print(f"  {label[0]}{' fed2 ' + str(label[1]) if label[1] else ''}"
+          f" on {mesh_shape}: launches a decode step on every rank "
+          f"grouped_matmul {gm_step}, ssd_update {su_step}; a prefill step "
+          f"grouped_matmul {want[2]}; collectives a decode step (= the dry "
+          f"mesh's, staged included) {kinds}; a prefill step (= the dry "
+          f"mesh's) {pk}; logits {held_line(logit)}; worst cache leaf "
+          f"{held_line(worst)}; prefill loss {per_rank[0]['loss']:.6f} vs "
+          f"{bf['loss']:.6f} {held_line(loss)}; with the wave's "
+          f"other meshes on the card (not a step's cost), slowest rank "
+          f"prefill {slow['prefill_s']:.3f} s, decode "
+          f"{slow['decode_s']:.3f} s ({RANKS_SERVE['gen']} x "
+          f"{RANKS_SERVE['batch']} tokens), prefill-loss step "
+          f"{max(r['prefill']['s'] for r in per_rank):.3f} s; held "
+          f"{per_rank[0]['held']:,} B of parameters a rank (= per_device_bytes); peak "
+          f"{max(r['peak_gb'] for r in per_rank):.2f} GB a rank",
+          flush=True)
+    return per_rank[0]["shapes"]
+
+
+# the new shard shapes of the two kernels on this phase's path and on the
+# 16x16 dry-run's: (label, lead rows M, G, K, N) for grouped_matmul;
+# (label, B, H, P, N) for ssd_update, its x a rank's heads in a row of
+# Mamba-2's 64 (the last rank's); bf16. Their launches are measured on
+# the phase's ranks (0: the dry-run's shapes, not on the card's path),
+# and every shape the ranks launch must be here
+RANK_GMM_SHAPES = (
+    ("llama unembedding (1, 2) decode", 4, 8, 256, 8016),
+    ("llama unembedding (2, 2) decode", 2, 8, 256, 8016),
+    ("llama unembedding (1, 2) prefill chunk", 1024, 8, 256, 8016),
+    ("llama unembedding (2, 2) prefill chunk", 512, 8, 256, 8016),
+    ("llama unembedding 16x16 decode_32k", 8, 8, 256, 1002),
+    ("llama FFN gate/up (1, 2) decode", 4, 8, 256, 512),
+    ("llama FFN down (1, 2) decode", 4, 8, 512, 256),
+    ("llama FFN gate/up (2, 2) decode", 2, 8, 256, 512),
+    ("llama FFN down (2, 2) decode", 2, 8, 512, 256),
+    ("mamba2 unembedding (1, 2) decode", 4, 8, 256, 3144),
+    ("mamba2 unembedding (1, 2) prefill chunk", 1024, 8, 256, 3144),
+    ("mamba2 unembedding 16x16 decode_32k", 8, 8, 256, 393))
+RANK_SSD_SHAPES = (("(1, 2) decode", 4, 32, 64, 128),
+                   ("16x16 decode_32k", 8, 4, 64, 128))
+SSD_ROW_HEADS = 64
+
+
+def ranks_serve_kernels(measured) -> list:
+    """Each new shard shape against the kernel's plain version on the
+    card (grouped_matmul within 0.3 in bf16, the check phase's limit;
+    ssd_update within the check phase's bound), timed beside its bound
+    and torch.bmm (ssd_update: no library call): records of the kernels
+    line. ``measured``: each (kernel, *shape, dtype)'s launches on a
+    rank, summed over the phase's spawns (``phase_ranks_serve``)."""
+    bf16_name = str(torch.bfloat16)
+    listed = {("grouped_matmul", m, g, k, n, bf16_name)
+              for _, m, g, k, n in RANK_GMM_SHAPES} | \
+        {("ssd_update", b, h, p, n, bf16_name)
+         for _, b, h, p, n in RANK_SSD_SHAPES}
+    unlisted = set(measured) - listed
+    assert not unlisted, f"shapes launched on the ranks and not checked " \
+        f"here: {sorted(unlisted)}"
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import ssd_update as su
+    from repro_torch.kernels.grouped_matmul import (grouped_matmul,
+                                                    grouped_matmul_ref)
+    from repro_torch.kernels.ssd_update import ssd_update, ssd_update_ref
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    bf16 = torch.bfloat16
+    records = []
+    for label, m, g, k, n in RANK_GMM_SHAPES:
+        launches = measured.get(("grouped_matmul", m, g, k, n, bf16_name),
+                                0)
+        x, w, _ = gmm_inputs((m,), g, k, n, bf16, gen)
+        err = check(f"grouped_matmul rank shard {label}", grouped_matmul(x, w),
+                    grouped_matmul_ref(x, w), 0.3)
+        w_bytes = g * k * n * 2
+        nbytes = w_bytes + 2 * m * g * (k + n)
+        sets = [gmm_inputs((m,), g, k, n, bf16, gen)[:2]
+                for _ in range(copies_for(w_bytes))]
+        reps = max(200 if m <= 128 else 20, len(sets))
+        t = {"ms": time_ms([lambda a=a: grouped_matmul(*a) for a in sets],
+                           reps),
+             "plain_ms": time_ms([lambda a=a: grouped_matmul_ref(*a)
+                                  for a in sets], reps),
+             "library_ms": time_ms([lambda a=a, m=m, g=g, k=k: torch.bmm(
+                 a[0].view(m, g, k).transpose(0, 1), a[1])
+                 for a in sets], reps)}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 2 * m * g * k * n,
+                                             BF16_FLOPS)
+        r = gm.route(m, g, k, n, bf16, 0, 0)
+        print(f"  grouped_matmul rank shard {label} M={m} ({g}, {k}, {n}) "
+              f"bf16 [{r}]: {t['ms'] * 1e3:.2f} us, plain "
+              f"{t['plain_ms'] * 1e3:.2f} us, torch.bmm "
+              f"{t['library_ms'] * 1e3:.2f} us, bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.1f} % of it); launches on "
+              f"a rank {launches} (measured, summed over the spawns)",
+              flush=True)
+        records.append({"name": f"grouped_matmul rank shard {label} M={m} "
+                                f"({g}, {k}, {n}) [{r}]",
+                        "route": "cuda",
+                        "source": "src/repro_torch/csrc/grouped_matmul.cu",
+                        "replaces": "src/repro/kernels/grouped_matmul.py:48",
+                        "launches": launches, "max_abs_err": err, **t})
+        del sets
+    for label, b, h, p, n in RANK_SSD_SHAPES:
+        launches = measured.get(("ssd_update", b, h, p, n, bf16_name), 0)
+        row = {"row_heads": SSD_ROW_HEADS, "head0": SSD_ROW_HEADS - h}
+        args = ssd_inputs(b, h, p, n, bf16, gen, **row)
+        want_h, want_y = ssd_update_ref(*args)
+        got_h, got_y = ssd_update(*args)
+        scale = torch.einsum("bhpn,bn->bhp", want_h.abs(),
+                             args[5].float().abs()) + \
+            (args[6][None, :, None] * args[1].float()).abs()
+        eh = (got_h - want_h).abs().max().item()
+        dy = (got_y.float() - want_y.float()).abs()
+        ok = eh <= 1e-5 and bool((dy <= 1e-5 * scale + 2.0 ** -7
+                                  * want_y.float().abs()).all())
+        assert ok, f"ssd_update rank shard {label}: disagrees with its " \
+            f"plain version (h' {eh:.3g})"
+        nbytes = 8 * b * h * p * n + 2 * (2 * b * h * p + 2 * b * n) \
+            + 4 * (b * h + 2 * h)
+        sets = [ssd_inputs(b, h, p, n, bf16, gen, **row)
+                for _ in range(copies_for(nbytes))]
+        reps = max(200, len(sets))
+        t = {"ms": time_ms([lambda a=a: ssd_update(*a, out=a[0])
+                            for a in sets], reps),
+             "plain_ms": time_ms([lambda a=a: ssd_update_ref(*a)
+                                  for a in sets], reps),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound(nbytes, 6 * b * h * p * n)
+        print(f"  ssd_update rank shard {label} ({b}, {h}, {p}, {n}) x "
+              f"bf16 (heads {SSD_ROW_HEADS - h}.. of a {SSD_ROW_HEADS}-head "
+              f"row): max_abs_err h' {eh:.3g}, y {dy.max().item():.3g}; "
+              f"{t['ms'] * 1e3:.2f} us, plain {t['plain_ms'] * 1e3:.2f} us, "
+              f"library none, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.0f} % of "
+              f"it); launches on a rank {launches} (measured, summed over "
+              f"the spawns)", flush=True)
+        records.append({"name": f"ssd_update rank shard {label} "
+                                f"({b}, {h}, {p}, {n})",
+                        "route": "cuda",
+                        "source": "src/repro_torch/csrc/ssd_update.cu",
+                        "replaces": "src/repro/kernels/ssd_update.py:50",
+                        "launches": launches,
+                        "max_abs_err": max(eh, dy.max().item()), **t})
+        del sets
+    return records
+
+
+def spawned_at_once(wave, beside=None) -> dict:
+    """Each (mesh shape, model, body) of ``wave`` on its own spawn of
+    gloo ranks on cuda:0 (body "serve": ``ranks_serve_rank``, "fp32":
+    ``ranks_fp32_rank``), all at once (a thread each), while this thread
+    runs ``beside()`` (if given): {(mesh shape, model, body): per-rank
+    results}, and ``beside``'s result under None. Raises the first
+    failure once every thread has ended."""
+    from repro_torch.launch.mesh import spawn
+    out, errors = {}, []
+    bodies = {"serve": ranks_serve_rank, "fp32": ranks_fp32_rank}
+
+    def one(shape, model, body):
+        try:
+            out[shape, model, body] = [
+                r[model] for r in spawn(bodies[body], shape, backend="gloo",
+                                        device="cuda", args=((model,),),
+                                        timeout=600)]
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=job) for job in wave]
+    for t in threads:
+        t.start()
+    try:
+        if beside is not None:
+            out[None] = beside()
+    finally:
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def phase_ranks_serve() -> list:
+    """The sharded serving of RANKS_SERVE_MODELS in RANKS_SERVE_WAVES
+    (gloo ranks sharing cuda:0) against one process, in bf16 and (for
+    RANKS_SERVE_FP32) fp32; then the new shard shapes' kernel checks.
+    Returns their records for the kernels line."""
+    smi = nvidia_smi()
+    t0 = time.time()
+    free_device_memory()
+    serves = [(sh, m) for wave in RANKS_SERVE_WAVES
+              for sh, m, body in wave if body == "serve"]
+    runs = {}
+    for n, wave in enumerate(RANKS_SERVE_WAVES):
+        t1 = time.time()
+        beside = (lambda: {label: ranks_serve_one(*label)
+                           for label in RANKS_SERVE_MODELS}) if n == 0 \
+            else (lambda: ranks_serve_predictions(serves))
+        runs.update(spawned_at_once(wave, beside))
+        runs["one" if n == 0 else "preds"] = runs.pop(None)
+        jobs = ", ".join(f"{m[0]} fed2 {m[1]} on {sh} ({body})"
+                         for sh, m, body in wave)
+        what = "the one-process runs" if n == 0 else \
+            "the dry mesh's predictions"
+        print(f"  {len(wave)} spawns at once ({jobs}; gloo, all on "
+              f"cuda:0), {what} beside: {time.time() - t1:.1f} s with "
+              f"start-up", flush=True)
+        free_device_memory()
+    one, preds, measured = runs.pop("one"), runs.pop("preds"), \
+        collections.Counter()
+    for (mesh_shape, label, body), per_rank in runs.items():
+        if body == "fp32":
+            ranks_fp32_hold(label, mesh_shape, per_rank,
+                            one[label][torch.float32])
+        else:
+            measured.update(ranks_serve_hold(
+                label, mesh_shape, per_rank, one[label],
+                ranks_serve_config(*label), preds[mesh_shape, label]))
+    del one, runs
+    records = ranks_serve_kernels(measured)
+    print(f"  ranks serve phase {time.time() - t0:.1f} s (budget "
+          f"{RANKS_SERVE_BUDGET_S} s; {smi})", flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -7024,13 +7676,16 @@ def main() -> int:
     free_device_memory()
     with phase("ranks matrix (TF32 off, deterministic convs)"):
         phase_ranks_matrix()
+    free_device_memory()
+    with phase("ranks serve (sharded prefill and decode)"):
+        shard_records = phase_ranks_serve()
     for r in records:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in records]}))
+                                  for r in records + shard_records]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ reference's arrays under the reference's keys
 fp32 value (numpy has no bfloat16 of its own) and read back into bf16
 exactly.
 
-LMs (``lm_to_port``, ``lm_to_reference``): every leaf keeps its layout
+LMs (``lm_to_port``, ``lm_to_reference``; ``lm_rank_to_port``: a rank's
+shares of the sharded programs, in one call): every leaf keeps its layout
 and its own dtype. An LM tree mixes dtypes (a full-width Mamba-2 keeps
 its weights in bf16 but ``a_log``, ``dt_bias`` and ``d_skip`` in fp32),
 and its stacked depthwise conv weight ``(L, k, 1, C)`` is 4-D without
@@ -204,6 +205,17 @@ def lm_to_port(tree, *, device=None):
     """Reference LM tree (numpy) -> port (torch): same layout, same
     dtype per leaf."""
     return tree_map(lambda a: _np_to_torch(a, device), tree)
+
+
+def lm_rank_to_port(tree, cfg, mesh, *, device=None):
+    """A reference LM tree (numpy) -> this rank's shares of it on
+    ``mesh`` (a ``launch/mesh.RankMesh``), as the sharded programs take
+    them (``launch/sharding.cut`` under ``param_shardings``), on
+    ``device``: each share cut on the host, then moved."""
+    from repro_torch.launch import sharding as shd
+    full = lm_to_port(tree)
+    shares = shd.cut(full, shd.param_shardings(full, cfg, mesh), mesh)
+    return tree_map(lambda t: t.to(device), shares)
 
 
 def lm_to_reference(tree):

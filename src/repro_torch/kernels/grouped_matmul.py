@@ -58,8 +58,9 @@ wrapper adds it. ``launch`` runs one named route, under ``plan``'s
 plan or a given one, on checked inputs (``chip_smoke.py`` holds the
 sgemm route to the simt route's bits, and every unsplit plan to
 ``DEFAULT_PLAN``'s, through it). ``grouped_matmul.launches`` counts
-kernel launches (one per call) and ``grouped_matmul.route_launches``
-the launches of each route. The kernel has no backward: it serves
+kernel launches (one per call), ``grouped_matmul.route_launches``
+the launches of each route and ``grouped_matmul.shape_launches`` those
+of each (M, G, K, N, dtype). The kernel has no backward: it serves
 no-grad passes only (``models.layers.grouped_dense_apply(use_kernel=
 True)``: decode, the LM eval and prefill losses, the federated LM
 eval). Its output, written
@@ -70,6 +71,7 @@ the gradient silently.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -385,8 +387,10 @@ def launch(x: torch.Tensor, w: torch.Tensor, r: str,
                            f"route, plan {p}): CUDA error {err}")
     grouped_matmul.launches += 1
     grouped_matmul.route_launches[r] += 1
+    grouped_matmul.shape_launches[m, g, k, n, str(xm.dtype)] += 1
     return y
 
 
 grouped_matmul.launches = 0
 grouped_matmul.route_launches = dict.fromkeys(ROUTES, 0)
+grouped_matmul.shape_launches = collections.Counter()

@@ -45,11 +45,13 @@ checks the route's preconditions and refuses (the wrapper raises).
 
 ``ssd_update`` is the wrapper: on CPU tensors it computes
 ``ssd_update_ref``; on CUDA tensors it launches the kernel or raises.
-``ssd_update.launches`` counts kernel launches (one per call) and
-``ssd_update.route_launches`` those of each route.
+``ssd_update.launches`` counts kernel launches (one per call),
+``ssd_update.route_launches`` those of each route and
+``ssd_update.shape_launches`` those of each (B, H, P, N, x's dtype).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -235,6 +237,7 @@ def ssd_update(h, x, dt, a_log, b, c, d_skip, *, out=None):
                            f"route): CUDA error {err}")
     ssd_update.launches += 1
     ssd_update.route_launches[plan.route] += 1
+    ssd_update.shape_launches[bs, hh, p, n, str(x.dtype)] += 1
     return hout, y
 
 
@@ -245,3 +248,4 @@ def pointers(h, hout, x, b, c) -> tuple:
 
 ssd_update.launches = 0
 ssd_update.route_launches = dict.fromkeys(ROUTES, 0)
+ssd_update.shape_launches = collections.Counter()

@@ -79,6 +79,28 @@ class Counts:
                 "staged": dict(self.staged), "result": dict(self.result)}
 
 
+# XLA's collective kinds as the reference's records name them, each
+# beside the port's kind (None: the port never issues it)
+XLA_KINDS = (("all-reduce", "all_reduce"), ("all-gather", "all_gather"),
+             ("reduce-scatter", None), ("all-to-all", "all_to_all"),
+             ("collective-permute", None))
+
+
+def by_xla_kind(counts: Counts) -> tuple:
+    """A dry-run record's ``collectives`` and ``collectives_staged`` of
+    one rank's ``counts``, by XLA's kinds: {kind: {"bytes": result
+    bytes, "count": calls}} and {kind: the bytes gloo stages when the
+    tensors are CUDA tensors}. A barrier is no XLA kind and is left
+    out."""
+    coll, staged = {}, {}
+    for xla, kind in XLA_KINDS:
+        coll[xla] = {"bytes": counts.result[kind] if kind else 0,
+                     "count": counts.calls[kind] if kind else 0}
+        staged[xla] = (staged_bytes(counts.bytes[kind], counts.result[kind])
+                       if kind else 0)
+    return coll, staged
+
+
 def staged_bytes(nbytes: int, result: int) -> int:
     """What ``gloo`` stages through the host for a CUDA tensor of
     ``nbytes`` whose result buffer holds ``result``: the tensor copied

@@ -16,7 +16,12 @@ devices. The port answers the same questions without devices:
   accepts a meta tensor;
 - **fits**: each device's bytes of the step's arguments and outputs
   under ``launch/sharding.py``'s rules, exactly (they are a function of
-  the rules and the shapes alone).
+  the rules and the shapes alone);
+- **moves** (``collectives``, the prefill and decode records of
+  ``COVERED_ARCHS``): rank 0's program of the sharded step
+  (``models/parallel.py``) on its shares, on a dry mesh
+  (``launch/mesh.make_dry_rank_mesh``: no process group, the
+  collectives only count), run once on ``meta``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
@@ -44,15 +49,20 @@ from repro_torch.configs.common import with_fed2
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.analytic import analytic_cost
-from repro_torch.launch.mesh import (Mesh, make_production_mesh,
-                                     mesh_chips)
+from repro_torch.launch.collectives import by_xla_kind
+from repro_torch.launch.mesh import (Mesh, batch_axes, make_dry_rank_mesh,
+                                     make_production_mesh, mesh_chips)
 from repro_torch.launch.steps import (make_prefill_loss_step,
                                       make_serve_step, make_train_step)
+from repro_torch.models.forward import init_cache
 from repro_torch.models.module import tree_leaves
 from repro_torch.models.transformer import init_params
 
 OUT_DIR = "runs_torch/dryrun"
 
+# the archs whose prefill and decode records carry the rank program's
+# collectives
+COVERED_ARCHS = ("llama3.2-1b", "mamba2-1.3b")
 # what the torch record holds where the reference's holds XLA's numbers
 NOTES = {
     "flops": "torch.utils.flop_counter.FlopCounterMode's count of the "
@@ -66,10 +76,31 @@ NOTES = {
               "logits by batch only (XLA chooses its own output "
               "placement). temp_bytes and code_bytes: null, XLA's buffer "
               "assignment and code have no meta counterpart.",
-    "collectives": "null: the port builds no sharded LM step (the "
-                   "reference's GSPMD program over launch/sharding.py's "
-                   "placement), so there is no rank program to count; "
-                   "the placement here only sizes each device's share.",
+    "collectives": "what one rank issues in the port's sharded prefill "
+                   "or decode program (models/parallel.py over "
+                   "launch/collectives.py), by XLA's kinds: bytes = its "
+                   "result buffers' bytes summed, count = its calls. Rank "
+                   "0's program on its shares (launch/sharding.cut) on a "
+                   "dry mesh, run once on meta (rank_program_s: its "
+                   "seconds); the (2, 16, 16) mesh's batch axes fold into "
+                   "one batch line of 32 ('data'), so the loss's sums "
+                   "take one all-reduce over it. Every rank issues the "
+                   "same calls of the same sizes (every split is even). "
+                   "Row-parallel partials travel in the activations' "
+                   "dtype (bf16), attention's partial decode scores in "
+                   "fp32. Carried by the prefill_32k, decode_32k and "
+                   "long_500k records of " + " and ".join(COVERED_ARCHS)
+                   + " (± fed2); null "
+                   "elsewhere: the port's sharded program covers the "
+                   "dense and ssm families' prefill and decode (and runs "
+                   "only these two archs' records), and has no train "
+                   "step (tensor-parallel backward, ZeRO-1, gradient "
+                   "sync), no moe, hybrid, encdec or vlm program. XLA's "
+                   "numbers for the reference are another program's.",
+    "collectives_staged": "by the same kinds, the bytes gloo stages "
+                          "through the host when the rank's tensors are "
+                          "CUDA tensors (launch/collectives.staged_bytes); "
+                          "0 over nccl.",
 }
 
 
@@ -178,6 +209,42 @@ def build_step(cfg, shape: InputShape, mesh: Mesh) -> MetaStep:
         ((tspec[0], None, None), cspecs))
 
 
+def covered(arch: str, cfg, shape: InputShape, mesh: Mesh) -> bool:
+    """Whether the record of (arch, shape) on ``mesh`` carries the rank
+    program's collectives (``NOTES["collectives"]``)."""
+    return (arch in COVERED_ARCHS and shape.mode != "train"
+            and not serve_fsdp(sum(math.prod(t.shape) for t in tree_leaves(
+                init_params(torch.Generator(), cfg, device="meta"))), mesh))
+
+
+def dry_rank_mesh(mesh: Mesh):
+    """Rank 0 of ``mesh`` with no process group, on ``meta``: its batch
+    axes folded into one "data" line (pod x data)."""
+    nb = math.prod(mesh.shape[a] for a in batch_axes(mesh))
+    return make_dry_rank_mesh((nb, mesh.shape["model"]), 0, device="meta")
+
+
+def rank_program(cfg, shape: InputShape, mesh: Mesh):
+    """Rank 0's program of the sharded prefill loss or decode step of
+    (cfg, shape) on ``mesh``, run once on its meta shares: (the dry
+    mesh, whose ``counts`` hold what it issued, the step's output)."""
+    rmesh = dry_rank_mesh(mesh)
+    params = init_params(torch.Generator(), cfg, device="meta")
+    params = shd.cut(params, shd.param_shardings(params, cfg, rmesh), rmesh)
+    lo, hi = shd.batch_rows(rmesh, shape.global_batch)
+    if shape.mode == "prefill":
+        batch, _ = shd.batch_specs(cfg, shape, rmesh)
+        out = make_prefill_loss_step(cfg, use_kernel=False, mesh=rmesh)(
+            params, {k: v[lo:hi] for k, v in batch.items()})
+        return rmesh, out
+    cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                       device="meta", mesh=rmesh)
+    tok = torch.empty((hi - lo, 1), dtype=torch.int32, device="meta")
+    out = make_serve_step(cfg, use_kernel=False, mesh=rmesh)(
+        params, cache, tok, shape.seq_len - 1)
+    return rmesh, out
+
+
 def meta_pass(step: MetaStep):
     """The step once on its meta arguments under FlopCounterMode:
     (flops, outputs, seconds)."""
@@ -248,10 +315,16 @@ def run_one(arch: str, shape_name: str, *, mesh: Mesh, fed2: bool,
         if key not in passes:
             passes[key] = (meta_pass(step), tag)
         meta, pass_tag = passes[key]
-        rec.update(record(step, cfg, INPUT_SHAPES[shape_name], mesh,
-                          t_lower, meta))
+        shape = INPUT_SHAPES[shape_name]
+        rec.update(record(step, cfg, shape, mesh, t_lower, meta))
         if pass_tag != tag:
             rec["meta_pass_of"] = pass_tag
+        if covered(arch, cfg, shape, mesh):
+            t0 = time.time()
+            rmesh, _ = rank_program(cfg, shape, mesh)
+            rec["collectives"], rec["collectives_staged"] = by_xla_kind(
+                rmesh.counts)
+            rec["rank_program_s"] = round(time.time() - t0, 2)
         if verbose:
             ab = rec["memory"]["argument_bytes"]
             print(f"[ok]   {tag}: build {t_lower:.1f}s meta pass "

@@ -63,7 +63,8 @@ from repro_torch.fl.engine import (lower_round, param_shapes,
                                    stacked_param_bytes, traced_reads)
 from repro_torch.fl.runtime import FLConfig, cnn_task, lm_task
 from repro_torch.launch import sharding as shd
-from repro_torch.launch.collectives import Counts, staged_bytes
+from repro_torch.launch.collectives import XLA_KINDS, Counts
+from repro_torch.launch.collectives import by_xla_kind as collectives
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.module import tree_leaves
 
@@ -137,11 +138,6 @@ NOTES = {
                           "sharing one card over gloo move through the "
                           "host; 0 over nccl.",
 }
-# XLA's collective kinds as the reference's records name them, each
-# beside the port's kind (None: the port never issues it)
-XLA_KINDS = (("all-reduce", "all_reduce"), ("all-gather", "all_gather"),
-             ("reduce-scatter", None), ("all-to-all", "all_to_all"),
-             ("collective-permute", None))
 
 
 def _cnn_case(method: str, mesh_kind: str):
@@ -216,18 +212,6 @@ def rank_counts(step) -> Counts:
     """The collectives rank 0 issues in ``step``: its ``rank`` program
     run once on meta (none on one device)."""
     return Counts() if step.rank is None else step.rank.counts()
-
-
-def collectives(counts: Counts) -> tuple:
-    """A record's ``collectives`` and ``collectives_staged`` of one
-    rank's ``counts``, by XLA's kinds (``NOTES``)."""
-    coll, staged = {}, {}
-    for xla, kind in XLA_KINDS:
-        coll[xla] = {"bytes": counts.result[kind] if kind else 0,
-                     "count": counts.calls[kind] if kind else 0}
-        staged[xla] = (staged_bytes(counts.bytes[kind], counts.result[kind])
-                       if kind else 0)
-    return coll, staged
 
 
 class Skipped(Exception):

@@ -20,9 +20,11 @@ rank's result: several ranks may share one card over ``gloo``.
 
 ``make_dry_rank_mesh`` gives one rank's view of such a mesh with no
 process group at all (``dry``): its collectives take the no-wire
-branch, which only counts, so the dry-run (launch/fl_dryrun.py) runs
-rank 0's program of a round on ``meta`` and reads what it would move,
-without touching ``torch.distributed``.
+branch, which only counts, so the dry-runs run rank 0's program on
+``meta`` and read what it would move, without touching
+``torch.distributed``: launch/fl_dryrun.py a round's, launch/dryrun.py
+the sharded prefill or decode step's (a (2, 16, 16) production mesh
+folds its "pod" and "data" axes into one "data" line of 32 there).
 """
 from __future__ import annotations
 

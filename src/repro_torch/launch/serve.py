@@ -38,6 +38,15 @@ times (the unembedding and its 6 decoupled FFNs' three products). Runs
 on the CUDA card unless ``--device cpu`` is given. Sampling (``--temperature >
 0``) draws from a ``torch.Generator`` seeded with ``--seed``, so its
 tokens differ from the reference's ``jax.random`` draws.
+
+``run_serve(mesh=)`` serves on a ``launch/mesh.RankMesh`` (a dense or
+ssm config): every rank draws (or takes) the whole parameter tree, keeps
+its shares (``launch/sharding.cut``) and serves its batch rows of the
+same prompts through the sharded decode (``launch/steps.make_serve_step
+(mesh=)``) over its share of the cache; a Fed2 rank's unembedding and
+decoupled FFN products run ``grouped_matmul`` on its (G, ·, ·/|model|)
+shares, a Mamba-2 rank's layers ``ssd_update`` on its (B, H/|model|, P,
+N) state. The CLI has no mesh flag, as the reference's has none.
 """
 from __future__ import annotations
 
@@ -55,29 +64,40 @@ def _sync(device: torch.device):
 
 def run_serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
               max_len: int = 128, temperature: float = 0.0, seed: int = 0,
-              device=None, init_params=None):
+              device=None, init_params=None, mesh=None):
     """Serve ``batch`` random prompts of ``prompt_len`` tokens (numpy
     ``default_rng(seed)``, as the reference draws them) and decode
     ``gen`` tokens each. ``init_params`` (a tree on ``device``) replaces
     the random init. Returns {tokens (batch, gen) numpy, logits of the
-    last step, prefill_s, decode_s, tok_s, param_count}."""
+    last step, the cache, prefill_s, decode_s, tok_s, param_count, rows
+    (0, batch)}. ``mesh``: this rank's ``RankMesh`` (module docstring):
+    the tokens, logits and cache are those of its rows [lo, hi)
+    (``rows``), the cache its share; ``param_count`` counts the whole
+    tree."""
     from repro_torch.fl.runtime import resolve_device
+    from repro_torch.launch import sharding as shd
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import transformer as tfm
     from repro_torch.models.forward import init_cache
     from repro_torch.models.module import param_count
+    from repro_torch.models.parallel import is_split
     if prompt_len < 1 or gen < 0 or batch < 1:
         raise ValueError("run_serve needs batch >= 1, prompt_len >= 1 and "
                          "gen >= 0")
     device = resolve_device(device)
+    serve_step = make_serve_step(cfg, mesh=mesh)
     params = init_params if init_params is not None else tfm.init_params(
         torch.Generator(device=device).manual_seed(seed), cfg)
-    serve_step = make_serve_step(cfg)
+    n_params = param_count(params)
+    if is_split(mesh):
+        params = shd.cut(params, shd.param_shardings(params, cfg, mesh),
+                         mesh)
+    rows = shd.batch_rows(mesh, batch) if mesh is not None else (0, batch)
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(
-        rng.integers(0, cfg.vocab, size=(batch, prompt_len)), device=device)
-
-    cache = init_cache(cfg, batch, max_len, device=device)
+        rng.integers(0, cfg.vocab, size=(batch, prompt_len))[
+            rows[0]:rows[1]], device=device)
+    cache = init_cache(cfg, batch, max_len, device=device, mesh=mesh)
     _sync(device)
     t0 = time.perf_counter()
     # prefill via repeated decode (exercises the serve path end to end)
@@ -99,11 +119,11 @@ def run_serve(cfg, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     _sync(device)
     t_decode = time.perf_counter() - t0
     toks = (torch.stack(out, 1).cpu().numpy() if out
-            else np.zeros((batch, 0), np.int64))
-    return {"tokens": toks, "logits": logits, "prefill_s": t_prefill,
-            "decode_s": t_decode,
+            else np.zeros((rows[1] - rows[0], 0), np.int64))
+    return {"tokens": toks, "logits": logits, "cache": cache,
+            "prefill_s": t_prefill, "decode_s": t_decode,
             "tok_s": gen * batch / max(t_decode, 1e-9),
-            "param_count": param_count(params)}
+            "param_count": n_params, "rows": rows}
 
 
 def parse_args(argv=None):

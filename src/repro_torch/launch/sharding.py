@@ -5,10 +5,13 @@ placement specs where it returns ``NamedSharding``s.
 A spec is a tuple with one entry per dimension of its tensor: None
 (replicated along it), an axis name, or a tuple of names (sharded over
 their product), as ``jax.sharding.PartitionSpec`` writes it (a tuple of
-one name is the name). Nothing here places a tensor: the port runs on
-one card, and its multi-GPU placement waits for ``torch.distributed``
-on more than one. What the specs give today is each device's share of
-bytes (``per_device_bytes``), exactly, on any mesh.
+one name is the name). The specs give each device's share of bytes
+(``per_device_bytes``), exactly, on any mesh; ``cut`` gives a rank of a
+``launch/mesh.RankMesh`` exactly that share of a tree (XLA's block of
+each sharded dimension: the ceiling of an uneven split, the last block
+zero-padded to it), and ``join`` puts the ranks' shares back together.
+The sharded prefill and decode programs (``models/parallel.py``) run on
+such shares.
 
 Scheme (Megatron-style tensor parallel on axis "model", batch on
 ("pod","data")):
@@ -31,7 +34,7 @@ import math
 
 import torch
 
-from repro_torch.launch.mesh import Mesh, batch_axes
+from repro_torch.launch.mesh import Mesh, RankMesh, batch_axes
 from repro_torch.models.module import (tree_get, tree_leaves, tree_paths,
                                        tree_unflatten)
 
@@ -139,6 +142,19 @@ def _bspec(mesh: Mesh, batch: int):
     return _entry(ba) if batch % nb == 0 else None
 
 
+def batch_rows(mesh: Mesh, batch: int) -> tuple:
+    """[lo, hi): a rank's rows of a batch of ``batch`` rows under
+    ``_bspec`` (every row where the batch does not divide the batch
+    axes: it is replicated there)."""
+    entry = _bspec(mesh, batch)
+    if entry is None or not isinstance(mesh, RankMesh):
+        return 0, batch
+    n = _blocks(entry, mesh)
+    size = batch // n
+    lo = _block(entry, mesh) * size
+    return lo, lo + size
+
+
 def batch_specs(cfg, shape, mesh: Mesh):
     """(batch, specs): a train or prefill batch of ``shape`` on ``meta``
     and its spec tree. A vlm's text is shortened so that patches + text
@@ -185,10 +201,15 @@ def cache_specs(cfg, shape, mesh: Mesh):
     its spec tree."""
     from repro_torch.models.forward import init_cache
     b, s = shape.global_batch, shape.seq_len
-    ba = _bspec(mesh, b)
     cache = init_cache(cfg, b, s, device="meta")
-    return cache, _map_named(lambda names, leaf: _cache_pspec(names, leaf,
-                                                              ba), cache)
+    return cache, cache_shardings(cache, b, mesh)
+
+
+def cache_shardings(cache, batch: int, mesh: Mesh):
+    """The spec tree of a decode cache of ``batch`` rows."""
+    ba = _bspec(mesh, batch)
+    return _map_named(lambda names, leaf: _cache_pspec(names, leaf, ba),
+                      cache)
 
 
 def decode_token_specs(cfg, shape, mesh: Mesh):
@@ -220,6 +241,89 @@ def per_device_bytes(tree, specs, mesh: Mesh) -> int:
                            in zip(leaf.shape, spec, strict=True)) \
             * leaf.element_size()
     return total
+
+
+def _axes(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _blocks(entry, mesh: Mesh) -> int:
+    """The number of blocks a spec entry splits a dimension into."""
+    return math.prod(mesh.shape[a] for a in _axes(entry))
+
+
+def _block(entry, mesh: RankMesh) -> int:
+    """This rank's block under a spec entry: its coordinates on the
+    entry's axes, row-major (the first axis slowest), as XLA numbers a
+    dimension's blocks over several mesh axes."""
+    i = 0
+    for a in _axes(entry):
+        i = i * mesh.shape[a] + mesh.coord(a)
+    return i
+
+
+def _block_slices(shape, spec, mesh: RankMesh) -> list:
+    """(dim, lo, hi, extent) of each sharded dimension of a leaf of
+    ``shape``: this rank's rows [lo, hi) of the dimension, in a block of
+    ``extent`` (the ceiling; hi - lo is less only in the last block of
+    an uneven split)."""
+    out = []
+    for d, (n, entry) in enumerate(zip(shape, spec, strict=True)):
+        if entry is None:
+            continue
+        extent = _shard(n, entry, mesh)
+        lo = min(_block(entry, mesh) * extent, n)
+        out.append((d, lo, min(lo + extent, n), extent))
+    return out
+
+
+def shard_shape(shape, spec, mesh: Mesh) -> tuple:
+    """One device's shape of a leaf of ``shape`` under ``spec``."""
+    return tuple(_shard(n, e, mesh) for n, e in zip(shape, spec,
+                                                    strict=True))
+
+
+def cut(tree, specs, mesh: RankMesh):
+    """This rank's shares of ``tree`` (tensors, meta too) placed by
+    ``specs``: each sharded leaf's block, in contiguous memory of its
+    own, made once here (the last block of an uneven split zero-padded
+    to the ceiling, as XLA holds it); a replicated leaf as it is. A
+    rank then holds ``per_device_bytes(tree, specs, mesh)``."""
+    def one(path):
+        t, spec = tree_get(tree, path), tree_get(specs, path)
+        blocks = _block_slices(t.shape, spec, mesh)
+        if not blocks:
+            return t
+        for d, lo, hi, _ in blocks:
+            t = t.narrow(d, lo, hi - lo)
+        share = t.new_zeros(shard_shape(tree_get(tree, path).shape, spec,
+                                        mesh))
+        share[tuple(slice(0, n) for n in t.shape)] = t
+        return share
+    return tree_unflatten(tree, [one(p) for p in tree_paths(tree)])
+
+
+def join(shares, meshes, specs, like):
+    """The whole tree from every rank's shares (``shares[i]`` cut on
+    ``meshes[i]``: the ranks' meshes, every block present at least
+    once), on the CPU, of ``like``'s shapes and dtypes (a tree of
+    tensors, meta too). A replicated leaf is rank 0's; padding past an
+    uneven split's end is dropped."""
+    def one(path):
+        ref, spec = tree_get(like, path), tree_get(specs, path)
+        full = torch.empty(ref.shape, dtype=ref.dtype)
+        for i, (share, mesh) in enumerate(zip(shares, meshes,
+                                              strict=True)):
+            blocks = _block_slices(ref.shape, spec, mesh)
+            if i and not blocks:
+                break
+            dst = [slice(None)] * len(ref.shape)
+            src = [slice(None)] * len(ref.shape)
+            for d, lo, hi, _ in blocks:
+                dst[d], src[d] = slice(lo, hi), slice(0, hi - lo)
+            full[tuple(dst)] = tree_get(share, path)[tuple(src)].cpu()
+        return full
+    return tree_unflatten(like, [one(p) for p in tree_paths(like)])
 
 
 def tree_bytes(tree) -> int:

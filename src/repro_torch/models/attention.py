@@ -50,10 +50,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.collectives import all_to_all
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        rmsnorm_apply, rmsnorm_init,
                                        rope_freqs)
 from repro_torch.models.module import draw_device, rematerialized
+from repro_torch.models.parallel import (gather_model, is_split,
+                                         model_coord, model_size,
+                                         reduce_model, row_dense, split)
 
 NEG_INF = -1e30
 
@@ -201,29 +205,45 @@ def _project_qkv(p, x, cfg: AttnConfig, positions):
     q = dense_apply(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = dense_apply(p["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = dense_apply(p["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, k = _norm_rope(p, q, k, cfg, positions)
+    return q, k, v
+
+
+def _norm_rope(p, q, k, cfg: AttnConfig, positions):
+    """q (B, S, *, D) and k (B, S, *, D) of whole heads: normalized per
+    head under ``qk_norm``, then their first ``rotary_dim`` features
+    rotated at ``positions`` (S,)."""
+    b, s = q.shape[:2]
     if cfg.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q)
         k = rmsnorm_apply(p["k_norm"], k)
     if cfg.rotary_dim > 0:
         inv = rope_freqs(cfg.head_dim, cfg.rope_theta, cfg.rotary_dim,
-                         device=x.device)
+                         device=q.device)
         pos_b = positions[None, :].expand(b, s)
         q = apply_rope(q, pos_b, inv, rotary_dim=cfg.rotary_dim)
         k = apply_rope(k, pos_b, inv, rotary_dim=cfg.rotary_dim)
-    return q, k, v
+    return q, k
 
 
 def gqa_apply(p, x, cfg: AttnConfig, *, positions=None, kv=None,
-              kv_positions=None, q_chunk=512, kv_chunk=1024):
+              kv_positions=None, q_chunk=512, kv_chunk=1024, mesh=None):
     """Full-sequence attention (train / prefill): x (B, S, d) -> (B, S,
     d); ``positions`` (S,) default arange(S). Self-attention, or with
     ``kv=(k, v)`` (B, S_kv, Hkv, D) precomputed by ``cross_kv``
     cross-attention: only q is projected (and normalized under
     ``qk_norm``; no rotation), the mask is not causal, and the keys sit
-    at ``kv_positions`` (S_kv,)."""
+    at ``kv_positions`` (S_kv,). ``mesh``: the rank's self-attention
+    on its shares (``_gqa_apply_ranks``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    if is_split(mesh):
+        if kv is not None:
+            raise NotImplementedError("cross-attention has no sharded "
+                                      "program")
+        return _gqa_apply_ranks(p, x, cfg, positions, q_chunk, kv_chunk,
+                                mesh)
     if kv is None:
         q, k, v = _project_qkv(p, x, cfg, positions)
         kv_positions, causal = positions, cfg.causal
@@ -252,6 +272,48 @@ def cross_kv(p, enc_out, cfg: AttnConfig):
     return k, v
 
 
+def _kv_heads(cfg: AttnConfig, mesh) -> tuple:
+    """(the rank's q heads, the first kv head they read, how many kv
+    heads they read), its q heads a block of ``n_heads / |model|``. The
+    block must read whole kv groups or lie in one."""
+    nq = split(cfg.n_heads, mesh, "query heads")
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if (nq % rep if nq >= rep else rep % nq):
+        raise NotImplementedError(
+            f"{nq} query heads a rank against kv groups of {rep}")
+    first = model_coord(mesh) * nq // rep
+    return nq, first, max(nq // rep, 1)
+
+
+def _gqa_apply_ranks(p, x, cfg: AttnConfig, positions, q_chunk, kv_chunk,
+                     mesh):
+    """The rank's prefill attention: its whole q heads (wq's columns),
+    the whole kv heads they read (wk and wv's columns, all-gathered over
+    "model" in one call where they lie on other ranks too, as with fewer
+    kv heads than model ranks), the chunked attention, then wo's rows
+    (row-parallel)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    nq, first, need = _kv_heads(cfg, mesh)
+    cols = split(cfg.n_kv_heads * hd, mesh, "key/value columns")
+    q = dense_apply(p["wq"], x).reshape(b, s, nq, hd)
+    k, v = dense_apply(p["wk"], x), dense_apply(p["wv"], x)
+    lo = first * hd - model_coord(mesh) * cols
+    if lo < 0 or lo + need * hd > cols:     # not all on this rank
+        g = gather_model(torch.cat([k, v], dim=-1), mesh)
+        k, v = (g[..., i * cols:(i + 1) * cols].movedim(0, -2).reshape(
+            b, s, cfg.n_kv_heads * hd) for i in (0, 1))
+        lo = first * hd
+    k = k[..., lo:lo + need * hd].reshape(b, s, need, hd)
+    v = v[..., lo:lo + need * hd].reshape(b, s, need, hd)
+    q, k = _norm_rope(p, q, k, cfg, positions)
+    o = chunked_attention(q, k, v, q_positions=positions,
+                          kv_positions=positions, causal=cfg.causal,
+                          window=cfg.window, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk)
+    return row_dense(p["wo"], o.reshape(b, s, nq * hd), mesh)
+
+
 # --- decode -----------------------------------------------------------------
 
 
@@ -268,23 +330,39 @@ def gqa_cache_init(cfg: AttnConfig, batch: int, max_len: int, dtype, *,
                                    device=device)}
 
 
-def gqa_decode(p, x, cache, cfg: AttnConfig, *, pos: int):
+def _decode_slot(pos: int, size: int, cfg: AttnConfig) -> int:
+    if cfg.window:
+        return pos % size
+    if 0 <= pos < size:
+        return pos
+    raise ValueError(f"decode position {pos} outside the cache's "
+                     f"{size} slots (init_cache's max_len)")
+
+
+def _attend_slots(s, spos, pos: int, cfg: AttnConfig):
+    """fp32 scores (B, G, R, S) over the cache's slots -> their softmax
+    weights: the slots holding a position in [0, pos] (with a window,
+    only those past ``pos - window``)."""
+    valid = (spos >= 0) & (spos <= pos)
+    if cfg.window:
+        valid = valid & (spos > pos - cfg.window)
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    return torch.softmax(s, dim=-1)
+
+
+def gqa_decode(p, x, cache, cfg: AttnConfig, *, pos: int, mesh=None):
     """One-token decode: x (B, 1, d) at absolute position ``pos``.
     Writes k, v and slot_pos at slot ``pos`` of ``cache`` in place (slot
     ``pos % size`` with a window, overwriting the oldest position) and
     attends over the slots that hold a position in [0, pos], and with a
     window only those past ``pos - window``. Returns (y (B, 1, d),
-    cache)."""
+    cache). ``mesh``: the rank's program on its shares
+    (``_gqa_decode_ranks``)."""
     b = x.shape[0]
     pos = int(pos)
-    size = cache["k"].shape[1]
-    if cfg.window:
-        slot = pos % size
-    elif 0 <= pos < size:
-        slot = pos
-    else:
-        raise ValueError(f"decode position {pos} outside the cache's "
-                         f"{size} slots (init_cache's max_len)")
+    slot = _decode_slot(pos, cache["k"].shape[1], cfg)
+    if is_split(mesh):
+        return _gqa_decode_ranks(p, x, cache, cfg, pos, slot, mesh)
     q, k, v = _project_qkv(p, x, cfg, torch.full((1,), pos,
                                                  device=x.device))
     cache["k"][:, slot] = k[:, 0]
@@ -295,13 +373,54 @@ def gqa_decode(p, x, cache, cfg: AttnConfig, *, pos: int):
     qg = q.reshape(b, hkv, hq // hkv, hd)
     s = torch.einsum("bgrd,bsgd->bgrs", qg, ck).to(torch.float32)
     s = s * (1.0 / math.sqrt(hd))
-    valid = (spos >= 0) & (spos <= pos)
-    if cfg.window:
-        valid = valid & (spos > pos - cfg.window)
-    s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    w = _attend_slots(s, spos, pos, cfg)
     o = torch.einsum("bgrs,bsgd->bgrd", w.to(cv.dtype), cv)
     return dense_apply(p["wo"], o.reshape(b, 1, hq * hd)), cache
+
+
+def _gqa_decode_ranks(p, x, cache, cfg: AttnConfig, pos: int, slot: int,
+                      mesh):
+    """The rank's one-token decode over its cache share, which holds
+    ``head_dim / |model|`` features of every kv head (the reference's
+    cache placement). The token's q, k and v columns are all-gathered
+    over "model" in one call and normalized and rotated as whole heads;
+    the rank writes its features of k and v, scores every head over
+    them (fp32 partials, summed over "model", then rounded to the
+    cache's dtype as the one-process product is), weighs its features
+    of v, and an all-to-all returns each rank its q heads' whole outputs
+    for wo's rows."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m, r = model_size(mesh), model_coord(mesh)
+    nq = split(hq, mesh, "query heads")
+    cols = split(hkv * hd, mesh, "key/value columns")
+    dl = split(hd, mesh, "head_dim")
+    qkv = torch.cat([dense_apply(p[w], x[:, 0]) for w in ("wq", "wk", "wv")],
+                    dim=-1)
+    g = gather_model(qkv, mesh)                   # (m, B, nq·hd + 2 cols)
+
+    def whole(lo, hi, heads):
+        return g[..., lo:hi].movedim(0, 1).reshape(b, 1, heads, hd)
+
+    q = whole(0, nq * hd, hq)
+    k = whole(nq * hd, nq * hd + cols, hkv)
+    v = whole(nq * hd + cols, nq * hd + 2 * cols, hkv)
+    q, k = _norm_rope(p, q, k, cfg, torch.full((1,), pos, device=x.device))
+    mine = slice(r * dl, (r + 1) * dl)
+    cache["k"][:, slot] = k[:, 0, :, mine]
+    cache["v"][:, slot] = v[:, 0, :, mine]
+    cache["slot_pos"][slot] = pos
+    ck, cv = cache["k"], cache["v"]
+    qg = q[:, 0, :, mine].reshape(b, hkv, hq // hkv, dl)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg.to(torch.float32),
+                     ck.to(torch.float32))
+    s = reduce_model(s, mesh).to(ck.dtype).to(torch.float32)
+    w = _attend_slots(s * (1.0 / math.sqrt(hd)), cache["slot_pos"], pos, cfg)
+    o = torch.einsum("bgrs,bsgd->bgrd", w.to(cv.dtype), cv)
+    o = all_to_all(o.reshape(b, m, nq, dl).movedim(1, 0).contiguous(),
+                   mesh, "model")                 # chunk i: rank i's dims
+    o = o.permute(1, 2, 0, 3).reshape(b, 1, nq * hd)
+    return row_dense(p["wo"], o, mesh), cache
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ import math
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import dense_apply, embed_apply
 from repro_torch.models.module import (rematerialized, tree_leaves, tree_map,
@@ -196,21 +197,24 @@ def _forward_encdec(params, cfg: ModelConfig, tokens, frames):
     return _norm_apply(ecfg, params["final_norm"], y), _zero_aux(y)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, embeds=None):
+def forward(params, cfg: ModelConfig, tokens, *, embeds=None, mesh=None):
     """tokens: (B, S) int; ``embeds``: the modality frontend's output
     (encdec: the encoder's input frames (B, enc_frames, d); vlm: patch
     embeddings (B, n_patches, d), prepended to the tokens' embeddings
     in ``cfg.dtype``). Returns (the hidden state (B, S_total, d) after
     the final norm, aux): aux is the MoE blocks' summed load-balance
     loss, an fp32 0 for the other families; positions are
-    arange(S_total)."""
+    arange(S_total). ``mesh``: the rank's program (dense and ssm
+    families) on its shares of ``params`` and its batch rows; its hidden
+    state is whole (replicated over "model")."""
     check_ported(cfg)
+    parallel.check_sharded(cfg, mesh, "forward")
     if cfg.family in FRONTEND_FAMILIES and embeds is None:
         raise ValueError(f"the {cfg.family!r} family ({cfg.arch_id}) "
                          "needs its frontend's embeds")
     if cfg.family == "encdec":
         return _forward_encdec(params, cfg, tokens, embeds)
-    x = embed_apply(params["embed"], tokens).to(cfg.dtype)
+    x = parallel.vocab_embed(params["embed"], tokens, mesh).to(cfg.dtype)
     if cfg.family == "vlm":
         x = torch.cat([embeds.to(cfg.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -230,23 +234,28 @@ def forward(params, cfg: ModelConfig, tokens, *, embeds=None):
             x, a = _scan_blocks(params[key], x,
                                 lambda p, h, g=grouped: block_apply(
                                     p, h, cfg, grouped=g,
-                                    positions=positions),
+                                    positions=positions, mesh=mesh),
                                 cfg.remat_blocks)
             aux = aux + a
     return _norm_apply(cfg, params["final_norm"], x), aux
 
 
-def lm_loss(params, cfg: ModelConfig, batch, *, use_kernel: bool = False):
+def lm_loss(params, cfg: ModelConfig, batch, *, use_kernel: bool = False,
+            mesh=None):
     """batch: {"tokens": (B, S), "labels": (B, S), "mask": (B, S), and
     for encdec and vlm "embeds" (``forward``'s)}. The chunked CE (a vlm:
     on the text positions only) plus AUX_WEIGHT times the forward's aux
     loss. ``use_kernel`` takes the Fed2 unembedding's kernel route, for
-    no-grad passes only (``chunked_ce_loss``)."""
-    h, aux = forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"))
+    no-grad passes only (``chunked_ce_loss``). ``mesh``: the rank's
+    program on its shares and batch rows; the loss is the whole
+    batch's on every rank."""
+    h, aux = forward(params, cfg, batch["tokens"], embeds=batch.get("embeds"),
+                     mesh=mesh)
     if cfg.family == "vlm":
         h = h[:, cfg.n_patches:]
     return chunked_ce_loss(params, h, batch["labels"], batch["mask"], cfg,
-                           use_kernel=use_kernel) + AUX_WEIGHT * aux
+                           use_kernel=use_kernel,
+                           mesh=mesh) + AUX_WEIGHT * aux
 
 
 def _stacked(n: int, one):
@@ -257,7 +266,8 @@ def _stacked(n: int, one):
         memory_format=torch.contiguous_format), one)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
+               mesh=None):
     """Decode cache for ``serve_step``: a zeroed SSM state, or a zeroed
     KV cache (MLA: latent cache) of ``max_len`` slots, all empty, per
     layer of ``pre_blocks``, ``blocks`` and ``gblocks``. ``max_len`` is
@@ -267,8 +277,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
     shared block (``shared``). An encdec's holds, per decoder layer of
     ``blocks`` and ``gblocks``, ``self`` (a KV cache of ``min(max_len,
     dec_pos_size)`` slots) and ``cross`` (zeroed k and v (batch,
-    enc_frames, Hkv, D), for ``encdec_prefill_cache`` to fill)."""
+    enc_frames, Hkv, D), for ``encdec_prefill_cache`` to fill). On a mesh
+    of more than one rank: the rank's share of that cache
+    (``launch/sharding.cache_shardings``), allocated at its own shape."""
     check_ported(cfg)
+    if parallel.is_split(mesh):
+        from repro_torch.launch import sharding as shd
+        like = init_cache(cfg, batch, max_len, device="meta")
+        specs = shd.cache_shardings(like, batch, mesh)
+        return tree_map(lambda t, sp: torch.full(
+            shd.shard_shape(t.shape, sp, mesh), -1 if t.dtype == torch.int32
+            else 0, dtype=t.dtype, device=device), like, specs)
     if cfg.family == "encdec":
         kv = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
         one = {"self": attn.gqa_cache_init(
@@ -403,7 +422,7 @@ def _decode_encdec(params, cfg: ModelConfig, cache, x, pos, use_kernel):
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
-                use_kernel: bool = True):
+                use_kernel: bool = True, mesh=None):
     """One-token decode. tokens: (B, 1) int; pos: absolute position (an
     int; an SSM does not read it). Returns (logits (B, 1, vocab),
     cache), ``cache`` updated in place. ``use_kernel`` takes the
@@ -412,9 +431,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
     False takes the plain ones. A vlm decodes text only; an encdec
     attends over the cross-attention K and V in ``cache`` (zeros unless
     ``encdec_prefill_cache`` filled them) and unembeds through the tied
-    table."""
+    table. ``mesh``: the rank's program (dense and ssm families) on its
+    shares of ``params`` and ``cache`` and its batch rows of
+    ``tokens``; the logits of its rows are whole (gathered over
+    "model")."""
     check_ported(cfg)
-    x = embed_apply(params["embed"], tokens).to(cfg.dtype)
+    parallel.check_sharded(cfg, mesh, "decode_step")
+    x = parallel.vocab_embed(params["embed"], tokens, mesh).to(cfg.dtype)
     if cfg.family == "encdec":
         x = _decode_encdec(params, cfg, cache, x, pos, use_kernel)
         return unembed(params, x, cfg, use_kernel=use_kernel), cache
@@ -433,6 +456,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
                     params[key], cache[key], x,
                     lambda p, h, c, g=grouped: block_decode(
                         p, h, c, cfg, pos=pos, grouped=g,
-                        use_kernel=use_kernel))
+                        use_kernel=use_kernel, mesh=mesh))
     x = _norm_apply(cfg, params["final_norm"], x)
-    return unembed(params, x, cfg, use_kernel=use_kernel), cache
+    return unembed(params, x, cfg, use_kernel=use_kernel, mesh=mesh), cache

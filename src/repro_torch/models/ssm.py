@@ -15,6 +15,14 @@ Layout: x (B, L, H, P) heads x headdim; B/C projections shared across
 heads (ngroups = 1); A is a per-head scalar decay (log-parameterized).
 Parameters keep the reference's shapes, so weights map across one to
 one (``convert.lm_to_port``).
+
+On a mesh of model ranks (``mesh=``) a rank holds a block of w_z's and
+w_xbc's columns, of the conv's channels and of out_proj's rows, and the
+SSM heads its block of z covers; its conv channels (a block of x|B|C,
+which does not line up with the heads) are all-gathered after the conv,
+so the rank reads its heads of x and the whole of B and C. The gated
+RMSNorm spans all of ``d_inner``: its sum of squares is summed over
+"model" before out_proj's row-parallel product.
 """
 from __future__ import annotations
 
@@ -29,6 +37,9 @@ from repro_torch.models.layers import (conv1d_depthwise_apply,
                                        dense_init, rmsnorm_apply,
                                        rmsnorm_init, silu)
 from repro_torch.models.module import draw_device, rematerialized
+from repro_torch.models.parallel import (gather_last, is_split,
+                                         model_coord, rmsnorm_split,
+                                         row_dense, split)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +171,47 @@ def _project_in(p, x):
         dense_apply(p["w_dt"], x)
 
 
-def mamba2_apply(p, x, cfg: SSMConfig, *, with_state: bool = False):
+def _heads(cfg: SSMConfig, mesh) -> tuple:
+    """The rank's SSM heads [lo, lo + n) and its x|B|C channels' split
+    (which must be even)."""
+    split(cfg.conv_dim, mesh, "conv channels")
+    n = split(cfg.n_heads, mesh, "SSM heads")
+    return model_coord(mesh) * n, n
+
+
+def _mamba2_ranks(p, z, xbc, dt, cfg: SSMConfig, mesh, ssd):
+    """The rank's mixer after its projections and conv: ``xbc`` its conv
+    channels (all-gathered here), ``ssd(xs, dt, a_log, b, c, d_skip)``
+    -> y (B, ..., heads, P) the SSD of its heads; the gated RMSNorm and
+    out_proj's rows."""
+    lo, n = _heads(cfg, mesh)
+    di, ns, hp = cfg.d_inner, cfg.d_state, cfg.headdim
+    xbc = gather_last(xbc, mesh)
+    xs = xbc[..., lo * hp:(lo + n) * hp]
+    xs = xs.reshape(xs.shape[:-1] + (n, hp))
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])[..., lo:lo + n]
+    y = ssd(xs, dt.contiguous(), p["a_log"][lo:lo + n],
+            xbc[..., di:di + ns], xbc[..., di + ns:], p["d_skip"][lo:lo + n])
+    y = y.reshape(z.shape)
+    y = rmsnorm_split(p["norm"]["scale"][lo * hp:(lo + n) * hp],
+                      y * silu(z), mesh, di)
+    return row_dense(p["out_proj"], y, mesh)
+
+
+def mamba2_apply(p, x, cfg: SSMConfig, *, with_state: bool = False,
+                 mesh=None):
     """Full-sequence mixer. x: (B, L, d_model) -> (B, L, d_model).
     ``with_state`` also returns the SSM state after the last position
-    (B, H, P, N) fp32, the state that L decode steps reach."""
+    (B, H, P, N) fp32, the state that L decode steps reach. ``mesh``:
+    the rank's program on its shares."""
     bs, l, _ = x.shape
+    if is_split(mesh):
+        if with_state:
+            raise NotImplementedError("the sharded mixer returns no state")
+        z, xbc, dt = _project_in(p, x)
+        return _mamba2_ranks(
+            p, z, silu(conv1d_depthwise_apply(p["conv"], xbc)), dt, cfg,
+            mesh, lambda *a: ssd_chunked(*a, chunk=cfg.chunk)[0])
     di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
     z, xbc, dt = _project_in(p, x)
     xbc = silu(conv1d_depthwise_apply(p["conv"], xbc))
@@ -199,17 +246,30 @@ def conv_step(p_conv, conv_state, xbc):
     return out, window[:, 1:]
 
 
-def mamba2_decode(p, x, cache, cfg: SSMConfig, *, use_kernel: bool = True):
+def mamba2_decode(p, x, cache, cfg: SSMConfig, *, use_kernel: bool = True,
+                  mesh=None):
     """One-token step. x: (B, 1, d_model). Updates ``cache`` IN PLACE
     (the reference returns a new one) and returns (out, cache): the conv
     state is overwritten, and the SSM state is rewritten by the
     ``ssd_update`` kernel in its own buffer. ``use_kernel=False`` takes
-    ``ssd_step`` (the on-card comparison's plain route)."""
+    ``ssd_step`` (the on-card comparison's plain route). ``mesh``: the
+    rank's program on its shares; the kernel then updates its heads'
+    (B, H/|model|, P, N) state."""
     bs = x.shape[0]
     di, n, h = cfg.d_inner, cfg.d_state, cfg.n_heads
     z, xbc, dt = _project_in(p, x[:, 0])
     xbc, new_conv = conv_step(p["conv"], cache["conv"], xbc)
     cache["conv"].copy_(new_conv)
+    if is_split(mesh):
+        def step(xs, dt, a_log, b, c, d_skip):
+            if use_kernel:
+                return ssd_update(cache["ssm"], xs, dt, a_log, b, c, d_skip,
+                                  out=cache["ssm"])[1]
+            state, y = ssd_step(cache["ssm"], xs, dt, a_log, b, c, d_skip)
+            cache["ssm"].copy_(state)
+            return y
+        y = _mamba2_ranks(p, z[:, None], xbc, dt, cfg, mesh, step)
+        return y, cache
     xs = xbc[..., :di].reshape(bs, h, cfg.headdim)
     bmat = xbc[..., di:di + n]
     cmat = xbc[..., di + n:]

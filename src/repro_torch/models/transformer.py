@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (dense_apply, dense_init, embed_init,
                                        gelu, grouped_dense_apply,
@@ -209,10 +210,13 @@ def ffn_init(gen, cfg: ModelConfig):
                                  dtype=cfg.dtype)}
 
 
-def ffn_apply(p, x, cfg: ModelConfig):
-    return dense_apply(p["w_down"],
-                       _act(cfg, dense_apply(p["w_gate"], x),
-                            dense_apply(p["w_up"], x)))
+def ffn_apply(p, x, cfg: ModelConfig, *, mesh=None):
+    """On a mesh of model ranks ``p`` is the rank's share (gate and up
+    columns, down rows): the down product's partials are summed over
+    "model"."""
+    return parallel.reduce_model(
+        dense_apply(p["w_down"], _act(cfg, dense_apply(p["w_gate"], x),
+                                      dense_apply(p["w_up"], x))), mesh)
 
 
 def gffn_init(gen, cfg: ModelConfig):
@@ -227,15 +231,21 @@ def gffn_init(gen, cfg: ModelConfig):
                                          dtype=cfg.dtype)}
 
 
-def gffn_apply(p, x, cfg: ModelConfig, *, use_kernel: bool = False):
+def gffn_apply(p, x, cfg: ModelConfig, *, use_kernel: bool = False,
+               mesh=None):
     """``use_kernel`` takes its three products through the
     ``grouped_matmul`` kernel (on CUDA tensors; its plain version on the
     CPU): a route the reference does not take (it has the option but no
     caller sets it), for no-grad passes only (decode), since the kernel
-    has no backward. False is the reference's einsum."""
+    has no backward. False is the reference's einsum. On a mesh of model
+    ranks ``p`` is the rank's share: gate and up (G, d/G, f/(G·|model|)),
+    down (G, f/(G·|model|), d/G), whose partials are summed over
+    "model"."""
     def gd(w, h):
         return grouped_dense_apply(w, h, use_kernel=use_kernel)
-    return gd(p["w_down"], _act(cfg, gd(p["w_gate"], x), gd(p["w_up"], x)))
+    return parallel.reduce_model(
+        gd(p["w_down"], _act(cfg, gd(p["w_gate"], x), gd(p["w_up"], x))),
+        mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -297,16 +307,18 @@ def _zero_aux(x):
 
 
 def block_apply(p, x, cfg: ModelConfig, *, grouped: bool = False,
-                kind: str | None = None, positions=None):
+                kind: str | None = None, positions=None, mesh=None):
     """A whole sequence through one block: x + mixer(norm(x)) for 'ssm';
     x + attn(norm(x)) (GQA, or MLA for the 'mla_' kinds) at
     ``positions`` (S,), then + ffn(norm(.)) for the others. Returns (x,
     aux): the experts' load-balance loss for 'moe' and 'mla_moe', an
-    fp32 0 otherwise."""
+    fp32 0 otherwise. ``mesh``: the rank's program on its shares
+    ('ssm' and 'attn_ffn' only)."""
     kind = kind or _default_kind(cfg)
     h = _norm_apply(cfg, p["ln1"], x)
     if kind == "ssm":
-        return x + ssm_lib.mamba2_apply(p["mixer"], h, cfg.ssm), _zero_aux(x)
+        return x + ssm_lib.mamba2_apply(p["mixer"], h, cfg.ssm,
+                                        mesh=mesh), _zero_aux(x)
     if kind.startswith("mla_"):
         a = attn.mla_apply(p["attn"], h, cfg.mla_cfg, positions=positions,
                            q_chunk=cfg.attn_q_chunk,
@@ -314,42 +326,43 @@ def block_apply(p, x, cfg: ModelConfig, *, grouped: bool = False,
     else:
         a = attn.gqa_apply(p["attn"], h, cfg.attn_cfg, positions=positions,
                            q_chunk=cfg.attn_q_chunk,
-                           kv_chunk=cfg.attn_kv_chunk)
+                           kv_chunk=cfg.attn_kv_chunk, mesh=mesh)
     x = x + a
     h = _norm_apply(cfg, p["ln2"], x)
     if kind in _MOE_KINDS:
         y, aux = moe_lib.moe_apply(p["ffn"], h, cfg.moe)
         return x + y, aux
-    return x + (gffn_apply(p["ffn"], h, cfg) if grouped
-                else ffn_apply(p["ffn"], h, cfg)), _zero_aux(x)
+    return x + (gffn_apply(p["ffn"], h, cfg, mesh=mesh) if grouped
+                else ffn_apply(p["ffn"], h, cfg, mesh=mesh)), _zero_aux(x)
 
 
 def block_decode(p, x, cache, cfg: ModelConfig, *, pos: int,
                  grouped: bool = False, kind: str | None = None,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, mesh=None):
     """One token through one block at position ``pos``; ``cache`` is
     updated in place. ``use_kernel`` takes the kernels' routes
     (``ssd_update``; ``grouped_matmul`` in a decoupled FFN). The
     experts run drop-free (one token a sequence: capacity n * k) and
-    their aux loss is dropped, as the reference's."""
+    their aux loss is dropped, as the reference's. ``mesh``: the rank's
+    program on its shares of the block and the cache."""
     kind = kind or _default_kind(cfg)
     h = _norm_apply(cfg, p["ln1"], x)
     if kind == "ssm":
         y, cache = ssm_lib.mamba2_decode(p["mixer"], h, cache, cfg.ssm,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel, mesh=mesh)
         return x + y, cache
     if kind.startswith("mla_"):
         a, cache = attn.mla_decode(p["attn"], h, cache, cfg.mla_cfg, pos=pos)
     else:
         a, cache = attn.gqa_decode(p["attn"], h, cache, cfg.attn_cfg,
-                                   pos=pos)
+                                   pos=pos, mesh=mesh)
     x = x + a
     h = _norm_apply(cfg, p["ln2"], x)
     if kind in _MOE_KINDS:
         y, _ = moe_lib.moe_apply(p["ffn"], h, cfg.moe)
     else:
-        y = (gffn_apply(p["ffn"], h, cfg, use_kernel=use_kernel) if grouped
-             else ffn_apply(p["ffn"], h, cfg))
+        y = (gffn_apply(p["ffn"], h, cfg, use_kernel=use_kernel, mesh=mesh)
+             if grouped else ffn_apply(p["ffn"], h, cfg, mesh=mesh))
     return x + y, cache
 
 
@@ -365,6 +378,14 @@ def unembed_init(gen, cfg: ModelConfig):
     return dense_init(gen, cfg.d_model, cfg.padded_vocab, dtype=cfg.dtype)
 
 
+def _unembed_product(p, h, cfg: ModelConfig, embed_table, use_kernel):
+    if cfg.tie_embeddings:
+        return torch.einsum("...d,vd->...v", h, embed_table)
+    if cfg.fed2_groups > 0:
+        return grouped_dense_apply(p, h, use_kernel=use_kernel)
+    return dense_apply(p, h)
+
+
 def unembed_apply(p, h, cfg: ModelConfig, embed_table=None, *,
                   use_kernel: bool = True):
     """Logits over the first ``vocab`` of ``padded_vocab`` columns. Tied
@@ -375,25 +396,24 @@ def unembed_apply(p, h, cfg: ModelConfig, embed_table=None, *,
     the card: a route the reference does not take (it computes the same
     function with an einsum), for no-grad passes only (the kernel raises
     under autograd); ``use_kernel=False`` is that einsum."""
-    if cfg.tie_embeddings:
-        logits = torch.einsum("...d,vd->...v", h, embed_table)
-    elif cfg.fed2_groups > 0:
-        logits = grouped_dense_apply(p, h, use_kernel=use_kernel)
-    else:
-        logits = dense_apply(p, h)
-    return logits[..., :cfg.vocab]
+    return _unembed_product(p, h, cfg, embed_table,
+                            use_kernel)[..., :cfg.vocab]
 
 
-def unembed(params, h, cfg: ModelConfig, *, use_kernel: bool = True):
+def unembed(params, h, cfg: ModelConfig, *, use_kernel: bool = True,
+            mesh=None):
     """``unembed_apply`` on the whole parameter tree: it takes the tied
-    table from ``params["embed"]`` or the ``unembed`` leaf itself."""
+    table from ``params["embed"]`` or the ``unembed`` leaf itself. On a
+    mesh of model ranks: the rank's logit columns, gathered in vocab
+    order (``parallel.gather_logits``)."""
     table = params["embed"]["table"] if cfg.tie_embeddings else None
-    return unembed_apply(params.get("unembed"), h, cfg, table,
-                         use_kernel=use_kernel)
+    return parallel.gather_logits(
+        _unembed_product(params.get("unembed"), h, cfg, table, use_kernel),
+        cfg, mesh)
 
 
 def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
-                    use_kernel: bool = False):
+                    use_kernel: bool = False, mesh=None):
     """Sequence-chunked softmax CE over the first ``vocab`` logits: h
     (B, S, d); labels, mask (B, S). S is right-padded to a multiple of
     ``min(loss_chunk, S)`` (mask 0 there); each chunk's logits are
@@ -401,7 +421,14 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
     exist. Returns sum(CE * mask) / max(sum(mask), 1). ``use_kernel``
     takes the unembedding's kernel route (no-grad passes only); the
     default is the reference's einsum, which every training route
-    takes."""
+    takes.
+
+    On a mesh of more than one rank, h and the labels are the rank's
+    batch rows and ``params`` its shares: each chunk's CE comes from the
+    rank's logit columns (``parallel.vocab_ce``), and the two sums are
+    summed over "data" before the division (where the batch is
+    replicated over "data" every rank adds the same sums, a common
+    factor of the two)."""
     b, s, d = h.shape
     ck = min(cfg.loss_chunk, s)
     nc = -(-s // ck)
@@ -410,17 +437,19 @@ def chunked_ce_loss(params, h, labels, mask, cfg: ModelConfig, *,
     ls = F.pad(labels.long(), (0, pad)).reshape(b, nc, ck).unbind(1)
     ms = F.pad(mask.to(torch.float32), (0, pad)).reshape(b, nc, ck).unbind(1)
 
+    table = params["embed"]["table"] if cfg.tie_embeddings else None
+
     def chunk_loss(hc, lc, mc):
-        logits = unembed(params, hc, cfg,
-                         use_kernel=use_kernel).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, lc[..., None], dim=-1)[..., 0]
-        return ((lse - gold) * mc).sum(), mc.sum()
+        ce = parallel.vocab_ce(_unembed_product(
+            params.get("unembed"), hc, cfg, table, use_kernel).to(
+                torch.float32), lc, cfg, mesh)
+        return (ce * mc).sum(), mc.sum()
 
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for hc, lc, mc in zip(hs, ls, ms):
         l_, n_ = rematerialized(chunk_loss, hc, lc, mc)
         tot, cnt = tot + l_, cnt + n_
+    tot, cnt = parallel.reduce_data(torch.stack([tot, cnt]), mesh)
     return tot / torch.clamp(cnt, min=1.0)
 
 

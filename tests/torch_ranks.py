@@ -294,3 +294,37 @@ def cases_specs_rank(mesh, cases, specs, outdir, owners=()) -> dict:
     return {"runs": case_rank(mesh, cases),
             "spec": spec_rank(mesh, specs, outdir),
             "gather": gather_by_owner(mesh, owners)}
+
+
+def serve_ranks(mesh, cases):
+    """The sharded prefill loss and serving of each case on this rank.
+    ``cases``: (cfg, params (the reference's layout, numpy), batch
+    (numpy dict), run_serve's keywords). Per case: the loss and the
+    collectives of one prefill step, run_serve's last logits, tokens,
+    rows and cache share, the collectives of its decode steps (all of
+    them, and their number), and the bytes the rank holds of the
+    parameters beside ``per_device_bytes``."""
+    from repro_torch.launch import serve, sharding, steps
+    torch.set_num_threads(1)
+    out = []
+    for cfg, params, batch, kw in cases:
+        shares = convert.lm_rank_to_port(params, cfg, mesh)
+        full = convert.lm_to_port(params)
+        lo, hi = sharding.batch_rows(mesh, len(batch["tokens"]))
+        mesh.counts.reset()
+        loss = steps.make_prefill_loss_step(cfg, mesh=mesh)(
+            shares, {k: torch.as_tensor(v[lo:hi]) for k, v in batch.items()})
+        prefill = mesh.counts.as_dict()
+        mesh.counts.reset()
+        res = serve.run_serve(cfg, device="cpu", init_params=full,
+                              mesh=mesh, **kw)
+        out.append({
+            "loss": float(loss), "prefill_counts": prefill,
+            "logits": res["logits"], "tokens": res["tokens"],
+            "rows": res["rows"], "cache": _cpu(res["cache"]),
+            "decode_counts": mesh.counts.as_dict(),
+            "decode_steps": kw["prompt_len"] + kw["gen"],
+            "held": sharding.tree_bytes(shares),
+            "per_device": sharding.per_device_bytes(
+                full, sharding.param_shardings(full, cfg, mesh), mesh)})
+    return out
